@@ -1,0 +1,87 @@
+"""Carry the reference's numbers across: turn arrays and model specs of the
+JAX package (as numpy arrays and Python floats) into the port's tensors and
+dataclasses, so both compute on the same inputs. Nothing here imports JAX:
+it reads attributes and converts with ``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from boom_tpu_torch.statespace import state_models as sm
+from boom_tpu_torch.statespace.kalman import SsmParams
+
+
+def _tensor(x, device, dtype):
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def ssm_params_from_numpy(fields, device="cpu", dtype=torch.float64):
+    """Port ``SsmParams`` from a mapping (or a NamedTuple, such as the
+    reference's ``SsmParams``) of arrays that carry a leading chain axis.
+    The reference's optional time-varying fields must be absent or None."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    for extra in ("q_scale", "t_seq"):
+        if fields.get(extra) is not None:
+            raise NotImplementedError(
+                f"time-varying SsmParams ({extra}) are not ported yet "
+                "(ROADMAP.md, queue 1: statespace/kalman.py)")
+    return SsmParams(**{k: _tensor(fields[k], device, dtype)
+                        for k in SsmParams._fields})
+
+
+def state_from_numpy(tree, device="cpu", dtype=torch.float64):
+    """A reference bsts state ``{"blocks": {...}, "sigsq_obs", "alpha"}``
+    whose leaves carry a leading chain axis -> the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    return _tensor(tree, device, dtype)
+
+
+def _prior(p):
+    return sm.SdPrior(sigma_guess=float(p.sigma_guess),
+                      sample_size=float(p.sample_size),
+                      upper_limit=float(p.upper_limit))
+
+
+def _block(b):
+    kind = type(b).__name__
+    if kind == "LocalLevel":
+        return sm.LocalLevel(
+            sigma_prior=_prior(b.sigma_prior),
+            initial_mean=float(b.initial_mean),
+            initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "LocalLinearTrend":
+        return sm.LocalLinearTrend(
+            level_prior=_prior(b.level_prior),
+            slope_prior=_prior(b.slope_prior),
+            initial_level_mean=float(b.initial_level_mean),
+            initial_level_sd=float(b.initial_level_sd),
+            initial_slope_mean=float(b.initial_slope_mean),
+            initial_slope_sd=float(b.initial_slope_sd), name=b.name)
+    raise NotImplementedError(
+        f"state block {kind} is not ported yet (ROADMAP.md, queue 1: the "
+        "other block classes)")
+
+
+def model_from_jax(bsts, device="cpu", dtype=torch.float64, **overrides):
+    """The port's ``Bsts`` with the reference model's series, state blocks,
+    observation prior and sampler options. ``overrides`` replace options
+    (for example ``parallel_smoother``)."""
+    from boom_tpu_torch.statespace.bsts import Bsts
+
+    for name in ("predictors", "observed", "obs_weights"):
+        if getattr(bsts, name) is not None:
+            raise NotImplementedError(
+                f"bsts with {name} is not ported yet (ROADMAP.md, queue 1)")
+    opts = dict(parallel_smoother=bsts.parallel_smoother,
+                chains_hint=bsts.chains_hint, asis=bsts.asis,
+                asis_passes=bsts.asis_passes,
+                marginal_sigma_slice=bsts.marginal_sigma_slice)
+    opts.update(overrides)
+    return Bsts(y=_tensor(bsts.y, device, dtype),
+                blocks=[_block(b) for b in bsts.blocks],
+                obs_prior=_prior(bsts.obs_prior), **opts)

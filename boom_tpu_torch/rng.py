@@ -1,0 +1,48 @@
+"""Generator helpers (port of boom_tpu/rng.py).
+
+JAX threads explicit keys and splits them per chain; the port threads one
+explicit ``torch.Generator`` living on the run's device and draws every
+chain's noise in one batched call with a leading chain axis ``[C, ...]``.
+Samplers never touch a generator themselves: they take their uniforms and
+normals as tensors, so a test can feed the port the very numbers the JAX
+reference drew from its key tree.
+
+A noise *spec* is a nested mapping ``name -> (shape, kind)`` (or a further
+mapping), where ``shape`` is the per-chain shape and ``kind`` one of
+``"normal"``, ``"uniform"`` (U[0, 1)) and ``"uniform_pos"`` (U(0, 1),
+clamped to ``finfo(dtype).tiny`` like the reference's ``minval=tiny``
+uniforms that feed a log). :func:`draw` fills a spec.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def generator(seed: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed`` (``rng.key`` analog)."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def draw(gen: torch.Generator, spec, num_chains: int, dtype):
+    """Fill a noise spec: every leaf becomes a ``[num_chains, *shape]``
+    tensor on the generator's device."""
+    out = {}
+    for name, leaf in spec.items():
+        if isinstance(leaf, dict):
+            out[name] = draw(gen, leaf, num_chains, dtype)
+            continue
+        shape, kind = leaf
+        full = (num_chains, *shape)
+        if kind == "normal":
+            out[name] = torch.randn(full, generator=gen, device=gen.device,
+                                    dtype=dtype)
+        elif kind in ("uniform", "uniform_pos"):
+            u = torch.rand(full, generator=gen, device=gen.device,
+                           dtype=dtype)
+            if kind == "uniform_pos":
+                u = u.clamp_min(torch.finfo(dtype).tiny)
+            out[name] = u
+        else:
+            raise ValueError(f"unknown noise kind {kind!r} for {name!r}")
+    return out

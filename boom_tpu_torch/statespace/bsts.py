@@ -1,0 +1,362 @@
+"""Bsts: Bayesian structural time series, Gaussian path without regression
+(port of boom_tpu/statespace/bsts.py: ``__post_init__`` :195,
+``ssm_params`` :238, ``init_state`` :299, ``_smoother`` :324, ``kernel``
+steps 1-4 :343-464, ``_asis_pass`` :851 and ``asis_redraw`` :1010).
+
+One Gibbs sweep, for all chains at once (leading chain axis ``[C, ...]``):
+
+  1. draw the observation variance given the current state path;
+  2. draw each state block's variances from its imputed innovations;
+  3. impute the state path with the Durbin-Koopman simulation smoother;
+  4. ASIS: redraw the state-innovation sigmas non-centered.
+
+The sweep takes every random number it uses from a ``noise`` mapping
+(:meth:`Bsts.draw_noise` fills it from a ``torch.Generator``); it never
+draws itself. Parts of the reference that this slice does not port raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from boom_tpu_torch import rng
+from boom_tpu_torch.inference.kernels.slice import slice_step
+from boom_tpu_torch.statespace import parallel_kalman, scan_kernel
+from boom_tpu_torch.statespace.kalman import SsmParams
+from boom_tpu_torch.statespace.state_models import SdPrior
+
+_SEQUENTIAL = ("the sequential Kalman smoother, which is not ported yet "
+               "(ROADMAP.md, queue 1: statespace/kalman.py and kernel (b))")
+# ASIS slice settings of the reference's asis_redraw
+ASIS_SLICE_STEPS, ASIS_EXPAND, ASIS_SHRINK = 8, 5, 10
+# The Durbin-Koopman draw is alpha+ + E[alpha | y - y+], where the
+# unconditional path alpha+ starts from the prior N(a0, P0). With the
+# default priors (initial sd = sd(y)) alpha+ grows to about sd(y) * T, 3e6
+# for a trending T=4096 series, and the two terms cancel down to the data
+# scale: in float32 the state then carries errors of order 1, which bias
+# every variance draw (PERF.md, Findings). So the smoother computes in
+# float64 whatever the run's dtype; the rest of the sweep keeps it.
+SMOOTHER_DTYPE = torch.float64
+
+
+def _block_diag(mats):
+    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]."""
+    c = mats[0].shape[0]
+    rows = sum(m.shape[-2] for m in mats)
+    cols = sum(m.shape[-1] for m in mats)
+    out = mats[0].new_zeros(c, rows, cols)
+    r = s = 0
+    for m in mats:
+        out[:, r:r + m.shape[-2], s:s + m.shape[-1]] = m
+        r += m.shape[-2]
+        s += m.shape[-1]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Bsts:
+    """Structural time series with Gaussian observations.
+
+    y: [T] series on the run's device, in the run's dtype.
+    parallel_smoother: the reference's option values. ``"pallas"`` runs the
+    hand-written scan kernel (``scan_kernel.simulation_smoother``; its
+    plain version on a CPU tensor); ``"auto"`` picks it on a CUDA device
+    for d <= 6, T >= 512 and at most 32 chains; ``True`` runs the plain
+    parallel-in-time scan (``parallel_kalman``). ``False``, and ``"auto"``
+    outside that regime, need the sequential smoother and raise.
+    chains_hint: the number of chains the run will use (``"auto"`` reads it).
+    """
+
+    y: torch.Tensor
+    blocks: Sequence
+    obs_prior: SdPrior | None = None
+    predictors: torch.Tensor | None = None
+    observed: torch.Tensor | None = None
+    obs_weights: torch.Tensor | None = None
+    parallel_smoother: bool | str = "auto"
+    chains_hint: int = 1
+    asis: bool = True
+    asis_passes: int = 1
+    marginal_sigma_slice: bool = False
+
+    def __post_init__(self):
+        if self.predictors is not None:
+            raise NotImplementedError(
+                "bsts with regression is not ported yet (ROADMAP.md, "
+                "queue 1: the rest of statespace)")
+        if self.observed is not None or self.obs_weights is not None:
+            raise NotImplementedError(
+                "observed/obs_weights (gaps, timestamps) are not ported yet "
+                "(ROADMAP.md, queue 1: the observed/obs_weights path)")
+        if self.marginal_sigma_slice:
+            raise NotImplementedError(
+                "the marginal variance move is not ported yet (ROADMAP.md, "
+                "queue 1: the TIM marginal move)")
+        for b in self.blocks:
+            if not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec"):
+                raise NotImplementedError(
+                    f"state block {type(b).__name__} is not ported yet "
+                    "(ROADMAP.md, queue 1: the other block classes)")
+        if self.obs_prior is None:
+            sd = float(torch.std(self.y, correction=0))
+            object.__setattr__(
+                self, "obs_prior",
+                SdPrior(sigma_guess=0.5 * sd, sample_size=0.01,
+                        upper_limit=1.2 * sd))
+
+    # -- composite system ---------------------------------------------------
+    @property
+    def state_dim(self):
+        return sum(b.dim for b in self.blocks)
+
+    @property
+    def t_len(self):
+        return self.y.shape[0]
+
+    def _slices(self):
+        out, start = [], 0
+        for b in self.blocks:
+            out.append((start, b.dim))
+            start += b.dim
+        return out
+
+    def ssm_params(self, state):
+        """The chains' static systems from their parameters."""
+        dev, dt = self.y.device, self.y.dtype
+        c = state["sigsq_obs"].shape[0]
+        ts, rs, qs = zip(*(b.build(state["blocks"][b.name])
+                           for b in self.blocks))
+        a0s, p0s = zip(*(b.init_dist(dev, dt) for b in self.blocks))
+        z = torch.cat([b.z(dev, dt) for b in self.blocks])
+        return SsmParams(
+            z=z.expand(c, -1),
+            t_mat=_block_diag(ts), r_mat=_block_diag(rs),
+            q_mat=_block_diag(qs), h=state["sigsq_obs"],
+            a0=torch.cat(a0s).expand(c, -1),
+            p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1))
+
+    # -- noise --------------------------------------------------------------
+    def _smoother_noise_spec(self):
+        q = sum(b.err_dim for b in self.blocks)
+        return {"sim_alpha1": ((self.state_dim,), "normal"),
+                "sim_eta": ((self.t_len - 1, q), "normal"),
+                "sim_eps": ((self.t_len,), "normal")}
+
+    def init_noise_spec(self):
+        """Per-chain random numbers of :meth:`init_state`."""
+        return {"blocks": {b.name: b.init_noise_spec() for b in self.blocks},
+                "sig_u": ((), "uniform"),
+                **self._smoother_noise_spec()}
+
+    def noise_spec(self):
+        """Per-chain random numbers of one sweep (see :meth:`kernel`)."""
+        spec = {"obs_u": ((), "uniform_pos"),
+                "blocks": {b.name: b.noise_spec() for b in self.blocks},
+                **self._smoother_noise_spec()}
+        if self.asis:
+            rounds = (self.asis_passes, ASIS_SLICE_STEPS,
+                      len(_asis_groups(self.blocks)))
+            spec.update(asis_h_u=(rounds, "uniform_pos"),
+                        asis_u_u=(rounds, "uniform"),
+                        asis_shrink_u=((*rounds, ASIS_SHRINK), "uniform"))
+        return spec
+
+    def draw_noise(self, generator, num_chains: int):
+        """One sweep's noise for ``num_chains`` chains."""
+        return rng.draw(generator, self.noise_spec(), num_chains,
+                        self.y.dtype)
+
+    def draw_init_noise(self, generator, num_chains: int):
+        return rng.draw(generator, self.init_noise_spec(), num_chains,
+                        self.y.dtype)
+
+    # -- state --------------------------------------------------------------
+    def init_state(self, noise):
+        """Initial states of all chains: overdispersed variances and a
+        state path imputed by the smoother (an all-zero path would trap the
+        first variance draws at zero)."""
+        state = {
+            "blocks": {b.name: b.init_params(noise["blocks"][b.name])
+                       for b in self.blocks},
+            "sigsq_obs": torch.var(self.y, correction=0)
+            * (noise["sig_u"] * (0.8 - 0.1) + 0.1),
+        }
+        state["alpha"] = self._impute(self.ssm_params(state), noise)
+        return state
+
+    def _impute(self, params, noise):
+        """A state path draw from the smoother, computed in
+        ``SMOOTHER_DTYPE`` and returned in the run's dtype."""
+        wide = SMOOTHER_DTYPE
+        draw = self._smoother()(
+            SsmParams(*(p.to(wide) for p in params)), self.y.to(wide),
+            *(noise[k].to(wide) for k in ("sim_alpha1", "sim_eta",
+                                          "sim_eps")))
+        return draw.to(self.y.dtype)
+
+    def _smoother(self):
+        """Simulation-smoother dispatch (the reference's
+        ``parallel_smoother`` values)."""
+        mode = self.parallel_smoother
+        if mode is True:
+            return parallel_kalman.parallel_simulation_smoother
+        if mode == "pallas":
+            return scan_kernel.simulation_smoother
+        if mode == "auto":
+            if (self.y.device.type == "cuda" and self.state_dim <= 6
+                    and self.t_len >= 512 and self.chains_hint <= 32):
+                return scan_kernel.simulation_smoother
+            raise NotImplementedError(
+                "parallel_smoother='auto' outside the scan kernel's regime "
+                "(CUDA, d <= 6, T >= 512, <= 32 chains) needs "
+                + _SEQUENTIAL)
+        if mode is False:
+            raise NotImplementedError("parallel_smoother=False needs "
+                                      + _SEQUENTIAL)
+        raise ValueError(f"unknown parallel_smoother {mode!r}")
+
+    # -- Gibbs sweep --------------------------------------------------------
+    def kernel(self):
+        """``sweep(noise, state) -> state`` for all chains; ``noise`` as
+        :meth:`draw_noise` makes it."""
+
+        def sweep(noise, state):
+            out = dict(state)
+            params_cur = self.ssm_params(state)
+            state_contrib = (state["alpha"] * params_cur.z[:, None]).sum(-1)
+
+            # 1. observation variance | current state
+            resid = self.y - state_contrib
+            out["sigsq_obs"] = self.obs_prior.draw_variance(
+                noise["obs_u"], self.t_len, (resid * resid).sum(-1))
+
+            # 2. state-model parameters | current state path
+            out["blocks"] = {
+                b.name: b.draw_params(
+                    noise["blocks"][b.name], state["blocks"][b.name],
+                    state["alpha"][..., start:start + dim])
+                for (start, dim), b in zip(self._slices(), self.blocks)}
+
+            # 3. impute the state (Durbin-Koopman simulation smoother)
+            out["alpha"] = self._impute(self.ssm_params(out), noise)
+
+            # 4. ASIS interweaving: non-centered re-draw of state sigmas
+            if self.asis:
+                for i in range(self.asis_passes):
+                    out = self._asis_pass(
+                        {k: noise[f"asis_{k}"][:, i]
+                         for k in ("h_u", "u_u", "shrink_u")}, out, self.y)
+            return out
+
+        return sweep
+
+    def _asis_pass(self, noise, state, y_adj):
+        return asis_redraw(noise, self.blocks, self.ssm_params(state),
+                           state, y_adj, state["sigsq_obs"])
+
+
+def _asis_groups(blocks):
+    """[(block name, param name, prior, error dims)] over all blocks."""
+    groups, offset = [], 0
+    for b in blocks:
+        for pname, prior, dims in b.asis_groups():
+            groups.append((b.name, pname, prior,
+                           tuple(offset + d for d in dims)))
+        offset += b.err_dim
+    return groups
+
+
+def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
+                slice_steps: int = ASIS_SLICE_STEPS):
+    """Non-centered (ancillary) re-draw of each state-innovation sigma, for
+    all chains.
+
+    Holding the standardized innovations fixed, the path is affine in the
+    sigmas: alpha = alpha_base + sum_g sigma_g D_g, where the D-path of
+    group g solves D_t = T D_{t-1} + R w_t with D_0 = 0. The D-paths of all
+    chains and groups run as ONE batched affine scan (the scan kernel on a
+    CUDA tensor, its plain version on the CPU); the reference runs a
+    sequential ``lax.scan``, which in eager PyTorch would be T-1 Python
+    steps. Then ``slice_steps`` rounds of scalar slice-Gibbs on the sigmas
+    use only the G x G Gram matrix.
+
+    noise: ``h_u``, ``u_u`` [C, slice_steps, G] and ``shrink_u``
+    [C, slice_steps, G, shrink_iters] uniforms. h: [C] observation
+    variances.
+    """
+    alpha = state["alpha"]  # [C, T, d]
+    c, t_len, d = alpha.shape
+    t_mat, r_mat, z = params.t_mat, params.r_mat, params.z
+    # innovations [C, T-1, q]: R is column-orthonormal (selector/identity)
+    diff = alpha[:, 1:] - (t_mat[:, None] * alpha[:, :-1, None, :]).sum(-1)
+    eta = (r_mat[:, None] * diff[..., :, None]).sum(-2)
+
+    new_blocks = {name: dict(v) for name, v in state["blocks"].items()}
+    groups = _asis_groups(blocks)
+    n_groups = len(groups)
+    if n_groups == 0:
+        return dict(state)
+
+    # --- D-paths of all chains x groups: one affine scan ----------------
+    sigs = torch.stack([torch.sqrt(torch.clamp_min(new_blocks[bn][pn], 1e-30))
+                        for (bn, pn, _prior, _dims) in groups], dim=-1)
+    cols = alpha.new_zeros(n_groups, eta.shape[-1])
+    for gi, (_b, _p, _prior, dims) in enumerate(groups):
+        cols[gi, list(dims)] = 1.0
+    # tilde[c, t, g, :] = group-g masked standardized innovations
+    tilde = eta[:, :, None, :] * cols / sigs[:, None, :, None]
+    w_all = torch.einsum("cdq,ctgq->cgtd", r_mat, tilde)  # [C, G, T-1, d]
+    a_elems = t_mat[:, None, None].expand(c, n_groups, t_len - 1, d, d)
+    dpaths = scan_kernel.affine_prefix(
+        a_elems.reshape(c * n_groups, t_len - 1, d, d),
+        w_all.reshape(c * n_groups, t_len - 1, d))
+    dstack = torch.cat([alpha.new_zeros(c, n_groups, 1, d),
+                        dpaths.reshape(c, n_groups, t_len - 1, d)],
+                       dim=2)  # [C, G, T, d]
+    g_mat = (dstack * z[:, None, None, :]).sum(-1)  # [C, G, T]
+    alpha_base = alpha - torch.einsum("cg,cgtd->ctd", sigs, dstack)
+    r0 = y_adj - (alpha_base * z[:, None, :]).sum(-1)  # [C, T]
+    g_over_h = g_mat / h[:, None, None]
+    gram = torch.einsum("cgt,cet->cge", g_over_h, g_mat)  # [C, G, G]
+    c_vec = torch.einsum("cgt,ct->cg", g_over_h, r0)  # [C, G]
+
+    # --- alternating scalar slice-Gibbs over the sigmas ------------------
+    for it in range(slice_steps):
+        for gi, (_bn, _pn, prior, _dims) in enumerate(groups):
+            a_coef = gram[:, gi, gi]
+            others = c_vec[:, gi] - ((gram[:, gi] * sigs).sum(-1)
+                                     - a_coef * sigs[:, gi])
+            df = prior.sample_size
+            pss = prior.sample_size * prior.sigma_guess ** 2
+            upper = (prior.upper_limit if prior.upper_limit < float("inf")
+                     else 1e6)
+
+            def logp(sig, df=df, pss=pss, a_coef=a_coef, others=others):
+                sigsq = sig * sig
+                # SdPrior density on sigma: SIC(sig^2) * 2 sig
+                lp = (-(0.5 * df + 1.0) * torch.log(sigsq)
+                      - 0.5 * pss / sigsq + torch.log(2.0 * sig))
+                return lp + others * sig - 0.5 * a_coef * sigsq
+
+            width = torch.clamp_min(sigs[:, gi], 0.05 * prior.sigma_guess)
+            sig_new = slice_step(
+                sigs[:, gi], logp, width, noise["h_u"][:, it, gi],
+                noise["u_u"][:, it, gi], noise["shrink_u"][:, it, gi],
+                expand_iters=ASIS_EXPAND, lower=1e-12, upper=upper)
+            sigs = torch.cat([sigs[:, :gi], sig_new[:, None],
+                              sigs[:, gi + 1:]], dim=-1)
+
+    # --- rebuild state -----------------------------------------------------
+    alpha = alpha_base + sum(sigs[:, gi, None, None] * dstack[:, gi]
+                             for gi in range(n_groups))
+    for gi, (bname, pname, _prior, _dims) in enumerate(groups):
+        new_blocks[bname][pname] = sigs[:, gi] * sigs[:, gi]
+
+    out = dict(state)
+    out["alpha"] = alpha
+    out["blocks"] = new_blocks
+    return out
