@@ -2,8 +2,11 @@
 Gaussian part of boom_tpu/api.py:278-301 and :371-474).
 
     model = BstsModel().add_local_linear_trend()
-    model.fit(y, niter=200, burn=100, num_chains=8, device="cuda")
+    model.fit(y, niter=200, burn=100, num_chains=8)   # on the CUDA card
     model.draws["blocks"]["trend"]["sigma_level_sq"]   # [chains, draws]
+
+``fit`` runs on the card unless the caller passes ``device="cpu"``; with no
+card it raises rather than falling back to the CPU.
 
 Only the local-level and local-linear-trend blocks, Gaussian observations
 and no regression are ported so far; other options raise
@@ -53,11 +56,13 @@ class BstsModel:
         return [builders[name](kw) for name, kw in self._specs]
 
     def fit(self, y, predictors=None, family="gaussian", niter=1000,
-            num_chains=4, burn=200, seed=0, device="cpu", dtype=None,
+            num_chains=4, burn=200, seed=0, device="cuda", dtype=None,
             **model_kw):
         """Run ``num_chains`` chains of the Gibbs sweep on ``device``:
-        ``burn`` sweeps, then ``niter`` recorded draws. ``dtype`` defaults
-        to float64 on the CPU and float32 on a CUDA device."""
+        ``burn`` sweeps, then ``niter`` recorded draws. ``device`` is the
+        CUDA card unless the caller asks for ``"cpu"``; a CUDA device on a
+        machine without one raises. ``dtype`` defaults to float64 on the
+        CPU and float32 on a CUDA device."""
         from boom_tpu_torch.statespace.bsts import Bsts
 
         if family != "gaussian":
@@ -65,6 +70,10 @@ class BstsModel:
                 f"family={family!r} is not ported yet (ROADMAP.md, queue 1: "
                 "statespace families)")
         device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BstsModel.fit runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
         dtype = dtype or _DEFAULT_DTYPE[device.type]
         y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
         model_kw.setdefault("chains_hint", num_chains)

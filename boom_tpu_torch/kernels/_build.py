@@ -29,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SCAN_OPS = ("filter", "smooth", "affine")
 SCAN_DTYPES = ("f32", "f64")
 SCAN_DIMS = tuple(range(1, 7))
+# the shortest tile of any instantiation (TileShape in parallel_scan.cu):
+# a scan of T steps needs at most ceil(T / SCAN_MIN_TILE) tile totals a row
+SCAN_MIN_TILE = 128
 
 
 def _nvcc() -> str:
@@ -78,7 +81,10 @@ def library() -> ctypes.CDLL:
         for tag in SCAN_DTYPES:
             for d in SCAN_DIMS:
                 fn = getattr(lib, f"boom_scan_{op}_{tag}_d{d}")
+                # in, out, totals, totals_len, batch, t_len, reverse,
+                # stream
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p]
                 fn.restype = ctypes.c_int

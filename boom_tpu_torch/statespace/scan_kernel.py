@@ -10,8 +10,9 @@ it is laid out for Hopper and what bounds it.
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
 kernel (or raises — there is no fallback), a CPU tensor runs the plain
-version in ``parallel_kalman.py``. ``LAUNCHES`` counts kernel launches per
-combine, so a run can show its main path went through the kernel.
+version in ``parallel_kalman.py``. ``LAUNCHES`` counts kernel scans per
+combine (one per call, however many CUDA launches the kernel makes), so a
+run can show its main path went through the kernel.
 
 Public functions mirror the reference's: ``filter_moments``
 (``pallas_filter_moments`` :265), ``smooth_means`` (:280),
@@ -28,8 +29,8 @@ from boom_tpu_torch.kernels import _build
 from boom_tpu_torch.statespace import parallel_kalman as pk
 from boom_tpu_torch.statespace.kalman import SsmParams
 
-# kernel launches per combine since the process started (or a caller's
-# reset); incremented only where a kernel is launched
+# kernel scans per combine since the process started (or a caller's
+# reset); incremented only where the kernel is launched
 LAUNCHES = {"filter": 0, "smooth": 0, "affine": 0}
 
 _F = {"filter": lambda d: 3 * d * d + 2 * d,
@@ -72,13 +73,18 @@ def inclusive_scan(name: str, d: int, stacked: torch.Tensor,
     if max(batch, t_len) >= 2 ** 31:
         raise ValueError("batch and T must fit in int32")
     out = torch.empty_like(stacked)
+    # scratch of the kernel's tile totals (one per batch row and tile)
+    totals = stacked.new_empty(
+        batch * -(-t_len // _build.SCAN_MIN_TILE) * stacked.shape[1])
     fn = getattr(_build.library(),
                  f"boom_scan_{name}_{_DTYPE_TAG[stacked.dtype]}_d{d}")
     with torch.cuda.device(stacked.device):
-        rc = fn(stacked.data_ptr(), out.data_ptr(), batch, t_len,
-                int(reverse), torch.cuda.current_stream().cuda_stream)
+        rc = fn(stacked.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                totals.numel(), batch, t_len, int(reverse),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA {name} scan launch failed: cudaError {rc}")
+    # one count per scan, however many CUDA launches the kernel makes
     LAUNCHES[name] += 1
     return out
 

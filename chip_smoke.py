@@ -6,18 +6,22 @@
 Phases:
   0. environment: the card's name and power limit, nvcc, torch;
   1. build the hand-written CUDA scans from ``boom_tpu_torch/csrc``;
-  2. each scan kernel against its plain PyTorch version on the card, at
-     T in {2, 33, 4093, 4096} and d in {1, 2, 3, 6} for 8 chains, in
-     float64 (normwise relative error <= 1e-9) and float32 (<= 1e-4),
-     plus kernel and plain times at the fit's shape (T=4096, C=8, d=2)
-     in both types;
+  2. each scan kernel against its plain PyTorch version on the card, for
+     8 chains at d in {1, 2, 3, 6} and T below, at and above a tile, over
+     several tiles, ragged, up to 4096 (``T_CHECK``), plus T=65537 at d=2,
+     in float64 (normwise relative error <= 1e-9) and float32 (<= 1e-4);
+     ten repeated launches of each at the fit's shape, bit-identical; then
+     kernel and plain times, beside the bound, at the shapes of
+     ``boom_tpu_torch/kernels/scan_timing.py`` (the fit's, the ASIS
+     D-path's, the float64 filter at d=6, and the long series);
   3. one Gibbs sweep of a small local-linear-trend model through the
      kernels (float64, on the card) against the same sweep through the
      plain scans on the CPU, with the same random numbers; then the
      port's main path: a local-linear-trend bsts fit of a T=4096 series
-     with 8 chains through ``BstsModel().fit``, which must run through the
-     kernels, give finite draws, and land the variances' posterior
-     medians within a factor 2 of the JAX reference's on the same series.
+     with 8 chains through ``BstsModel().fit`` on its default device (the
+     card), which must run through the kernels, give finite draws, and
+     land the variances' posterior medians within a factor 2 of the JAX
+     reference's on the same series.
 
 Prints a JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Exits nonzero (and prints no result)
@@ -28,7 +32,6 @@ script, or when any check fails.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +57,11 @@ REFERENCE_MEDIANS = {"sigsq_obs": 0.7653, "sigma_level_sq": 0.01593,
                      "sigma_slope_sq": 0.003513}
 MEDIAN_FACTOR = 2.0
 SCAN_TOL = {"float64": 1e-9, "float32": 1e-4}
+# scan lengths of the kernel checks: a tile is 256 steps for small elements
+# and 128 for large ones (parallel_scan.cu, TileShape), so one below, at and
+# above each, several tiles with a ragged last one, and the fit's T
+T_CHECK = (2, 33, 127, 128, 129, 255, 256, 257, 1000, 4093, 4096)
+T_LONG = 65537
 # one float64 sweep, kernels on the card vs plain scans on the CPU: both
 # sides differ by rounding only (the scans' association order)
 SWEEP_TOL = 1e-8
@@ -83,13 +91,10 @@ def phase0_environment():
         raise SystemExit("chip_smoke: boom_tpu_torch/ is not beside this "
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, str(REPO))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from boom_tpu_torch.kernels import _build, scan_timing
+
+    card = scan_timing.card_line()
     print(card)
-    from boom_tpu_torch.kernels import _build
 
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True)
@@ -111,143 +116,106 @@ def phase1_build():
     return secs
 
 
-def _random_system(rng, c, d, dtype):
-    """C random stable static systems (spectral radius < 1)."""
-    import torch
-
-    from boom_tpu_torch.statespace.kalman import SsmParams
-
-    def one():
-        q, _ = np.linalg.qr(rng.normal(size=(d, d)))
-        t_mat = q @ np.diag(rng.uniform(0.5, 0.97, d)) @ q.T
-        lq = 0.3 * rng.normal(size=(d, d))
-        mp = rng.normal(size=(d, d))
-        return dict(z=rng.normal(size=d), t_mat=t_mat, r_mat=np.eye(d),
-                    q_mat=lq @ lq.T + 0.1 * np.eye(d),
-                    h=np.asarray(rng.uniform(0.3, 1.0)),
-                    a0=rng.normal(size=d), p0=mp @ mp.T + np.eye(d))
-
-    systems = [one() for _ in range(c)]
-    return SsmParams(**{
-        k: torch.tensor(np.stack([s[k] for s in systems]), dtype=dtype,
-                        device="cuda") for k in systems[0]})
-
-
 def _rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def _median_ms(fn, reps=20):
+def _scans_vs_plain(rng, dtype, c, d, t_len):
+    """Each scan through the kernel and its plain version on the same
+    inputs: {combine: (normwise relative error, max abs error)}."""
     import torch
 
-    fn()
+    from boom_tpu_torch.kernels import scan_timing as st
+    from boom_tpu_torch.statespace import parallel_kalman as pk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+
+    params = st.random_system(rng, c, d, dtype)
+    y = torch.tensor(rng.normal(size=(c, t_len)), dtype=dtype, device="cuda")
+    fm, fp = pk.parallel_filter_moments(params, y)
+    fm_k, fp_k = sk.filter_moments(params, y)
+    sm = pk.parallel_smooth_means(params, fm, fp)
+    sm_k = sk.smooth_means(params, fm, fp)
+    normals = [torch.tensor(rng.normal(size=s), dtype=dtype, device="cuda")
+               for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
+    al, _ = pk.parallel_simulate(params, t_len, *normals)
+    al_k, _ = sk.simulate(params, t_len, *normals)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return {
+        "filter": (max(_rel(fm_k, fm), _rel(fp_k, fp)),
+                   max(float((fm_k - fm).abs().max()),
+                       float((fp_k - fp).abs().max()))),
+        "smooth": (_rel(sm_k, sm), float((sm_k - sm).abs().max())),
+        "affine": (_rel(al_k, al), float((al_k - al).abs().max()))}
+
+
+def _deterministic(rng, reps=10):
+    """Ten launches of each scan at the fit's shape give bit-identical
+    outputs (the fit's "same seed, same draws" rests on it)."""
+    import torch
+
+    from boom_tpu_torch.kernels import scan_timing as st
+
+    cases = st.scan_cases(rng, "float64", CHAINS, 2, T_FIT)
+    same = {}
+    for k, (kern, _plain) in cases.items():
+        first = kern()
+        same[k] = all(torch.equal(first, kern()) for _ in range(reps - 1))
+    torch.cuda.synchronize()
+    return same
 
 
 def phase2_kernels_vs_plain():
-    """Every scan kernel against its plain version; returns the per-kernel
-    error and times at the fit's shape (T=4096, C=8, d=2, float64 as the
-    fit's smoother runs them)."""
+    """Every scan kernel against its plain version at T below, at and above
+    a tile (128 or 256 steps), over several tiles, ragged, and one long
+    series; then determinism and the times of scan_timing.SHAPES. Returns
+    the fit shape's numbers per combine."""
     import torch
 
-    from boom_tpu_torch.statespace import parallel_kalman as pk
-    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.kernels import scan_timing as st
 
     rng = np.random.default_rng(20261016)
     c = CHAINS
     worst = {}
     at_fit = {}
     bad = []
+    cases = [(d, t) for d in (1, 2, 3, 6) for t in T_CHECK]
+    cases.append((2, T_LONG))
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).split(".")[-1]
-        for d in (1, 2, 3, 6):
-            for t_len in (2, 33, 4093, 4096):
-                params = _random_system(rng, c, d, dtype)
-                y = torch.tensor(rng.normal(size=(c, t_len)), dtype=dtype,
-                                 device="cuda")
-                fm, fp = pk.parallel_filter_moments(params, y)
-                fm_k, fp_k = sk.filter_moments(params, y)
-                sm = pk.parallel_smooth_means(params, fm, fp)
-                sm_k = sk.smooth_means(params, fm, fp)
-                normals = [torch.tensor(rng.normal(size=s), dtype=dtype,
-                                        device="cuda")
-                           for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
-                al, _ = pk.parallel_simulate(params, t_len, *normals)
-                al_k, _ = sk.simulate(params, t_len, *normals)
-                torch.cuda.synchronize()
-                errs = {
-                    "filter": max(_rel(fm_k, fm), _rel(fp_k, fp)),
-                    "smooth": _rel(sm_k, sm),
-                    "affine": _rel(al_k, al)}
-                absd = {
-                    "filter": max(float((fm_k - fm).abs().max()),
-                                  float((fp_k - fp).abs().max())),
-                    "smooth": float((sm_k - sm).abs().max()),
-                    "affine": float((al_k - al).abs().max())}
-                print(f"scan {tag} d={d} T={t_len}: " + ", ".join(
-                    f"{k} rel {v:.2e} abs {absd[k]:.2e}"
-                    for k, v in errs.items()))
-                for k, v in errs.items():
-                    key = (k, tag)
-                    worst[key] = max(worst.get(key, 0.0), v)
-                    if not (np.isfinite(v) and v <= SCAN_TOL[tag]):
-                        bad.append(f"{k} {tag} d={d} T={t_len}: {v:.3e}")
+        for d, t_len in cases:
+            res = _scans_vs_plain(rng, dtype, c, d, t_len)
+            print(f"scan {tag} d={d} T={t_len}: " + ", ".join(
+                f"{k} rel {v:.2e} abs {a:.2e}" for k, (v, a) in res.items()))
+            for k, (v, a) in res.items():
+                key = (k, tag)
+                worst[key] = max(worst.get(key, 0.0), v)
+                if not (np.isfinite(v) and v <= SCAN_TOL[tag]):
+                    bad.append(f"{k} {tag} d={d} T={t_len}: {v:.3e}")
                 if tag == "float64" and d == 2 and t_len == T_FIT:
-                    at_fit = {k: {"max_abs_err": absd[k]} for k in absd}
+                    at_fit[k] = {"max_abs_err": a}
     for (k, tag), v in sorted(worst.items()):
         print(f"worst {k} {tag}: {v:.3e} (tolerance {SCAN_TOL[tag]:g})")
     check(not bad, "scan kernel disagrees with its plain version: "
           + "; ".join(bad))
 
-    # times of the scan alone, kernel vs plain, at the fit's shape; the
-    # fit's smoother runs its scans in float64 (statespace/bsts.py,
-    # SMOOTHER_DTYPE), its ASIS D-path affine scan in float32
-    d, t_len = 2, T_FIT
-    for dtype in (torch.float32, torch.float64):
-        tag = str(dtype).split(".")[-1]
-        params = _random_system(rng, c, d, dtype)
-        y = torch.tensor(rng.normal(size=(c, t_len)), dtype=dtype,
-                         device="cuda")
-        el = pk._filter_elements(params, y)
-        fm, fp = pk.parallel_filter_moments(params, y)
-        e_all, g_all = pk._smooth_elements(params, fm, fp)
-        normals = [torch.tensor(rng.normal(size=s), dtype=dtype,
-                                device="cuda")
-                   for s in ((c, d), (c, t_len - 1, d))]
-        a_el, b_el = pk._simulate_elements(params, t_len, *normals)
-        stk_f = sk._stack((el.a, el.c, el.j), (el.b, el.eta))
-        stk_s = sk._stack((e_all,), (g_all,))
-        stk_a = sk._stack((a_el,), (b_el,))
-        cases = {
-            "filter": (lambda: sk.inclusive_scan("filter", d, stk_f),
-                       lambda: pk.hillis_steele(pk._combine_filter,
-                                                tuple(el))),
-            "smooth": (lambda: sk.inclusive_scan("smooth", d, stk_s,
-                                                 reverse=True),
-                       lambda: pk.hillis_steele(pk._combine_smooth,
-                                                (e_all, g_all),
-                                                reverse=True)),
-            "affine": (lambda: sk.inclusive_scan("affine", d, stk_a),
-                       lambda: pk.hillis_steele(pk._combine_affine,
-                                                (a_el, b_el))),
-        }
-        for k, (kern, plain) in cases.items():
-            ms_k = _median_ms(kern)
-            ms_p = _median_ms(plain)
-            if dtype == torch.float64:
-                at_fit[k].update(ms=ms_k, plain_ms=ms_p)
-            print(f"time {k} {tag} C={c} d={d} T={t_len}: kernel "
-                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms (median of 20)")
+    same = _deterministic(rng)
+    print("ten repeated launches at the fit's shape bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+
+    # device times of each scan alone, kernel and plain (scan_timing)
+    for shape, per in st.time_scans(rng).items():
+        dtype, batch, d, t_len = st.SHAPES[shape][:4]
+        for k, r in per.items():
+            plain = (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None
+                     else "not timed")
+            print(f"time {shape} {k} {dtype} B={batch} d={d} T={t_len}: "
+                  f"kernel {r['ms']:.4f} ms, plain {plain}, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); one call "
+                  f"on the host clock {r['call_ms']:.4f} ms")
+            if shape == "fit":
+                at_fit[k].update({key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")})
     return at_fit
 
 
@@ -312,13 +280,16 @@ def phase3_fit(card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = BstsModel().add_local_linear_trend().fit(
-        y, niter=NITER, burn=BURN, num_chains=CHAINS, device="cuda",
-        dtype=torch.float32)
+        y, niter=NITER, burn=BURN, num_chains=CHAINS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     print(f"fit: T={T_FIT} chains={CHAINS} burn={BURN} niter={NITER} "
           f"in {elapsed:.2f} s; kernel launches {launches}")
+    check(model._model.y.device.type == "cuda"
+          and model._model.y.dtype == torch.float32,
+          f"the fit ran on {model._model.y.device} in {model._model.y.dtype},"
+          " not on the card in float32")
     check(model._model._smoother() is sk.simulation_smoother,
           "'auto' did not pick the CUDA scan smoother")
     for k, n in launches.items():
@@ -366,9 +337,12 @@ def main():
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
+    # library_ms: no single PyTorch call computes a prefix scan whose
+    # combine is a non-commutative matrix operation
     kernels = [{"name": f"parallel_scan_{k}", "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": REPLACES[k],
-                "launches": launches[k], **at_fit[k]} for k in launches]
+                "launches": launches[k], **at_fit[k], "library_ms": None}
+               for k in launches]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

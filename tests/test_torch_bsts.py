@@ -230,7 +230,7 @@ def test_unported_options_raise(option):
 def test_fit_on_cpu_gives_finite_draws_of_the_right_shape():
     y = _llt_series()
     fit = BstsModel().add_local_linear_trend().fit(
-        y, niter=12, burn=4, num_chains=3, seed=1,
+        y, niter=12, burn=4, num_chains=3, seed=1, device="cpu",
         parallel_smoother="pallas")
     assert fit._model.chains_hint == 3
     draws = fit.draws
@@ -244,9 +244,23 @@ def test_fit_on_cpu_gives_finite_draws_of_the_right_shape():
     assert bool(torch.isfinite(draws["alpha"]).all())
     # same seed, same draws
     again = BstsModel().add_local_linear_trend().fit(
-        y, niter=12, burn=4, num_chains=3, seed=1,
+        y, niter=12, burn=4, num_chains=3, seed=1, device="cpu",
         parallel_smoother="pallas")
     assert torch.equal(again.draws["sigsq_obs"], draws["sigsq_obs"])
+
+
+def test_fit_defaults_to_the_card():
+    """With no ``device`` the fit runs on the CUDA card; where there is none
+    it raises instead of running on the CPU."""
+    y = _llt_series()
+    model = BstsModel().add_local_linear_trend()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.fit(y, niter=2, burn=1, num_chains=2)
+        assert model._result is None
+        return
+    model.fit(y, niter=2, burn=1, num_chains=2, parallel_smoother="pallas")
+    assert model.draws["alpha"].device.type == "cuda"
 
 
 def test_smoother_computes_in_float64():
