@@ -69,11 +69,7 @@ class BstsModel:
             raise NotImplementedError(
                 f"family={family!r} is not ported yet (ROADMAP.md, queue 1: "
                 "statespace families)")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "BstsModel.fit runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU")
+        device = rng.resolve_device(device)
         dtype = dtype or _DEFAULT_DTYPE[device.type]
         y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
         model_kw.setdefault("chains_hint", num_chains)

@@ -1,23 +1,29 @@
 """Carry the reference's numbers across: turn arrays and model specs of the
 JAX package (as numpy arrays and Python floats) into the port's tensors and
 dataclasses, so both compute on the same inputs. Nothing here imports JAX:
-it reads attributes and converts with ``numpy.asarray``.
+it reads attributes and converts with ``numpy.asarray``. Every helper puts
+its tensors on the CUDA card unless the caller passes ``device="cpu"``; a
+CUDA device on a machine without one raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from boom_tpu_torch.rng import resolve_device
 from boom_tpu_torch.statespace import state_models as sm
 from boom_tpu_torch.statespace.kalman import SsmParams
 
 
 def _tensor(x, device, dtype):
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(x), dtype=dtype,
+                        device=resolve_device(device))
 
 
-def ssm_params_from_numpy(fields, device="cpu", dtype=torch.float64):
+def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64):
     """Port ``SsmParams`` from a mapping (or a NamedTuple, such as the
     reference's ``SsmParams``) of arrays that carry a leading chain axis.
     The reference's optional time-varying fields must be absent or None."""
@@ -32,7 +38,7 @@ def ssm_params_from_numpy(fields, device="cpu", dtype=torch.float64):
                         for k in SsmParams._fields})
 
 
-def state_from_numpy(tree, device="cpu", dtype=torch.float64):
+def state_from_numpy(tree, device="cuda", dtype=torch.float64):
     """A reference bsts state ``{"blocks": {...}, "sigsq_obs", "alpha"}``
     whose leaves carry a leading chain axis -> the same tree of tensors."""
     if isinstance(tree, dict):
@@ -67,7 +73,7 @@ def _block(b):
         "other block classes)")
 
 
-def model_from_jax(bsts, device="cpu", dtype=torch.float64, **overrides):
+def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
     """The port's ``Bsts`` with the reference model's series, state blocks,
     observation prior and sampler options. ``overrides`` replace options
     (for example ``parallel_smoother``)."""
@@ -79,8 +85,10 @@ def model_from_jax(bsts, device="cpu", dtype=torch.float64, **overrides):
                 f"bsts with {name} is not ported yet (ROADMAP.md, queue 1)")
     opts = dict(parallel_smoother=bsts.parallel_smoother,
                 chains_hint=bsts.chains_hint, asis=bsts.asis,
-                asis_passes=bsts.asis_passes,
-                marginal_sigma_slice=bsts.marginal_sigma_slice)
+                asis_passes=bsts.asis_passes)
+    opts.update({f.name: getattr(bsts, f.name)
+                 for f in dataclasses.fields(Bsts)
+                 if f.name.startswith("marginal_")})
     opts.update(overrides)
     return Bsts(y=_tensor(bsts.y, device, dtype),
                 blocks=[_block(b) for b in bsts.blocks],

@@ -1,0 +1,59 @@
+"""Multivariate T (port of ``mvt`` in boom_tpu/dists/multivariate.py:121-147,
+with the triangular solve and log-determinant it uses, :21-45).
+
+Batched over leading dimensions; the samplers take their normals and
+uniforms as tensors (see ``boom_tpu_torch.rng``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from boom_tpu_torch.dists.truncated import trun_gamma_lower_fast
+
+
+def _solve_tri_lower(chol, b):
+    """L^{-1} b for a lower-triangular L, broadcasting batch dims."""
+    batch = torch.broadcast_shapes(chol.shape[:-2], b.shape[:-2])
+    return torch.linalg.solve_triangular(
+        chol.expand(*batch, *chol.shape[-2:]),
+        b.expand(*batch, *b.shape[-2:]), upper=False)
+
+
+def log_det_from_chol(chol):
+    return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+
+
+class mvt:
+    """Multivariate T with location ``mean``, scale ``sigma = L L'`` and
+    ``df`` degrees of freedom."""
+
+    @staticmethod
+    def logpdf(x, mean, sigma, df, chol=None):
+        if chol is None:
+            chol = torch.linalg.cholesky(sigma)
+        d = x.shape[-1]
+        z = _solve_tri_lower(chol, (x - mean)[..., None])[..., 0]
+        maha = (z * z).sum(-1)
+        h = 0.5 * (df + d)
+        return (math.lgamma(h) - math.lgamma(0.5 * df)
+                - 0.5 * d * math.log(df * math.pi)
+                - 0.5 * log_det_from_chol(chol)
+                - h * torch.log1p(maha / df))
+
+    @staticmethod
+    def sample(normals, chi_u, mean, sigma, df, chol=None):
+        """mean + L g / sqrt(w): g = the standard normals ``normals``
+        [..., d], and w ~ Gamma(df/2, rate df/2) (a chi-square over df)
+        drawn by inverse CDF at the uniforms ``chi_u`` [...]. The
+        reference draws w from ``jax.random.gamma``; the inverse CDF
+        (``trun_gamma_lower_fast``, as ``scaled_inv_chisq.sample``) keeps
+        the draw a function of one uniform."""
+        if chol is None:
+            chol = torch.linalg.cholesky(sigma)
+        g = (chol * normals[..., None, :]).sum(-1)
+        w = trun_gamma_lower_fast(chi_u, 0.5 * df, 0.5 * df, 0.0,
+                                  newton_iters=8)
+        return mean + g / torch.sqrt(w)[..., None]

@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels (``boom_tpu_torch/csrc``).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain
-C interface and loaded with ``ctypes``. Nothing here runs at import: the
-first launch on a CUDA tensor calls :func:`library`, which builds the
-library from the checkout's sources into ``build/boom_tpu_torch/`` (named
-by a hash of the sources and flags, so an edit rebuilds) and loads it.
+Each source is compiled with ``nvcc`` into a shared library of its own with
+a plain C interface and loaded with ``ctypes``. Nothing here runs at import:
+the first launch on a CUDA tensor calls :func:`library`, which builds the
+library from the checkout's source into ``build/boom_tpu_torch/`` (named by
+a hash of the source and flags, so an edit rebuilds) and loads it.
+:func:`build` starts one ``nvcc`` for every source at once.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "parallel_scan.cu",)
+SOURCES = {"parallel_scan": _PKG / "csrc" / "parallel_scan.cu",
+           "kalman_seq": _PKG / "csrc" / "kalman_seq.cu"}
 BUILD_DIR = _PKG.parent / "build" / "boom_tpu_torch"
-# --split-compile=0: optimise the 36 instantiations on all host cores
+# --split-compile=0: optimise the instantiations on all host cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
@@ -32,6 +34,25 @@ SCAN_DIMS = tuple(range(1, 7))
 # the shortest tile of any instantiation (TileShape in parallel_scan.cu):
 # a scan of T steps needs at most ceil(T / SCAN_MIN_TILE) tile totals a row
 SCAN_MIN_TILE = 128
+
+# the C entries of kalman_seq.cu: (dtype tags, state dims) of each kernel
+KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
+                  "loglik_tangent": (("f64",), (1, 2)),
+                  "smoother": (("f64",), tuple(range(1, 7)))}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of each entry family (pointers, then ints, then stream)
+_ARGTYPES = {
+    # in, out, totals, totals_len, batch, t_len, reverse, stream
+    "scan": [_P, _P, _P, _L, _I, _I, _I, _P],
+    # z, tm, rqr, h, a0, p0, y, obs, ll, batch, t_len, threads, stream
+    "loglik": [_P] * 9 + [_I, _I, _I, _P],
+    # ... ll, grad, hess, batch, t_len, threads, stream
+    "loglik_tangent": [_P] * 11 + [_I, _I, _I, _P],
+    # z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch,
+    # t_len, threads, stream
+    "smoother": [_P] * 12 + [_I, _I, _I, _P],
+}
 
 
 def _nvcc() -> str:
@@ -46,46 +67,64 @@ def _nvcc() -> str:
                        "kernels of boom_tpu_torch cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libboom_scan_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libboom_{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the hashed library exists; returns it.
-    The compiler's report (``-Xptxas -v``: registers, spills) is kept in
-    ``nvcc.log`` beside the library."""
-    out = library_path()
-    if out.exists():
-        return out
+def log_path(name: str) -> Path:
+    """The compiler's report (``-Xptxas -v``: registers, spills) of a
+    source's last build."""
+    return BUILD_DIR / f"nvcc_{name}.log"
+
+
+def build(names=None) -> dict:
+    """Compile every named source (default: all) whose hashed library does
+    not exist, all ``nvcc`` processes at once; returns {name: library}."""
+    names = tuple(SOURCES) if names is None else tuple(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        running[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (tmp, proc) in running.items():
+        report, _ = proc.communicate()
+        log_path(name).write_text(report)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{report[-4000:]}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def _declare(lib, family, entry):
+    fn = getattr(lib, entry)
+    fn.argtypes = _ARGTYPES[family]
+    fn.restype = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
     """Build if needed, load, and declare every entry's C signature."""
-    lib = ctypes.CDLL(str(build()))
-    for op in SCAN_OPS:
-        for tag in SCAN_DTYPES:
-            for d in SCAN_DIMS:
-                fn = getattr(lib, f"boom_scan_{op}_{tag}_d{d}")
-                # in, out, totals, totals_len, batch, t_len, reverse,
-                # stream
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(build((name,))[name]))
+    if name == "parallel_scan":
+        for op in SCAN_OPS:
+            for tag in SCAN_DTYPES:
+                for d in SCAN_DIMS:
+                    _declare(lib, "scan", f"boom_scan_{op}_{tag}_d{d}")
+    else:
+        for kind, (tags, dims) in KALMAN_ENTRIES.items():
+            for tag in tags:
+                for d in dims:
+                    _declare(lib, kind, f"boom_kalman_{kind}_{tag}_d{d}")
     return lib

@@ -1,0 +1,203 @@
+"""Rehearse the sequential Kalman kernels on a machine without a card.
+
+    python3 boom_tpu_torch/kernels/host_rehearsal.py          # kernels
+    python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
+
+``csrc/kalman_seq.cu`` is compiled as host C++ with ``g++``: a shim header
+defines the CUDA keywords away and gives ``blockIdx``/``blockDim``/
+``threadIdx`` as globals, and every ``kernel<<<blocks, threads, ...>>>(args)``
+becomes two loops over blocks and threads that call ``kernel(args)``. The
+library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
+wrappers run the kernels' own arithmetic on CPU tensors, which are checked
+against the plain versions (K1 in float64 and float32, K2, the derivative
+kernel against autograd of the plain loop). ``--llt`` then runs the bsts_llt
+path (T=500, TIM, float32, smoother in float64) for 32 chains, 100 + 200
+sweeps, through the host-compiled kernels and prints R-hat, ESS and the
+variances' medians. Every number it prints is of the host CPU, never a
+device metric; it finds faults in the kernels' arithmetic before a chip
+run, not their speed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+if __package__ in (None, ""):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+from boom_tpu_torch.kernels import _build  # noqa: E402
+
+SHIM = r"""#pragma once
+#include <cmath>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+struct HostDim3 { int x, y, z; };
+static HostDim3 blockIdx, blockDim, threadIdx;
+inline float logf(float x) { return std::log(x); }
+using std::log;
+#define HOST_LAUNCH(b, t)                                            \
+  for (blockIdx.x = 0, blockDim.x = (t); blockIdx.x < (b); ++blockIdx.x) \
+    for (threadIdx.x = 0; threadIdx.x < (t); ++threadIdx.x)
+"""
+_LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<\s*(\w+)\s*,\s*(\w+)\s*,.*?>>>",
+                     re.S)
+
+
+def build_host_library() -> Path:
+    """Compile kalman_seq.cu for the host into build/boom_tpu_torch/host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise SystemExit("host_rehearsal: needs g++")
+    out_dir = _build.BUILD_DIR / "host"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "cuda_runtime.h").write_text(SHIM)
+    src = _LAUNCH.sub(r"HOST_LAUNCH(\2, \3) \1",
+                      _build.SOURCES["kalman_seq"].read_text())
+    (out_dir / "kalman_seq_host.cpp").write_text(src)
+    lib = out_dir / "libboom_kalman_seq_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-shared", "-fPIC",
+                    "-I", str(out_dir), "-o", str(lib),
+                    str(out_dir / "kalman_seq_host.cpp")], check=True)
+    return lib
+
+
+def bind(lib: Path):
+    """Make kalman_kernel launch the host library on CPU tensors."""
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    _build.build = lambda names=None: {n: lib for n in names}
+    _build.library.cache_clear()
+    kk._on_card = lambda x: True
+    kk._stream = lambda device: 0
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def check_kernels(seed=0):
+    """K1, K2 and the derivative kernel against the plain versions:
+    returns the worst normwise relative error per kernel."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    worst = {}
+    for dtype in ("float64", "float32"):
+        for d in (1, 2, 3, 6):
+            for t_len, masked in ((2, False), (33, True), (200, False)):
+                params = system(rng, 5, d, dtype, device="cpu")
+                tdt = getattr(torch, dtype)
+                y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=tdt)
+                obs = (torch.tensor(rng.uniform(size=t_len) > 0.3)
+                       if masked else None)
+                errs = {f"loglik {dtype}": _rel(
+                    kk.kalman_loglik(params, y, obs),
+                    kalman.kalman_loglik(params, y, obs))}
+                if dtype == "float64":
+                    nz = [torch.tensor(rng.normal(size=s), dtype=tdt)
+                          for s in ((5, d), (5, t_len - 1, d), (5, t_len))]
+                    errs["smoother"] = _rel(
+                        kk.simulation_smoother(params, y, *nz,
+                                               observed=obs),
+                        kalman.simulation_smoother(params, y, *nz,
+                                                   observed=obs))
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+    for d in (1, 2):
+        params = system(rng, 1, d, "float64", device="cpu")
+        y = torch.tensor(rng.normal(size=60).cumsum())
+
+        def f(u, fn, params=params, d=d, y=y):
+            return fn(params._replace(
+                q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
+                h=torch.exp(u[d:])), y)[0]
+
+        u0 = torch.linspace(-1.0, 0.3, d + 1, dtype=torch.float64)
+        got = []
+        for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+            u = u0.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(f(u, fn), u)
+            got.append((g, torch.autograd.functional.hessian(
+                lambda x, fn=fn: f(x, fn), u0)))
+        worst["gradient"] = max(worst.get("gradient", 0.0),
+                                _rel(got[0][0], got[1][0]))
+        worst["hessian"] = max(worst.get("hessian", 0.0),
+                               _rel(got[0][1], got[1][1]))
+    return worst
+
+
+def rehearse_llt(chains=32, burn=100, draws=200, t_len=500, seed=0):
+    """The bsts_llt path (chip_smoke.py phase 4's model and monitor) on the
+    CPU: {statistic: (R-hat, ESS)} and the variances' medians."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.statespace.bsts import Bsts
+    from boom_tpu_torch.statespace.state_models import LocalLinearTrend
+
+    gen_y = np.random.default_rng(4207)  # chip_smoke._llt_series
+    slope = np.cumsum(0.02 * gen_y.normal(size=t_len))
+    level = np.cumsum(slope + 0.3 * gen_y.normal(size=t_len)) + 5.0
+    y = torch.tensor(level + 0.5 * gen_y.normal(size=t_len),
+                     dtype=torch.float32)
+    model = Bsts(y=y, blocks=[LocalLinearTrend.default(y)],
+                 marginal_sigma_slice=True, marginal_move="tim")
+
+    def extract(s):
+        a, tr = s["alpha"], s["blocks"]["trend"]
+        return {"so": s["sigsq_obs"], "lvl": tr["sigma_level_sq"],
+                "slp": tr["sigma_slope_sq"], "mid": a[:, t_len // 2, 0],
+                "fcast": a[:, -1, 0] + a[:, -1, 1]}
+
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   draws, generator=prng.generator(seed, "cpu"),
+                   num_chains=chains, burn=burn, extract=extract)
+    d = res.draws
+    mon = torch.stack([d["so"], torch.sqrt(d["lvl"]), torch.sqrt(d["slp"]),
+                       d["mid"], d["fcast"]], dim=-1).double()
+    rhat = diagnostics.potential_scale_reduction(mon).tolist()
+    ess = diagnostics.effective_sample_size(mon).tolist()
+    med = {k: float(d[k].double().median()) for k in ("so", "lvl", "slp")}
+    return dict(zip(("so", "lvl", "slp", "mid", "fcast"),
+                    zip(rhat, ess))), med
+
+
+def main():
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--llt", action="store_true",
+                    help="also run the bsts_llt path for 32 chains")
+    args = ap.parse_args()
+    torch.set_num_threads(4)
+    bind(build_host_library())
+    for k, v in check_kernels().items():
+        print(f"host-compiled {k}: worst relative error {v:.3e}")
+    if args.llt:
+        stats, med = rehearse_llt()
+        for k, (r, e) in stats.items():
+            print(f"host bsts_llt {k}: rhat {r:.4f} ess {e:.1f}")
+        print("host bsts_llt medians:", med)
+
+
+if __name__ == "__main__":
+    main()

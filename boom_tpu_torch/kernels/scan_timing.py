@@ -125,9 +125,9 @@ def median_ms(fn, reps=20, per=10):
     return statistics.median(times)
 
 
-def random_system(rng, c, d, dtype, q=None):
-    """C random stable static systems (spectral radius < 1) on the card;
-    q (default d) state errors."""
+def random_system(rng, c, d, dtype, q=None, device="cuda"):
+    """C random stable static systems (spectral radius < 1) on ``device``
+    (the card); q (default d) state errors."""
     import torch
 
     from boom_tpu_torch.statespace.kalman import SsmParams
@@ -147,7 +147,7 @@ def random_system(rng, c, d, dtype, q=None):
     systems = [one() for _ in range(c)]
     return SsmParams(**{
         k: torch.tensor(np.stack([s[k] for s in systems]), dtype=dtype,
-                        device="cuda") for k in systems[0]})
+                        device=device) for k in systems[0]})
 
 
 def scan_cases(rng, dtype, batch, d, t_len):
@@ -289,11 +289,9 @@ def time_impute_and_sweep(rng, sweeps=20):
     return out
 
 
-def nvcc_report(log_text):
-    """{instantiation: {"registers": n, "spill_bytes": n, "stack_bytes": n}}
+def ptxas_entries(log_text):
+    """{mangled kernel name: (registers, stack bytes, spill store bytes)}
     for every kernel entry in an ``nvcc -Xptxas -v`` log."""
-    pat = re.compile(r"(tile_totals|scan_totals|tile_rescan|scan_kernel)"
-                     r"I([fd])NS\d*_\d+(Filter|Smooth|Affine)OpI[fd]Li(\d)E")
     props, regs, entry = {}, {}, None
     for line in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -312,15 +310,23 @@ def nvcc_report(log_text):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             regs[entry] = int(m.group(1))
+    return {name: (nregs, *props.get(name, (0, 0)))
+            for name, nregs in regs.items()}
+
+
+def nvcc_report(log_text):
+    """{instantiation: {"registers": n, "spill_bytes": n, "stack_bytes": n}}
+    for every scan kernel entry in an ``nvcc -Xptxas -v`` log."""
+    pat = re.compile(r"(tile_totals|scan_totals|tile_rescan|scan_kernel)"
+                     r"I([fd])NS\d*_\d+(Filter|Smooth|Affine)OpI[fd]Li(\d)E")
     report = {}
-    for name, nregs in regs.items():
+    for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = pat.search(name)
         if not m:
             continue
         kernel, ty, op, d = m.groups()
         key = (f"{kernel} {op.lower()} "
                f"{'f64' if ty == 'd' else 'f32'} d{d}")
-        stack, spill = props.get(name, (0, 0))
         report[key] = {"registers": nregs, "spill_bytes": spill,
                        "stack_bytes": stack}
     return dict(sorted(report.items()))
@@ -344,12 +350,13 @@ def run_tree(tree):
     from boom_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    _build.build()  # every source of DIR's port (one library in PR 2's)
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(20261016)
     out = {"tree": str(tree), "card": card_line(), "build_s": build_s,
            "scans": time_scans(rng), **time_impute_and_sweep(rng)}
-    log = _build.BUILD_DIR / "nvcc.log"
+    log = (_build.log_path("parallel_scan") if hasattr(_build, "log_path")
+           else _build.BUILD_DIR / "nvcc.log")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
     return out
 

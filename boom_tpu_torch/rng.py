@@ -19,9 +19,24 @@ from __future__ import annotations
 import torch
 
 
-def generator(seed: int, device="cpu") -> torch.Generator:
-    """A generator on ``device`` seeded with ``seed`` (``rng.key`` analog)."""
-    return torch.Generator(device=device).manual_seed(int(seed))
+def generator(seed: int, device="cuda") -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed`` (``rng.key`` analog).
+    ``device`` is the CUDA card unless the caller asks for ``"cpu"``; a
+    CUDA device on a machine without one raises."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(
+        int(seed))
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where there is none
+    raises instead of falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{device} was asked for (the default of the port's entry "
+            "points) and no CUDA device is available; pass device='cpu' to "
+            "run on the CPU")
+    return device
 
 
 def draw(gen: torch.Generator, spec, num_chains: int, dtype):

@@ -1,14 +1,17 @@
 """Bsts: Bayesian structural time series, Gaussian path without regression
 (port of boom_tpu/statespace/bsts.py: ``__post_init__`` :195,
 ``ssm_params`` :238, ``init_state`` :299, ``_smoother`` :324, ``kernel``
-steps 1-4 :343-464, ``_asis_pass`` :851 and ``asis_redraw`` :1010).
+:343-478, the TIM marginal move :481-714, ``_asis_pass`` :851 and
+``asis_redraw`` :1010).
 
 One Gibbs sweep, for all chains at once (leading chain axis ``[C, ...]``):
 
   1. draw the observation variance given the current state path;
   2. draw each state block's variances from its imputed innovations;
   3. impute the state path with the Durbin-Koopman simulation smoother;
-  4. ASIS: redraw the state-innovation sigmas non-centered.
+  4. ASIS: redraw the state-innovation sigmas non-centered;
+  5. with ``marginal_sigma_slice``: the TIM marginal move on the log
+     variances, the state path integrated out by the Kalman filter.
 
 The sweep takes every random number it uses from a ``noise`` mapping
 (:meth:`Bsts.draw_noise` fills it from a ``torch.Generator``); it never
@@ -22,15 +25,15 @@ import dataclasses
 from typing import Sequence
 
 import torch
+from torch.profiler import record_function
 
-from boom_tpu_torch import rng
+from boom_tpu_torch import dists, numopt, rng
 from boom_tpu_torch.inference.kernels.slice import slice_step
-from boom_tpu_torch.statespace import parallel_kalman, scan_kernel
+from boom_tpu_torch.statespace import kalman_kernel, parallel_kalman
+from boom_tpu_torch.statespace import scan_kernel
 from boom_tpu_torch.statespace.kalman import SsmParams
 from boom_tpu_torch.statespace.state_models import SdPrior
 
-_SEQUENTIAL = ("the sequential Kalman smoother, which is not ported yet "
-               "(ROADMAP.md, queue 1: statespace/kalman.py and kernel (b))")
 # ASIS slice settings of the reference's asis_redraw
 ASIS_SLICE_STEPS, ASIS_EXPAND, ASIS_SHRINK = 8, 5, 10
 # The Durbin-Koopman draw is alpha+ + E[alpha | y - y+], where the
@@ -41,6 +44,8 @@ ASIS_SLICE_STEPS, ASIS_EXPAND, ASIS_SHRINK = 8, 5, 10
 # every variance draw (PERF.md, Findings). So the smoother computes in
 # float64 whatever the run's dtype; the rest of the sweep keeps it.
 SMOOTHER_DTYPE = torch.float64
+# the sweep's phases, each a ``torch.profiler`` range named "bsts.<phase>"
+SWEEP_PHASES = ("variance_draws", "impute", "asis", "tim")
 
 
 def _block_diag(mats):
@@ -65,10 +70,14 @@ class Bsts:
     parallel_smoother: the reference's option values. ``"pallas"`` runs the
     hand-written scan kernel (``scan_kernel.simulation_smoother``; its
     plain version on a CPU tensor); ``"auto"`` picks it on a CUDA device
-    for d <= 6, T >= 512 and at most 32 chains; ``True`` runs the plain
-    parallel-in-time scan (``parallel_kalman``). ``False``, and ``"auto"``
-    outside that regime, need the sequential smoother and raise.
+    for d <= 6, T >= 512 and at most 32 chains, and the sequential smoother
+    (``kalman_kernel.simulation_smoother``: kernel K2 on the card, its plain
+    version on the CPU) everywhere else, as ``False`` always does; ``True``
+    runs the plain parallel-in-time scan (``parallel_kalman``).
     chains_hint: the number of chains the run will use (``"auto"`` reads it).
+    marginal_*: the reference's marginal-move options and defaults. Only
+    ``marginal_move="tim"`` is ported; the mtm/grid/slice options are
+    carried for a model spec's sake and read by no ported move.
     """
 
     y: torch.Tensor
@@ -82,6 +91,19 @@ class Bsts:
     asis: bool = True
     asis_passes: int = 1
     marginal_sigma_slice: bool = False
+    marginal_move: str = "tim"
+    marginal_mtm_trials: int = 16
+    marginal_mtm_moves: int = 2
+    marginal_grid_points: int = 10
+    marginal_grid_range: tuple = (0.02, 4.0)
+    marginal_grid_dirs: int = 1
+    marginal_tim_trials: int = 16
+    marginal_tim_df: float = 3.0
+    marginal_tim_inflate: float = 1.3
+    marginal_mtm_width: float = 1.0
+    marginal_mtm_ladder: tuple = (0.05, 2.0)
+    marginal_slice_random_dirs: int = 1
+    marginal_slice_period: int = 1
 
     def __post_init__(self):
         if self.predictors is not None:
@@ -92,10 +114,10 @@ class Bsts:
             raise NotImplementedError(
                 "observed/obs_weights (gaps, timestamps) are not ported yet "
                 "(ROADMAP.md, queue 1: the observed/obs_weights path)")
-        if self.marginal_sigma_slice:
+        if self.marginal_sigma_slice and self.marginal_move != "tim":
             raise NotImplementedError(
-                "the marginal variance move is not ported yet (ROADMAP.md, "
-                "queue 1: the TIM marginal move)")
+                f"marginal_move={self.marginal_move!r} is not ported; only "
+                "'tim' is (ROADMAP.md, queue 7: the other marginal moves)")
         for b in self.blocks:
             if not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec"):
                 raise NotImplementedError(
@@ -107,6 +129,10 @@ class Bsts:
                 self, "obs_prior",
                 SdPrior(sigma_guess=0.5 * sd, sample_size=0.01,
                         upper_limit=1.2 * sd))
+        if self.marginal_sigma_slice:
+            # once per model, as the reference: the mode search runs here,
+            # never inside a sweep
+            object.__setattr__(self, "_tim_prop", self._build_tim_proposal())
 
     # -- composite system ---------------------------------------------------
     @property
@@ -153,7 +179,18 @@ class Bsts:
                 **self._smoother_noise_spec()}
 
     def noise_spec(self):
-        """Per-chain random numbers of one sweep (see :meth:`kernel`)."""
+        """Per-chain random numbers of one kernel call (see :meth:`kernel`):
+        one sweep's, or with ``marginal_slice_period`` p > 1 those of p - 1
+        sweeps without the marginal move (``sub0``...) and one with it
+        (``last``)."""
+        period = self.marginal_slice_period
+        if not self.marginal_sigma_slice or period <= 1:
+            return self._sweep_noise_spec(self.marginal_sigma_slice)
+        return {**{f"sub{i}": self._sweep_noise_spec(False)
+                   for i in range(period - 1)},
+                "last": self._sweep_noise_spec(True)}
+
+    def _sweep_noise_spec(self, marginal):
         spec = {"obs_u": ((), "uniform_pos"),
                 "blocks": {b.name: b.noise_spec() for b in self.blocks},
                 **self._smoother_noise_spec()}
@@ -163,6 +200,15 @@ class Bsts:
             spec.update(asis_h_u=(rounds, "uniform_pos"),
                         asis_u_u=(rounds, "uniform"),
                         asis_shrink_u=((*rounds, ASIS_SHRINK), "uniform"))
+        if marginal:
+            # the TIM move: candidate normals and chi-square uniforms of the
+            # multivariate-T draws, the Gumbel uniforms of the selection,
+            # the accept uniform
+            k, g = self.marginal_tim_trials, len(self._sigma_groups())
+            spec.update(tim_z=((k, g), "normal"),
+                        tim_chi_u=((k,), "uniform_pos"),
+                        tim_gumbel_u=((k,), "uniform_pos"),
+                        tim_accept_u=((), "uniform_pos"))
         return spec
 
     def draw_noise(self, generator, num_chains: int):
@@ -210,53 +256,206 @@ class Bsts:
             if (self.y.device.type == "cuda" and self.state_dim <= 6
                     and self.t_len >= 512 and self.chains_hint <= 32):
                 return scan_kernel.simulation_smoother
-            raise NotImplementedError(
-                "parallel_smoother='auto' outside the scan kernel's regime "
-                "(CUDA, d <= 6, T >= 512, <= 32 chains) needs "
-                + _SEQUENTIAL)
+            return kalman_kernel.simulation_smoother
         if mode is False:
-            raise NotImplementedError("parallel_smoother=False needs "
-                                      + _SEQUENTIAL)
+            return kalman_kernel.simulation_smoother
         raise ValueError(f"unknown parallel_smoother {mode!r}")
 
     # -- Gibbs sweep --------------------------------------------------------
     def kernel(self):
         """``sweep(noise, state) -> state`` for all chains; ``noise`` as
-        :meth:`draw_noise` makes it."""
+        :meth:`draw_noise` makes it. With the marginal move and
+        ``marginal_slice_period`` p > 1, one call runs p - 1 sweeps without
+        the move and one with it (one recorded draw)."""
 
-        def sweep(noise, state):
+        def sweep(noise, state, do_marginal=True):
+            # each phase is a named profiler range (SWEEP_PHASES)
             out = dict(state)
-            params_cur = self.ssm_params(state)
-            state_contrib = (state["alpha"] * params_cur.z[:, None]).sum(-1)
+            with record_function("bsts.variance_draws"):
+                params_cur = self.ssm_params(state)
+                state_contrib = (state["alpha"]
+                                 * params_cur.z[:, None]).sum(-1)
 
-            # 1. observation variance | current state
-            resid = self.y - state_contrib
-            out["sigsq_obs"] = self.obs_prior.draw_variance(
-                noise["obs_u"], self.t_len, (resid * resid).sum(-1))
+                # 1. observation variance | current state
+                resid = self.y - state_contrib
+                out["sigsq_obs"] = self.obs_prior.draw_variance(
+                    noise["obs_u"], self.t_len, (resid * resid).sum(-1))
 
-            # 2. state-model parameters | current state path
-            out["blocks"] = {
-                b.name: b.draw_params(
-                    noise["blocks"][b.name], state["blocks"][b.name],
-                    state["alpha"][..., start:start + dim])
-                for (start, dim), b in zip(self._slices(), self.blocks)}
+                # 2. state-model parameters | current state path
+                out["blocks"] = {
+                    b.name: b.draw_params(
+                        noise["blocks"][b.name], state["blocks"][b.name],
+                        state["alpha"][..., start:start + dim])
+                    for (start, dim), b in zip(self._slices(), self.blocks)}
 
             # 3. impute the state (Durbin-Koopman simulation smoother)
-            out["alpha"] = self._impute(self.ssm_params(out), noise)
+            with record_function("bsts.impute"):
+                out["alpha"] = self._impute(self.ssm_params(out), noise)
 
             # 4. ASIS interweaving: non-centered re-draw of state sigmas
             if self.asis:
-                for i in range(self.asis_passes):
-                    out = self._asis_pass(
-                        {k: noise[f"asis_{k}"][:, i]
-                         for k in ("h_u", "u_u", "shrink_u")}, out, self.y)
+                with record_function("bsts.asis"):
+                    for i in range(self.asis_passes):
+                        out = self._asis_pass(
+                            {k: noise[f"asis_{k}"][:, i]
+                             for k in ("h_u", "u_u", "shrink_u")}, out,
+                            self.y)
+
+            # 5. marginal move on the log variances (state integrated out)
+            if self.marginal_sigma_slice and do_marginal:
+                with record_function("bsts.tim"):
+                    out = self._marginal_sigma_tim(noise, out, self.y)
             return out
 
-        return sweep
+        period = self.marginal_slice_period
+        if not self.marginal_sigma_slice or period <= 1:
+            return sweep
+
+        def composite(noise, state):
+            for i in range(period - 1):
+                state = sweep(noise[f"sub{i}"], state, do_marginal=False)
+            return sweep(noise["last"], state)
+
+        return composite
 
     def _asis_pass(self, noise, state, y_adj):
         return asis_redraw(noise, self.blocks, self.ssm_params(state),
                            state, y_adj, state["sigsq_obs"])
+
+    # -- TIM marginal move ----------------------------------------------------
+    def _sigma_groups(self):
+        """[(path, prior)] over every variance the marginal move updates:
+        path = (block name, param name) or ("sigsq_obs",)."""
+        groups = [((b.name, pname), prior) for b in self.blocks
+                  for pname, prior, _dims in b.asis_groups()]
+        groups.append((("sigsq_obs",), self.obs_prior))
+        return groups
+
+    def _marginal_helpers(self, state, y_adj, groups):
+        """(get, set_param, lp_batch): lp_batch(u [C, M, G]) -> [C, M] is
+        the marginal log posterior of the log-variance vectors u, M points a
+        chain: Kalman loglik (the state integrated out) + SdPrior density +
+        the log transform's Jacobian. The C x M points are one batch of
+        series in ONE loglik call (kernel K1 on the card)."""
+
+        def get(st, path):
+            return (st["sigsq_obs"] if path[0] == "sigsq_obs"
+                    else st["blocks"][path[0]][path[1]])
+
+        def set_param(st, path, value):
+            out = dict(st)
+            if path[0] == "sigsq_obs":
+                out["sigsq_obs"] = value
+                return out
+            bname, pname = path
+            out["blocks"] = dict(st["blocks"])
+            out["blocks"][bname] = dict(st["blocks"][bname])
+            out["blocks"][bname][pname] = value
+            return out
+
+        def lp_batch(u):
+            c, m, _g = u.shape
+            flat = u.reshape(c * m, -1)
+            st = {"blocks": {name: {k: v.repeat_interleave(m, dim=0)
+                                    for k, v in params.items()}
+                             for name, params in state["blocks"].items()},
+                  "sigsq_obs": state["sigsq_obs"].repeat_interleave(m)}
+            for gi, (path, _prior) in enumerate(groups):
+                st = set_param(st, path, torch.exp(flat[:, gi]))
+            lp = kalman_kernel.kalman_loglik(self.ssm_params(st), y_adj)
+            for gi, (_path, prior) in enumerate(groups):
+                lp = (lp + _sic_logp(torch.exp(flat[:, gi]), prior)
+                      + flat[:, gi])
+            return lp.reshape(c, m)
+
+        return get, set_param, lp_batch
+
+    def _build_tim_proposal(self):
+        """(mode [G], chol [G, G]) of the multivariate-T proposal tailored
+        to p(log variances | y): BFGS then Newton to the mode, the Laplace
+        Hessian eigen-clamped and inflated (reference
+        ``_build_tim_proposal``, bsts.py:616-672). Built in float64 on the
+        series' device whatever the run's dtype: the proposal only shapes
+        the move's efficiency, the acceptance is exact (ROADMAP.md, sec. 3).
+        On the card its gradients and Hessians come through K1's
+        ``autograd.Function``."""
+        groups = self._sigma_groups()
+        wide = dataclasses.replace(self, y=self.y.to(torch.float64),
+                                   marginal_sigma_slice=False)
+        dev, dt = wide.y.device, wide.y.dtype
+        template = {
+            "blocks": {b.name: b.init_params(
+                {k: torch.full((1,), 0.5, dtype=dt, device=dev)
+                 for k in b.init_noise_spec()}) for b in self.blocks},
+            "sigsq_obs": torch.var(wide.y, correction=0)[None] * 0.5}
+        _get, _set, lp_batch = wide._marginal_helpers(template, wide.y,
+                                                      groups)
+
+        def neg(u):
+            lp = lp_batch(u[None, None])[0, 0]
+            # the prior's hard upper limit smoothed out of the search, as
+            # the reference does
+            return -torch.where(torch.isfinite(lp), lp, -1e30)
+
+        u0 = torch.log(torch.tensor([prior.sigma_guess ** 2
+                                     for _path, prior in groups],
+                                    dtype=dt, device=dev))
+        res = numopt.bfgs(neg, u0, max_iters=120)
+        res = numopt.newton_raphson(neg, res.x, max_iters=10)
+        mode = res.x
+        h = torch.autograd.functional.hessian(neg, mode)
+        h = 0.5 * (h + h.T)
+        w, v = torch.linalg.eigh(h)
+        w = torch.clamp_min(w, 1e-3 * max(float(w.max()), 1.0))
+        cov = (v / w[None, :]) @ v.T
+        cov = (0.5 * (cov + cov.T)) * self.marginal_tim_inflate ** 2
+        return mode.detach(), torch.linalg.cholesky(cov).detach()
+
+    def _marginal_sigma_tim(self, noise, state, y_adj):
+        """Multiple-try independence MH from the tailored-T proposal
+        (reference ``_marginal_sigma_tim``, bsts.py:674-714): k proposal
+        draws + the current point scored in one batched loglik; J drawn with
+        probability proportional to the importance weight w = pi / q; accept
+        with min(1, sum_i w(y_i) / [sum_{i != J} w(y_i) + w(x)]).
+
+        noise: ``tim_z`` [C, k, G], ``tim_chi_u``, ``tim_gumbel_u`` [C, k],
+        ``tim_accept_u`` [C]."""
+        groups = self._sigma_groups()
+        mode, chol = (t.to(y_adj.dtype) for t in self._tim_prop)
+        df = self.marginal_tim_df
+        get, set_param, lp_batch = self._marginal_helpers(state, y_adj,
+                                                          groups)
+        u_cur = torch.stack([torch.log(get(state, path))
+                             for path, _ in groups], dim=-1)  # [C, G]
+        k_tr = self.marginal_tim_trials
+        cands = dists.mvt.sample(noise["tim_z"], noise["tim_chi_u"], mode,
+                                 None, df, chol=chol)  # [C, k, G]
+        pts = torch.cat([cands, u_cur[:, None]], dim=1)  # [C, k+1, G]
+        lps = lp_batch(pts)
+        lqs = dists.mvt.logpdf(pts, mode, None, df, chol=chol)
+        w = lps - lqs  # log importance weights
+        j = dists.categorical.sample(w[:, :k_tr], noise["tim_gumbel_u"])
+        sum_y = torch.logsumexp(w[:, :k_tr], dim=-1)
+        w_x = w[:, :k_tr].scatter(1, j[:, None], w[:, k_tr:])
+        sum_x = torch.logsumexp(w_x, dim=-1)
+        accept = torch.log(noise["tim_accept_u"]) < sum_y - sum_x
+        picked = pts[torch.arange(pts.shape[0], device=pts.device), j]
+        u_new = torch.where(accept[:, None], picked, u_cur)
+        out = dict(state)
+        for gi, (path, _prior) in enumerate(groups):
+            out = set_param(out, path, torch.exp(u_new[:, gi]))
+        return out
+
+
+def _sic_logp(sigsq, prior):
+    """SdPrior's log density in sigma^2 (scaled inverse chi-square), -inf
+    above the upper limit."""
+    df = prior.sample_size
+    ss = prior.sample_size * prior.sigma_guess ** 2
+    lp = -(0.5 * df + 1.0) * torch.log(sigsq) - 0.5 * ss / sigsq
+    if prior.upper_limit < float("inf"):
+        lp = torch.where(sigsq <= prior.upper_limit ** 2, lp, -torch.inf)
+    return lp
 
 
 def _asis_groups(blocks):

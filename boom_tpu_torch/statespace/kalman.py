@@ -1,5 +1,9 @@
-"""Scalar-observation state-space system (port of the ``SsmParams`` part of
-boom_tpu/statespace/kalman.py:67-118).
+"""Kalman filter and Durbin-Koopman simulation smoother for scalar series,
+sequential in time (port of boom_tpu/statespace/kalman.py: ``SsmParams``
+:67, ``FilterResult`` :121, ``_filter_core`` :162, ``kalman_filter`` :218,
+``kalman_loglik`` :229, ``_smoother_passes`` :289, ``fast_state_smoother``
+:353, ``smooth_states`` :361, ``simulate`` :372 and the fused static
+``simulation_smoother`` :414-481).
 
 Model:
 
@@ -7,40 +11,271 @@ Model:
     alpha_1 = a0 + P0^{1/2} xi
     alpha_{t+1} = T alpha_t + R eta_t,   eta_t ~ N(0, Q)
 
-The port carries the chain axis explicitly: every field has a leading
-``[C]`` dimension. Only static systems are ported so far; the sequential
-Kalman filter and smoother of the reference module are later work
-(ROADMAP.md, "kernel (b)").
+The port carries the series axis explicitly: every field of ``SsmParams``
+has a leading ``[B]`` dimension (chains, or chains x candidates), and one
+series ``y`` [T] (or ``[B, T]``) and ``observed`` mask [T] serve them all.
+Only static systems are ported: a time-varying ``z`` [B, T, d] or ``h``
+[B, T] raises. The functions here are the plain PyTorch versions, one
+Python step per time step; ``kalman_kernel.py`` runs ``kalman_loglik`` and
+``simulation_smoother`` as hand-written CUDA kernels on the card. The
+arithmetic follows the reference's order step for step (``_mv``, ``_mm``,
+the ``0.5 (P + P')`` symmetrization, the ``where(observed, ...)`` zeros and
+the ``1e-12`` Cholesky jitter), so both agree to rounding. Random numbers
+come in as standard normals, never drawn here.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+LOG_2PI = math.log(2.0 * math.pi)
+_TIME_VARYING = ("time-varying systems (z [B, T, d], h [B, T], q_scale, "
+                 "t_seq) are not ported yet (ROADMAP.md, queue 7: the rest "
+                 "of statespace)")
+
 
 class SsmParams(NamedTuple):
-    """Batched static system; every field has a leading chain axis."""
+    """Batched static system; every field has a leading series axis."""
 
-    z: torch.Tensor  # [C, d] observation vector
-    t_mat: torch.Tensor  # [C, d, d] transition
-    r_mat: torch.Tensor  # [C, d, q] error expander
-    q_mat: torch.Tensor  # [C, q, q] state error covariance
-    h: torch.Tensor  # [C] observation variance
-    a0: torch.Tensor  # [C, d] initial state mean
-    p0: torch.Tensor  # [C, d, d] initial state covariance
+    z: torch.Tensor  # [B, d] observation vector
+    t_mat: torch.Tensor  # [B, d, d] transition
+    r_mat: torch.Tensor  # [B, d, q] error expander
+    q_mat: torch.Tensor  # [B, q, q] state error covariance
+    h: torch.Tensor  # [B] observation variance
+    a0: torch.Tensor  # [B, d] initial state mean
+    p0: torch.Tensor  # [B, d, d] initial state covariance
 
     @property
     def rqr(self):
-        """[C, d, d] state error covariance R Q R'."""
+        """[B, d, d] state error covariance R Q R'."""
         return self.r_mat @ self.q_mat @ self.r_mat.transpose(-1, -2)
 
     @property
     def time_varying(self):
-        """Always False: the port's system is static (z [C, d], h [C])."""
+        """Always False: the port's system is static (z [B, d], h [B])."""
         return False
 
     def zs(self, t_len):
-        """[C, T, d] observation vectors."""
+        """[B, T, d] observation vectors."""
         return self.z[:, None, :].expand(-1, t_len, -1)
+
+
+class FilterResult(NamedTuple):
+    loglik: torch.Tensor  # [B]
+    v: torch.Tensor  # [B, T] prediction errors
+    f: torch.Tensor  # [B, T] prediction error variances
+    k: torch.Tensor  # [B, T, d] Kalman gains (for the T a_t update)
+    a: torch.Tensor  # [B, T, d] predicted means E[alpha_t | y_{1:t-1}]
+    p: torch.Tensor  # [B, T, d, d] predicted covariances
+
+
+def _mv(m, v):
+    """Matrix-vector product as the reference's elementwise ``_mv``."""
+    return (m * v[..., None, :]).sum(-1)
+
+
+def _mm(a, b):
+    """[d, d] product as the reference's elementwise ``_mm``."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def _vdot(a, b):
+    return (a * b).sum(-1)
+
+
+def check_static(params: SsmParams):
+    """Raise for a time-varying system, which is not ported."""
+    if params.z.dim() != 2 or params.h.dim() != 1:
+        raise NotImplementedError(_TIME_VARYING)
+
+
+def _mask(observed, t_len, device):
+    """[T] bool mask (all True when ``observed`` is None)."""
+    if observed is None:
+        return torch.ones(t_len, dtype=torch.bool, device=device)
+    return torch.as_tensor(observed, dtype=torch.bool, device=device)
+
+
+def _series(y, params):
+    """y in the system's dtype, as [T] or [B, T] (broadcast over B)."""
+    return torch.as_tensor(y, dtype=params.t_mat.dtype,
+                           device=params.t_mat.device)
+
+
+def _at(y, t):
+    """y_t for every series: a scalar or [B]."""
+    return y[..., t]
+
+
+def _filter_step(a, p, y_t, obs_t, z, h, rqr, t_mat):
+    """One step of the reference's ``step_core``: (v, f, k, a_next,
+    p_next)."""
+    v = torch.where(obs_t, y_t - _vdot(z, a), 0.0)
+    pz = _mv(p, z)
+    f = _vdot(z, pz) + h
+    k_gain = torch.where(obs_t, _mv(t_mat, pz) / f[:, None], 0.0)
+    l_mat = t_mat - k_gain[..., :, None] * z[..., None, :]
+    a_next = _mv(t_mat, a) + k_gain * v[:, None]
+    p_next = _mm(_mm(t_mat, p), l_mat.transpose(-1, -2)) + rqr
+    p_next = 0.5 * (p_next + p_next.transpose(-1, -2))
+    return v, f, k_gain, a_next, p_next
+
+
+def _step_loglik(obs_t, v, f):
+    return torch.where(obs_t, -0.5 * (LOG_2PI + torch.log(f) + v * v / f),
+                       0.0)
+
+
+def _filter_core(params: SsmParams, y, observed, want_ap: bool):
+    """The forward pass: per-step (v, f, k, ll) stacked along T, plus the
+    predicted (a, P) when ``want_ap``."""
+    check_static(params)
+    y = _series(y, params)
+    t_len = y.shape[-1]
+    obs = _mask(observed, t_len, y.device)
+    rqr = params.rqr
+    a, p = params.a0, params.p0
+    out = {"v": [], "f": [], "k": [], "ll": [], "a": [], "p": []}
+    for t in range(t_len):
+        v, f, k_gain, a_next, p_next = _filter_step(
+            a, p, _at(y, t), obs[t], params.z, params.h, rqr, params.t_mat)
+        for name, val in (("v", v), ("f", f), ("k", k_gain),
+                          ("ll", _step_loglik(obs[t], v, f))):
+            out[name].append(val)
+        if want_ap:
+            out["a"].append(a)
+            out["p"].append(p)
+        a, p = a_next, p_next
+    return {name: torch.stack(vals, dim=1) for name, vals in out.items()
+            if vals}
+
+
+def kalman_filter(params: SsmParams, y, observed=None) -> FilterResult:
+    """Forward pass. ``observed`` is a [T] bool mask (True = y_t present)."""
+    out = _filter_core(params, y, observed, want_ap=True)
+    return FilterResult(loglik=out["ll"].sum(-1), v=out["v"], f=out["f"],
+                        k=out["k"], a=out["a"], p=out["p"])
+
+
+def kalman_loglik(params: SsmParams, y, observed=None):
+    """[B] marginal log likelihoods: the filter with the loglik carried
+    step by step and nothing stored along T."""
+    check_static(params)
+    y = _series(y, params)
+    t_len = y.shape[-1]
+    obs = _mask(observed, t_len, y.device)
+    rqr = params.rqr
+    a, p = params.a0, params.p0
+    ll = torch.zeros_like(params.h)
+    for t in range(t_len):
+        v, f, _k, a, p = _filter_step(a, p, _at(y, t), obs[t], params.z,
+                                      params.h, rqr, params.t_mat)
+        ll = ll + _step_loglik(obs[t], v, f)
+    return ll
+
+
+def _smoother_passes(params: SsmParams, v, f, k, observed):
+    """Backward r recursion, then the forward state recursion, from the
+    filter's (v [B, T], f [B, T], k [B, T, d]) streams -> [B, T, d]."""
+    t_len = v.shape[1]
+    obs = _mask(observed, t_len, v.device)
+    z, t_mat, rqr = params.z, params.t_mat, params.rqr
+    r = torch.zeros_like(params.a0)
+    rs = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        l_mat = t_mat - k[:, t, :, None] * z[..., None, :]
+        r = (torch.where(obs[t], z * (v[:, t] / f[:, t])[:, None], 0.0)
+             + _mv(l_mat.transpose(-1, -2), r))
+        rs[t] = r  # r_{t-1} in the reference's indexing
+    alpha = params.a0 + _mv(params.p0, rs[0])
+    alphas = [alpha]
+    for t in range(1, t_len):
+        alpha = _mv(t_mat, alpha) + _mv(rqr, rs[t])
+        alphas.append(alpha)
+    return torch.stack(alphas, dim=1)
+
+
+def fast_state_smoother(params: SsmParams, filt: FilterResult,
+                        observed=None):
+    """Koopman (1993) fast state smoother: E[alpha_t | y_{1:T}]."""
+    return _smoother_passes(params, filt.v, filt.f, filt.k, observed)
+
+
+def smooth_states(params: SsmParams, y, observed=None):
+    """Filter + smoother without storing the per-step (a, P)."""
+    out = _filter_core(params, y, observed, want_ap=False)
+    return _smoother_passes(params, out["v"], out["f"], out["k"], observed)
+
+
+def _chol_jitter(m):
+    """Cholesky factor of m + 1e-12 I, as the reference takes it. Like
+    ``jnp.linalg.cholesky`` it does not raise (a failed factor carries NaN
+    on), so it never waits for the device."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    return torch.linalg.cholesky_ex(m + 1e-12 * eye).L
+
+
+def simulation_inputs(params: SsmParams, alpha1_z, eta_z, eps_z):
+    """The fused smoother's draws from standard normals: alpha_1 [B, d],
+    the state innovations w = R chol(Q) eta [B, T-1, d] and the observation
+    noise sqrt(h) eps [B, T] (reference kalman.py:442-455)."""
+    p0_chol = _chol_jitter(params.p0)
+    alpha1 = params.a0 + _mv(p0_chol, alpha1_z)
+    q_chol = _chol_jitter(params.q_mat)
+    w = torch.einsum("bdq,btq->btd", params.r_mat,
+                     torch.einsum("bij,btj->bti", q_chol, eta_z))
+    eps = torch.sqrt(params.h)[:, None] * eps_z
+    return alpha1, w, eps
+
+
+def simulate(params: SsmParams, t_len: int, alpha1_z, eta_z, eps_z):
+    """Unconditional (alpha [B, T, d], y [B, T]) draw from the standard
+    normals alpha1_z [B, d], eta_z [B, T-1, q], eps_z [B, T]."""
+    check_static(params)
+    alpha = params.a0 + (_chol_jitter(params.p0) @ alpha1_z[..., None])[
+        ..., 0]
+    etas = torch.einsum("bij,btj->bti", _chol_jitter(params.q_mat), eta_z)
+    alphas = [alpha]
+    for t in range(t_len - 1):
+        alpha = _mv(params.t_mat, alpha) + _mv(params.r_mat, etas[:, t])
+        alphas.append(alpha)
+    alphas = torch.stack(alphas, dim=1)
+    eps = torch.sqrt(params.h)[:, None] * eps_z
+    return alphas, torch.einsum("btd,btd->bt", params.zs(t_len), alphas) + eps
+
+
+def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
+                        observed=None):
+    """Draw alpha ~ p(alpha | y) [B, T, d] by the Durbin-Koopman
+    mean-correction smoother, static path: the unconditional simulation is
+    fused into the filter's forward pass on y - y+, then the backward r
+    pass and the forward state pass give E_0[alpha | y - y+], and the draw
+    is alpha+ + that. Normals: alpha1_z [B, d], eta_z [B, T-1, q], eps_z
+    [B, T] (``bsts._smoother_noise_spec``'s ``sim_alpha1``, ``sim_eta``,
+    ``sim_eps``)."""
+    check_static(params)
+    y = _series(y, params)
+    t_len = y.shape[-1]
+    obs = _mask(observed, t_len, y.device)
+    alpha_sim, w, eps = simulation_inputs(params, alpha1_z, eta_z, eps_z)
+    z, h, t_mat, rqr = params.z, params.h, params.t_mat, params.rqr
+    a, p = torch.zeros_like(params.a0), params.p0
+    plus, vs, fs, ks = [], [], [], []
+    for t in range(t_len):
+        yd = _at(y, t) - (_vdot(z, alpha_sim) + eps[:, t])
+        v, f, k_gain, a, p = _filter_step(a, p, yd, obs[t], z, h, rqr,
+                                          t_mat)
+        plus.append(alpha_sim)
+        vs.append(v)
+        fs.append(f)
+        ks.append(k_gain)
+        if t < t_len - 1:
+            alpha_sim = _mv(t_mat, alpha_sim) + w[:, t]
+    params0 = params._replace(a0=torch.zeros_like(params.a0))
+    alpha_hat = _smoother_passes(params0, torch.stack(vs, 1),
+                                 torch.stack(fs, 1), torch.stack(ks, 1),
+                                 obs)
+    return torch.stack(plus, dim=1) + alpha_hat

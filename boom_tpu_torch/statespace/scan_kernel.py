@@ -76,7 +76,7 @@ def inclusive_scan(name: str, d: int, stacked: torch.Tensor,
     # scratch of the kernel's tile totals (one per batch row and tile)
     totals = stacked.new_empty(
         batch * -(-t_len // _build.SCAN_MIN_TILE) * stacked.shape[1])
-    fn = getattr(_build.library(),
+    fn = getattr(_build.library("parallel_scan"),
                  f"boom_scan_{name}_{_DTYPE_TAG[stacked.dtype]}_d{d}")
     with torch.cuda.device(stacked.device):
         rc = fn(stacked.data_ptr(), out.data_ptr(), totals.data_ptr(),

@@ -5,7 +5,8 @@
 
 Phases:
   0. environment: the card's name and power limit, nvcc, torch;
-  1. build the hand-written CUDA scans from ``boom_tpu_torch/csrc``;
+  1. build the hand-written CUDA kernels from ``boom_tpu_torch/csrc``, one
+     ``nvcc`` a source, all at once;
   2. each scan kernel against its plain PyTorch version on the card, for
      8 chains at d in {1, 2, 3, 6} and T below, at and above a tile, over
      several tiles, ragged, up to 4096 (``T_CHECK``), plus T=65537 at d=2,
@@ -21,7 +22,24 @@ Phases:
      with 8 chains through ``BstsModel().fit`` on its default device (the
      card), which must run through the kernels, give finite draws, and
      land the variances' posterior medians within a factor 2 of the JAX
-     reference's on the same series.
+     reference's on the same series;
+  2b. the sequential Kalman kernels (K1, the loglik; K2, the fused
+     simulation smoother; ``csrc/kalman_seq.cu``) against their plain
+     versions on the card: d in {1, 2, 3, 6}, T in {2, 33, 500, 4096},
+     float64 (<= 1e-9) and float32 (K1, <= 1e-4), K1 at the bsts_llt width
+     (69,632 series); K1's gradient and Hessian against autograd of the
+     plain version; ten launches of each at the bsts_llt shape,
+     bit-identical; then their times beside bounds and plain times
+     (``boom_tpu_torch/kernels/kalman_timing.py``);
+  4. the reference's bsts_llt workload at full width (bench.py:170-200):
+     ``Bsts`` + ``LocalLinearTrend`` with the TIM marginal move, T=500,
+     4096 chains, 300 burn-in + 250 draws, float32 (smoother in float64),
+     through ``run_mcmc`` with the bench's 5-statistic monitor. It must run
+     through K1 and K2, give finite draws, pass split R-hat < 1.02, reach
+     half the reference's min-ESS, and land the variances' posterior
+     medians within 10 % of the JAX reference's; it prints sweeps/s,
+     min-ESS/s, the proposal build's wall time and each phase's share of a
+     sweep.
 
 Prints a JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Exits nonzero (and prints no result)
@@ -71,6 +89,34 @@ REPLACES = {"filter": "boom_tpu/statespace/pallas_scan.py:273",
             "smooth": "boom_tpu/statespace/pallas_scan.py:287",
             "affine": "boom_tpu/statespace/pallas_scan.py:305"}
 
+# phase 2b: the sequential kernels and the XLA scans of the reference they
+# replace (kalman.py's lax.scan of kalman_loglik; the fused smoother's
+# forward scan, with _smoother_passes' two scans at :322 and :349)
+KALMAN_SOURCE = "boom_tpu_torch/csrc/kalman_seq.cu"
+KALMAN_KERNELS = {"loglik": ("kalman_loglik",
+                             "boom_tpu/statespace/kalman.py:282"),
+                  "smoother": ("kalman_simulation_smoother",
+                               "boom_tpu/statespace/kalman.py:476")}
+KALMAN_T_CHECK = (2, 33, 500, 4096)
+# derivative check: normwise relative error of the jet kernel's gradient
+# and Hessian against autograd of the plain loop (float64)
+DERIV_TOL = 1e-9
+
+# phase 4: the reference's bsts_llt workload (bench.py:170-200)
+LLT_T, LLT_CHAINS, LLT_BURN, LLT_DRAWS, LLT_SEED = 500, 4096, 300, 250, 0
+RHAT_GATE = 1.02  # bench.py:111
+# min-ESS of the reference's run at this configuration (BENCH_r05.json,
+# 4096 chains x 250 draws); the port must reach half of it
+REFERENCE_MIN_ESS_LLT = 642_116
+# Posterior medians of the JAX reference (boom_tpu's Bsts, the same model,
+# parallel_smoother "auto", float64 on the CPU) on _llt_series(500): 64
+# chains, 500 sweeps of burn-in, 2000 draws, from
+#     JAX_PLATFORMS=cpu python tests/test_torch_tim.py 500 64 500 2000 2026
+REFERENCE_MEDIANS_LLT = {"sigsq_obs": 0.2792876911438362,
+                         "sigma_level_sq": 0.0846675247331283,
+                         "sigma_slope_sq": 0.00018739346764850618}
+LLT_MEDIAN_TOL = 0.10
+
 
 class SmokeFailure(Exception):
     pass
@@ -110,9 +156,10 @@ def phase1_build():
     from boom_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    libs = _build.build()
     secs = time.perf_counter() - t0
-    print(f"build: {secs:.1f} s ({_build.library_path().name})")
+    print(f"build: {secs:.1f} s (" + ", ".join(p.name for p in libs.values())
+          + ")")
     return secs
 
 
@@ -251,7 +298,7 @@ def phase3_sweep_vs_plain():
         return tree_map(lambda t: t.cpu(), state)
 
     plain_model = Bsts(y=y, blocks=[LocalLinearTrend.default(y)])
-    gen = rng.generator(3)
+    gen = rng.generator(3, "cpu")
     init_noise = plain_model.draw_init_noise(gen, CHAINS)
     noise = plain_model.draw_noise(gen, CHAINS)
     on_card = sweep("cuda", "pallas", init_noise, noise)
@@ -325,6 +372,291 @@ def phase3_fit(card):
     return launches
 
 
+def _kalman_vs_plain(rng, dtype, c, d, t_len, masked):
+    """K1 (and K2 in float64) and the plain versions on the same inputs:
+    {kernel: (normwise relative error, max abs error)}."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    tag = str(dtype).split(".")[-1]
+    params = kt.system(rng, c, d, tag)
+    y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=dtype,
+                     device="cuda")
+    obs = (torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
+           if masked else None)
+    out = {}
+    ll_k, ll = kk.kalman_loglik(params, y, obs), kalman.kalman_loglik(
+        params, y, obs)
+    out["loglik"] = (_rel(ll_k, ll), float((ll_k - ll).abs().max()))
+    if dtype == torch.float64:
+        normals = [torch.tensor(rng.normal(size=s), dtype=dtype,
+                                device="cuda")
+                   for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
+        a_k = kk.simulation_smoother(params, y, *normals, observed=obs)
+        a = kalman.simulation_smoother(params, y, *normals, observed=obs)
+        out["smoother"] = (_rel(a_k, a), float((a_k - a).abs().max()))
+    torch.cuda.synchronize()
+    return out
+
+
+def _derivatives_vs_plain(rng):
+    """K1's gradient and Hessian in the log variances (the TIM mode
+    search's) against autograd of the plain loop: B=1, T=500, float64."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    d = 2
+    params = kt.system(rng, 1, d, "float64")
+    y = torch.tensor(rng.normal(size=LLT_T).cumsum(), dtype=torch.float64,
+                     device="cuda")
+
+    def lp(fn, u):
+        return fn(params._replace(q_mat=torch.diag_embed(
+            torch.exp(u[:d]))[None], h=torch.exp(u[d:])), y)[0]
+
+    u0 = torch.tensor([-1.0, -3.0, 0.2], dtype=torch.float64, device="cuda")
+    res = []
+    for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+        u = u0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(lp(fn, u), u)
+        res.append((g, torch.autograd.functional.hessian(
+            lambda x, fn=fn: lp(fn, x), u0)))
+    return _rel(res[0][0], res[1][0]), _rel(res[0][1], res[1][1])
+
+
+def phase2b_kalman_vs_plain():
+    """K1 and K2 against their plain versions over KALMAN_T_CHECK and at
+    the bsts_llt width; the derivative kernel; determinism; times. Returns
+    the bsts_llt shape's numbers per kernel."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    rng = np.random.default_rng(20261017)
+    bad, worst, at_llt = [], {}, {}
+    cases = [(dt, d, t, t in (33, 500)) for dt in (torch.float64,
+                                                   torch.float32)
+             for d in (1, 2, 3, 6) for t in KALMAN_T_CHECK]
+    for dtype, d, t_len, masked in cases:
+        res = _kalman_vs_plain(rng, dtype, 8, d, t_len, masked)
+        tag = str(dtype).split(".")[-1]
+        print(f"kalman {tag} d={d} T={t_len} masked={masked}: " + ", ".join(
+            f"{k} rel {v:.2e} abs {a:.2e}" for k, (v, a) in res.items()))
+        for k, (v, _a) in res.items():
+            worst[(k, tag)] = max(worst.get((k, tag), 0.0), v)
+            if not (np.isfinite(v) and v <= SCAN_TOL[tag]):
+                bad.append(f"{k} {tag} d={d} T={t_len}: {v:.3e}")
+    # the main path's widths: K1 over every chain's TIM points, K2 over
+    # every chain
+    for name, (tag, batch, d, t_len) in kt.SHAPES.items():
+        if name == "loglik_tangent":
+            continue
+        res = _kalman_vs_plain(rng, getattr(torch, tag), batch, d, t_len,
+                               False)[name]
+        print(f"kalman {name} {tag} B={batch} d={d} T={t_len} (bsts_llt): "
+              f"rel {res[0]:.2e} abs {res[1]:.2e}")
+        at_llt[name] = {"max_abs_err": res[1]}
+        worst[(name, tag)] = max(worst.get((name, tag), 0.0), res[0])
+        if not (np.isfinite(res[0]) and res[0] <= SCAN_TOL[tag]):
+            bad.append(f"{name} {tag} at the bsts_llt width: {res[0]:.3e}")
+    for (k, tag), v in sorted(worst.items()):
+        print(f"worst {k} {tag}: {v:.3e} (tolerance {SCAN_TOL[tag]:g})")
+    check(not bad, "kalman kernel disagrees with its plain version: "
+          + "; ".join(bad))
+
+    g_err, h_err = _derivatives_vs_plain(rng)
+    print(f"loglik derivative kernel vs autograd of the plain loop (B=1, "
+          f"T={LLT_T}, f64): gradient rel {g_err:.2e}, Hessian rel "
+          f"{h_err:.2e} (tolerance {DERIV_TOL:g})")
+    check(g_err <= DERIV_TOL and h_err <= DERIV_TOL,
+          f"loglik derivatives disagree: {g_err:.3e}, {h_err:.3e}")
+
+    same = {}
+    for name, (tag, batch, d, t_len) in kt.SHAPES.items():
+        kern = kt.kalman_cases(rng, name, tag, batch, d, t_len)[0]
+        first = kern()
+        first = first if isinstance(first, tuple) else (first,)
+        same[name] = True
+        for _ in range(9):
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            same[name] &= all(torch.equal(a, b)
+                              for a, b in zip(first, again))
+    torch.cuda.synchronize()
+    print("ten repeated launches at the bsts_llt shapes bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+
+    for name, r in kt.time_kalman(rng).items():
+        plain = (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None
+                 else "not timed")
+        bound = (f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                 if "bound_ms" in r else "")
+        blocks = ", ".join(f"{t} threads {ms:.4f} ms"
+                           for t, ms in r.get("block_ms", {}).items())
+        blocks += "".join(f"; at B={b} {ms:.4f} ms"
+                          for b, ms in r.get("scaling_ms", {}).items())
+        wrap = (f"whole wrapper {r['wrapper_ms']:.4f} ms, "
+                if r["wrapper_ms"] is not None else "")
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
+              f"{wrap}plain {plain}, {bound}one call on the host clock "
+              f"{r['call_ms']:.4f} ms" + (f"; blocks: {blocks}"
+                                          if blocks else ""))
+        if name in at_llt:
+            at_llt[name].update({k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")})
+    from boom_tpu_torch.kernels import _build
+
+    log = _build.log_path("kalman_seq")
+    if log.exists():
+        for inst, rep in kt.nvcc_report(log.read_text()).items():
+            print(f"nvcc {inst}: {rep['registers']} registers, "
+                  f"{rep['spill_bytes']} bytes spill stores, "
+                  f"{rep['stack_bytes']} bytes stack")
+    return at_llt
+
+
+def _llt_extract(state):
+    """The bench's monitor (bench.py:189-194): the three variances, the
+    level at T/2 and the one-step forecast mean."""
+    alpha = state["alpha"]
+    trend = state["blocks"]["trend"]
+    return {"so": state["sigsq_obs"], "lvl": trend["sigma_level_sq"],
+            "slp": trend["sigma_slope_sq"], "mid": alpha[:, LLT_T // 2, 0],
+            "fcast": alpha[:, -1, 0] + alpha[:, -1, 1]}
+
+
+def _phase_profile(model, state, gen, sweeps=5):
+    """Host time of each sweep phase (its profiler range) and the device's
+    kernel time over a few sweeps under ``torch.profiler``: ({phase: ms a
+    sweep}, wall ms a sweep, device kernel ms a sweep)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
+
+    kern = model.kernel()
+    noises = [model.draw_noise(gen, LLT_CHAINS) for _ in range(sweeps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for noise in noises:
+            state = kern(noise, state)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / sweeps
+    events = prof.key_averages()
+    phases = {}
+    for name in SWEEP_PHASES:
+        hits = [e for e in events if e.key == f"bsts.{name}"]
+        phases[name] = (sum(e.cpu_time_total for e in hits) / sweeps / 1e3
+                        if hits else 0.0)
+    # kernels only: the "bsts.*" ranges also appear as device-side
+    # annotations spanning their kernels
+    device = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                 if str(e.device_type).endswith("CUDA")
+                 and not e.key.startswith("bsts.")) / sweeps / 1e3
+    return phases, wall, device
+
+
+def phase4_bsts_llt(card):
+    """The reference's bsts_llt workload at full width through Bsts and
+    run_mcmc; returns the kernels' launch counts of that run."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.statespace.bsts import Bsts
+    from boom_tpu_torch.statespace.state_models import LocalLinearTrend
+
+    y = torch.tensor(_llt_series(LLT_T), dtype=torch.float32, device="cuda")
+    for counts in (kk.LAUNCHES, sk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Bsts(y=y, blocks=[LocalLinearTrend.default(y)],
+                 marginal_sigma_slice=True, marginal_move="tim")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mode, chol = model._tim_prop
+    print(f"bsts_llt TIM proposal built in {build_s:.2f} s "
+          f"({kk.LAUNCHES['loglik_tangent']} derivative-kernel launches): "
+          f"mode {mode.tolist()}, chol diagonal {chol.diag().tolist()}")
+    check(model._smoother() is kk.simulation_smoother,
+          "the bsts_llt model did not pick the sequential CUDA smoother")
+    gen = prng.generator(LLT_SEED, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   LLT_DRAWS, generator=gen, num_chains=LLT_CHAINS,
+                   burn=LLT_BURN, extract=_llt_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    launches = {**{f"kalman_{k}": v for k, v in kk.LAUNCHES.items()},
+                **{f"scan_{k}": v for k, v in sk.LAUNCHES.items()}}
+    sweeps = LLT_BURN + LLT_DRAWS
+    print(f"bsts_llt: T={LLT_T} chains={LLT_CHAINS} burn={LLT_BURN} "
+          f"draws={LLT_DRAWS} in {elapsed:.2f} s; launches {launches}")
+    check(kk.LAUNCHES["loglik"] >= sweeps and kk.LAUNCHES["smoother"]
+          >= sweeps and kk.LAUNCHES["loglik_tangent"] >= 1
+          and sk.LAUNCHES["affine"] >= sweeps,
+          f"the bsts_llt run did not go through the kernels: {launches}")
+
+    d = res.draws
+    check(all(bool(torch.isfinite(v).all()) for v in d.values()),
+          "non-finite bsts_llt draws")
+    monitored = torch.stack([d["so"], torch.sqrt(d["lvl"]),
+                             torch.sqrt(d["slp"]), d["mid"], d["fcast"]],
+                            dim=-1).double()
+    rhat = diagnostics.potential_scale_reduction(monitored).cpu().numpy()
+    ess = diagnostics.effective_sample_size(monitored).cpu().numpy()
+    names = ("sigsq_obs", "sqrt sigma_level_sq", "sqrt sigma_slope_sq",
+             "level at T/2", "forecast")
+    for i, name in enumerate(names):
+        print(f"bsts_llt {name}: rhat {rhat[i]:.4f} ess {ess[i]:.1f}")
+    min_ess = float(ess.min())
+    ratio = min_ess / REFERENCE_MIN_ESS_LLT
+    print(f"bsts_llt rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {min_ess:.1f} (ratio to the reference's "
+          f"{REFERENCE_MIN_ESS_LLT}: {ratio:.4f}), min-ESS/s "
+          f"{min_ess / elapsed:.1f}, max R-hat {float(rhat.max()):.4f}")
+    med = {"sigsq_obs": d["so"], "sigma_level_sq": d["lvl"],
+           "sigma_slope_sq": d["slp"]}
+    med = {k: float(v.double().median()) for k, v in med.items()}
+    for k, ref in REFERENCE_MEDIANS_LLT.items():
+        print(f"bsts_llt {k}: median {med[k]:.6g} (reference {ref:.6g}, "
+              f"ratio {med[k] / ref:.4f})")
+
+    phases, wall, device = _phase_profile(model, res.final_state, gen)
+    total = sum(phases.values())
+    print(f"bsts_llt sweep profile (5 sweeps under torch.profiler): wall "
+          f"{wall:.2f} ms a sweep, device kernels {device:.2f} ms "
+          f"(busy {100 * device / wall:.1f} %); host time of each phase: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+                      for k, v in phases.items()))
+
+    check(float(rhat.max()) < RHAT_GATE,
+          f"bsts_llt max R-hat {float(rhat.max()):.4f} >= {RHAT_GATE}")
+    check(ratio >= 0.5, f"bsts_llt min-ESS {min_ess:.1f} is below half the "
+          f"reference's {REFERENCE_MIN_ESS_LLT}")
+    for k, ref in REFERENCE_MEDIANS_LLT.items():
+        check(abs(med[k] / ref - 1.0) <= LLT_MEDIAN_TOL,
+              f"bsts_llt median of {k} {med[k]:.4g} is not within "
+              f"{LLT_MEDIAN_TOL:.0%} of the reference's {ref:.4g}")
+    return launches
+
+
 def main():
     card = phase0_environment()
     import torch
@@ -332,17 +664,26 @@ def main():
     try:
         phase1_build()
         at_fit = phase2_kernels_vs_plain()
+        at_llt = phase2b_kalman_vs_plain()
         phase3_sweep_vs_plain()
         launches = phase3_fit(card)
+        llt_launches = phase4_bsts_llt(card)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
     # library_ms: no single PyTorch call computes a prefix scan whose
-    # combine is a non-commutative matrix operation
+    # combine is a non-commutative matrix operation, nor a Kalman recursion
     kernels = [{"name": f"parallel_scan_{k}", "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": REPLACES[k],
                 "launches": launches[k], **at_fit[k], "library_ms": None}
                for k in launches]
+    for k, (name, replaces) in KALMAN_KERNELS.items():
+        extra = ({"tangent_launches": llt_launches["kalman_loglik_tangent"]}
+                 if k == "loglik" else {})
+        kernels.append({"name": name, "route": "cuda",
+                        "source": KALMAN_SOURCE, "replaces": replaces,
+                        "launches": llt_launches[f"kalman_{k}"],
+                        **at_llt[k], "library_ms": None, **extra})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

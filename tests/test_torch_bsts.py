@@ -25,7 +25,8 @@ from boom_tpu.statespace.state_models import (
 )
 from boom_tpu_torch.api import BstsModel
 from boom_tpu_torch.convert import model_from_jax, state_from_numpy
-from boom_tpu_torch.statespace import parallel_kalman, scan_kernel
+from boom_tpu_torch.statespace import kalman_kernel, parallel_kalman
+from boom_tpu_torch.statespace import scan_kernel
 from boom_tpu_torch.statespace.bsts import ASIS_SHRINK, ASIS_SLICE_STEPS, Bsts
 from boom_tpu_torch.statespace.state_models import LocalLinearTrend
 
@@ -157,9 +158,9 @@ def reference(request):
 
 def test_init_state_matches_reference(reference):
     jmodel, keys, ref, _swept = reference
-    model = model_from_jax(jmodel, parallel_smoother="pallas")
+    model = model_from_jax(jmodel, device="cpu", parallel_smoother="pallas")
     noise = state_from_numpy(_numpy_tree(jax.jit(jax.vmap(
-        lambda k: _init_noise(jmodel, k)))(keys)))
+        lambda k: _init_noise(jmodel, k)))(keys)), device="cpu")
     _assert_states_close(model.init_state(noise), ref, rtol=1e-9)
 
 
@@ -167,10 +168,11 @@ def test_sweep_matches_reference(reference):
     """One whole Gibbs sweep: observation variance, block variances, the
     simulation smoother and the ASIS redraw."""
     jmodel, _keys, state0, ref = reference
-    model = model_from_jax(jmodel, parallel_smoother="pallas")
+    model = model_from_jax(jmodel, device="cpu", parallel_smoother="pallas")
     noise = state_from_numpy(_numpy_tree(jax.jit(jax.vmap(
-        lambda k: _sweep_noise(jmodel, k)))(SWEEP_KEYS)))
-    out = model.kernel()(noise, state_from_numpy(_numpy_tree(state0)))
+        lambda k: _sweep_noise(jmodel, k)))(SWEEP_KEYS)), device="cpu")
+    out = model.kernel()(noise, state_from_numpy(_numpy_tree(state0),
+                                                 device="cpu"))
     _assert_states_close(out, ref)
     # the sweep moved every variance
     for name, params in out["blocks"].items():
@@ -180,10 +182,13 @@ def test_sweep_matches_reference(reference):
 
 
 def test_model_from_jax_carries_the_spec():
-    jmodel = _jax_model("llt", asis_passes=2, chains_hint=3)
-    model = model_from_jax(jmodel)
+    jmodel = _jax_model("llt", asis_passes=2, chains_hint=3,
+                        marginal_tim_trials=8, marginal_slice_period=2)
+    model = model_from_jax(jmodel, device="cpu")
     assert model.parallel_smoother is True and model.asis_passes == 2
     assert model.chains_hint == 3
+    assert (model.marginal_tim_trials, model.marginal_slice_period) == (8, 2)
+    assert model.marginal_move == "tim" and not model.marginal_sigma_slice
     assert model.obs_prior.sigma_guess == pytest.approx(
         float(jmodel.obs_prior.sigma_guess), rel=1e-15)
     jb, b = jmodel.blocks[0], model.blocks[0]
@@ -210,16 +215,17 @@ def test_smoother_dispatch():
             is scan_kernel.simulation_smoother)
     assert (Bsts(y=y, blocks=blocks, parallel_smoother=True)._smoother()
             is parallel_kalman.parallel_simulation_smoother)
-    # "auto" on the CPU, and False, need the sequential smoother
+    # "auto" on the CPU, and False, pick the sequential smoother (K2's
+    # wrapper, which runs its plain version on a CPU tensor)
     for mode in ("auto", False):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Bsts(y=y, blocks=blocks, parallel_smoother=mode)._smoother()
+        assert (Bsts(y=y, blocks=blocks, parallel_smoother=mode)._smoother()
+                is kalman_kernel.simulation_smoother)
 
 
 @pytest.mark.parametrize("option", [
     {"predictors": torch.zeros(T_LEN, 2)},
     {"observed": torch.ones(T_LEN, dtype=torch.bool)},
-    {"marginal_sigma_slice": True},
+    {"marginal_sigma_slice": True, "marginal_move": "mtm"},
 ])
 def test_unported_options_raise(option):
     y = torch.tensor(_llt_series())

@@ -1,7 +1,8 @@
-"""The hand-written CUDA scan kernels against their plain PyTorch versions,
-on the card. These need a CUDA device and ``nvcc``: here they skip. Run
-them on a machine with the card (the repository's conftest imports JAX,
-which that machine need not have):
+"""The hand-written CUDA kernels (the parallel scans, and the sequential
+Kalman loglik K1 and simulation smoother K2) against their plain PyTorch
+versions, on the card. These need a CUDA device and ``nvcc``: here they
+skip. Run them on a machine with the card (the repository's conftest
+imports JAX, which that machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from boom_tpu_torch.statespace import kalman
+from boom_tpu_torch.statespace import kalman_kernel as kk
 from boom_tpu_torch.statespace import parallel_kalman as pk
 from boom_tpu_torch.statespace import scan_kernel as sk
 from boom_tpu_torch.statespace.kalman import SsmParams
@@ -47,6 +50,11 @@ def _system(rng, c, d, dtype, device):
 
 def _rel(a, b):
     return float((a - b).norm() / b.norm())
+
+
+def _within(a, b, tol):
+    """Normwise relative error at most tol (two all-zero sides agree)."""
+    return float((a - b).norm()) <= tol * float(b.norm())
 
 
 def _scans(params, y, normals, t_len):
@@ -132,3 +140,90 @@ def test_one_scan_counts_one_launch(card):
     torch.cuda.synchronize()
     assert {k: sk.LAUNCHES[k] - before[k] for k in before} == {
         "filter": 0, "smooth": 0, "affine": 1}
+
+
+# -- the sequential Kalman kernels (csrc/kalman_seq.cu) ----------------------
+
+def _kalman_inputs(card, dtype, d, t_len, seed, c=5, masked=False):
+    rng = np.random.default_rng(seed)
+    params = _system(rng, c, d, dtype, card)
+    y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=dtype,
+                     device=card)
+    obs = (torch.tensor(rng.uniform(size=t_len) > 0.3, device=card)
+           if masked else None)
+    normals = [torch.tensor(rng.normal(size=s), dtype=dtype, device=card)
+               for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
+    return params, y, obs, normals
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("t_len", [2, 33, 500])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kalman_kernels_match_plain(card, dtype, d, t_len, masked):
+    """K1 (both dtypes) and K2 (float64) against the plain versions on the
+    same inputs and normals."""
+    params, y, obs, normals = _kalman_inputs(card, dtype, d, t_len,
+                                             seed=d * 100 + t_len,
+                                             masked=masked)
+    before = dict(kk.LAUNCHES)
+    ll = kk.kalman_loglik(params, y, obs)
+    assert _within(ll, kalman.kalman_loglik(params, y, obs), TOL[dtype])
+    if dtype == torch.float64:
+        draw = kk.simulation_smoother(params, y, *normals, observed=obs)
+        ref = kalman.simulation_smoother(params, y, *normals, observed=obs)
+        assert _within(draw, ref, TOL[dtype])
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["loglik"] - before["loglik"] == 1
+    assert kk.LAUNCHES["smoother"] - before["smoother"] == (
+        dtype == torch.float64)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_loglik_derivatives_match_plain(card, d):
+    """Gradient and Hessian in the log variances through K1's jet kernel
+    against autograd of the plain loop, both on the card."""
+    params, y, obs, _ = _kalman_inputs(card, torch.float64, d, 300, seed=9,
+                                       c=1, masked=True)
+
+    def lp(fn, u):
+        p = params._replace(q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
+                            h=torch.exp(u[d:]))
+        return fn(p, y, obs)[0]
+
+    u0 = torch.linspace(-1.0, 0.5, d + 1, dtype=torch.float64, device=card)
+    out = []
+    for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+        u = u0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(lp(fn, u), u)
+        out.append((g, torch.autograd.functional.hessian(
+            lambda x, fn=fn: lp(fn, x), u0)))
+    assert _rel(out[0][0], out[1][0]) <= 1e-9
+    assert _rel(out[0][1], out[1][1]) <= 1e-9
+
+
+def test_kalman_kernels_are_bit_identical(card):
+    params, y, _obs, normals = _kalman_inputs(card, torch.float64, 2, 500,
+                                              seed=5, c=256)
+    first = (kk.kalman_loglik(params, y),
+             kk.simulation_smoother(params, y, *normals))
+    for _ in range(9):
+        again = (kk.kalman_loglik(params, y),
+                 kk.simulation_smoother(params, y, *normals))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
+    params, y, _obs, normals = _kalman_inputs(card, torch.float64, 3, 20,
+                                              seed=1)
+    with pytest.raises(TypeError, match="float64"):
+        kk.simulation_smoother(SsmParams(*(p.float() for p in params)),
+                               y.float(), *(n.float() for n in normals))
+    with pytest.raises(ValueError, match="one series"):
+        kk.kalman_loglik(params, y.expand(5, -1))
+    h = params.h.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kk.kalman_loglik(params._replace(h=h), y)  # d=3: no jet kernel
+    big, y7, _, n7 = _kalman_inputs(card, torch.float64, 7, 20, seed=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kk.simulation_smoother(big, y7, *n7)

@@ -80,7 +80,7 @@ def test_filter_and_smooth_match_reference(d):
     y = np.random.default_rng(d).normal(size=(CHAINS, 200))
     fm_j, fp_j = jax.jit(jax.vmap(jpk.parallel_filter_moments))(
         _jax_params(fields), jnp.asarray(y))
-    params = ssm_params_from_numpy(fields)
+    params = ssm_params_from_numpy(fields, device="cpu")
     fm, fp = pk.parallel_filter_moments(params, torch.tensor(y))
     _close(fm, fm_j)
     _close(fp, fp_j)
@@ -99,7 +99,7 @@ def test_simulate_and_simulation_smoother_match_reference(d):
     y = np.random.default_rng(d).normal(size=(CHAINS, t_len))
     keys = jax.random.split(jax.random.key(d), CHAINS)
     normals = _sim_normals(keys, d, q, t_len)
-    params = ssm_params_from_numpy(fields)
+    params = ssm_params_from_numpy(fields, device="cpu")
 
     a_j, y_j = jax.jit(jax.vmap(
         lambda k, p: jpk.parallel_simulate(k, p, t_len)))(
@@ -125,7 +125,7 @@ def test_smooth_states_match_pallas_interpret():
     ref = jps.pallas_smooth_states(
         JaxSsmParams(**{k: jnp.asarray(v[0]) for k, v in fields.items()}),
         jnp.asarray(y))
-    out = sk.smooth_states(ssm_params_from_numpy(fields),
+    out = sk.smooth_states(ssm_params_from_numpy(fields, device="cpu"),
                            torch.tensor(y)[None])
     _close(out[0], ref)
 
@@ -156,7 +156,7 @@ def test_affine_dpath_matches_sequential_scan():
 def test_cpu_tensors_run_the_plain_version():
     """A CPU tensor takes the plain path and launches nothing; the launch
     wrapper refuses a CPU tensor rather than running elsewhere."""
-    params = ssm_params_from_numpy(_systems(40, 2))
+    params = ssm_params_from_numpy(_systems(40, 2), device="cpu")
     y = torch.tensor(np.random.default_rng(0).normal(size=(CHAINS, 50)))
     before = dict(sk.LAUNCHES)
     fm, fp = sk.filter_moments(params, y)
@@ -199,7 +199,7 @@ def test_kernel_glue_matches_plain(monkeypatch, d):
     replaced by its plain layout-aware emulation."""
     q, t_len = 2, 70
     fields = _systems(50 + d, d, q)
-    params = ssm_params_from_numpy(fields)
+    params = ssm_params_from_numpy(fields, device="cpu")
     rng = np.random.default_rng(d)
     y = torch.tensor(rng.normal(size=(CHAINS, t_len)))
     normals = [torch.tensor(rng.normal(size=s)) for s in

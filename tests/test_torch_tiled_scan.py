@@ -98,7 +98,8 @@ def _systems(seed, d, q=2):
 
     systems = [one() for _ in range(CHAINS)]
     return ssm_params_from_numpy(
-        {k: np.stack([s[k] for s in systems]) for k in systems[0]})
+        {k: np.stack([s[k] for s in systems]) for k in systems[0]},
+        device="cpu")
 
 
 def _elements(name, t_len, d=2, q=2, seed=3):
