@@ -17,14 +17,14 @@
 // The plain PyTorch versions are boom_tpu_torch/statespace/kalman.py.
 //
 // What bounds them on this card. Each series is a chain of T dependent
-// steps of d x d algebra (4d^3 + 9d^2 + 4d flops a filter step), so with
+// steps of d x d algebra (about 4d^3 + 11d^2 flops a filter step), so with
 // one thread a series the time is T times a step's latency unless enough
 // series are in flight to hide it. K1 at the bsts_llt shape (4096 chains x
 // 17 points = 69,632 series, T=500, d=2, float32) reads one shared y and
-// ~72 bytes of system a series, and does ~83 flops a step: bound by
-// operations (~43 us at 67 TFLOP/s), and it has 544 blocks of 128 threads,
-// about four a SM. K2 (4096 chains, float64) moves ~82 MB (noise in,
-// draws out) and is bound by bytes (~25 us), but has only 4096 threads:
+// ~68 bytes of system a series, and does ~95 flops a step: bound by
+// operations (~26 us at 67 TFLOP/s), and it has 544 blocks of 128 threads,
+// about four a SM. K2 (4096 chains, float64) moves ~41 MB (normals in,
+// draws out) and is bound by bytes (~12 us), but has only 4096 threads:
 // one warp on each of 128 SMs with 32-thread blocks, so it is latency
 // bound; the block size is an argument so that 32, 64 and 128 can be timed.
 //
@@ -38,13 +38,10 @@
 // threads, so repeated launches are bit-identical.
 // Layout: the systems are per series ([B, d], [B, d, d], [B]); y [T] and the
 // observed mask [T] are shared by all series and read as broadcasts. K2's
-// per-step streams are time-major [T, C, ...] (the wrapper stages w and
-// eps so, and transposes the draw back): at step t a warp reads and writes
-// one contiguous run of its 32 chains' values. Chain-major rows, where a
-// warp touches 32 rows a step, were 1.7x slower at 4096 chains than at
-// 512 with the same load on each SM (PERF.md, Findings, PR 3): L1 does not
-// absorb the partial-sector traffic once every SM has a warp.
-// K2 keeps (v, f, K) of every step in a global scratch [T, C, d+2] for the
+// per-step streams are chain-major [C, T, ...]: a thread reads and writes
+// its own row, a warp touches 32 rows, and consecutive steps of a thread
+// fall in the same 128-byte line, which L1 keeps (32-128 threads a SM).
+// K2 keeps (v, f, K) of every step in a global scratch [C, T, d+2] for the
 // backward pass, overwrites step t's slot with r_{t-1} there, and writes
 // alpha+ into the output first and adds the smoothed mean to it last.
 // The jet scalar carries value, gradient [NP] and the Hessian's upper
@@ -338,9 +335,8 @@ __global__ void loglik_kernel(const T* __restrict__ z,
 }
 
 // K2: one thread per chain; the three passes of the fused simulation
-// smoother. w [T-1, C, D] = R chol(Q) eta and eps [T, C] = sqrt(h) eps_z
-// are the draws' noise, alpha1 [C, D] the unconditional initial state;
-// scratch [T, C, D+2] and out [T, C, D] are time-major too.
+// smoother. w [C, T-1, D] = R chol(Q) eta and eps [C, T] = sqrt(h) eps_z
+// are the draws' noise, alpha1 [C, D] the unconditional initial state.
 template <typename T, int D>
 __global__ void smoother_kernel(const T* __restrict__ z,
                                 const T* __restrict__ tm,
@@ -373,11 +369,11 @@ __global__ void smoother_kernel(const T* __restrict__ z,
     }
   }
   const T hh = h[c];
-  // element (t, c) of a time-major [T, C, width] stream
-  const long long cols = batch;
-  auto at = [c, cols](long long t, int width) {
-    return (t * cols + c) * width;
-  };
+  const long long row = static_cast<long long>(c) * t_len;
+  T* sc = scratch + row * kSlot;
+  T* o = out + row * D;
+  const T* wc = w + static_cast<long long>(c) * (t_len - 1) * D;
+  const T* ec = eps + row;
 
   // 1. forward: simulate alpha+ and filter y - y+ (kalman.py:460-473)
   for (int t = 0; t < t_len; ++t) {
@@ -385,16 +381,16 @@ __global__ void smoother_kernel(const T* __restrict__ z,
     T zs = zz[0] * sim[0];
 #pragma unroll
     for (int j = 1; j < D; ++j) zs = zs + zz[j] * sim[j];
-    const T yd = y[t] - (zs + eps[at(t, 1)]);
+    const T yd = y[t] - (zs + ec[t]);
     T v, f, k[D];
     filter_step<T, T, D>(a, p, yd, ob, zz, hh, q, tt, v, f, k);
-    T* slot = scratch + at(t, kSlot);
+    T* slot = sc + static_cast<long long>(t) * kSlot;
     slot[0] = v;
     slot[1] = f;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       slot[2 + i] = k[i];
-      out[at(t, D) + i] = sim[i];
+      o[static_cast<long long>(t) * D + i] = sim[i];
     }
     if (t < t_len - 1) {
       T sn[D];
@@ -403,7 +399,7 @@ __global__ void smoother_kernel(const T* __restrict__ z,
         T ts = tt[i][0] * sim[0];
 #pragma unroll
         for (int j = 1; j < D; ++j) ts = ts + tt[i][j] * sim[j];
-        sn[i] = ts + w[at(t, D) + i];
+        sn[i] = ts + wc[static_cast<long long>(t) * D + i];
       }
 #pragma unroll
       for (int i = 0; i < D; ++i) sim[i] = sn[i];
@@ -416,7 +412,7 @@ __global__ void smoother_kernel(const T* __restrict__ z,
   for (int i = 0; i < D; ++i) r[i] = T(0);
   for (int t = t_len - 1; t >= 0; --t) {
     const bool ob = obs == nullptr || obs[t] != 0;
-    T* slot = scratch + at(t, kSlot);
+    T* slot = sc + static_cast<long long>(t) * kSlot;
     const T vf = slot[0] / slot[1];
     T k[D];
 #pragma unroll
@@ -439,17 +435,16 @@ __global__ void smoother_kernel(const T* __restrict__ z,
   // 3. forward state: alpha_1 = P0 r_0, alpha_{t+1} = T alpha_t + RQR r_t,
   // added to alpha+ (kalman.py:325, :345-350, :481)
   T ah[D];
-  const T* rs0 = scratch + at(0, kSlot);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    T acc = pp0[i][0] * rs0[0];
+    T acc = pp0[i][0] * sc[0];
 #pragma unroll
-    for (int j = 1; j < D; ++j) acc = acc + pp0[i][j] * rs0[j];
+    for (int j = 1; j < D; ++j) acc = acc + pp0[i][j] * sc[j];
     ah[i] = acc;
-    out[at(0, D) + i] = out[at(0, D) + i] + ah[i];
+    o[i] = o[i] + ah[i];
   }
   for (int t = 1; t < t_len; ++t) {
-    const T* rs = scratch + at(t, kSlot);
+    const T* rs = sc + static_cast<long long>(t) * kSlot;
     T an[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
@@ -464,7 +459,7 @@ __global__ void smoother_kernel(const T* __restrict__ z,
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       ah[i] = an[i];
-      T* oi = out + at(t, D) + i;
+      T* oi = o + static_cast<long long>(t) * D + i;
       *oi = *oi + ah[i];
     }
   }
@@ -521,8 +516,8 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 // Plain C entries. Every array is a contiguous device array of the entry's
 // type: z [B, D], tm and rqr and p0 [B, D, D], h [B], a0 and alpha1 [B, D],
 // y [T], obs [T] bytes (nullptr: all observed); outputs ll [B], grad
-// [B, NP], hess [B, NP, NP], out [T, C, D]; w [T-1, C, D], eps [T, C];
-// scratch [T, C, D+2]. threads: block size, a multiple of 32 up to 1024.
+// [B, NP], hess [B, NP, NP], out [C, T, D]; w [C, T-1, D], eps [C, T];
+// scratch [C, T, D+2]. threads: block size, a multiple of 32 up to 1024.
 // stream: a cudaStream_t. Returns the cudaError_t of the launch (0 =
 // success).
 #define BOOM_LOGLIK_ENTRY(TY, TYNAME, D)                                     \

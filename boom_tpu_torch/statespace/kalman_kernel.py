@@ -224,8 +224,7 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     """K2's checked, contiguous operands: ({name: tensor}, y [T], the mask
     bytes or None). The draws' noise (alpha_1, w = R chol(Q) eta, sqrt(h)
     eps) is formed here by ``kalman.simulation_inputs``, as the plain
-    version forms it, and w and eps are staged time-major ([T-1, C, d],
-    [T, C]) for the kernel's coalesced steps."""
+    version forms it."""
     kalman.check_static(params)
     dtype, device = params.h.dtype, params.h.device
     tags, dims = _build.KALMAN_ENTRIES["smoother"]
@@ -241,23 +240,21 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     t_len = y.shape[0]
     alpha1, w, eps = kalman.simulation_inputs(params, alpha1_z, eta_z,
                                               eps_z)
-    if w.shape != (c, t_len - 1, d) or eps.shape != (c, t_len):
+    p = _checked({"z": params.z, "t_mat": params.t_mat, "rqr": params.rqr,
+                  "h": params.h, "p0": params.p0, "alpha1": alpha1, "w": w,
+                  "eps": eps}, dtype, device)
+    _shape_check(p, c, d)
+    if p["w"].shape != (c, t_len - 1, d) or p["eps"].shape != (c, t_len):
         raise ValueError(f"normals must give w [{c}, {t_len - 1}, {d}] and "
                          f"eps [{c}, {t_len}]")
-    p = _checked({"z": params.z, "t_mat": params.t_mat, "rqr": params.rqr,
-                  "h": params.h, "p0": params.p0, "alpha1": alpha1,
-                  "w": w.transpose(0, 1), "eps": eps.transpose(0, 1)},
-                 dtype, device)
-    _shape_check(p, c, d)
     return p, y, _observed_bytes(observed, t_len, device)
 
 
 def launch_smoother(p, y, obs):
-    """K2 on operands from :func:`smoother_operands` -> [C, T, d]
-    (contiguous; the kernel writes it time-major)."""
+    """K2 on operands from :func:`smoother_operands` -> [C, T, d]."""
     (c, d), t_len = p["z"].shape, y.shape[0]
-    scratch = p["z"].new_empty(t_len, c, d + 2)
-    out = p["z"].new_empty(t_len, c, d)
+    scratch = p["z"].new_empty(c, t_len, d + 2)
+    out = p["z"].new_empty(c, t_len, d)
     fn = getattr(_build.library("kalman_seq"),
                  f"boom_kalman_smoother_f64_d{d}")
     rc = fn(*(p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "p0",
@@ -267,4 +264,4 @@ def launch_smoother(p, y, obs):
     if rc != 0:
         raise RuntimeError(f"CUDA smoother launch failed: cudaError {rc}")
     LAUNCHES["smoother"] += 1
-    return out.transpose(0, 1).contiguous()
+    return out
