@@ -17,14 +17,14 @@
 // The plain PyTorch versions are boom_tpu_torch/statespace/kalman.py.
 //
 // What bounds them on this card. Each series is a chain of T dependent
-// steps of d x d algebra (about 4d^3 + 11d^2 flops a filter step), so with
+// steps of d x d algebra (4d^3 + 9d^2 + 4d flops a filter step), so with
 // one thread a series the time is T times a step's latency unless enough
 // series are in flight to hide it. K1 at the bsts_llt shape (4096 chains x
 // 17 points = 69,632 series, T=500, d=2, float32) reads one shared y and
-// ~68 bytes of system a series, and does ~95 flops a step: bound by
-// operations (~26 us at 67 TFLOP/s), and it has 544 blocks of 128 threads,
-// about four a SM. K2 (4096 chains, float64) moves ~41 MB (normals in,
-// draws out) and is bound by bytes (~12 us), but has only 4096 threads:
+// ~72 bytes of system a series, and does ~83 flops a step: bound by
+// operations (~43 us at 67 TFLOP/s), and it has 544 blocks of 128 threads,
+// about four a SM. K2 (4096 chains, float64) moves ~82 MB (noise in,
+// draws out) and is bound by bytes (~25 us), but has only 4096 threads:
 // one warp on each of 128 SMs with 32-thread blocks, so it is latency
 // bound; the block size is an argument so that 32, 64 and 128 can be timed.
 //
@@ -41,6 +41,9 @@
 // per-step streams are chain-major [C, T, ...]: a thread reads and writes
 // its own row, a warp touches 32 rows, and consecutive steps of a thread
 // fall in the same 128-byte line, which L1 keeps (32-128 threads a SM).
+// Time-major streams staged by the wrapper (coalesced steps) were no faster
+// at 4096 chains (1.02 against 1.03 ms) and their copies made the call
+// 0.04 ms slower (PERF.md, Findings: coalescing), so the rows stay.
 // K2 keeps (v, f, K) of every step in a global scratch [C, T, d+2] for the
 // backward pass, overwrites step t's slot with r_{t-1} there, and writes
 // alpha+ into the output first and adds the smoothed mean to it last.

@@ -350,7 +350,7 @@ def run_tree(tree):
     from boom_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build()  # every source of DIR's port (one library in PR 2's)
+    _build.build()  # every source of DIR's port (older ports have one)
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(20261016)
     out = {"tree": str(tree), "card": card_line(), "build_s": build_s,

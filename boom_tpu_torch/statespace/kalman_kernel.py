@@ -37,7 +37,7 @@ LAUNCHES = {"loglik": 0, "loglik_tangent": 0, "smoother": 0}
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # block sizes: K1 has ~70k series at the bsts_llt shape (544 blocks of 128
 # threads); K2 has one thread per chain, and 32-thread blocks spread 4096
-# chains over 128 SMs (PERF.md, Findings, PR 3)
+# chains over 128 SMs (PERF.md, Findings: block sizes)
 LOGLIK_THREADS = 128
 SMOOTHER_THREADS = 32
 _NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for larger state "
