@@ -17,44 +17,66 @@
 // The plain PyTorch versions are boom_tpu_torch/statespace/kalman.py.
 //
 // What bounds them on this card. Each series is a chain of T dependent
-// steps of d x d algebra (4d^3 + 9d^2 + 4d flops a filter step), so with
-// one thread a series the time is T times a step's latency unless enough
-// series are in flight to hide it. K1 at the bsts_llt shape (4096 chains x
-// 17 points = 69,632 series, T=500, d=2, float32) reads one shared y and
-// ~72 bytes of system a series, and does ~83 flops a step: bound by
-// operations (~43 us at 67 TFLOP/s), and it has 544 blocks of 128 threads,
-// about four a SM. K2 (4096 chains, float64) moves ~82 MB (noise in,
-// draws out) and is bound by bytes (~25 us), but has only 4096 threads:
-// one warp on each of 128 SMs with 32-thread blocks, so it is latency
-// bound; the block size is an argument so that 32, 64 and 128 can be timed.
+// steps of d x d algebra (4d^3 + 8d^2 + 3d flops a filter step).
+//
+// K1 at the bsts_llt shape (4096 chains x 17 = 69,632 series, T=500, d=2,
+// float32) is bound by instruction issue: 2,176 warps over the 528 warp
+// schedulers of 132 SMs put 5 warps on the busiest one, and one warp's
+// step is ~150 instructions in the first version (NVIDIA H100 80GB HBM3,
+// 700 W: 0.114 ms at 1/16 of the batch, 0.130 at 1/4, 0.218 at all of it;
+// PERF.md, Findings). So the step is cut to fewer instructions:
+// y (and the mask) are staged in shared memory once a block, the mask has
+// an instantiation of its own so that observed=None runs no selects, the
+// symmetrization touches the upper triangle only (p_ii = pn_ii is
+// 0.5 (pn_ii + pn_ii) exactly), and in float32 one correctly rounded
+// reciprocal of f serves K = T P z / f and v^2 / f while log f is the
+// SFU's __logf (float64 and the jets keep the reference's divisions and
+// log). The grid is laid out from the card's SM count, one block of
+// ceil(B / SMs) threads an SM.
+//
+// K2 (4096 chains, float64) has one thread a chain, so 32 chains (one
+// warp) an SM: it is latency bound. Its first version waited on a global
+// load at every step of its three passes (0.61 ms for one warp on the
+// whole card; 1.03 ms at 4096 chains, where the 65 MB scratch and 33 MB of
+// draws no longer fit the 50 MB L2). Now every per-step stream is staged
+// into shared memory a chunk of kChunk = 32 steps ahead of use with 8-byte
+// cp.async, double-buffered: w and eps in pass 1, the scratch slots in
+// reverse chunks in pass 2, the slots (r) and w in pass 3, plus y and the
+// mask (lane l stages step t0 + l). The warp stages and writes each
+// chain's rows together, 32 consecutive doubles of one row a copy or a
+// store, through a buffer that holds element e of lane c's chain at
+// [e * 33 + c] (a lane's step reads 32 consecutive doubles; a row copy
+// strides 33, so neither side has bank conflicts). Pass 1 takes one
+// correctly rounded reciprocal of f a step for K and v/f, where three f64
+// divisions ran one after another, and stores (v/f, K), a slot of D + 1;
+// pass 2 has no division and overwrites a slot's first D with r_{t-1};
+// pass 3 regenerates alpha+ from alpha_1 and w with pass 1's operations
+// and writes alpha+ + alpha-hat once, so the draw is written once. What is
+// left is pass 1's f64 Riccati chain a step (PERF.md, Findings).
 //
 // Design. The state (a, P, the loglik) lives in registers; d is a template
-// parameter (1..6), unrolled at compile time; no shared memory. The
-// operation order is the reference's step for step: v = y - z'a,
-// pz = P z, f = z'pz + h, K = (T pz) / f, L = T - K z', a' = T a + K v,
-// P' = (T P) L' + RQR, then 0.5 (P' + P'^T); the `observed` mask zeroes v
-// and K as `where(obs, ..., 0)` does. So float64 results match the plain
-// version to rounding (FMA contraction aside). No value is reduced across
-// threads, so repeated launches are bit-identical.
+// parameter (1..6), unrolled at compile time. The operation order is the
+// reference's step for step: v = y - z'a, pz = P z, f = z'pz + h,
+// K = (T pz) / f, L = T - K z', a' = T a + K v, P' = (T P) L' + RQR, then
+// 0.5 (P' + P'^T); the `observed` mask zeroes v and K as `where(obs, ...,
+// 0)` does. So K1's float64 results match the plain version to rounding
+// (FMA contraction aside); K2 differs by its reciprocal of f (~1e-16
+// relative a step), float32 K1 by its reciprocal and __logf, within the
+// 1e-9 (float64) and 1e-4 (float32) normwise tolerances (PERF.md). No
+// value is reduced across threads, so repeated launches are bit-identical.
 // Layout: the systems are per series ([B, d], [B, d, d], [B]); y [T] and the
-// observed mask [T] are shared by all series and read as broadcasts. K2's
-// per-step streams are chain-major [C, T, ...]: a thread reads and writes
-// its own row, a warp touches 32 rows, and consecutive steps of a thread
-// fall in the same 128-byte line, which L1 keeps (32-128 threads a SM).
-// Time-major streams staged by the wrapper (coalesced steps) were no faster
-// at 4096 chains (1.02 against 1.03 ms) and their copies made the call
-// 0.04 ms slower (PERF.md, Findings: coalescing), so the rows stay.
-// K2 keeps (v, f, K) of every step in a global scratch [C, T, d+2] for the
-// backward pass, overwrites step t's slot with r_{t-1} there, and writes
-// alpha+ into the output first and adds the smoothed mean to it last.
+// observed mask [T] are shared by all series. K2's per-step streams are
+// chain-major [C, T, ...] rows (a time-major staging was measured no
+// faster: PERF.md, Findings).
 // The jet scalar carries value, gradient [NP] and the Hessian's upper
 // triangle over NP = 1 + d(d+1)/2 parameters: h, then the upper triangle
 // of R Q R' (a symmetric perturbation: P depends on R Q R' only through
 // the symmetrized P'). The same template code runs with a plain scalar
 // (K1) and with the jet, so the derivatives are of exactly the function
-// K1 computes.
+// K1 computes in float64.
 
 #include <climits>
+#include <cstring>
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -63,7 +85,6 @@ namespace {
 
 constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
 
-__device__ __forceinline__ float log_(float x) { return logf(x); }
 __device__ __forceinline__ double log_(double x) { return log(x); }
 
 // Value, gradient and Hessian (upper triangle, row-major) of a scalar
@@ -194,15 +215,23 @@ __device__ __forceinline__ Jet<T, N> log_(const Jet<T, N>& x) {
 template <typename T, int NP>
 using Scalar = typename std::conditional<NP == 0, T, Jet<T, NP>>::type;
 
+// The correctly rounded reciprocal.
+__device__ __forceinline__ float reciprocal(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
+
 // One filter step of the reference's `step_core` (kalman.py:171-187) on the
-// predicted (a, P), in place: returns v and f, writes K into k.
-template <typename T, typename S, int D>
+// predicted (a, P), in place: returns v and f, writes K into k. kRecip:
+// K = T P z * (1 / f) with one correctly rounded reciprocal, returned in
+// rf (K2, and K1 in float32), in place of the reference's d divisions,
+// which the card runs one after another (each is a branchy sequence); else
+// K = T P z / f (K1 in float64, and its jets).
+template <typename T, typename S, int D, bool kRecip>
 __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D],
                                             const S& yt, bool obs,
                                             const T (&z)[D], const S& h,
                                             const S (&rqr)[D][D],
                                             const T (&tm)[D][D], S& v,
-                                            S& f, S (&k)[D]) {
+                                            S& f, S (&k)[D], S& rf) {
   const S zero(T(0));
   S za = z[0] * a[0];
 #pragma unroll
@@ -219,12 +248,17 @@ __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D],
 #pragma unroll
   for (int j = 1; j < D; ++j) zpz = zpz + z[j] * pz[j];
   f = zpz + h;
+  if constexpr (kRecip) rf = reciprocal(f);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     S tpz = tm[i][0] * pz[0];
 #pragma unroll
     for (int j = 1; j < D; ++j) tpz = tpz + tm[i][j] * pz[j];
-    k[i] = obs ? tpz / f : zero;
+    if constexpr (kRecip) {
+      k[i] = obs ? tpz * rf : zero;
+    } else {
+      k[i] = obs ? tpz / f : zero;
+    }
   }
   S an[D];
 #pragma unroll
@@ -262,11 +296,30 @@ __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D],
       pn[i][j] = acc + rqr[i][j];
     }
   }
+  // 0.5 (pn + pn') on the upper triangle, mirrored; on the diagonal it is
+  // pn_ii exactly
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     a[i] = an[i];
+    p[i][i] = pn[i][i];
 #pragma unroll
-    for (int j = 0; j < D; ++j) p[i][j] = T(0.5) * (pn[i][j] + pn[j][i]);
+    for (int j = i + 1; j < D; ++j) {
+      p[i][j] = T(0.5) * (pn[i][j] + pn[j][i]);
+      p[j][i] = p[i][j];
+    }
+  }
+}
+
+// One step's log density: where(obs, -0.5 (log 2 pi + log f + v v / f), 0)
+// without the where. kFast (K1 in float32): v v (1 / f) and the SFU's
+// __logf; else the reference's division and log.
+template <typename T, typename S, bool kFast>
+__device__ __forceinline__ S log_density(const S& v, const S& f,
+                                         const S& rf) {
+  if constexpr (kFast) {
+    return T(-0.5) * ((T(kLog2Pi) + __logf(f)) + v * v * rf);
+  } else {
+    return T(-0.5) * ((S(T(kLog2Pi)) + log_(f)) + v * v / f);
   }
 }
 
@@ -278,10 +331,67 @@ __device__ __forceinline__ Scalar<T, NP> seeded(T x, int slot) {
   return s;
 }
 
+// ---- staging -------------------------------------------------------------
+
+// The block's dynamic shared memory, 16-byte aligned.
+#ifndef BOOM_SHARED_BYTES
+#define BOOM_SHARED_BYTES(name) \
+  extern __shared__ __align__(16) unsigned char name[]
+#endif
+
+// 8-byte asynchronous copy global -> shared (cp.async, cached in L1).
+__device__ __forceinline__ void copy8_async(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+#else
+  std::memcpy(smem, gmem, 8);
+#endif
+}
+
+// 4-byte asynchronous copy of which the first `bytes` (1..4) are read and
+// the rest zero-filled.
+__device__ __forceinline__ void copy4_async(void* smem, const void* gmem,
+                                            int bytes) {
+#ifdef __CUDA_ARCH__
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+#else
+  std::memset(smem, 0, 4);
+  std::memcpy(smem, gmem, bytes);
+#endif
+}
+
+__device__ __forceinline__ void async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// ---- K1 ------------------------------------------------------------------
+
+// Steps of y (and of the mask) a block stages in shared memory at a time.
+constexpr int kYChunk = 1024;
+
 // K1: one thread per series. NP = 0: the loglik alone; NP > 0: also its
 // gradient [B, NP] and Hessian [B, NP, NP] over (h, upper triangle of
 // R Q R'), parameter j of row i at 1 + i*D - i*(i-1)/2 + (j - i).
-template <typename T, int D, int NP>
+// kMasked = false: every step observed (obs is not read). Threads past the
+// batch follow its last series, so that every thread reaches the barriers,
+// and write nothing.
+template <typename T, int D, int NP, bool kMasked>
 __global__ void loglik_kernel(const T* __restrict__ z,
                               const T* __restrict__ tm,
                               const T* __restrict__ rqr,
@@ -293,8 +403,13 @@ __global__ void loglik_kernel(const T* __restrict__ z,
                               T* __restrict__ ll, T* __restrict__ grad,
                               T* __restrict__ hess, int batch, int t_len) {
   using S = Scalar<T, NP>;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+  // float32: one reciprocal of f and __logf (PERF.md, K1's tolerance)
+  constexpr bool kFast = std::is_same<S, float>::value;
+  BOOM_SHARED_BYTES(smem_raw);
+  T* ys = reinterpret_cast<T*>(smem_raw);
+  unsigned char* os = smem_raw + kYChunk * sizeof(T);
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = idx < batch ? idx : batch - 1;
   T zz[D], tt[D][D];
   S a[D], p[D][D], q[D][D];
 #pragma unroll
@@ -313,13 +428,23 @@ __global__ void loglik_kernel(const T* __restrict__ z,
   }
   const S hh = seeded<T, NP>(h[b], 0);
   S acc(T(0));
-  S v, f, k[D];
-  for (int t = 0; t < t_len; ++t) {
-    const bool o = obs == nullptr || obs[t] != 0;
-    filter_step<T, S, D>(a, p, S(y[t]), o, zz, hh, q, tt, v, f, k);
-    // ll += where(obs, -0.5 (log 2 pi + log f + v v / f), 0)
-    if (o) acc = acc + T(-0.5) * ((S(T(kLog2Pi)) + log_(f)) + v * v / f);
+  S v, f, k[D], rf;
+  for (int t0 = 0; t0 < t_len; t0 += kYChunk) {
+    const int n = t_len - t0 < kYChunk ? t_len - t0 : kYChunk;
+    __syncthreads();  // the block is done with the previous chunk
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      ys[i] = y[t0 + i];
+      if (kMasked) os[i] = obs == nullptr ? 1 : obs[t0 + i];
+    }
+    __syncthreads();
+    for (int s = 0; s < n; ++s) {
+      const bool o = !kMasked || os[s] != 0;
+      filter_step<T, S, D, kFast>(a, p, S(ys[s]), o, zz, hh, q, tt, v, f, k,
+                                  rf);
+      if (o) acc = acc + log_density<T, S, kFast>(v, f, rf);
+    }
   }
+  if (idx >= batch) return;
   if constexpr (NP == 0) {
     ll[b] = acc;
   } else {
@@ -337,139 +462,369 @@ __global__ void loglik_kernel(const T* __restrict__ z,
   }
 }
 
-// K2: one thread per chain; the three passes of the fused simulation
+// ---- K2 ------------------------------------------------------------------
+
+// K2's block is one warp, a lane a chain; the streams are staged kChunk
+// steps at a time (kChunk == kLanes: lane l stages step t0 + l of y and
+// the mask).
+constexpr int kLanes = 32;
+constexpr int kChunk = 32;
+static_assert(kChunk == kLanes, "a lane stages one step of y and the mask");
+// A buffer holds element e of the chain of lane c at [e * kPitch + c]: a
+// lane's step reads 32 consecutive doubles across the warp, and a copy of
+// one chain's row (the lanes along e) strides 33 doubles, so no two lanes
+// of a half-warp share a bank.
+constexpr int kPitch = kLanes + 1;
+
+// K2's shared memory: two buffers, each of kChunk steps of every chain of
+// the warp (the widest pass, pass 3, holds a slot of D + 1 and w [D] a
+// step), then y [kChunk] and the mask [kChunk] of the chunk.
+template <int D>
+struct SmootherSmem {
+  static constexpr int kRec = D + 1;  // a step's slot: (v/f, K), later r
+  static constexpr int kElems = kChunk * (2 * D + 1);
+  static constexpr int kY = kElems * kPitch * 8;  // byte offsets
+  static constexpr int kMask = kY + kChunk * 8;
+  static constexpr int kBuf = (kMask + kChunk + 15) / 16 * 16;
+  static constexpr int kBytes = 2 * kBuf;
+  static_assert(kBytes <= 232448, "two chunks must fit in 227 KB");
+};
+
+// The warp copies `count` doubles of the row of each of its chains (row of
+// chain ch at base + ch * stride) into element e_of(g) of that chain's
+// column of buf, asynchronously: the lanes walk g, so one copy reads 32
+// consecutive doubles of a row. Chains past the batch copy its last.
+template <class Map>
+__device__ __forceinline__ void stage_rows(double* buf, const double* base,
+                                           long long stride, int chain0,
+                                           int batch, int count, Map e_of) {
+  const int lane = threadIdx.x;
+  const int own = batch - chain0 < kLanes ? batch - chain0 : kLanes;
+  for (int g = lane; g < count; g += kLanes) {
+    double* dst = buf + e_of(g) * kPitch;
+    const double* src = base + chain0 * stride + g;
+    if (own == kLanes) {
+#pragma unroll 8
+      for (int cc = 0; cc < kLanes; ++cc, src += stride)
+        copy8_async(dst + cc, src);
+    } else {
+      for (int cc = 0; cc < kLanes; ++cc) {
+        copy8_async(dst + cc, src);
+        if (cc + 1 < own) src += stride;
+      }
+    }
+  }
+}
+
+// The warp writes `count` doubles of the row of each of its live chains
+// from element e_of(g) of that chain's column of buf, 32 consecutive
+// doubles of a row a store.
+template <class Map>
+__device__ __forceinline__ void store_rows(const double* buf, double* base,
+                                           long long stride, int chain0,
+                                           int batch, int count, Map e_of) {
+  const int lane = threadIdx.x;
+  const int live = batch - chain0 < kLanes ? batch - chain0 : kLanes;
+  for (int g = lane; g < count; g += kLanes) {
+    const double* from = buf + e_of(g) * kPitch;
+    double* dst = base + chain0 * stride + g;
+    if (live == kLanes) {
+#pragma unroll 8
+      for (int cc = 0; cc < kLanes; ++cc, dst += stride) *dst = from[cc];
+    } else {
+      for (int cc = 0; cc < live; ++cc, dst += stride) *dst = from[cc];
+    }
+  }
+}
+
+// K2: one lane per chain; the three passes of the fused simulation
 // smoother. w [C, T-1, D] = R chol(Q) eta and eps [C, T] = sqrt(h) eps_z
 // are the draws' noise, alpha1 [C, D] the unconditional initial state.
-template <typename T, int D>
-__global__ void smoother_kernel(const T* __restrict__ z,
-                                const T* __restrict__ tm,
-                                const T* __restrict__ rqr,
-                                const T* __restrict__ h,
-                                const T* __restrict__ p0,
-                                const T* __restrict__ alpha1,
-                                const T* __restrict__ w,
-                                const T* __restrict__ eps,
-                                const T* __restrict__ y,
-                                const unsigned char* __restrict__ obs,
-                                T* __restrict__ scratch, T* __restrict__ out,
-                                int batch, int t_len) {
-  constexpr int kSlot = D + 2;  // v, f, K[D] of a step; later r_{t-1}
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= batch) return;
-  T zz[D], tt[D][D], q[D][D], pp0[D][D], a[D], p[D][D], sim[D];
+// scratch [C, T, D+1]: pass 1 writes (v/f, K) of step t at slot t, pass 2
+// overwrites its first D with r_{t-1}, pass 3 reads them. Every row is
+// staged and written a chunk at a time by the whole warp (a lane writes
+// back exactly the elements it staged, so a lane reads its own stores
+// across passes). Lanes past the batch follow its last chain.
+template <int D>
+__global__ void __launch_bounds__(kLanes)
+    smoother_kernel(const double* __restrict__ z,
+                    const double* __restrict__ tm,
+                    const double* __restrict__ rqr,
+                    const double* __restrict__ h,
+                    const double* __restrict__ p0,
+                    const double* __restrict__ alpha1,
+                    const double* __restrict__ w,
+                    const double* __restrict__ eps,
+                    const double* __restrict__ y,
+                    const unsigned char* __restrict__ obs,
+                    double* __restrict__ scratch, double* __restrict__ out,
+                    int batch, int t_len) {
+  using Sm = SmootherSmem<D>;
+  constexpr int kRec = Sm::kRec;
+  BOOM_SHARED_BYTES(smem_raw);
+  const int lane = threadIdx.x;
+  const int chain0 = blockIdx.x * kLanes;
+  const int c = chain0 + lane < batch ? chain0 + lane : batch - 1;
+  double zz[D], tt[D][D], q[D][D], a[D], p[D][D], sim[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     zz[i] = z[c * D + i];
     sim[i] = alpha1[c * D + i];
-    a[i] = T(0);  // the filter on y - y+ starts from a0 = 0
+    a[i] = 0.0;  // the filter on y - y+ starts from a0 = 0
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       const int ij = (c * D + i) * D + j;
       tt[i][j] = tm[ij];
       q[i][j] = rqr[ij];
-      pp0[i][j] = p0[ij];
-      p[i][j] = pp0[i][j];
+      p[i][j] = p0[ij];
     }
   }
-  const T hh = h[c];
-  const long long row = static_cast<long long>(c) * t_len;
-  T* sc = scratch + row * kSlot;
-  T* o = out + row * D;
-  const T* wc = w + static_cast<long long>(c) * (t_len - 1) * D;
-  const T* ec = eps + row;
+  const double hh = h[c];
+  const long long w_stride = static_cast<long long>(t_len - 1) * D;
+  const long long s_stride = static_cast<long long>(t_len) * kRec;
+  const long long o_stride = static_cast<long long>(t_len) * D;
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
 
-  // 1. forward: simulate alpha+ and filter y - y+ (kalman.py:460-473)
-  for (int t = 0; t < t_len; ++t) {
-    const bool ob = obs == nullptr || obs[t] != 0;
-    T zs = zz[0] * sim[0];
-#pragma unroll
-    for (int j = 1; j < D; ++j) zs = zs + zz[j] * sim[j];
-    const T yd = y[t] - (zs + ec[t]);
-    T v, f, k[D];
-    filter_step<T, T, D>(a, p, yd, ob, zz, hh, q, tt, v, f, k);
-    T* slot = sc + static_cast<long long>(t) * kSlot;
-    slot[0] = v;
-    slot[1] = f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      slot[2 + i] = k[i];
-      o[static_cast<long long>(t) * D + i] = sim[i];
+  auto buffer = [&](int b) {
+    return reinterpret_cast<double*>(smem_raw + b * Sm::kBuf);
+  };
+  auto ys = [&](int b) {
+    return reinterpret_cast<double*>(smem_raw + b * Sm::kBuf + Sm::kY);
+  };
+  auto ms = [&](int b) { return smem_raw + b * Sm::kBuf + Sm::kMask; };
+  auto chunk_len = [&](int j) {
+    const int left = t_len - j * kChunk;
+    return left < kChunk ? left : kChunk;
+  };
+  auto w_len = [&](int j) {  // rows of w chunk j uses (T - 1 in all)
+    const int left = t_len - 1 - j * kChunk;
+    return left < kChunk ? left : kChunk;
+  };
+  // y (when with_y) and the mask of chunk j, one step a lane
+  auto stage_series = [&](int j, int b, bool with_y) {
+    const int t0 = j * kChunk, t = t0 + lane;
+    if (with_y && t < t_len) copy8_async(ys(b) + lane, y + t);
+    if (obs != nullptr && 4 * lane < kChunk) {
+      const int left = t_len - (t0 + 4 * lane);
+      if (left > 0)
+        copy4_async(ms(b) + 4 * lane, obs + t0 + 4 * lane,
+                    left < 4 ? left : 4);
     }
-    if (t < t_len - 1) {
-      T sn[D];
+  };
+  auto observed = [&](int b, int s) {
+    return obs == nullptr || ms(b)[s] != 0;
+  };
+  auto slots = [](int g) { return g; };              // slot g of the chunk
+  auto steps = [](int g) { return g + g / D; };      // [D] of a step's slot
+
+  // 1. forward: simulate alpha+ and filter y - y+ (kalman.py:460-473); a
+  // step's slot holds w_t [D] and eps_t, then (v/f, K)
+  auto stage1 = [&](int j, int b) {
+    const int t0 = j * kChunk;
+    stage_rows(buffer(b), w + static_cast<long long>(t0) * D, w_stride,
+               chain0, batch, w_len(j) * D, steps);
+    stage_rows(buffer(b), eps + t0, t_len, chain0, batch, chunk_len(j),
+               [](int g) { return g * (D + 1) + D; });
+    stage_series(j, b, true);
+  };
+  stage1(0, 0);
+  async_commit();
+  for (int j = 0; j < n_chunks; ++j) {
+    const int b = j & 1, t0 = j * kChunk, n = chunk_len(j);
+    if (j + 1 < n_chunks) stage1(j + 1, b ^ 1);
+    async_commit();
+    async_wait<1>();
+    __syncwarp();
+    double* col = buffer(b) + lane;
+    const double* yb = ys(b);
+    // two steps a trip let step t+1's Riccati chain start under step t's
+    // means and stores (faster at d=2; at d >= 5 it spills)
+#pragma unroll (D <= 2 ? 2 : 1)
+    for (int s = 0; s < n; ++s) {
+      const int t = t0 + s;
+      double* slot = col + s * kRec * kPitch;
+      double ws[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) ws[i] = slot[i * kPitch];
+      double zs = zz[0] * sim[0];
+#pragma unroll
+      for (int i = 1; i < D; ++i) zs = zs + zz[i] * sim[i];
+      const double yd = yb[s] - (zs + slot[D * kPitch]);
+      double v, f, k[D], rf;
+      filter_step<double, double, D, true>(a, p, yd, observed(b, s), zz, hh,
+                                           q, tt, v, f, k, rf);
+      slot[0] = v * rf;
+#pragma unroll
+      for (int i = 0; i < D; ++i) slot[(1 + i) * kPitch] = k[i];
+      if (t < t_len - 1) {
+        double sn[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          double ts = tt[i][0] * sim[0];
+#pragma unroll
+          for (int m = 1; m < D; ++m) ts = ts + tt[i][m] * sim[m];
+          sn[i] = ts + ws[i];
+        }
+#pragma unroll
+        for (int i = 0; i < D; ++i) sim[i] = sn[i];
+      }
+    }
+    __syncwarp();
+    store_rows(buffer(b), scratch + static_cast<long long>(t0) * kRec,
+               s_stride, chain0, batch, n * kRec, slots);
+    __syncwarp();  // every lane is done with buffer b before it is refilled
+  }
+
+  // 2. backward: r_{t-1} = where(obs, z v/f, 0) + L' r_t (kalman.py:315-323),
+  // chunks in reverse; r_{t-1} replaces the first D of slot t
+  auto stage2 = [&](int j, int b) {
+    stage_rows(buffer(b), scratch + static_cast<long long>(j) * kChunk * kRec,
+               s_stride, chain0, batch, chunk_len(j) * kRec, slots);
+    stage_series(j, b, false);
+  };
+  double r[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) r[i] = 0.0;
+  __threadfence_block();  // pass 1's stores before pass 2's copies of them
+  stage2(n_chunks - 1, 0);
+  async_commit();
+  for (int jj = 0; jj < n_chunks; ++jj) {
+    const int j = n_chunks - 1 - jj, b = jj & 1;
+    const int t0 = j * kChunk, n = chunk_len(j);
+    if (j > 0) stage2(j - 1, b ^ 1);
+    async_commit();
+    async_wait<1>();
+    __syncwarp();
+    double* col = buffer(b) + lane;
+    for (int s = n - 1; s >= 0; --s) {
+      const bool ob = observed(b, s);
+      double* slot = col + s * kRec * kPitch;
+      const double vf = slot[0];
+      double k[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) k[i] = slot[(1 + i) * kPitch];
+      double rn[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        T ts = tt[i][0] * sim[0];
+        double lr = (tt[0][i] - k[0] * zz[i]) * r[0];
 #pragma unroll
-        for (int j = 1; j < D; ++j) ts = ts + tt[i][j] * sim[j];
-        sn[i] = ts + wc[static_cast<long long>(t) * D + i];
+        for (int m = 1; m < D; ++m) lr = lr + (tt[m][i] - k[m] * zz[i]) * r[m];
+        rn[i] = (ob ? zz[i] * vf : 0.0) + lr;
       }
 #pragma unroll
-      for (int i = 0; i < D; ++i) sim[i] = sn[i];
+      for (int i = 0; i < D; ++i) {
+        r[i] = rn[i];
+        slot[i * kPitch] = r[i];
+      }
     }
+    __syncwarp();
+    store_rows(buffer(b), scratch + static_cast<long long>(t0) * kRec,
+               s_stride, chain0, batch, n * kRec, slots);
+    __syncwarp();
   }
 
-  // 2. backward: r_{t-1} = where(obs, z v/f, 0) + L' r_t (kalman.py:315-323)
-  T r[D];
+  // 3. forward state: alpha_1 = P0 r_0, alpha_{t+1} = T alpha_t + RQR r_t
+  // (kalman.py:325, :345-350), added to alpha+ regenerated from alpha_1
+  // and w as pass 1 made it (:481); the chunk holds the slots, then w [D]
+  // a step at kChunk * kRec, and the draw replaces the slots' first D
+  auto stage3 = [&](int j, int b) {
+    const int t0 = j * kChunk;
+    stage_rows(buffer(b), scratch + static_cast<long long>(t0) * kRec,
+               s_stride, chain0, batch, chunk_len(j) * kRec, slots);
+    stage_rows(buffer(b), w + static_cast<long long>(t0) * D, w_stride,
+               chain0, batch, w_len(j) * D,
+               [](int g) { return kChunk * (D + 1) + g; });
+  };
 #pragma unroll
-  for (int i = 0; i < D; ++i) r[i] = T(0);
-  for (int t = t_len - 1; t >= 0; --t) {
-    const bool ob = obs == nullptr || obs[t] != 0;
-    T* slot = sc + static_cast<long long>(t) * kSlot;
-    const T vf = slot[0] / slot[1];
-    T k[D];
+  for (int i = 0; i < D; ++i) sim[i] = alpha1[c * D + i];
+  double ah[D];
+  __threadfence_block();  // pass 2's stores before pass 3's copies of them
+  stage3(0, 0);
+  async_commit();
+  for (int j = 0; j < n_chunks; ++j) {
+    const int b = j & 1, t0 = j * kChunk, n = chunk_len(j);
+    if (j + 1 < n_chunks) stage3(j + 1, b ^ 1);
+    async_commit();
+    async_wait<1>();
+    __syncwarp();
+    double* col = buffer(b) + lane;
+    // the draw of step t into slot s, then alpha+ moves to t + 1
+    auto emit = [&](int s, int t) {
+      double* slot = col + s * kRec * kPitch;
 #pragma unroll
-    for (int i = 0; i < D; ++i) k[i] = slot[2 + i];
-    T rn[D];
+      for (int i = 0; i < D; ++i) slot[i * kPitch] = sim[i] + ah[i];
+      if (t < t_len - 1) {
+        const double* ws = col + (kChunk * kRec + s * D) * kPitch;
+        double sn[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T lr = (tt[0][i] - k[0] * zz[i]) * r[0];
+        for (int i = 0; i < D; ++i) {
+          double ts = tt[i][0] * sim[0];
 #pragma unroll
-      for (int j = 1; j < D; ++j) lr = lr + (tt[j][i] - k[j] * zz[i]) * r[j];
-      rn[i] = (ob ? zz[i] * vf : T(0)) + lr;
+          for (int m = 1; m < D; ++m) ts = ts + tt[i][m] * sim[m];
+          sn[i] = ts + ws[i * kPitch];
+        }
+#pragma unroll
+        for (int i = 0; i < D; ++i) sim[i] = sn[i];
+      }
+    };
+    int s = 0;
+    if (t0 == 0) {  // alpha_1 = P0 r_0, outside the steady loop
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        double acc = p0[(c * D + i) * D] * col[0];
+#pragma unroll
+        for (int m = 1; m < D; ++m)
+          acc = acc + p0[(c * D + i) * D + m] * col[m * kPitch];
+        ah[i] = acc;
+      }
+      emit(0, 0);
+      s = 1;
     }
+    for (; s < n; ++s) {
+      const double* rs = col + s * kRec * kPitch;
+      double an[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      r[i] = rn[i];
-      slot[i] = r[i];
+      for (int i = 0; i < D; ++i) {
+        double ta = tt[i][0] * ah[0];
+#pragma unroll
+        for (int m = 1; m < D; ++m) ta = ta + tt[i][m] * ah[m];
+        double qr = q[i][0] * rs[0];
+#pragma unroll
+        for (int m = 1; m < D; ++m) qr = qr + q[i][m] * rs[m * kPitch];
+        an[i] = ta + qr;
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) ah[i] = an[i];
+      emit(s, t0 + s);
     }
-  }
-
-  // 3. forward state: alpha_1 = P0 r_0, alpha_{t+1} = T alpha_t + RQR r_t,
-  // added to alpha+ (kalman.py:325, :345-350, :481)
-  T ah[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    T acc = pp0[i][0] * sc[0];
-#pragma unroll
-    for (int j = 1; j < D; ++j) acc = acc + pp0[i][j] * sc[j];
-    ah[i] = acc;
-    o[i] = o[i] + ah[i];
-  }
-  for (int t = 1; t < t_len; ++t) {
-    const T* rs = sc + static_cast<long long>(t) * kSlot;
-    T an[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T ta = tt[i][0] * ah[0];
-#pragma unroll
-      for (int j = 1; j < D; ++j) ta = ta + tt[i][j] * ah[j];
-      T qr = q[i][0] * rs[0];
-#pragma unroll
-      for (int j = 1; j < D; ++j) qr = qr + q[i][j] * rs[j];
-      an[i] = ta + qr;
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      ah[i] = an[i];
-      T* oi = o + static_cast<long long>(t) * D + i;
-      *oi = *oi + ah[i];
-    }
+    __syncwarp();
+    store_rows(buffer(b), out + static_cast<long long>(t0) * D, o_stride,
+               chain0, batch, n * D, steps);
+    __syncwarp();
   }
 }
 
 bool bad_launch(int batch, int threads) {
-  return threads < 32 || threads > 1024 || threads % 32 != 0 || batch < 0;
+  return threads < 0 || threads > 1024 || threads % 32 != 0 || batch < 0;
+}
+
+// K1's block size: the one given, or (threads == 0) one block of
+// ceil(batch / SMs) threads, rounded up to a warp, on each SM, within what
+// the kernel's registers allow.
+template <typename Kernel>
+int loglik_block(Kernel kernel, int batch, int threads) {
+  if (threads > 0) return threads;
+  int dev = 0, sms = 1;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess
+      || cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return -1;
+  const int most = attr.maxThreadsPerBlock / 32 * 32;
+  const int per_sm = (batch + sms - 1) / sms;
+  const int want = (per_sm + 31) / 32 * 32;
+  return want < most ? want : most;
 }
 
 template <typename T, int D, int NP>
@@ -481,36 +836,66 @@ int launch_loglik(const void* z, const void* tm, const void* rqr,
   if (bad_launch(batch, threads) || t_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  // the jets always take the masked instantiation (it reads obs == nullptr
+  // as all observed)
+  const bool masked = NP > 0 || obs != nullptr;
+  auto kernel = masked ? loglik_kernel<T, D, NP, true>
+                       : loglik_kernel<T, D, NP, NP != 0>;
+  threads = loglik_block(kernel, batch, threads);
+  if (threads <= 0) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  }
   const int blocks = (batch + threads - 1) / threads;
-  loglik_kernel<T, D, NP><<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(z), static_cast<const T*>(tm),
-      static_cast<const T*>(rqr), static_cast<const T*>(h),
-      static_cast<const T*>(a0), static_cast<const T*>(p0),
-      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
-      static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
-      batch, t_len);
+  const int smem = kYChunk * (static_cast<int>(sizeof(T)) + 1);
+  const T* zt = static_cast<const T*>(z);
+  const T* tmt = static_cast<const T*>(tm);
+  const T* qt = static_cast<const T*>(rqr);
+  const T* ht = static_cast<const T*>(h);
+  const T* at = static_cast<const T*>(a0);
+  const T* pt = static_cast<const T*>(p0);
+  const T* yt = static_cast<const T*>(y);
+  const unsigned char* ot = static_cast<const unsigned char*>(obs);
+  T* llt = static_cast<T*>(ll);
+  T* gt = static_cast<T*>(grad);
+  T* hst = static_cast<T*>(hess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, threads, smem, st>>>(zt, tmt, qt, ht, at, pt, yt, ot,
+                                        llt, gt, hst, batch, t_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_smoother(const void* z, const void* tm, const void* rqr,
                     const void* h, const void* p0, const void* alpha1,
                     const void* w, const void* eps, const void* y,
                     const void* obs, void* scratch, void* out, int batch,
                     int t_len, int threads, void* stream) {
-  if (bad_launch(batch, threads) || t_len < 1)
+  if (batch < 0 || threads != kLanes || t_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const int blocks = (batch + threads - 1) / threads;
-  smoother_kernel<T, D><<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(z), static_cast<const T*>(tm),
-      static_cast<const T*>(rqr), static_cast<const T*>(h),
-      static_cast<const T*>(p0), static_cast<const T*>(alpha1),
-      static_cast<const T*>(w), static_cast<const T*>(eps),
-      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
-      static_cast<T*>(scratch), static_cast<T*>(out), batch, t_len);
+  using Sm = SmootherSmem<D>;
+  auto kernel = smoother_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int blocks = (batch + kLanes - 1) / kLanes;
+  const double* zd = static_cast<const double*>(z);
+  const double* tmd = static_cast<const double*>(tm);
+  const double* qd = static_cast<const double*>(rqr);
+  const double* hd = static_cast<const double*>(h);
+  const double* pd = static_cast<const double*>(p0);
+  const double* a1 = static_cast<const double*>(alpha1);
+  const double* wd = static_cast<const double*>(w);
+  const double* ed = static_cast<const double*>(eps);
+  const double* yd = static_cast<const double*>(y);
+  const unsigned char* od = static_cast<const unsigned char*>(obs);
+  double* sd = static_cast<double*>(scratch);
+  double* outd = static_cast<double*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, kLanes, Sm::kBytes, st>>>(zd, tmd, qd, hd, pd, a1, wd,
+                                             ed, yd, od, sd, outd, batch,
+                                             t_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,11 +903,12 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 
 // Plain C entries. Every array is a contiguous device array of the entry's
 // type: z [B, D], tm and rqr and p0 [B, D, D], h [B], a0 and alpha1 [B, D],
-// y [T], obs [T] bytes (nullptr: all observed); outputs ll [B], grad
-// [B, NP], hess [B, NP, NP], out [C, T, D]; w [C, T-1, D], eps [C, T];
-// scratch [C, T, D+2]. threads: block size, a multiple of 32 up to 1024.
-// stream: a cudaStream_t. Returns the cudaError_t of the launch (0 =
-// success).
+// y [T], obs [T] bytes, 4-byte aligned (nullptr: all observed); outputs
+// ll [B], grad [B, NP], hess [B, NP, NP], out [C, T, D]; w [C, T-1, D],
+// eps [C, T]; scratch [C, T, D+1]. threads: K1's block size, a multiple of
+// 32 up to 1024, or 0 for one block of ceil(B / SMs) threads an SM; K2's
+// must be 32. stream: a cudaStream_t. Returns the cudaError_t of the
+// launch (0 = success).
 #define BOOM_LOGLIK_ENTRY(TY, TYNAME, D)                                     \
   extern "C" int boom_kalman_loglik_##TYNAME##_d##D(                         \
       const void* z, const void* tm, const void* rqr, const void* h,         \
@@ -550,9 +936,8 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
       const void* p0, const void* alpha1, const void* w, const void* eps,    \
       const void* y, const void* obs, void* scratch, void* out, int batch,   \
       int t_len, int threads, void* stream) {                                \
-    return launch_smoother<TY, D>(z, tm, rqr, h, p0, alpha1, w, eps, y, obs, \
-                                  scratch, out, batch, t_len, threads,       \
-                                  stream);                                   \
+    return launch_smoother<D>(z, tm, rqr, h, p0, alpha1, w, eps, y, obs,    \
+                              scratch, out, batch, t_len, threads, stream);  \
   }
 
 #define BOOM_LOGLIK_ALL_D(TY, TYNAME) \

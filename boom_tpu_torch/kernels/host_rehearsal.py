@@ -35,24 +35,87 @@ if __package__ in (None, ""):
 from boom_tpu_torch.kernels import _build  # noqa: E402
 
 SHIM = r"""#pragma once
+#include <pthread.h>
+
 #include <cmath>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+#define __launch_bounds__(n)
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct cudaFuncAttributes { int maxThreadsPerBlock; };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;  // an H100's SMs, so that K1's grid is laid out as there
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  a->maxThreadsPerBlock = 1024;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 struct HostDim3 { int x, y, z; };
-static HostDim3 blockIdx, blockDim, threadIdx;
-inline float logf(float x) { return std::log(x); }
+static thread_local HostDim3 blockIdx, blockDim, threadIdx;
+static pthread_barrier_t* host_barrier;
+inline void __syncthreads() { pthread_barrier_wait(host_barrier); }
+inline void __syncwarp() { pthread_barrier_wait(host_barrier); }
+inline void __threadfence_block() {}
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
+inline float __logf(float x) { return std::log(x); }
 using std::log;
-#define HOST_LAUNCH(b, t)                                            \
-  for (blockIdx.x = 0, blockDim.x = (t); blockIdx.x < (b); ++blockIdx.x) \
-    for (threadIdx.x = 0; threadIdx.x < (t); ++threadIdx.x)
+alignas(16) static unsigned char host_shared[232448];
+#define BOOM_SHARED_BYTES(name) unsigned char* name = host_shared
+// a block's threads run as host threads (its barriers are real); blocks
+// run one after another and share host_shared
+template <class Body>
+void host_launch(int blocks, int threads, Body body) {
+  pthread_barrier_t bar;
+  pthread_barrier_init(&bar, nullptr, threads);
+  host_barrier = &bar;
+  for (int b = 0; b < blocks; ++b) {
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, b, t] {
+        blockIdx = {b, 0, 0};
+        blockDim = {threads, 1, 1};
+        threadIdx = {t, 0, 0};
+        body();
+      });
+    for (auto& th : pool) th.join();
+  }
+  pthread_barrier_destroy(&bar);
+}
 """
-_LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<\s*(\w+)\s*,\s*(\w+)\s*,.*?>>>",
-                     re.S)
+_LAUNCH = re.compile(r"(\w+)<<<\s*(\w+)\s*,\s*(\w+)\s*,[^>]*>>>\(")
+
+
+def _host_launches(src: str) -> str:
+    """Every ``kernel<<<blocks, threads, ...>>>(args);`` as
+    ``host_launch(blocks, threads, [&] { kernel(args); });``."""
+    out, pos = [], 0
+    for m in _LAUNCH.finditer(src):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(src[i], 0)
+            i += 1
+        kern, blocks, threads = m.groups()
+        out += [src[pos:m.start()],
+                f"host_launch({blocks}, {threads}, [&] {{ {kern}(",
+                src[m.end():i], "; })"]
+        pos = i
+    return "".join(out + [src[pos:]])
 
 
 def build_host_library() -> Path:
@@ -63,12 +126,11 @@ def build_host_library() -> Path:
     out_dir = _build.BUILD_DIR / "host"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(SHIM)
-    src = _LAUNCH.sub(r"HOST_LAUNCH(\2, \3) \1",
-                      _build.SOURCES["kalman_seq"].read_text())
+    src = _host_launches(_build.SOURCES["kalman_seq"].read_text())
     (out_dir / "kalman_seq_host.cpp").write_text(src)
     lib = out_dir / "libboom_kalman_seq_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-shared", "-fPIC",
-                    "-I", str(out_dir), "-o", str(lib),
+                    "-pthread", "-I", str(out_dir), "-o", str(lib),
                     str(out_dir / "kalman_seq_host.cpp")], check=True)
     return lib
 
@@ -98,10 +160,14 @@ def check_kernels(seed=0):
 
     rng = np.random.default_rng(seed)
     worst = {}
+    # K2's chunk edges (kk.SMOOTHER_CHUNK = 32 steps) and a second, ragged
+    # warp of chains
+    cases = ((5, 2, False), (5, 31, True), (5, 32, False), (5, 33, True),
+             (5, 67, False), (33, 67, True), (5, 200, False))
     for dtype in ("float64", "float32"):
         for d in (1, 2, 3, 6):
-            for t_len, masked in ((2, False), (33, True), (200, False)):
-                params = system(rng, 5, d, dtype, device="cpu")
+            for c, t_len, masked in cases:
+                params = system(rng, c, d, dtype, device="cpu")
                 tdt = getattr(torch, dtype)
                 y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=tdt)
                 obs = (torch.tensor(rng.uniform(size=t_len) > 0.3)
@@ -111,7 +177,7 @@ def check_kernels(seed=0):
                     kalman.kalman_loglik(params, y, obs))}
                 if dtype == "float64":
                     nz = [torch.tensor(rng.normal(size=s), dtype=tdt)
-                          for s in ((5, d), (5, t_len - 1, d), (5, t_len))]
+                          for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
                     errs["smoother"] = _rel(
                         kk.simulation_smoother(params, y, *nz,
                                                observed=obs),

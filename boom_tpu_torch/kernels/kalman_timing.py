@@ -2,19 +2,27 @@
 the fused simulation smoother; csrc/kalman_seq.cu), beside their bounds and
 their plain versions, at the shapes of the bsts_llt workload.
 
-    python3 boom_tpu_torch/kernels/kalman_timing.py    # one JSON line
+    python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
+    python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
 
 Prints the card, the build time, per kernel the device time, the plain
-version's time, the bound and what sets it, the times at other block sizes,
-and the ``nvcc -Xptxas -v`` registers and spills of every instantiation.
+version's time, the bound and what sets it, the times at other block sizes
+and batches, and the ``nvcc -Xptxas -v`` registers and spills of every
+instantiation. ``--compare DIR`` runs the same script of the checkout DIR
+(another commit of this repository, unpacked with ``git archive``; its
+kernels build under DIR) and of this tree in turns (DIR, this, this, DIR),
+each in its own process on the same card, prints the times side by side,
+and with ``--json PATH`` writes every number of the four runs to PATH.
 ``chip_smoke.py`` takes its shapes, inputs and bounds from here. Needs a
 CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,7 +52,9 @@ LLT_CHAINS, LLT_T, LLT_D, TIM_POINTS = 4096, 500, 2, 17
 SHAPES = {"loglik": ("float32", LLT_CHAINS * TIM_POINTS, LLT_D, LLT_T),
           "smoother": ("float64", LLT_CHAINS, LLT_D, LLT_T),
           "loglik_tangent": ("float64", 1, LLT_D, LLT_T)}
-BLOCK_SIZES = {"loglik": (64, 128, 256), "smoother": (32, 64, 128)}
+# K1's block sizes (0: the grid laid out from the card's SM count); K2's
+# block is one warp by design
+BLOCK_SIZES = {"loglik": (0, 128, 256)}
 # batches at which each kernel is also timed: K2 from one warp to one warp
 # on each SM (the per-thread work is the same; the bytes grow 128x), K1 from
 # a quarter to the full TIM batch
@@ -55,8 +65,9 @@ SCALING = {"loglik": (LLT_CHAINS * TIM_POINTS // 16,
 
 def filter_step_flops(d):
     """Floating-point operations of one filter step as the kernels compute
-    it (v, P z, f, K, a', T P, L, (T P) L' + RQR, the symmetrization)."""
-    return 4 * d ** 3 + 9 * d ** 2 + 4 * d
+    it (v, P z, f, K, a', T P, L, (T P) L' + RQR, the symmetrization of the
+    upper triangle)."""
+    return 4 * d ** 3 + 8 * d ** 2 + 3 * d
 
 
 def loglik_flops(batch, d, t_len):
@@ -65,10 +76,31 @@ def loglik_flops(batch, d, t_len):
 
 def smoother_flops(batch, d, t_len):
     """The forward pass (filter on y - y+ and the simulation), the backward
-    r pass and the forward state pass."""
+    r pass and the forward state pass (alpha+ counted once)."""
     step = (filter_step_flops(d) + 2 * d * d + 2 * d + 1
             + 4 * d * d + d + 1 + 4 * d * d)
     return batch * t_len * step
+
+
+def jet_step_flops(d):
+    """Floating-point operations of one step of K1's jet instantiation: the
+    filter step and the log density with every scalar a jet of value,
+    gradient [N] and upper Hessian [H] over N = 1 + d(d+1)/2 parameters,
+    counted per jet operation as the kernel's Jet computes it."""
+    n = 1 + d * (d + 1) // 2
+    hh = n * (n + 1) // 2
+    cost = {"add": 1 + n + hh,  # jet +- jet, constant +- jet
+            "scale": 1 + n + hh,  # constant * jet
+            "mul": 1 + 3 * n + 7 * hh,  # jet * jet
+            "div": 1 + 3 * n + 7 * hh,  # jet / jet
+            "log": 1 + n + 3 * hh}
+    upper = d * (d - 1) // 2
+    ops = {"scale": 2 * d + 4 * d * d + d ** 3 + upper + 1,
+           "add": ((d - 1) + 1 + d * (d - 1) + (d - 1) + 1 + d * (d - 1)
+                   + d * (d - 1) + d + d * d * (d - 1) + d * d
+                   + d * d * (d - 1) + d * d + upper + 3),
+           "mul": d + d ** 3 + 1, "div": d + 1, "log": 1}
+    return sum(cost[k] * v for k, v in ops.items())
 
 
 def bound_ms(name, dtype, batch, d, t_len):
@@ -76,13 +108,19 @@ def bound_ms(name, dtype, batch, d, t_len):
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
     K1 reads a system a series and the shared y, writes one loglik a
-    series; K2 reads a system, alpha_1, w [T-1, d] and eps [T] a chain and
-    writes the draw [T, d] (its scratch is not counted)."""
+    series (and for the jet a gradient and Hessian); K2 reads a system,
+    alpha_1, w [T-1, d] and eps [T] a chain and writes the draw [T, d] (its
+    scratch is not counted)."""
     item = 8 if dtype == "float64" else 4
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     if name == "loglik":
         n_bytes = (batch * (system + 1) + t_len) * item
         flops = loglik_flops(batch, d, t_len)
+    elif name == "loglik_tangent":
+        n_par = 1 + d * (d + 1) // 2
+        n_bytes = (batch * (system + 1 + n_par + n_par * n_par)
+                   + t_len) * item
+        flops = batch * t_len * jet_step_flops(d)
     elif name == "smoother":
         n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
                    + t_len) * item
@@ -159,8 +197,6 @@ def time_kalman(rng, plain=True):
     version."""
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
-    consts = {"loglik": "LOGLIK_THREADS", "smoother": "SMOOTHER_THREADS",
-              "loglik_tangent": "LOGLIK_THREADS"}
     out = {}
     for name, (dtype, batch, d, t_len) in SHAPES.items():
         kern, ref, wrapper = kalman_cases(rng, name, dtype, batch, d, t_len)
@@ -168,17 +204,18 @@ def time_kalman(rng, plain=True):
                "call_ms": call_ms(kern),
                "wrapper_ms": median_ms(wrapper) if wrapper else None,
                "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
+        row["bound_ms"], row["bound_by"] = bound_ms(name, dtype, batch, d,
+                                                    t_len)
         if name in BLOCK_SIZES:
-            row["bound_ms"], row["bound_by"] = bound_ms(name, dtype, batch,
-                                                        d, t_len)
-            chosen = getattr(kk, consts[name])
+            chosen = kk.LOGLIK_THREADS
             row["block_ms"] = {}
             for threads in BLOCK_SIZES[name]:
-                setattr(kk, consts[name], threads)
+                kk.LOGLIK_THREADS = threads
                 try:
-                    row["block_ms"][threads] = median_ms(kern)
+                    row["block_ms"][threads or "auto"] = median_ms(kern)
                 finally:
-                    setattr(kk, consts[name], chosen)
+                    kk.LOGLIK_THREADS = chosen
+        if name in SCALING:
             row["scaling_ms"] = {
                 b: median_ms(kalman_cases(rng, name, dtype, b, d, t_len)[0])
                 for b in SCALING[name]}
@@ -188,25 +225,29 @@ def time_kalman(rng, plain=True):
 
 def nvcc_report(log_text):
     """{instantiation: {"registers", "spill_bytes", "stack_bytes"}} for
-    every kernel of kalman_seq.cu in an ``nvcc -Xptxas -v`` log."""
-    pat = re.compile(r"(loglik_kernel|smoother_kernel)I([fd])Li(\d)E"
-                     r"(?:Li(\d+)E)?")
+    every kernel of kalman_seq.cu in an ``nvcc -Xptxas -v`` log. K1's
+    instantiation without a mask is "loglik <type> d<D> dense"."""
+    pat = re.compile(r"(loglik_kernel|smoother_kernel)I(?:([fd]))?Li(\d)E"
+                     r"(?:Li(\d+)E)?(?:Lb([01])E)?")
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = pat.search(name)
         if not m:
             continue
-        kernel, ty, d, n_par = m.groups()
+        kernel, ty, d, n_par, masked = m.groups()
         kind = kernel.split("_")[0]
         if kind == "loglik" and n_par not in (None, "0"):
             kind = "loglik_tangent"
-        key = f"{kind} {'f64' if ty == 'd' else 'f32'} d{d}"
+        key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
+        if kind == "loglik" and masked == "0":
+            key += " dense"
         report[key] = {"registers": nregs, "spill_bytes": spill,
                        "stack_bytes": stack}
     return dict(sorted(report.items()))
 
 
-def main():
+def run():
+    """Build this tree's kernels and time them; returns a JSON-able dict."""
     import torch
 
     if not torch.cuda.is_available():
@@ -219,7 +260,61 @@ def main():
            "kernels": time_kalman(np.random.default_rng(20261016))}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
-    print(json.dumps(out))
+    return out
+
+
+def compare(parent, here, json_path=None):
+    """Runs parent, here, here, parent, each tree's own script in a fresh
+    process, and prints the kernels' times side by side."""
+    runs = []
+    for label, tree in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        script = tree / "boom_tpu_torch" / "kernels" / "kalman_timing.py"
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=1500)
+        if proc.returncode != 0:
+            raise SystemExit(f"kalman_timing in {tree} failed:\n"
+                             f"{proc.stderr[-4000:]}")
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+    print(runs[0][1]["card"])
+    for name, cur in runs[1][1]["kernels"].items():
+        def seq(key, name=name):
+            return " / ".join(f"{r['kernels'][name][key]:.4f}"
+                              for _, r in runs)
+        print(f"{name} {cur['shape']}: kernel (P C C P) {seq('ms')} ms, "
+              f"host-clock call {seq('call_ms')} ms, bound "
+              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']})")
+        for lab, r in (runs[0], runs[1]):
+            row = r["kernels"][name]
+            extra = {k: row[k] for k in ("block_ms", "scaling_ms",
+                                         "plain_ms", "wrapper_ms")
+                     if row.get(k) is not None}
+            print(f"  {lab}: {json.dumps(extra)}")
+    print("build_s: " + ", ".join(f"{lab} {r['build_s']:.1f}"
+                                  for lab, r in runs))
+    for lab, r in (runs[0], runs[1]):
+        for inst, rep in r["nvcc"].items():
+            print(f"nvcc {lab} {inst}: {rep['registers']} registers, "
+                  f"{rep['spill_bytes']} bytes spill stores, "
+                  f"{rep['stack_bytes']} bytes stack")
+    if json_path is not None:
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        json_path.write_text(json.dumps(
+            [{"label": lab, **r} for lab, r in runs], indent=1))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", type=Path,
+                    help="checkout to time in turns with this one")
+    ap.add_argument("--json", type=Path,
+                    help="with --compare: file for every number of the runs")
+    args = ap.parse_args()
+    if args.compare:
+        here = Path(__file__).resolve().parents[2]
+        compare(args.compare.resolve(), here, args.json)
+    else:
+        print(json.dumps(run()))
 
 
 if __name__ == "__main__":

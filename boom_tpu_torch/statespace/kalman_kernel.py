@@ -35,11 +35,13 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 LAUNCHES = {"loglik": 0, "loglik_tangent": 0, "smoother": 0}
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
-# block sizes: K1 has ~70k series at the bsts_llt shape (544 blocks of 128
-# threads); K2 has one thread per chain, and 32-thread blocks spread 4096
-# chains over 128 SMs (PERF.md, Findings: block sizes)
-LOGLIK_THREADS = 128
+# block sizes: 0 lets K1 lay its grid out from the card (one block of
+# ceil(B / SMs) threads an SM: 128 blocks of 544 at the bsts_llt shape);
+# K2's block is one warp, a lane a chain (kalman_seq.cu, kLanes)
+LOGLIK_THREADS = 0
 SMOOTHER_THREADS = 32
+# steps K2 stages into shared memory at a time (kalman_seq.cu, kChunk)
+SMOOTHER_CHUNK = 32
 _NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for larger state "
               "dimensions and the other block classes)")
 
@@ -53,15 +55,16 @@ def _ptr(x):
 
 
 def _observed_bytes(observed, t_len, device):
-    """The [T] mask as contiguous bytes on the card, or None (all
+    """The [T] mask as aligned contiguous bytes on the card, or None (all
     observed)."""
     if observed is None:
         return None
-    obs = torch.as_tensor(observed, device=device).to(torch.uint8)
+    obs = torch.as_tensor(observed, device=device)
     if obs.shape != (t_len,):
         raise ValueError(f"observed must be [T] = [{t_len}]; got "
                          f"{tuple(obs.shape)}")
-    return obs.contiguous()
+    # a fresh allocation: K2 copies the mask 4 bytes at a time
+    return torch.empty(t_len, dtype=torch.uint8, device=device).copy_(obs)
 
 
 def _checked(tensors: dict, dtype, device):
@@ -253,7 +256,7 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
 def launch_smoother(p, y, obs):
     """K2 on operands from :func:`smoother_operands` -> [C, T, d]."""
     (c, d), t_len = p["z"].shape, y.shape[0]
-    scratch = p["z"].new_empty(c, t_len, d + 2)
+    scratch = p["z"].new_empty(c, t_len, d + 1)
     out = p["z"].new_empty(c, t_len, d)
     fn = getattr(_build.library("kalman_seq"),
                  f"boom_kalman_smoother_f64_d{d}")

@@ -25,12 +25,14 @@ Phases:
      reference's on the same series;
   2b. the sequential Kalman kernels (K1, the loglik; K2, the fused
      simulation smoother; ``csrc/kalman_seq.cu``) against their plain
-     versions on the card: d in {1, 2, 3, 6}, T in {2, 33, 500, 4096},
-     float64 (<= 1e-9) and float32 (K1, <= 1e-4), K1 at the bsts_llt width
-     (69,632 series); K1's gradient and Hessian against autograd of the
-     plain version; ten launches of each at the bsts_llt shape,
-     bit-identical; then their times beside bounds and plain times
-     (``boom_tpu_torch/kernels/kalman_timing.py``);
+     versions on the card: d in {1, 2, 3, 6}, T in {2, 31, 32, 33, 67,
+     500, 4096} (K2 stages 32 steps at a time: one below, at, one above a
+     chunk, a ragged last one), 33 and 4095 chains (a last warp partly
+     empty), masked and dense, float64 (<= 1e-9) and float32 (K1, <= 1e-4),
+     K1 at the bsts_llt width (69,632 series); K1's gradient and Hessian
+     against autograd of the plain version; ten launches of each at the
+     bsts_llt shape, bit-identical; then their times beside bounds and
+     plain times (``boom_tpu_torch/kernels/kalman_timing.py``);
   4. the reference's bsts_llt workload at full width (bench.py:170-200):
      ``Bsts`` + ``LocalLinearTrend`` with the TIM marginal move, T=500,
      4096 chains, 300 burn-in + 250 draws, float32 (smoother in float64),
@@ -97,7 +99,12 @@ KALMAN_KERNELS = {"loglik": ("kalman_loglik",
                              "boom_tpu/statespace/kalman.py:282"),
                   "smoother": ("kalman_simulation_smoother",
                                "boom_tpu/statespace/kalman.py:476")}
-KALMAN_T_CHECK = (2, 33, 500, 4096)
+# K2 stages 32 steps at a time (kalman_kernel.SMOOTHER_CHUNK): one below,
+# at and one above a chunk, a ragged last chunk, the bsts_llt T and 4096;
+# masked at MASKED_T; chain counts that leave the last warp partly empty
+KALMAN_T_CHECK = (2, 31, 32, 33, 67, 500, 4096)
+KALMAN_MASKED_T = (33, 67, 500)
+KALMAN_CHAIN_CHECK = (33, 4095)
 # derivative check: normwise relative error of the jet kernel's gradient
 # and Hessian against autograd of the plain loop (float64)
 DERIV_TOL = 1e-9
@@ -440,18 +447,21 @@ def phase2b_kalman_vs_plain():
 
     rng = np.random.default_rng(20261017)
     bad, worst, at_llt = [], {}, {}
-    cases = [(dt, d, t, t in (33, 500)) for dt in (torch.float64,
-                                                   torch.float32)
+    dtypes = (torch.float64, torch.float32)
+    cases = [(dt, d, t, 8, t in KALMAN_MASKED_T) for dt in dtypes
              for d in (1, 2, 3, 6) for t in KALMAN_T_CHECK]
-    for dtype, d, t_len, masked in cases:
-        res = _kalman_vs_plain(rng, dtype, 8, d, t_len, masked)
+    cases += [(dt, d, 67, c, masked) for dt in dtypes for d in (1, 2, 3, 6)
+              for c in KALMAN_CHAIN_CHECK for masked in (False, True)]
+    for dtype, d, t_len, c, masked in cases:
+        res = _kalman_vs_plain(rng, dtype, c, d, t_len, masked)
         tag = str(dtype).split(".")[-1]
-        print(f"kalman {tag} d={d} T={t_len} masked={masked}: " + ", ".join(
-            f"{k} rel {v:.2e} abs {a:.2e}" for k, (v, a) in res.items()))
+        print(f"kalman {tag} d={d} T={t_len} C={c} masked={masked}: "
+              + ", ".join(f"{k} rel {v:.2e} abs {a:.2e}"
+                          for k, (v, a) in res.items()))
         for k, (v, _a) in res.items():
             worst[(k, tag)] = max(worst.get((k, tag), 0.0), v)
             if not (np.isfinite(v) and v <= SCAN_TOL[tag]):
-                bad.append(f"{k} {tag} d={d} T={t_len}: {v:.3e}")
+                bad.append(f"{k} {tag} d={d} T={t_len} C={c}: {v:.3e}")
     # the main path's widths: K1 over every chain's TIM points, K2 over
     # every chain
     for name, (tag, batch, d, t_len) in kt.SHAPES.items():
@@ -496,8 +506,7 @@ def phase2b_kalman_vs_plain():
     for name, r in kt.time_kalman(rng).items():
         plain = (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None
                  else "not timed")
-        bound = (f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
-                 if "bound_ms" in r else "")
+        bound = f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
         blocks = ", ".join(f"{t} threads {ms:.4f} ms"
                            for t, ms in r.get("block_ms", {}).items())
         blocks += "".join(f"; at B={b} {ms:.4f} ms"

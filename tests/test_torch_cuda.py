@@ -179,6 +179,41 @@ def test_kalman_kernels_match_plain(card, dtype, d, t_len, masked):
         dtype == torch.float64)
 
 
+def _kalman_case_matches_plain(card, d, t_len, c, masked, seed):
+    """K1 in both dtypes and K2 against the plain versions, one case."""
+    for dtype in (torch.float64, torch.float32):
+        params, y, obs, normals = _kalman_inputs(card, dtype, d, t_len,
+                                                 seed=seed, c=c,
+                                                 masked=masked)
+        ll = kk.kalman_loglik(params, y, obs)
+        assert _within(ll, kalman.kalman_loglik(params, y, obs), TOL[dtype])
+        if dtype == torch.float64:
+            draw = kk.simulation_smoother(params, y, *normals, observed=obs)
+            ref = kalman.simulation_smoother(params, y, *normals,
+                                             observed=obs)
+            assert _within(draw, ref, TOL[dtype])
+    torch.cuda.synchronize()
+
+
+# K2 stages kk.SMOOTHER_CHUNK = 32 steps at a time and takes a warp of
+# chains a block; K1 stages y 1024 steps at a time
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("t_len", [31, 32, 33, 67, 1025, 4096])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kalman_kernels_at_chunk_edges_match_plain(card, d, t_len, masked):
+    _kalman_case_matches_plain(card, d, t_len, 7, masked,
+                               seed=10 * t_len + d)
+
+
+@pytest.mark.parametrize("c", [33, 4095])
+@pytest.mark.parametrize("d", [1, 2, 3, 6])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kalman_kernels_at_block_edges_match_plain(card, c, d, masked):
+    """Chain counts that leave the last block (a warp for K2) partly
+    empty."""
+    _kalman_case_matches_plain(card, d, 67, c, masked, seed=c + d)
+
+
 @pytest.mark.parametrize("d", [1, 2])
 def test_loglik_derivatives_match_plain(card, d):
     """Gradient and Hessian in the log variances through K1's jet kernel
