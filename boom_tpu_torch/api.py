@@ -55,12 +55,15 @@ class BstsModel:
         }
         return [builders[name](kw) for name, kw in self._specs]
 
-    def fit(self, y, predictors=None, family="gaussian", niter=1000,
-            num_chains=4, burn=200, seed=0, device="cuda", dtype=None,
-            **model_kw):
+    def fit(self, y, predictors=None, family="gaussian",
+            expected_model_size=1.0, niter=1000, num_chains=4, burn=200,
+            seed=0, timestamps=None, device="cuda", dtype=None, **model_kw):
         """Run ``num_chains`` chains of the Gibbs sweep on ``device``:
-        ``burn`` sweeps, then ``niter`` recorded draws. ``device`` is the
-        CUDA card unless the caller asks for ``"cpu"``; a CUDA device on a
+        ``burn`` sweeps, then ``niter`` recorded draws. The parameters up to
+        ``timestamps`` are the reference's, in its order;
+        ``expected_model_size`` matters only with ``predictors``, which are
+        not ported yet, and ``timestamps`` raise. ``device`` is the CUDA
+        card unless the caller asks for ``"cpu"``; a CUDA device on a
         machine without one raises. ``dtype`` defaults to float64 on the
         CPU and float32 on a CUDA device."""
         from boom_tpu_torch.statespace.bsts import Bsts
@@ -69,6 +72,10 @@ class BstsModel:
             raise NotImplementedError(
                 f"family={family!r} is not ported yet (ROADMAP.md, queue 1: "
                 "statespace families)")
+        if timestamps is not None:
+            raise NotImplementedError(
+                "timestamps are not ported yet (ROADMAP.md, queue 1 item 7: "
+                "the observed/timestamps path)")
         device = rng.resolve_device(device)
         dtype = dtype or _DEFAULT_DTYPE[device.type]
         y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)

@@ -4,11 +4,12 @@
 // Replaces the reference's XLA time scans (not Pallas kernels):
 //   K1 `loglik_kernel`: boom_tpu/statespace/kalman.py `kalman_loglik`
 //      (:229, its lax.scan at :282), the marginal likelihood of every
-//      (chain, TIM candidate) series. Its jet instantiation (NP > 0) also
-//      carries first and second derivatives with respect to h and the
+//      (chain, TIM candidate) series.
+//   J1 and J2 `jet_kernel`: the same loglik of one series with its first
+//      (J1) or first and second (J2) derivatives with respect to h and the
 //      entries of R Q R' (forward mode), for the TIM proposal's mode search
-//      (`jax.value_and_grad` in numopt.bfgs, `jax.hessian` in
-//      newton_raphson and bsts.py:661).
+//      (`jax.value_and_grad` in numopt.bfgs, boom_tpu/numopt.py:43, and
+//      `jax.hessian` in newton_raphson, :101, and bsts.py:661).
 //   K2 `smoother_kernel`: the fused static `simulation_smoother`
 //      (kalman.py:438-481, lax.scan at :476) plus `_smoother_passes`
 //      (:289-350, scans at :322 and :349): the unconditional simulation
@@ -68,12 +69,22 @@
 // observed mask [T] are shared by all series. K2's per-step streams are
 // chain-major [C, T, ...] rows (a time-major staging was measured no
 // faster: PERF.md, Findings).
-// The jet scalar carries value, gradient [NP] and the Hessian's upper
-// triangle over NP = 1 + d(d+1)/2 parameters: h, then the upper triangle
-// of R Q R' (a symmetric perturbation: P depends on R Q R' only through
-// the symmetrized P'). The same template code runs with a plain scalar
-// (K1) and with the jet, so the derivatives are of exactly the function
-// K1 computes in float64.
+//
+// J1 and J2 (one series, float64, d <= 2) are a chain of T dependent steps
+// of the filter with every scalar carrying derivatives: latency bound, not
+// bytes or operations. Their first version ran the whole jet (value,
+// gradient [NP] and upper Hessian [NP (NP + 1) / 2] over NP = 1 + d(d+1)/2
+// parameters, 15 doubles a scalar at d = 2) in one thread: 255 registers,
+// 1.5 KB of spills, 3.1 ms at T = 500. Now a warp carries one series and
+// its lanes split the jet: in J2 lane l < NP (NP + 1) / 2 owns one Hessian
+// entry (i, j), i <= j, and walks the filter with a hyper-dual scalar
+// (v, d/di, d/dj, d2/didj), 4 doubles; in J1 lane l < NP owns one gradient
+// entry with a dual scalar (v, d/dl), 2 doubles, and computes no Hessian.
+// Every lane recomputes the value chain, so the lanes never exchange data.
+// One correctly rounded reciprocal of f a step serves K, v^2 / f and
+// log f's derivatives. The parameters are h, then the upper triangle of
+// R Q R' (a symmetric perturbation: P depends on R Q R' only through the
+// symmetrized P').
 
 #include <climits>
 #include <cstring>
@@ -85,151 +96,141 @@ namespace {
 
 constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
 
-__device__ __forceinline__ double log_(double x) { return log(x); }
-
-// Value, gradient and Hessian (upper triangle, row-major) of a scalar
-// function of N parameters.
-template <typename T, int N>
-struct Jet {
-  static constexpr int kH = N * (N + 1) / 2;
-  T v;
-  T g[N];
-  T h[kH];
-  __device__ Jet() {}
-  __device__ Jet(T x) : v(x) {  // NOLINT: a constant promotes to a jet
-#pragma unroll
-    for (int i = 0; i < N; ++i) g[i] = T(0);
-#pragma unroll
-    for (int k = 0; k < kH; ++k) h[k] = T(0);
-  }
+// A scalar with its derivatives along two parameter directions i and j:
+// v, a = dv/di, b = dv/dj, c = d2v/didj (kOrder = 2, a hyper-dual number);
+// kOrder = 1 carries v and a alone (a dual number), b and c unused.
+template <typename T, int kOrder>
+struct Tangent {
+  T v, a, b, c;
+  __device__ Tangent() {}
+  __device__ Tangent(T x)  // NOLINT: a constant promotes to a tangent
+      : v(x), a(T(0)), b(T(0)), c(T(0)) {}
 };
 
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator+(const Jet<T, N>& a,
-                                               const Jet<T, N>& b) {
-  Jet<T, N> c;
-  c.v = a.v + b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) c.g[i] = a.g[i] + b.g[i];
-#pragma unroll
-  for (int k = 0; k < Jet<T, N>::kH; ++k) c.h[k] = a.h[k] + b.h[k];
-  return c;
-}
+// A parameter as the filter reads it: value v and unit seeds along the
+// lane's directions (sa = 1 where the parameter is i, sb = 1 where it is j).
+template <typename T>
+struct Seed {
+  T v, sa, sb;
+};
 
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator-(const Jet<T, N>& a,
-                                               const Jet<T, N>& b) {
-  Jet<T, N> c;
-  c.v = a.v - b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) c.g[i] = a.g[i] - b.g[i];
-#pragma unroll
-  for (int k = 0; k < Jet<T, N>::kH; ++k) c.h[k] = a.h[k] - b.h[k];
-  return c;
-}
-
-// a constant minus a jet
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator-(T s, const Jet<T, N>& a) {
-  Jet<T, N> c;
-  c.v = s - a.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) c.g[i] = -a.g[i];
-#pragma unroll
-  for (int k = 0; k < Jet<T, N>::kH; ++k) c.h[k] = -a.h[k];
-  return c;
-}
-
-// a constant times a jet
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator*(T s, const Jet<T, N>& a) {
-  Jet<T, N> c;
-  c.v = s * a.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) c.g[i] = s * a.g[i];
-#pragma unroll
-  for (int k = 0; k < Jet<T, N>::kH; ++k) c.h[k] = s * a.h[k];
-  return c;
-}
-
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator*(const Jet<T, N>& a, T s) {
-  return s * a;
-}
-
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator*(const Jet<T, N>& a,
-                                               const Jet<T, N>& b) {
-  Jet<T, N> c;
-  c.v = a.v * b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) c.g[i] = a.g[i] * b.v + a.v * b.g[i];
-  int k = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = i; j < N; ++j, ++k)
-      c.h[k] = a.h[k] * b.v + a.g[i] * b.g[j] + a.g[j] * b.g[i]
-               + a.v * b.h[k];
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v + y.v;
+  r.a = x.a + y.a;
+  if constexpr (K == 2) {
+    r.b = x.b + y.b;
+    r.c = x.c + y.c;
   }
-  return c;
+  return r;
 }
 
-// q = a / b from a = q b: q' = (a' - q b') / b,
-// q''_ij = (a''_ij - q'_i b'_j - q'_j b'_i - q b''_ij) / b
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> operator/(const Jet<T, N>& a,
-                                               const Jet<T, N>& b) {
-  Jet<T, N> q;
-  q.v = a.v / b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) q.g[i] = (a.g[i] - q.v * b.g[i]) / b.v;
-  int k = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = i; j < N; ++j, ++k)
-      q.h[k] = (a.h[k] - q.g[i] * b.g[j] - q.g[j] * b.g[i] - q.v * b.h[k])
-               / b.v;
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
+                                                   const Seed<T>& s) {
+  Tangent<T, K> r;
+  r.v = x.v + s.v;
+  r.a = x.a + s.sa;
+  if constexpr (K == 2) {
+    r.b = x.b + s.sb;
+    r.c = x.c;
   }
-  return q;
+  return r;
 }
 
-// l = log x: l' = x' / x, l''_ij = x''_ij / x - l'_i l'_j
-template <typename T, int N>
-__device__ __forceinline__ Jet<T, N> log_(const Jet<T, N>& x) {
-  Jet<T, N> l;
-  l.v = log_(x.v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) l.g[i] = x.g[i] / x.v;
-  int k = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = i; j < N; ++j, ++k) l.h[k] = x.h[k] / x.v - l.g[i] * l.g[j];
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator-(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v - y.v;
+  r.a = x.a - y.a;
+  if constexpr (K == 2) {
+    r.b = x.b - y.b;
+    r.c = x.c - y.c;
   }
-  return l;
+  return r;
 }
 
-// The scalar of a series: the plain type, or its jet over NP parameters.
-template <typename T, int NP>
-using Scalar = typename std::conditional<NP == 0, T, Jet<T, NP>>::type;
+// a constant minus a tangent
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator-(T s,
+                                                   const Tangent<T, K>& x) {
+  Tangent<T, K> r;
+  r.v = s - x.v;
+  r.a = -x.a;
+  if constexpr (K == 2) {
+    r.b = -x.b;
+    r.c = -x.c;
+  }
+  return r;
+}
+
+// a constant times a tangent
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(T s,
+                                                   const Tangent<T, K>& x) {
+  Tangent<T, K> r;
+  r.v = s * x.v;
+  r.a = s * x.a;
+  if constexpr (K == 2) {
+    r.b = s * x.b;
+    r.c = s * x.c;
+  }
+  return r;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
+                                                   T s) {
+  return s * x;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v * y.v;
+  r.a = x.a * y.v + x.v * y.a;
+  if constexpr (K == 2) {
+    r.b = x.b * y.v + x.v * y.b;
+    r.c = x.c * y.v + x.a * y.b + x.b * y.a + x.v * y.c;
+  }
+  return r;
+}
 
 // The correctly rounded reciprocal.
 __device__ __forceinline__ float reciprocal(float x) { return __frcp_rn(x); }
 __device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
+
+// q = 1 / f with one correctly rounded reciprocal of f.v:
+// q' = -f' / f^2, q''_ij = (2 f'_i f'_j / f - f''_ij) / f^2
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> reciprocal(const Tangent<T, K>& f) {
+  Tangent<T, K> q;
+  q.v = reciprocal(f.v);
+  const T fa = f.a * q.v;
+  q.a = -fa * q.v;
+  if constexpr (K == 2) {
+    q.b = -(f.b * q.v) * q.v;
+    q.c = ((T(2) * fa) * f.b - f.c) * q.v * q.v;
+  }
+  return q;
+}
 
 // One filter step of the reference's `step_core` (kalman.py:171-187) on the
 // predicted (a, P), in place: returns v and f, writes K into k. kRecip:
 // K = T P z * (1 / f) with one correctly rounded reciprocal, returned in
 // rf (K2, and K1 in float32), in place of the reference's d divisions,
 // which the card runs one after another (each is a branchy sequence); else
-// K = T P z / f (K1 in float64, and its jets).
-template <typename T, typename S, int D, bool kRecip>
-__device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D],
-                                            const S& yt, bool obs,
-                                            const T (&z)[D], const S& h,
-                                            const S (&rqr)[D][D],
+// K = T P z / f (K1 in float64). S is the scalar of the state (T, or a
+// Tangent in J1 and J2), P that of h and R Q R' (S, or a Seed).
+template <typename T, typename S, int D, bool kRecip, typename P = S>
+__device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D], T yt,
+                                            bool obs, const T (&z)[D],
+                                            const P& h,
+                                            const P (&rqr)[D][D],
                                             const T (&tm)[D][D], S& v,
                                             S& f, S (&k)[D], S& rf) {
   const S zero(T(0));
@@ -313,22 +314,29 @@ __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D],
 // One step's log density: where(obs, -0.5 (log 2 pi + log f + v v / f), 0)
 // without the where. kFast (K1 in float32): v v (1 / f) and the SFU's
 // __logf; else the reference's division and log.
-template <typename T, typename S, bool kFast>
-__device__ __forceinline__ S log_density(const S& v, const S& f,
-                                         const S& rf) {
+template <typename T, bool kFast>
+__device__ __forceinline__ T log_density(T v, T f, T rf) {
   if constexpr (kFast) {
     return T(-0.5) * ((T(kLog2Pi) + __logf(f)) + v * v * rf);
   } else {
-    return T(-0.5) * ((S(T(kLog2Pi)) + log_(f)) + v * v / f);
+    return T(-0.5) * ((T(kLog2Pi) + log(f)) + v * v / f);
   }
 }
 
-// The jet of a parameter: value x, unit derivative along parameter `slot`.
-template <typename T, int NP>
-__device__ __forceinline__ Scalar<T, NP> seeded(T x, int slot) {
-  Scalar<T, NP> s(x);
-  if constexpr (NP > 0) s.g[slot] = T(1);
-  return s;
+// The same for a tangent, with the step's reciprocal rf = 1 / f in place
+// of the division: log f has l' = f' / f, l''_ij = f''_ij / f - l'_i l'_j.
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> log_density(
+    const Tangent<T, K>& v, const Tangent<T, K>& f,
+    const Tangent<T, K>& rf) {
+  Tangent<T, K> lf;
+  lf.v = log(f.v);
+  lf.a = f.a * rf.v;
+  if constexpr (K == 2) {
+    lf.b = f.b * rf.v;
+    lf.c = f.c * rf.v - lf.a * lf.b;
+  }
+  return T(-0.5) * ((Tangent<T, K>(T(kLog2Pi)) + lf) + v * v * rf);
 }
 
 // ---- staging -------------------------------------------------------------
@@ -385,13 +393,25 @@ __device__ __forceinline__ void async_wait() {
 // Steps of y (and of the mask) a block stages in shared memory at a time.
 constexpr int kYChunk = 1024;
 
-// K1: one thread per series. NP = 0: the loglik alone; NP > 0: also its
-// gradient [B, NP] and Hessian [B, NP, NP] over (h, upper triangle of
-// R Q R'), parameter j of row i at 1 + i*D - i*(i-1)/2 + (j - i).
-// kMasked = false: every step observed (obs is not read). Threads past the
-// batch follow its last series, so that every thread reaches the barriers,
-// and write nothing.
-template <typename T, int D, int NP, bool kMasked>
+// K1, J1, J2: steps [t0, t0 + n) of y and (kMasked) of the mask, nullptr
+// read as all observed, into the block's shared memory ys, os.
+template <typename T, bool kMasked>
+__device__ __forceinline__ void stage_y_chunk(T* ys, unsigned char* os,
+                                             const T* y,
+                                             const unsigned char* obs,
+                                             int t0, int n) {
+  __syncthreads();  // the block is done with the previous chunk
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    ys[i] = y[t0 + i];
+    if (kMasked) os[i] = obs == nullptr ? 1 : obs[t0 + i];
+  }
+  __syncthreads();
+}
+
+// K1: one thread per series. kMasked = false: every step observed (obs is
+// not read). Threads past the batch follow its last series, so that every
+// thread reaches the barriers, and write nothing.
+template <typename T, int D, bool kMasked>
 __global__ void loglik_kernel(const T* __restrict__ z,
                               const T* __restrict__ tm,
                               const T* __restrict__ rqr,
@@ -400,18 +420,92 @@ __global__ void loglik_kernel(const T* __restrict__ z,
                               const T* __restrict__ p0,
                               const T* __restrict__ y,
                               const unsigned char* __restrict__ obs,
-                              T* __restrict__ ll, T* __restrict__ grad,
-                              T* __restrict__ hess, int batch, int t_len) {
-  using S = Scalar<T, NP>;
+                              T* __restrict__ ll, int batch, int t_len) {
   // float32: one reciprocal of f and __logf (PERF.md, K1's tolerance)
-  constexpr bool kFast = std::is_same<S, float>::value;
+  constexpr bool kFast = std::is_same<T, float>::value;
   BOOM_SHARED_BYTES(smem_raw);
   T* ys = reinterpret_cast<T*>(smem_raw);
   unsigned char* os = smem_raw + kYChunk * sizeof(T);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = idx < batch ? idx : batch - 1;
+  T zz[D], tt[D][D], a[D], p[D][D], q[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    zz[i] = z[b * D + i];
+    a[i] = a0[b * D + i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int ij = (b * D + i) * D + j;
+      tt[i][j] = tm[ij];
+      p[i][j] = p0[ij];
+      q[i][j] = rqr[ij];
+    }
+  }
+  const T hh = h[b];
+  T acc(0);
+  T v, f, k[D], rf;
+  for (int t0 = 0; t0 < t_len; t0 += kYChunk) {
+    const int n = t_len - t0 < kYChunk ? t_len - t0 : kYChunk;
+    stage_y_chunk<T, kMasked>(ys, os, y, obs, t0, n);
+    for (int s = 0; s < n; ++s) {
+      const bool o = !kMasked || os[s] != 0;
+      filter_step<T, T, D, kFast>(a, p, ys[s], o, zz, hh, q, tt, v, f, k,
+                                  rf);
+      if (o) acc = acc + log_density<T, kFast>(v, f, rf);
+    }
+  }
+  if (idx < batch) ll[b] = acc;
+}
+
+// ---- J1, J2 --------------------------------------------------------------
+
+// Series a block of J1 / J2 (a warp each).
+constexpr int kJetWarps = 4;
+
+// J1 (kOrder = 1) and J2 (kOrder = 2): the loglik of each series with its
+// gradient grad [B, NP] (J1, J2) and Hessian hess [B, NP, NP] (J2) over
+// NP = 1 + D(D+1)/2 parameters: h, then the upper triangle of R Q R',
+// parameter (lo, hi) at 1 + lo*D - lo*(lo-1)/2 + (hi - lo). A warp a
+// series: in J1 lane l < NP carries the dual number along parameter l; in
+// J2 lane l < NP(NP+1)/2 the hyper-dual along (i, j), the l-th entry of the
+// upper triangle in row-major order, and lane (i, i) also gives g_i. The
+// operation order is K1's in float64 (filter_step, log_density), but for
+// the one reciprocal of f a step. Lanes past the last entry, and warps
+// past the batch, repeat its last one and write nothing; y and the mask
+// are staged in shared memory a block at a time as in K1.
+template <typename T, int D, int kOrder, bool kMasked>
+__global__ void __launch_bounds__(kJetWarps * 32)
+    jet_kernel(const T* __restrict__ z, const T* __restrict__ tm,
+               const T* __restrict__ rqr, const T* __restrict__ h,
+               const T* __restrict__ a0, const T* __restrict__ p0,
+               const T* __restrict__ y, const unsigned char* __restrict__ obs,
+               T* __restrict__ ll, T* __restrict__ grad,
+               T* __restrict__ hess, int batch, int t_len) {
+  constexpr int NP = 1 + D * (D + 1) / 2;
+  constexpr int kEntries = kOrder == 1 ? NP : NP * (NP + 1) / 2;
+  static_assert(kEntries <= 32, "a warp carries one series' entries");
+  using S = Tangent<T, kOrder>;
+  BOOM_SHARED_BYTES(smem_raw);
+  T* ys = reinterpret_cast<T*>(smem_raw);
+  unsigned char* os = smem_raw + kYChunk * sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int idx = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int b = idx < batch ? idx : batch - 1;
+  const int entry = lane < kEntries ? lane : kEntries - 1;
+  // the lane's directions (di, dj): entry -> (i, j), i <= j
+  int di = entry, dj = entry;
+  if constexpr (kOrder == 2) {
+    di = 0;
+    int left = entry;
+    while (left >= NP - di) left -= NP - di++;
+    dj = di + left;
+  }
+  auto seed = [&](T x, int par) {
+    return Seed<T>{x, T(par == di ? 1 : 0), T(par == dj ? 1 : 0)};
+  };
   T zz[D], tt[D][D];
-  S a[D], p[D][D], q[D][D];
+  S a[D], p[D][D];
+  Seed<T> q[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     zz[i] = z[b * D + i];
@@ -422,43 +516,27 @@ __global__ void loglik_kernel(const T* __restrict__ z,
       tt[i][j] = tm[ij];
       p[i][j] = S(p0[ij]);
       const int lo = i < j ? i : j, hi = i < j ? j : i;
-      q[i][j] = seeded<T, NP>(rqr[ij], 1 + lo * D - lo * (lo - 1) / 2
-                                           + (hi - lo));
+      q[i][j] = seed(rqr[ij], 1 + lo * D - lo * (lo - 1) / 2 + (hi - lo));
     }
   }
-  const S hh = seeded<T, NP>(h[b], 0);
+  const Seed<T> hh = seed(h[b], 0);
   S acc(T(0));
   S v, f, k[D], rf;
   for (int t0 = 0; t0 < t_len; t0 += kYChunk) {
     const int n = t_len - t0 < kYChunk ? t_len - t0 : kYChunk;
-    __syncthreads();  // the block is done with the previous chunk
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      ys[i] = y[t0 + i];
-      if (kMasked) os[i] = obs == nullptr ? 1 : obs[t0 + i];
-    }
-    __syncthreads();
+    stage_y_chunk<T, kMasked>(ys, os, y, obs, t0, n);
     for (int s = 0; s < n; ++s) {
       const bool o = !kMasked || os[s] != 0;
-      filter_step<T, S, D, kFast>(a, p, S(ys[s]), o, zz, hh, q, tt, v, f, k,
-                                  rf);
-      if (o) acc = acc + log_density<T, S, kFast>(v, f, rf);
+      filter_step<T, S, D, true>(a, p, ys[s], o, zz, hh, q, tt, v, f, k, rf);
+      if (o) acc = acc + log_density(v, f, rf);
     }
   }
-  if (idx >= batch) return;
-  if constexpr (NP == 0) {
-    ll[b] = acc;
-  } else {
-    ll[b] = acc.v;
-    int m = 0;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      grad[b * NP + i] = acc.g[i];
-#pragma unroll
-      for (int j = i; j < NP; ++j, ++m) {
-        hess[(b * NP + i) * NP + j] = acc.h[m];
-        hess[(b * NP + j) * NP + i] = acc.h[m];
-      }
-    }
+  if (idx >= batch || lane >= kEntries) return;
+  if (lane == 0) ll[b] = acc.v;
+  if (di == dj) grad[b * NP + di] = acc.a;
+  if constexpr (kOrder == 2) {
+    hess[(b * NP + di) * NP + dj] = acc.c;
+    hess[(b * NP + dj) * NP + di] = acc.c;
   }
 }
 
@@ -827,20 +905,16 @@ int loglik_block(Kernel kernel, int batch, int threads) {
   return want < most ? want : most;
 }
 
-template <typename T, int D, int NP>
+template <typename T, int D>
 int launch_loglik(const void* z, const void* tm, const void* rqr,
                   const void* h, const void* a0, const void* p0,
-                  const void* y, const void* obs, void* ll, void* grad,
-                  void* hess, int batch, int t_len, int threads,
-                  void* stream) {
+                  const void* y, const void* obs, void* ll, int batch,
+                  int t_len, int threads, void* stream) {
   if (bad_launch(batch, threads) || t_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  // the jets always take the masked instantiation (it reads obs == nullptr
-  // as all observed)
-  const bool masked = NP > 0 || obs != nullptr;
-  auto kernel = masked ? loglik_kernel<T, D, NP, true>
-                       : loglik_kernel<T, D, NP, NP != 0>;
+  auto kernel = obs != nullptr ? loglik_kernel<T, D, true>
+                               : loglik_kernel<T, D, false>;
   threads = loglik_block(kernel, batch, threads);
   if (threads <= 0) {
     const cudaError_t err = cudaGetLastError();
@@ -848,20 +922,40 @@ int launch_loglik(const void* z, const void* tm, const void* rqr,
   }
   const int blocks = (batch + threads - 1) / threads;
   const int smem = kYChunk * (static_cast<int>(sizeof(T)) + 1);
-  const T* zt = static_cast<const T*>(z);
-  const T* tmt = static_cast<const T*>(tm);
-  const T* qt = static_cast<const T*>(rqr);
-  const T* ht = static_cast<const T*>(h);
-  const T* at = static_cast<const T*>(a0);
-  const T* pt = static_cast<const T*>(p0);
-  const T* yt = static_cast<const T*>(y);
-  const unsigned char* ot = static_cast<const unsigned char*>(obs);
-  T* llt = static_cast<T*>(ll);
-  T* gt = static_cast<T*>(grad);
-  T* hst = static_cast<T*>(hess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, threads, smem, st>>>(zt, tmt, qt, ht, at, pt, yt, ot,
-                                        llt, gt, hst, batch, t_len);
+  kernel<<<blocks, threads, smem, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(tm),
+      static_cast<const T*>(rqr), static_cast<const T*>(h),
+      static_cast<const T*>(a0), static_cast<const T*>(p0),
+      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<T*>(ll), batch, t_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// J1 (kOrder 1, hess unused) and J2 (kOrder 2). threads: a warp a series,
+// at most kJetWarps of them a block; 0 for min(kJetWarps, batch) warps.
+template <typename T, int D, int kOrder>
+int launch_jet(const void* z, const void* tm, const void* rqr, const void* h,
+               const void* a0, const void* p0, const void* y,
+               const void* obs, void* ll, void* grad, void* hess, int batch,
+               int t_len, int threads, void* stream) {
+  if (bad_launch(batch, threads) || threads > kJetWarps * 32 || t_len < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  if (threads == 0) threads = 32 * (batch < kJetWarps ? batch : kJetWarps);
+  auto kernel = obs != nullptr ? jet_kernel<T, D, kOrder, true>
+                               : jet_kernel<T, D, kOrder, false>;
+  const int warps = threads / 32;
+  const int blocks = (batch + warps - 1) / warps;
+  const int smem = kYChunk * (static_cast<int>(sizeof(T)) + 1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, threads, smem, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(tm),
+      static_cast<const T*>(rqr), static_cast<const T*>(h),
+      static_cast<const T*>(a0), static_cast<const T*>(p0),
+      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
+      batch, t_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -904,30 +998,37 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 // Plain C entries. Every array is a contiguous device array of the entry's
 // type: z [B, D], tm and rqr and p0 [B, D, D], h [B], a0 and alpha1 [B, D],
 // y [T], obs [T] bytes, 4-byte aligned (nullptr: all observed); outputs
-// ll [B], grad [B, NP], hess [B, NP, NP], out [C, T, D]; w [C, T-1, D],
-// eps [C, T]; scratch [C, T, D+1]. threads: K1's block size, a multiple of
-// 32 up to 1024, or 0 for one block of ceil(B / SMs) threads an SM; K2's
-// must be 32. stream: a cudaStream_t. Returns the cudaError_t of the
-// launch (0 = success).
+// ll [B], grad [B, NP], hess [B, NP, NP] (NP = 1 + D(D+1)/2), out
+// [C, T, D]; w [C, T-1, D], eps [C, T]; scratch [C, T, D+1]. threads: K1's
+// block size, a multiple of 32 up to 1024, or 0 for one block of
+// ceil(B / SMs) threads an SM; J1's and J2's a multiple of 32 up to
+// 32 * kJetWarps, or 0; K2's must be 32. stream: a cudaStream_t. Returns
+// the cudaError_t of the launch (0 = success).
 #define BOOM_LOGLIK_ENTRY(TY, TYNAME, D)                                     \
   extern "C" int boom_kalman_loglik_##TYNAME##_d##D(                         \
       const void* z, const void* tm, const void* rqr, const void* h,         \
       const void* a0, const void* p0, const void* y, const void* obs,        \
       void* ll, int batch, int t_len, int threads, void* stream) {           \
-    return launch_loglik<TY, D, 0>(z, tm, rqr, h, a0, p0, y, obs, ll,        \
-                                   nullptr, nullptr, batch, t_len, threads,  \
-                                   stream);                                  \
+    return launch_loglik<TY, D>(z, tm, rqr, h, a0, p0, y, obs, ll, batch,    \
+                                t_len, threads, stream);                     \
   }
 
-#define BOOM_TANGENT_ENTRY(TY, TYNAME, D)                                    \
-  extern "C" int boom_kalman_loglik_tangent_##TYNAME##_d##D(                 \
+#define BOOM_JET_ENTRIES(TY, TYNAME, D)                                      \
+  extern "C" int boom_kalman_loglik_grad_##TYNAME##_d##D(                    \
+      const void* z, const void* tm, const void* rqr, const void* h,         \
+      const void* a0, const void* p0, const void* y, const void* obs,        \
+      void* ll, void* grad, int batch, int t_len, int threads,               \
+      void* stream) {                                                        \
+    return launch_jet<TY, D, 1>(z, tm, rqr, h, a0, p0, y, obs, ll, grad,     \
+                                nullptr, batch, t_len, threads, stream);     \
+  }                                                                          \
+  extern "C" int boom_kalman_loglik_hess_##TYNAME##_d##D(                    \
       const void* z, const void* tm, const void* rqr, const void* h,         \
       const void* a0, const void* p0, const void* y, const void* obs,        \
       void* ll, void* grad, void* hess, int batch, int t_len, int threads,   \
       void* stream) {                                                        \
-    return launch_loglik<TY, D, 1 + D * (D + 1) / 2>(                        \
-        z, tm, rqr, h, a0, p0, y, obs, ll, grad, hess, batch, t_len,         \
-        threads, stream);                                                    \
+    return launch_jet<TY, D, 2>(z, tm, rqr, h, a0, p0, y, obs, ll, grad,     \
+                                hess, batch, t_len, threads, stream);        \
   }
 
 #define BOOM_SMOOTHER_ENTRY(TY, TYNAME, D)                                   \
@@ -950,8 +1051,8 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 
 BOOM_LOGLIK_ALL_D(float, f32)
 BOOM_LOGLIK_ALL_D(double, f64)
-BOOM_TANGENT_ENTRY(double, f64, 1)
-BOOM_TANGENT_ENTRY(double, f64, 2)
+BOOM_JET_ENTRIES(double, f64, 1)
+BOOM_JET_ENTRIES(double, f64, 2)
 BOOM_SMOOTHER_ENTRY(double, f64, 1)
 BOOM_SMOOTHER_ENTRY(double, f64, 2)
 BOOM_SMOOTHER_ENTRY(double, f64, 3)

@@ -36,8 +36,10 @@ SCAN_DIMS = tuple(range(1, 7))
 SCAN_MIN_TILE = 128
 
 # the C entries of kalman_seq.cu: (dtype tags, state dims) of each kernel
+# (K1 "loglik", J1 "loglik_grad", J2 "loglik_hess", K2 "smoother")
 KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
-                  "loglik_tangent": (("f64",), (1, 2)),
+                  "loglik_grad": (("f64",), (1, 2)),
+                  "loglik_hess": (("f64",), (1, 2)),
                   "smoother": (("f64",), tuple(range(1, 7)))}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,8 +49,10 @@ _ARGTYPES = {
     "scan": [_P, _P, _P, _L, _I, _I, _I, _P],
     # z, tm, rqr, h, a0, p0, y, obs, ll, batch, t_len, threads, stream
     "loglik": [_P] * 9 + [_I, _I, _I, _P],
+    # ... ll, grad, batch, t_len, threads, stream
+    "loglik_grad": [_P] * 10 + [_I, _I, _I, _P],
     # ... ll, grad, hess, batch, t_len, threads, stream
-    "loglik_tangent": [_P] * 11 + [_I, _I, _I, _P],
+    "loglik_hess": [_P] * 11 + [_I, _I, _I, _P],
     # z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch,
     # t_len, threads, stream
     "smoother": [_P] * 12 + [_I, _I, _I, _P],

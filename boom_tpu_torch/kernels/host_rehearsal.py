@@ -9,10 +9,11 @@ defines the CUDA keywords away and gives ``blockIdx``/``blockDim``/
 becomes two loops over blocks and threads that call ``kernel(args)``. The
 library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
 wrappers run the kernels' own arithmetic on CPU tensors, which are checked
-against the plain versions (K1 in float64 and float32, K2, the derivative
-kernel against autograd of the plain loop). ``--llt`` then runs the bsts_llt
-path (T=500, TIM, float32, smoother in float64) for 32 chains, 100 + 200
-sweeps, through the host-compiled kernels and prints R-hat, ESS and the
+against the plain versions (K1 in float64 and float32, K2, J1 and J2, the
+derivative kernels, against autograd of the plain loop). ``--llt`` then
+runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
+in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
+kernels and prints R-hat, ESS and the
 variances' medians. Every number it prints is of the host CPU, never a
 device metric; it finds faults in the kernels' arithmetic before a chip
 run, not their speed.
@@ -150,8 +151,9 @@ def _rel(a, b):
 
 
 def check_kernels(seed=0):
-    """K1, K2 and the derivative kernel against the plain versions:
-    returns the worst normwise relative error per kernel."""
+    """K1, K2, J1 and J2 against the plain versions, and the gradient and
+    Hessian that autograd reaches through J1 and J2 against autograd of the
+    plain loop: returns the worst normwise relative error of each."""
     import torch
 
     from boom_tpu_torch.kernels.kalman_timing import system
@@ -186,25 +188,39 @@ def check_kernels(seed=0):
                 for k, v in errs.items():
                     worst[k] = max(worst.get(k, 0.0), v)
     for d in (1, 2):
-        params = system(rng, 1, d, "float64", device="cpu")
-        y = torch.tensor(rng.normal(size=60).cumsum())
+        for masked in (False, True):
+            # J1 and J2 against their plain version, 5 series (a second
+            # block of warps, partly empty)
+            params = system(rng, 5, d, "float64", device="cpu")
+            y = torch.tensor(rng.normal(size=60).cumsum())
+            obs = torch.tensor(rng.uniform(size=60) > 0.3) if masked else None
+            fields = (params.h, params.rqr.contiguous(), params.z,
+                      params.t_mat, params.a0, params.p0, y, obs)
+            for order, kind in ((1, "loglik_grad"), (2, "loglik_hess")):
+                got = kk.launch_loglik(*fields, order=order)
+                want = kk.loglik_jets_plain(*fields, order=order)
+                worst[kind] = max([worst.get(kind, 0.0)] + [
+                    _rel(a, b) for a, b in zip(got, want)])
+            # and through autograd: the gradient (J1) and the Hessian (J2)
+            # in the log variances, as the TIM mode search asks for them
+            one = system(rng, 1, d, "float64", device="cpu")
 
-        def f(u, fn, params=params, d=d, y=y):
-            return fn(params._replace(
-                q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
-                h=torch.exp(u[d:])), y)[0]
+            def f(u, fn, one=one, d=d, y=y, obs=obs):
+                return fn(one._replace(
+                    q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
+                    h=torch.exp(u[d:])), y, obs)[0]
 
-        u0 = torch.linspace(-1.0, 0.3, d + 1, dtype=torch.float64)
-        got = []
-        for fn in (kk.kalman_loglik, kalman.kalman_loglik):
-            u = u0.clone().requires_grad_(True)
-            (g,) = torch.autograd.grad(f(u, fn), u)
-            got.append((g, torch.autograd.functional.hessian(
-                lambda x, fn=fn: f(x, fn), u0)))
-        worst["gradient"] = max(worst.get("gradient", 0.0),
-                                _rel(got[0][0], got[1][0]))
-        worst["hessian"] = max(worst.get("hessian", 0.0),
-                               _rel(got[0][1], got[1][1]))
+            u0 = torch.linspace(-1.0, 0.3, d + 1, dtype=torch.float64)
+            got = []
+            for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+                u = u0.clone().requires_grad_(True)
+                (g,) = torch.autograd.grad(f(u, fn), u)
+                got.append((g, torch.autograd.functional.hessian(
+                    lambda x, fn=fn: f(x, fn), u0)))
+            worst["gradient"] = max(worst.get("gradient", 0.0),
+                                    _rel(got[0][0], got[1][0]))
+            worst["hessian"] = max(worst.get("hessian", 0.0),
+                                   _rel(got[0][1], got[1][1]))
     return worst
 
 
@@ -213,17 +229,14 @@ def rehearse_llt(chains=32, burn=100, draws=200, t_len=500, seed=0):
     CPU: {statistic: (R-hat, ESS)} and the variances' medians."""
     import torch
 
+    from boom_tpu_torch import data
     from boom_tpu_torch import rng as prng
     from boom_tpu_torch.inference import diagnostics
     from boom_tpu_torch.inference.driver import run_mcmc
     from boom_tpu_torch.statespace.bsts import Bsts
     from boom_tpu_torch.statespace.state_models import LocalLinearTrend
 
-    gen_y = np.random.default_rng(4207)  # chip_smoke._llt_series
-    slope = np.cumsum(0.02 * gen_y.normal(size=t_len))
-    level = np.cumsum(slope + 0.3 * gen_y.normal(size=t_len)) + 5.0
-    y = torch.tensor(level + 0.5 * gen_y.normal(size=t_len),
-                     dtype=torch.float32)
+    y = torch.tensor(data.bsts_llt_series()[:t_len])
     model = Bsts(y=y, blocks=[LocalLinearTrend.default(y)],
                  marginal_sigma_slice=True, marginal_move="tim")
 

@@ -7,12 +7,14 @@ their plain versions, at the shapes of the bsts_llt workload.
 
 Prints the card, the build time, per kernel the device time, the plain
 version's time, the bound and what sets it, the times at other block sizes
-and batches, and the ``nvcc -Xptxas -v`` registers and spills of every
-instantiation. ``--compare DIR`` runs the same script of the checkout DIR
-(another commit of this repository, unpacked with ``git archive``; its
-kernels build under DIR) and of this tree in turns (DIR, this, this, DIR),
-each in its own process on the same card, prints the times side by side,
-and with ``--json PATH`` writes every number of the four runs to PATH.
+and batches, the ``nvcc -Xptxas -v`` registers and spills of every
+instantiation, and the instructions of K1's, J1's and J2's step loops
+(``cuobjdump -sass``). ``--compare DIR`` runs the same script of the
+checkout DIR (another commit of this repository, unpacked with ``git
+archive``; its kernels build under DIR) and of this tree in turns (DIR,
+this, this, DIR), each in its own process on the same card, prints the
+times side by side, and with ``--json PATH`` writes every number of the
+four runs to PATH.
 ``chip_smoke.py`` takes its shapes, inputs and bounds from here. Needs a
 CUDA card.
 """
@@ -45,13 +47,15 @@ from boom_tpu_torch.kernels.scan_timing import (  # noqa: E402
 # the bsts_llt workload (bench.py:170-177): 4096 chains, T=500, d=2, the
 # TIM move scoring 16 candidates + the current point a chain
 LLT_CHAINS, LLT_T, LLT_D, TIM_POINTS = 4096, 500, 2, 17
-# name: (dtype, batch, d, T); "loglik" scores the TIM points of every chain
-# (float32, the run's dtype), "smoother" imputes every chain (float64,
-# bsts.SMOOTHER_DTYPE), "loglik_tangent" is one evaluation of the TIM
-# proposal's mode search (float64, one series)
+# name: (dtype, batch, d, T); "loglik" (K1) scores the TIM points of every
+# chain (float32, the run's dtype), "smoother" (K2) imputes every chain
+# (float64, bsts.SMOOTHER_DTYPE), "loglik_grad" (J1) and "loglik_hess" (J2)
+# are one evaluation of the TIM proposal's mode search (float64, one
+# series)
 SHAPES = {"loglik": ("float32", LLT_CHAINS * TIM_POINTS, LLT_D, LLT_T),
           "smoother": ("float64", LLT_CHAINS, LLT_D, LLT_T),
-          "loglik_tangent": ("float64", 1, LLT_D, LLT_T)}
+          "loglik_grad": ("float64", 1, LLT_D, LLT_T),
+          "loglik_hess": ("float64", 1, LLT_D, LLT_T)}
 # K1's block sizes (0: the grid laid out from the card's SM count); K2's
 # block is one warp by design
 BLOCK_SIZES = {"loglik": (0, 128, 256)}
@@ -82,11 +86,23 @@ def smoother_flops(batch, d, t_len):
     return batch * t_len * step
 
 
+def _jet_step_ops(d):
+    """Jet operations of one filter step and log density: {kind: count}."""
+    upper = d * (d - 1) // 2
+    return {"scale": 2 * d + 4 * d * d + d ** 3 + upper + 1,
+            "add": ((d - 1) + 1 + d * (d - 1) + (d - 1) + 1 + d * (d - 1)
+                    + d * (d - 1) + d + d * d * (d - 1) + d * d
+                    + d * d * (d - 1) + d * d + upper + 3),
+            "mul": d + d ** 3 + 1, "div": d + 1, "log": 1}
+
+
 def jet_step_flops(d):
-    """Floating-point operations of one step of K1's jet instantiation: the
-    filter step and the log density with every scalar a jet of value,
-    gradient [N] and upper Hessian [H] over N = 1 + d(d+1)/2 parameters,
-    counted per jet operation as the kernel's Jet computes it."""
+    """Floating-point operations of one step of the loglik with its
+    gradient and Hessian (J2's function): the filter step and the log
+    density with every scalar a jet of value, gradient [N] and upper
+    Hessian [H] over N = 1 + d(d+1)/2 parameters, counted per jet operation
+    as a one-thread jet computes it (the work of the function, whatever
+    implements it)."""
     n = 1 + d * (d + 1) // 2
     hh = n * (n + 1) // 2
     cost = {"add": 1 + n + hh,  # jet +- jet, constant +- jet
@@ -94,13 +110,16 @@ def jet_step_flops(d):
             "mul": 1 + 3 * n + 7 * hh,  # jet * jet
             "div": 1 + 3 * n + 7 * hh,  # jet / jet
             "log": 1 + n + 3 * hh}
-    upper = d * (d - 1) // 2
-    ops = {"scale": 2 * d + 4 * d * d + d ** 3 + upper + 1,
-           "add": ((d - 1) + 1 + d * (d - 1) + (d - 1) + 1 + d * (d - 1)
-                   + d * (d - 1) + d + d * d * (d - 1) + d * d
-                   + d * d * (d - 1) + d * d + upper + 3),
-           "mul": d + d ** 3 + 1, "div": d + 1, "log": 1}
-    return sum(cost[k] * v for k, v in ops.items())
+    return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
+
+
+def dual_step_flops(d):
+    """The same for the loglik with its gradient alone (J1's function):
+    first-order jets of value and gradient [N]."""
+    n = 1 + d * (d + 1) // 2
+    cost = {"add": 1 + n, "scale": 1 + n, "mul": 1 + 3 * n,
+            "div": 1 + 3 * n, "log": 1 + n}
+    return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
 
 
 def bound_ms(name, dtype, batch, d, t_len):
@@ -108,19 +127,21 @@ def bound_ms(name, dtype, batch, d, t_len):
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
     K1 reads a system a series and the shared y, writes one loglik a
-    series (and for the jet a gradient and Hessian); K2 reads a system,
-    alpha_1, w [T-1, d] and eps [T] a chain and writes the draw [T, d] (its
-    scratch is not counted)."""
+    series (J1 also a gradient, J2 a gradient and Hessian); K2 reads a
+    system, alpha_1, w [T-1, d] and eps [T] a chain and writes the draw
+    [T, d] (its scratch is not counted)."""
     item = 8 if dtype == "float64" else 4
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     if name == "loglik":
         n_bytes = (batch * (system + 1) + t_len) * item
         flops = loglik_flops(batch, d, t_len)
-    elif name == "loglik_tangent":
+    elif name in ("loglik_grad", "loglik_hess"):
         n_par = 1 + d * (d + 1) // 2
-        n_bytes = (batch * (system + 1 + n_par + n_par * n_par)
+        hess = name == "loglik_hess"
+        n_bytes = (batch * (system + 1 + n_par + hess * n_par * n_par)
                    + t_len) * item
-        flops = batch * t_len * jet_step_flops(d)
+        flops = batch * t_len * (jet_step_flops(d) if hess
+                                 else dual_step_flops(d))
     elif name == "smoother":
         n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
                    + t_len) * item
@@ -151,9 +172,9 @@ def kalman_cases(rng, name, dtype, batch, d, t_len):
     """(kernel call, plain call, wrapper call) for one kernel on inputs of
     its shape. The kernel call launches the kernel on prepared operands;
     the plain call is the plain PyTorch function of the same inputs (for
-    the derivative kernel: autograd's gradient and Hessian of the plain
-    loglik in the log variances); the wrapper call is the public function
-    on the card, with the operands' preparation."""
+    J1 and J2: autograd of the plain loglik, ``loglik_jets_plain``); the
+    wrapper call is the public function on the card, with the operands'
+    preparation (none for J1 and J2, which autograd reaches)."""
     import torch
 
     from boom_tpu_torch.statespace import kalman
@@ -166,20 +187,13 @@ def kalman_cases(rng, name, dtype, batch, d, t_len):
     fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
               params.a0, params.p0, y, None)
     if name == "loglik":
-        return (lambda: kk.launch_loglik(*fields, tangent=False),
+        return (lambda: kk.launch_loglik(*fields),
                 lambda: kalman.kalman_loglik(params, y),
                 lambda: kk.kalman_loglik(params, y))
-    if name == "loglik_tangent":
-        def plain():
-            def f(u):
-                q = torch.diag_embed(torch.exp(u[:d]))[None]
-                return kalman.kalman_loglik(
-                    params._replace(q_mat=q, h=torch.exp(u[d:])), y)[0]
-            u0 = torch.zeros(d + 1, dtype=tdt, device="cuda")
-            return (torch.autograd.functional.jacobian(f, u0),
-                    torch.autograd.functional.hessian(f, u0))
-        return (lambda: kk.launch_loglik(*fields, tangent=True), plain,
-                None)
+    if name in ("loglik_grad", "loglik_hess"):
+        order = kk.LOGLIK_KINDS.index(name)
+        return (lambda: kk.launch_loglik(*fields, order=order),
+                lambda: kk.loglik_jets_plain(*fields, order=order), None)
     normals = [torch.tensor(rng.normal(size=s), dtype=tdt, device="cuda")
                for s in ((batch, d), (batch, t_len - 1, d),
                          (batch, t_len))]
@@ -223,26 +237,69 @@ def time_kalman(rng, plain=True):
     return out
 
 
+_KERNEL_NAME = re.compile(r"(loglik_kernel|jet_kernel|smoother_kernel)"
+                          r"I(?:([fd]))?Li(\d)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+
+
+def _instantiation(mangled):
+    """"<kernel> <type> d<D>[ dense]" of a mangled kalman_seq.cu kernel
+    name (K1's, J1's and J2's instantiations without a mask end in
+    " dense"), or None."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return None
+    kernel, ty, d, order, masked = m.groups()
+    kind = {"loglik_kernel": "loglik", "smoother_kernel": "smoother",
+            "jet_kernel": f"loglik_{'grad' if order == '1' else 'hess'}"
+            }[kernel]
+    key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
+    return key + " dense" if masked == "0" else key
+
+
 def nvcc_report(log_text):
     """{instantiation: {"registers", "spill_bytes", "stack_bytes"}} for
-    every kernel of kalman_seq.cu in an ``nvcc -Xptxas -v`` log. K1's
-    instantiation without a mask is "loglik <type> d<D> dense"."""
-    pat = re.compile(r"(loglik_kernel|smoother_kernel)I(?:([fd]))?Li(\d)E"
-                     r"(?:Li(\d+)E)?(?:Lb([01])E)?")
+    every kernel of kalman_seq.cu in an ``nvcc -Xptxas -v`` log."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
-        m = pat.search(name)
-        if not m:
+        key = _instantiation(name)
+        if key is not None:
+            report[key] = {"registers": nregs, "spill_bytes": spill,
+                           "stack_bytes": stack}
+    return dict(sorted(report.items()))
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)[^;]*;")
+_FLOAT_OPS = ("DFMA", "DMUL", "DADD", "FFMA", "FMUL", "FADD")
+
+
+def sass_step_ops(sass_text):
+    """{instantiation: {"instructions", "float_ops"}} of the step loop of
+    K1, J1 and J2 in a ``cuobjdump -sass`` listing of kalman_seq.cu: of
+    the loops (a branch back to an earlier address), the one with the most
+    float arithmetic (D/F FMA, MUL, ADD), the shortest if several tie (the
+    chunk loop holds the step loop)."""
+    report = {}
+    for block in sass_text.split("Function : ")[1:]:
+        key = _instantiation(block.split(None, 1)[0])
+        if key is None or key.startswith("smoother"):
             continue
-        kernel, ty, d, n_par, masked = m.groups()
-        kind = kernel.split("_")[0]
-        if kind == "loglik" and n_par not in (None, "0"):
-            kind = "loglik_tangent"
-        key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
-        if kind == "loglik" and masked == "0":
-            key += " dense"
-        report[key] = {"registers": nregs, "spill_bytes": spill,
-                       "stack_bytes": stack}
+        ins = [(int(a, 16), op, line) for line in block.splitlines()
+               for a, op in _SASS_LINE.findall(line)]
+        at = {addr: i for i, (addr, _op, _line) in enumerate(ins)}
+        best = None
+        for i, (addr, op, line) in enumerate(ins):
+            m = re.search(r"BRA\s+0x([0-9a-f]+)", line)
+            if op != "BRA" or not m or int(m.group(1), 16) not in at:
+                continue
+            start = at[int(m.group(1), 16)]
+            if start >= i:
+                continue
+            n_float = sum(o in _FLOAT_OPS for _a, o, _l in ins[start:i + 1])
+            cand = (n_float, -(i - start + 1))
+            best = cand if best is None or cand > best else best
+        if best is not None:
+            report[key] = {"instructions": -best[1], "float_ops": best[0]}
     return dict(sorted(report.items()))
 
 
@@ -260,6 +317,13 @@ def run():
            "kernels": time_kalman(np.random.default_rng(20261016))}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out["sass"] = {}
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path("kalman_seq"))],
+                              capture_output=True, text=True, timeout=300)
+        out["sass"] = sass_step_ops(sass.stdout)
     return out
 
 
@@ -277,15 +341,20 @@ def compare(parent, here, json_path=None):
                              f"{proc.stderr[-4000:]}")
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
     print(runs[0][1]["card"])
-    for name, cur in runs[1][1]["kernels"].items():
+    # a kernel of one tree only (a renamed or new one) shows "-" in the
+    # other's columns
+    names = dict.fromkeys([*runs[1][1]["kernels"], *runs[0][1]["kernels"]])
+    for name in names:
         def seq(key, name=name):
             return " / ".join(f"{r['kernels'][name][key]:.4f}"
+                              if name in r["kernels"] else "-"
                               for _, r in runs)
+        cur = runs[1][1]["kernels"].get(name) or runs[0][1]["kernels"][name]
         print(f"{name} {cur['shape']}: kernel (P C C P) {seq('ms')} ms, "
               f"host-clock call {seq('call_ms')} ms, bound "
               f"{cur['bound_ms']:.5f} ms ({cur['bound_by']})")
         for lab, r in (runs[0], runs[1]):
-            row = r["kernels"][name]
+            row = r["kernels"].get(name, {})
             extra = {k: row[k] for k in ("block_ms", "scaling_ms",
                                          "plain_ms", "wrapper_ms")
                      if row.get(k) is not None}
@@ -297,6 +366,9 @@ def compare(parent, here, json_path=None):
             print(f"nvcc {lab} {inst}: {rep['registers']} registers, "
                   f"{rep['spill_bytes']} bytes spill stores, "
                   f"{rep['stack_bytes']} bytes stack")
+        for inst, rep in r.get("sass", {}).items():
+            print(f"sass {lab} {inst}: step loop {rep['instructions']} "
+                  f"instructions, {rep['float_ops']} float arithmetic")
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(

@@ -1,5 +1,6 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
-``csrc/kalman_seq.cu`` (one thread per series walking the T steps).
+``csrc/kalman_seq.cu`` (one thread, or for the derivatives one warp, per
+series walking the T steps).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
@@ -7,11 +8,12 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
 - :func:`kalman_loglik` (K1): the [B] marginal log likelihoods of many
   static systems on one series, as ``kalman.kalman_loglik``. It is
   differentiable twice in ``h`` and ``R Q R'`` (hence in the variances)
-  through the kernel's jet instantiation: a ``torch.autograd.Function``
-  whose saved gradient and Hessian give ``backward``, and a second one
-  that gives the double backward, so ``torch.autograd.grad`` and
-  ``torch.autograd.functional.hessian`` work on the card without autograd
-  of a 500-step loop.
+  through a ``torch.autograd.Function``: a gradient launches J1 (value and
+  gradient, a dual number a lane), a second derivative J2 (value,
+  gradient and Hessian, a hyper-dual number a lane), so
+  ``torch.autograd.grad`` and ``torch.autograd.functional.hessian`` work on
+  the card without autograd of a 500-step loop. :func:`loglik_jets_plain`
+  is J1's and J2's plain version.
 - :func:`simulation_smoother` (K2): the fused Durbin-Koopman simulation
   smoother, float64, as ``kalman.simulation_smoother``.
 
@@ -32,7 +34,9 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
-LAUNCHES = {"loglik": 0, "loglik_tangent": 0, "smoother": 0}
+LAUNCHES = {"loglik": 0, "loglik_grad": 0, "loglik_hess": 0, "smoother": 0}
+# the loglik's kernel by the order of derivatives it gives: K1, J1, J2
+LOGLIK_KINDS = ("loglik", "loglik_grad", "loglik_hess")
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # block sizes: 0 lets K1 lay its grid out from the card (one block of
@@ -97,44 +101,88 @@ def _series(y, dtype, device):
     return y.contiguous()
 
 
-def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, tangent):
-    """K1 on the card: ll [B], or (ll, grad [B, NP], hess [B, NP, NP]) over
-    the kernel's parameters (h, upper triangle of R Q R') when
-    ``tangent``."""
+def n_params(d):
+    """J1's and J2's parameters: h, then the upper triangle of R Q R'."""
+    return 1 + d * (d + 1) // 2
+
+
+def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, order=0):
+    """The loglik on the card: ``order`` 0 launches K1 -> ll [B]; 1, J1 ->
+    (ll, grad [B, NP]); 2, J2 -> (ll, grad, hess [B, NP, NP]), over the
+    kernels' parameters (h, upper triangle of R Q R')."""
     dtype, device = h.dtype, h.device
     if dtype not in _DTYPE_TAG:
         raise TypeError(f"unsupported dtype {dtype}")
     b, d = z.shape
-    tags, dims = _build.KALMAN_ENTRIES[
-        "loglik_tangent" if tangent else "loglik"]
+    kind = LOGLIK_KINDS[order]
+    tags, dims = _build.KALMAN_ENTRIES[kind]
     if _DTYPE_TAG[dtype] not in tags:
-        raise TypeError(f"the loglik's derivative kernel runs {tags}, not "
-                        f"{dtype}")
+        raise TypeError(f"the loglik's derivative kernels run float64 "
+                        f"({tags}), not {dtype}")
     if d not in dims:
         raise NotImplementedError(
-            f"the loglik {'derivative ' if tangent else ''}kernel takes "
+            f"the loglik {'derivative ' if order else ''}kernel takes "
             f"state dims {dims}, not {d} " + _NO_KERNEL)
     p = _checked({"z": z, "t_mat": t_mat, "rqr": rqr, "h": h, "a0": a0,
                   "p0": p0}, dtype, device)
     _shape_check(p, b, d)
     y = _series(y, dtype, device)
     obs = _observed_bytes(observed, y.shape[0], device)
-    ll = torch.empty(b, dtype=dtype, device=device)
+    out = [torch.empty(b, dtype=dtype, device=device)]
+    if order:
+        out.append(torch.empty(b, n_params(d), dtype=dtype, device=device))
+    if order == 2:
+        out.append(torch.empty(b, n_params(d), n_params(d), dtype=dtype,
+                               device=device))
     args = [p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "a0", "p0")]
-    args += [y.data_ptr(), _ptr(obs), ll.data_ptr()]
-    kind = "loglik_tangent" if tangent else "loglik"
-    if tangent:
-        n_par = 1 + d * (d + 1) // 2
-        grad = torch.empty(b, n_par, dtype=dtype, device=device)
-        hess = torch.empty(b, n_par, n_par, dtype=dtype, device=device)
-        args += [grad.data_ptr(), hess.data_ptr()]
+    args += [y.data_ptr(), _ptr(obs), *(o.data_ptr() for o in out)]
     fn = getattr(_build.library("kalman_seq"),
                  f"boom_kalman_{kind}_{_DTYPE_TAG[dtype]}_d{d}")
     rc = fn(*args, b, y.shape[0], LOGLIK_THREADS, _stream(device))
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
     LAUNCHES[kind] += 1
-    return (ll, grad, hess) if tangent else ll
+    return tuple(out) if order else out[0]
+
+
+def _sym_units(d, like):
+    """[NP - 1, d, d]: R Q R' moved by a unit of each upper-triangle
+    parameter (both entries of an off-diagonal one)."""
+    units = torch.zeros(n_params(d) - 1, d, d, dtype=like.dtype,
+                        device=like.device)
+    k = 0
+    for i in range(d):
+        for j in range(i, d):
+            units[k, i, j] = units[k, j, i] = 1.0
+            k += 1
+    return units
+
+
+def loglik_jets_plain(h, rqr, z, t_mat, a0, p0, y, observed, order):
+    """J1's (``order`` 1) and J2's (2) plain version: autograd of the plain
+    loop ``kalman.kalman_loglik`` in the kernels' parameters (h, upper
+    triangle of R Q R', as :func:`launch_loglik` gives them)."""
+    b, d = z.shape
+    units = _sym_units(d, h)
+    eye = torch.eye(d, dtype=h.dtype, device=h.device).expand(b, d, d)
+
+    def ll_of(theta):
+        params = SsmParams(z, t_mat, eye, rqr + torch.einsum(
+            "bk,kij->bij", theta[:, 1:], units), h + theta[:, 0], a0, p0)
+        return kalman.kalman_loglik(params, y, observed)
+
+    theta = torch.zeros(b, n_params(d), dtype=h.dtype, device=h.device,
+                        requires_grad=True)
+    with torch.enable_grad():
+        ll = ll_of(theta)
+        (grad,) = torch.autograd.grad(ll.sum(), theta,
+                                      create_graph=order == 2)
+        if order == 1:
+            return ll.detach(), grad
+        hess = torch.stack([torch.autograd.grad(
+            grad[:, k].sum(), theta, retain_graph=True)[0]
+            for k in range(n_params(d))], dim=1)
+    return ll.detach(), grad.detach(), hess
 
 
 def _sym_map(d, like):
@@ -142,14 +190,11 @@ def _sym_map(d, like):
     of R Q R', row-major) as linear functions of (h, every entry of R Q R'
     row-major). The loglik sees R Q R' only through its symmetric part, so
     an off-diagonal parameter is the mean of its two entries."""
-    rows = [[1.0] + [0.0] * (d * d)]
-    for i in range(d):
-        for j in range(i, d):
-            row = [0.0] * (1 + d * d)
-            row[1 + i * d + j] += 0.5
-            row[1 + j * d + i] += 0.5
-            rows.append(row)
-    return torch.tensor(rows, dtype=like.dtype, device=like.device)
+    units = _sym_units(d, like)
+    rqr_rows = units / units.sum((-1, -2), keepdim=True)
+    return torch.block_diag(torch.ones(1, 1, dtype=like.dtype,
+                                       device=like.device),
+                            rqr_rows.reshape(-1, d * d))
 
 
 class _LoglikGrad(torch.autograd.Function):
@@ -173,7 +218,11 @@ class _LoglikGrad(torch.autograd.Function):
 
 class _Loglik(torch.autograd.Function):
     """K1 as a function of (h [B], R Q R' [B, d, d]); the other system
-    fields, the series and the mask are constants."""
+    fields, the series and the mask are constants. The forward pass
+    launches K1, or J1 when a gradient is wanted; the backward pass returns
+    J1's gradient, or launches J2 when a second derivative can be asked of
+    it (grad mode on inside backward: ``create_graph=True``, as
+    ``torch.autograd.functional.hessian`` sets it)."""
 
     @staticmethod
     def forward(ctx, h, rqr, z, t_mat, a0, p0, y, observed):
@@ -182,19 +231,23 @@ class _Loglik(torch.autograd.Function):
                 "the loglik kernel differentiates in h and R Q R' only "
                 "(ROADMAP.md, queue 7: kernel (b))")
         if not any(ctx.needs_input_grad[:2]):
-            return launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed,
-                                  tangent=False)
-        ll, grad, hess = launch_loglik(h, rqr, z, t_mat, a0, p0, y,
-                                        observed, tangent=True)
-        jac = _sym_map(z.shape[-1], grad)
-        ctx.save_for_backward(h, rqr, grad @ jac,
-                              jac.transpose(0, 1) @ hess @ jac)
+            return launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed)
+        ll, grad = launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed,
+                                 order=1)
+        ctx.save_for_backward(h, rqr, grad @ _sym_map(z.shape[-1], grad))
+        ctx.constants = (z, t_mat, a0, p0, y, observed)
         return ll
 
     @staticmethod
     def backward(ctx, g_ll):
-        h, rqr, grad, hess = ctx.saved_tensors
-        full = _LoglikGrad.apply(h, rqr, grad, hess) * g_ll[:, None]
+        h, rqr, grad = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            _ll, grad, hess = launch_loglik(h.detach(), rqr.detach(),
+                                            *ctx.constants, order=2)
+            jac = _sym_map(rqr.shape[-1], grad)
+            grad = _LoglikGrad.apply(h, rqr, grad @ jac,
+                                     jac.transpose(0, 1) @ hess @ jac)
+        full = grad * g_ll[:, None]
         return (full[:, 0], full[:, 1:].reshape(rqr.shape), None, None,
                 None, None, None, None)
 

@@ -29,16 +29,19 @@ Phases:
      500, 4096} (K2 stages 32 steps at a time: one below, at, one above a
      chunk, a ragged last one), 33 and 4095 chains (a last warp partly
      empty), masked and dense, float64 (<= 1e-9) and float32 (K1, <= 1e-4),
-     K1 at the bsts_llt width (69,632 series); K1's gradient and Hessian
-     against autograd of the plain version; ten launches of each at the
-     bsts_llt shape, bit-identical; then their times beside bounds and
-     plain times (``boom_tpu_torch/kernels/kalman_timing.py``);
-  4. the reference's bsts_llt workload at full width (bench.py:170-200):
+     K1 at the bsts_llt width (69,632 series); J1 and J2 (the loglik's
+     gradient, and its gradient and Hessian) against autograd of the plain
+     loop, directly and through ``torch.autograd`` (<= 1e-9); ten launches
+     of each at the bsts_llt shape, bit-identical; then their times beside
+     bounds and plain times (``boom_tpu_torch/kernels/kalman_timing.py``);
+  4. the reference's bsts_llt workload at full width (bench.py:170-200) on
+     the bench's own series (``boom_tpu_torch/data``, drawn by the
+     reference from ``jax.random.key(4207)``):
      ``Bsts`` + ``LocalLinearTrend`` with the TIM marginal move, T=500,
      4096 chains, 300 burn-in + 250 draws, float32 (smoother in float64),
      through ``run_mcmc`` with the bench's 5-statistic monitor. It must run
-     through K1 and K2, give finite draws, pass split R-hat < 1.02, reach
-     half the reference's min-ESS, and land the variances' posterior
+     through K1, K2, J1 and J2, give finite draws, pass split R-hat < 1.02,
+     reach half the reference's min-ESS, and land the variances' posterior
      medians within 10 % of the JAX reference's; it prints sweeps/s,
      min-ESS/s, the proposal build's wall time and each phase's share of a
      sweep.
@@ -93,10 +96,16 @@ REPLACES = {"filter": "boom_tpu/statespace/pallas_scan.py:273",
 
 # phase 2b: the sequential kernels and the XLA scans of the reference they
 # replace (kalman.py's lax.scan of kalman_loglik; the fused smoother's
-# forward scan, with _smoother_passes' two scans at :322 and :349)
+# forward scan, with _smoother_passes' two scans at :322 and :349; J1 and
+# J2, the loglik's derivatives, replace jax.value_and_grad of that scan in
+# numopt.bfgs and jax.hessian in numopt.newton_raphson and bsts.py:661)
 KALMAN_SOURCE = "boom_tpu_torch/csrc/kalman_seq.cu"
 KALMAN_KERNELS = {"loglik": ("kalman_loglik",
                              "boom_tpu/statespace/kalman.py:282"),
+                  "loglik_grad": ("kalman_loglik_grad",
+                                  "boom_tpu/numopt.py:43"),
+                  "loglik_hess": ("kalman_loglik_hess",
+                                  "boom_tpu/numopt.py:101"),
                   "smoother": ("kalman_simulation_smoother",
                                "boom_tpu/statespace/kalman.py:476")}
 # K2 stages 32 steps at a time (kalman_kernel.SMOOTHER_CHUNK): one below,
@@ -105,8 +114,8 @@ KALMAN_KERNELS = {"loglik": ("kalman_loglik",
 KALMAN_T_CHECK = (2, 31, 32, 33, 67, 500, 4096)
 KALMAN_MASKED_T = (33, 67, 500)
 KALMAN_CHAIN_CHECK = (33, 4095)
-# derivative check: normwise relative error of the jet kernel's gradient
-# and Hessian against autograd of the plain loop (float64)
+# derivative check: normwise relative error of J1's and J2's gradient and
+# Hessian against autograd of the plain loop (float64)
 DERIV_TOL = 1e-9
 
 # phase 4: the reference's bsts_llt workload (bench.py:170-200)
@@ -116,12 +125,14 @@ RHAT_GATE = 1.02  # bench.py:111
 # 4096 chains x 250 draws); the port must reach half of it
 REFERENCE_MIN_ESS_LLT = 642_116
 # Posterior medians of the JAX reference (boom_tpu's Bsts, the same model,
-# parallel_smoother "auto", float64 on the CPU) on _llt_series(500): 64
-# chains, 500 sweeps of burn-in, 2000 draws, from
-#     JAX_PLATFORMS=cpu python tests/test_torch_tim.py 500 64 500 2000 2026
-REFERENCE_MEDIANS_LLT = {"sigsq_obs": 0.2792876911438362,
-                         "sigma_level_sq": 0.0846675247331283,
-                         "sigma_slope_sq": 0.00018739346764850618}
+# parallel_smoother "auto", float64 on the CPU) on the bench's series
+# (boom_tpu_torch.data.bsts_llt_series): 64 chains, 500 sweeps of burn-in,
+# 2000 draws, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim.py bench \
+#         64 500 2000 2026
+REFERENCE_MEDIANS_LLT = {"sigsq_obs": 0.2824546700855368,
+                         "sigma_level_sq": 0.07093161360753383,
+                         "sigma_slope_sq": 0.00027548090601574034}
 LLT_MEDIAN_TOL = 0.10
 
 
@@ -410,31 +421,66 @@ def _kalman_vs_plain(rng, dtype, c, d, t_len, masked):
 
 
 def _derivatives_vs_plain(rng):
-    """K1's gradient and Hessian in the log variances (the TIM mode
-    search's) against autograd of the plain loop: B=1, T=500, float64."""
+    """J1 and J2 against autograd of the plain loop: directly, in the
+    kernels' parameters at the mode search's shape (B=1, T=500, d=2,
+    float64), masked and dense, and through ``torch.autograd`` in the log
+    variances at d in {1, 2}, as the TIM mode search asks for them (a
+    gradient launches J1, a Hessian J1 and J2). Returns ({check: normwise
+    relative error}, {kernel: max abs error at the mode search's shape})."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
     from boom_tpu_torch.statespace import kalman
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
-    d = 2
-    params = kt.system(rng, 1, d, "float64")
-    y = torch.tensor(rng.normal(size=LLT_T).cumsum(), dtype=torch.float64,
-                     device="cuda")
+    errs, max_abs = {}, {}
+    for masked in (False, True):
+        params = kt.system(rng, 1, 2, "float64")
+        y = torch.tensor(rng.normal(size=LLT_T).cumsum(),
+                         dtype=torch.float64, device="cuda")
+        obs = (torch.tensor(rng.uniform(size=LLT_T) > 0.2, device="cuda")
+               if masked else None)
+        fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
+                  params.a0, params.p0, y, obs)
+        for order, kind in ((1, "loglik_grad"), (2, "loglik_hess")):
+            got = kk.launch_loglik(*fields, order=order)
+            want = kk.loglik_jets_plain(*fields, order=order)
+            errs[f"{kind} masked={masked}"] = max(
+                _rel(a, b) for a, b in zip(got, want))
+            if not masked:
+                max_abs[kind] = float((got[-1] - want[-1]).abs().max())
+    for d in (1, 2):
+        params = kt.system(rng, 1, d, "float64")
+        y = torch.tensor(rng.normal(size=LLT_T).cumsum(),
+                         dtype=torch.float64, device="cuda")
 
-    def lp(fn, u):
-        return fn(params._replace(q_mat=torch.diag_embed(
-            torch.exp(u[:d]))[None], h=torch.exp(u[d:])), y)[0]
+        def lp(fn, u, params=params, d=d, y=y):
+            return fn(params._replace(q_mat=torch.diag_embed(
+                torch.exp(u[:d]))[None], h=torch.exp(u[d:])), y)[0]
 
-    u0 = torch.tensor([-1.0, -3.0, 0.2], dtype=torch.float64, device="cuda")
-    res = []
-    for fn in (kk.kalman_loglik, kalman.kalman_loglik):
-        u = u0.clone().requires_grad_(True)
-        (g,) = torch.autograd.grad(lp(fn, u), u)
-        res.append((g, torch.autograd.functional.hessian(
-            lambda x, fn=fn: lp(fn, x), u0)))
-    return _rel(res[0][0], res[1][0]), _rel(res[0][1], res[1][1])
+        u0 = torch.linspace(-1.0, 0.2, d + 1, dtype=torch.float64,
+                            device="cuda")
+        res = []
+        for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+            before = dict(kk.LAUNCHES)
+            u = u0.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(lp(fn, u), u)
+            after_grad = dict(kk.LAUNCHES)
+            hess = torch.autograd.functional.hessian(
+                lambda x, fn=fn: lp(fn, x), u0)
+            res.append((g, hess))
+            if fn is kk.kalman_loglik:
+                launched = [{k: b[k] - a[k] for k in kk.LOGLIK_KINDS}
+                            for a, b in ((before, after_grad),
+                                         (after_grad, kk.LAUNCHES))]
+                check(launched == [
+                    {"loglik": 0, "loglik_grad": 1, "loglik_hess": 0},
+                    {"loglik": 0, "loglik_grad": 1, "loglik_hess": 1}],
+                    f"a gradient and a Hessian launched {launched}, not "
+                    "J1, then J1 and J2")
+        errs[f"autograd gradient d={d}"] = _rel(res[0][0], res[1][0])
+        errs[f"autograd Hessian d={d}"] = _rel(res[0][1], res[1][1])
+    return errs, max_abs
 
 
 def phase2b_kalman_vs_plain():
@@ -465,7 +511,7 @@ def phase2b_kalman_vs_plain():
     # the main path's widths: K1 over every chain's TIM points, K2 over
     # every chain
     for name, (tag, batch, d, t_len) in kt.SHAPES.items():
-        if name == "loglik_tangent":
+        if name not in ("loglik", "smoother"):
             continue
         res = _kalman_vs_plain(rng, getattr(torch, tag), batch, d, t_len,
                                False)[name]
@@ -480,12 +526,15 @@ def phase2b_kalman_vs_plain():
     check(not bad, "kalman kernel disagrees with its plain version: "
           + "; ".join(bad))
 
-    g_err, h_err = _derivatives_vs_plain(rng)
-    print(f"loglik derivative kernel vs autograd of the plain loop (B=1, "
-          f"T={LLT_T}, f64): gradient rel {g_err:.2e}, Hessian rel "
-          f"{h_err:.2e} (tolerance {DERIV_TOL:g})")
-    check(g_err <= DERIV_TOL and h_err <= DERIV_TOL,
-          f"loglik derivatives disagree: {g_err:.3e}, {h_err:.3e}")
+    errs, max_abs = _derivatives_vs_plain(rng)
+    print(f"J1, J2 vs autograd of the plain loop (B=1, T={LLT_T}, f64): "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+          + f" (tolerance {DERIV_TOL:g})")
+    bad = [f"{k}: {v:.3e}" for k, v in errs.items()
+           if not (np.isfinite(v) and v <= DERIV_TOL)]
+    check(not bad, "loglik derivatives disagree: " + "; ".join(bad))
+    for kind, err in max_abs.items():
+        at_llt[kind] = {"max_abs_err": err}
 
     same = {}
     for name, (tag, batch, d, t_len) in kt.SHAPES.items():
@@ -579,6 +628,7 @@ def phase4_bsts_llt(card):
     run_mcmc; returns the kernels' launch counts of that run."""
     import torch
 
+    from boom_tpu_torch import data
     from boom_tpu_torch import rng as prng
     from boom_tpu_torch.inference import diagnostics
     from boom_tpu_torch.inference.driver import run_mcmc
@@ -587,7 +637,9 @@ def phase4_bsts_llt(card):
     from boom_tpu_torch.statespace.bsts import Bsts
     from boom_tpu_torch.statespace.state_models import LocalLinearTrend
 
-    y = torch.tensor(_llt_series(LLT_T), dtype=torch.float32, device="cuda")
+    y = torch.tensor(data.bsts_llt_series(), device="cuda")
+    check(y.shape == (LLT_T,) and y.dtype == torch.float32,
+          f"the bench series is {tuple(y.shape)} {y.dtype}")
     for counts in (kk.LAUNCHES, sk.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -599,8 +651,9 @@ def phase4_bsts_llt(card):
     build_s = time.perf_counter() - t0
     mode, chol = model._tim_prop
     print(f"bsts_llt TIM proposal built in {build_s:.2f} s "
-          f"({kk.LAUNCHES['loglik_tangent']} derivative-kernel launches): "
-          f"mode {mode.tolist()}, chol diagonal {chol.diag().tolist()}")
+          f"({kk.LAUNCHES['loglik']} K1, {kk.LAUNCHES['loglik_grad']} J1, "
+          f"{kk.LAUNCHES['loglik_hess']} J2 launches): mode "
+          f"{mode.tolist()}, chol diagonal {chol.diag().tolist()}")
     check(model._smoother() is kk.simulation_smoother,
           "the bsts_llt model did not pick the sequential CUDA smoother")
     gen = prng.generator(LLT_SEED, "cuda")
@@ -618,7 +671,8 @@ def phase4_bsts_llt(card):
     print(f"bsts_llt: T={LLT_T} chains={LLT_CHAINS} burn={LLT_BURN} "
           f"draws={LLT_DRAWS} in {elapsed:.2f} s; launches {launches}")
     check(kk.LAUNCHES["loglik"] >= sweeps and kk.LAUNCHES["smoother"]
-          >= sweeps and kk.LAUNCHES["loglik_tangent"] >= 1
+          >= sweeps and kk.LAUNCHES["loglik_grad"] >= 1
+          and kk.LAUNCHES["loglik_hess"] >= 1
           and sk.LAUNCHES["affine"] >= sweeps,
           f"the bsts_llt run did not go through the kernels: {launches}")
 
@@ -687,12 +741,10 @@ def main():
                 "launches": launches[k], **at_fit[k], "library_ms": None}
                for k in launches]
     for k, (name, replaces) in KALMAN_KERNELS.items():
-        extra = ({"tangent_launches": llt_launches["kalman_loglik_tangent"]}
-                 if k == "loglik" else {})
         kernels.append({"name": name, "route": "cuda",
                         "source": KALMAN_SOURCE, "replaces": replaces,
                         "launches": llt_launches[f"kalman_{k}"],
-                        **at_llt[k], "library_ms": None, **extra})
+                        **at_llt[k], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

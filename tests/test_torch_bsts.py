@@ -12,6 +12,8 @@ error of the incomplete gamma (see test_torch_dists_diag.py), and the
 slice arithmetic carries it on.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -253,6 +255,26 @@ def test_fit_on_cpu_gives_finite_draws_of_the_right_shape():
         y, niter=12, burn=4, num_chains=3, seed=1, device="cpu",
         parallel_smoother="pallas")
     assert torch.equal(again.draws["sigsq_obs"], draws["sigsq_obs"])
+
+
+def test_fit_takes_the_reference_parameters_in_order():
+    """BstsModel.fit's parameters are the reference's, in its order and
+    with its defaults, then ``device`` and ``dtype``; ``timestamps`` raise
+    naming their ROADMAP item."""
+    from boom_tpu.api import BstsModel as JaxBstsModel
+
+    ref = list(inspect.signature(JaxBstsModel.fit).parameters.values())
+    port = list(inspect.signature(BstsModel.fit).parameters.values())
+    named = [q for q in ref if q.kind is not q.VAR_KEYWORD]
+    assert ref[-1].kind is ref[-1].VAR_KEYWORD
+    assert ([(q.name, q.kind, q.default) for q in port[:len(named)]]
+            == [(q.name, q.kind, q.default) for q in named])
+    assert [q.name for q in port[len(named):-1]] == ["device", "dtype"]
+    assert port[-1].kind is port[-1].VAR_KEYWORD
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        BstsModel().add_local_linear_trend().fit(
+            _llt_series(), niter=2, burn=1, num_chains=2, device="cpu",
+            timestamps=np.arange(T_LEN))
 
 
 def test_fit_defaults_to_the_card():

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (the parallel scans, and the sequential
-Kalman loglik K1 and simulation smoother K2) against their plain PyTorch
-versions, on the card. These need a CUDA device and ``nvcc``: here they
-skip. Run them on a machine with the card (the repository's conftest
-imports JAX, which that machine need not have):
+Kalman loglik K1, its derivative kernels J1 and J2, and the simulation
+smoother K2) against their plain PyTorch versions, on the card. These need
+a CUDA device and ``nvcc``: here they skip. Run them on a machine with the
+card (the repository's conftest imports JAX, which that machine need not
+have):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -216,8 +217,27 @@ def test_kalman_kernels_at_block_edges_match_plain(card, c, d, masked):
 
 @pytest.mark.parametrize("d", [1, 2])
 def test_loglik_derivatives_match_plain(card, d):
-    """Gradient and Hessian in the log variances through K1's jet kernel
-    against autograd of the plain loop, both on the card."""
+    """J1 (the gradient) and J2 (gradient and Hessian) against autograd of
+    the plain loop, both on the card: directly in the kernels' parameters
+    (three series, masked and dense; ten launches of each bit-identical),
+    and through autograd in the log variances, where a gradient launches
+    J1 and a Hessian J1 and J2."""
+    for masked in (False, True):
+        params, y, obs, _ = _kalman_inputs(card, torch.float64, d, 300,
+                                           seed=9 + masked, c=3,
+                                           masked=masked)
+        fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
+                  params.a0, params.p0, y, obs)
+        for order in (1, 2):
+            first = kk.launch_loglik(*fields, order=order)
+            want = kk.loglik_jets_plain(*fields, order=order)
+            assert len(first) == order + 1
+            for got, ref in zip(first, want):
+                assert _rel(got, ref) <= 1e-9
+            for _ in range(9):
+                again = kk.launch_loglik(*fields, order=order)
+                assert all(torch.equal(a, b) for a, b in zip(first, again))
+
     params, y, obs, _ = _kalman_inputs(card, torch.float64, d, 300, seed=9,
                                        c=1, masked=True)
 
@@ -229,12 +249,37 @@ def test_loglik_derivatives_match_plain(card, d):
     u0 = torch.linspace(-1.0, 0.5, d + 1, dtype=torch.float64, device=card)
     out = []
     for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+        before = dict(kk.LAUNCHES)
         u = u0.clone().requires_grad_(True)
         (g,) = torch.autograd.grad(lp(fn, u), u)
-        out.append((g, torch.autograd.functional.hessian(
-            lambda x, fn=fn: lp(fn, x), u0)))
+        hess = torch.autograd.functional.hessian(
+            lambda x, fn=fn: lp(fn, x), u0)
+        out.append((g, hess))
+        launched = {k: kk.LAUNCHES[k] - before[k] for k in kk.LOGLIK_KINDS}
+        if fn is kk.kalman_loglik:
+            assert launched == {"loglik": 0, "loglik_grad": 2,
+                                "loglik_hess": 1}
     assert _rel(out[0][0], out[1][0]) <= 1e-9
     assert _rel(out[0][1], out[1][1]) <= 1e-9
+
+
+def test_loglik_derivative_kernels_refuse_what_they_do_not_take(card):
+    """J1 and J2 run float64 at d in {1, 2}: d=3 and float32 raise."""
+    params, y, _obs, _ = _kalman_inputs(card, torch.float64, 3, 20, seed=3)
+    fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
+              params.a0, params.p0, y, None)
+    for order in (1, 2):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            kk.launch_loglik(*fields, order=order)
+    narrow, y2, _obs, _ = _kalman_inputs(card, torch.float32, 2, 20, seed=4)
+    fields = (narrow.h, narrow.rqr.contiguous(), narrow.z, narrow.t_mat,
+              narrow.a0, narrow.p0, y2, None)
+    for order in (1, 2):
+        with pytest.raises(TypeError, match="float64"):
+            kk.launch_loglik(*fields, order=order)
+    h = narrow.h.clone().requires_grad_(True)
+    with pytest.raises(TypeError, match="float64"):
+        kk.kalman_loglik(narrow._replace(h=h), y2)
 
 
 def test_kalman_kernels_are_bit_identical(card):

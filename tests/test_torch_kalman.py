@@ -161,6 +161,58 @@ def test_loglik_derivatives_match_reference():
     _close(hess, ref_h, rtol=1e-9)
 
 
+@pytest.mark.parametrize("d, masked", [(1, False), (2, False), (2, True)])
+def test_loglik_autograd_launches_j1_then_j2(monkeypatch, d, masked):
+    """The routing of the loglik's ``autograd.Function`` on the card, with
+    ``_on_card`` and the launches stubbed by the plain loop (K1 by
+    ``kalman.kalman_loglik``, J1 and J2 by ``loglik_jets_plain``): a value
+    under no_grad launches K1; ``torch.autograd.grad`` J1 alone; a
+    Hessian J1, then J2 in the backward pass that builds a graph. Both
+    derivatives are autograd of the plain loop's to 1e-12."""
+    launched = []
+
+    def plain_launch(h, rqr, z, t_mat, a0, p0, y, observed, order=0):
+        launched.append(kalman_kernel.LOGLIK_KINDS[order])
+        if order:
+            return kalman_kernel.loglik_jets_plain(h, rqr, z, t_mat, a0, p0,
+                                                   y, observed, order)
+        eye = torch.eye(z.shape[-1], dtype=h.dtype).expand_as(rqr)
+        return kalman.kalman_loglik(kalman.SsmParams(z, t_mat, eye, rqr, h,
+                                                     a0, p0), y, observed)
+
+    monkeypatch.setattr(kalman_kernel, "_on_card", lambda x: True)
+    monkeypatch.setattr(kalman_kernel, "launch_loglik", plain_launch)
+    rng = np.random.default_rng(6 + d)
+    base = ssm_params_from_numpy(_systems(rng, 1, d), device="cpu")
+    y = torch.tensor(rng.normal(size=40).cumsum())
+    obs = torch.tensor(rng.uniform(size=40) > 0.3) if masked else None
+
+    def lp(fn, u):
+        p = base._replace(q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
+                          h=torch.exp(u[d:]))
+        return fn(p, y, obs)[0]
+
+    u0 = torch.linspace(-1.0, 0.4, d + 1, dtype=torch.float64)
+    with torch.no_grad():
+        value = lp(kalman_kernel.kalman_loglik, u0)
+    assert launched == ["loglik"]
+    u = u0.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(lp(kalman_kernel.kalman_loglik, u), u)
+    assert launched[1:] == ["loglik_grad"]
+    hess = torch.autograd.functional.hessian(
+        lambda x: lp(kalman_kernel.kalman_loglik, x), u0)
+    assert launched[2:] == ["loglik_grad", "loglik_hess"]
+
+    u = u0.clone().requires_grad_(True)
+    (ref_grad,) = torch.autograd.grad(lp(kalman.kalman_loglik, u), u)
+    ref_hess = torch.autograd.functional.hessian(
+        lambda x: lp(kalman.kalman_loglik, x), u0)
+    _close(value, lp(kalman.kalman_loglik, u0).detach().numpy(),
+           rtol=1e-12)
+    _close(grad, ref_grad.numpy(), rtol=1e-12)
+    _close(hess, ref_hess.numpy(), rtol=1e-12)
+
+
 def test_time_varying_systems_raise():
     rng = np.random.default_rng(4)
     params = ssm_params_from_numpy(_systems(rng, 2, 2), device="cpu")

@@ -245,12 +245,51 @@ def host_kernels(monkeypatch):
 
 
 def test_host_compiled_kernels_match_plain(host_kernels):
-    """K1 (float64, float32), K2 and the jet kernel's derivatives, compiled
+    """K1 (float64, float32), K2, J1 and J2 (the loglik's derivatives, at
+    d in {1, 2}, masked and dense, directly and through autograd), compiled
     from the kernels' source for the host, against the plain versions at
     K2's chunk edges and with a second, ragged warp of chains."""
     worst = host_kernels.check_kernels()
     tol = {"loglik float64": 1e-9, "smoother": 1e-9,
-           "loglik float32": K1_F32_TOL, "gradient": 1e-9, "hessian": 1e-9}
+           "loglik float32": K1_F32_TOL, "loglik_grad": 1e-9,
+           "loglik_hess": 1e-9, "gradient": 1e-9, "hessian": 1e-9}
     assert set(worst) == set(tol)
     for name, err in worst.items():
         assert err <= tol[name], (name, err)
+
+
+# excerpts of the toolchain's listings for J2 at d=2 without a mask
+_J2 = ("_ZN46_GLOBAL__N__bea6d392_13_kalman_seq_cu_88ddba7010jet_kernelIdLi2"
+       "ELi2ELb0EEEvPKT_S3_S3_S3_S3_S3_S3_PKhPS1_S6_S6_ii")
+_PTXAS = f"""ptxas info    : Compiling entry function '{_J2}' for 'sm_90a'
+ptxas info    : Function properties for {_J2}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers
+"""
+_SASS = f"""\t\tFunction : {_J2}
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   DFMA R2, R4, R6, R2 ;
+        /*0020*/                   DMUL R8, R2, R2 ;
+        /*0030*/                   DADD R2, R2, R8 ;
+        /*0040*/               @P0 BRA 0x10 ;
+        /*0050*/                   IMAD.MOV.U32 R3, RZ, RZ, RZ ;
+        /*0060*/              @!P1 BRA 0x0 ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_timing_reports_read_the_toolchain_listings():
+    """kalman_timing's readers of ``nvcc -Xptxas -v`` (registers, spills)
+    and of ``cuobjdump -sass`` (the step loop: of the loops, the one with
+    the most float arithmetic, the inner one on a tie)."""
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    assert kt.nvcc_report(_PTXAS) == {"loglik_hess f64 d2 dense": {
+        "registers": 166, "spill_bytes": 0, "stack_bytes": 0}}
+    assert kt.sass_step_ops(_SASS) == {"loglik_hess f64 d2 dense": {
+        "instructions": 4, "float_ops": 3}}
+    # J2's bound counts the work of the loglik with gradient and Hessian
+    # as the one-thread jet that J1 and J2 replaced did; J1's, with
+    # first-order jets
+    assert kt.jet_step_flops(2) == 2127
+    assert kt.dual_step_flops(2) < kt.jet_step_flops(2)

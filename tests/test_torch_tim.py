@@ -15,10 +15,12 @@ Tolerances:
 - the sweep: rtol 1e-7, as test_torch_bsts.py (the variance draws inherit
   PyTorch's ~1e-9 relative error of the incomplete gamma).
 
-    JAX_PLATFORMS=cpu python tests/test_torch_tim.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim.py bench
 
-prints the reference's posterior medians of the bsts_llt workload that
-``chip_smoke.py`` holds the port to (``REFERENCE_MEDIANS_LLT``).
+prints the reference's posterior medians of the bsts_llt workload on the
+bench's own series (``boom_tpu_torch/data``) that ``chip_smoke.py`` holds
+the port to (``REFERENCE_MEDIANS_LLT``); a number in place of ``bench``
+takes ``_llt_series`` of that length.
 """
 
 import sys
@@ -145,8 +147,8 @@ def test_optimizers_match_reference(name, problem):
 
 # -- the proposal and the sweep ----------------------------------------------
 
-def _jax_tim_model(t_len, **kw):
-    y = jnp.asarray(_llt_series(t_len))
+def _jax_tim_model(t_len, y=None, **kw):
+    y = jnp.asarray(_llt_series(t_len) if y is None else y)
     return JaxBsts(y=y, blocks=[JaxLocalLinearTrend.default(y)],
                    marginal_sigma_slice=True, marginal_move="tim", **kw)
 
@@ -245,14 +247,22 @@ def test_fit_passes_the_marginal_options_through():
             marginal_sigma_slice=True, marginal_move="grid")
 
 
-def reference_medians(t_len=500, chains=64, burn=500, draws=2000, seed=2026):
+def reference_medians(series="bench", chains=64, burn=500, draws=2000,
+                      seed=2026):
     """Posterior medians of the three variances from the JAX reference's
     bsts_llt configuration (bench.py:170-177: local linear trend, TIM,
-    default priors) on ``_llt_series(t_len)``, float64 on the CPU."""
+    default priors), float64 on the CPU, on the bench's own series
+    (``series="bench"``, ``boom_tpu_torch.data.bsts_llt_series``) or on
+    ``_llt_series(int(series))``."""
     from boom_tpu.inference import run_mcmc
+    from boom_tpu_torch import data
 
     jax.config.update("jax_enable_x64", True)
-    jmodel = _jax_tim_model(t_len)
+    if series == "bench":
+        y = data.bsts_llt_series().astype(np.float64)
+        jmodel = _jax_tim_model(len(y), y=y)
+    else:
+        jmodel = _jax_tim_model(int(series))
     fit = jax.jit(lambda k: run_mcmc(
         k, jmodel.kernel(), jmodel.init_state, draws, num_chains=chains,
         burn=burn, jit=False, extract=lambda s: {
@@ -264,4 +274,4 @@ def reference_medians(t_len=500, chains=64, burn=500, draws=2000, seed=2026):
 
 
 if __name__ == "__main__":
-    print(reference_medians(*map(int, sys.argv[1:])))
+    print(reference_medians(*sys.argv[1:2], *map(int, sys.argv[2:])))
