@@ -1,6 +1,9 @@
-"""User front end of the port: a builder-style ``BstsModel`` (port of the
-Gaussian part of boom_tpu/api.py:278-301 and :371-474).
+"""User front ends of the port: ``LmSpike`` (port of boom_tpu/api.py:43-171,
+lm.spike) and a builder-style ``BstsModel`` (the Gaussian part of
+boom_tpu/api.py:278-301 and :371-474).
 
+    fit = LmSpike(expected_model_size=3.0).fit(x, y, niter=1000)  # the card
+    fit.coefficients()                     # inclusion probabilities, ...
     model = BstsModel().add_local_linear_trend()
     model.fit(y, niter=200, burn=100, num_chains=8)   # on the CUDA card
     model.draws["blocks"]["trend"]["sigma_level_sq"]   # [chains, draws]
@@ -8,9 +11,11 @@ Gaussian part of boom_tpu/api.py:278-301 and :371-474).
 ``fit`` runs on the card unless the caller passes ``device="cpu"``; with no
 card it raises rather than falling back to the CPU.
 
-Only the local-level and local-linear-trend blocks, Gaussian observations
-and no regression are ported so far; other options raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``LmSpike`` takes the default prior's keywords; the ``priors`` module,
+formulas, plots and saving are not ported yet. ``BstsModel`` has the
+local-level and local-linear-trend blocks, Gaussian observations and no
+regression so far. Other options raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -27,6 +32,122 @@ from boom_tpu_torch.inference.driver import McmcResult, run_mcmc
 # dtype policy: float64 for CPU runs (parity with the reference), float32
 # on the card
 _DEFAULT_DTYPE = {"cpu": torch.float64, "cuda": torch.float32}
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                               f"queue 1 {item})")
+
+
+def _coef_table(beta, gamma, names=None):
+    """Posterior summary rows of spike-and-slab coefficients (reference
+    api.py:43): draws [..., p] of beta and the inclusion indicators."""
+    beta = beta.detach().double().cpu().numpy()
+    gamma = gamma.detach().cpu().numpy()
+    beta = beta.reshape(-1, beta.shape[-1])
+    gamma = gamma.reshape(-1, gamma.shape[-1])
+    names = names or [f"x{j}" for j in range(beta.shape[1])]
+    rows = []
+    for j in range(beta.shape[1]):
+        b = beta[:, j]
+        nz = b[np.abs(b) > 0]
+        rows.append({
+            "name": names[j],
+            "inclusion_prob": float(gamma[:, j].mean()),
+            "mean": float(b.mean()),
+            "mean_given_inclusion": float(nz.mean()) if nz.size else 0.0,
+            "sd": float(b.std()),
+            "q025": float(np.quantile(b, 0.025)),
+            "q975": float(np.quantile(b, 0.975)),
+        })
+    return rows
+
+
+class LmSpike:
+    """lm.spike (reference api.py:130): Gaussian regression with
+    spike-and-slab variable selection, the SSVS sweep in kernel (a) on the
+    card. ``prior_kw`` are ``SpikeSlabPrior.from_data``'s keywords and
+    ``SpikeSlabRegression.from_data``'s (``method``, ``max_flips``,
+    ``mode_jump``)."""
+
+    def __init__(self, expected_model_size=1.0, names=None, prior=None,
+                 **prior_kw):
+        if prior is not None:
+            raise _not_ported("LmSpike(prior=...) (the priors module)",
+                              "item 13")
+        self._prior_kw = dict(prior_kw,
+                              expected_model_size=expected_model_size)
+        self._names = names
+        self._model = None
+        self._result: McmcResult | None = None
+
+    def fit(self, x, y, niter=1000, num_chains=4, burn=200, seed=0,
+            device="cuda", dtype=None):
+        """Run ``num_chains`` chains on ``device`` (the CUDA card unless the
+        caller asks for ``"cpu"``; a CUDA device where there is none
+        raises): ``burn`` sweeps, then ``niter`` recorded draws. ``dtype``
+        defaults to float64 on the CPU and float32 on the card."""
+        from boom_tpu_torch.models.glm import SpikeSlabRegression
+
+        device = rng.resolve_device(device)
+        dtype = dtype or _DEFAULT_DTYPE[device.type]
+        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
+        model = SpikeSlabRegression.from_data(x, y, **self._prior_kw)
+        self._model = model
+        self._result = run_mcmc(
+            model.kernel(), model.draw_noise,
+            lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+            num_draws=niter, generator=rng.generator(seed, device),
+            num_chains=num_chains, burn=burn)
+        return self
+
+    @property
+    def draws(self):
+        """Chain-major draws, ``[chains, niter, ...]``: gamma, beta,
+        sigsq."""
+        return self._result.draws
+
+    def coefficients(self):
+        return _coef_table(self.draws["beta"], self.draws["gamma"],
+                           self._names)
+
+    def summary(self):
+        from boom_tpu_torch.inference import diagnostics
+
+        s = torch.sqrt(self.draws["sigsq"].double()).flatten().cpu().numpy()
+        return {
+            "coefficients": self.coefficients(),
+            "residual_sd": {"mean": float(s.mean()),
+                            "q025": float(np.quantile(s, 0.025)),
+                            "q975": float(np.quantile(s, 0.975))},
+            "diagnostics": {"beta_rhat": diagnostics
+                            .potential_scale_reduction(
+                                self.draws["beta"].double()).tolist()},
+        }
+
+    def predict(self, x_new, seed=0):
+        """Posterior-predictive draws [draws, n_new], the noise from a
+        generator seeded with ``seed`` on the fit's device."""
+        beta = self.draws["beta"]
+        x_new = torch.as_tensor(np.asarray(x_new), dtype=beta.dtype,
+                                device=beta.device)
+        beta = beta.reshape(-1, x_new.shape[1])
+        sig = torch.sqrt(self.draws["sigsq"].reshape(-1))
+        eta = beta @ x_new.T
+        eps = torch.randn(eta.shape, generator=rng.generator(
+            seed, beta.device), device=beta.device, dtype=beta.dtype)
+        return eta + sig[:, None] * eps
+
+    def fit_formula(self, formula, data, **fit_kw):
+        raise _not_ported("LmSpike.fit_formula (the formula module)",
+                          "item 13")
+
+    def plot(self, kind="inclusion", ax=None, **kw):
+        raise _not_ported("LmSpike.plot (rplots)", "item 13")
+
+    def save(self, path):
+        raise _not_ported("LmSpike.save (serialize)", "item 8")
 
 
 @dataclasses.dataclass

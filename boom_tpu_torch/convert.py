@@ -47,6 +47,30 @@ def state_from_numpy(tree, device="cuda", dtype=torch.float64):
     return _tensor(tree, device, dtype)
 
 
+def reg_suf_from_numpy(suf, device="cuda", dtype=torch.float64):
+    """The port's ``RegSuf`` from the reference's (or any object with its
+    fields xtx, xty, yty, n as arrays)."""
+    from boom_tpu_torch.models.glm.regression import RegSuf
+
+    return RegSuf(**{k: _tensor(getattr(suf, k), device, dtype)
+                     for k in RegSuf._fields})
+
+
+def spike_slab_prior_from_numpy(prior, device="cuda", dtype=torch.float64):
+    """The port's ``SpikeSlabPrior`` with the reference prior's fields:
+    its arrays as tensors, ``max_size`` and ``sigma_upper_limit`` as they
+    are."""
+    from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
+
+    arrays = ("mean", "unscaled_precision", "log_inclusion_odds",
+              "log_inclusion_norm", "sigma_df", "prior_ss")
+    return SpikeSlabPrior(
+        **{k: _tensor(getattr(prior, k), device, dtype) for k in arrays},
+        max_size=prior.max_size,
+        sigma_upper_limit=(None if prior.sigma_upper_limit is None
+                           else float(prior.sigma_upper_limit)))
+
+
 def _prior(p):
     return sm.SdPrior(sigma_guess=float(p.sigma_guess),
                       sample_size=float(p.sample_size),

@@ -51,6 +51,17 @@ class scaled_inv_chisq:
                                      newton_iters=8)
         return 1.0 / prec
 
+    @staticmethod
+    def sample_upper_truncated(u, df, sigsq, upper):
+        """The same distribution restricted to sigma^2 <= ``upper``
+        (reference continuous.py:254): the precision Gamma(df/2,
+        df s^2/2) truncated to [1/upper, inf), by inverse CDF at ``u``."""
+        from boom_tpu_torch.dists.truncated import trun_gamma_lower_fast
+
+        prec = trun_gamma_lower_fast(u, 0.5 * df, 0.5 * df * sigsq,
+                                     1.0 / upper, newton_iters=8)
+        return 1.0 / prec
+
 
 def _as_tensors(*vals):
     """Python numbers and tensors -> tensors of one float dtype/device."""

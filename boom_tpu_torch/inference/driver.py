@@ -5,7 +5,9 @@ one jitted program. Here every state tensor already carries the chain axis
 ``[C, ...]``, so one Python loop of sweeps advances all chains at once.
 A kernel is ``sweep(noise, state) -> state``; ``draw_noise(generator,
 num_chains)`` makes each sweep's random numbers from one explicit
-``torch.Generator``. Draws are recorded chain-major, ``[C, N, ...]``.
+``torch.Generator``. Draws are recorded chain-major, ``[C, N, ...]``. A
+kernel may carry a ``finish()`` that the run calls at its end (a check of
+errors the kernel kept on the device).
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ def run_chain(kernel: Callable, draw_noise: Callable, state, num_draws: int,
             state = step(state)
         kept.append(extract(state))
     draws = tree_map(lambda *xs: torch.stack(xs, dim=1), *kept)
+    # a kernel's end-of-run check (errors it kept on the device, so that
+    # no sweep waits on the host)
+    finish = getattr(kernel, "finish", None)
+    if finish is not None:
+        finish()
     return draws, state
 
 

@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"parallel_scan": _PKG / "csrc" / "parallel_scan.cu",
-           "kalman_seq": _PKG / "csrc" / "kalman_seq.cu"}
+           "kalman_seq": _PKG / "csrc" / "kalman_seq.cu",
+           "ssvs_sweep": _PKG / "csrc" / "ssvs_sweep.cu"}
 BUILD_DIR = _PKG.parent / "build" / "boom_tpu_torch"
 # --split-compile=0: optimise the instantiations on all host cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,6 +42,8 @@ KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
                   "loglik_grad": (("f64",), (1, 2)),
                   "loglik_hess": (("f64",), (1, 2)),
                   "smoother": (("f64",), tuple(range(1, 7)))}
+# the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
+SSVS_DTYPES = ("f32", "f64")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each entry family (pointers, then ints, then stream)
@@ -56,6 +59,10 @@ _ARGTYPES = {
     # z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch,
     # t_len, threads, stream
     "smoother": [_P] * 12 + [_I, _I, _I, _P],
+    # s0, omega, mean, log_odds, consts, logq, log1mq, qprobs, mask_in,
+    # perm, flip_u, jump_u, jump_acc, mask_out, chains, p, n_flips,
+    # max_size, threads, stream
+    "ssvs_sweep": [_P] * 14 + [_I] * 5 + [_P],
 }
 
 
@@ -126,6 +133,9 @@ def library(name: str) -> ctypes.CDLL:
             for tag in SCAN_DTYPES:
                 for d in SCAN_DIMS:
                     _declare(lib, "scan", f"boom_scan_{op}_{tag}_d{d}")
+    elif name == "ssvs_sweep":
+        for tag in SSVS_DTYPES:
+            _declare(lib, "ssvs_sweep", f"boom_ssvs_sweep_{tag}")
     else:
         for kind, (tags, dims) in KALMAN_ENTRIES.items():
             for tag in tags:

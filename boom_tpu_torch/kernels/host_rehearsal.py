@@ -1,16 +1,21 @@
-"""Rehearse the sequential Kalman kernels on a machine without a card.
+"""Rehearse the sequential Kalman kernels and kernel (a) on a machine
+without a card.
 
     python3 boom_tpu_torch/kernels/host_rehearsal.py          # kernels
     python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
 
-``csrc/kalman_seq.cu`` is compiled as host C++ with ``g++``: a shim header
+``csrc/kalman_seq.cu`` and ``csrc/ssvs_sweep.cu`` are compiled as host C++
+with ``g++``: a shim header
 defines the CUDA keywords away and gives ``blockIdx``/``blockDim``/
 ``threadIdx`` as globals, and every ``kernel<<<blocks, threads, ...>>>(args)``
 becomes two loops over blocks and threads that call ``kernel(args)``. The
 library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
 wrappers run the kernels' own arithmetic on CPU tensors, which are checked
 against the plain versions (K1 in float64 and float32, K2, J1 and J2, the
-derivative kernels, against autograd of the plain loop). ``--llt`` then
+derivative kernels, against autograd of the plain loop), and kernel (a),
+the SSVS indicator sweep, against ``regression_sweep.draw_indicators_swept``
+(33 chains, p in {1, 37}, mode jump off and on, max_size unset and set,
+float64 and float32: masks identical). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -75,6 +80,15 @@ inline void __threadfence_block() {}
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline double __drcp_rn(double x) { return 1.0 / x; }
 inline float __logf(float x) { return std::log(x); }
+// one IEEE operation each (x86-64 without -mfma does not contract them)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 using std::log;
 alignas(16) static unsigned char host_shared[232448];
 #define BOOM_SHARED_BYTES(name) unsigned char* name = host_shared
@@ -119,31 +133,36 @@ def _host_launches(src: str) -> str:
     return "".join(out + [src[pos:]])
 
 
-def build_host_library() -> Path:
-    """Compile kalman_seq.cu for the host into build/boom_tpu_torch/host."""
+def build_host_library(name="kalman_seq") -> Path:
+    """Compile the source ``name`` (``_build.SOURCES``) for the host into
+    build/boom_tpu_torch/host."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise SystemExit("host_rehearsal: needs g++")
-    out_dir = _build.BUILD_DIR / "host"
+    # a directory a source, so that two builds at once never share a file
+    out_dir = _build.BUILD_DIR / "host" / name
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(SHIM)
-    src = _host_launches(_build.SOURCES["kalman_seq"].read_text())
-    (out_dir / "kalman_seq_host.cpp").write_text(src)
-    lib = out_dir / "libboom_kalman_seq_host.so"
+    src = _host_launches(_build.SOURCES[name].read_text())
+    (out_dir / f"{name}_host.cpp").write_text(src)
+    lib = out_dir / f"libboom_{name}_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-shared", "-fPIC",
                     "-pthread", "-I", str(out_dir), "-o", str(lib),
-                    str(out_dir / "kalman_seq_host.cpp")], check=True)
+                    str(out_dir / f"{name}_host.cpp")], check=True)
     return lib
 
 
-def bind(lib: Path):
-    """Make kalman_kernel launch the host library on CPU tensors."""
+def bind(libs: dict):
+    """Make kalman_kernel and ssvs_kernel launch the host libraries
+    ({source name: library}) on CPU tensors."""
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
-    _build.build = lambda names=None: {n: lib for n in names}
+    _build.build = lambda names=None: {n: libs[n] for n in names}
     _build.library.cache_clear()
-    kk._on_card = lambda x: True
-    kk._stream = lambda device: 0
+    for mod in (kk, sk):
+        mod._on_card = lambda x: True
+        mod._stream = lambda device: 0
 
 
 def _rel(a, b):
@@ -224,6 +243,36 @@ def check_kernels(seed=0):
     return worst
 
 
+SSVS_CASES = [(p, jump, max_size, dtype) for dtype in ("float64", "float32")
+              for p in (1, 37) for jump in (False, True)
+              for max_size in (None, 3)]
+
+
+def check_ssvs(seed=0, chains=33, draws=3):
+    """Kernel (a) against the plain sweep on the same noise, over
+    SSVS_CASES and ``draws`` noise draws: {case: chains whose masks
+    differ}."""
+    from boom_tpu_torch.kernels.ssvs_timing import problem
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for p, jump, max_size, dtype in SSVS_CASES:
+        bad = 0
+        for _ in range(draws):
+            model, mask, noise, qprobs = problem(
+                rng, chains, p, dtype, max_size=max_size, mode_jump=jump,
+                device="cpu")
+            want = rs.draw_indicators_swept(noise, model.suf, model.prior,
+                                            mask, qprobs=qprobs)
+            got = sk.draw_indicators_swept(noise, model.suf, model.prior,
+                                           mask, qprobs=qprobs)
+            bad += int((got != want).any(-1).sum())
+        out[f"p={p} jump={jump} max_size={max_size} {dtype}"] = bad
+    return out
+
+
 def rehearse_llt(chains=32, burn=100, draws=200, t_len=500, seed=0):
     """The bsts_llt path (chip_smoke.py phase 4's model and monitor) on the
     CPU: {statistic: (R-hat, ESS)} and the variances' medians."""
@@ -268,9 +317,12 @@ def main():
                     help="also run the bsts_llt path for 32 chains")
     args = ap.parse_args()
     torch.set_num_threads(4)
-    bind(build_host_library())
+    bind({name: build_host_library(name)
+          for name in ("kalman_seq", "ssvs_sweep")})
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
+    for k, v in check_ssvs().items():
+        print(f"host-compiled ssvs_sweep {k}: {v} chains differ")
     if args.llt:
         stats, med = rehearse_llt()
         for k, (r, e) in stats.items():

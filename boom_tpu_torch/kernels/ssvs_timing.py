@@ -1,0 +1,257 @@
+"""Times of kernel (a), the SSVS indicator sweep (csrc/ssvs_sweep.cu), on the
+card, beside its bound and its plain version, at the shape of the
+spike_slab workload (the bench's data, n=2000, p=50, 1024 chains).
+
+    python3 boom_tpu_torch/kernels/ssvs_timing.py                # JSON
+    python3 boom_tpu_torch/kernels/ssvs_timing.py --compare DIR  # both
+
+Prints the card, the build time, per dtype the kernel's device time (ten
+calls queued behind a spin of the card, median of 20:
+``scan_timing.median_ms``), the plain version's, the bound and what sets
+it, the rank-1 passes the inputs need, and the ``nvcc -Xptxas -v``
+registers and spills of every instantiation. ``--compare DIR`` runs the
+same script of the checkout DIR (another commit of this repository,
+unpacked with ``git archive``) and of this tree in turns (DIR, this, this,
+DIR), each in its own process on the same card. ``chip_smoke.py`` takes
+its inputs, shapes and bounds from here. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+if __package__ in (None, ""):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+from boom_tpu_torch.kernels.scan_timing import (  # noqa: E402
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    call_ms,
+    card_line,
+    median_ms,
+    ptxas_entries,
+)
+
+# the spike_slab workload (bench.py:133-146)
+BENCH_CHAINS, BENCH_P = 1024, 50
+# name: (dtype, chains); the bench runs float32, float64 for comparison
+SHAPES = {"ssvs_sweep_f32": ("float32", BENCH_CHAINS),
+          "ssvs_sweep_f64": ("float64", BENCH_CHAINS)}
+# scalar operations of one flip's decision (the deltas, the log model
+# probability, the log sigmoid), counted as flops
+FLIP_SCALAR_FLOPS = 30
+# block sizes (threads a chain) at which the kernel is also timed
+BLOCK_SIZES = (64, 128, 256)
+
+
+def problem(rng, c, p, dtype="float64", n=200, max_size=None,
+            mode_jump=False, device="cuda"):
+    """A spike-and-slab model on a random regression (x [n, p] normal, the
+    first min(p, 4) coefficients nonzero), initial masks [c, p] and one
+    sweep's noise on ``device``: (model, mask, noise, qprobs or None)."""
+    import torch
+
+    from boom_tpu_torch.models.glm import regression as reg
+
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=(n, p))
+    beta = np.zeros(p)
+    beta[:min(p, 4)] = rng.choice([-1.5, 1.5], size=min(p, 4))
+    y = x @ beta + rng.normal(size=n)
+    model = reg.SpikeSlabRegression.from_data(
+        torch.tensor(x, dtype=tdt, device=device),
+        torch.tensor(y, dtype=tdt, device=device),
+        expected_model_size=min(3.0, p), max_size=max_size,
+        mode_jump=mode_jump)
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 30)))
+    mask = model.init_state(model.draw_init_noise(gen, c))["gamma"]
+    noise = model.draw_noise(gen, c)
+    qprobs = (reg.screening_proposal_probs(model.suf, model.prior)
+              if mode_jump else None)
+    return model, mask, noise, qprobs
+
+
+def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3):
+    """The bench workload's model on the committed data (mode jump off,
+    expected model size 10), masks after ``warm`` sweeps from the initial
+    state (near the posterior: the shape of the run's inputs) and one
+    sweep's noise: (model, mask, noise)."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.models.glm import regression as reg
+
+    tdt = getattr(torch, dtype)
+    x, y = (torch.tensor(a, dtype=tdt, device="cuda")
+            for a in data.spike_slab_xy())
+    model = reg.SpikeSlabRegression.from_data(
+        x, y, expected_model_size=10.0, mode_jump=False)
+    gen = prng.generator(seed, "cuda")
+    state = model.init_state(model.draw_init_noise(gen, chains))
+    kern = model.kernel()
+    for _ in range(warm):
+        state = kern(model.draw_noise(gen, chains), state)
+    return model, state["gamma"], model.draw_noise(gen, chains)
+
+
+def passes_needed(mask_in, mask_out):
+    """Rank-1 passes [C] these inputs need at least: the build sweeps each
+    included coordinate, and each flip taken (a coordinate flips at most
+    once a sweep) is one more."""
+    return mask_in.sum(-1) + (mask_in != mask_out).sum(-1)
+
+
+def bound_ms(dtype, p, n_flips, passes, jump=False):
+    """The least time the card could take for one sweep: the bytes (S0 and
+    Omega once, each chain's mask in and out, its permutation and flip
+    uniforms, with the jump its proposal and acceptance uniforms) over the
+    memory rate, or the operations (``passes``, the rank-1 passes of S and
+    Omega these inputs need, 2 ((p+1)^2 + p^2) flops each, and each flip's
+    scalar decision) over the float rate, whichever is larger. Returns (ms,
+    "bytes" | "operations")."""
+    item = 8 if dtype == "float64" else 4
+    chains = int(passes.shape[0])
+    per_chain = 2 * p + 8 * p + item * p + (item * (p + 1) if jump else 0)
+    n_bytes = ((p + 1) ** 2 + p * p) * item + chains * per_chain
+    flops = (int(passes.sum()) * 2 * ((p + 1) ** 2 + p * p)
+             + chains * n_flips * FLIP_SCALAR_FLOPS)
+    by_bytes = n_bytes / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def gated_work_ms(dtype, chains, p):
+    """The reference's gated work at this shape (2p rank-1 passes a chain,
+    whether their gate is on or not) over the float rate: what a kernel
+    that makes every pass would need."""
+    flops = chains * 2 * p * 2 * ((p + 1) ** 2 + p * p)
+    return 1e3 * flops / PEAK_FLOPS[dtype]
+
+
+def ssvs_cases(model, mask, noise):
+    """(kernel call, plain call, wrapper call) of one sweep's indicator
+    draw: the launch on prepared operands, the plain version on the same
+    inputs, the public wrapper."""
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    n_flips = rs.flip_count(mask.shape[-1])
+    ops = sk.sweep_operands(model.suf, model.prior)
+    return (lambda: sk.launch_sweep(noise, model.suf, model.prior, mask,
+                                    n_flips, None, ops),
+            lambda: rs.draw_indicators_swept(noise, model.suf, model.prior,
+                                             mask),
+            lambda: sk.draw_indicators_swept(noise, model.suf, model.prior,
+                                             mask))
+
+
+def time_ssvs(plain=True):
+    """{name: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
+    gated_work_ms, passes_mean, shape, block_ms}} at SHAPES, on the bench's
+    data (block_ms: the kernel at each of BLOCK_SIZES)."""
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    out = {}
+    for name, (dtype, chains) in SHAPES.items():
+        model, mask, noise = bench_problem(dtype, chains)
+        kern, ref, wrapper = ssvs_cases(model, mask, noise)
+        new = kern()
+        p = mask.shape[-1]
+        passes = passes_needed(mask, new)
+        row = {"shape": [dtype, chains, p], "ms": median_ms(kern),
+               "call_ms": call_ms(kern), "wrapper_ms": median_ms(wrapper),
+               "plain_ms": median_ms(ref, reps=3, per=1) if plain else None,
+               "passes_mean": float(passes.double().mean()),
+               "gated_work_ms": gated_work_ms(dtype, chains, p)}
+        row["bound_ms"], row["bound_by"] = bound_ms(dtype, p, p, passes)
+        chosen = sk.THREADS
+        row["block_ms"] = {}
+        for threads in BLOCK_SIZES:
+            sk.THREADS = threads
+            try:
+                row["block_ms"][threads] = median_ms(kern)
+            finally:
+                sk.THREADS = chosen
+        out[name] = row
+    return out
+
+
+def nvcc_report(log_text):
+    """{instantiation: {"registers", "spill_bytes", "stack_bytes"}} of
+    ssvs_sweep.cu's kernels in an ``nvcc -Xptxas -v`` log."""
+    report = {}
+    for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
+        if "ssvs_sweep_kernel" not in name:
+            continue
+        ty = "f32" if "ssvs_sweep_kernelIf" in name else "f64"
+        jump = "jump" if "Lb1E" in name else "no jump"
+        report[f"ssvs_sweep {ty} {jump}"] = {
+            "registers": nregs, "spill_bytes": spill, "stack_bytes": stack}
+    return dict(sorted(report.items()))
+
+
+def run():
+    """Build this tree's kernels and time kernel (a); a JSON-able dict."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ssvs_timing: needs a CUDA card")
+    from boom_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build(("ssvs_sweep",))
+    out = {"card": card_line(), "build_s": time.perf_counter() - t0,
+           "kernels": time_ssvs()}
+    log = _build.log_path("ssvs_sweep")
+    out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
+    return out
+
+
+def compare(parent, here):
+    """Runs parent, here, here, parent, each tree's own script in a fresh
+    process, and prints the kernel's times side by side."""
+    runs = []
+    for label, tree in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        script = tree / "boom_tpu_torch" / "kernels" / "ssvs_timing.py"
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=1500)
+        if proc.returncode != 0:
+            raise SystemExit(f"ssvs_timing in {tree} failed:\n"
+                             f"{proc.stderr[-4000:]}")
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+    print(runs[0][1]["card"])
+    for name in runs[1][1]["kernels"]:
+        seq = " / ".join(f"{r['kernels'][name]['ms']:.4f}"
+                         if name in r["kernels"] else "-" for _, r in runs)
+        cur = runs[1][1]["kernels"][name]
+        print(f"{name} {cur['shape']}: kernel (P C C P) {seq} ms, bound "
+              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']})")
+        for lab, r in (runs[0], runs[1]):
+            print(f"  {lab} blocks: "
+                  f"{json.dumps(r['kernels'].get(name, {}).get('block_ms'))}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", type=Path,
+                    help="checkout to time in turns with this one")
+    args = ap.parse_args()
+    if args.compare:
+        compare(args.compare.resolve(), Path(__file__).resolve().parents[2])
+    else:
+        print(json.dumps(run()))
+
+
+if __name__ == "__main__":
+    main()

@@ -44,7 +44,26 @@ Phases:
      reach half the reference's min-ESS, and land the variances' posterior
      medians within 10 % of the JAX reference's; it prints sweeps/s,
      min-ESS/s, the proposal build's wall time and each phase's share of a
-     sweep.
+     sweep;
+  2c. kernel (a), the SSVS indicator sweep (``csrc/ssvs_sweep.cu``), against
+     its plain version (``regression_sweep.draw_indicators_swept``) on the
+     card with the same noise: p in {1, 37, 50, 64}, 1, 33 and 1024 chains,
+     mode jump off and on, max_size unset and set, float64 (masks identical
+     on every chain) and float32 (identical on at least 99.5 % of chains,
+     every difference at a near-tie of the plain version, |log u - log
+     threshold| < 1e-3 at the first flip where they part), several noise
+     draws, and the bench's own model at 1024 chains; ten launches at the
+     bench's shape bit-identical; then its times beside the bound
+     (``boom_tpu_torch/kernels/ssvs_timing.py``);
+  5. the reference's spike_slab workload (bench.py:129-157) on the bench's
+     own data (``boom_tpu_torch/data``): ``SpikeSlabRegression`` with
+     expected model size 10 and no mode jump, n=2000, p=50, 1024 chains, 50
+     burn-in + 200 draws, float32, through ``run_mcmc`` with the bench's
+     monitor (beta[:8], sigsq). It must run through kernel (a), give finite
+     draws, pass split R-hat < 1.02, reach half the reference's min-ESS,
+     land the monitored posterior medians within 1 % of the JAX reference's
+     and include columns 0-7 with probability >= 0.99; it prints sweeps/s,
+     min-ESS/s and each phase's share of a sweep.
 
 Prints a JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Exits nonzero (and prints no result)
@@ -134,6 +153,40 @@ REFERENCE_MEDIANS_LLT = {"sigsq_obs": 0.2824546700855368,
                          "sigma_level_sq": 0.07093161360753383,
                          "sigma_slope_sq": 0.00027548090601574034}
 LLT_MEDIAN_TOL = 0.10
+
+# phase 2c: kernel (a), the SSVS indicator sweep, and the XLA scans of the
+# reference it replaces (regression_sweep.py: build_sweep_state :84, the
+# mode-jump walk :178, the flip scan of draw_indicators_swept :241)
+SSVS_SOURCE = "boom_tpu_torch/csrc/ssvs_sweep.cu"
+SSVS_REPLACES = "boom_tpu/models/glm/regression_sweep.py:241"
+SSVS_P = (1, 37, 50, 64)
+SSVS_CHAINS = (1, 33, 1024)
+SSVS_MAX_SIZE = 3
+SSVS_DRAWS = 2
+# float32: share of chains whose masks must equal the plain version's, and
+# the margin |log u - log threshold| of the plain version's decision below
+# which a difference counts as a near-tie
+SSVS_F32_AGREE = 0.995
+SSVS_TIE = 1e-3
+
+# phase 5: the reference's spike_slab workload (bench.py:129-157)
+SPIKE_N, SPIKE_P, SPIKE_NONZERO = 2000, 50, 8
+SPIKE_CHAINS, SPIKE_BURN, SPIKE_DRAWS, SPIKE_SEED = 1024, 50, 200, 0
+# min-ESS of the reference's run at this configuration (BENCH_r05.json,
+# 1024 chains x 200 draws); the port must reach half of it
+REFERENCE_MIN_ESS_SPIKE = 203_091
+# Posterior medians of beta[:8] and sigsq from the JAX reference's
+# workload on the committed data (x64 off, as the bench runs): 64 chains,
+# 50 burn-in + 200 draws, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_spike_slab.py \
+#         bench
+# (the reference's inclusion probabilities of columns 0-7 are 1.0)
+REFERENCE_MEDIANS_SPIKE = (
+    -1.9911940097808838, 1.974985122680664, -2.011040210723877,
+    2.014585018157959, -2.0018205642700195, -1.9634230136871338,
+    -2.0008912086486816, 1.9793345928192139, 1.011297345161438)
+SPIKE_MEDIAN_TOL = 0.01
+SPIKE_MIN_INCLUSION = 0.99
 
 
 class SmokeFailure(Exception):
@@ -590,17 +643,18 @@ def _llt_extract(state):
             "fcast": alpha[:, -1, 0] + alpha[:, -1, 1]}
 
 
-def _phase_profile(model, state, gen, sweeps=5):
-    """Host time of each sweep phase (its profiler range) and the device's
-    kernel time over a few sweeps under ``torch.profiler``: ({phase: ms a
-    sweep}, wall ms a sweep, device kernel ms a sweep)."""
+def _phase_profile(model, state, gen, chains, prefix, phase_names,
+                   sweeps=5, top=0):
+    """Host time of each sweep phase (its profiler range
+    "<prefix>.<phase>") and the device's kernel time over a few sweeps
+    under ``torch.profiler``: ({phase: ms a sweep}, wall ms a sweep, device
+    kernel ms a sweep). With ``top``, prints the operators with the most
+    host time of their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
-
     kern = model.kernel()
-    noises = [model.draw_noise(gen, LLT_CHAINS) for _ in range(sweeps)]
+    noises = [model.draw_noise(gen, chains) for _ in range(sweeps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -610,17 +664,33 @@ def _phase_profile(model, state, gen, sweeps=5):
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / sweeps
     events = prof.key_averages()
+    if top:
+        ops = sorted((e for e in events if not e.key.startswith(f"{prefix}.")),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+        print(f"{prefix} operators with the most host time of their own: "
+              + ", ".join(f"{e.key} {e.self_cpu_time_total / sweeps / 1e3:.2f}"
+                          f" ms ({e.count // sweeps} calls)" for e in ops)
+              + " a sweep")
     phases = {}
-    for name in SWEEP_PHASES:
-        hits = [e for e in events if e.key == f"bsts.{name}"]
+    for name in phase_names:
+        hits = [e for e in events if e.key == f"{prefix}.{name}"]
         phases[name] = (sum(e.cpu_time_total for e in hits) / sweeps / 1e3
                         if hits else 0.0)
-    # kernels only: the "bsts.*" ranges also appear as device-side
+    # kernels only: the named ranges also appear as device-side
     # annotations spanning their kernels
     device = sum(getattr(e, "self_device_time_total", 0.0) for e in events
                  if str(e.device_type).endswith("CUDA")
-                 and not e.key.startswith("bsts.")) / sweeps / 1e3
+                 and not e.key.startswith(f"{prefix}.")) / sweeps / 1e3
     return phases, wall, device
+
+
+def _print_profile(label, phases, wall, device):
+    total = sum(phases.values()) or 1.0
+    print(f"{label} sweep profile (5 sweeps under torch.profiler): wall "
+          f"{wall:.2f} ms a sweep, device kernels {device:.2f} ms "
+          f"(busy {100 * device / wall:.1f} %); host time of each phase: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+                      for k, v in phases.items()))
 
 
 def phase4_bsts_llt(card):
@@ -701,13 +771,10 @@ def phase4_bsts_llt(card):
         print(f"bsts_llt {k}: median {med[k]:.6g} (reference {ref:.6g}, "
               f"ratio {med[k] / ref:.4f})")
 
-    phases, wall, device = _phase_profile(model, res.final_state, gen)
-    total = sum(phases.values())
-    print(f"bsts_llt sweep profile (5 sweeps under torch.profiler): wall "
-          f"{wall:.2f} ms a sweep, device kernels {device:.2f} ms "
-          f"(busy {100 * device / wall:.1f} %); host time of each phase: "
-          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
-                      for k, v in phases.items()))
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
+
+    _print_profile("bsts_llt", *_phase_profile(
+        model, res.final_state, gen, LLT_CHAINS, "bsts", SWEEP_PHASES))
 
     check(float(rhat.max()) < RHAT_GATE,
           f"bsts_llt max R-hat {float(rhat.max()):.4f} >= {RHAT_GATE}")
@@ -717,6 +784,232 @@ def phase4_bsts_llt(card):
         check(abs(med[k] / ref - 1.0) <= LLT_MEDIAN_TOL,
               f"bsts_llt median of {k} {med[k]:.4g} is not within "
               f"{LLT_MEDIAN_TOL:.0%} of the reference's {ref:.4g}")
+    return launches
+
+
+def _first_parting_margin(model, mask, noise, qprobs, want, got):
+    """For chains whose kernel mask ``got`` differs from the plain one
+    ``want``: the plain version's decision margin |log u - log threshold|
+    at the first step (the jump, then each flip) after which the kernel's
+    mask and the plain version's part, found by launching the kernel with
+    0, 1, ... flips. Returns [margins]."""
+    import torch
+
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    idx = torch.nonzero((got != want).any(-1))[:, 0]
+    sub = {k: v[idx] for k, v in noise.items()}
+    record = []
+    rs.draw_indicators_swept(sub, model.suf, model.prior, mask[idx],
+                             qprobs=qprobs, record=record)
+    jump = qprobs is not None
+    margins = [None] * len(idx)
+    for step in range(len(record)):
+        n_flips = step if jump else step + 1
+        k_mask = sk.launch_sweep(sub, model.suf, model.prior, mask[idx],
+                                 n_flips, qprobs)
+        parted = (k_mask != record[step][1]).any(-1)
+        for i in torch.nonzero(parted)[:, 0].tolist():
+            if margins[i] is None:
+                margins[i] = float(record[step][0][i].abs())
+    return [m if m is not None else float("inf") for m in margins]
+
+
+def _ssvs_case(rng, dtype, c, p, jump, max_size):
+    """One comparison of kernel (a) with the plain sweep: (chains differing,
+    their near-tie margins)."""
+    from boom_tpu_torch.kernels import ssvs_timing as sst
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    model, mask, noise, qprobs = sst.problem(
+        rng, c, p, dtype, max_size=max_size, mode_jump=jump)
+    want = rs.draw_indicators_swept(noise, model.suf, model.prior, mask,
+                                    qprobs=qprobs)
+    got = sk.draw_indicators_swept(noise, model.suf, model.prior, mask,
+                                   qprobs=qprobs)
+    diff = (got != want).any(-1)
+    n_diff = int(diff.sum())
+    margins = (_first_parting_margin(model, mask, noise, qprobs, want, got)
+               if n_diff else [])
+    return n_diff, margins
+
+
+def phase2c_ssvs_vs_plain():
+    """Kernel (a) against its plain version; determinism; times. Returns the
+    bench shape's numbers."""
+    import torch
+
+    from boom_tpu_torch.kernels import _build
+    from boom_tpu_torch.kernels import ssvs_timing as sst
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+
+    rng = np.random.default_rng(20261018)
+    bad, total, n_diff_f32, worst_margin = [], {}, 0, 0.0
+    for dtype in ("float64", "float32"):
+        for p in SSVS_P:
+            for c in SSVS_CHAINS:
+                for jump in (False, True):
+                    for max_size in (None, SSVS_MAX_SIZE):
+                        for _ in range(SSVS_DRAWS):
+                            n_diff, margins = _ssvs_case(
+                                rng, dtype, c, p, jump, max_size)
+                            total[dtype] = total.get(dtype, 0) + c
+                            case = (f"{dtype} p={p} C={c} jump={jump} "
+                                    f"max_size={max_size}")
+                            if dtype == "float64" and n_diff:
+                                bad.append(f"{case}: {n_diff} chains differ")
+                            if dtype == "float32":
+                                n_diff_f32 += n_diff
+                                for m in margins:
+                                    worst_margin = max(worst_margin, m)
+                                    if not m < SSVS_TIE:
+                                        bad.append(f"{case}: a difference "
+                                                   f"at margin {m:.3e}")
+    # the bench's own model and masks, both dtypes
+    at_bench = {}
+    for dtype in ("float64", "float32"):
+        model, mask, noise = sst.bench_problem(dtype)
+        want = rs.draw_indicators_swept(noise, model.suf, model.prior, mask)
+        kern = sst.ssvs_cases(model, mask, noise)[0]
+        got = kern()
+        n_diff = int((got != want).any(-1).sum())
+        total[dtype] += mask.shape[0]
+        err = float((got.float() - want.float()).abs().max())
+        print(f"ssvs bench {dtype} C={mask.shape[0]} p={mask.shape[1]}: "
+              f"{n_diff} chains differ from the plain version")
+        if dtype == "float64" and n_diff:
+            bad.append(f"bench float64: {n_diff} chains differ")
+        if dtype == "float32":
+            n_diff_f32 += n_diff
+            if n_diff:
+                for m in _first_parting_margin(model, mask, noise, None,
+                                               want, got):
+                    worst_margin = max(worst_margin, m)
+                    if not m < SSVS_TIE:
+                        bad.append(f"bench float32: a difference at margin "
+                                   f"{m:.3e}")
+            at_bench["max_abs_err"] = err
+            same = all(torch.equal(got, kern()) for _ in range(9))
+            print(f"ten launches of kernel (a) at the bench shape "
+                  f"bit-identical: {same}")
+            check(same, "repeated launches of kernel (a) differ")
+    agree = 1.0 - n_diff_f32 / total["float32"]
+    print(f"ssvs float64: {total['float64']} chains, all masks identical "
+          f"unless listed below; float32: {n_diff_f32} of "
+          f"{total['float32']} chains differ (agreement {agree:.5f}, gate "
+          f">= {SSVS_F32_AGREE}), worst near-tie margin {worst_margin:.3e} "
+          f"(gate < {SSVS_TIE:g})")
+    check(not bad, "kernel (a) disagrees with its plain version: "
+          + "; ".join(bad[:20]))
+    check(agree >= SSVS_F32_AGREE,
+          f"float32 masks agree on {agree:.4f} of chains")
+    for name, r in sst.time_ssvs().items():
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+              f"{r['passes_mean']:.2f} rank-1 passes a chain needed; the "
+              f"reference's gated work {r['gated_work_ms']:.5f} ms); one "
+              f"call on the host clock {r['call_ms']:.4f} ms; blocks: "
+              + ", ".join(f"{t} threads {ms:.4f} ms"
+                          for t, ms in r["block_ms"].items()))
+        if name == "ssvs_sweep_f32":
+            at_bench.update({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")})
+    log = _build.log_path("ssvs_sweep")
+    if log.exists():
+        for inst, rep in sst.nvcc_report(log.read_text()).items():
+            print(f"nvcc {inst}: {rep['registers']} registers, "
+                  f"{rep['spill_bytes']} bytes spill stores, "
+                  f"{rep['stack_bytes']} bytes stack")
+    return at_bench
+
+
+def phase5_spike_slab(card):
+    """The reference's spike_slab workload at full size through
+    SpikeSlabRegression and run_mcmc; returns kernel (a)'s launches in that
+    run."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models.glm import SpikeSlabRegression
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+    from boom_tpu_torch.models.glm.regression import SWEEP_PHASES
+
+    x, y = (torch.tensor(a, device="cuda") for a in data.spike_slab_xy())
+    check(x.shape == (SPIKE_N, SPIKE_P) and x.dtype == torch.float32,
+          f"the bench data are {tuple(x.shape)} {x.dtype}")
+    model = SpikeSlabRegression.from_data(x, y, expected_model_size=10.0,
+                                          mode_jump=False)
+    check(model.method == "sweep", "the model does not take the SWEEP path")
+    sk.LAUNCHES["ssvs_sweep"] = 0
+    gen = prng.generator(SPIKE_SEED, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   SPIKE_DRAWS, generator=gen, num_chains=SPIKE_CHAINS,
+                   burn=SPIKE_BURN,
+                   extract=lambda s: {"beta": s["beta"][:, :SPIKE_NONZERO],
+                                      "sigsq": s["sigsq"],
+                                      "gamma": s["gamma"]})
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = sk.LAUNCHES["ssvs_sweep"]
+    sweeps = SPIKE_BURN + SPIKE_DRAWS
+    print(f"spike_slab: n={SPIKE_N} p={SPIKE_P} chains={SPIKE_CHAINS} "
+          f"burn={SPIKE_BURN} draws={SPIKE_DRAWS} in {elapsed:.2f} s; kernel "
+          f"(a) launches {launches}")
+    check(launches >= sweeps,
+          f"the spike_slab run launched kernel (a) {launches} times < "
+          f"{sweeps} sweeps")
+    d = res.draws
+    check(all(bool(torch.isfinite(v.float()).all()) for v in d.values()),
+          "non-finite spike_slab draws")
+    monitored = torch.cat([d["beta"], d["sigsq"][..., None]],
+                          dim=-1).double()
+    check(tuple(monitored.shape) == (SPIKE_CHAINS, SPIKE_DRAWS,
+                                     SPIKE_NONZERO + 1),
+          f"monitored draws have shape {tuple(monitored.shape)}")
+    rhat = diagnostics.potential_scale_reduction(monitored).cpu().numpy()
+    ess = diagnostics.effective_sample_size(monitored).cpu().numpy()
+    med = monitored.reshape(-1, SPIKE_NONZERO + 1).median(0).values
+    med = med.cpu().numpy()
+    inclusion = d["gamma"].double().mean((0, 1)).cpu().numpy()
+    names = [f"beta[{j}]" for j in range(SPIKE_NONZERO)] + ["sigsq"]
+    for i, name in enumerate(names):
+        print(f"spike_slab {name}: median {med[i]:.6g} (reference "
+              f"{REFERENCE_MEDIANS_SPIKE[i]:.6g}, ratio "
+              f"{med[i] / REFERENCE_MEDIANS_SPIKE[i]:.5f}) rhat "
+              f"{rhat[i]:.4f} ess {ess[i]:.1f}")
+    print("spike_slab inclusion probabilities: "
+          + ", ".join(f"{v:.4f}" for v in inclusion))
+    min_ess = float(ess.min())
+    ratio = min_ess / REFERENCE_MIN_ESS_SPIKE
+    print(f"spike_slab rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {min_ess:.1f} (ratio to the reference's "
+          f"{REFERENCE_MIN_ESS_SPIKE}: {ratio:.4f}), min-ESS/s "
+          f"{min_ess / elapsed:.1f}, max R-hat {float(rhat.max()):.4f}")
+    _print_profile("spike_slab", *_phase_profile(
+        model, res.final_state, gen, SPIKE_CHAINS, "ssvs", SWEEP_PHASES, top=8))
+
+    check(float(rhat.max()) < RHAT_GATE,
+          f"spike_slab max R-hat {float(rhat.max()):.4f} >= {RHAT_GATE}")
+    check(ratio >= 0.5, f"spike_slab min-ESS {min_ess:.1f} is below half the "
+          f"reference's {REFERENCE_MIN_ESS_SPIKE}")
+    for i, name in enumerate(names):
+        ref = REFERENCE_MEDIANS_SPIKE[i]
+        check(abs(med[i] / ref - 1.0) <= SPIKE_MEDIAN_TOL,
+              f"spike_slab median of {name} {med[i]:.5g} is not within "
+              f"{SPIKE_MEDIAN_TOL:.0%} of the reference's {ref:.5g}")
+    check(bool((inclusion[:SPIKE_NONZERO] >= SPIKE_MIN_INCLUSION).all()),
+          f"inclusion probabilities of columns 0-{SPIKE_NONZERO - 1} "
+          f"{inclusion[:SPIKE_NONZERO].tolist()} below "
+          f"{SPIKE_MIN_INCLUSION}")
     return launches
 
 
@@ -731,6 +1024,8 @@ def main():
         phase3_sweep_vs_plain()
         launches = phase3_fit(card)
         llt_launches = phase4_bsts_llt(card)
+        at_ssvs = phase2c_ssvs_vs_plain()
+        ssvs_launches = phase5_spike_slab(card)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -745,6 +1040,11 @@ def main():
                         "source": KALMAN_SOURCE, "replaces": replaces,
                         "launches": llt_launches[f"kalman_{k}"],
                         **at_llt[k], "library_ms": None})
+    # library_ms: no PyTorch call computes a Gibbs sweep over indicators
+    kernels.append({"name": "ssvs_sweep", "route": "cuda",
+                    "source": SSVS_SOURCE, "replaces": SSVS_REPLACES,
+                    "launches": ssvs_launches, **at_ssvs,
+                    "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (the parallel scans, and the sequential
-Kalman loglik K1, its derivative kernels J1 and J2, and the simulation
-smoother K2) against their plain PyTorch versions, on the card. These need
+"""The hand-written CUDA kernels (the parallel scans, the sequential
+Kalman loglik K1, its derivative kernels J1 and J2, the simulation
+smoother K2, and kernel (a), the SSVS indicator sweep) against their plain
+PyTorch versions, on the card. These need
 a CUDA device and ``nvcc``: here they skip. Run them on a machine with the
 card (the repository's conftest imports JAX, which that machine need not
 have):
@@ -307,3 +308,49 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
     big, y7, _, n7 = _kalman_inputs(card, torch.float64, 7, 20, seed=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kk.simulation_smoother(big, y7, *n7)
+
+
+# -- kernel (a), the SSVS indicator sweep -----------------------------------
+
+
+@pytest.mark.parametrize("p", [1, 37, 64])
+@pytest.mark.parametrize("jump", [False, True])
+@pytest.mark.parametrize("max_size", [None, 3])
+def test_ssvs_kernel_matches_plain(card, p, jump, max_size):
+    """float64: the kernel's masks equal the plain sweep's on every chain,
+    one launch counted."""
+    from boom_tpu_torch.kernels.ssvs_timing import problem
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+
+    rng = np.random.default_rng(p + 100 * jump)
+    model, mask, noise, qprobs = problem(rng, 33, p, "float64",
+                                         max_size=max_size, mode_jump=jump)
+    want = rs.draw_indicators_swept(noise, model.suf, model.prior, mask,
+                                    qprobs=qprobs)
+    before = ssk.LAUNCHES["ssvs_sweep"]
+    got = ssk.draw_indicators_swept(noise, model.suf, model.prior, mask,
+                                    qprobs=qprobs)
+    torch.cuda.synchronize()
+    assert ssk.LAUNCHES["ssvs_sweep"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_ssvs_kernel_is_bit_identical_and_refuses_what_it_cannot_hold(card):
+    from boom_tpu_torch.kernels.ssvs_timing import problem
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+
+    rng = np.random.default_rng(7)
+    model, mask, noise, _q = problem(rng, 1024, 50, "float32")
+    first = ssk.draw_indicators_swept(noise, model.suf, model.prior, mask)
+    for _ in range(9):
+        assert torch.equal(first, ssk.draw_indicators_swept(
+            noise, model.suf, model.prior, mask))
+    big, bmask, bnoise, _q = problem(rng, 2, 180, "float64", n=400)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        ssk.draw_indicators_swept(bnoise, big.suf, big.prior, bmask)
+    with pytest.raises(ValueError, match="perm"):
+        ssk.launch_sweep({**noise, "perm": noise["perm"][:, :3]}, model.suf,
+                         model.prior, mask, 50)
+    assert rs.flip_count(50) == 50
