@@ -20,22 +20,38 @@
 // at the bench's 1024 chains, p = 50: 0.016 ms at the card's float32 rate,
 // more than the bytes (S0, Omega once, the noise and masks) take. But only
 // the passes whose gate is on change anything, and those are few (the
-// included coordinates in the build, the flips taken); what each flip
-// always costs is a chain of dependent scalar operations (two logs of
-// pivots, the residual corner, the log of its sum of squares, the log
-// sigmoid) and one barrier. So the kernel is latency-bound on that chain,
-// and its design keeps everything else off it:
+// included coordinates in the build, the flips taken: ~10 a chain at the
+// bench's posterior); every flip, taken or not, costs a chain of dependent
+// scalar operations (two logs of pivots, the residual corner, the log of
+// its sum of squares, the log sigmoid). Measured (PERF.md §6,
+// kernels/ssvs_timing.py --split), the ~10 passes a chain take most of the
+// time and the 50 decisions little once they run 32 at a time: with all
+// 1024 chains resident, the passes are bound by the instructions the SM
+// issues for them, so the design keeps a pass's instructions few and its
+// decisions off the block:
 //   - S [(p+1)^2] and Omega's swept copy [p^2] live in shared memory for the
 //     whole sweep (20.4 KB at p = 50 in float32, 40.8 KB in float64), full
 //     storage: the plain version updates both triangles with the same
 //     formula, and they differ by rounding, so a triangle would lose
-//     agreement with it; full storage fits p <= 119 (float64) and 170
-//     (float32) in 227 KB, or half that with the mode-jump walk's copy;
-//   - thread 0 computes each flip's scalars (the `_flip_deltas` of the
-//     reference) from shared memory and broadcasts the decision; a branch
-//     that is uniform across the block replaces the reference's gated
-//     full-matrix pass: only a flip that is taken stages row and column k
-//     and makes the rank-1 update with all threads (a warp a row);
+//     agreement with it; full storage fits p <= 168 (float64: 118) in
+//     227 KB, 119 (83) with the mode-jump walk's copy;
+//   - the chain's noise is staged on chip before the build, while S0 and
+//     Omega arrive by cp.async: the flips' indices and the logs of their
+//     uniforms, the jump's proposal and the log of its acceptance uniform,
+//     all taken by the whole block at once, and the log inclusion odds; the
+//     flips load nothing from device memory (but the q terms of a nonzero
+//     prior mean, the rare forced-in case, read the prior's Omega and mean);
+//   - warp 0 decides the flips alone, a lane a flip: 32 flips at a time on
+//     the current state. Until a flip is taken the state does not change,
+//     so every flip before the first one taken gets the decision it would
+//     get in order (a ballot finds the first); flips not taken meet no
+//     block barrier. Only a flip taken publishes its index, with its row
+//     and column already staged by warp 0, to the other warps;
+//   - a rank-1 pass updates S and Omega together, with one barrier before
+//     and one after: the build's and the walk's passes stage row and
+//     column k with the whole block, a flip's is staged by warp 0; the
+//     update takes a warp's rows four at a time, two columns a lane, with
+//     no select or predicate in its loop (rank1_update);
 //   - the mode-jump walk runs on a second copy of S and Omega, and an
 //     accepted jump swaps the two, so a rejected one restores the pre-walk
 //     state exactly (never by unsweeping back);
@@ -51,20 +67,27 @@
 // (ROADMAP.md §3).
 
 #include <cmath>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 256;
+// Blocks of kMaxThreads an SM the compiler must allow registers for (at
+// most 65536 / (kMaxThreads * kMinBlocks) a thread): float32 without the
+// jump must keep 8 chains of 128 threads an SM (64 registers), so that the
+// bench's 1024 chains are one wave; the others are held to five or fewer
+// chains an SM by shared memory, and may take 128 registers.
+template <typename T, bool kJump>
+constexpr int kMinBlocks = sizeof(T) == 4 && !kJump ? 4 : 2;
 // the mode-jump walk's Hamming budget (regression_sweep.MODE_JUMP_BUDGET)
 constexpr int kJumpBudget = 16;
-// thread 0's broadcasts: each flip's (take, index, sign) in two slots by the
-// flip's parity (a slot is rewritten only after every thread has passed
-// the next flip's barrier), then the walk's length, the jump's decision
-// and a walk step's sign
-constexpr int kFlags = 9;
-constexpr int kWalkLen = 6, kJumpTake = 7, kWalkSign = 8;
+// warp 0's broadcasts: a flip taken (its index, -1 for none left, and
+// whether it was included), the walk's length and the jump's decision
+constexpr int kFlags = 4;
+constexpr int kFlipJ = 0, kFlipIncl = 1, kWalkLen = 2, kJumpTake = 3;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // One correctly rounded IEEE operation each, never fused.
 template <typename T>
@@ -139,7 +162,8 @@ __device__ __forceinline__ T log_sigmoid(T x) {
   extern __shared__ __align__(16) unsigned char name[]
 #endif
 
-// The chain's scalar state (thread 0 keeps it in registers).
+// The chain's scalar state (every lane of warp 0 keeps the same copy in
+// registers).
 template <typename T>
 struct Scalars {
   T logdet_a, logdet_o, q, spike;
@@ -147,7 +171,8 @@ struct Scalars {
 };
 
 // What one flip at j would give (regression_sweep._flip_deltas and the
-// flip's log model probability), computed by thread 0 from shared memory.
+// flip's log model probability), computed by a lane of warp 0 from shared
+// memory.
 template <typename T>
 struct Flip {
   bool incl;
@@ -158,7 +183,7 @@ template <typename T>
 __device__ __forceinline__ Flip<T> flip_deltas(
     const T* s, const T* o, const unsigned char* mask, int p, int j,
     const Scalars<T>& st, const T* __restrict__ omega0,
-    const T* __restrict__ mean, const T* __restrict__ log_odds, T half_df_m1,
+    const T* __restrict__ mean, const T* log_odds, T half_df_m1,
     bool use_max_size, int max_size) {
   using O = Ops<T>;
   const int d = p + 1;
@@ -166,10 +191,11 @@ __device__ __forceinline__ Flip<T> flip_deltas(
   f.incl = mask[j] != 0;
   const T sjj = s[j * d + j];
   const T ojj = o[j * p + j];
-  f.d_ld_a = f.incl ? -O::log(clamp_tiny(O::div(T(-1), sjj)))
-                    : O::log(clamp_tiny(sjj));
-  f.d_ld_o = f.incl ? -O::log(clamp_tiny(O::div(T(-1), ojj)))
-                    : O::log(clamp_tiny(ojj));
+  // -log max(-1/pivot, tiny) if j is in, else log max(pivot, tiny)
+  const T la = O::log(clamp_tiny(f.incl ? O::div(T(-1), sjj) : sjj));
+  const T lo = O::log(clamp_tiny(f.incl ? O::div(T(-1), ojj) : ojj));
+  f.d_ld_a = f.incl ? -la : la;
+  f.d_ld_o = f.incl ? -lo : lo;
   // the residual corner after the rank-1 sweep at j
   const T corner =
       O::sub(s[d * d - 1], O::div(O::mul(s[p * d + j], s[j * d + p]), sjj));
@@ -211,38 +237,106 @@ __device__ __forceinline__ void apply_scalars(Scalars<T>& st,
   st.size += f.incl ? -1 : 1;
 }
 
-// Sweep (sign +1) or unsweep (sign -1) index k of the n x n matrix a in
-// shared memory with the whole block: stage row and column k, then
-// a[i][j] -= (a[i][k] / pivot) a[k][j], row and column k scaled by
-// sign / pivot, the corner -1 / pivot (linalg/sweep.gated_flip_sweep's
-// arithmetic in its order). `col`, `row` are n-entry staging buffers.
-// Every thread must call it; it ends in a barrier.
+// Rows of a rank-1 update that a warp loads before it stores any of them.
+constexpr int kRowBatch = 4;
+
+// The rank-1 update of index k of the n x n matrix a in shared memory
+// from its staged column `col` and row `row` (linalg/sweep.gated_flip_sweep's
+// arithmetic in its order): a[i][j] -= (a[i][k] / pivot) a[k][j], row and
+// column k scaled by sign / pivot, the corner -1 / pivot. A lane keeps two
+// columns of `row`, j and j + 32, in registers and updates them in
+// kRowBatch rows at a time (a warp's rows, a warp apart), all their loads
+// issued before any store, so that the loads of a batch overlap; a row's
+// a[i][k] / pivot is loaded and taken once for both columns. Every entry
+// first gets the general formula; the threads that wrote row and column k
+// then overwrite them (in program order, so no barrier), which keeps
+// selects and predicates out of the loop.
 template <typename T>
-__device__ void rank1_flip(T* a, int n, int k, T sign, T* col, T* row) {
+__device__ __forceinline__ void rank1_update(T* a, int n, int k, T sign,
+                                             const T* col, const T* row) {
   using O = Ops<T>;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    col[i] = a[i * n + k];
-    row[i] = a[k * n + i];
-  }
-  __syncthreads();
   const T inv = O::div(T(1), col[k]);
   const T edge = O::mul(sign, inv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps = (blockDim.x + 31) >> 5;
-  for (int i = warp; i < n; i += warps) {
-    const T ci = O::mul(col[i], inv);
-    for (int j = lane; j < n; j += 32) {
-      T v;
-      if (i == k)
-        v = j == k ? -inv : O::mul(row[j], edge);
-      else if (j == k)
-        v = O::mul(col[i], edge);
-      else
-        v = O::sub(a[i * n + j], O::mul(ci, row[j]));
-      a[i * n + j] = v;
+  const int warps = blockDim.x >> 5;
+  const int step = warps * n;  // entries from one of a warp's rows to the next
+  for (int j = lane; j < n; j += 64) {
+    const bool two = j + 32 < n;
+    const T r0 = row[j];
+    const T r1 = two ? row[j + 32] : T(0);
+    int i = warp;
+    T* at = a + i * n + j;
+    for (; i + (kRowBatch - 1) * warps < n;
+         i += kRowBatch * warps, at += kRowBatch * step) {
+      T ci[kRowBatch], v0[kRowBatch], v1[kRowBatch];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        ci[u] = col[i + u * warps];
+        v0[u] = at[u * step];
+        if (two) v1[u] = at[u * step + 32];
+      }
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        ci[u] = O::mul(ci[u], inv);
+        at[u * step] = O::sub(v0[u], O::mul(ci[u], r0));
+        if (two) at[u * step + 32] = O::sub(v1[u], O::mul(ci[u], r1));
+      }
+    }
+    for (; i < n; i += warps, at += step) {
+      const T ci = O::mul(col[i], inv);
+      at[0] = O::sub(at[0], O::mul(ci, r0));
+      if (two) at[32] = O::sub(at[32], O::mul(ci, r1));
     }
   }
+  if (lane == (k & 31))  // column k, then (the corner last) row k
+    for (int i = warp; i < n; i += warps) a[i * n + k] = O::mul(col[i], edge);
+  if (warp == k % warps)
+    for (int j = lane; j < n; j += 32)
+      a[k * n + j] = j == k ? -inv : O::mul(row[j], edge);
+}
+
+// Stage row and column k of both S [d x d] and Omega [p x p], entries
+// first, first + step, ... of the d + p of each.
+template <typename T>
+__device__ __forceinline__ void stage_k(const T* s, const T* o, int p, int k,
+                                        T* col_s, T* row_s, T* col_o,
+                                        T* row_o, int first, int step) {
+  const int d = p + 1;
+  for (int i = first; i < d + p; i += step) {
+    if (i < d) {
+      col_s[i] = s[i * d + k];
+      row_s[i] = s[k * d + i];
+    } else {
+      const int m = i - d;
+      col_o[m] = o[m * p + k];
+      row_o[m] = o[k * p + m];
+    }
+  }
+}
+
+// The update of both from their staged rows and columns, then a barrier.
+// Every thread must call it.
+template <typename T>
+__device__ __forceinline__ void rank1_updates(T* s, T* o, int p, int k,
+                                              T sign, const T* col_s,
+                                              const T* row_s,
+                                              const T* col_o,
+                                              const T* row_o) {
+  rank1_update(s, p + 1, k, sign, col_s, row_s);
+  rank1_update(o, p, k, sign, col_o, row_o);
   __syncthreads();
+}
+
+// Sweep (sign +1) or unsweep (sign -1) index k of both S and Omega with
+// the whole block, in one pass: stage, one barrier, update, one barrier.
+// Every thread must call it.
+template <typename T>
+__device__ void rank1_pass(T* s, T* o, int p, int k, T sign, T* col_s,
+                           T* row_s, T* col_o, T* row_o) {
+  stage_k(s, o, p, k, col_s, row_s, col_o, row_o,
+          static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x));
+  __syncthreads();
+  rank1_updates(s, o, p, k, sign, col_s, row_s, col_o, row_o);
 }
 
 template <typename T>
@@ -250,17 +344,47 @@ __device__ __forceinline__ void copy_block(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// Shared-memory layout of one chain (offsets in elements of T, then bytes).
-inline long long ssvs_smem_bytes(int p, bool jump,
-                                                     int item) {
+// n elements global -> shared without a register stage (cp.async, cached
+// in L1: every chain reads the same S0 and Omega, which L2 holds); the
+// caller commits, waits and meets a barrier before reading them.
+template <typename T>
+__device__ __forceinline__ void copy_block_async(T* dst, const T* src,
+                                                 int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#ifdef __CUDA_ARCH__
+    const unsigned at =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(at),
+                 "l"(src + i), "n"(sizeof(T))
+                 : "memory");
+#else
+    std::memcpy(dst + i, src + i, sizeof(T));
+#endif
+  }
+}
+
+__device__ __forceinline__ void async_commit_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+#endif
+}
+
+// Shared-memory bytes of one chain: S and Omega (twice with the jump),
+// their staging rows and columns, the flips' log uniforms, the jump's log
+// acceptance uniform and the log inclusion odds (T); the walk's order and
+// the flags (int); three masks and the flips' indices (bytes).
+inline long long ssvs_smem_bytes(int p, bool jump, int item) {
   const long long d = p + 1;
   const long long mats = (d * d + (long long)p * p) * (jump ? 2 : 1);
   const long long stage = 2 * d + 2 * (long long)p;
-  return (mats + stage) * item + 3LL * p + 4 + 4 * (kJumpBudget + kFlags);
+  return (mats + stage + 2LL * p + 1) * item +
+         4LL * (kJumpBudget + kFlags) + 4LL * p;
 }
 
 template <typename T, bool kJump>
-__global__ void __launch_bounds__(kMaxThreads) ssvs_sweep_kernel(
+__global__ void __launch_bounds__(kMaxThreads, (kMinBlocks<T, kJump>))
+ssvs_sweep_kernel(
     const T* __restrict__ s0, const T* __restrict__ omega0,
     const T* __restrict__ mean, const T* __restrict__ log_odds,
     const T* __restrict__ consts, const T* __restrict__ logq,
@@ -283,38 +407,60 @@ __global__ void __launch_bounds__(kMaxThreads) ssvs_sweep_kernel(
   T* row_s = col_s + d;
   T* col_o = row_s + d;
   T* row_o = col_o + p;
-  unsigned char* mask = reinterpret_cast<unsigned char*>(row_o + p);
+  T* log_u = row_o + p;    // [n_flips] log flip_u
+  T* log_acc = log_u + p;  // [1] log jump_acc (kJump)
+  T* odds = log_acc + 1;   // [p] the prior's log inclusion odds
+  int* order = reinterpret_cast<int*>(odds + p);
+  int* flag = order + kJumpBudget;  // kFlags of them
+  unsigned char* mask = reinterpret_cast<unsigned char*>(flag + kFlags);
   unsigned char* mask2 = mask + p;
   unsigned char* prop = mask2 + p;
-  int* order = reinterpret_cast<int*>(
-      (reinterpret_cast<unsigned long long>(prop + p) + 3) & ~3ULL);
-  int* flag = order + kJumpBudget;  // kFlags of them
+  // [n_flips] perm (p < 256: shared memory holds no wider chain)
+  unsigned char* flip_j = prop + p;
 
-  copy_block(s, s0, d * d);
-  copy_block(o, omega0, p * p);
-  for (int i = threadIdx.x; i < p; i += blockDim.x)
-    mask[i] = mask_in[static_cast<long long>(c) * p + i];
+  // 0. the chain's state and all of its noise on chip: S0 and Omega
+  // (shared by every chain) copied asynchronously while the block takes
+  // the logs of the uniforms (logf / log, as torch.log)
+  copy_block_async(s, s0, d * d);
+  copy_block_async(o, omega0, p * p);
+  const long long row0 = static_cast<long long>(c) * p;
+  for (int i = threadIdx.x; i < p; i += blockDim.x) {
+    mask[i] = mask_in[row0 + i];
+    odds[i] = log_odds[i];
+    if (i < n_flips) {
+      flip_j[i] = static_cast<unsigned char>(perm[row0 + i]);
+      log_u[i] = O::log(flip_u[row0 + i]);
+    }
+    if (kJump) {
+      prop[i] = jump_u[row0 + i] < qprobs[i];
+      mask2[i] = mask[i];
+    }
+  }
+  if (kJump && threadIdx.x == 0) log_acc[0] = O::log(jump_acc[c]);
+  async_commit_wait_all();
   __syncthreads();
 
   const T half_df_m1 = O::sub(O::mul(T(0.5), consts[1]), T(1));
-  Scalars<T> st{T(0), T(0), T(0), T(0), 0};  // thread 0's
+  const int lane = threadIdx.x & 31;
+  const bool decider = threadIdx.x < 32;  // warp 0
+  // warp 0's scalars, the same in every lane
+  Scalars<T> st{T(0), T(0), T(0), T(0), 0};
 
   // 1. build: sweep every included coordinate, in index order
   for (int j = 0; j < p; ++j) {
     if (!mask[j]) continue;  // uniform across the block
-    if (threadIdx.x == 0) {
+    if (decider) {
       st.logdet_a = O::add(st.logdet_a, O::log(s[j * d + j]));
       st.logdet_o = O::add(st.logdet_o, O::log(o[j * p + j]));
-      st.spike = O::add(st.spike, log_odds[j]);
+      st.spike = O::add(st.spike, odds[j]);
       st.size += 1;
     }
-    rank1_flip(s, d, j, T(1), col_s, row_s);
-    rank1_flip(o, p, j, T(1), col_o, row_o);
+    rank1_pass(s, o, p, j, T(1), col_s, row_s, col_o, row_o);
   }
-  // every thread has read the mask before thread 0 may change it
+  // every thread has read the mask before warp 0 may change it
   __syncthreads();
   T logp_cur = T(0);
-  if (threadIdx.x == 0) {
+  if (decider) {
     st.spike = O::add(st.spike, consts[0]);
     if (use_max && st.size > max_size) st.spike = -INFINITY;
     if (mean != nullptr) {
@@ -338,17 +484,20 @@ __global__ void __launch_bounds__(kMaxThreads) ssvs_sweep_kernel(
   // 2. the mode-jump walk on copies; accepted, the copies become the state
   if (kJump) {
     const int budget = p < kJumpBudget ? p : kJumpBudget;
-    if (threadIdx.x == 0) {
+    if (decider) {
+      // the coordinates where the proposal differs, ascending, a ballot of
+      // 32 at a time
       int n_diff = 0;
-      for (int i = 0; i < p; ++i) {
-        prop[i] = jump_u[static_cast<long long>(c) * p + i] < qprobs[i];
-        mask2[i] = mask[i];
-        if (prop[i] != mask[i]) {
-          if (n_diff < kJumpBudget) order[n_diff] = i;
-          ++n_diff;
-        }
+      for (int base = 0; base < p; base += 32) {
+        const int i = base + lane;
+        const bool differ = i < p && prop[i] != mask[i];
+        const unsigned bits = __ballot_sync(kFullWarp, differ);
+        const int at = n_diff + __popc(bits & ((1u << lane) - 1u));
+        if (differ && at < kJumpBudget) order[at] = i;
+        n_diff += __popc(bits);
       }
-      flag[kWalkLen] = n_diff > 0 && n_diff <= budget ? n_diff : 0;
+      if (lane == 0)
+        flag[kWalkLen] = n_diff > 0 && n_diff <= budget ? n_diff : 0;
     }
     __syncthreads();
     const int n_walk = flag[kWalkLen];
@@ -360,40 +509,43 @@ __global__ void __launch_bounds__(kMaxThreads) ssvs_sweep_kernel(
       T logp_prop = logp_cur;
       for (int step = 0; step < n_walk; ++step) {
         const int j = order[step];
-        if (threadIdx.x == 0) {
+        // the walk sets coordinate j to the proposal's value
+        const T sign = prop[j] ? T(1) : T(-1);
+        if (decider) {
           const Flip<T> f = flip_deltas(s2, o2, mask2, p, j, st2, omega0,
-                                        mean, log_odds, half_df_m1, false, 0);
+                                        mean, odds, half_df_m1, false, 0);
           logp_prop = f.logp;
           apply_scalars(st2, f);
-          flag[kWalkSign] = f.incl;
-          mask2[j] = !f.incl;
         }
-        __syncthreads();
-        const T sign = flag[kWalkSign] ? T(-1) : T(1);
-        rank1_flip(s2, d, j, sign, col_s, row_s);
-        rank1_flip(o2, p, j, sign, col_o, row_o);
+        rank1_pass(s2, o2, p, j, sign, col_s, row_s, col_o, row_o);
+        if (decider) {
+          if (lane == 0) mask2[j] = prop[j];
+          __syncwarp();
+        }
       }
-      if (threadIdx.x == 0) {
+      if (decider) {
         if (use_max && st2.size > max_size) logp_prop = -INFINITY;
-        // log q(g) - log q(g'), each summed in index order
-        T lq_cur = T(0), lq_prop = T(0);
-        for (int i = 0; i < p; ++i) {
-          const T mc = mask[i] ? T(1) : T(0);
-          const T mp = prop[i] ? T(1) : T(0);
-          lq_cur = O::add(lq_cur, O::add(O::mul(mc, logq[i]),
-                                         O::mul(O::sub(T(1), mc), log1mq[i])));
-          lq_prop = O::add(lq_prop,
-                           O::add(O::mul(mp, logq[i]),
-                                  O::mul(O::sub(T(1), mp), log1mq[i])));
+        // log q(g) (lane 0) and log q(g') (lane 1), each summed in index
+        // order
+        const unsigned char* g = lane == 0 ? mask : prop;
+        T lq = T(0);
+        if (lane < 2) {
+          for (int i = 0; i < p; ++i) {
+            const T m = g[i] ? T(1) : T(0);
+            lq = O::add(lq, O::add(O::mul(m, logq[i]),
+                                   O::mul(O::sub(T(1), m), log1mq[i])));
+          }
         }
+        const T lq_cur = __shfl_sync(kFullWarp, lq, 0);
+        const T lq_prop = __shfl_sync(kFullWarp, lq, 1);
         const T log_ratio =
             O::sub(O::add(O::sub(logp_prop, logp_cur), lq_cur), lq_prop);
-        const bool take = O::log(jump_acc[c]) < log_ratio;
+        const bool take = log_acc[0] < log_ratio;
         if (take) {
           st = st2;
           logp_cur = logp_prop;
         }
-        flag[kJumpTake] = take;
+        if (lane == 0) flag[kJumpTake] = take;
       }
       __syncthreads();
       if (flag[kJumpTake]) {
@@ -409,40 +561,66 @@ __global__ void __launch_bounds__(kMaxThreads) ssvs_sweep_kernel(
     }
   }
 
-  // 3. the random-order Gibbs flips
-  for (int f = 0; f < n_flips; ++f) {
-    int* slot = flag + 3 * (f & 1);
-    if (threadIdx.x == 0) {
-      const long long at = static_cast<long long>(c) * p + f;
-      const int j = static_cast<int>(perm[at]);
-      const Flip<T> fl = flip_deltas(s, o, mask, p, j, st, omega0, mean,
-                                     log_odds, half_df_m1, use_max,
-                                     max_size);
-      const bool take =
-          O::log(flip_u[at]) < log_sigmoid(O::sub(fl.logp, logp_cur));
-      if (take) {
+  // 3. the random-order Gibbs flips: warp 0 decides the next 32 flips at
+  // once, a lane a flip, on the current state. Every flip before the first
+  // one taken sees the state it would have seen in order, so its decision
+  // stands; the first one taken is applied: warp 0 stages its row and
+  // column and meets the block only then, the block updates and meets once
+  // more, and warp 0 decides again from the flip after it.
+  int f = 0;  // warp 0's next flip
+  for (;;) {
+    if (decider) {
+      int take_j = -1, take_incl = 0;
+      while (f < n_flips) {
+        const int mine = f + lane;
+        int j = 0;
+        Flip<T> fl{};
+        bool take = false;
+        if (mine < n_flips) {
+          j = flip_j[mine];
+          fl = flip_deltas(s, o, mask, p, j, st, omega0, mean, odds,
+                           half_df_m1, use_max, max_size);
+          take = log_u[mine] < log_sigmoid(O::sub(fl.logp, logp_cur));
+        }
+        const unsigned bits = __ballot_sync(kFullWarp, take);
+        if (bits == 0) {
+          f += 32;
+          continue;
+        }
+        const int first = __ffs(static_cast<int>(bits)) - 1;
+        j = __shfl_sync(kFullWarp, j, first);
+        fl.incl = mask[j] != 0;
+        fl.d_ld_a = __shfl_sync(kFullWarp, fl.d_ld_a, first);
+        fl.d_ld_o = __shfl_sync(kFullWarp, fl.d_ld_o, first);
+        if (mean != nullptr) fl.dq = __shfl_sync(kFullWarp, fl.dq, first);
+        fl.d_spike = fl.incl ? -odds[j] : odds[j];
+        fl.logp = __shfl_sync(kFullWarp, fl.logp, first);
+        f += first + 1;
         apply_scalars(st, fl);
         logp_cur = fl.logp;
-        mask[j] = !fl.incl;
+        __syncwarp();  // every lane has read the mask
+        if (lane == 0) mask[j] = !fl.incl;
+        stage_k(s, o, p, j, col_s, row_s, col_o, row_o, lane, 32);
+        take_j = j;
+        take_incl = fl.incl;
+        break;
       }
-      slot[0] = take;
-      slot[1] = j;
-      slot[2] = fl.incl;
+      if (lane == 0) {
+        flag[kFlipJ] = take_j;
+        flag[kFlipIncl] = take_incl;
+      }
     }
     __syncthreads();
-    if (slot[0]) {  // uniform across the block
-      const int j = slot[1];
-      const T sign = slot[2] ? T(-1) : T(1);
-      rank1_flip(s, d, j, sign, col_s, row_s);
-      rank1_flip(o, p, j, sign, col_o, row_o);
-    }
+    const int j = flag[kFlipJ];
+    if (j < 0) break;  // uniform across the block
+    const T sign = flag[kFlipIncl] ? T(-1) : T(1);
+    rank1_updates(s, o, p, j, sign, col_s, row_s, col_o, row_o);
   }
 
-  // 4. the new mask (rank1_flip's barrier, or the last flip's, orders
-  // thread 0's writes before these reads)
-  __syncthreads();
+  // 4. the new mask (the last barrier orders warp 0's writes before these
+  // reads)
   for (int i = threadIdx.x; i < p; i += blockDim.x)
-    mask_out[static_cast<long long>(c) * p + i] = mask[i];
+    mask_out[row0 + i] = mask[i];
 }
 
 template <typename T>

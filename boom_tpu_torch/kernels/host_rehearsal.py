@@ -5,17 +5,25 @@ without a card.
     python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
 
 ``csrc/kalman_seq.cu`` and ``csrc/ssvs_sweep.cu`` are compiled as host C++
-with ``g++``: a shim header
-defines the CUDA keywords away and gives ``blockIdx``/``blockDim``/
-``threadIdx`` as globals, and every ``kernel<<<blocks, threads, ...>>>(args)``
-becomes two loops over blocks and threads that call ``kernel(args)``. The
+with ``g++``: a shim header defines the CUDA keywords away and gives
+``blockIdx``/``blockDim``/``threadIdx`` as thread-local globals, and every
+``kernel<<<blocks, threads, ...>>>(args)`` becomes ``host_launch``, which
+runs a block's threads as host threads, one block after another. Its
+barriers are real: one for the block (``__syncthreads``), one for each
+warp of 32 (``__syncwarp``, and ``__shfl_sync`` and ``__ballot_sync``,
+which exchange values through the warp's slots between two of its
+barriers). A thread that waits at a barrier longer than a deadline (60 s,
+``boom_host_set_deadline``) ends the launch: every thread of the block
+leaves at its next barrier and the launch returns
+``cudaErrorLaunchTimeout`` (702), which the wrappers raise, so that a
+barrier that is never met fails a check instead of hanging it. The
 library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
 wrappers run the kernels' own arithmetic on CPU tensors, which are checked
 against the plain versions (K1 in float64 and float32, K2, J1 and J2, the
 derivative kernels, against autograd of the plain loop), and kernel (a),
 the SSVS indicator sweep, against ``regression_sweep.draw_indicators_swept``
-(33 chains, p in {1, 37}, mode jump off and on, max_size unset and set,
-float64 and float32: masks identical). ``--llt`` then
+(33 chains, p in {1, 31, 32, 33, 37}, mode jump off and on, max_size
+unset and set, float64 and float32: masks identical). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -41,22 +49,36 @@ if __package__ in (None, ""):
 from boom_tpu_torch.kernels import _build  # noqa: E402
 
 SHIM = r"""#pragma once
-#include <pthread.h>
-
+#include <algorithm>
+#include <atomic>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
+#include <cstring>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchTimeout = 702  // a barrier was not met by its deadline
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct cudaFuncAttributes { int maxThreadsPerBlock; };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+static cudaError_t host_last_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = host_last_error;
+  host_last_error = cudaSuccess;
+  return e;
+}
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = 132;  // an H100's SMs, so that K1's grid is laid out as there
@@ -73,9 +95,86 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 struct HostDim3 { int x, y, z; };
 static thread_local HostDim3 blockIdx, blockDim, threadIdx;
-static pthread_barrier_t* host_barrier;
-inline void __syncthreads() { pthread_barrier_wait(host_barrier); }
-inline void __syncwarp() { pthread_barrier_wait(host_barrier); }
+
+// Seconds a thread waits at a barrier before the launch gives up: then
+// every thread of the block leaves at its next barrier and the launch
+// returns cudaErrorLaunchTimeout, so that a barrier that is never met
+// fails a check instead of hanging it.
+static double host_deadline_s = 60.0;
+extern "C" void boom_host_set_deadline(double seconds) {
+  host_deadline_s = seconds;
+}
+struct HostAbort {};
+static std::atomic<bool> host_aborted{false};
+
+class HostBarrier {
+ public:
+  explicit HostBarrier(int n) : n_(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lock(mu_);
+    if (host_aborted) throw HostAbort{};
+    const long gen = gen_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++gen_;
+      cv_.notify_all();
+      return;
+    }
+    const auto until = std::chrono::steady_clock::now() +
+                       std::chrono::duration<double>(host_deadline_s);
+    while (gen_ == gen) {
+      if (host_aborted) throw HostAbort{};
+      if (cv_.wait_until(lock, until) == std::cv_status::timeout &&
+          gen_ == gen) {
+        host_aborted = true;
+        throw HostAbort{};
+      }
+    }
+  }
+  void wake() {
+    std::lock_guard<std::mutex> lock(mu_);
+    cv_.notify_all();
+  }
+
+ private:
+  std::mutex mu_;
+  std::condition_variable cv_;
+  int n_, count_ = 0;
+  long gen_ = 0;
+};
+
+// A warp's barrier and its exchange slots (__shfl_sync, __ballot_sync).
+struct HostWarp {
+  explicit HostWarp(int lanes) : bar(lanes) {}
+  HostBarrier bar;
+  unsigned long long slot[32];
+};
+static HostBarrier* host_block_bar;
+static thread_local HostWarp* host_warp;
+
+inline void __syncthreads() { host_block_bar->wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar.wait(); }
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "shfl");
+  std::memcpy(&host_warp->slot[threadIdx.x & 31], &v, sizeof(T));
+  host_warp->bar.wait();
+  T out;
+  std::memcpy(&out, &host_warp->slot[src & 31], sizeof(T));
+  host_warp->bar.wait();
+  return out;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  host_warp->slot[threadIdx.x & 31] = pred != 0;
+  host_warp->bar.wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32 && (threadIdx.x & ~31) + l < blockDim.x; ++l)
+    bits |= static_cast<unsigned>(host_warp->slot[l]) << l;
+  host_warp->bar.wait();
+  return bits;
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __threadfence_block() {}
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline double __drcp_rn(double x) { return 1.0 / x; }
@@ -92,25 +191,38 @@ inline double __ddiv_rn(double a, double b) { return a / b; }
 using std::log;
 alignas(16) static unsigned char host_shared[232448];
 #define BOOM_SHARED_BYTES(name) unsigned char* name = host_shared
-// a block's threads run as host threads (its barriers are real); blocks
-// run one after another and share host_shared
+// a block's threads run as host threads, with a real barrier for the
+// block and one for each warp of 32; blocks run one after another and
+// share host_shared; a barrier past its deadline ends the launch
 template <class Body>
 void host_launch(int blocks, int threads, Body body) {
-  pthread_barrier_t bar;
-  pthread_barrier_init(&bar, nullptr, threads);
-  host_barrier = &bar;
-  for (int b = 0; b < blocks; ++b) {
+  host_aborted = false;
+  HostBarrier block(threads);
+  std::vector<std::unique_ptr<HostWarp>> warps;
+  for (int w = 0; w * 32 < threads; ++w)
+    warps.emplace_back(new HostWarp(std::min(32, threads - w * 32)));
+  host_block_bar = &block;
+  auto wake_all = [&] {
+    block.wake();
+    for (auto& w : warps) w->bar.wake();
+  };
+  for (int b = 0; b < blocks && !host_aborted; ++b) {
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([&, b, t] {
         blockIdx = {b, 0, 0};
         blockDim = {threads, 1, 1};
         threadIdx = {t, 0, 0};
-        body();
+        host_warp = warps[t / 32].get();
+        try {
+          body();
+        } catch (const HostAbort&) {
+          wake_all();
+        }
       });
     for (auto& th : pool) th.join();
   }
-  pthread_barrier_destroy(&bar);
+  if (host_aborted) host_last_error = cudaErrorLaunchTimeout;
 }
 """
 _LAUNCH = re.compile(r"(\w+)<<<\s*(\w+)\s*,\s*(\w+)\s*,[^>]*>>>\(")
@@ -133,9 +245,10 @@ def _host_launches(src: str) -> str:
     return "".join(out + [src[pos:]])
 
 
-def build_host_library(name="kalman_seq") -> Path:
-    """Compile the source ``name`` (``_build.SOURCES``) for the host into
-    build/boom_tpu_torch/host."""
+def build_host_library(name="kalman_seq", text=None) -> Path:
+    """Compile the source ``name`` (``_build.SOURCES``), or the source
+    ``text`` under that name, for the host into
+    build/boom_tpu_torch/host/<name>."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise SystemExit("host_rehearsal: needs g++")
@@ -143,7 +256,9 @@ def build_host_library(name="kalman_seq") -> Path:
     out_dir = _build.BUILD_DIR / "host" / name
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(SHIM)
-    src = _host_launches(_build.SOURCES[name].read_text())
+    if text is None:
+        text = _build.SOURCES[name].read_text()
+    src = _host_launches(text)
     (out_dir / f"{name}_host.cpp").write_text(src)
     lib = out_dir / f"libboom_{name}_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-shared", "-fPIC",
@@ -244,7 +359,7 @@ def check_kernels(seed=0):
 
 
 SSVS_CASES = [(p, jump, max_size, dtype) for dtype in ("float64", "float32")
-              for p in (1, 37) for jump in (False, True)
+              for p in (1, 31, 32, 33, 37) for jump in (False, True)
               for max_size in (None, 3)]
 
 

@@ -1,19 +1,25 @@
 """Times of kernel (a), the SSVS indicator sweep (csrc/ssvs_sweep.cu), on the
 card, beside its bound and its plain version, at the shape of the
-spike_slab workload (the bench's data, n=2000, p=50, 1024 chains).
+spike_slab workload (the bench's data, n=2000, p=50, 1024 chains), without
+and with the mode jump.
 
-    python3 boom_tpu_torch/kernels/ssvs_timing.py                # JSON
-    python3 boom_tpu_torch/kernels/ssvs_timing.py --compare DIR  # both
+    python3 boom_tpu_torch/kernels/ssvs_timing.py                  # JSON
+    python3 boom_tpu_torch/kernels/ssvs_timing.py --compare DIR... # turns
+    python3 boom_tpu_torch/kernels/ssvs_timing.py --split          # parts
 
 Prints the card, the build time, per dtype the kernel's device time (ten
 calls queued behind a spin of the card, median of 20:
 ``scan_timing.median_ms``), the plain version's, the bound and what sets
 it, the rank-1 passes the inputs need, and the ``nvcc -Xptxas -v``
-registers and spills of every instantiation. ``--compare DIR`` runs the
-same script of the checkout DIR (another commit of this repository,
-unpacked with ``git archive``) and of this tree in turns (DIR, this, this,
-DIR), each in its own process on the same card. ``chip_smoke.py`` takes
-its inputs, shapes and bounds from here. Needs a CUDA card.
+registers and spills of every instantiation. ``--compare DIR...`` runs the
+same script of each checkout DIR (another commit or variant of this
+repository, unpacked with ``git archive``) and of this tree in turns (the
+DIRs in order, this, this, the DIRs in reverse), each in its own process
+on the same card; a shape a tree lacks shows "-". ``--split`` times the
+kernel with parts of its work taken away by its inputs (``split_ms``: the
+staging, k rank-1 passes, p decisions none of which is taken), alone and
+at 1024 chains. ``chip_smoke.py`` takes its inputs, shapes and bounds from
+here. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,9 +47,12 @@ from boom_tpu_torch.kernels.scan_timing import (  # noqa: E402
 
 # the spike_slab workload (bench.py:133-146)
 BENCH_CHAINS, BENCH_P = 1024, 50
-# name: (dtype, chains); the bench runs float32, float64 for comparison
-SHAPES = {"ssvs_sweep_f32": ("float32", BENCH_CHAINS),
-          "ssvs_sweep_f64": ("float64", BENCH_CHAINS)}
+# name: (dtype, chains, mode jump); the bench runs float32 without the
+# jump, float64 and the jump (the library's default) are for comparison
+SHAPES = {"ssvs_sweep_f32": ("float32", BENCH_CHAINS, False),
+          "ssvs_sweep_f64": ("float64", BENCH_CHAINS, False),
+          "ssvs_sweep_f32_jump": ("float32", BENCH_CHAINS, True),
+          "ssvs_sweep_f64_jump": ("float64", BENCH_CHAINS, True)}
 # scalar operations of one flip's decision (the deltas, the log model
 # probability, the log sigmoid), counted as flops
 FLIP_SCALAR_FLOPS = 30
@@ -79,11 +88,13 @@ def problem(rng, c, p, dtype="float64", n=200, max_size=None,
     return model, mask, noise, qprobs
 
 
-def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3):
-    """The bench workload's model on the committed data (mode jump off,
-    expected model size 10), masks after ``warm`` sweeps from the initial
-    state (near the posterior: the shape of the run's inputs) and one
-    sweep's noise: (model, mask, noise)."""
+def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3,
+                  mode_jump=False):
+    """The bench workload's model on the committed data (expected model
+    size 10; the mode jump off, as the bench runs, unless ``mode_jump``),
+    masks after ``warm`` sweeps from the initial state (near the
+    posterior: the shape of the run's inputs) and one sweep's noise:
+    (model, mask, noise)."""
     import torch
 
     from boom_tpu_torch import data
@@ -94,7 +105,7 @@ def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3):
     x, y = (torch.tensor(a, dtype=tdt, device="cuda")
             for a in data.spike_slab_xy())
     model = reg.SpikeSlabRegression.from_data(
-        x, y, expected_model_size=10.0, mode_jump=False)
+        x, y, expected_model_size=10.0, mode_jump=mode_jump)
     gen = prng.generator(seed, "cuda")
     state = model.init_state(model.draw_init_noise(gen, chains))
     kern = model.kernel()
@@ -103,11 +114,28 @@ def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3):
     return model, state["gamma"], model.draw_noise(gen, chains)
 
 
-def passes_needed(mask_in, mask_out):
+def passes_needed(mask_in, mask_out, walk=0, jumped=None):
     """Rank-1 passes [C] these inputs need at least: the build sweeps each
-    included coordinate, and each flip taken (a coordinate flips at most
-    once a sweep) is one more."""
-    return mask_in.sum(-1) + (mask_in != mask_out).sum(-1)
+    included coordinate, the mode-jump walk makes ``walk`` [C] (its steps,
+    taken or not), and each flip taken (a coordinate flips at most once a
+    sweep) is one more, counted from the mask after the jump ``jumped``
+    (default: ``mask_in``)."""
+    start = mask_in if jumped is None else jumped
+    return mask_in.sum(-1) + walk + (start != mask_out).sum(-1)
+
+
+def jump_walk(model, mask, noise, qprobs):
+    """The mode-jump walk's passes [C] and the mask after the jump (from
+    the plain version's record), for :func:`passes_needed`."""
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+
+    n_diff = ((noise["jump_u"] < qprobs) != mask).sum(-1)
+    budget = min(rs.MODE_JUMP_BUDGET, mask.shape[-1])
+    walk = n_diff * ((n_diff > 0) & (n_diff <= budget))
+    record = []
+    rs.draw_indicators_swept(noise, model.suf, model.prior, mask,
+                             qprobs=qprobs, record=record)
+    return walk, record[0][1]
 
 
 def bound_ms(dtype, p, n_flips, passes, jump=False):
@@ -138,42 +166,57 @@ def gated_work_ms(dtype, chains, p):
     return 1e3 * flops / PEAK_FLOPS[dtype]
 
 
+def model_qprobs(model):
+    """The mode jump's proposal of the model (None without the jump)."""
+    from boom_tpu_torch.models.glm import regression as reg
+
+    return (reg.screening_proposal_probs(model.suf, model.prior)
+            if model.mode_jump else None)
+
+
 def ssvs_cases(model, mask, noise):
     """(kernel call, plain call, wrapper call) of one sweep's indicator
     draw: the launch on prepared operands, the plain version on the same
-    inputs, the public wrapper."""
+    inputs, the public wrapper (with the model's mode jump, if any)."""
     from boom_tpu_torch.models.glm import regression_sweep as rs
     from boom_tpu_torch.models.glm import ssvs_kernel as sk
 
-    n_flips = rs.flip_count(mask.shape[-1])
-    ops = sk.sweep_operands(model.suf, model.prior)
+    qprobs = model_qprobs(model)
+    n_flips = rs.flip_count(mask.shape[-1], None, qprobs)
+    ops = sk.sweep_operands(model.suf, model.prior, qprobs)
     return (lambda: sk.launch_sweep(noise, model.suf, model.prior, mask,
-                                    n_flips, None, ops),
+                                    n_flips, qprobs, ops),
             lambda: rs.draw_indicators_swept(noise, model.suf, model.prior,
-                                             mask),
+                                             mask, qprobs=qprobs),
             lambda: sk.draw_indicators_swept(noise, model.suf, model.prior,
-                                             mask))
+                                             mask, qprobs=qprobs))
 
 
 def time_ssvs(plain=True):
     """{name: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
     gated_work_ms, passes_mean, shape, block_ms}} at SHAPES, on the bench's
     data (block_ms: the kernel at each of BLOCK_SIZES)."""
+    from boom_tpu_torch.models.glm import regression_sweep as rs
     from boom_tpu_torch.models.glm import ssvs_kernel as sk
 
     out = {}
-    for name, (dtype, chains) in SHAPES.items():
-        model, mask, noise = bench_problem(dtype, chains)
+    for name, (dtype, chains, jump) in SHAPES.items():
+        model, mask, noise = bench_problem(dtype, chains, mode_jump=jump)
         kern, ref, wrapper = ssvs_cases(model, mask, noise)
         new = kern()
         p = mask.shape[-1]
-        passes = passes_needed(mask, new)
-        row = {"shape": [dtype, chains, p], "ms": median_ms(kern),
+        qprobs = model_qprobs(model)
+        walk, jumped = (jump_walk(model, mask, noise, qprobs) if jump
+                        else (0, None))
+        passes = passes_needed(mask, new, walk, jumped)
+        row = {"shape": [dtype, chains, p, "jump" if jump else "no jump"],
+               "ms": median_ms(kern),
                "call_ms": call_ms(kern), "wrapper_ms": median_ms(wrapper),
                "plain_ms": median_ms(ref, reps=3, per=1) if plain else None,
                "passes_mean": float(passes.double().mean()),
                "gated_work_ms": gated_work_ms(dtype, chains, p)}
-        row["bound_ms"], row["bound_by"] = bound_ms(dtype, p, p, passes)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            dtype, p, rs.flip_count(p, None, qprobs), passes, jump)
         chosen = sk.THREADS
         row["block_ms"] = {}
         for threads in BLOCK_SIZES:
@@ -183,6 +226,49 @@ def time_ssvs(plain=True):
             finally:
                 sk.THREADS = chosen
         out[name] = row
+    return out
+
+
+# --split: chains at which the kernel is timed (one chain alone, the
+# bench's 1024) and included coordinates of the build-only launches
+SPLIT_CHAINS = (1, 1024)
+SPLIT_BUILD = (0, 10, 20, 40)
+
+
+def split_ms(dtype="float32"):
+    """Where kernel (a)'s time goes at the bench shape, from launches on
+    the bench's model with parts of the work set by the inputs: {part:
+    {chains: ms}} for SPLIT_CHAINS chains. "build_k": the first k
+    coordinates included and no flip (the staging and k rank-1 passes);
+    "decide": no coordinate included and every flip's uniform 1, so that
+    no flip is taken (the staging and p decisions); "sweep": the bench's
+    masks and noise."""
+    import torch
+
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    model, mask, noise = bench_problem(dtype)
+    p = mask.shape[-1]
+    ops = sk.sweep_operands(model.suf, model.prior)
+    never = {**noise, "flip_u": torch.ones_like(noise["flip_u"])}
+
+    def launch(m, nz, n_flips, chains):
+        nz = {k: v[:chains] for k, v in nz.items()}
+        m = m[:chains].contiguous()
+        return median_ms(lambda: sk.launch_sweep(nz, model.suf, model.prior,
+                                                 m, n_flips, None, ops))
+
+    out = {}
+    for k in SPLIT_BUILD:
+        first = torch.zeros_like(mask)
+        first[:, :k] = True
+        out[f"build_{k}"] = {c: launch(first, noise, 0, c)
+                             for c in SPLIT_CHAINS}
+    out["decide"] = {c: launch(torch.zeros_like(mask), never,
+                               rs.flip_count(p), c) for c in SPLIT_CHAINS}
+    out["sweep"] = {c: launch(mask, noise, rs.flip_count(p), c)
+                    for c in SPLIT_CHAINS}
     return out
 
 
@@ -200,12 +286,16 @@ def nvcc_report(log_text):
     return dict(sorted(report.items()))
 
 
-def run():
-    """Build this tree's kernels and time kernel (a); a JSON-able dict."""
+def _need_card():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("ssvs_timing: needs a CUDA card")
+
+
+def run():
+    """Build this tree's kernels and time kernel (a); a JSON-able dict."""
+    _need_card()
     from boom_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -217,12 +307,14 @@ def run():
     return out
 
 
-def compare(parent, here):
-    """Runs parent, here, here, parent, each tree's own script in a fresh
-    process, and prints the kernel's times side by side."""
+def compare(others, here):
+    """Runs the trees ``others`` in order, here, here, ``others`` in
+    reverse, each tree's own script in a fresh process, and prints the
+    kernel's times side by side."""
+    order = ([(t.name, t) for t in others] + [("change", here)] * 2
+             + [(t.name, t) for t in reversed(others)])
     runs = []
-    for label, tree in (("parent", parent), ("change", here),
-                        ("change", here), ("parent", parent)):
+    for label, tree in order:
         script = tree / "boom_tpu_torch" / "kernels" / "ssvs_timing.py"
         proc = subprocess.run([sys.executable, str(script)],
                               capture_output=True, text=True, timeout=1500)
@@ -231,24 +323,37 @@ def compare(parent, here):
                              f"{proc.stderr[-4000:]}")
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
     print(runs[0][1]["card"])
-    for name in runs[1][1]["kernels"]:
+    print("order: " + " / ".join(label for label, _ in runs))
+    here_at = len(others)
+    for name in runs[here_at][1]["kernels"]:
         seq = " / ".join(f"{r['kernels'][name]['ms']:.4f}"
                          if name in r["kernels"] else "-" for _, r in runs)
-        cur = runs[1][1]["kernels"][name]
-        print(f"{name} {cur['shape']}: kernel (P C C P) {seq} ms, bound "
-              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']})")
-        for lab, r in (runs[0], runs[1]):
+        cur = runs[here_at][1]["kernels"][name]
+        print(f"{name} {cur['shape']}: kernel {seq} ms, bound "
+              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']}), plain "
+              f"{cur['plain_ms']:.2f} ms")
+        for lab, r in runs[:here_at + 1]:
             print(f"  {lab} blocks: "
                   f"{json.dumps(r['kernels'].get(name, {}).get('block_ms'))}")
+    for lab, r in runs[:here_at + 1]:
+        print(f"{lab} nvcc: {json.dumps(r.get('nvcc'))}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--compare", type=Path,
-                    help="checkout to time in turns with this one")
+    ap.add_argument("--compare", type=Path, nargs="+",
+                    help="checkouts to time in turns with this one")
+    ap.add_argument("--split", action="store_true",
+                    help="where the kernel's time goes (split_ms)")
     args = ap.parse_args()
-    if args.compare:
-        compare(args.compare.resolve(), Path(__file__).resolve().parents[2])
+    if args.split:
+        _need_card()
+        print(json.dumps({"card": card_line(),
+                          **{dtype: split_ms(dtype)
+                             for dtype in ("float32", "float64")}}))
+    elif args.compare:
+        compare([t.resolve() for t in args.compare],
+                Path(__file__).resolve().parents[2])
     else:
         print(json.dumps(run()))
 

@@ -35,11 +35,12 @@ MAX_SHARED_BYTES = 232448
 
 def shared_bytes(p, jump, itemsize):
     """A block's shared memory (ssvs_sweep.cu, ssvs_smem_bytes): S and
-    Omega (twice with the mode jump), their staging rows and columns, three
-    masks, the walk's order and the flags."""
+    Omega (twice with the mode jump), their staging rows and columns, the
+    flips' log uniforms and the jump's, the log inclusion odds, the walk's
+    order and the flags, three masks and the flips' indices."""
     d = p + 1
     mats = (d * d + p * p) * (2 if jump else 1)
-    return (mats + 2 * d + 2 * p) * itemsize + 3 * p + 4 + 4 * (16 + 9)
+    return (mats + 2 * d + 4 * p + 1) * itemsize + 4 * (16 + 4) + 4 * p
 
 
 def _stream(device) -> int:
@@ -116,8 +117,10 @@ def launch_sweep(noise, suf, prior, mask, n_flips, qprobs=None,
         elif x.dtype != dtype:
             raise TypeError(f"noise {name} is {x.dtype}, not {dtype}")
         per_chain[name] = x.contiguous()
-    mask_in = mask.to(torch.uint8).contiguous()
-    mask_out = torch.empty_like(mask_in)
+    # a bool tensor is bytes of 0 and 1: the kernel reads and writes the
+    # masks as they are, with no conversion launched
+    mask_in = mask.bool().contiguous().view(torch.uint8)
+    mask_out = torch.empty((c, p), dtype=torch.bool, device=device)
 
     def ptr(x):
         return 0 if x is None else x.data_ptr()
@@ -135,4 +138,4 @@ def launch_sweep(noise, suf, prior, mask, n_flips, qprobs=None,
     if rc != 0:
         raise RuntimeError(f"CUDA ssvs_sweep launch failed: cudaError {rc}")
     LAUNCHES["ssvs_sweep"] += 1
-    return mask_out.bool()
+    return mask_out

@@ -47,13 +47,14 @@ Phases:
      sweep;
   2c. kernel (a), the SSVS indicator sweep (``csrc/ssvs_sweep.cu``), against
      its plain version (``regression_sweep.draw_indicators_swept``) on the
-     card with the same noise: p in {1, 37, 50, 64}, 1, 33 and 1024 chains,
-     mode jump off and on, max_size unset and set, float64 (masks identical
-     on every chain) and float32 (identical on at least 99.5 % of chains,
-     every difference at a near-tie of the plain version, |log u - log
-     threshold| < 1e-3 at the first flip where they part), several noise
-     draws, and the bench's own model at 1024 chains; ten launches at the
-     bench's shape bit-identical; then its times beside the bound
+     card with the same noise: p in {1, 31, 32, 33, 37, 50, 64}, 1, 33
+     and 1024 chains, mode jump off and on, max_size unset and set,
+     float64 (masks identical on every chain) and float32 (identical on
+     at least 99.5 % of chains, every difference at a near-tie of the
+     plain version, |log u - log threshold| < 1e-3 at the first flip where
+     they part), several noise draws, and the bench's own model at 1024
+     chains; ten launches at the bench's shape bit-identical; then its
+     times beside the bound, without and with the mode jump
      (``boom_tpu_torch/kernels/ssvs_timing.py``);
   5. the reference's spike_slab workload (bench.py:129-157) on the bench's
      own data (``boom_tpu_torch/data``): ``SpikeSlabRegression`` with
@@ -159,7 +160,9 @@ LLT_MEDIAN_TOL = 0.10
 # mode-jump walk :178, the flip scan of draw_indicators_swept :241)
 SSVS_SOURCE = "boom_tpu_torch/csrc/ssvs_sweep.cu"
 SSVS_REPLACES = "boom_tpu/models/glm/regression_sweep.py:241"
-SSVS_P = (1, 37, 50, 64)
+# 31, 32, 33: the edges of warp 0's 32 decisions a round and of a warp's
+# row of the rank-1 update
+SSVS_P = (1, 31, 32, 33, 37, 50, 64)
 SSVS_CHAINS = (1, 33, 1024)
 SSVS_MAX_SIZE = 3
 SSVS_DRAWS = 2

@@ -313,10 +313,13 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
 # -- kernel (a), the SSVS indicator sweep -----------------------------------
 
 
-@pytest.mark.parametrize("p", [1, 37, 64])
+# p at the edges of warp 0's 32 decisions a round and of a warp's row;
+# 1025 chains: a last wave of one block
+@pytest.mark.parametrize("p,chains", [(1, 33), (31, 33), (32, 33), (33, 33),
+                                      (37, 33), (64, 33), (33, 1025)])
 @pytest.mark.parametrize("jump", [False, True])
 @pytest.mark.parametrize("max_size", [None, 3])
-def test_ssvs_kernel_matches_plain(card, p, jump, max_size):
+def test_ssvs_kernel_matches_plain(card, p, chains, jump, max_size):
     """float64: the kernel's masks equal the plain sweep's on every chain,
     one launch counted."""
     from boom_tpu_torch.kernels.ssvs_timing import problem
@@ -324,7 +327,7 @@ def test_ssvs_kernel_matches_plain(card, p, jump, max_size):
     from boom_tpu_torch.models.glm import ssvs_kernel as ssk
 
     rng = np.random.default_rng(p + 100 * jump)
-    model, mask, noise, qprobs = problem(rng, 33, p, "float64",
+    model, mask, noise, qprobs = problem(rng, chains, p, "float64",
                                          max_size=max_size, mode_jump=jump)
     want = rs.draw_indicators_swept(noise, model.suf, model.prior, mask,
                                     qprobs=qprobs)

@@ -502,14 +502,18 @@ def host_ssvs(monkeypatch, host_ssvs_library):
     _build.library.cache_clear()
 
 
+# p 31, 32, 33: at the edges of warp 0's 32 decisions a round and of a
+# warp's row of the rank-1 update
 @pytest.mark.parametrize("p,jump,max_size", [
     (1, False, None), (1, True, None), (37, False, None), (37, True, None),
-    (37, True, 3)])
+    (37, True, 3), (31, False, None), (31, True, None), (32, False, None),
+    (32, True, None), (33, False, None), (33, True, None)])
 @pytest.mark.usefixtures("host_ssvs")
 def test_host_compiled_kernel_a_matches_plain(p, jump, max_size):
     """Kernel (a) compiled from its source for the host (a block's threads
-    as host threads, real barriers) against the plain sweep, float64, 33
-    chains (a block a chain): masks identical, every launch counted."""
+    as host threads, real barriers for the block and for each warp, warp
+    shuffles and ballots through them) against the plain sweep, float64,
+    33 chains (a block a chain): masks identical, every launch counted."""
     from boom_tpu_torch.kernels.ssvs_timing import problem
     from boom_tpu_torch.models.glm import ssvs_kernel
 
@@ -526,6 +530,51 @@ def test_host_compiled_kernel_a_matches_plain(p, jump, max_size):
     assert torch.equal(got, want)
     if p > 1:
         assert bool((got != mask).any())
+
+
+# seconds a host barrier waits in the test below before the launch ends
+UNMET_DEADLINE_S = 2.0
+
+
+def test_host_barrier_never_met_makes_the_launch_raise(monkeypatch):
+    """A barrier that thread 0 reaches and no other thread does (one more
+    __syncthreads at the end of kernel (a), compiled for the host) ends
+    the host launch at the shim's deadline with cudaErrorLaunchTimeout,
+    and the wrapper raises: a barrier mismatch fails its test instead of
+    hanging the suite."""
+    import ctypes
+    import shutil
+    import time
+
+    from boom_tpu_torch.kernels import _build, host_rehearsal
+    from boom_tpu_torch.kernels.ssvs_timing import problem
+    from boom_tpu_torch.models.glm import ssvs_kernel
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile kernel (a) for the host")
+    src = _build.SOURCES["ssvs_sweep"].read_text()
+    last = "    mask_out[row0 + i] = mask[i];\n"
+    assert src.count(last) == 1
+    lib = host_rehearsal.build_host_library(
+        "ssvs_sweep_unmet",
+        src.replace(last, last + "  if (threadIdx.x == 0) __syncthreads();\n"))
+    ctypes.CDLL(str(lib)).boom_host_set_deadline(
+        ctypes.c_double(UNMET_DEADLINE_S))
+    monkeypatch.setattr(_build, "build",
+                        lambda names=None: {n: lib for n in names})
+    monkeypatch.setattr(ssvs_kernel, "_on_card", lambda x: True)
+    monkeypatch.setattr(ssvs_kernel, "_stream", lambda device: 0)
+    _build.library.cache_clear()
+    try:
+        model, mask, noise, _q = problem(np.random.default_rng(5), 3, 5,
+                                         "float64", device="cpu")
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="cudaError 702"):
+            ssvs_kernel.draw_indicators_swept(noise, model.suf, model.prior,
+                                              mask)
+        assert time.perf_counter() - t0 < UNMET_DEADLINE_S + 30.0
+    finally:
+        _build.library.cache_clear()
 
 
 def reference_medians(chains=64, burn=50, draws=200, seed=2026):
