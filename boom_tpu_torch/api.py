@@ -1,11 +1,12 @@
 """User front ends of the port: ``LmSpike`` (port of boom_tpu/api.py:43-171,
 lm.spike) and a builder-style ``BstsModel`` (the Gaussian part of
-boom_tpu/api.py:278-301 and :371-474).
+boom_tpu/api.py:278-755).
 
     fit = LmSpike(expected_model_size=3.0).fit(x, y, niter=1000)  # the card
     fit.coefficients()                     # inclusion probabilities, ...
-    model = BstsModel().add_local_linear_trend()
-    model.fit(y, niter=200, burn=100, num_chains=8)   # on the CUDA card
+    model = BstsModel().add_local_linear_trend().add_seasonal(nseasons=7)
+    model.fit(y, predictors=x, niter=1000)            # on the CUDA card
+    model.predict(horizon=30, future_predictors=x_new)    # [draws, 30]
     model.draws["blocks"]["trend"]["sigma_level_sq"]   # [chains, draws]
 
 ``fit`` runs on the card unless the caller passes ``device="cpu"``; with no
@@ -13,9 +14,9 @@ card it raises rather than falling back to the CPU.
 
 ``LmSpike`` takes the default prior's keywords; the ``priors`` module,
 formulas, plots and saving are not ported yet. ``BstsModel`` has the
-local-level and local-linear-trend blocks, Gaussian observations and no
-regression so far. Other options raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+local-level, local-linear-trend and seasonal blocks, Gaussian observations
+and the spike-and-slab regression. Other options raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -152,7 +153,8 @@ class LmSpike:
 
 @dataclasses.dataclass
 class BstsModel:
-    """Builder-style bsts front end (R ``bsts()`` with ``add.*`` specs)."""
+    """Builder-style bsts front end (R ``bsts()`` with ``add.*`` specs;
+    reference api.py:278)."""
 
     _specs: list = dataclasses.field(default_factory=list)
     _model: Any = None
@@ -166,6 +168,10 @@ class BstsModel:
         self._specs.append(("local_linear_trend", kw))
         return self
 
+    def add_seasonal(self, nseasons, **kw):
+        self._specs.append(("seasonal", dict(kw, nseasons=nseasons)))
+        return self
+
     def _build_blocks(self, y):
         from boom_tpu_torch.statespace import state_models as sm
 
@@ -173,6 +179,7 @@ class BstsModel:
             "local_level": lambda kw: sm.LocalLevel.default(y, **kw),
             "local_linear_trend":
                 lambda kw: sm.LocalLinearTrend.default(y, **kw),
+            "seasonal": lambda kw: sm.Seasonal.default(y, **kw),
         }
         return [builders[name](kw) for name, kw in self._specs]
 
@@ -181,12 +188,14 @@ class BstsModel:
             seed=0, timestamps=None, device="cuda", dtype=None, **model_kw):
         """Run ``num_chains`` chains of the Gibbs sweep on ``device``:
         ``burn`` sweeps, then ``niter`` recorded draws. The parameters up to
-        ``timestamps`` are the reference's, in its order;
-        ``expected_model_size`` matters only with ``predictors``, which are
-        not ported yet, and ``timestamps`` raise. ``device`` is the CUDA
-        card unless the caller asks for ``"cpu"``; a CUDA device on a
-        machine without one raises. ``dtype`` defaults to float64 on the
-        CPU and float32 on a CUDA device."""
+        ``timestamps`` are the reference's, in its order: ``predictors``
+        [T, p] add a spike-and-slab regression whose prior is
+        ``SpikeSlabPrior.from_data`` with ``expected_model_size``, as the
+        reference builds it (api.py:458-463); ``timestamps`` raise.
+        ``device`` is the CUDA card unless the caller asks for ``"cpu"``; a
+        CUDA device on a machine without one raises. ``dtype`` defaults to
+        float64 on the CPU and float32 on a CUDA device."""
+        from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
         from boom_tpu_torch.statespace.bsts import Bsts
 
         if family != "gaussian":
@@ -200,9 +209,17 @@ class BstsModel:
         device = rng.resolve_device(device)
         dtype = dtype or _DEFAULT_DTYPE[device.type]
         y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
+        reg_prior = None
+        if predictors is not None:
+            predictors = torch.as_tensor(np.asarray(predictors), dtype=dtype,
+                                         device=device)
+            reg_prior = SpikeSlabPrior.from_data(
+                predictors, y, expected_model_size=expected_model_size,
+                prior_information_weight=1.0)
         model_kw.setdefault("chains_hint", num_chains)
         self._model = Bsts(y=y, blocks=self._build_blocks(y),
-                           predictors=predictors, **model_kw)
+                           predictors=predictors, reg_prior=reg_prior,
+                           **model_kw)
         model = self._model
         self._result = run_mcmc(
             model.kernel(), model.draw_noise,
@@ -215,3 +232,95 @@ class BstsModel:
     def draws(self):
         """Chain-major draws of the whole state, ``[chains, niter, ...]``."""
         return self._result.draws
+
+    def _flat(self, burn=0):
+        """The draws flattened chain-major, the first ``burn`` recorded
+        draws of each chain dropped."""
+        from boom_tpu_torch.inference.driver import tree_map
+
+        draws = self.draws
+        if burn:
+            draws = tree_map(lambda a: a[:, burn:], draws)
+        return tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                        draws)
+
+    @staticmethod
+    def _thinned(flat, max_draws):
+        """``max_draws`` draws (at most) spread evenly over the flat draws,
+        as the reference's ``jnp.linspace(...).astype(int32)``."""
+        from boom_tpu_torch.inference.driver import tree_map
+
+        total = _leading(flat)
+        take = min(max_draws, total)
+        idx = torch.as_tensor(np.linspace(0, total - 1, take).astype(np.int64))
+        return tree_map(lambda a: a[idx.to(a.device)], flat)
+
+    def _subsampled_states(self, burn=0, max_draws=50):
+        """Thinned flat draw states honoring a per-chain burn (reference
+        api.py:480)."""
+        return self._thinned(self._flat(burn), max_draws)
+
+    def prediction_errors(self, cutpoints=None, burn=0, seed=0,
+                          max_draws=50):
+        """{"in.sample": standardized one-step prediction errors [draws, T]}
+        of ``max_draws`` thinned draws (reference api.py:501). Holdout
+        ``cutpoints`` raise."""
+        from boom_tpu_torch.statespace.bsts import one_step_prediction_errors
+
+        if cutpoints:
+            raise NotImplementedError(
+                "holdout prediction errors (cutpoints) are not ported yet "
+                "(ROADMAP.md, queue 1 item 7: holdout_prediction_errors)")
+        return {"in.sample": one_step_prediction_errors(
+            self._model, self._subsampled_states(burn, max_draws))}
+
+    def state_contribution_draws(self, burn=0):
+        """Each block's contribution path over all draws {name: [draws, T]},
+        and the regression's as ``"regression"`` (reference api.py:518)."""
+        return self._model.state_contributions(self._flat(burn))
+
+    def coefficients(self):
+        """The regression's posterior rows (reference api.py:531)."""
+        if "beta" not in self.draws:
+            raise ValueError("the model has no regression component")
+        return _coef_table(self.draws["beta"], self.draws["gamma"])
+
+    def summary(self):
+        """The observation sd's posterior, and the coefficients' with a
+        regression (reference api.py:535)."""
+        out = {}
+        s = torch.sqrt(self.draws["sigsq_obs"].double()).flatten()
+        s = s.cpu().numpy()
+        out["observation_sd"] = {"mean": float(s.mean()),
+                                 "q025": float(np.quantile(s, 0.025)),
+                                 "q975": float(np.quantile(s, 0.975))}
+        if "beta" in self.draws:
+            out["coefficients"] = self.coefficients()
+        return out
+
+    def predict(self, horizon, seed=0, future_z=None,
+                future_predictors=None, max_draws=200):
+        """Posterior-predictive forecasts [draws, horizon] simulated forward
+        from ``max_draws`` thinned posterior draws (reference api.py:723);
+        the normals from a generator seeded with ``seed`` on the fit's
+        device. With ``future_predictors`` [horizon, p] the regression's
+        X beta is added."""
+        model = self._model
+        sub = self._subsampled_states(0, max_draws)
+        take = _leading(sub)
+        noise = rng.draw(rng.generator(seed, model.y.device),
+                         model.predict_noise_spec(horizon), take,
+                         model.y.dtype)
+        ys = model.predict(noise, sub, horizon, future_z=future_z)
+        if future_predictors is not None:
+            x_new = torch.as_tensor(np.asarray(future_predictors),
+                                    dtype=model.y.dtype,
+                                    device=model.y.device)
+            ys = ys + sub["beta"] @ x_new.T
+        return ys
+
+
+def _leading(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]

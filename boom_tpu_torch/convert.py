@@ -19,8 +19,14 @@ from boom_tpu_torch.statespace.kalman import SsmParams
 
 
 def _tensor(x, device, dtype):
-    return torch.tensor(np.asarray(x), dtype=dtype,
-                        device=resolve_device(device))
+    """A float tensor of ``dtype``; a boolean array stays boolean (the
+    inclusion indicators gamma) and an integer one int64 (a permutation)."""
+    x = np.asarray(x)
+    if x.dtype == np.bool_:
+        dtype = torch.bool
+    elif np.issubdtype(x.dtype, np.integer):
+        dtype = torch.int64
+    return torch.tensor(x, dtype=dtype, device=resolve_device(device))
 
 
 def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64):
@@ -40,7 +46,9 @@ def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64):
 
 def state_from_numpy(tree, device="cuda", dtype=torch.float64):
     """A reference bsts state ``{"blocks": {...}, "sigsq_obs", "alpha"}``
-    whose leaves carry a leading chain axis -> the same tree of tensors."""
+    (with a regression also ``gamma``, ``beta``) whose leaves carry a
+    leading chain axis -> the same tree of tensors; boolean leaves stay
+    boolean, integer leaves become int64."""
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
@@ -92,6 +100,10 @@ def _block(b):
             initial_level_sd=float(b.initial_level_sd),
             initial_slope_mean=float(b.initial_slope_mean),
             initial_slope_sd=float(b.initial_slope_sd), name=b.name)
+    if kind == "Seasonal":
+        return sm.Seasonal(
+            nseasons=int(b.nseasons), sigma_prior=_prior(b.sigma_prior),
+            initial_sd=float(b.initial_sd), name=b.name)
     raise NotImplementedError(
         f"state block {kind} is not ported yet (ROADMAP.md, queue 1: the "
         "other block classes)")
@@ -99,21 +111,28 @@ def _block(b):
 
 def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
     """The port's ``Bsts`` with the reference model's series, state blocks,
-    observation prior and sampler options. ``overrides`` replace options
-    (for example ``parallel_smoother``)."""
+    observation prior, regression (predictors, prior, max flips) and
+    sampler options. ``overrides`` replace options (for example
+    ``parallel_smoother``)."""
     from boom_tpu_torch.statespace.bsts import Bsts
 
-    for name in ("predictors", "observed", "obs_weights"):
+    for name in ("observed", "obs_weights"):
         if getattr(bsts, name) is not None:
             raise NotImplementedError(
                 f"bsts with {name} is not ported yet (ROADMAP.md, queue 1)")
     opts = dict(parallel_smoother=bsts.parallel_smoother,
                 chains_hint=bsts.chains_hint, asis=bsts.asis,
-                asis_passes=bsts.asis_passes)
+                asis_passes=bsts.asis_passes,
+                reg_max_flips=bsts.reg_max_flips)
+    if bsts.predictors is not None:
+        opts["predictors"] = _tensor(bsts.predictors, device, dtype)
+        opts["reg_prior"] = spike_slab_prior_from_numpy(bsts.reg_prior,
+                                                        device, dtype)
     opts.update({f.name: getattr(bsts, f.name)
                  for f in dataclasses.fields(Bsts)
                  if f.name.startswith("marginal_")})
     opts.update(overrides)
     return Bsts(y=_tensor(bsts.y, device, dtype),
                 blocks=[_block(b) for b in bsts.blocks],
-                obs_prior=_prior(bsts.obs_prior), **opts)
+                obs_prior=(None if bsts.obs_prior is None
+                           else _prior(bsts.obs_prior)), **opts)

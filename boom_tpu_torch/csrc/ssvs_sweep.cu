@@ -344,22 +344,41 @@ __device__ __forceinline__ void copy_block(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// n elements global -> shared without a register stage (cp.async, cached
-// in L1: every chain reads the same S0 and Omega, which L2 holds); the
-// caller commits, waits and meets a barrier before reading them.
+// One element global -> shared without a register stage (cp.async, cached
+// in L1); the caller commits, waits and meets a barrier before reading it.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(at),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+#else
+  std::memcpy(dst, src, sizeof(T));
+#endif
+}
+
+// n elements global -> shared by the block (every chain reads the same S0
+// and Omega, which L2 holds).
 template <typename T>
 __device__ __forceinline__ void copy_block_async(T* dst, const T* src,
                                                  int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#ifdef __CUDA_ARCH__
-    const unsigned at =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(at),
-                 "l"(src + i), "n"(sizeof(T))
-                 : "memory");
-#else
-    std::memcpy(dst + i, src + i, sizeof(T));
-#endif
+  for (int i = threadIdx.x; i < n; i += blockDim.x) copy_async(dst + i,
+                                                               src + i);
+}
+
+// S0 [d, d] of one chain whose border (row and column p = d - 1) is its
+// own, edge [d] = (Omega b + X'y_c, prior_ss + y_c'y_c), and whose [p, p]
+// block (Omega + X'X) every chain shares: the same asynchronous pass as
+// copy_block_async, so the border is in place by the first barrier.
+template <typename T>
+__device__ __forceinline__ void copy_bordered_async(T* dst, const T* s0,
+                                                    const T* edge, int d) {
+  const int p = d - 1;
+  for (int i = threadIdx.x; i < d * d; i += blockDim.x) {
+    const int r = i / d, col = i - r * d;
+    const T* src = r == p ? edge + col : (col == p ? edge + r : s0 + i);
+    copy_async(dst + i, src);
   }
 }
 
@@ -392,8 +411,8 @@ ssvs_sweep_kernel(
     const unsigned char* __restrict__ mask_in,
     const long long* __restrict__ perm, const T* __restrict__ flip_u,
     const T* __restrict__ jump_u, const T* __restrict__ jump_acc,
-    unsigned char* __restrict__ mask_out, int p, int n_flips,
-    int max_size) {
+    unsigned char* __restrict__ mask_out, const T* __restrict__ border,
+    int p, int n_flips, int max_size) {
   using O = Ops<T>;
   BOOM_SHARED_BYTES(smem_raw);
   const int c = blockIdx.x;
@@ -419,9 +438,14 @@ ssvs_sweep_kernel(
   unsigned char* flip_j = prop + p;
 
   // 0. the chain's state and all of its noise on chip: S0 and Omega
-  // (shared by every chain) copied asynchronously while the block takes
-  // the logs of the uniforms (logf / log, as torch.log)
-  copy_block_async(s, s0, d * d);
+  // (shared by every chain; with `border`, S0's row and column p are the
+  // chain's own) copied asynchronously while the block takes the logs of
+  // the uniforms (logf / log, as torch.log)
+  if (border == nullptr) {
+    copy_block_async(s, s0, d * d);
+  } else {
+    copy_bordered_async(s, s0, border + static_cast<long long>(c) * d, d);
+  }
   copy_block_async(o, omega0, p * p);
   const long long row0 = static_cast<long long>(c) * p;
   for (int i = threadIdx.x; i < p; i += blockDim.x) {
@@ -628,8 +652,9 @@ int launch_sweep(const void* s0, const void* omega, const void* mean,
                  const void* log_odds, const void* consts, const void* logq,
                  const void* log1mq, const void* qprobs, const void* mask_in,
                  const void* perm, const void* flip_u, const void* jump_u,
-                 const void* jump_acc, void* mask_out, int chains, int p,
-                 int n_flips, int max_size, int threads, void* stream) {
+                 const void* jump_acc, void* mask_out, const void* border,
+                 int chains, int p, int n_flips, int max_size, int threads,
+                 void* stream) {
   const bool jump = qprobs != nullptr;
   if (chains < 0 || p < 1 || n_flips < 0 || n_flips > p || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0)
@@ -652,7 +677,8 @@ int launch_sweep(const void* s0, const void* omega, const void* mean,
       static_cast<const unsigned char*>(mask_in),
       static_cast<const long long*>(perm), static_cast<const T*>(flip_u),
       static_cast<const T*>(jump_u), static_cast<const T*>(jump_acc),
-      static_cast<unsigned char*>(mask_out), p, n_flips, max_size);
+      static_cast<unsigned char*>(mask_out), static_cast<const T*>(border),
+      p, n_flips, max_size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -665,19 +691,22 @@ int launch_sweep(const void* s0, const void* omega, const void* mean,
 // mask_in, mask_out [C, p] bytes, perm [C, p] int64, flip_u [C, p], jump_u
 // [C, p], jump_acc [C] (the last two read only with a mode jump). n_flips
 // flips of each chain's perm; max_size < 0 for no bound on the model size.
-// Returns a cudaError_t (0 on success).
+// border [C, p+1] or nullptr: row and column p of each chain's S0 (bsts,
+// where every chain regresses its own residual: X'y and y'y per chain, X'X
+// shared), in place of s0's own row and column p, which are then not read;
+// nullptr for one S0 of every chain. Returns a cudaError_t (0 on success).
 #define BOOM_SSVS_ENTRY(TY, TYNAME)                                          \
   extern "C" int boom_ssvs_sweep_##TYNAME(                                   \
       const void* s0, const void* omega, const void* mean,                   \
       const void* log_odds, const void* consts, const void* logq,            \
       const void* log1mq, const void* qprobs, const void* mask_in,           \
       const void* perm, const void* flip_u, const void* jump_u,              \
-      const void* jump_acc, void* mask_out, int chains, int p, int n_flips,  \
-      int max_size, int threads, void* stream) {                             \
+      const void* jump_acc, void* mask_out, const void* border, int chains,  \
+      int p, int n_flips, int max_size, int threads, void* stream) {         \
     return launch_sweep<TY>(s0, omega, mean, log_odds, consts, logq, log1mq, \
                             qprobs, mask_in, perm, flip_u, jump_u, jump_acc, \
-                            mask_out, chains, p, n_flips, max_size, threads, \
-                            stream);                                         \
+                            mask_out, border, chains, p, n_flips, max_size,  \
+                            threads, stream);                                \
   }
 
 BOOM_SSVS_ENTRY(float, f32)

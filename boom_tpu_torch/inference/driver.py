@@ -37,6 +37,12 @@ class McmcResult:
     draws: Any
     final_state: Any
 
+    def stacked(self):
+        """Draws flattened over chains, chain-major: [num_chains *
+        num_draws, ...] (reference driver.py:37)."""
+        return tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                        self.draws)
+
 
 def run_chain(kernel: Callable, draw_noise: Callable, state, num_draws: int,
               generator: torch.Generator, *, burn: int = 0, thin: int = 1,

@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"parallel_scan": _PKG / "csrc" / "parallel_scan.cu",
            "kalman_seq": _PKG / "csrc" / "kalman_seq.cu",
-           "ssvs_sweep": _PKG / "csrc" / "ssvs_sweep.cu"}
+           "ssvs_sweep": _PKG / "csrc" / "ssvs_sweep.cu",
+           "kalman_wide": _PKG / "csrc" / "kalman_wide.cu"}
 BUILD_DIR = _PKG.parent / "build" / "boom_tpu_torch"
 # --split-compile=0: optimise the instantiations on all host cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +45,11 @@ KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
                   "smoother": (("f64",), tuple(range(1, 7)))}
 # the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
 SSVS_DTYPES = ("f32", "f64")
+# kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS) and K3
+# (one entry a dtype, every d in DPATH_DIMS)
+WIDE_DIMS = tuple(range(7, 17))
+DPATH_DTYPES = ("f32", "f64")
+DPATH_DIMS = tuple(range(1, 17))
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each entry family (pointers, then ints, then stream)
@@ -60,9 +66,13 @@ _ARGTYPES = {
     # t_len, threads, stream
     "smoother": [_P] * 12 + [_I, _I, _I, _P],
     # s0, omega, mean, log_odds, consts, logq, log1mq, qprobs, mask_in,
-    # perm, flip_u, jump_u, jump_acc, mask_out, chains, p, n_flips,
-    # max_size, threads, stream
-    "ssvs_sweep": [_P] * 14 + [_I] * 5 + [_P],
+    # perm, flip_u, jump_u, jump_acc, mask_out, border, chains, p,
+    # n_flips, max_size, threads, stream
+    "ssvs_sweep": [_P] * 15 + [_I] * 5 + [_P],
+    # the smoother's pointers, batch, t_len, d, threads, stream
+    "smoother_wide": [_P] * 12 + [_I] * 4 + [_P],
+    # tm, w, out, batch, groups, t_len, d, threads, stream
+    "dpath": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -136,6 +146,10 @@ def library(name: str) -> ctypes.CDLL:
     elif name == "ssvs_sweep":
         for tag in SSVS_DTYPES:
             _declare(lib, "ssvs_sweep", f"boom_ssvs_sweep_{tag}")
+    elif name == "kalman_wide":
+        _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
+        for tag in DPATH_DTYPES:
+            _declare(lib, "dpath", f"boom_dpath_{tag}")
     else:
         for kind, (tags, dims) in KALMAN_ENTRIES.items():
             for tag in tags:

@@ -1,11 +1,11 @@
-"""Rehearse the sequential Kalman kernels and kernel (a) on a machine
-without a card.
+"""Rehearse the sequential Kalman kernels (K1, K2, J1, J2; K2w and K3) and
+kernel (a) on a machine without a card.
 
     python3 boom_tpu_torch/kernels/host_rehearsal.py          # kernels
     python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
 
-``csrc/kalman_seq.cu`` and ``csrc/ssvs_sweep.cu`` are compiled as host C++
-with ``g++``: a shim header defines the CUDA keywords away and gives
+``csrc/kalman_seq.cu``, ``csrc/kalman_wide.cu`` and ``csrc/ssvs_sweep.cu``
+are compiled as host C++ with ``g++``: a shim header defines the CUDA keywords away and gives
 ``blockIdx``/``blockDim``/``threadIdx`` as thread-local globals, and every
 ``kernel<<<blocks, threads, ...>>>(args)`` becomes ``host_launch``, which
 runs a block's threads as host threads, one block after another. Its
@@ -23,7 +23,10 @@ against the plain versions (K1 in float64 and float32, K2, J1 and J2, the
 derivative kernels, against autograd of the plain loop), and kernel (a),
 the SSVS indicator sweep, against ``regression_sweep.draw_indicators_swept``
 (33 chains, p in {1, 31, 32, 33, 37}, mode jump off and on, max_size
-unset and set, float64 and float32: masks identical). ``--llt`` then
+unset and set, float64 and float32: masks identical), K2w and K3 against
+``kalman.simulation_smoother`` and ``kalman.dpath`` (:func:`check_wide`)
+and kernel (a)'s per-chain entry against the plain sweep on per-chain
+statistics (:func:`check_ssvs_border`). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -61,6 +64,7 @@ SHIM = r"""#pragma once
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -245,15 +249,17 @@ def _host_launches(src: str) -> str:
     return "".join(out + [src[pos:]])
 
 
-def build_host_library(name="kalman_seq", text=None) -> Path:
+def build_host_library(name="kalman_seq", text=None, variant="") -> Path:
     """Compile the source ``name`` (``_build.SOURCES``), or the source
     ``text`` under that name, for the host into
-    build/boom_tpu_torch/host/<name>."""
+    build/boom_tpu_torch/host/<name>[_<variant>] (a ``variant`` for a
+    caller that may build the same source while another does)."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise SystemExit("host_rehearsal: needs g++")
     # a directory a source, so that two builds at once never share a file
-    out_dir = _build.BUILD_DIR / "host" / name
+    out_dir = _build.BUILD_DIR / "host" / (f"{name}_{variant}" if variant
+                                           else name)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(SHIM)
     if text is None:
@@ -358,6 +364,75 @@ def check_kernels(seed=0):
     return worst
 
 
+# K2w: d at and past K2's widest, T one below, at and above a chunk of 32
+# steps and one step, 33 chains (a last block of one warp), masked, dense
+# and a series a chain; K3: d 1 (32 groups a pass) to 16 (two), G 1 and 3
+WIDE_CASES = [(d, c, t_len, masked, per_chain) for d in (7, 8)
+              for c, t_len, masked, per_chain in (
+                  (5, 31, False, False), (33, 32, True, False),
+                  (5, 33, False, True), (3, 1, False, False))]
+DPATH_CASES = [(d, g, dtype) for d, g in ((1, 1), (2, 2), (8, 3), (13, 3),
+                                          (16, 1))
+               for dtype in ("float64", "float32")]
+
+
+def check_wide(seed=0, wide_cases=WIDE_CASES, dpath_cases=DPATH_CASES):
+    """K2w and K3 against their plain versions: {case: normwise relative
+    error}."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for d, c, t_len, masked, per_chain in wide_cases:
+        params = system(rng, c, d, "float64", device="cpu")
+        shape = (c, t_len) if per_chain else (t_len,)
+        y = torch.tensor(rng.normal(size=shape).cumsum(-1))
+        obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
+               else None)
+        nz = [torch.tensor(rng.normal(size=s))
+              for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
+        out[f"smoother_wide d={d} C={c} T={t_len} masked={masked} "
+            f"per_chain={per_chain}"] = _rel(
+            kk.simulation_smoother(params, y, *nz, observed=obs),
+            kalman.simulation_smoother(params, y, *nz, observed=obs))
+    for d, g, dtype in dpath_cases:
+        tdt = getattr(torch, dtype)
+        c, t_len = 5, 40
+        t_mat = torch.tensor(rng.normal(size=(c, d, d)) / np.sqrt(d),
+                             dtype=tdt)
+        w = torch.tensor(rng.normal(size=(c, g, t_len - 1, d)), dtype=tdt)
+        out[f"dpath d={d} G={g} {dtype}"] = _rel(kk.dpath(t_mat, w),
+                                                 kalman.dpath(t_mat, w))
+    return out
+
+
+def check_ssvs_border(seed=0, cases=((20, "float64"), (33, "float64")),
+                      chains=33, draws=2):
+    """Kernel (a)'s per-chain entry against the plain sweep on per-chain
+    statistics (``ssvs_timing.problem_per_chain``): {case: chains whose
+    masks differ}."""
+    from boom_tpu_torch.kernels.ssvs_timing import problem_per_chain
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for p, dtype in cases:
+        bad = 0
+        for _ in range(draws):
+            suf, prior, mask, noise = problem_per_chain(rng, chains, p, dtype,
+                                                        device="cpu")
+            want = rs.draw_indicators_swept(noise, suf, prior, mask)
+            got = sk.draw_indicators_swept(noise, suf, prior, mask)
+            bad += int((got != want).any(-1).sum())
+        out[f"border p={p} {dtype}"] = bad
+    return out
+
+
 SSVS_CASES = [(p, jump, max_size, dtype) for dtype in ("float64", "float32")
               for p in (1, 31, 32, 33, 37) for jump in (False, True)
               for max_size in (None, 3)]
@@ -433,10 +508,14 @@ def main():
     args = ap.parse_args()
     torch.set_num_threads(4)
     bind({name: build_host_library(name)
-          for name in ("kalman_seq", "ssvs_sweep")})
+          for name in ("kalman_seq", "kalman_wide", "ssvs_sweep")})
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
+    for k, v in check_wide().items():
+        print(f"host-compiled {k}: relative error {v:.3e}")
     for k, v in check_ssvs().items():
+        print(f"host-compiled ssvs_sweep {k}: {v} chains differ")
+    for k, v in check_ssvs_border().items():
         print(f"host-compiled ssvs_sweep {k}: {v} chains differ")
     if args.llt:
         stats, med = rehearse_llt()

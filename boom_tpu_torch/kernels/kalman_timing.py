@@ -1,6 +1,9 @@
 """Times of the sequential Kalman kernels on the card (K1, the loglik; K2,
-the fused simulation smoother; csrc/kalman_seq.cu), beside their bounds and
-their plain versions, at the shapes of the bsts_llt workload.
+the fused simulation smoother; csrc/kalman_seq.cu; K2w, the smoother for
+7 <= d <= 16, and K3, the ASIS D-path; csrc/kalman_wide.cu), beside their
+bounds and their plain versions, at the shapes of the bsts_llt workload
+(K1, K2, J1, J2) and of the bsts_reg workload (K2w, K3; K3 and kernel
+(c)'s affine scan also at the bsts_llt D-path's shape).
 
     python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
     python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
@@ -56,6 +59,20 @@ SHAPES = {"loglik": ("float32", LLT_CHAINS * TIM_POINTS, LLT_D, LLT_T),
           "smoother": ("float64", LLT_CHAINS, LLT_D, LLT_T),
           "loglik_grad": ("float64", 1, LLT_D, LLT_T),
           "loglik_hess": ("float64", 1, LLT_D, LLT_T)}
+# the bsts_reg workload (chip_smoke.py phase 6): 4096 chains, T=500, a
+# local linear trend and a 7-season cycle (d = 8, three ASIS groups)
+REG_CHAINS, REG_T, REG_D, REG_GROUPS = 4096, 500, 8, 3
+# name: (dtype, batch, d, T, groups); K2w imputes every chain (float64), at
+# d = 8 and at d = 13 (a trend and a 12-season cycle); K3 runs the D-paths
+# of every chain's groups in the run's dtype (float32), at the bsts_reg
+# shape and at the bsts_llt one (d = 2, two groups), where kernel (c)'s
+# affine scan runs them (timed beside it, ``scan_ms``)
+WIDE_SHAPES = {
+    "smoother_wide": ("float64", REG_CHAINS, REG_D, REG_T, 0),
+    "smoother_wide_d13": ("float64", REG_CHAINS, 13, REG_T, 0),
+    "dpath": ("float32", REG_CHAINS, REG_D, REG_T, REG_GROUPS),
+    "dpath_llt": ("float32", LLT_CHAINS, LLT_D, LLT_T, 2)}
+
 # K1's block sizes (0: the grid laid out from the card's SM count); K2's
 # block is one warp by design
 BLOCK_SIZES = {"loglik": (0, 128, 256)}
@@ -127,9 +144,12 @@ def bound_ms(name, dtype, batch, d, t_len):
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
     K1 reads a system a series and the shared y, writes one loglik a
-    series (J1 also a gradient, J2 a gradient and Hessian); K2 reads a
-    system, alpha_1, w [T-1, d] and eps [T] a chain and writes the draw
-    [T, d] (its scratch is not counted)."""
+    series (J1 also a gradient, J2 a gradient and Hessian); K2 (and K2w:
+    ``name`` "smoother") reads a system, alpha_1, w [T-1, d] and eps [T] a
+    chain and writes the draw [T, d] (its scratch is not counted); K3
+    ("dpath", ``batch`` the chains x groups) reads w [T-1, d] and writes
+    D [T, d] a series (T, d x d a chain, is counted in the caller's
+    ``dpath_bound_ms``)."""
     item = 8 if dtype == "float64" else 4
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     if name == "loglik":
@@ -146,6 +166,12 @@ def bound_ms(name, dtype, batch, d, t_len):
         n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
                    + t_len) * item
         flops = smoother_flops(batch, d, t_len)
+    elif name.startswith("dpath"):
+        # K3 (``batch`` = chains x groups series of one chain's T): the
+        # chain's T once, w [T-1, d] in, D [T, d] out a series; d^2
+        # multiply-adds a step and series
+        n_bytes = batch * ((t_len - 1) * d + t_len * d) * item
+        flops = batch * (t_len - 1) * 2 * d * d
     else:
         raise ValueError(f"no bound for {name!r}")
     by_bytes = n_bytes / HBM_BYTES_PER_S
@@ -203,6 +229,75 @@ def kalman_cases(rng, name, dtype, batch, d, t_len):
             lambda: kk.simulation_smoother(params, y, *normals))
 
 
+def dpath_bound_ms(dtype, chains, groups, d, t_len):
+    """K3's bound (:func:`bound_ms` over chains x groups series) with each
+    chain's T [d, d] read once more."""
+    item = 8 if dtype == "float64" else 4
+    ms, by = bound_ms("dpath", dtype, chains * groups, d, t_len)
+    extra = 1e3 * chains * d * d * item / HBM_BYTES_PER_S
+    return (ms + extra, by) if by == "bytes" else (ms, by)
+
+
+def wide_cases(rng, name, dtype, batch, d, t_len, groups):
+    """(kernel call, plain call, wrapper call, scan call or None) for K2w
+    or K3 on inputs of its shape, as :func:`kalman_cases`; for K3 the scan
+    call is kernel (c)'s affine scan of the same D-paths (the route of
+    d <= 6 in ``bsts.asis_redraw``)."""
+    import torch
+
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+
+    tdt = getattr(torch, dtype)
+    params = system(rng, batch, d, dtype)
+    if name.startswith("smoother_wide"):
+        # a series a chain, as bsts with a regression gives K2w
+        y = torch.tensor(rng.normal(size=(batch, t_len)).cumsum(-1),
+                         dtype=tdt, device="cuda")
+        normals = [torch.tensor(rng.normal(size=s), dtype=tdt, device="cuda")
+                   for s in ((batch, d), (batch, t_len - 1, d),
+                             (batch, t_len))]
+        operands = kk.smoother_operands(params, y, *normals)
+        return (lambda: kk.launch_smoother(*operands),
+                lambda: kalman.simulation_smoother(params, y, *normals),
+                lambda: kk.simulation_smoother(params, y, *normals), None)
+    t_mat = params.t_mat.contiguous()
+    w = torch.tensor(rng.normal(size=(batch, groups, t_len - 1, d)),
+                     dtype=tdt, device="cuda")
+    a_elems = t_mat[:, None, None].expand(batch, groups, t_len - 1, d, d)
+    a_flat = a_elems.reshape(batch * groups, t_len - 1, d, d)
+    w_flat = w.reshape(batch * groups, t_len - 1, d)
+    scan = (lambda: sk.affine_prefix(a_flat, w_flat)) if d <= 6 else None
+    return (lambda: kk.launch_dpath(t_mat, w),
+            lambda: kalman.dpath(t_mat, w),
+            lambda: kk.dpath(t_mat, w), scan)
+
+
+def time_wide(rng, plain=True):
+    """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
+    shape, scan_ms}} at WIDE_SHAPES (scan_ms: kernel (c)'s affine scan of
+    the same D-paths, where d <= 6)."""
+    out = {}
+    for name, (dtype, batch, d, t_len, groups) in WIDE_SHAPES.items():
+        kern, ref, wrapper, scan = wide_cases(rng, name, dtype, batch, d,
+                                              t_len, groups)
+        row = {"shape": [dtype, batch, d, t_len] + ([groups] if groups
+                                                     else []),
+               "ms": median_ms(kern), "call_ms": call_ms(kern),
+               "wrapper_ms": median_ms(wrapper),
+               "plain_ms": median_ms(ref, reps=3, per=1) if plain else None,
+               "scan_ms": median_ms(scan) if scan is not None else None}
+        if groups:
+            row["bound_ms"], row["bound_by"] = dpath_bound_ms(
+                dtype, batch, groups, d, t_len)
+        else:
+            row["bound_ms"], row["bound_by"] = bound_ms("smoother", dtype,
+                                                        batch, d, t_len)
+        out[name] = row
+    return out
+
+
 def time_kalman(rng, plain=True):
     """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
     shape, block_ms, scaling_ms}} at SHAPES: device times of the kernel (at
@@ -254,6 +349,22 @@ def _instantiation(mangled):
             }[kernel]
     key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
     return key + " dense" if masked == "0" else key
+
+
+def wide_nvcc_report(log_text):
+    """{kernel: {"registers", "spill_bytes", "stack_bytes"}} for K2w and
+    K3 (each dtype) in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
+    report = {}
+    for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
+        if "smoother_wide_kernel" in name:
+            key = "smoother_wide f64"
+        elif "dpath_kernel" in name:
+            key = f"dpath {'f32' if 'dpath_kernelIfE' in name else 'f64'}"
+        else:
+            continue
+        report[key] = {"registers": nregs, "spill_bytes": spill,
+                       "stack_bytes": stack}
+    return dict(sorted(report.items()))
 
 
 def nvcc_report(log_text):
@@ -313,10 +424,14 @@ def run():
 
     t0 = time.perf_counter()
     _build.build()
+    rng = np.random.default_rng(20261016)
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
-           "kernels": time_kalman(np.random.default_rng(20261016))}
+           "kernels": {**time_kalman(rng), **time_wide(rng)}}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
+    log = _build.log_path("kalman_wide")
+    if log.exists():
+        out["nvcc"].update(wide_nvcc_report(log.read_text()))
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out["sass"] = {}
     if cuobjdump.exists():

@@ -1,7 +1,8 @@
 """Times of kernel (a), the SSVS indicator sweep (csrc/ssvs_sweep.cu), on the
 card, beside its bound and its plain version, at the shape of the
 spike_slab workload (the bench's data, n=2000, p=50, 1024 chains), without
-and with the mode jump.
+and with the mode jump, and of its per-chain entry (a border of S0 a
+chain) at the shape of the bsts_reg workload (4096 chains, p=20).
 
     python3 boom_tpu_torch/kernels/ssvs_timing.py                  # JSON
     python3 boom_tpu_torch/kernels/ssvs_timing.py --compare DIR... # turns
@@ -53,6 +54,10 @@ SHAPES = {"ssvs_sweep_f32": ("float32", BENCH_CHAINS, False),
           "ssvs_sweep_f64": ("float64", BENCH_CHAINS, False),
           "ssvs_sweep_f32_jump": ("float32", BENCH_CHAINS, True),
           "ssvs_sweep_f64_jump": ("float64", BENCH_CHAINS, True)}
+# the bsts_reg workload (chip_smoke.py phase 6): kernel (a)'s per-chain
+# entry, float32, 4096 chains, p = 20, T = 500, no mode jump
+REG_CHAINS, REG_P, REG_T = 4096, 20, 500
+BORDER_SHAPES = {"ssvs_sweep_border": ("float32", REG_CHAINS, REG_P)}
 # scalar operations of one flip's decision (the deltas, the log model
 # probability, the log sigmoid), counted as flops
 FLIP_SCALAR_FLOPS = 30
@@ -86,6 +91,104 @@ def problem(rng, c, p, dtype="float64", n=200, max_size=None,
     qprobs = (reg.screening_proposal_probs(model.suf, model.prior)
               if mode_jump else None)
     return model, mask, noise, qprobs
+
+
+def problem_per_chain(rng, c, p, dtype="float64", n=200, device="cuda"):
+    """Per-chain statistics as bsts makes them: one design x [n, p] (the
+    first min(p, 4) coefficients nonzero), a response a chain, RegSuf with
+    X'y [c, p] and y'y [c] beside the shared X'X, the prior from the first
+    response, masks [c, p] and one sweep's flip noise on ``device``: (suf,
+    prior, mask, noise)."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.models.glm import regression as reg
+
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=(n, p))
+    beta = np.zeros(p)
+    beta[:min(p, 4)] = rng.choice([-1.5, 1.5], size=min(p, 4))
+    ys = x @ beta + rng.normal(size=(c, n)) * rng.uniform(0.5, 2.0, (c, 1))
+    xt = torch.tensor(x, dtype=tdt, device=device)
+    yt = torch.tensor(ys, dtype=tdt, device=device)
+    suf = reg.RegSuf(xtx=xt.T @ xt, xty=yt @ xt, yty=(yt * yt).sum(-1),
+                     n=torch.tensor(float(n), dtype=tdt, device=device))
+    prior = reg.SpikeSlabPrior.from_data(xt, yt[0],
+                                         expected_model_size=min(3.0, p))
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 30)))
+    spec = {"gamma_u": ((p,), "uniform"), "perm": ((p,), "permutation"),
+            "flip_u": ((p,), "uniform")}
+    drawn = prng.draw(gen, spec, c, tdt)
+    mask = drawn.pop("gamma_u") < 0.3
+    return suf, prior, mask, drawn
+
+
+def bsts_reg_problem(dtype="float32", chains=REG_CHAINS, seed=0):
+    """Kernel (a)'s inputs at the bsts_reg shape: the committed data's
+    predictors x [500, 20], each chain's residual y - Z alpha approximated
+    by the series less a random walk of its own (the trend the state
+    takes out), the prior of the fit (``BstsModel.fit``'s), masks and one
+    sweep's flip noise: (suf, prior, mask, noise)."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.models.glm import regression as reg
+
+    tdt = getattr(torch, dtype)
+    x_all, y = data.bsts_reg_xy()
+    x = torch.tensor(x_all[:REG_T], dtype=tdt, device="cuda")
+    y = torch.tensor(y, dtype=tdt, device="cuda")
+    gen = prng.generator(seed, "cuda")
+    walk = torch.randn(chains, REG_T, generator=gen, device="cuda",
+                       dtype=tdt).cumsum(-1) * 0.3
+    resid = y - y.mean() - walk
+    suf = reg.RegSuf(xtx=x.T @ x, xty=resid @ x,
+                     yty=(resid * resid).sum(-1),
+                     n=torch.tensor(float(REG_T), dtype=tdt, device="cuda"))
+    prior = reg.SpikeSlabPrior.from_data(x, y, expected_model_size=1.0,
+                                         prior_information_weight=1.0)
+    p = x.shape[1]
+    spec = {"gamma_u": ((p,), "uniform"), "perm": ((p,), "permutation"),
+            "flip_u": ((p,), "uniform")}
+    drawn = prng.draw(gen, spec, chains, tdt)
+    mask = drawn.pop("gamma_u") < torch.clamp_min(
+        torch.sigmoid(prior.log_inclusion_odds), 2.0 / p)
+    return suf, prior, mask, drawn
+
+
+def border_cases(suf, prior, mask, noise):
+    """(kernel call, plain call, wrapper call) of the per-chain entry."""
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    p = mask.shape[-1]
+    ops = sk.sweep_operands(suf, prior)
+    return (lambda: sk.launch_sweep(noise, suf, prior, mask, p, None, ops),
+            lambda: rs.draw_indicators_swept(noise, suf, prior, mask),
+            lambda: sk.draw_indicators_swept(noise, suf, prior, mask,
+                                             operands=ops))
+
+
+def time_border(plain=True):
+    """{name: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
+    passes_mean, shape}} of the per-chain entry at BORDER_SHAPES."""
+    out = {}
+    for name, (dtype, chains, p) in BORDER_SHAPES.items():
+        suf, prior, mask, noise = bsts_reg_problem(dtype, chains)
+        kern, ref, wrapper = border_cases(suf, prior, mask, noise)
+        new = kern()
+        passes = passes_needed(mask, new)
+        row = {"shape": [dtype, chains, p, "per-chain border"],
+               "ms": median_ms(kern), "call_ms": call_ms(kern),
+               "wrapper_ms": median_ms(wrapper),
+               "plain_ms": median_ms(ref, reps=3, per=1) if plain else None,
+               "passes_mean": float(passes.double().mean())}
+        row["bound_ms"], row["bound_by"] = bound_ms(dtype, p, p, passes,
+                                                    border=True)
+        out[name] = row
+    return out
 
 
 def bench_problem(dtype, chains=BENCH_CHAINS, seed=0, warm=3,
@@ -138,17 +241,19 @@ def jump_walk(model, mask, noise, qprobs):
     return walk, record[0][1]
 
 
-def bound_ms(dtype, p, n_flips, passes, jump=False):
+def bound_ms(dtype, p, n_flips, passes, jump=False, border=False):
     """The least time the card could take for one sweep: the bytes (S0 and
     Omega once, each chain's mask in and out, its permutation and flip
-    uniforms, with the jump its proposal and acceptance uniforms) over the
-    memory rate, or the operations (``passes``, the rank-1 passes of S and
-    Omega these inputs need, 2 ((p+1)^2 + p^2) flops each, and each flip's
-    scalar decision) over the float rate, whichever is larger. Returns (ms,
-    "bytes" | "operations")."""
+    uniforms, with the jump its proposal and acceptance uniforms, with
+    ``border`` its row of S0 [p+1]) over the memory rate, or the operations
+    (``passes``, the rank-1 passes of S and Omega these inputs need,
+    2 ((p+1)^2 + p^2) flops each, and each flip's scalar decision) over the
+    float rate, whichever is larger. Returns (ms, "bytes" |
+    "operations")."""
     item = 8 if dtype == "float64" else 4
     chains = int(passes.shape[0])
     per_chain = 2 * p + 8 * p + item * p + (item * (p + 1) if jump else 0)
+    per_chain += item * (p + 1) if border else 0
     n_bytes = ((p + 1) ** 2 + p * p) * item + chains * per_chain
     flops = (int(passes.sum()) * 2 * ((p + 1) ** 2 + p * p)
              + chains * n_flips * FLIP_SCALAR_FLOPS)
@@ -301,7 +406,7 @@ def run():
     t0 = time.perf_counter()
     _build.build(("ssvs_sweep",))
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
-           "kernels": time_ssvs()}
+           "kernels": {**time_ssvs(), **time_border()}}
     log = _build.log_path("ssvs_sweep")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
     return out

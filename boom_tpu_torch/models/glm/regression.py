@@ -43,11 +43,15 @@ SWEEP_PHASES = ("indicators", "sigsq", "beta")
 
 
 class RegSuf(NamedTuple):
-    """Regression sufficient statistics (reference :36)."""
+    """Regression sufficient statistics (reference :36). One response
+    (``xty`` [p], ``yty`` []) or one a chain (``xty`` [C, p], ``yty`` [C],
+    as bsts regresses each chain's residual, reference
+    statespace/bsts.py:375-385 under ``vmap``) beside one shared ``xtx``;
+    every function here takes either."""
 
     xtx: torch.Tensor  # [p, p]
-    xty: torch.Tensor  # [p]
-    yty: torch.Tensor  # []
+    xty: torch.Tensor  # [p] or [C, p]
+    yty: torch.Tensor  # [] or [C]
     n: torch.Tensor  # []
 
     @staticmethod
@@ -261,6 +265,52 @@ def draw_beta(z, suf: RegSuf, prior: SpikeSlabPrior, mask, sigsq):
     return _draw_beta(z, reg_post_params(suf, prior, mask), mask, sigsq)
 
 
+def gibbs_draw(noise, suf: RegSuf, prior: SpikeSlabPrior, gamma, *, swept,
+               max_flips=None, qprobs=None, operands=None):
+    """One Gibbs draw of every chain's (gamma, sigma^2, beta) given the
+    statistics ``suf`` (one response, or one a chain): the indicators by
+    the SWEEP path (``swept``: kernel (a) on the card, its plain version on
+    the CPU; ``operands``: ``ssvs_kernel.sweep_operands``, made once) or
+    by masked Cholesky factors, after the mode jump with ``qprobs``; then
+    sigma^2 and beta from one set of conjugate quantities. Returns (gamma,
+    sigsq, beta, info [C]: nonzero where a Cholesky factor failed)."""
+    from boom_tpu_torch.models.glm import ssvs_kernel
+
+    info = torch.zeros(gamma.shape[0], dtype=torch.int32,
+                       device=gamma.device)
+    with record_function("ssvs.indicators"):
+        if swept:
+            gamma = ssvs_kernel.draw_indicators_swept(
+                noise, suf, prior, gamma, max_flips, qprobs, operands)
+        else:
+            if qprobs is not None:
+                gamma = mode_jump_move(noise, suf, prior, gamma, qprobs, info)
+            gamma = draw_indicators_sweep(noise, suf, prior, gamma,
+                                          max_flips, info)
+    with record_function("ssvs.sigsq"):
+        post = reg_post_params(suf, prior, gamma)
+        sigsq = _draw_sigsq(noise["sigsq_u"], post, prior)
+    with record_function("ssvs.beta"):
+        beta = _draw_beta(noise["beta_z"], post, gamma, sigsq)
+    return gamma, sigsq, beta, info | post.info
+
+
+def failure_count(device, what):
+    """(count, finish): a device counter a sweep adds its failed Cholesky
+    factors to, with no host synchronisation, and ``finish()``, which
+    raises at the end of a run if any failed (``run_mcmc`` calls it)."""
+    fails = torch.zeros((), dtype=torch.int32, device=device)
+
+    def finish():
+        n = int(fails)
+        if n:
+            raise RuntimeError(
+                f"{n} Cholesky factors of {what} failed (Omega_g + X'X_g "
+                "not positive definite) in this run")
+
+    return fails, finish
+
+
 @dataclasses.dataclass(frozen=True)
 class SpikeSlabRegression:
     """lm.spike (reference :267). State keys: gamma (bool [C, p]), beta
@@ -341,40 +391,15 @@ class SpikeSlabRegression:
         operands = (ssvs_kernel.sweep_operands(self.suf, self.prior, qprobs)
                     if swept and self.prior.mean.device.type == "cuda"
                     else None)
-        fails = torch.zeros((), dtype=torch.int32,
-                            device=self.prior.mean.device)
+        fails, finish = failure_count(self.prior.mean.device,
+                                      "the spike-and-slab posterior")
 
         def sweep(noise, state):
-            gamma = state["gamma"]
-            info = torch.zeros(gamma.shape[0], dtype=torch.int32,
-                               device=gamma.device)
-            with record_function("ssvs.indicators"):
-                if swept:
-                    gamma = ssvs_kernel.draw_indicators_swept(
-                        noise, self.suf, self.prior, gamma, self.max_flips,
-                        qprobs, operands)
-                else:
-                    if self.mode_jump:
-                        gamma = mode_jump_move(noise, self.suf, self.prior,
-                                               gamma, qprobs, info)
-                    gamma = draw_indicators_sweep(
-                        noise, self.suf, self.prior, gamma, self.max_flips,
-                        info)
-            with record_function("ssvs.sigsq"):
-                post = reg_post_params(self.suf, self.prior, gamma)
-                sigsq = _draw_sigsq(noise["sigsq_u"], post, self.prior)
-            with record_function("ssvs.beta"):
-                beta = _draw_beta(noise["beta_z"], post, gamma, sigsq)
-            fails.add_(((info | post.info) != 0).sum(dtype=torch.int32))
+            gamma, sigsq, beta, bad = gibbs_draw(
+                noise, self.suf, self.prior, state["gamma"], swept=swept,
+                max_flips=self.max_flips, qprobs=qprobs, operands=operands)
+            fails.add_((bad != 0).sum(dtype=torch.int32))
             return {"gamma": gamma, "beta": beta, "sigsq": sigsq}
-
-        def finish():
-            n = int(fails)
-            if n:
-                raise RuntimeError(
-                    f"{n} Cholesky factors of the spike-and-slab posterior "
-                    "failed (Omega_g + X'X_g not positive definite) in this "
-                    "run")
 
         sweep.finish = finish
         return sweep

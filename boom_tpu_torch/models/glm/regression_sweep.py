@@ -63,15 +63,22 @@ class SweepState(NamedTuple):
     size: torch.Tensor  # [C] int64, |g|
 
 
-def _augmented(suf: RegSuf, prior: SpikeSlabPrior):
-    """S0 [p+1, p+1] (reference :75)."""
-    om = prior.unscaled_precision
-    a = om + suf.xtx
-    pm = om @ prior.mean + suf.xty
+def border(suf: RegSuf, prior: SpikeSlabPrior):
+    """Row and column p of S0: (Omega b + X'y, prior_ss + y'y), [p+1] or,
+    with per-chain statistics, [C, p+1]."""
+    pm = prior.unscaled_precision @ prior.mean + suf.xty
     c = prior.prior_ss + suf.yty
-    top = torch.cat([a, pm[:, None]], dim=1)
-    bottom = torch.cat([pm, c.reshape(1)])[None, :]
-    return torch.cat([top, bottom], dim=0)
+    return torch.cat([pm, c[..., None]], dim=-1)
+
+
+def _augmented(suf: RegSuf, prior: SpikeSlabPrior):
+    """S0 [p+1, p+1] (reference :75), or [C, p+1, p+1] when the
+    statistics X'y and y'y are per chain (the reference's under ``vmap``)."""
+    a = prior.unscaled_precision + suf.xtx
+    edge = border(suf, prior)
+    a = a.expand(*edge.shape[:-1], *a.shape)
+    top = torch.cat([a, edge[..., :-1, None]], dim=-1)
+    return torch.cat([top, edge[..., None, :]], dim=-2)
 
 
 def _q(prior: SpikeSlabPrior, mask):
@@ -82,7 +89,7 @@ def _q(prior: SpikeSlabPrior, mask):
 
 def build_sweep_state(suf: RegSuf, prior: SpikeSlabPrior, mask) -> SweepState:
     """The swept state of every chain's mask [C, p]: p gated sweeps in
-    index order (reference :84)."""
+    index order (reference :84), from one S0 or one a chain."""
     c, p = mask.shape
     s = _augmented(suf, prior).expand(c, p + 1, p + 1)
     o = prior.unscaled_precision.expand(c, p, p)

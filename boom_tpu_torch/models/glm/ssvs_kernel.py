@@ -7,6 +7,11 @@ The reference runs this as XLA ``lax.scan``s over rank-1 SWEEP updates
 (boom_tpu/models/glm/regression_sweep.py); in eager PyTorch each flip would
 be ~20 small launches.
 
+With per-chain statistics (X'y [C, p], y'y [C]: bsts, where each chain
+regresses its own y - Z alpha) the kernel is given each chain's border of
+S0 (``regression_sweep.border``), which it reads in place of S0's own; its
+launches count under ``"ssvs_sweep_border"``.
+
 Dispatch is by the device of the mask, as in ``statespace/kalman_kernel.py``:
 a CUDA tensor launches the kernel (or raises; there is no fallback), a CPU
 tensor runs the plain version ``regression_sweep.draw_indicators_swept``.
@@ -23,7 +28,7 @@ from boom_tpu_torch.models.glm.regression import RegSuf, SpikeSlabPrior
 from boom_tpu_torch.statespace.scan_kernel import _on_card
 
 # kernel launches since the process started (or a caller's reset)
-LAUNCHES = {"ssvs_sweep": 0}
+LAUNCHES = {"ssvs_sweep": 0, "ssvs_sweep_border": 0}
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # threads of a block (one chain), a warp a row of the rank-1 update: 128
 # took 0.1907 ms at the bench shape in float32 against 0.2074 at 256 and
@@ -63,10 +68,15 @@ def draw_indicators_swept(noise, suf: RegSuf, prior: SpikeSlabPrior, mask,
 def sweep_operands(suf: RegSuf, prior: SpikeSlabPrior, qprobs=None):
     """The kernel's per-model operands, checked and contiguous: {name:
     tensor or None}. S0 is ``regression_sweep._augmented``; a zero prior
-    mean is passed as None (no q terms)."""
+    mean is passed as None (no q terms). With per-chain statistics (X'y
+    [C, p]) the kernel reads S0's border a chain from ``launch_sweep``, and
+    the border S0 carries here (chain 0's) is not read: these operands need
+    only X'X and n, and serve every sweep of a model."""
     dtype = prior.mean.dtype
     if dtype not in _DTYPE_TAG:
         raise TypeError(f"kernel (a) runs float32 or float64, not {dtype}")
+    if suf.xty.dim() == 2:
+        suf = suf._replace(xty=suf.xty[0], yty=suf.yty[0])
     ops = {"s0": regression_sweep._augmented(suf, prior),
            "omega": prior.unscaled_precision,
            "mean": prior.mean if bool((prior.mean != 0).any()) else None,
@@ -90,7 +100,9 @@ def sweep_operands(suf: RegSuf, prior: SpikeSlabPrior, qprobs=None):
 def launch_sweep(noise, suf, prior, mask, n_flips, qprobs=None,
                  operands=None):
     """Kernel (a): ``n_flips`` flips of every chain after the build (and the
-    mode jump with ``qprobs``); returns the new mask [C, p] bool."""
+    mode jump with ``qprobs``); returns the new mask [C, p] bool. With
+    per-chain statistics (X'y [C, p], y'y [C]) the per-chain entry reads
+    each chain's border of S0, ``regression_sweep.border`` [C, p+1]."""
     ops = operands or sweep_operands(suf, prior, qprobs)
     dtype, device = prior.mean.dtype, mask.device
     c, p = mask.shape
@@ -125,17 +137,27 @@ def launch_sweep(noise, suf, prior, mask, n_flips, qprobs=None,
     def ptr(x):
         return 0 if x is None else x.data_ptr()
 
+    args = [ptr(ops[k]) for k in ("s0", "omega", "mean", "log_odds",
+                                  "consts", "logq", "log1mq", "qprobs")]
+    args += [mask_in.data_ptr(), per_chain["perm"].data_ptr(),
+             per_chain["flip_u"].data_ptr(), ptr(per_chain.get("jump_u")),
+             ptr(per_chain.get("jump_acc")), mask_out.data_ptr()]
+    kind, edge = "ssvs_sweep", None
+    if suf.xty.dim() == 2:
+        kind = "ssvs_sweep_border"
+        edge = regression_sweep.border(suf, prior)
+        if tuple(edge.shape) != (c, p + 1) or edge.dtype != dtype:
+            raise ValueError(f"per-chain statistics must give a border "
+                             f"[{c}, {p + 1}] in {dtype}; got "
+                             f"{tuple(edge.shape)} {edge.dtype}")
+        edge = edge.contiguous()
+    args.append(ptr(edge))
     fn = getattr(_build.library("ssvs_sweep"),
                  f"boom_ssvs_sweep_{_DTYPE_TAG[dtype]}")
-    rc = fn(*(ptr(ops[k]) for k in ("s0", "omega", "mean", "log_odds",
-                                    "consts", "logq", "log1mq", "qprobs")),
-            mask_in.data_ptr(), per_chain["perm"].data_ptr(),
-            per_chain["flip_u"].data_ptr(),
-            ptr(per_chain.get("jump_u")), ptr(per_chain.get("jump_acc")),
-            mask_out.data_ptr(), c, p, int(n_flips),
+    rc = fn(*args, c, p, int(n_flips),
             -1 if prior.max_size is None else int(prior.max_size), THREADS,
             _stream(device))
     if rc != 0:
-        raise RuntimeError(f"CUDA ssvs_sweep launch failed: cudaError {rc}")
-    LAUNCHES["ssvs_sweep"] += 1
+        raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
+    LAUNCHES[kind] += 1
     return mask_out

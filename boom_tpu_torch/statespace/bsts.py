@@ -1,14 +1,20 @@
-"""Bsts: Bayesian structural time series, Gaussian path without regression
-(port of boom_tpu/statespace/bsts.py: ``__post_init__`` :195,
-``ssm_params`` :238, ``init_state`` :299, ``_smoother`` :324, ``kernel``
-:343-478, the TIM marginal move :481-714, ``_asis_pass`` :851 and
-``asis_redraw`` :1010).
+"""Bsts: Bayesian structural time series, Gaussian path with an optional
+spike-and-slab regression (port of boom_tpu/statespace/bsts.py:
+``__post_init__`` :195, ``ssm_params`` :238, ``init_state`` :299,
+``_smoother`` :324, ``kernel`` :343-478, the TIM marginal move :481-714,
+``_asis_pass`` :851, ``log_lik`` :899, ``state_contributions`` :906,
+``predict`` :924, ``asis_redraw`` :1010 and
+``one_step_prediction_errors`` :1132).
 
 One Gibbs sweep, for all chains at once (leading chain axis ``[C, ...]``):
 
-  1. draw the observation variance given the current state path;
+  1. draw the observation model given the current state path: the
+     observation variance, or with ``predictors`` the regression's
+     indicators, variance and coefficients on each chain's y - Z alpha
+     (the regression's sigma^2 is the observation variance);
   2. draw each state block's variances from its imputed innovations;
-  3. impute the state path with the Durbin-Koopman simulation smoother;
+  3. impute the state path with the Durbin-Koopman simulation smoother on
+     y - X beta;
   4. ASIS: redraw the state-innovation sigmas non-centered;
   5. with ``marginal_sigma_slice``: the TIM marginal move on the log
      variances, the state path integrated out by the Kalman filter.
@@ -29,7 +35,10 @@ from torch.profiler import record_function
 
 from boom_tpu_torch import dists, numopt, rng
 from boom_tpu_torch.inference.kernels.slice import slice_step
-from boom_tpu_torch.statespace import kalman_kernel, parallel_kalman
+from boom_tpu_torch.models.glm import regression, regression_sweep
+from boom_tpu_torch.models.glm import ssvs_kernel
+from boom_tpu_torch.models.glm.regression import RegSuf, SpikeSlabPrior
+from boom_tpu_torch.statespace import kalman, kalman_kernel, parallel_kalman
 from boom_tpu_torch.statespace import scan_kernel
 from boom_tpu_torch.statespace.kalman import SsmParams
 from boom_tpu_torch.statespace.state_models import SdPrior
@@ -45,7 +54,11 @@ ASIS_SLICE_STEPS, ASIS_EXPAND, ASIS_SHRINK = 8, 5, 10
 # float64 whatever the run's dtype; the rest of the sweep keeps it.
 SMOOTHER_DTYPE = torch.float64
 # the sweep's phases, each a ``torch.profiler`` range named "bsts.<phase>"
-SWEEP_PHASES = ("variance_draws", "impute", "asis", "tim")
+SWEEP_PHASES = ("regression", "variance_draws", "impute", "asis", "tim")
+# the largest state dimension whose ASIS D-paths run as kernel (c)'s affine
+# scan (``_build.SCAN_DIMS``); wider ones run the sequential kernel K3
+# (``kalman_kernel.dpath``), as the reference runs them
+MAX_SCAN_DPATH_DIM = 6
 
 
 def _block_diag(mats):
@@ -67,6 +80,9 @@ class Bsts:
     """Structural time series with Gaussian observations.
 
     y: [T] series on the run's device, in the run's dtype.
+    predictors: [T, p] design of a spike-and-slab regression component with
+    ``reg_prior`` (a ``SpikeSlabPrior``), or None; ``reg_max_flips`` caps
+    the indicator flips a sweep.
     parallel_smoother: the reference's option values. ``"pallas"`` runs the
     hand-written scan kernel (``scan_kernel.simulation_smoother``; its
     plain version on a CPU tensor); ``"auto"`` picks it on a CUDA device
@@ -84,6 +100,8 @@ class Bsts:
     blocks: Sequence
     obs_prior: SdPrior | None = None
     predictors: torch.Tensor | None = None
+    reg_prior: SpikeSlabPrior | None = None
+    reg_max_flips: int | None = None
     observed: torch.Tensor | None = None
     obs_weights: torch.Tensor | None = None
     parallel_smoother: bool | str = "auto"
@@ -107,9 +125,17 @@ class Bsts:
 
     def __post_init__(self):
         if self.predictors is not None:
-            raise NotImplementedError(
-                "bsts with regression is not ported yet (ROADMAP.md, "
-                "queue 1: the rest of statespace)")
+            if self.reg_prior is None:
+                raise ValueError("predictors need a reg_prior "
+                                 "(SpikeSlabPrior)")
+            if tuple(self.predictors.shape[:1]) != (self.t_len,):
+                raise ValueError(f"predictors must be [T={self.t_len}, p]; "
+                                 f"got {tuple(self.predictors.shape)}")
+            if self.marginal_sigma_slice:
+                raise NotImplementedError(
+                    "the marginal move with a regression component is not "
+                    "ported yet (ROADMAP.md, queue 1 item 7: the rest of "
+                    "statespace)")
         if self.observed is not None or self.obs_weights is not None:
             raise NotImplementedError(
                 "observed/obs_weights (gaps, timestamps) are not ported yet "
@@ -123,7 +149,7 @@ class Bsts:
                 raise NotImplementedError(
                     f"state block {type(b).__name__} is not ported yet "
                     "(ROADMAP.md, queue 1: the other block classes)")
-        if self.obs_prior is None:
+        if self.obs_prior is None and self.reg_prior is None:
             sd = float(torch.std(self.y, correction=0))
             object.__setattr__(
                 self, "obs_prior",
@@ -172,11 +198,18 @@ class Bsts:
                 "sim_eta": ((self.t_len - 1, q), "normal"),
                 "sim_eps": ((self.t_len,), "normal")}
 
+    @property
+    def num_predictors(self):
+        return 0 if self.predictors is None else self.predictors.shape[1]
+
     def init_noise_spec(self):
         """Per-chain random numbers of :meth:`init_state`."""
-        return {"blocks": {b.name: b.init_noise_spec() for b in self.blocks},
+        spec = {"blocks": {b.name: b.init_noise_spec() for b in self.blocks},
                 "sig_u": ((), "uniform"),
                 **self._smoother_noise_spec()}
+        if self.predictors is not None:
+            spec["gamma_u"] = ((self.num_predictors,), "uniform")
+        return spec
 
     def noise_spec(self):
         """Per-chain random numbers of one kernel call (see :meth:`kernel`):
@@ -191,9 +224,19 @@ class Bsts:
                 "last": self._sweep_noise_spec(True)}
 
     def _sweep_noise_spec(self, marginal):
-        spec = {"obs_u": ((), "uniform_pos"),
-                "blocks": {b.name: b.noise_spec() for b in self.blocks},
+        spec = {"blocks": {b.name: b.noise_spec() for b in self.blocks},
                 **self._smoother_noise_spec()}
+        if self.predictors is None:
+            spec["obs_u"] = ((), "uniform_pos")
+        else:
+            # the regression's flip order and flip uniforms, its variance's
+            # uniform and its coefficients' normals (SpikeSlabRegression's
+            # noise without the mode jump, which bsts does not make)
+            p = self.num_predictors
+            spec["reg"] = {"perm": ((p,), "permutation"),
+                           "flip_u": ((p,), "uniform"),
+                           "sigsq_u": ((), "uniform_pos"),
+                           "beta_z": ((p,), "normal")}
         if self.asis:
             rounds = (self.asis_passes, ASIS_SLICE_STEPS,
                       len(_asis_groups(self.blocks)))
@@ -231,15 +274,28 @@ class Bsts:
             "sigsq_obs": torch.var(self.y, correction=0)
             * (noise["sig_u"] * (0.8 - 0.1) + 0.1),
         }
+        if self.predictors is not None:
+            # each coordinate in with probability max(pi, 2/p), beta = 0
+            # (reference :309-315); with max_size a mask past the cap keeps
+            # its first max_size coordinates, as SpikeSlabRegression's
+            p = self.num_predictors
+            pi = torch.sigmoid(self.reg_prior.log_inclusion_odds)
+            gamma = noise["gamma_u"] < torch.clamp_min(pi, 2.0 / p)
+            if self.reg_prior.max_size is not None:
+                gamma = gamma & (gamma.cumsum(-1) <= self.reg_prior.max_size)
+            state["gamma"] = gamma
+            state["beta"] = self.y.new_zeros(gamma.shape[0], p)
         state["alpha"] = self._impute(self.ssm_params(state), noise)
         return state
 
-    def _impute(self, params, noise):
-        """A state path draw from the smoother, computed in
-        ``SMOOTHER_DTYPE`` and returned in the run's dtype."""
+    def _impute(self, params, noise, y_adj=None):
+        """A state path draw from the smoother on ``y_adj`` (default y [T];
+        [C, T] with a regression), computed in ``SMOOTHER_DTYPE`` and
+        returned in the run's dtype."""
+        y_adj = self.y if y_adj is None else y_adj
         wide = SMOOTHER_DTYPE
         draw = self._smoother()(
-            SsmParams(*(p.to(wide) for p in params)), self.y.to(wide),
+            SsmParams(*(p.to(wide) for p in params)), y_adj.to(wide),
             *(noise[k].to(wide) for k in ("sim_alpha1", "sim_eta",
                                           "sim_eps")))
         return draw.to(self.y.dtype)
@@ -266,20 +322,32 @@ class Bsts:
         """``sweep(noise, state) -> state`` for all chains; ``noise`` as
         :meth:`draw_noise` makes it. With the marginal move and
         ``marginal_slice_period`` p > 1, one call runs p - 1 sweeps without
-        the move and one with it (one recorded draw)."""
+        the move and one with it (one recorded draw). With a regression,
+        ``finish()`` (which ``run_mcmc`` calls) raises if any Cholesky
+        factor of the regression's posterior failed in the run."""
+        draw_regression = (self._regression_draw()
+                           if self.predictors is not None else None)
 
         def sweep(noise, state, do_marginal=True):
-            # each phase is a named profiler range (SWEEP_PHASES)
+            # each phase is a named profiler range (SWEEP_PHASES); the
+            # observation model and the blocks condition on the CURRENT
+            # state path, which is re-imputed last (reference :364-370)
             out = dict(state)
+            params_cur = self.ssm_params(state)
+            state_contrib = (state["alpha"] * params_cur.z[:, None]).sum(-1)
+            y_adj = self.y
+            if draw_regression is not None:
+                # 1. regression | current state: (gamma, sigma^2, beta)
+                with record_function("bsts.regression"):
+                    out.update(draw_regression(noise["reg"], state,
+                                               self.y - state_contrib))
+                    y_adj = self.adjusted_series(out)
             with record_function("bsts.variance_draws"):
-                params_cur = self.ssm_params(state)
-                state_contrib = (state["alpha"]
-                                 * params_cur.z[:, None]).sum(-1)
-
-                # 1. observation variance | current state
-                resid = self.y - state_contrib
-                out["sigsq_obs"] = self.obs_prior.draw_variance(
-                    noise["obs_u"], self.t_len, (resid * resid).sum(-1))
+                if draw_regression is None:
+                    # 1. observation variance | current state
+                    resid = self.y - state_contrib
+                    out["sigsq_obs"] = self.obs_prior.draw_variance(
+                        noise["obs_u"], self.t_len, (resid * resid).sum(-1))
 
                 # 2. state-model parameters | current state path
                 out["blocks"] = {
@@ -290,7 +358,8 @@ class Bsts:
 
             # 3. impute the state (Durbin-Koopman simulation smoother)
             with record_function("bsts.impute"):
-                out["alpha"] = self._impute(self.ssm_params(out), noise)
+                out["alpha"] = self._impute(self.ssm_params(out), noise,
+                                            y_adj)
 
             # 4. ASIS interweaving: non-centered re-draw of state sigmas
             if self.asis:
@@ -299,28 +368,132 @@ class Bsts:
                         out = self._asis_pass(
                             {k: noise[f"asis_{k}"][:, i]
                              for k in ("h_u", "u_u", "shrink_u")}, out,
-                            self.y)
+                            y_adj)
 
             # 5. marginal move on the log variances (state integrated out)
             if self.marginal_sigma_slice and do_marginal:
                 with record_function("bsts.tim"):
-                    out = self._marginal_sigma_tim(noise, out, self.y)
+                    out = self._marginal_sigma_tim(noise, out, y_adj)
             return out
 
         period = self.marginal_slice_period
         if not self.marginal_sigma_slice or period <= 1:
-            return sweep
+            run = sweep
+        else:
+            def run(noise, state):
+                for i in range(period - 1):
+                    state = sweep(noise[f"sub{i}"], state, do_marginal=False)
+                return sweep(noise["last"], state)
 
-        def composite(noise, state):
-            for i in range(period - 1):
-                state = sweep(noise[f"sub{i}"], state, do_marginal=False)
-            return sweep(noise["last"], state)
+        if draw_regression is not None:
+            run.finish = draw_regression.finish
+        return run
 
-        return composite
+    def _regression_draw(self):
+        """``draw(noise, state, y_reg) -> {gamma, beta, sigsq_obs}``: the
+        spike-and-slab draw on each chain's residual y_reg = y - Z alpha
+        [C, T] (reference :354-403; ``regression.gibbs_draw``). The
+        statistics X'y and y'y are per chain, X'X is shared; the indicators
+        take kernel (a)'s per-chain entry on the card when the SWEEP path
+        is exact for the prior (``valid_for_prior``), else the Cholesky
+        sweep. ``draw.finish`` raises if a Cholesky factor failed."""
+        x, prior = self.predictors, self.reg_prior
+        xtx = x.T @ x
+        n = torch.tensor(self.t_len, dtype=x.dtype, device=x.device)
+        swept = regression_sweep.valid_for_prior(prior)
+        operands = None
+        if swept and x.device.type == "cuda":
+            # kernel (a)'s per-model operands, made once: the border of S0
+            # comes per chain and sweep (ssvs_kernel.launch_sweep)
+            operands = ssvs_kernel.sweep_operands(
+                RegSuf(xtx=xtx, xty=x.new_zeros(x.shape[1]),
+                       yty=x.new_zeros(()), n=n), prior)
+        fails, finish = regression.failure_count(
+            x.device, "the regression's posterior")
+
+        def draw(noise, state, y_reg):
+            suf = RegSuf(xtx=xtx, xty=y_reg @ x, yty=(y_reg * y_reg).sum(-1),
+                         n=n)
+            gamma, sigsq, beta, bad = regression.gibbs_draw(
+                noise, suf, prior, state["gamma"], swept=swept,
+                max_flips=self.reg_max_flips, operands=operands)
+            fails.add_((bad != 0).sum(dtype=torch.int32))
+            return {"gamma": gamma, "beta": beta, "sigsq_obs": sigsq}
+
+        draw.finish = finish
+        return draw
 
     def _asis_pass(self, noise, state, y_adj):
         return asis_redraw(noise, self.blocks, self.ssm_params(state),
                            state, y_adj, state["sigsq_obs"])
+
+    # -- likelihood, contributions, forecasts -------------------------------
+    def adjusted_series(self, state):
+        """The series the state explains: y [T], or y - X beta [C, T]."""
+        if self.predictors is None:
+            return self.y
+        return self.y - state["beta"] @ self.predictors.T
+
+    def log_lik(self, state):
+        """[C] marginal log likelihoods of the chains' parameters, the state
+        integrated out (reference :899). One shared series goes through K1
+        (``kalman_kernel.kalman_loglik``); with a regression each chain has
+        its own series y - X beta, which K1 does not take (ROADMAP.md,
+        queue 1 item 7): the plain filter runs it on CPU tensors and a card
+        tensor raises."""
+        y_adj = self.adjusted_series(state)
+        if y_adj.dim() == 1:
+            return kalman_kernel.kalman_loglik(self.ssm_params(state), y_adj)
+        if y_adj.device.type != "cpu":
+            raise NotImplementedError(
+                "log_lik with a regression needs K1 with a series a chain, "
+                "which is not ported yet (ROADMAP.md, queue 1 item 7: the "
+                "rest of statespace)")
+        return kalman.kalman_loglik(self.ssm_params(state), y_adj)
+
+    def state_contributions(self, state):
+        """Each block's contribution path {name: [C, T]}, and the
+        regression's X beta as ``"regression"`` (reference :906-921)."""
+        out = {}
+        for (start, dim), b in zip(self._slices(), self.blocks):
+            z_b = b.z(self.y.device, self.y.dtype)
+            out[b.name] = (state["alpha"][..., start:start + dim]
+                           * z_b).sum(-1)
+        if self.predictors is not None:
+            out["regression"] = state["beta"] @ self.predictors.T
+        return out
+
+    def predict_noise_spec(self, horizon: int):
+        """Per-draw normals of :meth:`predict`: the state innovations and
+        the observation noise of each forecast step."""
+        q = sum(b.err_dim for b in self.blocks)
+        return {"eta": ((horizon, q), "normal"), "eps": ((horizon,), "normal")}
+
+    def predict(self, noise, final_state, horizon: int, future_z=None,
+                future_q_scale=None):
+        """y_{T+1:T+h} [N, h] simulated from N posterior draws' parameters
+        and last imputed state (reference :924-1007, static blocks):
+        alpha_{t+1} = T alpha_t + R chol(Q) eta_t, y_{t+1} = z' alpha_{t+1}
+        + sqrt(sigma^2) eps_t. Reads only the last row of each draw's alpha
+        [N, *, d]. noise: :meth:`predict_noise_spec`'s ``eta`` [N, h, q] and
+        ``eps`` [N, h]. The regression's future X beta is the caller's
+        (``BstsModel.predict``), as in the reference."""
+        if future_z or future_q_scale:
+            raise NotImplementedError(
+                "future_z / future_q_scale of time-varying blocks are not "
+                "ported yet (ROADMAP.md, queue 1 item 7: the time-varying "
+                "systems)")
+        params = self.ssm_params(final_state)
+        q_chol = kalman._chol_jitter(params.q_mat)
+        alpha = final_state["alpha"][:, -1]
+        sd = torch.sqrt(final_state["sigsq_obs"])
+        ys = []
+        for t in range(horizon):
+            eta = kalman._mv(q_chol, noise["eta"][:, t])
+            alpha = (kalman._mv(params.t_mat, alpha)
+                     + kalman._mv(params.r_mat, eta))
+            ys.append((params.z * alpha).sum(-1) + sd * noise["eps"][:, t])
+        return torch.stack(ys, dim=1)
 
     # -- TIM marginal move ----------------------------------------------------
     def _sigma_groups(self):
@@ -477,15 +650,16 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     Holding the standardized innovations fixed, the path is affine in the
     sigmas: alpha = alpha_base + sum_g sigma_g D_g, where the D-path of
     group g solves D_t = T D_{t-1} + R w_t with D_0 = 0. The D-paths of all
-    chains and groups run as ONE batched affine scan (the scan kernel on a
-    CUDA tensor, its plain version on the CPU); the reference runs a
-    sequential ``lax.scan``, which in eager PyTorch would be T-1 Python
-    steps. Then ``slice_steps`` rounds of scalar slice-Gibbs on the sigmas
-    use only the G x G Gram matrix.
+    chains and groups run in one launch: for d <= ``MAX_SCAN_DPATH_DIM`` as
+    one batched affine scan (kernel (c) on a CUDA tensor, its plain version
+    on the CPU), for wider states as the reference's sequential recurrence
+    (kernel K3, ``kalman_kernel.dpath``; its plain loop on the CPU). Then
+    ``slice_steps`` rounds of scalar slice-Gibbs on the sigmas use only the
+    G x G Gram matrix.
 
     noise: ``h_u``, ``u_u`` [C, slice_steps, G] and ``shrink_u``
-    [C, slice_steps, G, shrink_iters] uniforms. h: [C] observation
-    variances.
+    [C, slice_steps, G, shrink_iters] uniforms. y_adj: [T], or [C, T] (a
+    series a chain, y - X beta). h: [C] observation variances.
     """
     alpha = state["alpha"]  # [C, T, d]
     c, t_len, d = alpha.shape
@@ -500,7 +674,7 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     if n_groups == 0:
         return dict(state)
 
-    # --- D-paths of all chains x groups: one affine scan ----------------
+    # --- D-paths of all chains x groups: one launch ----------------------
     sigs = torch.stack([torch.sqrt(torch.clamp_min(new_blocks[bn][pn], 1e-30))
                         for (bn, pn, _prior, _dims) in groups], dim=-1)
     cols = alpha.new_zeros(n_groups, eta.shape[-1])
@@ -509,13 +683,16 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     # tilde[c, t, g, :] = group-g masked standardized innovations
     tilde = eta[:, :, None, :] * cols / sigs[:, None, :, None]
     w_all = torch.einsum("cdq,ctgq->cgtd", r_mat, tilde)  # [C, G, T-1, d]
-    a_elems = t_mat[:, None, None].expand(c, n_groups, t_len - 1, d, d)
-    dpaths = scan_kernel.affine_prefix(
-        a_elems.reshape(c * n_groups, t_len - 1, d, d),
-        w_all.reshape(c * n_groups, t_len - 1, d))
-    dstack = torch.cat([alpha.new_zeros(c, n_groups, 1, d),
-                        dpaths.reshape(c, n_groups, t_len - 1, d)],
-                       dim=2)  # [C, G, T, d]
+    if d > MAX_SCAN_DPATH_DIM:
+        dstack = kalman_kernel.dpath(t_mat, w_all)  # [C, G, T, d]
+    else:
+        a_elems = t_mat[:, None, None].expand(c, n_groups, t_len - 1, d, d)
+        dpaths = scan_kernel.affine_prefix(
+            a_elems.reshape(c * n_groups, t_len - 1, d, d),
+            w_all.reshape(c * n_groups, t_len - 1, d))
+        dstack = torch.cat([alpha.new_zeros(c, n_groups, 1, d),
+                            dpaths.reshape(c, n_groups, t_len - 1, d)],
+                           dim=2)  # [C, G, T, d]
     g_mat = (dstack * z[:, None, None, :]).sum(-1)  # [C, G, T]
     alpha_base = alpha - torch.einsum("cg,cgtd->ctd", sigs, dstack)
     r0 = y_adj - (alpha_base * z[:, None, :]).sum(-1)  # [C, T]
@@ -559,3 +736,15 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     out["alpha"] = alpha
     out["blocks"] = new_blocks
     return out
+
+
+def one_step_prediction_errors(model: Bsts, states, standardize=True):
+    """One-step-ahead prediction errors v_t / sqrt(F_t) [N, T] of N
+    posterior draws (reference bsts.py:1132-1159; ``standardize=False``:
+    the raw v_t): the Kalman filter of each draw's system over its series,
+    y or y - X beta. The reference runs this as an XLA scan off the sweep;
+    here it is the plain filter (``kalman.kalman_filter``), one Python step
+    a time step, on the draws' device."""
+    filt = kalman.kalman_filter(model.ssm_params(states),
+                                model.adjusted_series(states))
+    return filt.v / torch.sqrt(filt.f) if standardize else filt.v

@@ -3,7 +3,8 @@ sequential in time (port of boom_tpu/statespace/kalman.py: ``SsmParams``
 :67, ``FilterResult`` :121, ``_filter_core`` :162, ``kalman_filter`` :218,
 ``kalman_loglik`` :229, ``_smoother_passes`` :289, ``fast_state_smoother``
 :353, ``smooth_states`` :361, ``simulate`` :372 and the fused static
-``simulation_smoother`` :414-481).
+``simulation_smoother`` :414-481), and the ASIS D-path recurrence of
+boom_tpu/statespace/bsts.py:1077-1084 (:func:`dpath`).
 
 Model:
 
@@ -13,7 +14,8 @@ Model:
 
 The port carries the series axis explicitly: every field of ``SsmParams``
 has a leading ``[B]`` dimension (chains, or chains x candidates), and one
-series ``y`` [T] (or ``[B, T]``) and ``observed`` mask [T] serve them all.
+series ``y`` [T] (or one a series, ``[B, T]``) and ``observed`` mask [T]
+serve them all.
 Only static systems are ported: a time-varying ``z`` [B, T, d] or ``h``
 [B, T] raises. The functions here are the plain PyTorch versions, one
 Python step per time step; ``kalman_kernel.py`` runs ``kalman_loglik`` and
@@ -279,3 +281,17 @@ def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
                                  torch.stack(fs, 1), torch.stack(ks, 1),
                                  obs)
     return torch.stack(plus, dim=1) + alpha_hat
+
+
+def dpath(t_mat, w):
+    """ASIS D-paths [C, G, T, d] of every chain's G groups: D_0 = 0,
+    D_t = T_c D_{t-1} + w_{c,g,t} (reference bsts.py:1077-1084, a
+    sequential ``lax.scan``), one Python step a time step. t_mat [C, d, d]
+    (shared by the groups), w [C, G, T-1, d]."""
+    c, g, t_m1, d = w.shape
+    cur = w.new_zeros(c, g, d)
+    out = [cur]
+    for t in range(t_m1):
+        cur = _mv(t_mat[:, None], cur) + w[:, :, t]
+        out.append(cur)
+    return torch.stack(out, dim=2)

@@ -1,6 +1,7 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
 ``csrc/kalman_seq.cu`` (one thread, or for the derivatives one warp, per
-series walking the T steps).
+series walking the T steps) and ``csrc/kalman_wide.cu`` (one warp a chain,
+a lane a row of the state, for 7 <= d <= 16).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
@@ -14,8 +15,13 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
   ``torch.autograd.grad`` and ``torch.autograd.functional.hessian`` work on
   the card without autograd of a 500-step loop. :func:`loglik_jets_plain`
   is J1's and J2's plain version.
-- :func:`simulation_smoother` (K2): the fused Durbin-Koopman simulation
-  smoother, float64, as ``kalman.simulation_smoother``.
+- :func:`simulation_smoother` (K2 for d <= 6, K2w for 7 <= d <= 16): the
+  fused Durbin-Koopman simulation smoother, float64, as
+  ``kalman.simulation_smoother``; a series a chain ([C, T], bsts with a
+  regression: y - X beta) is taken through the observation noise, which
+  the smoother uses only in y+ (see :func:`smoother_operands`).
+- :func:`dpath` (K3): the ASIS D-path recurrence D_t = T D_{t-1} + w_t of
+  every chain's groups, float32 or float64, as ``kalman.dpath``.
 
 Dispatch is by the device of the tensors, as in ``scan_kernel.py``: a CUDA
 tensor launches the kernel (or raises — there is no fallback), a CPU tensor
@@ -34,7 +40,8 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
-LAUNCHES = {"loglik": 0, "loglik_grad": 0, "loglik_hess": 0, "smoother": 0}
+LAUNCHES = {"loglik": 0, "loglik_grad": 0, "loglik_hess": 0, "smoother": 0,
+            "smoother_wide": 0, "dpath": 0}
 # the loglik's kernel by the order of derivatives it gives: K1, J1, J2
 LOGLIK_KINDS = ("loglik", "loglik_grad", "loglik_hess")
 
@@ -46,6 +53,9 @@ LOGLIK_THREADS = 0
 SMOOTHER_THREADS = 32
 # steps K2 stages into shared memory at a time (kalman_seq.cu, kChunk)
 SMOOTHER_CHUNK = 32
+# K2w's and K3's blocks: warps of one chain each (kalman_wide.cu)
+WIDE_THREADS = 128
+DPATH_THREADS = 128
 _NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for larger state "
               "dimensions and the other block classes)")
 
@@ -265,9 +275,10 @@ def kalman_loglik(params: SsmParams, y, observed=None):
 
 def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
                         observed=None):
-    """alpha+ + E_0[alpha | y - y+] [C, T, d] for every chain (K2 on a
-    CUDA tensor, the plain ``kalman.simulation_smoother`` on a CPU tensor).
-    Normals as ``kalman.simulation_smoother`` takes them."""
+    """alpha+ + E_0[alpha | y - y+] [C, T, d] for every chain (K2 or K2w on
+    a CUDA tensor, the plain ``kalman.simulation_smoother`` on a CPU
+    tensor). y: [T], or [C, T] a series a chain. Normals as
+    ``kalman.simulation_smoother`` takes them."""
     if not _on_card(params.h):
         return kalman.simulation_smoother(params, y, alpha1_z, eta_z, eps_z,
                                           observed)
@@ -277,10 +288,14 @@ def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
 
 def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
                       observed=None):
-    """K2's checked, contiguous operands: ({name: tensor}, y [T], the mask
-    bytes or None). The draws' noise (alpha_1, w = R chol(Q) eta, sqrt(h)
-    eps) is formed here by ``kalman.simulation_inputs``, as the plain
-    version forms it."""
+    """K2's (d <= 6) or K2w's (7 <= d <= 16) checked, contiguous operands:
+    ({name: tensor}, y [T], the mask bytes or None). The draws' noise
+    (alpha_1, w = R chol(Q) eta, sqrt(h) eps) is formed here by
+    ``kalman.simulation_inputs``, as the plain version forms it. The
+    kernels take one series y [T] for all chains; a series a chain y_c
+    [C, T] enters through the observation noise: the smoother reads eps
+    only in y - y+ = y - (z' alpha+ + eps), so y_c with eps is the shared
+    series 0 with eps - y_c (the same draw up to rounding)."""
     kalman.check_static(params)
     dtype, device = params.h.dtype, params.h.device
     tags, dims = _build.KALMAN_ENTRIES["smoother"]
@@ -288,14 +303,23 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
         raise TypeError(f"the smoother kernel runs float64 (bsts."
                         f"SMOOTHER_DTYPE), not {dtype}")
     c, d = params.z.shape
-    if d not in dims:
+    if d not in dims and d not in _build.WIDE_DIMS:
         raise NotImplementedError(
-            f"the smoother kernel takes state dims {dims}, not {d} "
+            f"the smoother kernels take state dims {dims} (K2) and "
+            f"{_build.WIDE_DIMS[0]}..{_build.WIDE_DIMS[-1]} (K2w), not {d} "
             + _NO_KERNEL)
-    y = _series(y, dtype, device)
-    t_len = y.shape[0]
+    y = torch.as_tensor(y, dtype=dtype, device=device)
+    per_chain = y.dim() == 2
+    if per_chain and tuple(y.shape) != (c, y.shape[-1]):
+        raise ValueError(f"a series a chain must be [{c}, T]; got "
+                         f"{tuple(y.shape)}")
+    t_len = y.shape[-1]
     alpha1, w, eps = kalman.simulation_inputs(params, alpha1_z, eta_z,
                                               eps_z)
+    if per_chain:
+        eps = eps - y
+        y = y.new_zeros(t_len)
+    y = _series(y, dtype, device)
     p = _checked({"z": params.z, "t_mat": params.t_mat, "rqr": params.rqr,
                   "h": params.h, "p0": params.p0, "alpha1": alpha1, "w": w,
                   "eps": eps}, dtype, device)
@@ -307,17 +331,59 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
 
 
 def launch_smoother(p, y, obs):
-    """K2 on operands from :func:`smoother_operands` -> [C, T, d]."""
+    """K2 (d <= 6) or K2w on operands from :func:`smoother_operands` ->
+    [C, T, d]."""
     (c, d), t_len = p["z"].shape, y.shape[0]
     scratch = p["z"].new_empty(c, t_len, d + 1)
     out = p["z"].new_empty(c, t_len, d)
-    fn = getattr(_build.library("kalman_seq"),
-                 f"boom_kalman_smoother_f64_d{d}")
-    rc = fn(*(p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "p0",
-                                        "alpha1", "w", "eps")),
-            y.data_ptr(), _ptr(obs), scratch.data_ptr(), out.data_ptr(), c,
-            t_len, SMOOTHER_THREADS, _stream(y.device))
+    ptrs = [p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "p0",
+                                      "alpha1", "w", "eps")]
+    ptrs += [y.data_ptr(), _ptr(obs), scratch.data_ptr(), out.data_ptr()]
+    if d in _build.WIDE_DIMS:
+        kind = "smoother_wide"
+        rc = _build.library("kalman_wide").boom_kalman_smoother_wide_f64(
+            *ptrs, c, t_len, d, WIDE_THREADS, _stream(y.device))
+    else:
+        kind = "smoother"
+        fn = getattr(_build.library("kalman_seq"),
+                     f"boom_kalman_smoother_f64_d{d}")
+        rc = fn(*ptrs, c, t_len, SMOOTHER_THREADS, _stream(y.device))
     if rc != 0:
-        raise RuntimeError(f"CUDA smoother launch failed: cudaError {rc}")
-    LAUNCHES["smoother"] += 1
+        raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
+    LAUNCHES[kind] += 1
+    return out
+
+
+def dpath(t_mat, w):
+    """ASIS D-paths [C, G, T, d] (D_0 = 0, D_t = T_c D_{t-1} + w_{c,g,t})
+    of t_mat [C, d, d] and w [C, G, T-1, d] (K3 on a CUDA tensor, the plain
+    ``kalman.dpath`` on a CPU tensor)."""
+    if not _on_card(w):
+        return kalman.dpath(t_mat, w)
+    return launch_dpath(t_mat, w)
+
+
+def launch_dpath(t_mat, w):
+    """K3 on the card: checks, then one launch -> [C, G, T, d]."""
+    dtype, device = w.dtype, w.device
+    if dtype not in _DTYPE_TAG:
+        raise TypeError(f"the D-path kernel runs float32 or float64, not "
+                        f"{dtype}")
+    c, g, t_m1, d = w.shape
+    if d not in _build.DPATH_DIMS:
+        raise NotImplementedError(
+            f"the D-path kernel takes state dims {_build.DPATH_DIMS[0]}.."
+            f"{_build.DPATH_DIMS[-1]}, not {d} " + _NO_KERNEL)
+    p = _checked({"t_mat": t_mat, "w": w}, dtype, device)
+    if p["t_mat"].shape != (c, d, d):
+        raise ValueError(f"t_mat must be {(c, d, d)}; got "
+                         f"{tuple(p['t_mat'].shape)}")
+    out = w.new_empty(c, g, t_m1 + 1, d)
+    fn = getattr(_build.library("kalman_wide"),
+                 f"boom_dpath_{_DTYPE_TAG[dtype]}")
+    rc = fn(p["t_mat"].data_ptr(), p["w"].data_ptr(), out.data_ptr(), c, g,
+            t_m1 + 1, d, DPATH_THREADS, _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"CUDA dpath launch failed: cudaError {rc}")
+    LAUNCHES["dpath"] += 1
     return out

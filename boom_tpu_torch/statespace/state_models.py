@@ -1,6 +1,6 @@
 """State-model blocks on the bsts slice (port of
-boom_tpu/statespace/state_models.py:35-178): ``SdPrior``, ``LocalLevel``
-and ``LocalLinearTrend``.
+boom_tpu/statespace/state_models.py:35-246): ``SdPrior``, ``LocalLevel``,
+``LocalLinearTrend`` and ``Seasonal``.
 
 A block is a frozen dataclass of floats (the model spec) whose methods work
 on a batch of chains:
@@ -196,3 +196,73 @@ class LocalLinearTrend:
     def asis_groups(self):
         return [("sigma_level_sq", self.level_prior, (0,)),
                 ("sigma_slope_sq", self.slope_prior, (1,))]
+
+
+@dataclasses.dataclass(frozen=True)
+class Seasonal:
+    """Dummy-variable seasonal of ``nseasons`` seasons (reference Seasonal,
+    state_models.py:186-246; bsts add.seasonal): the state holds the last
+    nseasons - 1 effects, and the new effect is minus their sum plus an
+    innovation."""
+
+    nseasons: int
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    name: str = "seasonal"
+    err_dim: int = 1
+
+    @property
+    def dim(self):
+        return self.nseasons - 1
+
+    @staticmethod
+    def default(y, nseasons, name=None):
+        sd = _sd(y)
+        return Seasonal(
+            nseasons=nseasons,
+            sigma_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            initial_sd=sd, name=name or f"seasonal_{nseasons}")
+
+    def z(self, device, dtype):
+        z = torch.zeros(self.dim, device=device, dtype=dtype)
+        z[0] = 1.0
+        return z
+
+    def _t(self, device, dtype):
+        """Top row -1 (minus the sum of the effects), then a shift."""
+        d = self.dim
+        top = -torch.ones(1, d, device=device, dtype=dtype)
+        shift = torch.eye(d - 1, d, device=device, dtype=dtype)
+        return torch.cat([top, shift], dim=0)
+
+    def build(self, params):
+        var = params["sigma_seasonal_sq"]
+        c = var.shape[0]
+        r_mat = torch.zeros(self.dim, 1, device=var.device, dtype=var.dtype)
+        r_mat[0, 0] = 1.0
+        return (_chain_mats(self._t(var.device, var.dtype), c),
+                _chain_mats(r_mat, c), var[:, None, None])
+
+    def init_dist(self, device, dtype):
+        return (torch.zeros(self.dim, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(self.dim, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"seasonal_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u = noise["seasonal_u"] * (0.3 - 0.02) + 0.02
+        return {"sigma_seasonal_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"seasonal_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        t_mat = _chain_mats(self._t(path.device, path.dtype), path.shape[0])
+        eta = _innovations(path, t_mat)[..., 0]
+        return {"sigma_seasonal_sq": self.sigma_prior.draw_variance(
+            noise["seasonal_u"], eta.shape[1], (eta * eta).sum(-1))}
+
+    def asis_groups(self):
+        return [("sigma_seasonal_sq", self.sigma_prior, (0,))]

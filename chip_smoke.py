@@ -64,7 +64,46 @@ Phases:
      draws, pass split R-hat < 1.02, reach half the reference's min-ESS,
      land the monitored posterior medians within 1 % of the JAX reference's
      and include columns 0-7 with probability >= 0.99; it prints sweeps/s,
-     min-ESS/s and each phase's share of a sweep.
+     min-ESS/s and each phase's share of a sweep;
+  2d. the kernels of the bsts_reg path against their plain versions on the
+     card: K2w (the simulation smoother for 7 <= d <= 16,
+     ``csrc/kalman_wide.cu``) at d in {7, 8, 13, 16}, T in {31, 32, 33,
+     500}, 33 and 4095 chains (<= 1e-9), K3 (the ASIS D-path) at d in {1,
+     2, 7, 8, 13, 16}, G in {1, 3} (float64 <= 1e-9, float32 <= 1e-4), and
+     kernel (a)'s per-chain entry (a border of S0 a chain) at p in {20, 33,
+     50}, 33 and 4096 chains (float64 masks identical, float32 >= 99.5 %
+     identical with near-ties only); ten launches of each at the bsts_reg
+     shapes bit-identical; their times beside bounds and plain times
+     (``kalman_timing.py``, ``ssvs_timing.py``), registers and spills;
+  6. the bsts_reg configuration (BASELINE config #5, the README's quick
+     start) at full width on the committed data (``boom_tpu_torch/data/
+     bsts_reg.npz``): first the front end on its default device (the card)
+     through ``BstsModel().add_local_linear_trend().add_seasonal(7)
+     .fit(y, predictors=x)`` and every method of the fit, briefly; one
+     float64 sweep of 33 chains on the card against the CPU's on the same
+     noise; then ``Bsts`` with a local linear trend, a 7-season cycle
+     (d = 8) and a spike-and-slab regression of p = 20, T = 500, 4096
+     chains, 300 burn-in + 250 draws, float32 (smoother in float64),
+     through ``run_mcmc`` and ``BstsModel.predict(horizon=30,
+     future_predictors=x[500:])`` from 200 draws. It must run through K2w,
+     K3 and kernel (a)'s per-chain entry, give finite draws, pass split
+     R-hat < 1.02 on beta[0:4] and, on the four variances, R-hat - 1 at
+     most 1.10 times the reference's own at the same run length
+     (REFERENCE_RHAT_REG) + 0.01, reach half
+     the reference's min-ESS per draw, land the variances' medians within
+     10 % and beta[0:4]'s within 2 % of the reference's, include columns
+     0-3 with probability >= 0.99, and forecast within half the reference's
+     forecast sd of its median at each of the 30 steps; it prints
+     sweeps/s, min-ESS/s, each phase's share of a sweep and the device's
+     busy share.
+
+    python3 chip_smoke.py --gate-check
+
+builds the kernels and runs only phase 6's main run: sound from two more
+seeds, then with each of ``REG_FAULTS`` planted in memory (the ASIS pass
+skipped, a wrong seasonal T, the level variance frozen, kernel (a) given
+one chain's statistics for all), and prints each run's readings and the
+gates it fails: what phase 6's gates can see.
 
 Prints a JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``. Exits nonzero (and prints no result)
@@ -74,6 +113,7 @@ script, or when any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -190,6 +230,101 @@ REFERENCE_MEDIANS_SPIKE = (
     -2.0008912086486816, 1.9793345928192139, 1.011297345161438)
 SPIKE_MEDIAN_TOL = 0.01
 SPIKE_MIN_INCLUSION = 0.99
+
+
+# phase 2d: K2w, K3 and kernel (a)'s per-chain entry, the reference's XLA
+# scans they replace (K2w: the fused smoother's scan and _smoother_passes'
+# two at d > 6; K3: asis_redraw's D-path lax.scan; kernel (a)'s per-chain
+# entry: the SWEEP path of bsts' regression draw under vmap)
+WIDE_SOURCE = "boom_tpu_torch/csrc/kalman_wide.cu"
+WIDE_KERNELS = {"smoother_wide": ("kalman_simulation_smoother_wide",
+                                  "boom_tpu/statespace/kalman.py:476"),
+                "dpath": ("asis_dpath", "boom_tpu/statespace/bsts.py:1082")}
+WIDE_D_CHECK = (7, 8, 13, 16)
+WIDE_T_CHECK = (31, 32, 33, 500)
+WIDE_CHAIN_CHECK = (33, 4095)
+DPATH_D_CHECK = (1, 2, 7, 8, 13, 16)
+DPATH_G_CHECK = (1, 3)
+BORDER_P_CHECK = (20, 33, 50)
+BORDER_CHAIN_CHECK = (33, 4096)
+
+# phase 6: bsts_reg, BASELINE config #5 (BASELINE.md:32; README.md:40-44)
+REG_T, REG_P, REG_HORIZON = 500, 20, 30
+REG_CHAINS, REG_BURN, REG_DRAWS, REG_SEED = 4096, 300, 250, 0
+REG_FORECAST_DRAWS = 200
+REG_SWEEP_CHAINS = 33
+REG_MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq",
+               "sigma_seasonal_sq", "beta[0]", "beta[1]", "beta[2]",
+               "beta[3]")
+# The JAX reference's run on the committed data (x64 off, as the bench
+# runs): 64 chains, 500 burn-in + 2000 draws, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
+#         bench 64 500 2000 2026
+REFERENCE_MEDIANS_REG = {
+    "sigsq_obs": 0.3552930951118469, "sigma_level_sq": 0.0056000081822276115,
+    "sigma_slope_sq": 0.0001308427017647773,
+    "sigma_seasonal_sq": 0.0019495957531034946,
+    "beta[0]": 3.0178589820861816, "beta[1]": -2.0128607749938965,
+    "beta[2]": 1.4407904148101807, "beta[3]": 0.9968891143798828}
+REFERENCE_MIN_ESS_PER_DRAW_REG = 0.006821736849527832
+REFERENCE_FORECAST_MEDIAN_REG = (
+    -62.5980339050293, -58.61228942871094, -60.14018249511719,
+    -60.13082504272461, -67.90896606445312, -58.72581481933594,
+    -66.874755859375, -65.05384063720703, -63.49400329589844,
+    -61.678993225097656, -68.87454223632812, -64.82650756835938,
+    -64.33843231201172, -63.99015808105469, -73.91768646240234,
+    -67.31756591796875, -66.91307067871094, -61.61737060546875,
+    -73.06929016113281, -65.45597839355469, -68.3524169921875,
+    -69.45564270019531, -58.59198760986328, -71.50546264648438,
+    -70.0760726928711, -73.66845703125, -74.600341796875, -73.59306335449219,
+    -76.43486785888672, -67.3539810180664)
+REFERENCE_FORECAST_SD_REG = (
+    0.6791679263114929, 0.713959276676178, 0.6960288882255554,
+    0.8467196822166443, 0.7776634693145752, 0.7945913076400757,
+    0.8424422740936279, 0.9043722152709961, 0.9787407517433167,
+    0.9796078205108643, 0.9466345310211182, 0.9433966279029846,
+    1.0416755676269531, 1.0465636253356934, 1.0396223068237305,
+    1.1606380939483643, 1.2282204627990723, 1.1850286722183228,
+    1.3270279169082642, 1.4231960773468018, 1.4499027729034424,
+    1.4140335321426392, 1.5332988500595093, 1.649139404296875,
+    1.6279475688934326, 1.7510836124420166, 1.823449969291687,
+    1.8342525959014893, 1.8131062984466553, 1.9720864295959473)
+# Split R-hat of the reference at this run length (300 burn-in + 250
+# draws, 1024 chains, x64 off), REG_MONITOR's order, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
+#         bench 1024 300 250 7
+# The level and slope variances mix slowly in the reference's own sampler
+# (ESS per draw ~0.007-0.008): their R-hat at 250 draws is far above 1.02,
+# so the port's gate on the variances is the reference's own R-hat here
+REFERENCE_RHAT_REG = (1.033916377831742, 1.4894978317194372,
+                      1.4379444480299992, 1.0702209304820018,
+                      1.0019848446602277, 1.0019373305918495,
+                      1.0016245705207818, 1.0018420056521857)
+# the port's R-hat - 1 at most REG_RHAT_FACTOR times the reference's, plus
+# REG_RHAT_SLACK (both estimates carry the noise of a finite run). Sound
+# runs from seeds 0, 1 and 2 read at most 1.0348 / 1.5147 / 1.4474 /
+# 1.0716 against these limits of 1.0473 / 1.5484 / 1.4917 / 1.0872;
+# ``--gate-check`` reads 1.7526 on the level variance with the ASIS pass
+# skipped
+REG_RHAT_FACTOR, REG_RHAT_SLACK = 1.10, 0.01
+REG_VARIANCE_TOL, REG_BETA_TOL = 0.10, 0.02
+REG_MIN_INCLUSION = 0.99
+REG_FORECAST_SDS = 0.5
+# ``--gate-check``: phase 6's main run, sound from REG_SEED + each of
+# GATE_CHECK_SEEDS, and from REG_SEED with each fault planted in memory
+GATE_CHECK_SEEDS = (1, 2)
+REG_FAULTS = {
+    "asis_off": "the ASIS pass skipped",
+    "seasonal_t": "the seasonal's T leaves the oldest effect out of the sum",
+    "level_frozen": "the level variance never redrawn, by Gibbs or by ASIS",
+    "shared_border": "kernel (a) reads chain 0's border of S0 for every "
+                     "chain"}
+
+
+# the keys of every row of the kernels line
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
 
 
 class SmokeFailure(Exception):
@@ -679,11 +814,12 @@ def _phase_profile(model, state, gen, chains, prefix, phase_names,
         hits = [e for e in events if e.key == f"{prefix}.{name}"]
         phases[name] = (sum(e.cpu_time_total for e in hits) / sweeps / 1e3
                         if hits else 0.0)
-    # kernels only: the named ranges also appear as device-side
-    # annotations spanning their kernels
+    # kernels only: the named ranges (a bsts sweep's regression holds the
+    # "ssvs." ones) also appear as device-side annotations spanning their
+    # kernels
     device = sum(getattr(e, "self_device_time_total", 0.0) for e in events
                  if str(e.device_type).endswith("CUDA")
-                 and not e.key.startswith(f"{prefix}.")) / sweeps / 1e3
+                 and not e.key.startswith(("bsts.", "ssvs."))) / sweeps / 1e3
     return phases, wall, device
 
 
@@ -790,12 +926,13 @@ def phase4_bsts_llt(card):
     return launches
 
 
-def _first_parting_margin(model, mask, noise, qprobs, want, got):
+def _first_parting_margin(suf, prior, mask, noise, qprobs, want, got):
     """For chains whose kernel mask ``got`` differs from the plain one
     ``want``: the plain version's decision margin |log u - log threshold|
     at the first step (the jump, then each flip) after which the kernel's
     mask and the plain version's part, found by launching the kernel with
-    0, 1, ... flips. Returns [margins]."""
+    0, 1, ... flips, on the statistics ``suf`` (one response, or one a
+    chain: kernel (a)'s per-chain entry). Returns [margins]."""
     import torch
 
     from boom_tpu_torch.models.glm import regression_sweep as rs
@@ -803,15 +940,16 @@ def _first_parting_margin(model, mask, noise, qprobs, want, got):
 
     idx = torch.nonzero((got != want).any(-1))[:, 0]
     sub = {k: v[idx] for k, v in noise.items()}
+    if suf.xty.dim() == 2:
+        suf = suf._replace(xty=suf.xty[idx], yty=suf.yty[idx])
     record = []
-    rs.draw_indicators_swept(sub, model.suf, model.prior, mask[idx],
-                             qprobs=qprobs, record=record)
+    rs.draw_indicators_swept(sub, suf, prior, mask[idx], qprobs=qprobs,
+                             record=record)
     jump = qprobs is not None
     margins = [None] * len(idx)
     for step in range(len(record)):
         n_flips = step if jump else step + 1
-        k_mask = sk.launch_sweep(sub, model.suf, model.prior, mask[idx],
-                                 n_flips, qprobs)
+        k_mask = sk.launch_sweep(sub, suf, prior, mask[idx], n_flips, qprobs)
         parted = (k_mask != record[step][1]).any(-1)
         for i in torch.nonzero(parted)[:, 0].tolist():
             if margins[i] is None:
@@ -834,7 +972,8 @@ def _ssvs_case(rng, dtype, c, p, jump, max_size):
                                    qprobs=qprobs)
     diff = (got != want).any(-1)
     n_diff = int(diff.sum())
-    margins = (_first_parting_margin(model, mask, noise, qprobs, want, got)
+    margins = (_first_parting_margin(model.suf, model.prior, mask, noise,
+                                     qprobs, want, got)
                if n_diff else [])
     return n_diff, margins
 
@@ -887,8 +1026,8 @@ def phase2c_ssvs_vs_plain():
         if dtype == "float32":
             n_diff_f32 += n_diff
             if n_diff:
-                for m in _first_parting_margin(model, mask, noise, None,
-                                               want, got):
+                for m in _first_parting_margin(model.suf, model.prior, mask,
+                                               noise, None, want, got):
                     worst_margin = max(worst_margin, m)
                     if not m < SSVS_TIE:
                         bad.append(f"bench float32: a difference at margin "
@@ -1016,10 +1155,575 @@ def phase5_spike_slab(card):
     return launches
 
 
+def _wide_vs_plain(rng, c, d, t_len, masked, per_chain):
+    """K2w and the plain smoother on the same inputs: (normwise relative
+    error, max abs error)."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    f64 = torch.float64
+    params = kt.system(rng, c, d, "float64")
+    shape = (c, t_len) if per_chain else (t_len,)
+    y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=f64,
+                     device="cuda")
+    obs = (torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
+           if masked else None)
+    normals = [torch.tensor(rng.normal(size=s), dtype=f64, device="cuda")
+               for s in ((c, d), (c, t_len - 1, d), (c, t_len))]
+    got = kk.simulation_smoother(params, y, *normals, observed=obs)
+    want = kalman.simulation_smoother(params, y, *normals, observed=obs)
+    torch.cuda.synchronize()
+    return _rel(got, want), float((got - want).abs().max())
+
+
+def _dpath_vs_plain(rng, c, d, groups, t_len, dtype):
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    t_mat = kt.system(rng, c, d, dtype).t_mat.contiguous()
+    w = torch.tensor(rng.normal(size=(c, groups, t_len - 1, d)),
+                     dtype=getattr(torch, dtype), device="cuda")
+    got, want = kk.dpath(t_mat, w), kalman.dpath(t_mat, w)
+    torch.cuda.synchronize()
+    return _rel(got, want), float((got - want).abs().max())
+
+
+def _border_case(rng, dtype, c, p):
+    """Kernel (a)'s per-chain entry against the plain sweep: (chains
+    differing, their near-tie margins)."""
+    from boom_tpu_torch.kernels import ssvs_timing as sst
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as sk
+
+    suf, prior, mask, noise = sst.problem_per_chain(rng, c, p, dtype)
+    want = rs.draw_indicators_swept(noise, suf, prior, mask)
+    got = sk.draw_indicators_swept(noise, suf, prior, mask)
+    n_diff = int((got != want).any(-1).sum())
+    margins = (_first_parting_margin(suf, prior, mask, noise, None, want, got)
+               if n_diff else [])
+    return n_diff, margins
+
+
+def phase2d_wide_vs_plain():
+    """K2w, K3 and kernel (a)'s per-chain entry against their plain
+    versions; determinism; times. Returns the bsts_reg shapes' numbers."""
+    import torch
+
+    from boom_tpu_torch.kernels import _build
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.kernels import ssvs_timing as sst
+
+    rng = np.random.default_rng(20261019)
+    bad, worst = [], {}
+    for d in WIDE_D_CHECK:
+        for t_len in WIDE_T_CHECK:
+            for c in WIDE_CHAIN_CHECK:
+                # one series or a series a chain (phase 6's route, y = 0
+                # with eps - y_c) at both chain counts and at T = 500
+                masked = t_len in (33, 500)
+                per_chain = c == 33 or t_len in (32, 500)
+                rel, err = _wide_vs_plain(rng, c, d, t_len, masked,
+                                          per_chain)
+                print(f"smoother_wide d={d} T={t_len} C={c} masked={masked} "
+                      f"per_chain={per_chain}: rel {rel:.2e} abs {err:.2e}")
+                worst["smoother_wide"] = max(worst.get("smoother_wide", 0.0),
+                                             rel)
+                if not (np.isfinite(rel) and rel <= SCAN_TOL["float64"]):
+                    bad.append(f"smoother_wide d={d} T={t_len} C={c}: "
+                               f"{rel:.3e}")
+    for dtype in ("float64", "float32"):
+        for d in DPATH_D_CHECK:
+            for g in DPATH_G_CHECK:
+                for c in (33, 4096):
+                    rel, err = _dpath_vs_plain(rng, c, d, g, LLT_T, dtype)
+                    key = f"dpath {dtype}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
+                        bad.append(f"dpath {dtype} d={d} G={g} C={c}: "
+                                   f"{rel:.3e}")
+    for k, v in sorted(worst.items()):
+        print(f"worst {k}: {v:.3e}")
+    n_f32 = total_f32 = 0
+    worst_margin = 0.0
+    for dtype in ("float64", "float32"):
+        for p in BORDER_P_CHECK:
+            for c in BORDER_CHAIN_CHECK:
+                n_diff, margins = _border_case(rng, dtype, c, p)
+                print(f"ssvs_sweep_border {dtype} p={p} C={c}: {n_diff} "
+                      "chains differ from the plain version")
+                if dtype == "float64" and n_diff:
+                    bad.append(f"border float64 p={p} C={c}: {n_diff} "
+                               "chains differ")
+                if dtype == "float32":
+                    n_f32 += n_diff
+                    total_f32 += c
+                    for m in margins:
+                        worst_margin = max(worst_margin, m)
+                        if not m < SSVS_TIE:
+                            bad.append(f"border float32 p={p} C={c}: a "
+                                       f"difference at margin {m:.3e}")
+    agree = 1.0 - n_f32 / total_f32
+    print(f"ssvs_sweep_border float32: {n_f32} of {total_f32} chains differ "
+          f"(agreement {agree:.5f}, gate >= {SSVS_F32_AGREE}), worst "
+          f"near-tie margin {worst_margin:.3e}")
+    check(not bad, "a kernel of the bsts_reg path disagrees with its plain "
+          "version: " + "; ".join(bad[:20]))
+    check(agree >= SSVS_F32_AGREE,
+          f"float32 border masks agree on {agree:.4f} of chains")
+
+    # the bsts_reg shapes: error, ten launches bit-identical
+    at_reg, same = {}, {}
+    for name in WIDE_KERNELS:
+        kern, ref, _wrapper, _scan = kt.wide_cases(rng, name,
+                                                   *kt.WIDE_SHAPES[name])
+        first, want = kern(), ref()
+        at_reg[name] = {"max_abs_err": float((first - want).abs().max())}
+        same[name] = all(torch.equal(first, kern()) for _ in range(9))
+    suf, prior, mask, noise = sst.bsts_reg_problem("float32")
+    kern, ref, _wrapper = sst.border_cases(suf, prior, mask, noise)
+    first, want = kern(), ref()
+    at_reg["ssvs_sweep_border"] = {
+        "max_abs_err": float((first.float() - want.float()).abs().max())}
+    same["ssvs_sweep_border"] = all(torch.equal(first, kern())
+                                    for _ in range(9))
+    torch.cuda.synchronize()
+    print("bsts_reg shapes: max abs error " + ", ".join(
+        f"{k} {v['max_abs_err']:.3e}" for k, v in at_reg.items())
+        + "; ten launches bit-identical: "
+        + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+
+    for name, r in {**kt.time_wide(rng), **sst.time_border()}.items():
+        plain = (f"{r['plain_ms']:.4f} ms" if r["plain_ms"] is not None
+                 else "not timed")
+        scan = (f", kernel (c)'s affine scan {r['scan_ms']:.4f} ms"
+                if r.get("scan_ms") is not None else "")
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {plain}, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}){scan}; one call on "
+              f"the host clock {r['call_ms']:.4f} ms")
+        if name in at_reg:
+            at_reg[name].update({k: r[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms", "bound_by")})
+    for source, report in (("kalman_wide", kt.wide_nvcc_report),
+                           ("ssvs_sweep", sst.nvcc_report)):
+        log = _build.log_path(source)
+        if log.exists():
+            for inst, rep in report(log.read_text()).items():
+                print(f"nvcc {inst}: {rep['registers']} registers, "
+                      f"{rep['spill_bytes']} bytes spill stores, "
+                      f"{rep['stack_bytes']} bytes stack")
+    return at_reg
+
+
+def _reg_model(x, y, chains, **kw):
+    """bsts_reg's model: what ``BstsModel().add_local_linear_trend()
+    .add_seasonal(nseasons=7).fit(y, predictors=x)`` builds (``kw``: more
+    of ``Bsts``'s fields)."""
+    from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
+    from boom_tpu_torch.statespace.bsts import Bsts
+    from boom_tpu_torch.statespace.state_models import (
+        LocalLinearTrend,
+        Seasonal,
+    )
+
+    return Bsts(y=y, blocks=[LocalLinearTrend.default(y),
+                             Seasonal.default(y, nseasons=7)],
+                predictors=x,
+                reg_prior=SpikeSlabPrior.from_data(
+                    x, y, expected_model_size=1.0,
+                    prior_information_weight=1.0),
+                chains_hint=chains, **kw)
+
+
+def _reg_front_end(x_all, y):
+    """The README's quick start on the card (the default device): fit, then
+    every method of the fit; returns the seconds it took."""
+    import torch
+
+    from boom_tpu_torch.api import BstsModel
+
+    t0 = time.perf_counter()
+    fit = BstsModel().add_local_linear_trend().add_seasonal(nseasons=7)
+    fit.fit(y, predictors=x_all[:REG_T], niter=20, burn=10, num_chains=64,
+            seed=1)
+    fcast = fit.predict(horizon=REG_HORIZON,
+                        future_predictors=x_all[REG_T:], max_draws=50)
+    contrib = fit.state_contribution_draws()
+    errs = fit.prediction_errors()["in.sample"]
+    coefs, summ = fit.coefficients(), fit.summary()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(fit._model.y.device.type == "cuda"
+          and fit.draws["alpha"].device.type == "cuda",
+          "BstsModel.fit did not run on the card by default")
+    check(tuple(fcast.shape) == (50, REG_HORIZON)
+          and bool(torch.isfinite(fcast).all()), "front-end forecast")
+    check(set(contrib) == {"trend", "seasonal_7", "regression"}
+          and all(tuple(v.shape) == (64 * 20, REG_T)
+                  for v in contrib.values()), "state contributions")
+    check(tuple(errs.shape) == (50, REG_T)
+          and bool(torch.isfinite(errs).all()), "prediction errors")
+    check(len(coefs) == REG_P and "coefficients" in summ,
+          "coefficients / summary")
+    print(f"bsts_reg front end on the card: fit (64 chains, 10 + 20 sweeps), "
+          f"predict, state_contribution_draws, prediction_errors, "
+          f"coefficients and summary in {secs:.2f} s; observation sd "
+          f"{summ['observation_sd']['mean']:.4f}, beta[0:4] means "
+          + ", ".join(f"{r['mean']:.3f}" for r in coefs[:4]))
+    return secs
+
+
+def _reg_sweep_vs_cpu(x_all, y_np):
+    """One float64 sweep (init included) of REG_SWEEP_CHAINS chains on the
+    card against the CPU's on the same noise: (chains whose masks agree,
+    worst relative difference over them, near-tie margins of the rest)."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference.driver import tree_map
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm.regression import RegSuf
+
+    c = REG_SWEEP_CHAINS
+    f64 = torch.float64
+    out, models, inits = {}, {}, {}
+    gen = prng.generator(3, "cpu")
+    for device in ("cpu", "cuda"):
+        x = torch.tensor(x_all[:REG_T], dtype=f64, device=device)
+        y = torch.tensor(y_np, dtype=f64, device=device)
+        models[device] = _reg_model(x, y, c)
+        if device == "cpu":
+            init_noise = models[device].draw_init_noise(gen, c)
+            noise = models[device].draw_noise(gen, c)
+        moved = [tree_map(lambda t, dev=device: t.to(dev), n)
+                 for n in (init_noise, noise)]
+        inits[device] = models[device].init_state(moved[0])
+        state = models[device].kernel()(moved[1], inits[device])
+        out[device] = tree_map(lambda t: t.cpu(), state)
+    agree = (out["cuda"]["gamma"] == out["cpu"]["gamma"]).all(-1)
+    errs = []
+    tree_map(lambda a, b: errs.append(_rel(a[agree].double(),
+                                           b[agree].double())),
+             out["cuda"], out["cpu"])
+    margins = []
+    if not bool(agree.all()):
+        # the plain version's decisions of the differing chains, on the
+        # CPU's statistics: the smallest margin |log u - log threshold|
+        model, state = models["cpu"], inits["cpu"]
+        z = model.ssm_params(state).z
+        y_reg = model.y - (state["alpha"] * z[:, None]).sum(-1)
+        xx = model.predictors
+        suf = RegSuf(xtx=xx.T @ xx, xty=y_reg @ xx,
+                     yty=(y_reg * y_reg).sum(-1),
+                     n=torch.tensor(float(REG_T), dtype=f64))
+        idx = torch.nonzero(~agree)[:, 0]
+        record = []
+        rs.draw_indicators_swept(
+            {k: v[idx] for k, v in noise["reg"].items()},
+            suf._replace(xty=suf.xty[idx], yty=suf.yty[idx]),
+            model.reg_prior, state["gamma"][idx], record=record)
+        margins = torch.stack([r[0].abs() for r in record]).min(0)
+        margins = margins.values.tolist()
+    return int(agree.sum()), max(errs), margins
+
+
+def _reg_extract(state):
+    """bsts_reg's monitor, the regression and the last row of the state
+    (what ``BstsModel.predict`` reads)."""
+    return {"sigsq_obs": state["sigsq_obs"],
+            "blocks": {name: dict(v) for name, v in state["blocks"].items()},
+            "beta": state["beta"], "gamma": state["gamma"],
+            "alpha": state["alpha"][:, -1:]}
+
+
+def _reg_run(model, seed, x_all):
+    """One bsts_reg run: REG_CHAINS chains x (REG_BURN + REG_DRAWS) sweeps
+    of ``model`` from ``seed`` through ``run_mcmc``, then the forecast of
+    REG_FORECAST_DRAWS draws; returns what the gates read."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+
+    for counts in (kk.LAUNCHES, sk.LAUNCHES, ssk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    gen = prng.generator(seed, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   REG_DRAWS, generator=gen, num_chains=REG_CHAINS,
+                   burn=REG_BURN, extract=_reg_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"smoother_wide": kk.LAUNCHES["smoother_wide"],
+                "dpath": kk.LAUNCHES["dpath"],
+                "ssvs_sweep_border": ssk.LAUNCHES["ssvs_sweep_border"]}
+    others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES,
+                                **ssk.LAUNCHES}.items()
+              if k not in launches and v}
+
+    d = res.draws
+    tr, se = d["blocks"]["trend"], d["blocks"]["seasonal_7"]
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for v in (d["sigsq_obs"], d["beta"], d["alpha"],
+                           *tr.values(), *se.values()))
+    mon = torch.cat([torch.stack([d["sigsq_obs"], tr["sigma_level_sq"],
+                                  tr["sigma_slope_sq"],
+                                  se["sigma_seasonal_sq"]], dim=-1),
+                     d["beta"][..., :4]], dim=-1).double()
+    ess = diagnostics.effective_sample_size(mon).cpu().numpy()
+
+    t1 = time.perf_counter()
+    fcast = BstsModel(_model=model, _result=res).predict(
+        horizon=REG_HORIZON, future_predictors=x_all[REG_T:],
+        max_draws=REG_FORECAST_DRAWS)
+    torch.cuda.synchronize()
+    f_med = fcast.double().median(0).values.cpu().numpy()
+    return {
+        "res": res, "gen": gen, "elapsed": elapsed, "launches": launches,
+        "others": others, "finite": finite,
+        "rhat": diagnostics.potential_scale_reduction(mon).cpu().numpy(),
+        "ess": ess, "per_draw": ess / (REG_CHAINS * REG_DRAWS),
+        "med": mon.reshape(-1, len(REG_MONITOR)).median(0).values
+        .cpu().numpy(),
+        "inclusion": d["gamma"].double().mean((0, 1)).cpu().numpy(),
+        "fcast_shape": tuple(fcast.shape),
+        "fcast_finite": bool(torch.isfinite(fcast).all()),
+        "fcast_s": time.perf_counter() - t1,
+        "gap": np.abs(f_med - np.asarray(REFERENCE_FORECAST_MEDIAN_REG))
+        / np.asarray(REFERENCE_FORECAST_SD_REG)}
+
+
+def _print_reg(label, r):
+    for i, name in enumerate(REG_MONITOR):
+        ref = REFERENCE_MEDIANS_REG[name]
+        print(f"{label} {name}: median {r['med'][i]:.6g} (reference "
+              f"{ref:.6g}, ratio {r['med'][i] / ref:.4f}) rhat "
+              f"{r['rhat'][i]:.4f} (reference's at this length "
+              f"{REFERENCE_RHAT_REG[i]:.4f}) ess per draw "
+              f"{r['per_draw'][i]:.5f}")
+    print(f"{label} inclusion probabilities: "
+          + ", ".join(f"{v:.4f}" for v in r["inclusion"]))
+    gap = r["gap"]
+    print(f"{label} forecast {list(r['fcast_shape'])} in {r['fcast_s']:.2f} "
+          f"s: |median - reference's| / reference's sd at steps 1, 10, 30: "
+          f"{gap[0]:.3f}, {gap[9]:.3f}, {gap[-1]:.3f}; worst "
+          f"{float(gap.max()):.3f} (gate {REG_FORECAST_SDS})")
+
+
+def _reg_gates(r):
+    """Phase 6's gates on a run's readings: [(gate, passed, message)]."""
+    gates = [("finite", r["finite"], "non-finite bsts_reg draws")]
+    rhat, med = r["rhat"], r["med"]
+    for i, name in enumerate(REG_MONITOR):
+        if name.startswith("beta"):
+            gates.append((f"rhat {name}", rhat[i] < RHAT_GATE,
+                          f"bsts_reg R-hat of {name} {rhat[i]:.4f} >= "
+                          f"{RHAT_GATE}"))
+        else:
+            limit = (1.0 + REG_RHAT_FACTOR * (REFERENCE_RHAT_REG[i] - 1.0)
+                     + REG_RHAT_SLACK)
+            gates.append((f"rhat {name}", rhat[i] <= limit,
+                          f"bsts_reg R-hat of {name} {rhat[i]:.4f} > "
+                          f"{limit:.4f} (the reference's at this length "
+                          f"{REFERENCE_RHAT_REG[i]:.4f})"))
+        tol = REG_BETA_TOL if name.startswith("beta") else REG_VARIANCE_TOL
+        ref = REFERENCE_MEDIANS_REG[name]
+        gates.append((f"median {name}", abs(med[i] / ref - 1.0) <= tol,
+                      f"bsts_reg median of {name} {med[i]:.5g} is not "
+                      f"within {tol:.0%} of the reference's {ref:.5g}"))
+    min_per_draw = float(r["per_draw"].min())
+    gates += [
+        ("ess", min_per_draw >= 0.5 * REFERENCE_MIN_ESS_PER_DRAW_REG,
+         f"bsts_reg min-ESS per draw {min_per_draw:.5f} is below half the "
+         f"reference's {REFERENCE_MIN_ESS_PER_DRAW_REG:.5f}"),
+        ("inclusion", bool((r["inclusion"][:4] >= REG_MIN_INCLUSION).all()),
+         f"inclusion probabilities of columns 0-3 "
+         f"{r['inclusion'][:4].tolist()}"),
+        ("forecast shape",
+         r["fcast_shape"] == (REG_FORECAST_DRAWS, REG_HORIZON)
+         and r["fcast_finite"],
+         f"the forecast is {r['fcast_shape']} or not finite"),
+        ("forecast", float(r["gap"].max()) <= REG_FORECAST_SDS,
+         f"the forecast's median is {float(r['gap'].max()):.3f} reference "
+         "sds from the reference's")]
+    return gates
+
+
+def _reg_data():
+    """The committed bsts_reg data: (x [530, 20] and y [500] as numpy, x
+    [500, 20] and y on the card, float32)."""
+    import torch
+
+    from boom_tpu_torch import data
+
+    x_all, y_np = data.bsts_reg_xy()
+    check(x_all.shape == (REG_T + REG_HORIZON, REG_P)
+          and y_np.shape == (REG_T,), "the bsts_reg data's shapes")
+    x = torch.tensor(x_all[:REG_T], device="cuda")
+    y = torch.tensor(y_np, device="cuda")
+    check(x.dtype == torch.float32 and y.dtype == torch.float32,
+          f"the bsts_reg data are {x.dtype}")
+    return x_all, y_np, x, y
+
+
+def phase6_bsts_reg(card):
+    """BASELINE config #5 at full width; returns the new kernels' launch
+    counts of the main run."""
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
+
+    x_all, y_np, x, y = _reg_data()
+    _reg_front_end(x_all, y_np)
+
+    n_agree, worst, margins = _reg_sweep_vs_cpu(x_all, y_np)
+    print(f"bsts_reg float64 sweep C={REG_SWEEP_CHAINS}: card vs CPU masks "
+          f"agree on {n_agree} chains, worst relative difference there "
+          f"{worst:.3e} (tolerance {SWEEP_TOL:g}); the others' smallest "
+          f"decision margins {margins}")
+    check(np.isfinite(worst) and worst <= SWEEP_TOL,
+          f"the bsts_reg sweep on the card disagrees: {worst:.3e}")
+    check(n_agree >= REG_SWEEP_CHAINS - 1
+          and all(m < SSVS_TIE for m in margins),
+          f"the bsts_reg masks agree on {n_agree} chains, margins {margins}")
+
+    model = _reg_model(x, y, REG_CHAINS)
+    check(model.state_dim == 8 and model.num_predictors == REG_P,
+          f"d = {model.state_dim}, p = {model.num_predictors}")
+    r = _reg_run(model, REG_SEED, x_all)
+    launches, elapsed = r["launches"], r["elapsed"]
+    sweeps = REG_BURN + REG_DRAWS
+    print(f"bsts_reg: T={REG_T} d=8 p={REG_P} chains={REG_CHAINS} "
+          f"burn={REG_BURN} draws={REG_DRAWS} in {elapsed:.2f} s; launches "
+          f"{launches}, other kernels {r['others']}")
+    check(launches["smoother_wide"] >= sweeps + 1
+          and launches["dpath"] >= sweeps
+          and launches["ssvs_sweep_border"] >= sweeps,
+          f"the bsts_reg run did not go through its kernels: {launches}")
+    _print_reg("bsts_reg", r)
+    print(f"bsts_reg rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {float(r['ess'].min()):.1f} "
+          f"({float(r['per_draw'].min()):.5f} a draw, the reference's "
+          f"{REFERENCE_MIN_ESS_PER_DRAW_REG:.5f}), min-ESS/s "
+          f"{float(r['ess'].min()) / elapsed:.2f}, max R-hat "
+          f"{float(r['rhat'].max()):.4f}")
+
+    _print_profile(f"bsts_reg [{card}]", *_phase_profile(
+        model, r["res"].final_state, r["gen"], REG_CHAINS, "bsts",
+        SWEEP_PHASES))
+    for _gate, ok, msg in _reg_gates(r):
+        check(ok, msg)
+    return launches
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """Plant one of REG_FAULTS in the port for the duration of a run, by
+    replacing a method or function in memory (no file changes); yields the
+    model's keyword arguments."""
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.statespace.state_models import (
+        LocalLinearTrend,
+        Seasonal,
+    )
+
+    patches, kw = [], {}
+    if fault == "asis_off":
+        kw["asis"] = False
+    elif fault == "seasonal_t":
+        orig_t = Seasonal._t
+
+        def short_t(self, device, dtype):
+            t_mat = orig_t(self, device, dtype).clone()
+            t_mat[0, -1] = 0.0
+            return t_mat
+        patches.append((Seasonal, "_t", short_t))
+    elif fault == "level_frozen":
+        orig_draw = LocalLinearTrend.draw_params
+        orig_groups = LocalLinearTrend.asis_groups
+
+        def draw_kept(self, noise, params, path):
+            return {**orig_draw(self, noise, params, path),
+                    "sigma_level_sq": params["sigma_level_sq"]}
+        patches += [(LocalLinearTrend, "draw_params", draw_kept),
+                    (LocalLinearTrend, "asis_groups",
+                     lambda self: [g for g in orig_groups(self)
+                                   if g[0] != "sigma_level_sq"])]
+    elif fault == "shared_border":
+        orig_border = rs.border
+
+        def chain0_border(suf, prior):
+            edge = orig_border(suf, prior)
+            return edge if edge.dim() == 1 else edge[:1].expand_as(edge)
+        patches.append((rs, "border", chain0_border))
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        yield kw
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def gate_check(card):
+    """Phase 6's main run, sound from two more seeds and with each of
+    REG_FAULTS planted: each run's readings and the gates it fails. A
+    measurement of what the gates can see; prints a JSON line of the
+    readings and returns 0 when every run completed."""
+    x_all, _y_np, x, y = _reg_data()
+    runs = [(f"sound seed {REG_SEED + k}", REG_SEED + k, None)
+            for k in GATE_CHECK_SEEDS]
+    runs += [(f"fault {f}", REG_SEED, f) for f in REG_FAULTS]
+    out = {}
+    for label, seed, fault in runs:
+        with _planted(fault) as kw:
+            model = _reg_model(x, y, REG_CHAINS, **kw)
+            r = _reg_run(model, seed, x_all)
+        failed = [g for g, ok, _msg in _reg_gates(r) if not ok]
+        print(f"gate check [{card}] {label}"
+              + (f" ({REG_FAULTS[fault]})" if fault else "")
+              + f": {REG_BURN + REG_DRAWS} sweeps in {r['elapsed']:.2f} s")
+        _print_reg(f"gate check {label}", r)
+        print(f"gate check {label}: fails {failed or 'no gate'}")
+        out[label] = {
+            "rhat": [float(v) for v in r["rhat"]],
+            "median_ratio": [float(r["med"][i] / REFERENCE_MEDIANS_REG[n])
+                             for i, n in enumerate(REG_MONITOR)],
+            "min_ess_per_draw": float(r["per_draw"].min()),
+            "inclusion_0_3": [float(v) for v in r["inclusion"][:4]],
+            "forecast_worst_sds": float(r["gap"].max()),
+            "failed": failed}
+    print(json.dumps({"gate_check": out, "card": card}))
+    return 0
+
+
 def main():
     card = phase0_environment()
     import torch
 
+    if sys.argv[1:] == ["--gate-check"]:
+        try:
+            phase1_build()
+            return gate_check(card)
+        except SmokeFailure as exc:
+            print(f"chip_smoke --gate-check FAILED: {exc}", file=sys.stderr)
+            return 1
     try:
         phase1_build()
         at_fit = phase2_kernels_vs_plain()
@@ -1029,6 +1733,8 @@ def main():
         llt_launches = phase4_bsts_llt(card)
         at_ssvs = phase2c_ssvs_vs_plain()
         ssvs_launches = phase5_spike_slab(card)
+        at_reg = phase2d_wide_vs_plain()
+        reg_launches = phase6_bsts_reg(card)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1048,6 +1754,21 @@ def main():
                     "source": SSVS_SOURCE, "replaces": SSVS_REPLACES,
                     "launches": ssvs_launches, **at_ssvs,
                     "library_ms": None})
+    for k, (name, replaces) in WIDE_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": WIDE_SOURCE, "replaces": replaces,
+                        "launches": reg_launches[k], **at_reg[k],
+                        "library_ms": None})
+    kernels.append({"name": "ssvs_sweep_border", "route": "cuda",
+                    "source": SSVS_SOURCE, "replaces": SSVS_REPLACES,
+                    "launches": reg_launches["ssvs_sweep_border"],
+                    **at_reg["ssvs_sweep_border"], "library_ms": None})
+    lacking = {k["name"]: sorted(KERNEL_KEYS - set(k)) for k in kernels
+               if KERNEL_KEYS - set(k)}
+    if lacking:
+        print(f"chip_smoke FAILED: kernel rows lack keys: {lacking}",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -225,7 +225,7 @@ def test_smoother_dispatch():
 
 
 @pytest.mark.parametrize("option", [
-    {"predictors": torch.zeros(T_LEN, 2)},
+    {"obs_weights": torch.ones(T_LEN)},
     {"observed": torch.ones(T_LEN, dtype=torch.bool)},
     {"marginal_sigma_slice": True, "marginal_move": "mtm"},
 ])

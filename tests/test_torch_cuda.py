@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the parallel scans, the sequential
 Kalman loglik K1, its derivative kernels J1 and J2, the simulation
-smoother K2, and kernel (a), the SSVS indicator sweep) against their plain
-PyTorch versions, on the card. These need
+smoothers K2 and K2w, the ASIS D-path K3, and kernel (a), the SSVS
+indicator sweep, with one S0 and with a border of S0 a chain) against
+their plain PyTorch versions, on the card. These need
 a CUDA device and ``nvcc``: here they skip. Run them on a machine with the
 card (the repository's conftest imports JAX, which that machine need not
 have):
@@ -305,9 +306,9 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
     h = params.h.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kk.kalman_loglik(params._replace(h=h), y)  # d=3: no jet kernel
-    big, y7, _, n7 = _kalman_inputs(card, torch.float64, 7, 20, seed=2)
+    big, y17, _, n17 = _kalman_inputs(card, torch.float64, 17, 20, seed=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kk.simulation_smoother(big, y7, *n7)
+        kk.simulation_smoother(big, y17, *n17)
 
 
 # -- kernel (a), the SSVS indicator sweep -----------------------------------
@@ -357,3 +358,88 @@ def test_ssvs_kernel_is_bit_identical_and_refuses_what_it_cannot_hold(card):
         ssk.launch_sweep({**noise, "perm": noise["perm"][:, :3]}, model.suf,
                          model.prior, mask, 50)
     assert rs.flip_count(50) == 50
+
+
+# -- K2w and K3 (kalman_wide.cu), kernel (a)'s per-chain entry ---------------
+
+
+@pytest.mark.parametrize("d", [7, 8, 13, 16])
+@pytest.mark.parametrize("t_len", [31, 32, 33, 500])
+@pytest.mark.parametrize("per_chain", [False, True])
+def test_smoother_wide_matches_plain(card, d, t_len, per_chain):
+    """K2w against the plain smoother, 33 chains (a last block of one
+    warp), masked, with one series or a series a chain; one launch."""
+    c = 33
+    params, y, obs, normals = _kalman_inputs(card, torch.float64, d, t_len,
+                                             seed=d * 1000 + t_len, c=c,
+                                             masked=True)
+    if per_chain:
+        gen = torch.Generator(device=card).manual_seed(d)
+        y = y + torch.randn(c, t_len, dtype=y.dtype, device=card,
+                            generator=gen)
+    before = dict(kk.LAUNCHES)
+    draw = kk.simulation_smoother(params, y, *normals, observed=obs)
+    ref = kalman.simulation_smoother(params, y, *normals, observed=obs)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["smoother_wide"] == before["smoother_wide"] + 1
+    assert kk.LAUNCHES["smoother"] == before["smoother"]
+    assert _within(draw, ref, TOL[torch.float64])
+    for _ in range(9):
+        assert torch.equal(draw, kk.simulation_smoother(
+            params, y, *normals, observed=obs))
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 8, 13, 16])
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dpath_kernel_matches_plain(card, d, groups, dtype):
+    """K3 against the plain recurrence, 33 chains, T = 500; one launch;
+    ten launches bit-identical."""
+    rng = np.random.default_rng(d * 10 + groups)
+    c, t_len = 33, 500
+    t_mat = _system(rng, c, d, dtype, card).t_mat.contiguous()
+    w = torch.tensor(rng.normal(size=(c, groups, t_len - 1, d)),
+                     dtype=dtype, device=card)
+    before = kk.LAUNCHES["dpath"]
+    got = kk.dpath(t_mat, w)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["dpath"] == before + 1
+    assert _within(got, kalman.dpath(t_mat, w), TOL[dtype])
+    for _ in range(9):
+        assert torch.equal(got, kk.dpath(t_mat, w))
+
+
+@pytest.mark.parametrize("p", [20, 33, 50])
+@pytest.mark.parametrize("chains", [33, 4096])
+def test_ssvs_border_kernel_matches_plain(card, p, chains):
+    """Kernel (a)'s per-chain entry, float64: masks equal the plain
+    sweep's on per-chain statistics, one launch of that entry."""
+    from boom_tpu_torch.kernels.ssvs_timing import problem_per_chain
+    from boom_tpu_torch.models.glm import regression_sweep as rs
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+
+    rng = np.random.default_rng(p + chains)
+    suf, prior, mask, noise = problem_per_chain(rng, chains, p, "float64")
+    want = rs.draw_indicators_swept(noise, suf, prior, mask)
+    before = dict(ssk.LAUNCHES)
+    got = ssk.draw_indicators_swept(noise, suf, prior, mask)
+    torch.cuda.synchronize()
+    assert ssk.LAUNCHES["ssvs_sweep_border"] == (
+        before["ssvs_sweep_border"] + 1)
+    assert ssk.LAUNCHES["ssvs_sweep"] == before["ssvs_sweep"]
+    assert torch.equal(got, want)
+
+
+def test_log_lik_with_a_regression_refuses_the_card(card):
+    """K1 takes one series for every chain; bsts with a regression gives a
+    series a chain, y - X beta: on the card ``log_lik`` raises rather than
+    run the plain filter."""
+    from boom_tpu_torch.api import BstsModel
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(40, 3))
+    y = x[:, 0] + np.cumsum(rng.normal(size=40))
+    fit = (BstsModel().add_local_linear_trend().add_seasonal(nseasons=4)
+           .fit(y, predictors=x, niter=2, burn=1, num_chains=4, seed=1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fit._model.log_lik(fit._flat())
