@@ -75,7 +75,10 @@ enum cudaError_t {
   cudaErrorLaunchTimeout = 702  // a barrier was not met by its deadline
 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
 struct cudaFuncAttributes { int maxThreadsPerBlock; };
 static cudaError_t host_last_error = cudaSuccess;
 inline cudaError_t cudaGetLastError() {
@@ -95,6 +98,18 @@ cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
 }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// resident blocks an SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// reports (boom_host_set_occupancy: a launcher's choices at other loads)
+static int host_blocks_per_sm = 1;
+extern "C" void boom_host_set_occupancy(int blocks) {
+  host_blocks_per_sm = blocks;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = host_blocks_per_sm;
   return cudaSuccess;
 }
 struct HostDim3 { int x, y, z; };
@@ -364,16 +379,24 @@ def check_kernels(seed=0):
     return worst
 
 
-# K2w: d at and past K2's widest, T one below, at and above a chunk of 32
-# steps and one step, 33 chains (a last block of one warp), masked, dense
-# and a series a chain; K3: d 1 (32 groups a pass) to 16 (two), G 1 and 3
-WIDE_CASES = [(d, c, t_len, masked, per_chain) for d in (7, 8)
+# K2w: d 7 and 8 (four chains a warp), 9, 13 and 16 (two); 1, 3 and 5
+# chains (a partial pack and a partial warp) and 33 (a partial block); T one
+# below, at and above 32 (edges of the passes' chunks of 2-16 steps) and
+# one step; masked, dense and a series a chain
+WIDE_CASES = [(d, c, t_len, masked, per_chain) for d in (7, 8, 9, 13, 16)
               for c, t_len, masked, per_chain in (
                   (5, 31, False, False), (33, 32, True, False),
-                  (5, 33, False, True), (3, 1, False, False))]
-DPATH_CASES = [(d, g, dtype) for d, g in ((1, 1), (2, 2), (8, 3), (13, 3),
-                                          (16, 1))
+                  (5, 33, False, True), (3, 1, False, False),
+                  (1, 33, True, True), (3, 32, False, True),
+                  (33, 33, True, True))]
+# K3: d 1 (32 series a warp), 2, 3 (8 and 4 lanes a series), 8, 13 and 16
+# (two series a warp); G 1 to 3 of 5 chains and G = 2 of 7 (series counts
+# that leave a warp's last pack ragged, and whole warps past the batch);
+# T = 70 crosses the edges of either chunk length
+DPATH_CASES = [(d, g, dtype, c) for d in (1, 2, 3, 8, 13, 16)
+               for g, c in ((1, 5), (2, 5), (2, 7), (3, 5))
                for dtype in ("float64", "float32")]
+DPATH_T = 70
 
 
 def check_wide(seed=0, wide_cases=WIDE_CASES, dpath_cases=DPATH_CASES):
@@ -399,15 +422,23 @@ def check_wide(seed=0, wide_cases=WIDE_CASES, dpath_cases=DPATH_CASES):
             f"per_chain={per_chain}"] = _rel(
             kk.simulation_smoother(params, y, *nz, observed=obs),
             kalman.simulation_smoother(params, y, *nz, observed=obs))
-    for d, g, dtype in dpath_cases:
+    for d, g, dtype, c in dpath_cases:
         tdt = getattr(torch, dtype)
-        c, t_len = 5, 40
         t_mat = torch.tensor(rng.normal(size=(c, d, d)) / np.sqrt(d),
                              dtype=tdt)
-        w = torch.tensor(rng.normal(size=(c, g, t_len - 1, d)), dtype=tdt)
-        out[f"dpath d={d} G={g} {dtype}"] = _rel(kk.dpath(t_mat, w),
-                                                 kalman.dpath(t_mat, w))
+        w = torch.tensor(rng.normal(size=(c, g, DPATH_T - 1, d)), dtype=tdt)
+        out[f"dpath d={d} G={g} C={c} {dtype}"] = _rel(
+            kk.dpath(t_mat, w), kalman.dpath(t_mat, w))
     return out
+
+
+def set_occupancy(lib, blocks):
+    """The resident blocks an SM the host library's occupancy query
+    reports: 0 makes K3's launcher take its short chunks, as on a card
+    whose SMs its grid fills."""
+    import ctypes
+
+    ctypes.CDLL(str(lib)).boom_host_set_occupancy(blocks)
 
 
 def check_ssvs_border(seed=0, cases=((20, "float64"), (33, "float64")),
@@ -507,12 +538,17 @@ def main():
                     help="also run the bsts_llt path for 32 chains")
     args = ap.parse_args()
     torch.set_num_threads(4)
-    bind({name: build_host_library(name)
-          for name in ("kalman_seq", "kalman_wide", "ssvs_sweep")})
+    libs = {name: build_host_library(name)
+            for name in ("kalman_seq", "kalman_wide", "ssvs_sweep")}
+    bind(libs)
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
     for k, v in check_wide().items():
         print(f"host-compiled {k}: relative error {v:.3e}")
+    set_occupancy(libs["kalman_wide"], 0)
+    for k, v in check_wide(wide_cases=[]).items():
+        print(f"host-compiled {k} (short chunks): relative error {v:.3e}")
+    set_occupancy(libs["kalman_wide"], 1)
     for k, v in check_ssvs().items():
         print(f"host-compiled ssvs_sweep {k}: {v} chains differ")
     for k, v in check_ssvs_border().items():

@@ -2,13 +2,15 @@
 the fused simulation smoother; csrc/kalman_seq.cu; K2w, the smoother for
 7 <= d <= 16, and K3, the ASIS D-path; csrc/kalman_wide.cu), beside their
 bounds and their plain versions, at the shapes of the bsts_llt workload
-(K1, K2, J1, J2) and of the bsts_reg workload (K2w, K3; K3 and kernel
-(c)'s affine scan also at the bsts_llt D-path's shape).
+(K1, K2, J1, J2) and of the bsts_reg workload (K2w, K3; K3 also at the
+bsts_llt D-path's shape, beside kernel (c)'s affine scan of the same
+D-paths, their route before K3 took every d).
 
     python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
     python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
 
-Prints the card, the build time, per kernel the device time, the plain
+Prints the card, the build time (all sources at once, and each source's
+own), per kernel the device time, the plain
 version's time, the bound and what sets it, the times at other block sizes
 and batches, the ``nvcc -Xptxas -v`` registers and spills of every
 instantiation, and the instructions of K1's, J1's and J2's step loops
@@ -16,8 +18,9 @@ instantiation, and the instructions of K1's, J1's and J2's step loops
 checkout DIR (another commit of this repository, unpacked with ``git
 archive``; its kernels build under DIR) and of this tree in turns (DIR,
 this, this, DIR), each in its own process on the same card, prints the
-times side by side, and with ``--json PATH`` writes every number of the
-four runs to PATH.
+times side by side and the time of ``nvcc`` on each tree's
+``kalman_wide.cu`` alone, and with ``--json PATH`` writes every number of
+the four runs to PATH.
 ``chip_smoke.py`` takes its shapes, inputs and bounds from here. Needs a
 CUDA card.
 """
@@ -66,7 +69,7 @@ REG_CHAINS, REG_T, REG_D, REG_GROUPS = 4096, 500, 8, 3
 # d = 8 and at d = 13 (a trend and a 12-season cycle); K3 runs the D-paths
 # of every chain's groups in the run's dtype (float32), at the bsts_reg
 # shape and at the bsts_llt one (d = 2, two groups), where kernel (c)'s
-# affine scan runs them (timed beside it, ``scan_ms``)
+# affine scan ran them before (timed beside it, ``scan_ms``)
 WIDE_SHAPES = {
     "smoother_wide": ("float64", REG_CHAINS, REG_D, REG_T, 0),
     "smoother_wide_d13": ("float64", REG_CHAINS, 13, REG_T, 0),
@@ -240,9 +243,9 @@ def dpath_bound_ms(dtype, chains, groups, d, t_len):
 
 def wide_cases(rng, name, dtype, batch, d, t_len, groups):
     """(kernel call, plain call, wrapper call, scan call or None) for K2w
-    or K3 on inputs of its shape, as :func:`kalman_cases`; for K3 the scan
-    call is kernel (c)'s affine scan of the same D-paths (the route of
-    d <= 6 in ``bsts.asis_redraw``)."""
+    or K3 on inputs of its shape, as :func:`kalman_cases`; for K3 at
+    d <= 6 the scan call is kernel (c)'s affine scan of the same D-paths
+    (``bsts.asis_redraw``'s route there before K3 took every d)."""
     import torch
 
     from boom_tpu_torch.statespace import kalman
@@ -351,17 +354,26 @@ def _instantiation(mangled):
     return key + " dense" if masked == "0" else key
 
 
+_WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel)I(?:([fd]))?"
+                        r"Li(\d+)ELi(\d+)E")
+
+
 def wide_nvcc_report(log_text):
-    """{kernel: {"registers", "spill_bytes", "stack_bytes"}} for K2w and
-    K3 (each dtype) in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
+    """{"smoother_wide f64 d<D> pass<P>" | "dpath <type> d<D> chunk<B>":
+    {"registers", "spill_bytes", "stack_bytes"}} for every instantiation
+    of K2w (each of its three passes) and K3 (each chunk length, bytes a
+    lane) in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
-        if "smoother_wide_kernel" in name:
-            key = "smoother_wide f64"
-        elif "dpath_kernel" in name:
-            key = f"dpath {'f32' if 'dpath_kernelIfE' in name else 'f64'}"
-        else:
+        m = _WIDE_NAME.search(name)
+        if not m:
             continue
+        kernel, ty, d, extra = m.groups()
+        if kernel == "smoother_wide_kernel":
+            key = f"smoother_wide f64 d{int(d):02d} pass{extra}"
+        else:
+            key = (f"dpath {'f32' if ty == 'f' else 'f64'} d{int(d):02d} "
+                   f"chunk{extra}")
         report[key] = {"registers": nregs, "spill_bytes": spill,
                        "stack_bytes": stack}
     return dict(sorted(report.items()))
@@ -426,6 +438,7 @@ def run():
     _build.build()
     rng = np.random.default_rng(20261016)
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
+           "build_s_by_source": dict(_build.BUILD_SECONDS),
            "kernels": {**time_kalman(rng), **time_wide(rng)}}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
@@ -442,9 +455,26 @@ def run():
     return out
 
 
+def nvcc_seconds(tree, name="kalman_wide"):
+    """Wall seconds of ``nvcc`` (this tree's flags) on ``tree``'s source
+    ``name`` alone, into a temporary directory."""
+    import tempfile
+
+    from boom_tpu_torch.kernels import _build
+
+    src = tree / "boom_tpu_torch" / "csrc" / f"{name}.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                        str(Path(tmp) / "lib.so"), str(src)], check=True,
+                       capture_output=True, timeout=1200)
+        return time.perf_counter() - t0
+
+
 def compare(parent, here, json_path=None):
     """Runs parent, here, here, parent, each tree's own script in a fresh
-    process, and prints the kernels' times side by side."""
+    process, and prints the kernels' times side by side, then times
+    ``nvcc`` on each tree's ``kalman_wide.cu`` alone."""
     runs = []
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
@@ -476,6 +506,13 @@ def compare(parent, here, json_path=None):
             print(f"  {lab}: {json.dumps(extra)}")
     print("build_s: " + ", ".join(f"{lab} {r['build_s']:.1f}"
                                   for lab, r in runs))
+    for lab, r in runs:
+        print(f"build_s by source ({lab}): "
+              + json.dumps(r.get("build_s_by_source", "-")))
+    alone = {lab: nvcc_seconds(tree) for lab, tree in (("parent", parent),
+                                                       ("change", here))}
+    print("nvcc kalman_wide.cu alone: " + ", ".join(
+        f"{lab} {v:.1f} s" for lab, v in alone.items()))
     for lab, r in (runs[0], runs[1]):
         for inst, rep in r["nvcc"].items():
             print(f"nvcc {lab} {inst}: {rep['registers']} registers, "
@@ -487,7 +524,8 @@ def compare(parent, here, json_path=None):
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(
-            [{"label": lab, **r} for lab, r in runs], indent=1))
+            {"runs": [{"label": lab, **r} for lab, r in runs],
+             "nvcc_kalman_wide_alone_s": alone}, indent=1))
 
 
 def main():

@@ -41,7 +41,8 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 SHAPES = {
     # the fit's simulation smoother: 8 chains, float64 (bsts.SMOOTHER_DTYPE)
     "fit": ("float64", 8, 2, 4096, ("filter", "smooth", "affine"), True),
-    # the ASIS D-path: 8 chains x 2 groups, float32, T-1 steps
+    # the fit's ASIS D-path shape: 8 chains x 2 groups, float32, T-1 steps
+    # (K3 runs those D-paths now; the scans' times there stay a yardstick)
     "dpath": ("float32", 16, 2, 4095, ("filter", "smooth", "affine"), True),
     "filter_d6": ("float64", 8, 6, 4096, ("filter",), True),
     "long": ("float64", 8, 2, 65537, ("filter", "smooth", "affine"), False),

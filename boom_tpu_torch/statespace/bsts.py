@@ -55,10 +55,6 @@ ASIS_SLICE_STEPS, ASIS_EXPAND, ASIS_SHRINK = 8, 5, 10
 SMOOTHER_DTYPE = torch.float64
 # the sweep's phases, each a ``torch.profiler`` range named "bsts.<phase>"
 SWEEP_PHASES = ("regression", "variance_draws", "impute", "asis", "tim")
-# the largest state dimension whose ASIS D-paths run as kernel (c)'s affine
-# scan (``_build.SCAN_DIMS``); wider ones run the sequential kernel K3
-# (``kalman_kernel.dpath``), as the reference runs them
-MAX_SCAN_DPATH_DIM = 6
 
 
 def _block_diag(mats):
@@ -650,19 +646,17 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     Holding the standardized innovations fixed, the path is affine in the
     sigmas: alpha = alpha_base + sum_g sigma_g D_g, where the D-path of
     group g solves D_t = T D_{t-1} + R w_t with D_0 = 0. The D-paths of all
-    chains and groups run in one launch: for d <= ``MAX_SCAN_DPATH_DIM`` as
-    one batched affine scan (kernel (c) on a CUDA tensor, its plain version
-    on the CPU), for wider states as the reference's sequential recurrence
-    (kernel K3, ``kalman_kernel.dpath``; its plain loop on the CPU). Then
-    ``slice_steps`` rounds of scalar slice-Gibbs on the sigmas use only the
-    G x G Gram matrix.
+    chains and groups run in one launch of the reference's sequential
+    recurrence, at every d (kernel K3, ``kalman_kernel.dpath``, on a CUDA
+    tensor; its plain loop ``kalman.dpath``, the reference's order, on the
+    CPU). Then ``slice_steps`` rounds of scalar slice-Gibbs on the sigmas
+    use only the G x G Gram matrix.
 
     noise: ``h_u``, ``u_u`` [C, slice_steps, G] and ``shrink_u``
     [C, slice_steps, G, shrink_iters] uniforms. y_adj: [T], or [C, T] (a
     series a chain, y - X beta). h: [C] observation variances.
     """
     alpha = state["alpha"]  # [C, T, d]
-    c, t_len, d = alpha.shape
     t_mat, r_mat, z = params.t_mat, params.r_mat, params.z
     # innovations [C, T-1, q]: R is column-orthonormal (selector/identity)
     diff = alpha[:, 1:] - (t_mat[:, None] * alpha[:, :-1, None, :]).sum(-1)
@@ -683,16 +677,7 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     # tilde[c, t, g, :] = group-g masked standardized innovations
     tilde = eta[:, :, None, :] * cols / sigs[:, None, :, None]
     w_all = torch.einsum("cdq,ctgq->cgtd", r_mat, tilde)  # [C, G, T-1, d]
-    if d > MAX_SCAN_DPATH_DIM:
-        dstack = kalman_kernel.dpath(t_mat, w_all)  # [C, G, T, d]
-    else:
-        a_elems = t_mat[:, None, None].expand(c, n_groups, t_len - 1, d, d)
-        dpaths = scan_kernel.affine_prefix(
-            a_elems.reshape(c * n_groups, t_len - 1, d, d),
-            w_all.reshape(c * n_groups, t_len - 1, d))
-        dstack = torch.cat([alpha.new_zeros(c, n_groups, 1, d),
-                            dpaths.reshape(c, n_groups, t_len - 1, d)],
-                           dim=2)  # [C, G, T, d]
+    dstack = kalman_kernel.dpath(t_mat, w_all)  # [C, G, T, d]
     g_mat = (dstack * z[:, None, None, :]).sum(-1)  # [C, G, T]
     alpha_base = alpha - torch.einsum("cg,cgtd->ctd", sigs, dstack)
     r0 = y_adj - (alpha_base * z[:, None, :]).sum(-1)  # [C, T]

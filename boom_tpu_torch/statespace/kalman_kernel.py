@@ -1,7 +1,8 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
 ``csrc/kalman_seq.cu`` (one thread, or for the derivatives one warp, per
-series walking the T steps) and ``csrc/kalman_wide.cu`` (one warp a chain,
-a lane a row of the state, for 7 <= d <= 16).
+series walking the T steps) and ``csrc/kalman_wide.cu`` (K2w for
+7 <= d <= 16 and K3: a group of lanes a chain, 32 / W groups a warp, a
+lane a row of the state, d fixed at compile time).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
@@ -21,7 +22,8 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
   regression: y - X beta) is taken through the observation noise, which
   the smoother uses only in y+ (see :func:`smoother_operands`).
 - :func:`dpath` (K3): the ASIS D-path recurrence D_t = T D_{t-1} + w_t of
-  every chain's groups, float32 or float64, as ``kalman.dpath``.
+  every chain's groups, float32 or float64, d 1..16, as ``kalman.dpath``
+  (bsts' ASIS pass at every d).
 
 Dispatch is by the device of the tensors, as in ``scan_kernel.py``: a CUDA
 tensor launches the kernel (or raises — there is no fallback), a CPU tensor
@@ -53,7 +55,8 @@ LOGLIK_THREADS = 0
 SMOOTHER_THREADS = 32
 # steps K2 stages into shared memory at a time (kalman_seq.cu, kChunk)
 SMOOTHER_CHUNK = 32
-# K2w's and K3's blocks: warps of one chain each (kalman_wide.cu)
+# K2w's and K3's blocks: four warps, 32 / W chains (K3: series) a warp
+# (kalman_wide.cu)
 WIDE_THREADS = 128
 DPATH_THREADS = 128
 _NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for larger state "
@@ -378,10 +381,12 @@ def launch_dpath(t_mat, w):
     if p["t_mat"].shape != (c, d, d):
         raise ValueError(f"t_mat must be {(c, d, d)}; got "
                          f"{tuple(p['t_mat'].shape)}")
+    # K3 reads w and writes D 16 bytes at a time from 16-byte boundaries
+    w = p["w"] if p["w"].data_ptr() % 16 == 0 else p["w"].clone()
     out = w.new_empty(c, g, t_m1 + 1, d)
     fn = getattr(_build.library("kalman_wide"),
                  f"boom_dpath_{_DTYPE_TAG[dtype]}")
-    rc = fn(p["t_mat"].data_ptr(), p["w"].data_ptr(), out.data_ptr(), c, g,
+    rc = fn(p["t_mat"].data_ptr(), w.data_ptr(), out.data_ptr(), c, g,
             t_m1 + 1, d, DPATH_THREADS, _stream(device))
     if rc != 0:
         raise RuntimeError(f"CUDA dpath launch failed: cudaError {rc}")

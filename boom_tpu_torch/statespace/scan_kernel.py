@@ -17,8 +17,9 @@ run can show its main path went through the kernel.
 Public functions mirror the reference's: ``filter_moments``
 (``pallas_filter_moments`` :265), ``smooth_means`` (:280),
 ``smooth_states`` (:292), ``simulate`` (:298) and ``simulation_smoother``
-(:313), plus ``affine_prefix``, the bare affine scan that the bsts ASIS
-step also uses for its D-path recurrence.
+(:313), plus ``affine_prefix``, the bare affine scan of ``simulate``
+(bsts' ASIS D-paths run the sequential kernel K3 at every d,
+``kalman_kernel.dpath``).
 """
 
 from __future__ import annotations

@@ -40,7 +40,7 @@ Phases:
      ``Bsts`` + ``LocalLinearTrend`` with the TIM marginal move, T=500,
      4096 chains, 300 burn-in + 250 draws, float32 (smoother in float64),
      through ``run_mcmc`` with the bench's 5-statistic monitor. It must run
-     through K1, K2, J1 and J2, give finite draws, pass split R-hat < 1.02,
+     through K1, K2, J1, J2 and K3 (the ASIS D-paths), give finite draws, pass split R-hat < 1.02,
      reach half the reference's min-ESS, and land the variances' posterior
      medians within 10 % of the JAX reference's; it prints sweeps/s,
      min-ESS/s, the proposal build's wall time and each phase's share of a
@@ -67,9 +67,10 @@ Phases:
      min-ESS/s and each phase's share of a sweep;
   2d. the kernels of the bsts_reg path against their plain versions on the
      card: K2w (the simulation smoother for 7 <= d <= 16,
-     ``csrc/kalman_wide.cu``) at d in {7, 8, 13, 16}, T in {31, 32, 33,
-     500}, 33 and 4095 chains (<= 1e-9), K3 (the ASIS D-path) at d in {1,
-     2, 7, 8, 13, 16}, G in {1, 3} (float64 <= 1e-9, float32 <= 1e-4), and
+     ``csrc/kalman_wide.cu``) at d in {7, 8, 9, 13, 16}, T in {31, 32, 33,
+     500}, 33 chains and (T 33, 500) 4095 and 4097 (<= 1e-9), K3 (the ASIS
+     D-path of every d) at d in {1, 2, 3, 7, 8, 13, 16}, G in {1, 2, 3},
+     33, 4096 and 4097 chains (float64 <= 1e-9, float32 <= 1e-4), and
      kernel (a)'s per-chain entry (a border of S0 a chain) at p in {20, 33,
      50}, 33 and 4096 chains (float64 masks identical, float32 >= 99.5 %
      identical with near-ties only); ten launches of each at the bsts_reg
@@ -240,11 +241,17 @@ WIDE_SOURCE = "boom_tpu_torch/csrc/kalman_wide.cu"
 WIDE_KERNELS = {"smoother_wide": ("kalman_simulation_smoother_wide",
                                   "boom_tpu/statespace/kalman.py:476"),
                 "dpath": ("asis_dpath", "boom_tpu/statespace/bsts.py:1082")}
-WIDE_D_CHECK = (7, 8, 13, 16)
+# K2w: d 7, 8 (four chains a warp), 9, 13, 16 (two); T about the chunk
+# edges; 33 chains (a partial block) and 4095, 4097 (a ragged last pack)
+# at T = 33 and 500. K3: d 1, 2, 3 (32, 16 and 8 series a warp) to 16;
+# 33 chains and 4096, 4097 (the short chunks of a full card)
+WIDE_D_CHECK = (7, 8, 9, 13, 16)
 WIDE_T_CHECK = (31, 32, 33, 500)
-WIDE_CHAIN_CHECK = (33, 4095)
-DPATH_D_CHECK = (1, 2, 7, 8, 13, 16)
-DPATH_G_CHECK = (1, 3)
+WIDE_CHAIN_CHECK = (33, 4095, 4097)
+WIDE_LONG_T = (33, 500)
+DPATH_D_CHECK = (1, 2, 3, 7, 8, 13, 16)
+DPATH_G_CHECK = (1, 2, 3)
+DPATH_CHAIN_CHECK = (33, 4096, 4097)
 BORDER_P_CHECK = (20, 33, 50)
 BORDER_CHAIN_CHECK = (33, 4096)
 
@@ -882,7 +889,7 @@ def phase4_bsts_llt(card):
     check(kk.LAUNCHES["loglik"] >= sweeps and kk.LAUNCHES["smoother"]
           >= sweeps and kk.LAUNCHES["loglik_grad"] >= 1
           and kk.LAUNCHES["loglik_hess"] >= 1
-          and sk.LAUNCHES["affine"] >= sweeps,
+          and kk.LAUNCHES["dpath"] >= sweeps,
           f"the bsts_llt run did not go through the kernels: {launches}")
 
     d = res.draws
@@ -1224,6 +1231,8 @@ def phase2d_wide_vs_plain():
     for d in WIDE_D_CHECK:
         for t_len in WIDE_T_CHECK:
             for c in WIDE_CHAIN_CHECK:
+                if c > 33 and t_len not in WIDE_LONG_T:
+                    continue
                 # one series or a series a chain (phase 6's route, y = 0
                 # with eps - y_c) at both chain counts and at T = 500
                 masked = t_len in (33, 500)
@@ -1240,7 +1249,7 @@ def phase2d_wide_vs_plain():
     for dtype in ("float64", "float32"):
         for d in DPATH_D_CHECK:
             for g in DPATH_G_CHECK:
-                for c in (33, 4096):
+                for c in DPATH_CHAIN_CHECK:
                     rel, err = _dpath_vs_plain(rng, c, d, g, LLT_T, dtype)
                     key = f"dpath {dtype}"
                     worst[key] = max(worst.get(key, 0.0), rel)

@@ -210,6 +210,60 @@ def test_defaults_use_population_sd():
         sd, rel=1e-14)
 
 
+def test_asis_redraw_at_d2_takes_the_sequential_dpath(monkeypatch):
+    """The ASIS redraw of bsts_llt's model (d = 2, the level and slope
+    groups) runs its D-paths through ``kalman.dpath``, the reference's
+    sequential recurrence (K3's plain version; kernel (c)'s affine scan is
+    not called), and matches the reference's redraw on the same noise."""
+    from boom_tpu.statespace import bsts as jbsts
+    from boom_tpu_torch.statespace import bsts as pbsts
+    from boom_tpu_torch.statespace import kalman
+
+    jmodel = _jax_model("llt")
+    model = model_from_jax(jmodel, device="cpu")
+    rng = np.random.default_rng(41)
+    c, t_len, d = CHAINS, jmodel.t_len, jmodel.state_dim
+    assert d == 2
+    state = {"blocks": {"trend": {
+                 "sigma_level_sq": rng.uniform(0.05, 0.2, c),
+                 "sigma_slope_sq": rng.uniform(1e-4, 1e-3, c)}},
+             "sigsq_obs": rng.uniform(0.2, 0.4, c),
+             "alpha": rng.normal(size=(c, t_len, d)).cumsum(1) * 0.3}
+    jstate = jax.tree_util.tree_map(jnp.asarray, state)
+    keys = jax.random.split(jax.random.key(43), c)
+
+    def ref_one(k, st):
+        return jbsts.asis_redraw(k, jmodel.blocks, jmodel.ssm_params(st), st,
+                                 jmodel.y, st["sigsq_obs"])
+
+    want = _numpy_tree(jax.jit(jax.vmap(ref_one))(keys, jstate))
+    uniforms = _numpy_tree(jax.jit(jax.vmap(
+        lambda k: _slice_uniforms(k, ASIS_SLICE_STEPS * 2)))(keys))
+    noise = {name: torch.tensor(u).reshape(c, ASIS_SLICE_STEPS, 2,
+                                           *u.shape[2:])
+             for name, u in zip(("h_u", "u_u", "shrink_u"), uniforms)}
+    calls = []
+    plain = kalman.dpath
+    monkeypatch.setattr(kalman, "dpath",
+                        lambda t, w: calls.append(w.shape) or plain(t, w))
+
+    def no_scan(*args):
+        raise AssertionError("the ASIS D-path ran kernel (c)'s affine scan")
+
+    monkeypatch.setattr(scan_kernel, "affine_prefix", no_scan)
+    pstate = state_from_numpy(state, device="cpu")
+    before = dict(kalman_kernel.LAUNCHES)
+    got = pbsts.asis_redraw(noise, model.blocks, model.ssm_params(pstate),
+                            pstate, model.y, pstate["sigsq_obs"])
+    assert calls == [(c, 2, t_len - 1, d)]
+    assert kalman_kernel.LAUNCHES == before  # no kernel ran on the CPU
+    np.testing.assert_allclose(got["alpha"].numpy(), want["alpha"],
+                               rtol=RTOL, atol=RTOL)
+    for pname, v in want["blocks"]["trend"].items():
+        np.testing.assert_allclose(got["blocks"]["trend"][pname].numpy(), v,
+                                   rtol=RTOL, err_msg=pname)
+
+
 def test_smoother_dispatch():
     y = torch.tensor(_llt_series())
     blocks = [LocalLinearTrend.default(y)]

@@ -55,8 +55,9 @@ def host_kernels(monkeypatch, host_libraries):
                          ids=lambda c: "d{}-C{}-T{}-{}-{}".format(*c))
 @pytest.mark.usefixtures("host_kernels")
 def test_host_compiled_smoother_wide_matches_plain(case):
-    """K2w at d 7 and 8: T one below, at and above a 32-step chunk and one
-    step, a last block of one warp (33 chains), masked, and a series a
+    """K2w at d 7 and 8 (four chains a warp), 9, 13 and 16 (two): T one
+    below, at and above 32 and one step, 1, 3 and 5 chains (a partial pack
+    and a partial warp) and 33 (a partial block), masked, and a series a
     chain (bsts with a regression)."""
     before = kk.LAUNCHES["smoother_wide"]
     (err,) = host_rehearsal.check_wide(seed=case[0] + case[2],
@@ -66,15 +67,36 @@ def test_host_compiled_smoother_wide_matches_plain(case):
     assert err <= TOL["float64"]
 
 
-@pytest.mark.parametrize("case", host_rehearsal.DPATH_CASES,
-                         ids=lambda c: "d{}-G{}-{}".format(*c))
+def _dpath_id(case):
+    d, g, dtype, c = case
+    return f"d{d}-G{g}-{dtype}" + ("" if c == 5 else f"-C{c}")
+
+
+@pytest.mark.parametrize("case", host_rehearsal.DPATH_CASES, ids=_dpath_id)
 @pytest.mark.usefixtures("host_kernels")
 def test_host_compiled_dpath_matches_plain(case):
-    """K3 at d 1 (32 groups a pass) to 16 (two), one and three groups."""
+    """K3 at d 1 (32 series a warp) to 16 (two), one to three groups of 5
+    or 7 chains (a ragged last pack), with the long chunks its launcher
+    takes when one wave of them holds the grid."""
     before = kk.LAUNCHES["dpath"]
     (err,) = host_rehearsal.check_wide(seed=case[0], wide_cases=[],
                                        dpath_cases=[case]).values()
     assert kk.LAUNCHES["dpath"] == before + 1
+    assert err <= TOL[case[2]]
+
+
+@pytest.mark.parametrize("case", host_rehearsal.DPATH_CASES, ids=_dpath_id)
+@pytest.mark.usefixtures("host_kernels")
+def test_host_compiled_dpath_short_chunks_match_plain(case, host_libraries):
+    """The same with the short chunks its launcher takes when the grid
+    fills the card (the occupancy query made to report no room for a long
+    chunk's block)."""
+    host_rehearsal.set_occupancy(host_libraries["kalman_wide"], 0)
+    try:
+        (err,) = host_rehearsal.check_wide(seed=case[0] + 1, wide_cases=[],
+                                           dpath_cases=[case]).values()
+    finally:
+        host_rehearsal.set_occupancy(host_libraries["kalman_wide"], 1)
     assert err <= TOL[case[2]]
 
 

@@ -363,13 +363,14 @@ def test_ssvs_kernel_is_bit_identical_and_refuses_what_it_cannot_hold(card):
 # -- K2w and K3 (kalman_wide.cu), kernel (a)'s per-chain entry ---------------
 
 
-@pytest.mark.parametrize("d", [7, 8, 13, 16])
+@pytest.mark.parametrize("d", [7, 8, 9, 13, 16])
 @pytest.mark.parametrize("t_len", [31, 32, 33, 500])
 @pytest.mark.parametrize("per_chain", [False, True])
-def test_smoother_wide_matches_plain(card, d, t_len, per_chain):
-    """K2w against the plain smoother, 33 chains (a last block of one
-    warp), masked, with one series or a series a chain; one launch."""
-    c = 33
+@pytest.mark.parametrize("c", [1, 3, 5, 33])
+def test_smoother_wide_matches_plain(card, d, t_len, per_chain, c):
+    """K2w against the plain smoother, 1, 3 and 5 chains (a partial pack of
+    a warp) and 33 (a partial block), masked, with one series or a series a
+    chain; one launch."""
     params, y, obs, normals = _kalman_inputs(card, torch.float64, d, t_len,
                                              seed=d * 1000 + t_len, c=c,
                                              masked=True)
@@ -389,14 +390,17 @@ def test_smoother_wide_matches_plain(card, d, t_len, per_chain):
             params, y, *normals, observed=obs))
 
 
-@pytest.mark.parametrize("d", [1, 2, 7, 8, 13, 16])
-@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 13, 16])
+@pytest.mark.parametrize("groups", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_dpath_kernel_matches_plain(card, d, groups, dtype):
-    """K3 against the plain recurrence, 33 chains, T = 500; one launch;
-    ten launches bit-identical."""
+@pytest.mark.parametrize("c", [5, 33, 4097])
+def test_dpath_kernel_matches_plain(card, d, groups, dtype, c):
+    """K3 against the plain recurrence, T = 500, 5, 33 and 4097 chains
+    (series counts that leave a warp's last pack ragged; the long chunks
+    of a grid one wave holds and the short ones of a full card); one
+    launch; ten launches bit-identical."""
     rng = np.random.default_rng(d * 10 + groups)
-    c, t_len = 33, 500
+    t_len = 500
     t_mat = _system(rng, c, d, dtype, card).t_mat.contiguous()
     w = torch.tensor(rng.normal(size=(c, groups, t_len - 1, d)),
                      dtype=dtype, device=card)
