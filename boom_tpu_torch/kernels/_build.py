@@ -16,8 +16,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -26,9 +24,6 @@ SOURCES = {"parallel_scan": _PKG / "csrc" / "parallel_scan.cu",
            "ssvs_sweep": _PKG / "csrc" / "ssvs_sweep.cu",
            "kalman_wide": _PKG / "csrc" / "kalman_wide.cu"}
 BUILD_DIR = _PKG.parent / "build" / "boom_tpu_torch"
-# wall seconds of each source's last nvcc in this process (all started at
-# once: each its own time from the start to its exit)
-BUILD_SECONDS = {}
 # --split-compile=0: optimise the instantiations on all host cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -111,7 +106,6 @@ def build(names=None) -> dict:
     names = tuple(SOURCES) if names is None else tuple(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
-    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -121,18 +115,9 @@ def build(names=None) -> dict:
         running[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-
-    def finish(item):  # read a process's report as it runs, time its exit
-        name, (_tmp, proc) = item
-        report, _ = proc.communicate()
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        return report
-
-    with ThreadPoolExecutor(max_workers=max(len(running), 1)) as pool:
-        reports = dict(zip(running, pool.map(finish, running.items())))
     failed = []
     for name, (tmp, proc) in running.items():
-        report = reports[name]
+        report, _ = proc.communicate()
         log_path(name).write_text(report)
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode}):\n{report[-4000:]}")

@@ -9,8 +9,8 @@ D-paths, their route before K3 took every d).
     python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
     python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
 
-Prints the card, the build time (all sources at once, and each source's
-own), per kernel the device time, the plain
+Prints the card, the build time (all sources at once), per kernel the
+device time (K2w's also by pass, from the profiler), the plain
 version's time, the bound and what sets it, the times at other block sizes
 and batches, the ``nvcc -Xptxas -v`` registers and spills of every
 instantiation, and the instructions of K1's, J1's and J2's step loops
@@ -277,10 +277,41 @@ def wide_cases(rng, name, dtype, batch, d, t_len, groups):
             lambda: kk.dpath(t_mat, w), scan)
 
 
+_WIDE_PASS = re.compile(r"smoother_wide_kernel<\d+, (\d)>")
+
+
+def wide_pass_ms(kern, calls=10, tries=3):
+    """K2w's device ms a call by pass ({"pass1": ms, ...}): the mean of
+    the profiler's records of each of its three launches. The profiler
+    can lose records in a process that has profiled before, so the mean
+    is over the records it kept, and a pass it kept none of is profiled
+    again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kern()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kern()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            m = _WIDE_PASS.search(ev.key)
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if m and ev.count and us > 0:
+                out.setdefault(f"pass{m.group(1)}", us / ev.count / 1e3)
+        if len(out) == 3:
+            break
+    return out
+
+
 def time_wide(rng, plain=True):
     """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
-    shape, scan_ms}} at WIDE_SHAPES (scan_ms: kernel (c)'s affine scan of
-    the same D-paths, where d <= 6)."""
+    shape, scan_ms, pass_ms}} at WIDE_SHAPES (scan_ms: kernel (c)'s affine
+    scan of the same D-paths, where d <= 6; pass_ms: K2w's passes)."""
     out = {}
     for name, (dtype, batch, d, t_len, groups) in WIDE_SHAPES.items():
         kern, ref, wrapper, scan = wide_cases(rng, name, dtype, batch, d,
@@ -297,6 +328,7 @@ def time_wide(rng, plain=True):
         else:
             row["bound_ms"], row["bound_by"] = bound_ms("smoother", dtype,
                                                         batch, d, t_len)
+            row["pass_ms"] = wide_pass_ms(kern)
         out[name] = row
     return out
 
@@ -438,7 +470,6 @@ def run():
     _build.build()
     rng = np.random.default_rng(20261016)
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
-           "build_s_by_source": dict(_build.BUILD_SECONDS),
            "kernels": {**time_kalman(rng), **time_wide(rng)}}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
@@ -501,14 +532,11 @@ def compare(parent, here, json_path=None):
         for lab, r in (runs[0], runs[1]):
             row = r["kernels"].get(name, {})
             extra = {k: row[k] for k in ("block_ms", "scaling_ms",
-                                         "plain_ms", "wrapper_ms")
+                                         "pass_ms", "plain_ms", "wrapper_ms")
                      if row.get(k) is not None}
             print(f"  {lab}: {json.dumps(extra)}")
     print("build_s: " + ", ".join(f"{lab} {r['build_s']:.1f}"
                                   for lab, r in runs))
-    for lab, r in runs:
-        print(f"build_s by source ({lab}): "
-              + json.dumps(r.get("build_s_by_source", "-")))
     alone = {lab: nvcc_seconds(tree) for lab, tree in (("parent", parent),
                                                        ("change", here))}
     print("nvcc kalman_wide.cu alone: " + ", ".join(

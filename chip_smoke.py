@@ -20,7 +20,8 @@ Phases:
      plain scans on the CPU, with the same random numbers; then the
      port's main path: a local-linear-trend bsts fit of a T=4096 series
      with 8 chains through ``BstsModel().fit`` on its default device (the
-     card), which must run through the kernels, give finite draws, and
+     card), which must run through the scans (its smoother) and K3 (its
+     ASIS D-paths), give finite draws, and
      land the variances' posterior medians within a factor 2 of the JAX
      reference's on the same series;
   2b. the sequential Kalman kernels (K1, the loglik; K2, the fused
@@ -40,8 +41,8 @@ Phases:
      ``Bsts`` + ``LocalLinearTrend`` with the TIM marginal move, T=500,
      4096 chains, 300 burn-in + 250 draws, float32 (smoother in float64),
      through ``run_mcmc`` with the bench's 5-statistic monitor. It must run
-     through K1, K2, J1, J2 and K3 (the ASIS D-paths), give finite draws, pass split R-hat < 1.02,
-     reach half the reference's min-ESS, and land the variances' posterior
+     through K1, K2, J1, J2 and K3 (the ASIS D-paths), give finite draws,
+     pass split R-hat < 1.02, reach half the reference's min-ESS, and land the variances' posterior
      medians within 10 % of the JAX reference's; it prints sweeps/s,
      min-ESS/s, the proposal build's wall time and each phase's share of a
      sweep;
@@ -68,9 +69,10 @@ Phases:
   2d. the kernels of the bsts_reg path against their plain versions on the
      card: K2w (the simulation smoother for 7 <= d <= 16,
      ``csrc/kalman_wide.cu``) at d in {7, 8, 9, 13, 16}, T in {31, 32, 33,
-     500}, 33 chains and (T 33, 500) 4095 and 4097 (<= 1e-9), K3 (the ASIS
-     D-path of every d) at d in {1, 2, 3, 7, 8, 13, 16}, G in {1, 2, 3},
-     33, 4096 and 4097 chains (float64 <= 1e-9, float32 <= 1e-4), and
+     500}, 33, 4095 and 4097 chains (<= 1e-9), K3 (the ASIS D-path of
+     every d) at d in {1, 2, 3, 7, 8, 13, 16}, G in {1, 2, 3}, 33, 4096
+     and 4097 chains, T=500, and at the fit's D-paths (8 chains, d=2, G=2,
+     T=4096) (float64 <= 1e-9, float32 <= 1e-4), and
      kernel (a)'s per-chain entry (a border of S0 a chain) at p in {20, 33,
      50}, 33 and 4096 chains (float64 masks identical, float32 >= 99.5 %
      identical with near-ties only); ten launches of each at the bsts_reg
@@ -242,16 +244,18 @@ WIDE_KERNELS = {"smoother_wide": ("kalman_simulation_smoother_wide",
                                   "boom_tpu/statespace/kalman.py:476"),
                 "dpath": ("asis_dpath", "boom_tpu/statespace/bsts.py:1082")}
 # K2w: d 7, 8 (four chains a warp), 9, 13, 16 (two); T about the chunk
-# edges; 33 chains (a partial block) and 4095, 4097 (a ragged last pack)
-# at T = 33 and 500. K3: d 1, 2, 3 (32, 16 and 8 series a warp) to 16;
-# 33 chains and 4096, 4097 (the short chunks of a full card)
+# edges; 33 chains (a partial block), 4095 and 4097 (a ragged last pack).
+# K3: d 1, 2, 3 (32, 16 and 8 series a warp) to 16 at T = LLT_T; 33
+# chains and 4096, 4097 (the short chunks of a full card); and the fit's
+# D-paths (phase 3: 8 chains x 2 groups, d = 2, T = T_FIT, many long
+# chunks a series)
 WIDE_D_CHECK = (7, 8, 9, 13, 16)
 WIDE_T_CHECK = (31, 32, 33, 500)
 WIDE_CHAIN_CHECK = (33, 4095, 4097)
-WIDE_LONG_T = (33, 500)
 DPATH_D_CHECK = (1, 2, 3, 7, 8, 13, 16)
 DPATH_G_CHECK = (1, 2, 3)
 DPATH_CHAIN_CHECK = (33, 4096, 4097)
+DPATH_FIT_CASE = (CHAINS, 2, 2, T_FIT)  # chains, d, groups, T
 BORDER_P_CHECK = (20, 33, 50)
 BORDER_CHAIN_CHECK = (33, 4096)
 
@@ -535,11 +539,14 @@ def phase3_fit(card):
 
     from boom_tpu_torch.api import BstsModel
     from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.statespace import kalman_kernel as kk
     from boom_tpu_torch.statespace import scan_kernel as sk
 
     y = _llt_series(T_FIT)
     for k in sk.LAUNCHES:
         sk.LAUNCHES[k] = 0
+    for k in kk.LAUNCHES:
+        kk.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = BstsModel().add_local_linear_trend().fit(
@@ -548,7 +555,8 @@ def phase3_fit(card):
     elapsed = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     print(f"fit: T={T_FIT} chains={CHAINS} burn={BURN} niter={NITER} "
-          f"in {elapsed:.2f} s; kernel launches {launches}")
+          f"in {elapsed:.2f} s; kernel launches {launches}, K3 (the ASIS "
+          f"D-paths) {kk.LAUNCHES['dpath']}")
     check(model._model.y.device.type == "cuda"
           and model._model.y.dtype == torch.float32,
           f"the fit ran on {model._model.y.device} in {model._model.y.dtype},"
@@ -558,6 +566,8 @@ def phase3_fit(card):
     for k, n in launches.items():
         check(n >= BURN + NITER,
               f"{k} scan launched {n} times < {BURN + NITER} sweeps")
+    check(kk.LAUNCHES["dpath"] >= BURN + NITER,
+          f"K3 launched {kk.LAUNCHES['dpath']} times < {BURN + NITER} sweeps")
 
     draws = model.draws
     trend = draws["blocks"]["trend"]
@@ -1231,8 +1241,6 @@ def phase2d_wide_vs_plain():
     for d in WIDE_D_CHECK:
         for t_len in WIDE_T_CHECK:
             for c in WIDE_CHAIN_CHECK:
-                if c > 33 and t_len not in WIDE_LONG_T:
-                    continue
                 # one series or a series a chain (phase 6's route, y = 0
                 # with eps - y_c) at both chain counts and at T = 500
                 masked = t_len in (33, 500)
@@ -1256,6 +1264,15 @@ def phase2d_wide_vs_plain():
                     if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
                         bad.append(f"dpath {dtype} d={d} G={g} C={c}: "
                                    f"{rel:.3e}")
+        c, d, g, t_len = DPATH_FIT_CASE
+        rel, err = _dpath_vs_plain(rng, c, d, g, t_len, dtype)
+        print(f"dpath {dtype} at the fit's shape (C={c} d={d} G={g} "
+              f"T={t_len}): rel {rel:.2e} abs {err:.2e}")
+        key = f"dpath {dtype}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
+            bad.append(f"dpath {dtype} d={d} G={g} C={c} T={t_len}: "
+                       f"{rel:.3e}")
     for k, v in sorted(worst.items()):
         print(f"worst {k}: {v:.3e}")
     n_f32 = total_f32 = 0
@@ -1317,6 +1334,10 @@ def phase2d_wide_vs_plain():
               f"wrapper {r['wrapper_ms']:.4f} ms, plain {plain}, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}){scan}; one call on "
               f"the host clock {r['call_ms']:.4f} ms")
+        if r.get("pass_ms"):
+            print(f"time {name} by pass (profiler, device ms a call): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in sorted(r["pass_ms"].items())))
         if name in at_reg:
             at_reg[name].update({k: r[k] for k in ("ms", "plain_ms",
                                                    "bound_ms", "bound_by")})

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from boom_tpu_torch.kernels import _build, host_rehearsal
+from boom_tpu_torch.kernels.kalman_timing import system
 from boom_tpu_torch.models.glm import ssvs_kernel
+from boom_tpu_torch.statespace import kalman
 from boom_tpu_torch.statespace import kalman_kernel as kk
 
 torch.set_num_threads(1)
@@ -98,6 +100,29 @@ def test_host_compiled_dpath_short_chunks_match_plain(case, host_libraries):
     finally:
         host_rehearsal.set_occupancy(host_libraries["kalman_wide"], 1)
     assert err <= TOL[case[2]]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("occupancy", [1, 0], ids=["long", "short"])
+@pytest.mark.usefixtures("host_kernels")
+def test_host_compiled_dpath_at_the_fit_shape_matches_plain(
+        dtype, occupancy, host_libraries):
+    """K3 at the D-paths of the T = 4096 fit (8 chains x 2 groups, d = 2:
+    one warp, many chunks a series; stable systems, so that 4095 steps
+    stay finite), with either chunk length."""
+    rng = np.random.default_rng(4096)
+    tdt = getattr(torch, dtype)
+    t_mat = system(rng, 8, 2, dtype, device="cpu").t_mat.contiguous()
+    w = torch.tensor(rng.normal(size=(8, 2, 4095, 2)), dtype=tdt)
+    host_rehearsal.set_occupancy(host_libraries["kalman_wide"], occupancy)
+    try:
+        before = kk.LAUNCHES["dpath"]
+        got = kk.dpath(t_mat, w)
+    finally:
+        host_rehearsal.set_occupancy(host_libraries["kalman_wide"], 1)
+    assert kk.LAUNCHES["dpath"] == before + 1
+    want = kalman.dpath(t_mat, w)
+    assert float((got - want).norm() / want.norm()) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("p", [20, 33])

@@ -413,6 +413,24 @@ def test_dpath_kernel_matches_plain(card, d, groups, dtype, c):
         assert torch.equal(got, kk.dpath(t_mat, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dpath_kernel_matches_plain_at_the_fit_shape(card, dtype):
+    """K3 at the D-paths of the T = 4096 fit (8 chains x 2 groups, d = 2:
+    many chunks a series); one launch; ten launches bit-identical."""
+    rng = np.random.default_rng(4096)
+    c, d, groups, t_len = 8, 2, 2, 4096
+    t_mat = _system(rng, c, d, dtype, card).t_mat.contiguous()
+    w = torch.tensor(rng.normal(size=(c, groups, t_len - 1, d)),
+                     dtype=dtype, device=card)
+    before = kk.LAUNCHES["dpath"]
+    got = kk.dpath(t_mat, w)
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["dpath"] == before + 1
+    assert _within(got, kalman.dpath(t_mat, w), TOL[dtype])
+    for _ in range(9):
+        assert torch.equal(got, kk.dpath(t_mat, w))
+
+
 @pytest.mark.parametrize("p", [20, 33, 50])
 @pytest.mark.parametrize("chains", [33, 4096])
 def test_ssvs_border_kernel_matches_plain(card, p, chains):
