@@ -244,35 +244,34 @@ class BstsModel:
         return tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
                         draws)
 
-    @staticmethod
-    def _thinned(flat, max_draws):
-        """``max_draws`` draws (at most) spread evenly over the flat draws,
-        as the reference's ``jnp.linspace(...).astype(int32)``."""
-        from boom_tpu_torch.inference.driver import tree_map
-
-        total = _leading(flat)
-        take = min(max_draws, total)
-        idx = torch.as_tensor(np.linspace(0, total - 1, take).astype(np.int64))
-        return tree_map(lambda a: a[idx.to(a.device)], flat)
-
     def _subsampled_states(self, burn=0, max_draws=50):
         """Thinned flat draw states honoring a per-chain burn (reference
         api.py:480)."""
-        return self._thinned(self._flat(burn), max_draws)
+        from boom_tpu_torch.statespace.bsts import thinned
+
+        return thinned(self._flat(burn), max_draws)
 
     def prediction_errors(self, cutpoints=None, burn=0, seed=0,
                           max_draws=50):
-        """{"in.sample": standardized one-step prediction errors [draws, T]}
-        of ``max_draws`` thinned draws (reference api.py:501). Holdout
-        ``cutpoints`` raise."""
-        from boom_tpu_torch.statespace.bsts import one_step_prediction_errors
+        """{"in.sample": standardized one-step prediction errors [draws, T]
+        of ``max_draws`` thinned draws, "<cutpoint>": [draws, T], ...}
+        (reference api.py:501-515). A cutpoint's entry refits the model to
+        y[:cutpoint] (2 chains, 100 + 50 sweeps, from a generator seeded
+        with ``seed`` + its index, on the fit's device) and filters through
+        the holdout, so its columns past the cutpoint are out-of-sample
+        one-step errors (``bsts.holdout_prediction_errors``)."""
+        from boom_tpu_torch.statespace.bsts import (
+            holdout_prediction_errors,
+            one_step_prediction_errors,
+        )
 
-        if cutpoints:
-            raise NotImplementedError(
-                "holdout prediction errors (cutpoints) are not ported yet "
-                "(ROADMAP.md, queue 1 item 7: holdout_prediction_errors)")
-        return {"in.sample": one_step_prediction_errors(
+        out = {"in.sample": one_step_prediction_errors(
             self._model, self._subsampled_states(burn, max_draws))}
+        for i, c in enumerate(cutpoints or []):
+            out[str(int(c))] = holdout_prediction_errors(
+                self._model, rng.generator(seed + i, self._model.y.device),
+                int(c), max_draws=max_draws)
+        return out
 
     def state_contribution_draws(self, burn=0):
         """Each block's contribution path over all draws {name: [draws, T]},

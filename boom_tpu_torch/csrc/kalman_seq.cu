@@ -4,12 +4,8 @@
 // Replaces the reference's XLA time scans (not Pallas kernels):
 //   K1 `loglik_kernel`: boom_tpu/statespace/kalman.py `kalman_loglik`
 //      (:229, its lax.scan at :282), the marginal likelihood of every
-//      (chain, TIM candidate) series.
-//   J1 and J2 `jet_kernel`: the same loglik of one series with its first
-//      (J1) or first and second (J2) derivatives with respect to h and the
-//      entries of R Q R' (forward mode), for the TIM proposal's mode search
-//      (`jax.value_and_grad` in numopt.bfgs, boom_tpu/numopt.py:43, and
-//      `jax.hessian` in newton_raphson, :101, and bsts.py:661).
+//      (chain, TIM candidate) series, d <= 6 (kalman_wide.cu's K1w takes
+//      7 <= d <= 16, and its J1 and J2 the loglik's derivatives).
 //   K2 `smoother_kernel`: the fused static `simulation_smoother`
 //      (kalman.py:438-481, lax.scan at :476) plus `_smoother_passes`
 //      (:289-350, scans at :322 and :349): the unconditional simulation
@@ -31,8 +27,8 @@
 // symmetrization touches the upper triangle only (p_ii = pn_ii is
 // 0.5 (pn_ii + pn_ii) exactly), and in float32 one correctly rounded
 // reciprocal of f serves K = T P z / f and v^2 / f while log f is the
-// SFU's __logf (float64 and the jets keep the reference's divisions and
-// log). The grid is laid out from the card's SM count, one block of
+// SFU's __logf (float64 keeps the reference's divisions and log). The
+// grid is laid out from the card's SM count, one block of
 // ceil(B / SMs) threads an SM.
 //
 // K2 (4096 chains, float64) has one thread a chain, so 32 chains (one
@@ -65,26 +61,13 @@
 // relative a step), float32 K1 by its reciprocal and __logf, within the
 // 1e-9 (float64) and 1e-4 (float32) normwise tolerances (PERF.md). No
 // value is reduced across threads, so repeated launches are bit-identical.
-// Layout: the systems are per series ([B, d], [B, d, d], [B]); y [T] and the
-// observed mask [T] are shared by all series. K2's per-step streams are
-// chain-major [C, T, ...] rows (a time-major staging was measured no
-// faster: PERF.md, Findings).
-//
-// J1 and J2 (one series, float64, d <= 2) are a chain of T dependent steps
-// of the filter with every scalar carrying derivatives: latency bound, not
-// bytes or operations. Their first version ran the whole jet (value,
-// gradient [NP] and upper Hessian [NP (NP + 1) / 2] over NP = 1 + d(d+1)/2
-// parameters, 15 doubles a scalar at d = 2) in one thread: 255 registers,
-// 1.5 KB of spills, 3.1 ms at T = 500. Now a warp carries one series and
-// its lanes split the jet: in J2 lane l < NP (NP + 1) / 2 owns one Hessian
-// entry (i, j), i <= j, and walks the filter with a hyper-dual scalar
-// (v, d/di, d/dj, d2/didj), 4 doubles; in J1 lane l < NP owns one gradient
-// entry with a dual scalar (v, d/dl), 2 doubles, and computes no Hessian.
-// Every lane recomputes the value chain, so the lanes never exchange data.
-// One correctly rounded reciprocal of f a step serves K, v^2 / f and
-// log f's derivatives. The parameters are h, then the upper triangle of
-// R Q R' (a symmetric perturbation: P depends on R Q R' only through the
-// symmetrized P').
+// Layout: the systems are per series ([B, d], [B, d, d], [B]); the
+// observed mask [T] is shared by all series, and so is y [T] in K2 and in
+// K1 with one series; K1 also takes a series per group of systems, y [S, T]
+// (bsts with a regression: y - X beta of each chain, its TIM points the
+// group). K2's per-step streams are chain-major [C, T, ...] rows (a
+// time-major staging was measured no faster: PERF.md, Findings).
+
 
 #include <climits>
 #include <cstring>
@@ -96,163 +79,42 @@ namespace {
 
 constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
 
-// A scalar with its derivatives along two parameter directions i and j:
-// v, a = dv/di, b = dv/dj, c = d2v/didj (kOrder = 2, a hyper-dual number);
-// kOrder = 1 carries v and a alone (a dual number), b and c unused.
-template <typename T, int kOrder>
-struct Tangent {
-  T v, a, b, c;
-  __device__ Tangent() {}
-  __device__ Tangent(T x)  // NOLINT: a constant promotes to a tangent
-      : v(x), a(T(0)), b(T(0)), c(T(0)) {}
-};
-
-// A parameter as the filter reads it: value v and unit seeds along the
-// lane's directions (sa = 1 where the parameter is i, sb = 1 where it is j).
-template <typename T>
-struct Seed {
-  T v, sa, sb;
-};
-
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
-                                                   const Tangent<T, K>& y) {
-  Tangent<T, K> r;
-  r.v = x.v + y.v;
-  r.a = x.a + y.a;
-  if constexpr (K == 2) {
-    r.b = x.b + y.b;
-    r.c = x.c + y.c;
-  }
-  return r;
-}
-
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
-                                                   const Seed<T>& s) {
-  Tangent<T, K> r;
-  r.v = x.v + s.v;
-  r.a = x.a + s.sa;
-  if constexpr (K == 2) {
-    r.b = x.b + s.sb;
-    r.c = x.c;
-  }
-  return r;
-}
-
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator-(const Tangent<T, K>& x,
-                                                   const Tangent<T, K>& y) {
-  Tangent<T, K> r;
-  r.v = x.v - y.v;
-  r.a = x.a - y.a;
-  if constexpr (K == 2) {
-    r.b = x.b - y.b;
-    r.c = x.c - y.c;
-  }
-  return r;
-}
-
-// a constant minus a tangent
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator-(T s,
-                                                   const Tangent<T, K>& x) {
-  Tangent<T, K> r;
-  r.v = s - x.v;
-  r.a = -x.a;
-  if constexpr (K == 2) {
-    r.b = -x.b;
-    r.c = -x.c;
-  }
-  return r;
-}
-
-// a constant times a tangent
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator*(T s,
-                                                   const Tangent<T, K>& x) {
-  Tangent<T, K> r;
-  r.v = s * x.v;
-  r.a = s * x.a;
-  if constexpr (K == 2) {
-    r.b = s * x.b;
-    r.c = s * x.c;
-  }
-  return r;
-}
-
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
-                                                   T s) {
-  return s * x;
-}
-
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
-                                                   const Tangent<T, K>& y) {
-  Tangent<T, K> r;
-  r.v = x.v * y.v;
-  r.a = x.a * y.v + x.v * y.a;
-  if constexpr (K == 2) {
-    r.b = x.b * y.v + x.v * y.b;
-    r.c = x.c * y.v + x.a * y.b + x.b * y.a + x.v * y.c;
-  }
-  return r;
-}
-
 // The correctly rounded reciprocal.
 __device__ __forceinline__ float reciprocal(float x) { return __frcp_rn(x); }
 __device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
-
-// q = 1 / f with one correctly rounded reciprocal of f.v:
-// q' = -f' / f^2, q''_ij = (2 f'_i f'_j / f - f''_ij) / f^2
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> reciprocal(const Tangent<T, K>& f) {
-  Tangent<T, K> q;
-  q.v = reciprocal(f.v);
-  const T fa = f.a * q.v;
-  q.a = -fa * q.v;
-  if constexpr (K == 2) {
-    q.b = -(f.b * q.v) * q.v;
-    q.c = ((T(2) * fa) * f.b - f.c) * q.v * q.v;
-  }
-  return q;
-}
 
 // One filter step of the reference's `step_core` (kalman.py:171-187) on the
 // predicted (a, P), in place: returns v and f, writes K into k. kRecip:
 // K = T P z * (1 / f) with one correctly rounded reciprocal, returned in
 // rf (K2, and K1 in float32), in place of the reference's d divisions,
 // which the card runs one after another (each is a branchy sequence); else
-// K = T P z / f (K1 in float64). S is the scalar of the state (T, or a
-// Tangent in J1 and J2), P that of h and R Q R' (S, or a Seed).
-template <typename T, typename S, int D, bool kRecip, typename P = S>
-__device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D], T yt,
-                                            bool obs, const T (&z)[D],
-                                            const P& h,
-                                            const P (&rqr)[D][D],
-                                            const T (&tm)[D][D], S& v,
-                                            S& f, S (&k)[D], S& rf) {
-  const S zero(T(0));
-  S za = z[0] * a[0];
+// K = T P z / f (K1 in float64).
+template <typename T, int D, bool kRecip>
+__device__ __forceinline__ void filter_step(T (&a)[D], T (&p)[D][D], T yt,
+                                            bool obs, const T (&z)[D], T h,
+                                            const T (&rqr)[D][D],
+                                            const T (&tm)[D][D], T& v, T& f,
+                                            T (&k)[D], T& rf) {
+  const T zero(0);
+  T za = z[0] * a[0];
 #pragma unroll
   for (int j = 1; j < D; ++j) za = za + z[j] * a[j];
   v = obs ? yt - za : zero;
-  S pz[D];
+  T pz[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     pz[i] = p[i][0] * z[0];
 #pragma unroll
     for (int j = 1; j < D; ++j) pz[i] = pz[i] + p[i][j] * z[j];
   }
-  S zpz = z[0] * pz[0];
+  T zpz = z[0] * pz[0];
 #pragma unroll
   for (int j = 1; j < D; ++j) zpz = zpz + z[j] * pz[j];
   f = zpz + h;
   if constexpr (kRecip) rf = reciprocal(f);
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    S tpz = tm[i][0] * pz[0];
+    T tpz = tm[i][0] * pz[0];
 #pragma unroll
     for (int j = 1; j < D; ++j) tpz = tpz + tm[i][j] * pz[j];
     if constexpr (kRecip) {
@@ -261,16 +123,16 @@ __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D], T yt,
       k[i] = obs ? tpz / f : zero;
     }
   }
-  S an[D];
+  T an[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    S ta = tm[i][0] * a[0];
+    T ta = tm[i][0] * a[0];
 #pragma unroll
     for (int j = 1; j < D; ++j) ta = ta + tm[i][j] * a[j];
     an[i] = ta + k[i] * v;
   }
   // P' = (T P) L' + RQR with L = T - K z', then symmetrized
-  S tp[D][D];
+  T tp[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
@@ -280,18 +142,18 @@ __device__ __forceinline__ void filter_step(S (&a)[D], S (&p)[D][D], T yt,
       for (int m = 1; m < D; ++m) tp[i][j] = tp[i][j] + tm[i][m] * p[m][j];
     }
   }
-  S l[D][D];
+  T l[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j < D; ++j) l[i][j] = tm[i][j] - k[i] * z[j];
   }
-  S pn[D][D];
+  T pn[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      S acc = tp[i][0] * l[j][0];
+      T acc = tp[i][0] * l[j][0];
 #pragma unroll
       for (int m = 1; m < D; ++m) acc = acc + tp[i][m] * l[j][m];
       pn[i][j] = acc + rqr[i][j];
@@ -321,22 +183,6 @@ __device__ __forceinline__ T log_density(T v, T f, T rf) {
   } else {
     return T(-0.5) * ((T(kLog2Pi) + log(f)) + v * v / f);
   }
-}
-
-// The same for a tangent, with the step's reciprocal rf = 1 / f in place
-// of the division: log f has l' = f' / f, l''_ij = f''_ij / f - l'_i l'_j.
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> log_density(
-    const Tangent<T, K>& v, const Tangent<T, K>& f,
-    const Tangent<T, K>& rf) {
-  Tangent<T, K> lf;
-  lf.v = log(f.v);
-  lf.a = f.a * rf.v;
-  if constexpr (K == 2) {
-    lf.b = f.b * rf.v;
-    lf.c = f.c * rf.v - lf.a * lf.b;
-  }
-  return T(-0.5) * ((Tangent<T, K>(T(kLog2Pi)) + lf) + v * v * rf);
 }
 
 // ---- staging -------------------------------------------------------------
@@ -393,25 +239,35 @@ __device__ __forceinline__ void async_wait() {
 // Steps of y (and of the mask) a block stages in shared memory at a time.
 constexpr int kYChunk = 1024;
 
-// K1, J1, J2: steps [t0, t0 + n) of y and (kMasked) of the mask, nullptr
-// read as all observed, into the block's shared memory ys, os.
-template <typename T, bool kMasked>
+// K1: steps [t0, t0 + n) of the shared series y (kShared) and of the mask
+// (kMasked; nullptr read as all observed) into the block's shared memory
+// ys, os.
+template <typename T, bool kMasked, bool kShared>
 __device__ __forceinline__ void stage_y_chunk(T* ys, unsigned char* os,
                                              const T* y,
                                              const unsigned char* obs,
                                              int t0, int n) {
   __syncthreads();  // the block is done with the previous chunk
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    ys[i] = y[t0 + i];
+    if (kShared) ys[i] = y[t0 + i];
     if (kMasked) os[i] = obs == nullptr ? 1 : obs[t0 + i];
   }
   __syncthreads();
 }
 
 // K1: one thread per series. kMasked = false: every step observed (obs is
-// not read). Threads past the batch follow its last series, so that every
-// thread reaches the barriers, and write nothing.
-template <typename T, int D, bool kMasked>
+// not read). kShared: every system reads the one series y [T], staged in
+// shared memory a chunk at a time; else system b reads series b /
+// per_series of y [S, T] straight from the cache, one step ahead: a block
+// of bsts' 544 threads spans ~33 chains' series (17 systems a chain), whose
+// 1024-step chunks would take 135 KB of shared memory, while all of y (8 MB
+// at 4096 chains, float32) sits in the 50 MB L2 and a warp's load touches
+// at most three series. With vout (the cached path only, so that the
+// staged one keeps its step as short as it was), the innovations v and f
+// of each step go to vout and fout [B, T]. Threads past the batch follow
+// its last series, so that every thread reaches the barriers, and write
+// nothing.
+template <typename T, int D, bool kMasked, bool kShared>
 __global__ void loglik_kernel(const T* __restrict__ z,
                               const T* __restrict__ tm,
                               const T* __restrict__ rqr,
@@ -420,7 +276,9 @@ __global__ void loglik_kernel(const T* __restrict__ z,
                               const T* __restrict__ p0,
                               const T* __restrict__ y,
                               const unsigned char* __restrict__ obs,
-                              T* __restrict__ ll, int batch, int t_len) {
+                              T* __restrict__ ll, T* __restrict__ vout,
+                              T* __restrict__ fout, int batch, int t_len,
+                              int per_series) {
   // float32: one reciprocal of f and __logf (PERF.md, K1's tolerance)
   constexpr bool kFast = std::is_same<T, float>::value;
   BOOM_SHARED_BYTES(smem_raw);
@@ -428,6 +286,7 @@ __global__ void loglik_kernel(const T* __restrict__ z,
   unsigned char* os = smem_raw + kYChunk * sizeof(T);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = idx < batch ? idx : batch - 1;
+  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
   T zz[D], tt[D][D], a[D], p[D][D], q[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -442,102 +301,34 @@ __global__ void loglik_kernel(const T* __restrict__ z,
     }
   }
   const T hh = h[b];
+  const bool innov = !kShared && vout != nullptr && idx < batch;
   T acc(0);
   T v, f, k[D], rf;
+  T y_n = kShared ? T(0) : y_b[0];
   for (int t0 = 0; t0 < t_len; t0 += kYChunk) {
     const int n = t_len - t0 < kYChunk ? t_len - t0 : kYChunk;
-    stage_y_chunk<T, kMasked>(ys, os, y, obs, t0, n);
+    if (kShared || kMasked)
+      stage_y_chunk<T, kMasked, kShared>(ys, os, y, obs, t0, n);
     for (int s = 0; s < n; ++s) {
       const bool o = !kMasked || os[s] != 0;
-      filter_step<T, T, D, kFast>(a, p, ys[s], o, zz, hh, q, tt, v, f, k,
-                                  rf);
+      T yt;
+      if constexpr (kShared) {
+        yt = ys[s];
+      } else {
+        yt = y_n;
+        if (t0 + s + 1 < t_len) y_n = y_b[t0 + s + 1];
+      }
+      filter_step<T, D, kFast>(a, p, yt, o, zz, hh, q, tt, v, f, k, rf);
       if (o) acc = acc + log_density<T, kFast>(v, f, rf);
+      if constexpr (!kShared) {
+        if (innov) {
+          vout[static_cast<long long>(b) * t_len + t0 + s] = v;
+          fout[static_cast<long long>(b) * t_len + t0 + s] = f;
+        }
+      }
     }
   }
   if (idx < batch) ll[b] = acc;
-}
-
-// ---- J1, J2 --------------------------------------------------------------
-
-// Series a block of J1 / J2 (a warp each).
-constexpr int kJetWarps = 4;
-
-// J1 (kOrder = 1) and J2 (kOrder = 2): the loglik of each series with its
-// gradient grad [B, NP] (J1, J2) and Hessian hess [B, NP, NP] (J2) over
-// NP = 1 + D(D+1)/2 parameters: h, then the upper triangle of R Q R',
-// parameter (lo, hi) at 1 + lo*D - lo*(lo-1)/2 + (hi - lo). A warp a
-// series: in J1 lane l < NP carries the dual number along parameter l; in
-// J2 lane l < NP(NP+1)/2 the hyper-dual along (i, j), the l-th entry of the
-// upper triangle in row-major order, and lane (i, i) also gives g_i. The
-// operation order is K1's in float64 (filter_step, log_density), but for
-// the one reciprocal of f a step. Lanes past the last entry, and warps
-// past the batch, repeat its last one and write nothing; y and the mask
-// are staged in shared memory a block at a time as in K1.
-template <typename T, int D, int kOrder, bool kMasked>
-__global__ void __launch_bounds__(kJetWarps * 32)
-    jet_kernel(const T* __restrict__ z, const T* __restrict__ tm,
-               const T* __restrict__ rqr, const T* __restrict__ h,
-               const T* __restrict__ a0, const T* __restrict__ p0,
-               const T* __restrict__ y, const unsigned char* __restrict__ obs,
-               T* __restrict__ ll, T* __restrict__ grad,
-               T* __restrict__ hess, int batch, int t_len) {
-  constexpr int NP = 1 + D * (D + 1) / 2;
-  constexpr int kEntries = kOrder == 1 ? NP : NP * (NP + 1) / 2;
-  static_assert(kEntries <= 32, "a warp carries one series' entries");
-  using S = Tangent<T, kOrder>;
-  BOOM_SHARED_BYTES(smem_raw);
-  T* ys = reinterpret_cast<T*>(smem_raw);
-  unsigned char* os = smem_raw + kYChunk * sizeof(T);
-  const int lane = threadIdx.x % 32;
-  const int idx = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int b = idx < batch ? idx : batch - 1;
-  const int entry = lane < kEntries ? lane : kEntries - 1;
-  // the lane's directions (di, dj): entry -> (i, j), i <= j
-  int di = entry, dj = entry;
-  if constexpr (kOrder == 2) {
-    di = 0;
-    int left = entry;
-    while (left >= NP - di) left -= NP - di++;
-    dj = di + left;
-  }
-  auto seed = [&](T x, int par) {
-    return Seed<T>{x, T(par == di ? 1 : 0), T(par == dj ? 1 : 0)};
-  };
-  T zz[D], tt[D][D];
-  S a[D], p[D][D];
-  Seed<T> q[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    zz[i] = z[b * D + i];
-    a[i] = S(a0[b * D + i]);
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const int ij = (b * D + i) * D + j;
-      tt[i][j] = tm[ij];
-      p[i][j] = S(p0[ij]);
-      const int lo = i < j ? i : j, hi = i < j ? j : i;
-      q[i][j] = seed(rqr[ij], 1 + lo * D - lo * (lo - 1) / 2 + (hi - lo));
-    }
-  }
-  const Seed<T> hh = seed(h[b], 0);
-  S acc(T(0));
-  S v, f, k[D], rf;
-  for (int t0 = 0; t0 < t_len; t0 += kYChunk) {
-    const int n = t_len - t0 < kYChunk ? t_len - t0 : kYChunk;
-    stage_y_chunk<T, kMasked>(ys, os, y, obs, t0, n);
-    for (int s = 0; s < n; ++s) {
-      const bool o = !kMasked || os[s] != 0;
-      filter_step<T, S, D, true>(a, p, ys[s], o, zz, hh, q, tt, v, f, k, rf);
-      if (o) acc = acc + log_density(v, f, rf);
-    }
-  }
-  if (idx >= batch || lane >= kEntries) return;
-  if (lane == 0) ll[b] = acc.v;
-  if (di == dj) grad[b * NP + di] = acc.a;
-  if constexpr (kOrder == 2) {
-    hess[(b * NP + di) * NP + dj] = acc.c;
-    hess[(b * NP + dj) * NP + di] = acc.c;
-  }
 }
 
 // ---- K2 ------------------------------------------------------------------
@@ -729,8 +520,8 @@ __global__ void __launch_bounds__(kLanes)
       for (int i = 1; i < D; ++i) zs = zs + zz[i] * sim[i];
       const double yd = yb[s] - (zs + slot[D * kPitch]);
       double v, f, k[D], rf;
-      filter_step<double, double, D, true>(a, p, yd, observed(b, s), zz, hh,
-                                           q, tt, v, f, k, rf);
+      filter_step<double, D, true>(a, p, yd, observed(b, s), zz, hh, q, tt,
+                                   v, f, k, rf);
       slot[0] = v * rf;
 #pragma unroll
       for (int i = 0; i < D; ++i) slot[(1 + i) * kPitch] = k[i];
@@ -908,13 +699,20 @@ int loglik_block(Kernel kernel, int batch, int threads) {
 template <typename T, int D>
 int launch_loglik(const void* z, const void* tm, const void* rqr,
                   const void* h, const void* a0, const void* p0,
-                  const void* y, const void* obs, void* ll, int batch,
-                  int t_len, int threads, void* stream) {
-  if (bad_launch(batch, threads) || t_len < 0)
+                  const void* y, const void* obs, void* ll, void* vout,
+                  void* fout, int batch, int t_len, int n_series,
+                  int threads, void* stream) {
+  if (bad_launch(batch, threads) || t_len < 1 || n_series < 1 ||
+      (batch > 0 && batch % n_series != 0) ||
+      (vout == nullptr) != (fout == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  auto kernel = obs != nullptr ? loglik_kernel<T, D, true>
-                               : loglik_kernel<T, D, false>;
+  // the staged series for one series without the innovations
+  const bool shared = n_series == 1 && vout == nullptr;
+  auto kernel = obs != nullptr ? (shared ? loglik_kernel<T, D, true, true>
+                                         : loglik_kernel<T, D, true, false>)
+                               : (shared ? loglik_kernel<T, D, false, true>
+                                         : loglik_kernel<T, D, false, false>);
   threads = loglik_block(kernel, batch, threads);
   if (threads <= 0) {
     const cudaError_t err = cudaGetLastError();
@@ -928,34 +726,8 @@ int launch_loglik(const void* z, const void* tm, const void* rqr,
       static_cast<const T*>(rqr), static_cast<const T*>(h),
       static_cast<const T*>(a0), static_cast<const T*>(p0),
       static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
-      static_cast<T*>(ll), batch, t_len);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// J1 (kOrder 1, hess unused) and J2 (kOrder 2). threads: a warp a series,
-// at most kJetWarps of them a block; 0 for min(kJetWarps, batch) warps.
-template <typename T, int D, int kOrder>
-int launch_jet(const void* z, const void* tm, const void* rqr, const void* h,
-               const void* a0, const void* p0, const void* y,
-               const void* obs, void* ll, void* grad, void* hess, int batch,
-               int t_len, int threads, void* stream) {
-  if (bad_launch(batch, threads) || threads > kJetWarps * 32 || t_len < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  if (threads == 0) threads = 32 * (batch < kJetWarps ? batch : kJetWarps);
-  auto kernel = obs != nullptr ? jet_kernel<T, D, kOrder, true>
-                               : jet_kernel<T, D, kOrder, false>;
-  const int warps = threads / 32;
-  const int blocks = (batch + warps - 1) / warps;
-  const int smem = kYChunk * (static_cast<int>(sizeof(T)) + 1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, threads, smem, st>>>(
-      static_cast<const T*>(z), static_cast<const T*>(tm),
-      static_cast<const T*>(rqr), static_cast<const T*>(h),
-      static_cast<const T*>(a0), static_cast<const T*>(p0),
-      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
-      static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
-      batch, t_len);
+      static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
+      batch, t_len, batch / n_series);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -997,38 +769,22 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 
 // Plain C entries. Every array is a contiguous device array of the entry's
 // type: z [B, D], tm and rqr and p0 [B, D, D], h [B], a0 and alpha1 [B, D],
-// y [T], obs [T] bytes, 4-byte aligned (nullptr: all observed); outputs
-// ll [B], grad [B, NP], hess [B, NP, NP] (NP = 1 + D(D+1)/2), out
-// [C, T, D]; w [C, T-1, D], eps [C, T]; scratch [C, T, D+1]. threads: K1's
-// block size, a multiple of 32 up to 1024, or 0 for one block of
-// ceil(B / SMs) threads an SM; J1's and J2's a multiple of 32 up to
-// 32 * kJetWarps, or 0; K2's must be 32. stream: a cudaStream_t. Returns
-// the cudaError_t of the launch (0 = success).
+// y [T] (K1: [S, T], S = n_series dividing B, system b reading series
+// b / (B / S)), obs [T] bytes, 4-byte aligned (nullptr: all observed);
+// outputs ll [B], K1's vout and fout [B, T] (both nullptr: no
+// innovations), out [C, T, D]; w [C, T-1, D], eps [C, T]; scratch
+// [C, T, D+1]. threads: K1's block size, a multiple of 32 up to 1024, or 0
+// for one block of ceil(B / SMs) threads an SM; K2's must be 32. stream: a
+// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
 #define BOOM_LOGLIK_ENTRY(TY, TYNAME, D)                                     \
   extern "C" int boom_kalman_loglik_##TYNAME##_d##D(                         \
       const void* z, const void* tm, const void* rqr, const void* h,         \
       const void* a0, const void* p0, const void* y, const void* obs,        \
-      void* ll, int batch, int t_len, int threads, void* stream) {           \
-    return launch_loglik<TY, D>(z, tm, rqr, h, a0, p0, y, obs, ll, batch,    \
-                                t_len, threads, stream);                     \
-  }
-
-#define BOOM_JET_ENTRIES(TY, TYNAME, D)                                      \
-  extern "C" int boom_kalman_loglik_grad_##TYNAME##_d##D(                    \
-      const void* z, const void* tm, const void* rqr, const void* h,         \
-      const void* a0, const void* p0, const void* y, const void* obs,        \
-      void* ll, void* grad, int batch, int t_len, int threads,               \
-      void* stream) {                                                        \
-    return launch_jet<TY, D, 1>(z, tm, rqr, h, a0, p0, y, obs, ll, grad,     \
-                                nullptr, batch, t_len, threads, stream);     \
-  }                                                                          \
-  extern "C" int boom_kalman_loglik_hess_##TYNAME##_d##D(                    \
-      const void* z, const void* tm, const void* rqr, const void* h,         \
-      const void* a0, const void* p0, const void* y, const void* obs,        \
-      void* ll, void* grad, void* hess, int batch, int t_len, int threads,   \
-      void* stream) {                                                        \
-    return launch_jet<TY, D, 2>(z, tm, rqr, h, a0, p0, y, obs, ll, grad,     \
-                                hess, batch, t_len, threads, stream);        \
+      void* ll, void* vout, void* fout, int batch, int t_len, int n_series,  \
+      int threads, void* stream) {                                           \
+    return launch_loglik<TY, D>(z, tm, rqr, h, a0, p0, y, obs, ll, vout,     \
+                                fout, batch, t_len, n_series, threads,       \
+                                stream);                                     \
   }
 
 #define BOOM_SMOOTHER_ENTRY(TY, TYNAME, D)                                   \
@@ -1051,8 +807,6 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 
 BOOM_LOGLIK_ALL_D(float, f32)
 BOOM_LOGLIK_ALL_D(double, f64)
-BOOM_JET_ENTRIES(double, f64, 1)
-BOOM_JET_ENTRIES(double, f64, 2)
 BOOM_SMOOTHER_ENTRY(double, f64, 1)
 BOOM_SMOOTHER_ENTRY(double, f64, 2)
 BOOM_SMOOTHER_ENTRY(double, f64, 3)

@@ -16,9 +16,22 @@
 //      (boom_tpu/statespace/bsts.py:1077-1084, a lax.scan): D_0 = 0,
 //      D_t = T_c D_{t-1} + w_{c,g,t} for every chain c and variance group
 //      g, float32 or float64, d in 1..16: every d of the ASIS pass.
+//   K1w `wide_loglik_kernel<T, T, D, 0>`: the marginal loglik
+//      (kalman.py `kalman_loglik` :229, its lax.scan at :282) of every
+//      (chain, TIM point) system at 7 <= d <= 16, float32 or float64, on
+//      one series or on a series a group of systems (bsts with a
+//      regression: each chain's y - X beta), and optionally the
+//      innovations v and f (`kalman_filter` :218, the one-step errors).
+//   J1 and J2 `wide_loglik_kernel<double, Tangent<double, order>, D,
+//      order>`: the same loglik with its first (J1) or first and second
+//      (J2) derivatives along K <= 16 directions of (h, R Q R'), forward
+//      mode, d in 1..16, for the TIM proposal's mode search in the
+//      variances (`jax.value_and_grad` in numopt.bfgs,
+//      boom_tpu/numopt.py:43, and `jax.hessian` in newton_raphson, :101,
+//      and bsts.py:661).
 // The plain PyTorch versions are boom_tpu_torch/statespace/kalman.py
-// (`simulation_smoother`, `dpath`); statespace/kalman_kernel.py binds this
-// file.
+// (`simulation_smoother`, `dpath`, `kalman_loglik`, `loglik_jets`);
+// statespace/kalman_kernel.py binds this file.
 //
 // What bounds them on this card. K2w's filter step is d x d algebra,
 // 4d^3 + 8d^2 + 3d flops (2,624 at d = 8), in float64: at the bsts_reg shape
@@ -29,6 +42,10 @@
 // the latency of a step and by how many steps are in flight: occupancy.
 // K3 does d^2 multiply-adds a step and series; its bytes bound it (w in,
 // the D-paths out: 0.39 GB in float32 at 4096 chains, 3 groups, d = 8).
+// K1w at bsts_reg's TIM batch (4096 chains x 17 points, T = 500, d = 8,
+// float32) does 90 GFLOP: 1.35 ms at 67 TFLOP/s; like K2w's pass 1 it is
+// a chain of dependent steps, three __syncwarp()s each. J1 and J2 run once
+// a model on one series: latency alone.
 //
 // Design:
 //   - d is a template parameter (K2w 7..16, K3 1..16); the C entries
@@ -77,6 +94,15 @@
 //     256 where one wave of such blocks holds it (bsts_llt's 512 warps, one
 //     block an SM: a warp needs more bytes in flight); the launcher asks
 //     the card's occupancy.
+//   - K1w, J1 and J2 are K2w's pass 1 without alpha+ and without the
+//     (v/f, K) stream, one template over the scalar S that carries the
+//     derivatives (T, or a dual / hyper-dual Tangent): a unit (a series;
+//     for the jets a (series, direction pair)) takes a group of W lanes,
+//     its P lives in shared memory in S (K2w's layout is sized in doubles,
+//     so this one has its own), lane i holds row i of T; y is read one
+//     step ahead from the cache, its series b / per_series. The jets stage
+//     their K directions once a block; each unit recomputes the value
+//     chain, so units never exchange data.
 //   - Not the float64 tensor cores: mma.sync.m8n8k4.f64 would fit d = 8's
 //     T P, but each chain is 500 dependent steps of 8 x 8 algebra, so the
 //     time is set by a step's latency and by occupancy, not by the f64
@@ -112,13 +138,172 @@ __host__ __device__ constexpr int group_lanes(int d) {
   return d <= 1 ? 1 : d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : 16;
 }
 
+// ---- tangents (J1, J2) ------------------------------------------------------
+
+// A scalar with its derivatives along two directions i and j: v, a = dv/di,
+// b = dv/dj, c = d2v/didj (kOrder = 2, a hyper-dual number); kOrder = 1
+// carries v and a alone (a dual number), b and c unused.
+template <typename T, int kOrder>
+struct Tangent {
+  T v, a, b, c;
+  __device__ Tangent() {}
+  __device__ Tangent(T x)  // NOLINT: a constant promotes to a tangent
+      : v(x), a(T(0)), b(T(0)), c(T(0)) {}
+};
+
+// A system parameter as the filter reads it: value v and its derivatives
+// sa, sb along the unit's directions i and j (it is linear in them).
+template <typename T>
+struct Seed {
+  T v, sa, sb;
+};
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v + y.v;
+  r.a = x.a + y.a;
+  if constexpr (K == 2) {
+    r.b = x.b + y.b;
+    r.c = x.c + y.c;
+  }
+  return r;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
+                                                   const Seed<T>& s) {
+  Tangent<T, K> r;
+  r.v = x.v + s.v;
+  r.a = x.a + s.sa;
+  if constexpr (K == 2) {
+    r.b = x.b + s.sb;
+    r.c = x.c;
+  }
+  return r;
+}
+
+// a constant minus a tangent
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator-(T s,
+                                                   const Tangent<T, K>& x) {
+  Tangent<T, K> r;
+  r.v = s - x.v;
+  r.a = -x.a;
+  if constexpr (K == 2) {
+    r.b = -x.b;
+    r.c = -x.c;
+  }
+  return r;
+}
+
+// a constant times a tangent
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(T s,
+                                                   const Tangent<T, K>& x) {
+  Tangent<T, K> r;
+  r.v = s * x.v;
+  r.a = s * x.a;
+  if constexpr (K == 2) {
+    r.b = s * x.b;
+    r.c = s * x.c;
+  }
+  return r;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
+                                                   T s) {
+  return s * x;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v * y.v;
+  r.a = x.a * y.v + x.v * y.a;
+  if constexpr (K == 2) {
+    r.b = x.b * y.v + x.v * y.b;
+    r.c = x.c * y.v + x.a * y.b + x.b * y.a + x.v * y.c;
+  }
+  return r;
+}
+
+// The correctly rounded reciprocal.
+__device__ __forceinline__ float reciprocal(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
+
+// q = 1 / f with one correctly rounded reciprocal of f.v:
+// q' = -f' / f^2, q''_ij = (2 f'_i f'_j / f - f''_ij) / f^2
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> reciprocal(const Tangent<T, K>& f) {
+  Tangent<T, K> q;
+  q.v = reciprocal(f.v);
+  const T fa = f.a * q.v;
+  q.a = -fa * q.v;
+  if constexpr (K == 2) {
+    q.b = -(f.b * q.v) * q.v;
+    q.c = ((T(2) * fa) * f.b - f.c) * q.v * q.v;
+  }
+  return q;
+}
+
+constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
+
+// One step's log density -0.5 (log 2 pi + log f + v v / f), with the step's
+// reciprocal rf = 1 / f in place of the division.
+__device__ __forceinline__ float log_density(float v, float f, float rf) {
+  return -0.5f * ((float(kLog2Pi) + logf(f)) + v * v * rf);
+}
+__device__ __forceinline__ double log_density(double v, double f,
+                                              double rf) {
+  return -0.5 * ((kLog2Pi + log(f)) + v * v * rf);
+}
+
+// The same for a tangent: log f has l' = f' / f, l''_ij = f''_ij / f -
+// l'_i l'_j.
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> log_density(
+    const Tangent<T, K>& v, const Tangent<T, K>& f,
+    const Tangent<T, K>& rf) {
+  Tangent<T, K> lf;
+  lf.v = log(f.v);
+  lf.a = f.a * rf.v;
+  if constexpr (K == 2) {
+    lf.b = f.b * rf.v;
+    lf.c = f.c * rf.v - lf.a * lf.b;
+  }
+  return T(-0.5) * ((Tangent<T, K>(T(kLog2Pi)) + lf) + v * v * rf);
+}
+
+// The value of lane `src` of the warp (each part of a tangent).
+__device__ __forceinline__ float shfl(float v, int src) {
+  return __shfl_sync(kFull, v, src);
+}
+__device__ __forceinline__ double shfl(double v, int src) {
+  return __shfl_sync(kFull, v, src);
+}
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> shfl(const Tangent<T, K>& x,
+                                              int src) {
+  Tangent<T, K> r;
+  r.v = shfl(x.v, src);
+  r.a = shfl(x.a, src);
+  if constexpr (K == 2) {
+    r.b = shfl(x.b, src);
+    r.c = shfl(x.c, src);
+  }
+  return r;
+}
+
 // Sum over a group of W lanes by a fixed butterfly (xor offsets < W); every
 // lane of the group gets the same bits.
 template <int W, typename T>
 __device__ __forceinline__ T group_sum(T v, int lane) {
 #pragma unroll
-  for (int off = W / 2; off > 0; off >>= 1)
-    v = v + __shfl_sync(kFull, v, lane ^ off);
+  for (int off = W / 2; off > 0; off >>= 1) v = v + shfl(v, lane ^ off);
   return v;
 }
 
@@ -131,8 +316,6 @@ __device__ __forceinline__ T dot(const T (&x)[D], const T* v) {
   for (int m = 1; m < D; ++m) acc = acc + x[m] * v[m];
   return acc;
 }
-
-__device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
 
 // 8-byte asynchronous copy global -> shared (cp.async, cached in L1).
 __device__ __forceinline__ void copy8_async(void* smem, const void* gmem) {
@@ -716,6 +899,237 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// ---- K1w, J1, J2 --------------------------------------------------------
+
+// The most directions J1 and J2 take: they are staged in the block's shared
+// memory, K (1 + D^2) doubles (33 KB at K = 16, D = 16, beside the units'
+// hyper-dual P buffers).
+constexpr int kMaxDirections = 16;
+
+// The loglik's layout: a group of W lanes a unit (K1w: a series; J1, J2: a
+// (series, entry) pair), kPerWarp units a warp, kUnits a block. A unit's
+// shared memory, 16-byte aligned: P in two buffers X and Y (D x kLd of S,
+// the scalar that carries the derivatives: T in K1w, a Tangent in J1 and
+// J2), the exchange vectors P z and a (D of S each) and z (D of T). J1 and
+// J2 stage the directions ahead of the units: dh [K], then dm [K, D, D].
+template <typename T, typename S, int D>
+struct WideLoglik {
+  static constexpr int kW = group_lanes(D);
+  static constexpr int kPerWarp = kWarp / kW;
+  static constexpr int kUnits = kBlock / kWarp * kPerWarp;
+  static constexpr int kLd = D + 1;
+  static constexpr int kUnitBytes =
+      (2 * D * kLd * static_cast<int>(sizeof(S)) +
+       2 * D * static_cast<int>(sizeof(S)) + D * static_cast<int>(sizeof(T)) +
+       15) / 16 * 16;
+  // K1w keeps the column of R Q R' in registers while it costs at most 16
+  // of them (float32 at every d, float64 to d = 8) and reads it from the
+  // cache past that
+  static constexpr bool kQInRegisters =
+      sizeof(S) == sizeof(T) && D * sizeof(T) <= 64;
+  __host__ __device__ static constexpr int dir_bytes(int n_dirs) {
+    return sizeof(S) == sizeof(T)
+               ? 0
+               : (n_dirs * (1 + D * D) * static_cast<int>(sizeof(T)) + 15) /
+                     16 * 16;
+  }
+  static constexpr int kMaxBytes =
+      dir_bytes(kMaxDirections) + kUnits * kUnitBytes;
+  static_assert(kMaxBytes <= kSmemPerSm - kSmemPerBlock, "the loglik's layout");
+};
+
+// K1w (kOrder = 0, S = T): the loglik of each system b over series
+// b / per_series of y [n_series, T], and with vout the innovations v and f
+// [B, T]. J1 (kOrder = 1) and J2 (kOrder = 2, S = Tangent<double, kOrder>):
+// the loglik with its gradient grad [B, K] and Hessian hess [B, K, K] along
+// K directions of the system: h = h0 + sum_k c_k dh_k, R Q R' = Q0 +
+// sum_k c_k dm_k at c = 0 (h and rqr hold h0 and Q0). Unit (b, e): in J1,
+// entry e is direction e, a dual number; in J2 the e-th pair (i, j), i <= j,
+// of the upper triangle in row-major order, a hyper-dual number, and pair
+// (i, i) also gives grad_i. Lane i < D of a unit's group holds row i of T
+// and a, the unit's P is in shared memory; a filter step is K2w's pass 1
+// without alpha+: lane i forms row i of P z and of T P (into Y), publishes
+// P z and a; then K_i = (T P z)_i / f, its own row of L = T - K z' and
+// column i of P' = (T P) L' + R Q R' over X; then row i of 0.5 (P' + P'^T),
+// the diagonal exact, into Y; three __syncwarp()s a step. z'a and z'P z are
+// group butterflies (the same bits on every lane of the group, so the units
+// never diverge and repeated launches are bit-identical). A unit past the
+// last shadows it and writes nothing; lanes i >= D shadow row 0.
+template <typename T, typename S, int D, int kOrder>
+__global__ void __launch_bounds__(kBlock)
+    wide_loglik_kernel(const T* __restrict__ z, const T* __restrict__ tm,
+                       const T* __restrict__ rqr, const T* __restrict__ h,
+                       const T* __restrict__ a0, const T* __restrict__ p0,
+                       const T* __restrict__ y,
+                       const unsigned char* __restrict__ obs,
+                       const T* __restrict__ dh, const T* __restrict__ dm,
+                       T* __restrict__ ll, T* __restrict__ grad,
+                       T* __restrict__ hess, T* __restrict__ vout,
+                       T* __restrict__ fout, int batch, int t_len,
+                       int per_series, int n_dirs) {
+  using L = WideLoglik<T, S, D>;
+  constexpr int W = L::kW, kLd = L::kLd;
+  BOOM_SHARED_BYTES(smem_raw);
+  const int lane = threadIdx.x % kWarp;
+  const int il = lane % W;
+  const bool act = il < D;
+  const int i = act ? il : 0;
+  const int entries = kOrder == 0   ? 1
+                      : kOrder == 1 ? n_dirs
+                                    : n_dirs * (n_dirs + 1) / 2;
+  const long long n_units = static_cast<long long>(batch) * entries;
+  const int ub = threadIdx.x / kWarp * L::kPerWarp + lane / W;
+  const long long u_at =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp * L::kPerWarp) +
+      ub;
+  const bool live = u_at < n_units;
+  const long long u = live ? u_at : n_units - 1;
+  const int b = static_cast<int>(u / entries);
+  const int e = static_cast<int>(u - static_cast<long long>(b) * entries);
+  int di = e, dj = e;  // the unit's directions
+  if constexpr (kOrder == 2) {
+    di = 0;
+    int left = e;
+    while (left >= n_dirs - di) left -= n_dirs - di++;
+    dj = di + left;
+  }
+  T* dirs = reinterpret_cast<T*>(smem_raw);
+  if constexpr (kOrder > 0) {
+    const int n = n_dirs * (1 + D * D);
+    for (int k = threadIdx.x; k < n; k += blockDim.x)
+      dirs[k] = k < n_dirs ? dh[k] : dm[k - n_dirs];
+    __syncthreads();
+  }
+  unsigned char* unit =
+      smem_raw + L::dir_bytes(n_dirs) + ub * L::kUnitBytes;
+  S* px = reinterpret_cast<S*>(unit);  // P
+  S* py = px + D * kLd;                // T P, then the next P
+  S* xpz = py + D * kLd;               // P z
+  S* xa = xpz + D;                     // a
+  T* zv = reinterpret_cast<T*>(xa + D);
+
+  const long long bd = static_cast<long long>(b) * D;
+  const T* tm_b = tm + bd * D;
+  const T* q_b = rqr + bd * D;
+  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
+  T trow[D], qv[L::kQInRegisters ? D : 1];
+#pragma unroll
+  for (int j = 0; j < D; ++j) trow[j] = tm_b[i * D + j];
+  if constexpr (L::kQInRegisters) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) qv[j] = q_b[j * D + i];  // column i
+  }
+  for (int k = il; k < D * D; k += W) {
+    const int r = k / D;
+    px[r * kLd + (k - r * D)] = S(p0[bd * D + k]);
+  }
+  const T zi = act ? z[bd + i] : T(0);
+  if (act) zv[i] = zi;
+  S a_i = S(a0[bd + i]);
+  // h and the column of R Q R' with their derivatives along (di, dj)
+  auto h_of = [&]() {
+    if constexpr (kOrder == 0)
+      return h[b];
+    else
+      return Seed<T>{h[b], dirs[di], dirs[dj]};
+  };
+  auto q_of = [&](int jj) {
+    if constexpr (kOrder == 0) {
+      if constexpr (L::kQInRegisters)
+        return qv[jj];
+      else
+        return q_b[jj * D + i];
+    } else {
+      const T* m = dirs + n_dirs;
+      return Seed<T>{q_b[jj * D + i], m[(di * D + jj) * D + i],
+                     m[(dj * D + jj) * D + i]};
+    }
+  };
+  const auto hh = h_of();
+  const S zero(T(0));
+  S acc = zero;
+  T y_n = y_b[0];
+  bool o_n = obs == nullptr || obs[0] != 0;
+  __syncwarp();
+  for (int t = 0; t < t_len; ++t) {
+    const T yt = y_n;
+    const bool ob = o_n;
+    if (t + 1 < t_len) {
+      y_n = y_b[t + 1];
+      o_n = obs == nullptr || obs[t + 1] != 0;
+    }
+    S pz = px[i * kLd] * zv[0];  // P z, row i
+#pragma unroll
+    for (int j = 1; j < D; ++j) pz = pz + px[i * kLd + j] * zv[j];
+    const S za = group_sum<W>(zi * a_i, lane);
+    const S f = group_sum<W>(zi * pz, lane) + hh;
+    const S v = ob ? yt - za : zero;
+    const S rf = reciprocal(f);
+    // (T P) row i into Y
+#pragma unroll(sizeof(S) == sizeof(T) ? D : 1)
+    for (int jj = 0; jj < D; ++jj) {
+      S tp = trow[0] * px[jj];
+#pragma unroll
+      for (int m = 1; m < D; ++m) tp = tp + trow[m] * px[m * kLd + jj];
+      if (act) py[i * kLd + jj] = tp;
+    }
+    if (act) {
+      xpz[i] = pz;
+      xa[i] = a_i;
+    }
+    __syncwarp();  // P z, a and T P are whole; P is read
+    S tpz = trow[0] * xpz[0], ta = trow[0] * xa[0];
+#pragma unroll
+    for (int m = 1; m < D; ++m) {
+      tpz = tpz + trow[m] * xpz[m];
+      ta = ta + trow[m] * xa[m];
+    }
+    const S k = ob ? tpz * rf : zero;
+    // column i of P' = (T P) L' + R Q R', L row i = T row i - K_i z'
+#pragma unroll(sizeof(S) == sizeof(T) ? D : 1)
+    for (int jj = 0; jj < D; ++jj) {
+      S pn = (trow[0] - k * zv[0]) * py[jj * kLd];
+#pragma unroll
+      for (int m = 1; m < D; ++m)
+        pn = pn + (trow[m] - k * zv[m]) * py[jj * kLd + m];
+      pn = pn + q_of(jj);
+      if (act) px[jj * kLd + i] = pn;
+    }
+    a_i = ta + k * v;
+    if constexpr (kOrder == 0) {
+      if (vout != nullptr && live && il == 0) {
+        vout[static_cast<long long>(b) * t_len + t] = v;
+        fout[static_cast<long long>(b) * t_len + t] = f;
+      }
+    }
+    if (ob) acc = acc + log_density(v, f, rf);
+    __syncwarp();  // P' is whole in X
+    // 0.5 (P' + P'^T), the diagonal P'_ii exactly, row i into Y
+    if (act) {
+      for (int jj = 0; jj < D; ++jj)
+        py[i * kLd + jj] =
+            jj == i ? px[i * kLd + i]
+                    : T(0.5) * (px[i * kLd + jj] + px[jj * kLd + i]);
+    }
+    __syncwarp();  // P is whole in Y
+    S* swap = px;
+    px = py;
+    py = swap;
+  }
+  if (!live || il != 0) return;
+  if constexpr (kOrder == 0) {
+    ll[b] = acc;
+  } else {
+    const long long bk = static_cast<long long>(b) * n_dirs;
+    if (e == 0) ll[b] = acc.v;
+    if (di == dj) grad[bk + di] = acc.a;
+    if constexpr (kOrder == 2) {
+      hess[(bk + di) * n_dirs + dj] = acc.c;
+      hess[(bk + dj) * n_dirs + di] = acc.c;
+    }
+  }
+}
+
 // ---- launches ------------------------------------------------------------
 
 // Lets `kernel` take `bytes` of dynamic shared memory and the SM give its
@@ -856,6 +1270,96 @@ int dispatch_dpath(const void* tm, const void* w, void* out, int batch,
   }
 }
 
+// K1w (kOrder 0) or J1 / J2 over `batch` systems: one launch.
+template <typename T, typename S, int D, int kOrder>
+int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
+                       const void* h, const void* a0, const void* p0,
+                       const void* y, const void* obs, const void* dh,
+                       const void* dm, void* ll, void* grad, void* hess,
+                       void* vout, void* fout, int batch, int t_len,
+                       int n_series, int n_dirs, int threads, void* stream) {
+  using L = WideLoglik<T, S, D>;
+  auto kernel = wide_loglik_kernel<T, S, D, kOrder>;
+  static const cudaError_t attr = allow_shared(kernel, L::kMaxBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long entries = kOrder == 0   ? 1
+                            : kOrder == 1 ? n_dirs
+                                          : n_dirs * (n_dirs + 1) / 2;
+  const int per_block = threads / kWarp * L::kPerWarp;
+  const long long blocks =
+      (static_cast<long long>(batch) * entries + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(blocks);
+  const int bytes = L::dir_bytes(n_dirs) + per_block * L::kUnitBytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(z), static_cast<const T*>(tm),
+      static_cast<const T*>(rqr), static_cast<const T*>(h),
+      static_cast<const T*>(a0), static_cast<const T*>(p0),
+      static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<const T*>(dh), static_cast<const T*>(dm),
+      static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
+      static_cast<T*>(vout), static_cast<T*>(fout), batch, t_len,
+      batch / n_series, n_dirs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_series(int batch, int t_len, int n_series, int threads) {
+  return batch < 0 || t_len < 1 || n_series < 1 || bad_block(threads) ||
+         (batch > 0 && batch % n_series != 0);
+}
+
+template <typename T>
+int dispatch_loglik_wide(const void* z, const void* tm, const void* rqr,
+                         const void* h, const void* a0, const void* p0,
+                         const void* y, const void* obs, void* ll,
+                         void* vout, void* fout, int batch, int t_len,
+                         int n_series, int d, int threads, void* stream) {
+  if (bad_series(batch, t_len, n_series, threads) ||
+      (vout == nullptr) != (fout == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  switch (d) {
+#define BOOM_LOGLIK_WIDE_CASE(D)                                            \
+  case D:                                                                   \
+    return launch_wide_loglik<T, T, D, 0>(                                  \
+        z, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr,       \
+        nullptr, vout, fout, batch, t_len, n_series, 0, threads, stream);
+    BOOM_LOGLIK_WIDE_CASE(7) BOOM_LOGLIK_WIDE_CASE(8)
+    BOOM_LOGLIK_WIDE_CASE(9) BOOM_LOGLIK_WIDE_CASE(10)
+    BOOM_LOGLIK_WIDE_CASE(11) BOOM_LOGLIK_WIDE_CASE(12)
+    BOOM_LOGLIK_WIDE_CASE(13) BOOM_LOGLIK_WIDE_CASE(14)
+    BOOM_LOGLIK_WIDE_CASE(15) BOOM_LOGLIK_WIDE_CASE(16)
+#undef BOOM_LOGLIK_WIDE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kOrder>
+int dispatch_jet(const void* z, const void* tm, const void* rqr,
+                 const void* h, const void* a0, const void* p0,
+                 const void* y, const void* obs, const void* dh,
+                 const void* dm, void* ll, void* grad, void* hess, int batch,
+                 int t_len, int n_series, int d, int n_dirs, int threads,
+                 void* stream) {
+  using S = Tangent<double, kOrder>;
+  switch (d) {
+#define BOOM_JET_CASE(D)                                                    \
+  case D:                                                                   \
+    return launch_wide_loglik<double, S, D, kOrder>(                        \
+        z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, grad, hess, nullptr,     \
+        nullptr, batch, t_len, n_series, n_dirs, threads, stream);
+    BOOM_JET_CASE(1) BOOM_JET_CASE(2) BOOM_JET_CASE(3) BOOM_JET_CASE(4)
+    BOOM_JET_CASE(5) BOOM_JET_CASE(6) BOOM_JET_CASE(7) BOOM_JET_CASE(8)
+    BOOM_JET_CASE(9) BOOM_JET_CASE(10) BOOM_JET_CASE(11) BOOM_JET_CASE(12)
+    BOOM_JET_CASE(13) BOOM_JET_CASE(14) BOOM_JET_CASE(15) BOOM_JET_CASE(16)
+#undef BOOM_JET_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Plain C entries. Every array is a contiguous device array of the entry's
@@ -863,8 +1367,14 @@ int dispatch_dpath(const void* tm, const void* w, void* out, int batch,
 // [B, d], w [B, T-1, d], eps [B, T], y [T], obs [T] bytes (nullptr: all
 // observed), scratch [B, T, d+1], out [B, T, d]; 7 <= d <= 16. K3: tm
 // [B, d, d], w [B, G, T-1, d], out [B, G, T, d], w and out 16-byte
-// aligned; 1 <= d <= 16. threads: a multiple of 32 up to 128. stream: a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+// aligned; 1 <= d <= 16. K1w (7 <= d <= 16) and the jets (float64, 1 <= d
+// <= 16): z, tm, rqr, h, a0 [B, d], p0 as K2w's; y [S, T] (S = n_series,
+// dividing B: system b reads series b / (B / S)), obs [T] bytes or nullptr;
+// ll [B]; K1w's vout and fout [B, T] (both nullptr: no innovations); the
+// jets' directions dh [K] and dm [K, d, d] (1 <= K <= kMaxDirections),
+// grad [B, K], hess [B, K, K] (order 2). threads: a multiple of 32 up to
+// 128. stream: a cudaStream_t. Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int boom_kalman_smoother_wide_f64(
     const void* z, const void* tm, const void* rqr, const void* h,
     const void* p0, const void* alpha1, const void* w, const void* eps,
@@ -900,4 +1410,44 @@ extern "C" int boom_dpath_f64(const void* tm, const void* w, void* out,
                               int threads, void* stream) {
   return dispatch_dpath<double>(tm, w, out, batch, groups, t_len, d, threads,
                                 stream);
+}
+
+extern "C" int boom_kalman_loglik_wide_f32(
+    const void* z, const void* tm, const void* rqr, const void* h,
+    const void* a0, const void* p0, const void* y, const void* obs, void* ll,
+    void* vout, void* fout, int batch, int t_len, int n_series, int d,
+    int threads, void* stream) {
+  return dispatch_loglik_wide<float>(z, tm, rqr, h, a0, p0, y, obs, ll, vout,
+                                     fout, batch, t_len, n_series, d,
+                                     threads, stream);
+}
+
+extern "C" int boom_kalman_loglik_wide_f64(
+    const void* z, const void* tm, const void* rqr, const void* h,
+    const void* a0, const void* p0, const void* y, const void* obs, void* ll,
+    void* vout, void* fout, int batch, int t_len, int n_series, int d,
+    int threads, void* stream) {
+  return dispatch_loglik_wide<double>(z, tm, rqr, h, a0, p0, y, obs, ll,
+                                      vout, fout, batch, t_len, n_series, d,
+                                      threads, stream);
+}
+
+extern "C" int boom_kalman_jet_f64(
+    const void* z, const void* tm, const void* rqr, const void* h,
+    const void* a0, const void* p0, const void* y, const void* obs,
+    const void* dh, const void* dm, void* ll, void* grad, void* hess,
+    int batch, int t_len, int n_series, int d, int n_dirs, int order,
+    int threads, void* stream) {
+  if (bad_series(batch, t_len, n_series, threads) || n_dirs < 1 ||
+      n_dirs > kMaxDirections || (order != 1 && order != 2) ||
+      (order == 2) != (hess != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  return order == 1
+             ? dispatch_jet<1>(z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll,
+                               grad, hess, batch, t_len, n_series, d, n_dirs,
+                               threads, stream)
+             : dispatch_jet<2>(z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll,
+                               grad, hess, batch, t_len, n_series, d, n_dirs,
+                               threads, stream);
 }

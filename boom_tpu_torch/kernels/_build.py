@@ -38,30 +38,35 @@ SCAN_DIMS = tuple(range(1, 7))
 SCAN_MIN_TILE = 128
 
 # the C entries of kalman_seq.cu: (dtype tags, state dims) of each kernel
-# (K1 "loglik", J1 "loglik_grad", J2 "loglik_hess", K2 "smoother")
+# (K1 "loglik", K2 "smoother")
 KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
-                  "loglik_grad": (("f64",), (1, 2)),
-                  "loglik_hess": (("f64",), (1, 2)),
                   "smoother": (("f64",), tuple(range(1, 7)))}
 # the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
 SSVS_DTYPES = ("f32", "f64")
-# kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS) and K3
-# (one entry a dtype, every d in DPATH_DIMS)
+# kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS), K3
+# (one entry a dtype, every d in DPATH_DIMS), K1w (one entry a dtype, every
+# d in WIDE_DIMS) and the loglik's jets J1 and J2 (one float64 entry, every
+# d in JET_DIMS, at most JET_MAX_DIRECTIONS directions: kMaxDirections)
 WIDE_DIMS = tuple(range(7, 17))
 DPATH_DTYPES = ("f32", "f64")
 DPATH_DIMS = tuple(range(1, 17))
+LOGLIK_WIDE_DTYPES = ("f32", "f64")
+JET_DIMS = tuple(range(1, 17))
+JET_MAX_DIRECTIONS = 16
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each entry family (pointers, then ints, then stream)
 _ARGTYPES = {
     # in, out, totals, totals_len, batch, t_len, reverse, stream
     "scan": [_P, _P, _P, _L, _I, _I, _I, _P],
-    # z, tm, rqr, h, a0, p0, y, obs, ll, batch, t_len, threads, stream
-    "loglik": [_P] * 9 + [_I, _I, _I, _P],
-    # ... ll, grad, batch, t_len, threads, stream
-    "loglik_grad": [_P] * 10 + [_I, _I, _I, _P],
-    # ... ll, grad, hess, batch, t_len, threads, stream
-    "loglik_hess": [_P] * 11 + [_I, _I, _I, _P],
+    # z, tm, rqr, h, a0, p0, y, obs, ll, vout, fout, batch, t_len,
+    # n_series, threads, stream
+    "loglik": [_P] * 11 + [_I] * 4 + [_P],
+    # ... as "loglik", then d before threads
+    "loglik_wide": [_P] * 11 + [_I] * 5 + [_P],
+    # z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, grad, hess, batch, t_len,
+    # n_series, d, n_dirs, order, threads, stream
+    "jet": [_P] * 13 + [_I] * 7 + [_P],
     # z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch,
     # t_len, threads, stream
     "smoother": [_P] * 12 + [_I, _I, _I, _P],
@@ -120,7 +125,10 @@ def build(names=None) -> dict:
         report, _ = proc.communicate()
         log_path(name).write_text(report)
         if proc.returncode != 0:
-            failed.append(f"{name} ({proc.returncode}):\n{report[-4000:]}")
+            # the errors first: a failed build's warnings can fill the tail
+            errors = [ln for ln in report.splitlines() if "error" in ln]
+            failed.append(f"{name} ({proc.returncode}):\n"
+                          + "\n".join(errors[:40]) + f"\n{report[-2000:]}")
         else:
             os.replace(tmp, library_path(name))
     if failed:
@@ -150,6 +158,9 @@ def library(name: str) -> ctypes.CDLL:
         _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
         for tag in DPATH_DTYPES:
             _declare(lib, "dpath", f"boom_dpath_{tag}")
+        for tag in LOGLIK_WIDE_DTYPES:
+            _declare(lib, "loglik_wide", f"boom_kalman_loglik_wide_{tag}")
+        _declare(lib, "jet", "boom_kalman_jet_f64")
     else:
         for kind, (tags, dims) in KALMAN_ENTRIES.items():
             for tag in tags:

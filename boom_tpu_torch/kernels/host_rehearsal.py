@@ -1,5 +1,5 @@
-"""Rehearse the sequential Kalman kernels (K1, K2, J1, J2; K2w and K3) and
-kernel (a) on a machine without a card.
+"""Rehearse the sequential Kalman kernels (K1, K2; K1w, J1, J2, K2w and
+K3) and kernel (a) on a machine without a card.
 
     python3 boom_tpu_torch/kernels/host_rehearsal.py          # kernels
     python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
@@ -19,8 +19,10 @@ leaves at its next barrier and the launch returns
 barrier that is never met fails a check instead of hanging it. The
 library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
 wrappers run the kernels' own arithmetic on CPU tensors, which are checked
-against the plain versions (K1 in float64 and float32, K2, J1 and J2, the
-derivative kernels, against autograd of the plain loop), and kernel (a),
+against the plain versions (K1 and K1w with a series a group of systems
+and their innovations in float64 and float32, :func:`check_loglik`; K2;
+J1 and J2, the derivative kernels along K directions, against autograd of
+the plain loop, :func:`check_jets`), and kernel (a),
 the SSVS indicator sweep, against ``regression_sweep.draw_indicators_swept``
 (33 chains, p in {1, 31, 32, 33, 37}, mode jump off and on, max_size
 unset and set, float64 and float32: masks identical), K2w and K3 against
@@ -306,9 +308,10 @@ def _rel(a, b):
 
 
 def check_kernels(seed=0):
-    """K1, K2, J1 and J2 against the plain versions, and the gradient and
-    Hessian that autograd reaches through J1 and J2 against autograd of the
-    plain loop: returns the worst normwise relative error of each."""
+    """K1 and K2 against the plain versions, and the gradient and Hessian
+    that autograd reaches through J1 and J2 (``loglik_along`` in the log
+    variances) against autograd of the plain loop: returns the worst
+    normwise relative error of each."""
     import torch
 
     from boom_tpu_torch.kernels.kalman_timing import system
@@ -344,30 +347,23 @@ def check_kernels(seed=0):
                     worst[k] = max(worst.get(k, 0.0), v)
     for d in (1, 2):
         for masked in (False, True):
-            # J1 and J2 against their plain version, 5 series (a second
-            # block of warps, partly empty)
-            params = system(rng, 5, d, "float64", device="cpu")
+            # through autograd: the gradient (J1) and the Hessian (J2) in
+            # the log variances, along the directions of h and Q's diagonal
             y = torch.tensor(rng.normal(size=60).cumsum())
             obs = torch.tensor(rng.uniform(size=60) > 0.3) if masked else None
-            fields = (params.h, params.rqr.contiguous(), params.z,
-                      params.t_mat, params.a0, params.p0, y, obs)
-            for order, kind in ((1, "loglik_grad"), (2, "loglik_hess")):
-                got = kk.launch_loglik(*fields, order=order)
-                want = kk.loglik_jets_plain(*fields, order=order)
-                worst[kind] = max([worst.get(kind, 0.0)] + [
-                    _rel(a, b) for a, b in zip(got, want)])
-            # and through autograd: the gradient (J1) and the Hessian (J2)
-            # in the log variances, as the TIM mode search asks for them
             one = system(rng, 1, d, "float64", device="cpu")
+            dh = torch.eye(d + 1, dtype=torch.float64)[d]
+            dm = torch.zeros(d + 1, d, d, dtype=torch.float64)
+            dm[:d] = torch.diag_embed(torch.eye(d, dtype=torch.float64))
+            zero = torch.zeros(1, dtype=torch.float64)
 
-            def f(u, fn, one=one, d=d, y=y, obs=obs):
-                return fn(one._replace(
-                    q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
-                    h=torch.exp(u[d:])), y, obs)[0]
+            def f(u, fn, one=one, dh=dh, dm=dm, zero=zero, y=y, obs=obs):
+                return fn(torch.exp(u)[None], zero, 0.0 * dm[:1], dh, dm,
+                          one.z, one.t_mat, one.a0, one.p0, y, obs)[0]
 
             u0 = torch.linspace(-1.0, 0.3, d + 1, dtype=torch.float64)
             got = []
-            for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+            for fn in (kk.loglik_along, kalman.loglik_along):
                 u = u0.clone().requires_grad_(True)
                 (g,) = torch.autograd.grad(f(u, fn), u)
                 got.append((g, torch.autograd.functional.hessian(
@@ -377,6 +373,99 @@ def check_kernels(seed=0):
             worst["hessian"] = max(worst.get("hessian", 0.0),
                                    _rel(got[0][1], got[1][1]))
     return worst
+
+
+def _series_of(rng, shape, dtype):
+    import torch
+
+    return torch.tensor(rng.normal(size=shape).cumsum(-1),
+                        dtype=getattr(torch, dtype))
+
+
+# K1 (d 1, 2, 3, 6) and K1w (7, 8, 9, 13, 16) with a series a group of
+# systems: (d, systems, series, T, masked); 6 systems of 3 series (two a
+# series), 5 of one shared series, 33 of 33 (a partial block of K1w's
+# units), 34 of 17; T across K1w's warps and one step
+LOGLIK_CASES = [(d, b, s, t_len, masked) for d in (1, 2, 3, 6, 7, 8, 9, 13, 16)
+                for b, s, t_len, masked in ((6, 3, 33, False), (5, 1, 20, True),
+                                            (33, 33, 9, True), (34, 17, 2, False),
+                                            (3, 3, 1, False))]
+
+
+def check_loglik(seed=0, cases=LOGLIK_CASES, dtypes=("float64", "float32")):
+    """K1 and K1w with their innovations against ``kalman.kalman_loglik(...,
+    innovations=True)``: {case: worst normwise relative error of ll, v, f}.
+    """
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dtype in dtypes:
+        for d, b, s, t_len, masked in cases:
+            params = system(rng, b, d, dtype, device="cpu")
+            y = _series_of(rng, (s, t_len), dtype)
+            obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
+                   else None)
+            got = kk.launch_loglik(params.h, params.rqr, params.z,
+                                   params.t_mat, params.a0, params.p0, y,
+                                   obs, innovations=True)
+            want = kalman.kalman_loglik(params, y, obs, innovations=True)
+            alone = kk.launch_loglik(params.h, params.rqr, params.z,
+                                     params.t_mat, params.a0, params.p0, y,
+                                     obs)
+            assert torch.equal(alone, got[0]), "the innovations changed ll"
+            out[f"loglik {dtype} d={d} B={b} S={s} T={t_len} "
+                f"masked={masked}"] = max(_rel(a, w)
+                                          for a, w in zip(got, want))
+    return out
+
+
+def directions(rng, k, d):
+    """K random directions of (h, R Q R'): dh [K] >= 0, dm [K, d, d]
+    symmetric positive semi-definite (float64 tensors)."""
+    import torch
+
+    a = rng.normal(size=(k, d, 2)) / np.sqrt(d)
+    return (torch.tensor(rng.uniform(0.0, 1.0, size=k)),
+            torch.tensor(a @ a.transpose(0, 2, 1)))
+
+
+# J1 and J2: (d, K, systems, series, masked) at d 1-16, K 1 to the most
+JET_CASES = [(1, 1, 2, 1, False), (1, 16, 1, 1, True), (2, 4, 5, 5, True),
+             (3, 7, 3, 1, False), (6, 3, 4, 2, True), (8, 3, 2, 2, False),
+             (8, 16, 1, 1, False), (13, 2, 3, 3, True), (16, 4, 1, 1, True)]
+
+
+def check_jets(seed=0, cases=JET_CASES, t_len=25):
+    """J1 and J2 along K directions against ``kalman.loglik_jets`` (autograd
+    of the plain loop): {case: worst normwise relative error of ll, grad and
+    hess}."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for d, k, b, s, masked in cases:
+        params = system(rng, b, d, "float64", device="cpu")
+        dh, dm = directions(rng, k, d)
+        y = _series_of(rng, (s, t_len), "float64")
+        obs = torch.tensor(rng.uniform(size=t_len) > 0.3) if masked else None
+        fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
+                  params.a0, params.p0, y, obs, dh, dm)
+        for order in (1, 2):
+            got = kk.launch_jets(*fields, order=order)
+            want = kalman.loglik_jets(*fields, order)
+            out[f"{kk.JET_KINDS[order]} d={d} K={k} B={b} S={s} "
+                f"masked={masked}"] = max(_rel(a, w)
+                                          for a, w in zip(got, want))
+    return out
 
 
 # K2w: d 7 and 8 (four chains a warp), 9, 13 and 16 (two); 1, 3 and 5
@@ -543,6 +632,9 @@ def main():
     bind(libs)
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
+    for check in (check_loglik, check_jets):
+        for k, v in check().items():
+            print(f"host-compiled {k}: relative error {v:.3e}")
     for k, v in check_wide().items():
         print(f"host-compiled {k}: relative error {v:.3e}")
     set_occupancy(libs["kalman_wide"], 0)

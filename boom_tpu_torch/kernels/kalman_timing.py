@@ -1,10 +1,12 @@
 """Times of the sequential Kalman kernels on the card (K1, the loglik; K2,
-the fused simulation smoother; csrc/kalman_seq.cu; K2w, the smoother for
-7 <= d <= 16, and K3, the ASIS D-path; csrc/kalman_wide.cu), beside their
-bounds and their plain versions, at the shapes of the bsts_llt workload
-(K1, K2, J1, J2) and of the bsts_reg workload (K2w, K3; K3 also at the
-bsts_llt D-path's shape, beside kernel (c)'s affine scan of the same
-D-paths, their route before K3 took every d).
+the fused simulation smoother; csrc/kalman_seq.cu; K1w, the loglik for
+7 <= d <= 16, J1 and J2, its derivatives along K directions, K2w, the
+smoother for 7 <= d <= 16, and K3, the ASIS D-path; csrc/kalman_wide.cu),
+beside their bounds and their plain versions, at the shapes of the
+bsts_llt workload (K1, K2, J1, J2), of the bsts_reg workload (K2w, K3; K3
+also at the bsts_llt D-path's shape, beside kernel (c)'s affine scan of
+the same D-paths, their route before K3 took every d) and of bsts_reg
+with the TIM move (K1 with a series a chain, K1w, J1 and J2 at d = 8).
 
     python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
     python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
@@ -13,8 +15,8 @@ Prints the card, the build time (all sources at once), per kernel the
 device time (K2w's also by pass, from the profiler), the plain
 version's time, the bound and what sets it, the times at other block sizes
 and batches, the ``nvcc -Xptxas -v`` registers and spills of every
-instantiation, and the instructions of K1's, J1's and J2's step loops
-(``cuobjdump -sass``). ``--compare DIR`` runs the same script of the
+instantiation, and the instructions of K1's step loops (``cuobjdump
+-sass``). ``--compare DIR`` runs the same script of the
 checkout DIR (another commit of this repository, unpacked with ``git
 archive``; its kernels build under DIR) and of this tree in turns (DIR,
 this, this, DIR), each in its own process on the same card, prints the
@@ -53,11 +55,15 @@ from boom_tpu_torch.kernels.scan_timing import (  # noqa: E402
 # the bsts_llt workload (bench.py:170-177): 4096 chains, T=500, d=2, the
 # TIM move scoring 16 candidates + the current point a chain
 LLT_CHAINS, LLT_T, LLT_D, TIM_POINTS = 4096, 500, 2, 17
+# the marginal move's variances: the level, slope and observation
+# variances of bsts_llt; the level, slope and seasonal ones of bsts_reg
+# (its observation variance is the regression's)
+TIM_GROUPS = 3
 # name: (dtype, batch, d, T); "loglik" (K1) scores the TIM points of every
 # chain (float32, the run's dtype), "smoother" (K2) imputes every chain
 # (float64, bsts.SMOOTHER_DTYPE), "loglik_grad" (J1) and "loglik_hess" (J2)
 # are one evaluation of the TIM proposal's mode search (float64, one
-# series)
+# series, TIM_GROUPS directions)
 SHAPES = {"loglik": ("float32", LLT_CHAINS * TIM_POINTS, LLT_D, LLT_T),
           "smoother": ("float64", LLT_CHAINS, LLT_D, LLT_T),
           "loglik_grad": ("float64", 1, LLT_D, LLT_T),
@@ -75,6 +81,18 @@ WIDE_SHAPES = {
     "smoother_wide_d13": ("float64", REG_CHAINS, 13, REG_T, 0),
     "dpath": ("float32", REG_CHAINS, REG_D, REG_T, REG_GROUPS),
     "dpath_llt": ("float32", LLT_CHAINS, LLT_D, LLT_T, 2)}
+
+# bsts_reg with the TIM move (chip_smoke.py phase 7): name: (dtype, batch,
+# d, T, series); K1 with a series a chain at the bsts_llt width (a trend
+# and a regression: each chain's 17 points on its own y - X beta), K1w
+# over phase 7's TIM points, J1 and J2 in its mode search (one series)
+TIM_REG_SHAPES = {
+    "loglik_per_chain": ("float32", LLT_CHAINS * TIM_POINTS, LLT_D, LLT_T,
+                         LLT_CHAINS),
+    "loglik_wide": ("float32", REG_CHAINS * TIM_POINTS, REG_D, REG_T,
+                    REG_CHAINS),
+    "loglik_grad_wide": ("float64", 1, REG_D, REG_T, 1),
+    "loglik_hess_wide": ("float64", 1, REG_D, REG_T, 1)}
 
 # K1's block sizes (0: the grid laid out from the card's SM count); K2's
 # block is one warp by design
@@ -116,14 +134,14 @@ def _jet_step_ops(d):
             "mul": d + d ** 3 + 1, "div": d + 1, "log": 1}
 
 
-def jet_step_flops(d):
+def jet_step_flops(d, k=None):
     """Floating-point operations of one step of the loglik with its
     gradient and Hessian (J2's function): the filter step and the log
     density with every scalar a jet of value, gradient [N] and upper
-    Hessian [H] over N = 1 + d(d+1)/2 parameters, counted per jet operation
-    as a one-thread jet computes it (the work of the function, whatever
-    implements it)."""
-    n = 1 + d * (d + 1) // 2
+    Hessian [H] over N = k directions (default 1 + d(d+1)/2, h and R Q R''s
+    upper triangle), counted per jet operation as a one-thread jet computes
+    it (the work of the function, whatever implements it)."""
+    n = 1 + d * (d + 1) // 2 if k is None else k
     hh = n * (n + 1) // 2
     cost = {"add": 1 + n + hh,  # jet +- jet, constant +- jet
             "scale": 1 + n + hh,  # constant * jet
@@ -133,21 +151,23 @@ def jet_step_flops(d):
     return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
 
 
-def dual_step_flops(d):
+def dual_step_flops(d, k=None):
     """The same for the loglik with its gradient alone (J1's function):
     first-order jets of value and gradient [N]."""
-    n = 1 + d * (d + 1) // 2
+    n = 1 + d * (d + 1) // 2 if k is None else k
     cost = {"add": 1 + n, "scale": 1 + n, "mul": 1 + 3 * n,
             "div": 1 + 3 * n, "log": 1 + n}
     return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
 
 
-def bound_ms(name, dtype, batch, d, t_len):
+def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS):
     """The least time the card could take: each input read once and each
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
-    K1 reads a system a series and the shared y, writes one loglik a
-    series (J1 also a gradient, J2 a gradient and Hessian); K2 (and K2w:
+    K1 and K1w ("loglik") read a system a series and ``series`` rows of y,
+    write one loglik a series; J1 and J2 ("loglik_grad", "loglik_hess")
+    also read ``k`` directions and write a gradient [k] (J1) and a Hessian
+    [k, k] (J2); K2 (and K2w:
     ``name`` "smoother") reads a system, alpha_1, w [T-1, d] and eps [T] a
     chain and writes the draw [T, d] (its scratch is not counted); K3
     ("dpath", ``batch`` the chains x groups) reads w [T-1, d] and writes
@@ -156,15 +176,14 @@ def bound_ms(name, dtype, batch, d, t_len):
     item = 8 if dtype == "float64" else 4
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     if name == "loglik":
-        n_bytes = (batch * (system + 1) + t_len) * item
+        n_bytes = (batch * (system + 1) + series * t_len) * item
         flops = loglik_flops(batch, d, t_len)
     elif name in ("loglik_grad", "loglik_hess"):
-        n_par = 1 + d * (d + 1) // 2
         hess = name == "loglik_hess"
-        n_bytes = (batch * (system + 1 + n_par + hess * n_par * n_par)
-                   + t_len) * item
-        flops = batch * t_len * (jet_step_flops(d) if hess
-                                 else dual_step_flops(d))
+        n_bytes = (batch * (system + 1 + k + hess * k * k) + k * (1 + d * d)
+                   + series * t_len) * item
+        flops = batch * t_len * (jet_step_flops(d, k) if hess
+                                 else dual_step_flops(d, k))
     elif name == "smoother":
         n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
                    + t_len) * item
@@ -197,32 +216,37 @@ def system(rng, batch, d, dtype, device="cuda"):
                        for f in base))
 
 
-def kalman_cases(rng, name, dtype, batch, d, t_len):
+def kalman_cases(rng, name, dtype, batch, d, t_len, series=1):
     """(kernel call, plain call, wrapper call) for one kernel on inputs of
     its shape. The kernel call launches the kernel on prepared operands;
     the plain call is the plain PyTorch function of the same inputs (for
-    J1 and J2: autograd of the plain loglik, ``loglik_jets_plain``); the
-    wrapper call is the public function on the card, with the operands'
-    preparation (none for J1 and J2, which autograd reaches)."""
+    J1 and J2: autograd of the plain loglik, ``kalman.loglik_jets``, along
+    TIM_GROUPS random directions); the wrapper call is the public function
+    on the card, with the operands' preparation (none for J1 and J2, which
+    autograd reaches). ``series``: the loglik's rows of y (a series a
+    group of batch / series systems)."""
     import torch
 
+    from boom_tpu_torch.kernels.host_rehearsal import directions
     from boom_tpu_torch.statespace import kalman
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     tdt = getattr(torch, dtype)
     params = system(rng, batch, d, dtype)
-    y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=tdt,
+    shape = (series, t_len) if series > 1 else (t_len,)
+    y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
                      device="cuda")
     fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
               params.a0, params.p0, y, None)
-    if name == "loglik":
+    if name.startswith("loglik_grad") or name.startswith("loglik_hess"):
+        order = 2 if name.startswith("loglik_hess") else 1
+        dirs = tuple(x.to("cuda") for x in directions(rng, TIM_GROUPS, d))
+        return (lambda: kk.launch_jets(*fields, *dirs, order=order),
+                lambda: kalman.loglik_jets(*fields, *dirs, order), None)
+    if name.startswith("loglik"):
         return (lambda: kk.launch_loglik(*fields),
                 lambda: kalman.kalman_loglik(params, y),
                 lambda: kk.kalman_loglik(params, y))
-    if name in ("loglik_grad", "loglik_hess"):
-        order = kk.LOGLIK_KINDS.index(name)
-        return (lambda: kk.launch_loglik(*fields, order=order),
-                lambda: kk.loglik_jets_plain(*fields, order=order), None)
     normals = [torch.tensor(rng.normal(size=s), dtype=tdt, device="cuda")
                for s in ((batch, d), (batch, t_len - 1, d),
                          (batch, t_len))]
@@ -333,23 +357,36 @@ def time_wide(rng, plain=True):
     return out
 
 
-def time_kalman(rng, plain=True):
+def _bound_name(name):
+    """bound_ms's name of a shape's kernel (loglik_wide -> loglik, ...)."""
+    for kind in ("loglik_grad", "loglik_hess", "loglik"):
+        if name.startswith(kind):
+            return kind
+    return name
+
+
+def time_kalman(rng, plain=True, shapes=None):
     """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
-    shape, block_ms, scaling_ms}} at SHAPES: device times of the kernel (at
-    the wrapper's block size, at the others of BLOCK_SIZES, and at the
-    smaller batches of SCALING), of the whole wrapper and of the plain
-    version."""
+    shape, block_ms, scaling_ms}} at SHAPES and TIM_REG_SHAPES (or
+    ``shapes``): device times of the kernel (at the wrapper's block size,
+    at the others of BLOCK_SIZES, and at the smaller batches of SCALING),
+    of the whole wrapper and of the plain version."""
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
+    if shapes is None:
+        shapes = {**{k: (*v, 1) for k, v in SHAPES.items()},
+                  **TIM_REG_SHAPES}
     out = {}
-    for name, (dtype, batch, d, t_len) in SHAPES.items():
-        kern, ref, wrapper = kalman_cases(rng, name, dtype, batch, d, t_len)
-        row = {"shape": [dtype, batch, d, t_len], "ms": median_ms(kern),
-               "call_ms": call_ms(kern),
+    for name, (dtype, batch, d, t_len, series) in shapes.items():
+        kern, ref, wrapper = kalman_cases(rng, name, dtype, batch, d, t_len,
+                                          series)
+        row = {"shape": [dtype, batch, d, t_len]
+               + ([series] if series > 1 else []),
+               "ms": median_ms(kern), "call_ms": call_ms(kern),
                "wrapper_ms": median_ms(wrapper) if wrapper else None,
                "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
-        row["bound_ms"], row["bound_by"] = bound_ms(name, dtype, batch, d,
-                                                    t_len)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _bound_name(name), dtype, batch, d, t_len, series)
         if name in BLOCK_SIZES:
             chosen = kk.LOGLIK_THREADS
             row["block_ms"] = {}
@@ -367,45 +404,52 @@ def time_kalman(rng, plain=True):
     return out
 
 
-_KERNEL_NAME = re.compile(r"(loglik_kernel|jet_kernel|smoother_kernel)"
-                          r"I(?:([fd]))?Li(\d)E(?:Li(\d+)E)?(?:Lb([01])E)?")
+_KERNEL_NAME = re.compile(r"(loglik_kernel|smoother_kernel)"
+                          r"I(?:([fd]))?Li(\d)E(?:Lb([01])E)?(?:Lb([01])E)?")
 
 
 def _instantiation(mangled):
-    """"<kernel> <type> d<D>[ dense]" of a mangled kalman_seq.cu kernel
-    name (K1's, J1's and J2's instantiations without a mask end in
-    " dense"), or None."""
+    """"<kernel> <type> d<D>[ dense][ per-series]" of a mangled
+    kalman_seq.cu kernel name (K1's instantiations without a mask end in
+    " dense", those reading a series a group of systems in " per-series"),
+    or None."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
         return None
-    kernel, ty, d, order, masked = m.groups()
-    kind = {"loglik_kernel": "loglik", "smoother_kernel": "smoother",
-            "jet_kernel": f"loglik_{'grad' if order == '1' else 'hess'}"
-            }[kernel]
+    kernel, ty, d, masked, shared = m.groups()
+    kind = {"loglik_kernel": "loglik", "smoother_kernel": "smoother"}[kernel]
     key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
-    return key + " dense" if masked == "0" else key
+    key += " dense" if masked == "0" else ""
+    return key + " per-series" if shared == "0" else key
 
 
-_WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel)I(?:([fd]))?"
+_WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel|"
+                        r"wide_loglik_kernel)I(?:([fd]))?"
+                        r"(?:[fd]|N\w*?TangentI[fd]Li\dEEE)?"
                         r"Li(\d+)ELi(\d+)E")
+_JET_NAMES = {"0": "loglik_wide", "1": "loglik_grad", "2": "loglik_hess"}
 
 
 def wide_nvcc_report(log_text):
-    """{"smoother_wide f64 d<D> pass<P>" | "dpath <type> d<D> chunk<B>":
-    {"registers", "spill_bytes", "stack_bytes"}} for every instantiation
-    of K2w (each of its three passes) and K3 (each chunk length, bytes a
-    lane) in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
+    """{"smoother_wide f64 d<D> pass<P>" | "dpath <type> d<D> chunk<B>" |
+    "loglik_wide <type> d<D>" | "loglik_grad f64 d<D>" | "loglik_hess f64
+    d<D>": {"registers", "spill_bytes", "stack_bytes"}} for every
+    instantiation of K2w (each of its three passes), K3 (each chunk length,
+    bytes a lane), K1w, J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v``
+    log."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = _WIDE_NAME.search(name)
         if not m:
             continue
         kernel, ty, d, extra = m.groups()
+        tag = "f32" if ty == "f" else "f64"
         if kernel == "smoother_wide_kernel":
             key = f"smoother_wide f64 d{int(d):02d} pass{extra}"
+        elif kernel == "wide_loglik_kernel":
+            key = f"{_JET_NAMES[extra]} {tag} d{int(d):02d}"
         else:
-            key = (f"dpath {'f32' if ty == 'f' else 'f64'} d{int(d):02d} "
-                   f"chunk{extra}")
+            key = f"dpath {tag} d{int(d):02d} chunk{extra}"
         report[key] = {"registers": nregs, "spill_bytes": spill,
                        "stack_bytes": stack}
     return dict(sorted(report.items()))
@@ -430,7 +474,7 @@ _FLOAT_OPS = ("DFMA", "DMUL", "DADD", "FFMA", "FMUL", "FADD")
 
 def sass_step_ops(sass_text):
     """{instantiation: {"instructions", "float_ops"}} of the step loop of
-    K1, J1 and J2 in a ``cuobjdump -sass`` listing of kalman_seq.cu: of
+    K1 in a ``cuobjdump -sass`` listing of kalman_seq.cu: of
     the loops (a branch back to an earlier address), the one with the most
     float arithmetic (D/F FMA, MUL, ADD), the shortest if several tie (the
     chunk loop holds the step loop)."""

@@ -3,8 +3,9 @@ spike-and-slab regression (port of boom_tpu/statespace/bsts.py:
 ``__post_init__`` :195, ``ssm_params`` :238, ``init_state`` :299,
 ``_smoother`` :324, ``kernel`` :343-478, the TIM marginal move :481-714,
 ``_asis_pass`` :851, ``log_lik`` :899, ``state_contributions`` :906,
-``predict`` :924, ``asis_redraw`` :1010 and
-``one_step_prediction_errors`` :1132).
+``predict`` :924, ``asis_redraw`` :1010, ``one_step_prediction_errors``
+:1132, ``_training_slice`` :1162, ``holdout_prediction_errors`` :1172 and
+``compare_bsts_models`` :1220).
 
 One Gibbs sweep, for all chains at once (leading chain axis ``[C, ...]``):
 
@@ -28,7 +29,10 @@ draws itself. Parts of the reference that this slice does not port raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
+
+import numpy as np
 
 import torch
 from torch.profiler import record_function
@@ -127,11 +131,6 @@ class Bsts:
             if tuple(self.predictors.shape[:1]) != (self.t_len,):
                 raise ValueError(f"predictors must be [T={self.t_len}, p]; "
                                  f"got {tuple(self.predictors.shape)}")
-            if self.marginal_sigma_slice:
-                raise NotImplementedError(
-                    "the marginal move with a regression component is not "
-                    "ported yet (ROADMAP.md, queue 1 item 7: the rest of "
-                    "statespace)")
         if self.observed is not None or self.obs_weights is not None:
             raise NotImplementedError(
                 "observed/obs_weights (gaps, timestamps) are not ported yet "
@@ -432,20 +431,12 @@ class Bsts:
 
     def log_lik(self, state):
         """[C] marginal log likelihoods of the chains' parameters, the state
-        integrated out (reference :899). One shared series goes through K1
-        (``kalman_kernel.kalman_loglik``); with a regression each chain has
-        its own series y - X beta, which K1 does not take (ROADMAP.md,
-        queue 1 item 7): the plain filter runs it on CPU tensors and a card
-        tensor raises."""
-        y_adj = self.adjusted_series(state)
-        if y_adj.dim() == 1:
-            return kalman_kernel.kalman_loglik(self.ssm_params(state), y_adj)
-        if y_adj.device.type != "cpu":
-            raise NotImplementedError(
-                "log_lik with a regression needs K1 with a series a chain, "
-                "which is not ported yet (ROADMAP.md, queue 1 item 7: the "
-                "rest of statespace)")
-        return kalman.kalman_loglik(self.ssm_params(state), y_adj)
+        integrated out (reference :899), through K1 (d <= 6) or K1w
+        (``kalman_kernel.kalman_loglik``) on y, or with a regression on each
+        chain's own series y - X beta."""
+        return kalman_kernel.kalman_loglik(self.ssm_params(state),
+                                           self.adjusted_series(state),
+                                           self.observed)
 
     def state_contributions(self, state):
         """Each block's contribution path {name: [C, T]}, and the
@@ -494,33 +485,50 @@ class Bsts:
     # -- TIM marginal move ----------------------------------------------------
     def _sigma_groups(self):
         """[(path, prior)] over every variance the marginal move updates:
-        path = (block name, param name) or ("sigsq_obs",)."""
+        path = (block name, param name) or ("sigsq_obs",). With a regression
+        the observation variance is the regression's sigma^2, drawn with
+        beta, and stays out (reference :481-490)."""
         groups = [((b.name, pname), prior) for b in self.blocks
                   for pname, prior, _dims in b.asis_groups()]
-        groups.append((("sigsq_obs",), self.obs_prior))
+        if self.predictors is None:
+            groups.append((("sigsq_obs",), self.obs_prior))
         return groups
 
-    def _marginal_helpers(self, state, y_adj, groups):
-        """(get, set_param, lp_batch): lp_batch(u [C, M, G]) -> [C, M] is
-        the marginal log posterior of the log-variance vectors u, M points a
-        chain: Kalman loglik (the state integrated out) + SdPrior density +
-        the log transform's Jacobian. The C x M points are one batch of
-        series in ONE loglik call (kernel K1 on the card)."""
+    @functools.cached_property
+    def _variance_directions(self):
+        """(dh [G], dm [G, d, d]): h and R Q R' are linear in each of the
+        marginal move's variances (``_sigma_groups``); the direction of
+        group g is the system at variance 1 for g and 0 for the others, less
+        the system at 0 for all (of a template chain)."""
+        groups = self._sigma_groups()
+        dev, dt = self.y.device, self.y.dtype
+        template = {
+            "blocks": {b.name: b.init_params(
+                {k: torch.full((1,), 0.5, dtype=dt, device=dev)
+                 for k in b.init_noise_spec()}) for b in self.blocks},
+            "sigsq_obs": self.y.new_ones(1)}
+        zero = self.y.new_zeros(1)
+        for path, _prior in groups:
+            template = _set_var(template, path, zero)
+        base = self.ssm_params(template)
+        dh, dm = [], []
+        for path, _prior in groups:
+            unit = self.ssm_params(_set_var(template, path,
+                                            self.y.new_ones(1)))
+            dh.append(unit.h[0] - base.h[0])
+            dm.append(unit.rqr[0] - base.rqr[0])
+        return torch.stack(dh), torch.stack(dm)
 
-        def get(st, path):
-            return (st["sigsq_obs"] if path[0] == "sigsq_obs"
-                    else st["blocks"][path[0]][path[1]])
-
-        def set_param(st, path, value):
-            out = dict(st)
-            if path[0] == "sigsq_obs":
-                out["sigsq_obs"] = value
-                return out
-            bname, pname = path
-            out["blocks"] = dict(st["blocks"])
-            out["blocks"][bname] = dict(st["blocks"][bname])
-            out["blocks"][bname][pname] = value
-            return out
+    def _marginal_lp(self, state, y_adj, groups):
+        """lp_batch(u [C, M, G]) -> [C, M]: the marginal log posterior of
+        the log-variance vectors u, M points a chain: Kalman loglik (the
+        state integrated out) + SdPrior density + the log transform's
+        Jacobian. The C x M points are one batch of
+        systems in ONE loglik call, the variances exp(u) its coefficients
+        along ``_variance_directions`` (``kalman_kernel.loglik_along``: K1
+        or K1w on the card, and J1 / J2 for its derivatives), each chain's
+        M points on its own series when y_adj is [C, T]."""
+        dh, dm = self._variance_directions
 
         def lp_batch(u):
             c, m, _g = u.shape
@@ -529,15 +537,19 @@ class Bsts:
                                     for k, v in params.items()}
                              for name, params in state["blocks"].items()},
                   "sigsq_obs": state["sigsq_obs"].repeat_interleave(m)}
-            for gi, (path, _prior) in enumerate(groups):
-                st = set_param(st, path, torch.exp(flat[:, gi]))
-            lp = kalman_kernel.kalman_loglik(self.ssm_params(st), y_adj)
+            zero = flat.new_zeros(c * m)
+            for path, _prior in groups:
+                st = _set_var(st, path, zero)
+            base = self.ssm_params(st)
+            var = torch.exp(flat)
+            lp = kalman_kernel.loglik_along(
+                var, base.h, base.rqr, dh.to(var.dtype), dm.to(var.dtype),
+                base.z, base.t_mat, base.a0, base.p0, y_adj, self.observed)
             for gi, (_path, prior) in enumerate(groups):
-                lp = (lp + _sic_logp(torch.exp(flat[:, gi]), prior)
-                      + flat[:, gi])
+                lp = lp + _sic_logp(var[:, gi], prior) + flat[:, gi]
             return lp.reshape(c, m)
 
-        return get, set_param, lp_batch
+        return lp_batch
 
     def _build_tim_proposal(self):
         """(mode [G], chol [G, G]) of the multivariate-T proposal tailored
@@ -546,19 +558,27 @@ class Bsts:
         ``_build_tim_proposal``, bsts.py:616-672). Built in float64 on the
         series' device whatever the run's dtype: the proposal only shapes
         the move's efficiency, the acceptance is exact (ROADMAP.md, sec. 3).
-        On the card its gradients and Hessians come through K1's
-        ``autograd.Function``."""
+        With a regression it is tailored at y - X beta_OLS, as the
+        reference's (:635-641). On the card its gradients and Hessians come
+        through J1 and J2 (``kalman_kernel.loglik_along``)."""
         groups = self._sigma_groups()
+        x = (None if self.predictors is None
+             else self.predictors.to(torch.float64))
         wide = dataclasses.replace(self, y=self.y.to(torch.float64),
-                                   marginal_sigma_slice=False)
+                                   predictors=x, marginal_sigma_slice=False)
         dev, dt = wide.y.device, wide.y.dtype
         template = {
             "blocks": {b.name: b.init_params(
                 {k: torch.full((1,), 0.5, dtype=dt, device=dev)
                  for k in b.init_noise_spec()}) for b in self.blocks},
             "sigsq_obs": torch.var(wide.y, correction=0)[None] * 0.5}
-        _get, _set, lp_batch = wide._marginal_helpers(template, wide.y,
-                                                      groups)
+        y_fit = wide.y
+        if x is not None:
+            # least squares by QR ("gels", the one LAPACK routine that
+            # torch.linalg.lstsq offers on the card); X is full rank
+            beta_ols = torch.linalg.lstsq(x, y_fit[:, None]).solution[:, 0]
+            y_fit = y_fit - x @ beta_ols
+        lp_batch = wide._marginal_lp(template, y_fit, groups)
 
         def neg(u):
             lp = lp_batch(u[None, None])[0, 0]
@@ -592,9 +612,8 @@ class Bsts:
         groups = self._sigma_groups()
         mode, chol = (t.to(y_adj.dtype) for t in self._tim_prop)
         df = self.marginal_tim_df
-        get, set_param, lp_batch = self._marginal_helpers(state, y_adj,
-                                                          groups)
-        u_cur = torch.stack([torch.log(get(state, path))
+        lp_batch = self._marginal_lp(state, y_adj, groups)
+        u_cur = torch.stack([torch.log(_get_var(state, path))
                              for path, _ in groups], dim=-1)  # [C, G]
         k_tr = self.marginal_tim_trials
         cands = dists.mvt.sample(noise["tim_z"], noise["tim_chi_u"], mode,
@@ -612,8 +631,28 @@ class Bsts:
         u_new = torch.where(accept[:, None], picked, u_cur)
         out = dict(state)
         for gi, (path, _prior) in enumerate(groups):
-            out = set_param(out, path, torch.exp(u_new[:, gi]))
+            out = _set_var(out, path, torch.exp(u_new[:, gi]))
         return out
+
+
+def _get_var(st, path):
+    """The variance at ``path`` of a state: (block, param) or
+    ("sigsq_obs",)."""
+    return (st["sigsq_obs"] if path[0] == "sigsq_obs"
+            else st["blocks"][path[0]][path[1]])
+
+
+def _set_var(st, path, value):
+    """A copy of the state with the variance at ``path`` set to value."""
+    out = dict(st)
+    if path[0] == "sigsq_obs":
+        out["sigsq_obs"] = value
+        return out
+    bname, pname = path
+    out["blocks"] = dict(st["blocks"])
+    out["blocks"][bname] = dict(st["blocks"][bname])
+    out["blocks"][bname][pname] = value
+    return out
 
 
 def _sic_logp(sigsq, prior):
@@ -727,9 +766,85 @@ def one_step_prediction_errors(model: Bsts, states, standardize=True):
     """One-step-ahead prediction errors v_t / sqrt(F_t) [N, T] of N
     posterior draws (reference bsts.py:1132-1159; ``standardize=False``:
     the raw v_t): the Kalman filter of each draw's system over its series,
-    y or y - X beta. The reference runs this as an XLA scan off the sweep;
-    here it is the plain filter (``kalman.kalman_filter``), one Python step
-    a time step, on the draws' device."""
-    filt = kalman.kalman_filter(model.ssm_params(states),
-                                model.adjusted_series(states))
-    return filt.v / torch.sqrt(filt.f) if standardize else filt.v
+    y or y - X beta, and the model's ``observed`` mask, in one launch of K1
+    or K1w on the card (``kalman_kernel.innovations``), the plain filter on
+    the CPU."""
+    v, f = kalman_kernel.innovations(model.ssm_params(states),
+                                     model.adjusted_series(states),
+                                     model.observed)
+    return v / torch.sqrt(f) if standardize else v
+
+
+def _training_slice(model: Bsts, cutpoint: int):
+    """The same model restricted to y_{1:cutpoint} (reference bsts.py:1162;
+    simulate_holdout_prediction_errors, StateSpaceModel.cpp:231-249), its
+    predictors and any per-step mask with it."""
+    repl = {"y": model.y[:cutpoint]}
+    for name in ("predictors", "observed", "obs_weights"):
+        if getattr(model, name) is not None:
+            repl[name] = getattr(model, name)[:cutpoint]
+    return dataclasses.replace(model, **repl)
+
+
+def thinned(flat, max_draws):
+    """At most ``max_draws`` of the flat draws, spread evenly over them (the
+    reference's ``jnp.linspace(0, total - 1, take).astype(int32)``)."""
+    from boom_tpu_torch.inference.driver import tree_map
+
+    leaf = flat
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    total = leaf.shape[0]
+    idx = torch.as_tensor(np.linspace(0, total - 1, min(max_draws, total))
+                          .astype(np.int64))
+    return tree_map(lambda a: a[idx.to(a.device)], flat)
+
+
+def holdout_prediction_errors(model: Bsts, generator, cutpoint: int,
+                              num_draws: int = 100, *, num_chains: int = 2,
+                              burn: int = 100, max_draws: int = 50):
+    """Out-of-sample one-step errors past ``cutpoint`` (reference
+    bsts.py:1172-1217): the model is refit to y_{1:cutpoint}
+    (:func:`_training_slice`, ``num_chains`` chains, ``burn`` sweeps, then
+    num_draws // num_chains draws from ``generator``), and each of at most
+    ``max_draws`` thinned draws filters the whole series, so every error
+    past the cutpoint is a one-step error. Returns the standardized errors
+    [draws, T]: columns < cutpoint in sample, the rest held out."""
+    from boom_tpu_torch.inference.driver import run_mcmc, tree_map
+
+    train = _training_slice(model, cutpoint)
+    res = run_mcmc(train.kernel(), train.draw_noise,
+                   lambda g, c: train.init_state(train.draw_init_noise(g, c)),
+                   max(1, num_draws // num_chains), generator=generator,
+                   num_chains=num_chains, burn=burn)
+    flat = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                    res.draws)
+    return one_step_prediction_errors(model, thinned(flat, max_draws))
+
+
+def compare_bsts_models(models_and_results, cutpoint=None, max_draws=50, *,
+                        generator=None, num_draws: int = 100,
+                        burn: int = 100):
+    """Cumulative mean absolute standardized one-step errors per model, [T]
+    each (reference bsts.py:1220-1243, R's CompareBstsModels).
+    models_and_results: {name: (model, McmcResult)}. Without a cutpoint the
+    results' draws give in-sample errors; with one each model is refit to
+    y_{1:cutpoint} from ``generator`` (:func:`holdout_prediction_errors`).
+    """
+    from boom_tpu_torch.inference.driver import tree_map
+
+    out = {}
+    for name, (model, result) in models_and_results.items():
+        if cutpoint is None:
+            flat = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                            result.draws)
+            errs = one_step_prediction_errors(
+                model, thinned(flat, max_draws))
+        else:
+            if generator is None:
+                raise ValueError("pass generator= to refit at a cutpoint")
+            errs = holdout_prediction_errors(
+                model, generator, cutpoint, num_draws=num_draws, burn=burn,
+                max_draws=max_draws)
+        out[name] = torch.cumsum(errs.abs().mean(0), 0)
+    return out

@@ -14,8 +14,11 @@ Model:
 
 The port carries the series axis explicitly: every field of ``SsmParams``
 has a leading ``[B]`` dimension (chains, or chains x candidates), and one
-series ``y`` [T] (or one a series, ``[B, T]``) and ``observed`` mask [T]
-serve them all.
+series ``y`` [T] (or one a system, ``[B, T]``; for the loglik and the
+filter also one a group of systems, ``[S, T]`` with S dividing B, system b
+reading series b // (B / S)) and ``observed`` mask [T] serve them all.
+:func:`loglik_jets` differentiates the loglik along directions of the
+system (the TIM mode search's derivatives in the variances).
 Only static systems are ported: a time-varying ``z`` [B, T, d] or ``h``
 [B, T] raises. The functions here are the plain PyTorch versions, one
 Python step per time step; ``kalman_kernel.py`` runs ``kalman_loglik`` and
@@ -112,6 +115,18 @@ def _at(y, t):
     return y[..., t]
 
 
+def per_system(y, b):
+    """y [T] as it is, or y [S, T] with S dividing ``b`` as [b, T]: system
+    i reads series i // (b / S)."""
+    if y.dim() == 1 or y.shape[0] == b:
+        return y
+    s = y.shape[0]
+    if y.dim() != 2 or s < 1 or b % s:
+        raise ValueError(f"y must be [T] or [S, T] with S dividing the {b} "
+                         f"systems; got {tuple(y.shape)}")
+    return y.repeat_interleave(b // s, dim=0)
+
+
 def _filter_step(a, p, y_t, obs_t, z, h, rqr, t_mat):
     """One step of the reference's ``step_core``: (v, f, k, a_next,
     p_next)."""
@@ -135,7 +150,7 @@ def _filter_core(params: SsmParams, y, observed, want_ap: bool):
     """The forward pass: per-step (v, f, k, ll) stacked along T, plus the
     predicted (a, P) when ``want_ap``."""
     check_static(params)
-    y = _series(y, params)
+    y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
     rqr = params.rqr
@@ -162,21 +177,64 @@ def kalman_filter(params: SsmParams, y, observed=None) -> FilterResult:
                         k=out["k"], a=out["a"], p=out["p"])
 
 
-def kalman_loglik(params: SsmParams, y, observed=None):
+def kalman_loglik(params: SsmParams, y, observed=None, innovations=False):
     """[B] marginal log likelihoods: the filter with the loglik carried
-    step by step and nothing stored along T."""
+    step by step and nothing else stored along T; with ``innovations`` also
+    the prediction errors v and their variances f [B, T] (as
+    ``kalman_filter`` gives them: the reference's ``kalman_filter``,
+    kalman.py:218), as (ll, v, f)."""
     check_static(params)
-    y = _series(y, params)
+    y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
     rqr = params.rqr
     a, p = params.a0, params.p0
     ll = torch.zeros_like(params.h)
+    vs, fs = [], []
     for t in range(t_len):
         v, f, _k, a, p = _filter_step(a, p, _at(y, t), obs[t], params.z,
                                       params.h, rqr, params.t_mat)
         ll = ll + _step_loglik(obs[t], v, f)
+        if innovations:
+            vs.append(v)
+            fs.append(f)
+    if innovations:
+        return ll, torch.stack(vs, dim=1), torch.stack(fs, dim=1)
     return ll
+
+
+def along(h, rqr, dh, dm, c):
+    """The systems moved along K directions: (h + sum_k c_k dh_k [B],
+    R Q R' + sum_k c_k dm_k [B, d, d]) for c [B, K], dh [K], dm [K, d, d]."""
+    return h + c @ dh, rqr + torch.einsum("bk,kij->bij", c, dm)
+
+
+def loglik_along(c, h0, q0, dh, dm, z, t_mat, a0, p0, y, observed=None):
+    """[B] loglik of the systems (z, t_mat, a0, p0) with (h, R Q R') moved
+    from (h0, q0) along K directions by c [B, K] (:func:`along`); autograd
+    differentiates it in c through the plain loop."""
+    h, rqr = along(h0, q0, dh, dm, c)
+    eye = torch.eye(z.shape[-1], dtype=c.dtype, device=c.device)
+    return kalman_loglik(SsmParams(z, t_mat, eye.expand_as(rqr), rqr, h, a0,
+                                   p0), y, observed)
+
+
+def loglik_jets(h, rqr, z, t_mat, a0, p0, y, observed, dh, dm, order):
+    """The loglik of each system with its derivatives along K directions
+    of (h, R Q R') (:func:`along`) at c = 0, by autograd of the plain loop:
+    ``order`` 1 gives (ll [B], grad [B, K]), 2 (ll, grad, hess [B, K, K]).
+    The plain version of the jets J1 and J2 (``kalman_kernel``)."""
+    c = torch.zeros(z.shape[0], dh.shape[0], dtype=h.dtype, device=h.device,
+                    requires_grad=True)
+    with torch.enable_grad():
+        ll = loglik_along(c, h, rqr, dh, dm, z, t_mat, a0, p0, y, observed)
+        (grad,) = torch.autograd.grad(ll.sum(), c, create_graph=order == 2)
+        if order == 1:
+            return ll.detach(), grad
+        hess = torch.stack([torch.autograd.grad(
+            grad[:, k].sum(), c, retain_graph=True)[0]
+            for k in range(dh.shape[0])], dim=1)
+    return ll.detach(), grad.detach(), hess
 
 
 def _smoother_passes(params: SsmParams, v, f, k, observed):

@@ -1,21 +1,28 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
-``csrc/kalman_seq.cu`` (one thread, or for the derivatives one warp, per
-series walking the T steps) and ``csrc/kalman_wide.cu`` (K2w for
-7 <= d <= 16 and K3: a group of lanes a chain, 32 / W groups a warp, a
-lane a row of the state, d fixed at compile time).
+``csrc/kalman_seq.cu`` (K1 and K2: one thread a series walking the T steps)
+and ``csrc/kalman_wide.cu`` (K1w, J1, J2, K2w and K3: a group of lanes a
+chain, series or (series, entry), 32 / W groups a warp, a lane a row of the
+state, d fixed at compile time).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
 
-- :func:`kalman_loglik` (K1): the [B] marginal log likelihoods of many
-  static systems on one series, as ``kalman.kalman_loglik``. It is
-  differentiable twice in ``h`` and ``R Q R'`` (hence in the variances)
-  through a ``torch.autograd.Function``: a gradient launches J1 (value and
-  gradient, a dual number a lane), a second derivative J2 (value,
-  gradient and Hessian, a hyper-dual number a lane), so
-  ``torch.autograd.grad`` and ``torch.autograd.functional.hessian`` work on
-  the card without autograd of a 500-step loop. :func:`loglik_jets_plain`
-  is J1's and J2's plain version.
+- :func:`kalman_loglik` (K1 for d <= 6, K1w for 7 <= d <= 16): the [B]
+  marginal log likelihoods of many static systems on one series y [T], or
+  on a series a group of systems (y [S, T], S dividing B: bsts with a
+  regression, each chain's y - X beta for its TIM points);
+  :func:`innovations` runs the same kernels for the prediction errors v and
+  variances f [B, T].
+- :func:`loglik_along` (K1/K1w, J1, J2): the loglik as a function of c
+  [B, K], the system moved along K directions (h = h0 + sum_k c_k dh_k,
+  R Q R' = Q0 + sum_k c_k dm_k; the TIM mode search's log variances), twice
+  differentiable through a ``torch.autograd.Function``: a gradient launches
+  J1 (value and gradient, a dual number a unit), a second derivative J2
+  (value, gradient and Hessian, a hyper-dual number a unit of (series,
+  direction pair)), so ``torch.autograd.grad`` and
+  ``torch.autograd.functional.hessian`` work on the card without autograd
+  of a 500-step loop. ``kalman.loglik_jets`` is J1's and J2's plain
+  version.
 - :func:`simulation_smoother` (K2 for d <= 6, K2w for 7 <= d <= 16): the
   fused Durbin-Koopman simulation smoother, float64, as
   ``kalman.simulation_smoother``; a series a chain ([C, T], bsts with a
@@ -42,10 +49,11 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
-LAUNCHES = {"loglik": 0, "loglik_grad": 0, "loglik_hess": 0, "smoother": 0,
-            "smoother_wide": 0, "dpath": 0}
-# the loglik's kernel by the order of derivatives it gives: K1, J1, J2
-LOGLIK_KINDS = ("loglik", "loglik_grad", "loglik_hess")
+LAUNCHES = {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
+            "loglik_hess": 0, "smoother": 0, "smoother_wide": 0, "dpath": 0}
+# the loglik's jets by the order of derivatives they give: J1, J2
+JET_KINDS = {1: "loglik_grad", 2: "loglik_hess"}
+JET_MAX_DIRECTIONS = _build.JET_MAX_DIRECTIONS
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # block sizes: 0 lets K1 lay its grid out from the card (one block of
@@ -55,12 +63,12 @@ LOGLIK_THREADS = 0
 SMOOTHER_THREADS = 32
 # steps K2 stages into shared memory at a time (kalman_seq.cu, kChunk)
 SMOOTHER_CHUNK = 32
-# K2w's and K3's blocks: four warps, 32 / W chains (K3: series) a warp
+# K2w's, K3's, K1w's and the jets' blocks: four warps, 32 / W units a warp
 # (kalman_wide.cu)
 WIDE_THREADS = 128
 DPATH_THREADS = 128
-_NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for larger state "
-              "dimensions and the other block classes)")
+_NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for state dimensions past "
+              "16 and the other block classes)")
 
 
 def _stream(device) -> int:
@@ -109,171 +117,204 @@ def _shape_check(p, b, d):
 def _series(y, dtype, device):
     y = torch.as_tensor(y, dtype=dtype, device=device)
     if y.dim() != 1:
-        raise ValueError("the kernels take one series y [T] shared by all "
-                         f"systems; got {tuple(y.shape)}")
+        raise ValueError("the smoother kernels take one series y [T] shared "
+                         f"by all systems; got {tuple(y.shape)}")
     return y.contiguous()
 
 
-def n_params(d):
-    """J1's and J2's parameters: h, then the upper triangle of R Q R'."""
-    return 1 + d * (d + 1) // 2
+def _series_rows(y, b, dtype, device):
+    """The loglik kernels' series: (y [S, T] contiguous, S), S dividing the
+    ``b`` systems (y [T]: S = 1)."""
+    y = torch.as_tensor(y, dtype=dtype, device=device)
+    if y.dim() == 1:
+        y = y[None]
+    if y.dim() != 2 or y.shape[0] < 1 or b % y.shape[0]:
+        raise ValueError(f"y must be [T] or [S, T] with S dividing the {b} "
+                         f"systems; got {tuple(y.shape)}")
+    return y.contiguous(), y.shape[0]
 
 
-def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, order=0):
-    """The loglik on the card: ``order`` 0 launches K1 -> ll [B]; 1, J1 ->
-    (ll, grad [B, NP]); 2, J2 -> (ll, grad, hess [B, NP, NP]), over the
-    kernels' parameters (h, upper triangle of R Q R')."""
+def _loglik_operands(h, rqr, z, t_mat, a0, p0, y, observed, dtypes, dims,
+                     what):
+    """The loglik kernels' checked operands: (fields, y [S, T], S, mask)."""
     dtype, device = h.dtype, h.device
-    if dtype not in _DTYPE_TAG:
-        raise TypeError(f"unsupported dtype {dtype}")
+    if _DTYPE_TAG.get(dtype) not in dtypes:
+        names = {"f32": "float32", "f64": "float64"}
+        raise TypeError(f"the {what} run "
+                        f"{' or '.join(names[t] for t in dtypes)}, not "
+                        f"{dtype}")
     b, d = z.shape
-    kind = LOGLIK_KINDS[order]
-    tags, dims = _build.KALMAN_ENTRIES[kind]
-    if _DTYPE_TAG[dtype] not in tags:
-        raise TypeError(f"the loglik's derivative kernels run float64 "
-                        f"({tags}), not {dtype}")
     if d not in dims:
         raise NotImplementedError(
-            f"the loglik {'derivative ' if order else ''}kernel takes "
-            f"state dims {dims}, not {d} " + _NO_KERNEL)
+            f"the {what} takes state dims {dims[0]}..{dims[-1]}, not {d} "
+            + _NO_KERNEL)
     p = _checked({"z": z, "t_mat": t_mat, "rqr": rqr, "h": h, "a0": a0,
                   "p0": p0}, dtype, device)
     _shape_check(p, b, d)
-    y = _series(y, dtype, device)
-    obs = _observed_bytes(observed, y.shape[0], device)
-    out = [torch.empty(b, dtype=dtype, device=device)]
-    if order:
-        out.append(torch.empty(b, n_params(d), dtype=dtype, device=device))
-    if order == 2:
-        out.append(torch.empty(b, n_params(d), n_params(d), dtype=dtype,
-                               device=device))
-    args = [p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "a0", "p0")]
-    args += [y.data_ptr(), _ptr(obs), *(o.data_ptr() for o in out)]
-    fn = getattr(_build.library("kalman_seq"),
-                 f"boom_kalman_{kind}_{_DTYPE_TAG[dtype]}_d{d}")
-    rc = fn(*args, b, y.shape[0], LOGLIK_THREADS, _stream(device))
+    y, n_series = _series_rows(y, b, dtype, device)
+    return p, y, n_series, _observed_bytes(observed, y.shape[1], device)
+
+
+_FIELDS = ("z", "t_mat", "rqr", "h", "a0", "p0")
+
+
+def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
+    """The loglik on the card, K1 (d <= 6) or K1w (7 <= d <= 16), float32
+    or float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]).
+    y: [T], or [S, T] with S dividing B (system b reads series b // (B/S))."""
+    tags, dims = _build.KALMAN_ENTRIES["loglik"]
+    p, y, n_series, obs = _loglik_operands(
+        h, rqr, z, t_mat, a0, p0, y, observed, tags,
+        dims + _build.WIDE_DIMS, "loglik kernels (K1, K1w)")
+    (b, d), t_len = p["z"].shape, y.shape[1]
+    wide = d in _build.WIDE_DIMS
+    out = [torch.empty(b, dtype=h.dtype, device=h.device)]
+    if innovations:
+        out += [torch.empty(b, t_len, dtype=h.dtype, device=h.device)
+                for _ in range(2)]
+    ptrs = [p[k].data_ptr() for k in _FIELDS] + [y.data_ptr(), _ptr(obs)]
+    ptrs += [out[0].data_ptr(), *(_ptr(o) for o in (out[1:] or (None,) * 2))]
+    tag = _DTYPE_TAG[h.dtype]
+    if wide:
+        kind = "loglik_wide"
+        rc = getattr(_build.library("kalman_wide"),
+                     f"boom_kalman_loglik_wide_{tag}")(
+            *ptrs, b, t_len, n_series, d, WIDE_THREADS, _stream(h.device))
+    else:
+        kind = "loglik"
+        rc = getattr(_build.library("kalman_seq"),
+                     f"boom_kalman_loglik_{tag}_d{d}")(
+            *ptrs, b, t_len, n_series, LOGLIK_THREADS, _stream(h.device))
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
     LAUNCHES[kind] += 1
-    return tuple(out) if order else out[0]
+    return tuple(out) if innovations else out[0]
 
 
-def _sym_units(d, like):
-    """[NP - 1, d, d]: R Q R' moved by a unit of each upper-triangle
-    parameter (both entries of an off-diagonal one)."""
-    units = torch.zeros(n_params(d) - 1, d, d, dtype=like.dtype,
-                        device=like.device)
-    k = 0
-    for i in range(d):
-        for j in range(i, d):
-            units[k, i, j] = units[k, j, i] = 1.0
-            k += 1
-    return units
+def launch_jets(h, rqr, z, t_mat, a0, p0, y, observed, dh, dm, order):
+    """J1 (``order`` 1) -> (ll [B], grad [B, K]) or J2 (2) -> (ll, grad,
+    hess [B, K, K]) on the card: the loglik and its derivatives along the
+    directions dh [K], dm [K, d, d] at (h, R Q R'), float64, d 1..16,
+    1 <= K <= JET_MAX_DIRECTIONS; y as :func:`launch_loglik` takes it."""
+    p, y, n_series, obs = _loglik_operands(
+        h, rqr, z, t_mat, a0, p0, y, observed, ("f64",), _build.JET_DIMS,
+        "loglik's derivative kernels")
+    (b, d), t_len = p["z"].shape, y.shape[1]
+    k = dh.shape[0] if dh.dim() == 1 else -1
+    if not 1 <= k <= JET_MAX_DIRECTIONS or tuple(dm.shape) != (k, d, d):
+        raise NotImplementedError(
+            f"the loglik's derivative kernels take 1..{JET_MAX_DIRECTIONS} "
+            f"directions dh [K], dm [K, {d}, {d}]; got {tuple(dh.shape)}, "
+            f"{tuple(dm.shape)} (kalman_wide.cu, kMaxDirections)")
+    dirs = _checked({"dh": dh, "dm": dm}, h.dtype, h.device)
+    out = [torch.empty(b, dtype=h.dtype, device=h.device),
+           torch.empty(b, k, dtype=h.dtype, device=h.device)]
+    if order == 2:
+        out.append(torch.empty(b, k, k, dtype=h.dtype, device=h.device))
+    ptrs = [p[name].data_ptr() for name in _FIELDS]
+    ptrs += [y.data_ptr(), _ptr(obs), dirs["dh"].data_ptr(),
+             dirs["dm"].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+             _ptr(out[2] if order == 2 else None)]
+    rc = _build.library("kalman_wide").boom_kalman_jet_f64(
+        *ptrs, b, t_len, n_series, d, k, order, WIDE_THREADS,
+        _stream(h.device))
+    kind = JET_KINDS[order]
+    if rc != 0:
+        raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
+    LAUNCHES[kind] += 1
+    return tuple(out)
 
 
-def loglik_jets_plain(h, rqr, z, t_mat, a0, p0, y, observed, order):
-    """J1's (``order`` 1) and J2's (2) plain version: autograd of the plain
-    loop ``kalman.kalman_loglik`` in the kernels' parameters (h, upper
-    triangle of R Q R', as :func:`launch_loglik` gives them)."""
-    b, d = z.shape
-    units = _sym_units(d, h)
-    eye = torch.eye(d, dtype=h.dtype, device=h.device).expand(b, d, d)
-
-    def ll_of(theta):
-        params = SsmParams(z, t_mat, eye, rqr + torch.einsum(
-            "bk,kij->bij", theta[:, 1:], units), h + theta[:, 0], a0, p0)
-        return kalman.kalman_loglik(params, y, observed)
-
-    theta = torch.zeros(b, n_params(d), dtype=h.dtype, device=h.device,
-                        requires_grad=True)
-    with torch.enable_grad():
-        ll = ll_of(theta)
-        (grad,) = torch.autograd.grad(ll.sum(), theta,
-                                      create_graph=order == 2)
-        if order == 1:
-            return ll.detach(), grad
-        hess = torch.stack([torch.autograd.grad(
-            grad[:, k].sum(), theta, retain_graph=True)[0]
-            for k in range(n_params(d))], dim=1)
-    return ll.detach(), grad.detach(), hess
-
-
-def _sym_map(d, like):
-    """[NP, 1 + d*d]: the kernel's parameters (h, then the upper triangle
-    of R Q R', row-major) as linear functions of (h, every entry of R Q R'
-    row-major). The loglik sees R Q R' only through its symmetric part, so
-    an off-diagonal parameter is the mean of its two entries."""
-    units = _sym_units(d, like)
-    rqr_rows = units / units.sum((-1, -2), keepdim=True)
-    return torch.block_diag(torch.ones(1, 1, dtype=like.dtype,
-                                       device=like.device),
-                            rqr_rows.reshape(-1, d * d))
-
-
-class _LoglikGrad(torch.autograd.Function):
-    """The loglik's gradient [B, 1 + d*d] over (h, R Q R') as a function of
-    (h, R Q R'), whose own derivative is the saved Hessian: what makes
-    :class:`_Loglik` differentiable twice."""
+class _GradAlong(torch.autograd.Function):
+    """The loglik's gradient [B, K] in c as a function of c, whose own
+    derivative is the saved Hessian: what makes :class:`_LoglikAlong`
+    differentiable twice."""
 
     @staticmethod
-    def forward(ctx, h, rqr, grad, hess):
+    def forward(ctx, c, grad, hess):
         ctx.save_for_backward(hess)
-        ctx.rqr_shape = rqr.shape
         return grad.clone()
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_grad):
         (hess,) = ctx.saved_tensors
-        v = (hess @ g_grad[..., None])[..., 0]
-        return v[:, 0], v[:, 1:].reshape(ctx.rqr_shape), None, None
+        return (hess @ g_grad[..., None])[..., 0], None, None
 
 
-class _Loglik(torch.autograd.Function):
-    """K1 as a function of (h [B], R Q R' [B, d, d]); the other system
-    fields, the series and the mask are constants. The forward pass
-    launches K1, or J1 when a gradient is wanted; the backward pass returns
-    J1's gradient, or launches J2 when a second derivative can be asked of
-    it (grad mode on inside backward: ``create_graph=True``, as
-    ``torch.autograd.functional.hessian`` sets it)."""
+class _LoglikAlong(torch.autograd.Function):
+    """K1 / K1w as a function of c [B, K] (:func:`loglik_along`); the
+    system's other fields, the directions, the series and the mask are
+    constants. The forward pass launches K1 or K1w, or J1 when a gradient
+    is wanted; the backward pass returns J1's gradient, or launches J2 when
+    a second derivative can be asked of it (grad mode on inside backward:
+    ``create_graph=True``, as ``torch.autograd.functional.hessian`` sets
+    it)."""
 
     @staticmethod
-    def forward(ctx, h, rqr, z, t_mat, a0, p0, y, observed):
-        if any(ctx.needs_input_grad[2:]):
+    def forward(ctx, c, h0, q0, dh, dm, z, t_mat, a0, p0, y, observed):
+        if any(ctx.needs_input_grad[1:]):
             raise NotImplementedError(
-                "the loglik kernel differentiates in h and R Q R' only "
-                "(ROADMAP.md, queue 7: kernel (b))")
-        if not any(ctx.needs_input_grad[:2]):
-            return launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed)
-        ll, grad = launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed,
-                                 order=1)
-        ctx.save_for_backward(h, rqr, grad @ _sym_map(z.shape[-1], grad))
-        ctx.constants = (z, t_mat, a0, p0, y, observed)
+                "the loglik kernels differentiate along the directions' "
+                "coefficients c only (ROADMAP.md, queue 7: kernel (b))")
+        h, rqr = kalman.along(h0, q0, dh, dm, c)
+        fields = (h, rqr, z, t_mat, a0, p0, y, observed)
+        if not ctx.needs_input_grad[0]:
+            return launch_loglik(*fields)
+        ll, grad = launch_jets(*fields, dh, dm, order=1)
+        ctx.save_for_backward(c, grad)
+        ctx.fields = fields + (dh, dm)
         return ll
 
     @staticmethod
     def backward(ctx, g_ll):
-        h, rqr, grad = ctx.saved_tensors
+        c, grad = ctx.saved_tensors
         if torch.is_grad_enabled():
-            _ll, grad, hess = launch_loglik(h.detach(), rqr.detach(),
-                                            *ctx.constants, order=2)
-            jac = _sym_map(rqr.shape[-1], grad)
-            grad = _LoglikGrad.apply(h, rqr, grad @ jac,
-                                     jac.transpose(0, 1) @ hess @ jac)
-        full = grad * g_ll[:, None]
-        return (full[:, 0], full[:, 1:].reshape(rqr.shape), None, None,
-                None, None, None, None)
+            _ll, grad, hess = launch_jets(*ctx.fields, order=2)
+            grad = _GradAlong.apply(c, grad, hess)
+        return (grad * g_ll[:, None],) + (None,) * 10
+
+
+def loglik_along(c, h0, q0, dh, dm, z, t_mat, a0, p0, y, observed=None):
+    """[B] loglik of the systems (z, t_mat, a0, p0 [B, ...]) with h = h0 +
+    c @ dh and R Q R' = q0 + sum_k c_k dm_k (``kalman.along``), c [B, K],
+    on y [T] or [S, T] (S dividing B). Twice differentiable in c: on a CUDA
+    tensor through K1 / K1w, J1 and J2 (:class:`_LoglikAlong`), on a CPU
+    tensor by autograd of the plain loop (``kalman.loglik_along``)."""
+    if not _on_card(c):
+        return kalman.loglik_along(c, h0, q0, dh, dm, z, t_mat, a0, p0, y,
+                                   observed)
+    return _LoglikAlong.apply(c, h0, q0, dh, dm, z, t_mat, a0, p0, y,
+                              observed)
 
 
 def kalman_loglik(params: SsmParams, y, observed=None):
     """[B] marginal log likelihoods of the systems ``params`` (leading
-    series axis B) on the series ``y`` [T] (K1 on a CUDA tensor, the plain
-    ``kalman.kalman_loglik`` on a CPU tensor)."""
+    series axis B) on y [T] or [S, T], S dividing B (K1 or K1w on a CUDA
+    tensor, the plain ``kalman.kalman_loglik`` on a CPU tensor). On the card
+    it is a value only: derivatives are taken along directions of the
+    system with :func:`loglik_along`."""
     if not _on_card(params.h):
         return kalman.kalman_loglik(params, y, observed)
     kalman.check_static(params)
-    return _Loglik.apply(params.h, params.rqr, params.z, params.t_mat,
+    if torch.is_grad_enabled() and any(f.requires_grad for f in params):
+        raise NotImplementedError(
+            "kalman_kernel.kalman_loglik gives no derivatives on the card: "
+            "move the system along directions with loglik_along (J1, J2)")
+    return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                          params.a0, params.p0, y, observed)
+
+
+def innovations(params: SsmParams, y, observed=None):
+    """(v, f) [B, T]: the one-step prediction errors and their variances of
+    every system on y [T] or [S, T] (K1 or K1w on a CUDA tensor, the plain
+    ``kalman.kalman_loglik(..., innovations=True)`` on a CPU tensor)."""
+    if not _on_card(params.h):
+        return kalman.kalman_loglik(params, y, observed, innovations=True)[1:]
+    kalman.check_static(params)
+    return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
+                         params.a0, params.p0, y, observed,
+                         innovations=True)[1:]
 
 
 def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,

@@ -30,11 +30,20 @@ Phases:
      500, 4096} (K2 stages 32 steps at a time: one below, at, one above a
      chunk, a ragged last one), 33 and 4095 chains (a last warp partly
      empty), masked and dense, float64 (<= 1e-9) and float32 (K1, <= 1e-4),
-     K1 at the bsts_llt width (69,632 series); J1 and J2 (the loglik's
-     gradient, and its gradient and Hessian) against autograd of the plain
-     loop, directly and through ``torch.autograd`` (<= 1e-9); ten launches
-     of each at the bsts_llt shape, bit-identical; then their times beside
-     bounds and plain times (``boom_tpu_torch/kernels/kalman_timing.py``);
+     K1 at the bsts_llt width (69,632 series); K1 with a series a chain
+     (d in {1, 2, 3, 6}, 33 and 4095 chains x 17 systems) and K1w (the
+     loglik for 7 <= d <= 16, ``csrc/kalman_wide.cu``: d in {7, 8, 9, 13,
+     16}, T in {2, 31, 32, 33, 500}, 33, 4095 and 4097 series, one shared
+     series and a series a system, masked and dense, and at phase 7's width,
+     4096 chains x 17 points on their chains' series), each with its
+     innovations v and f, float64 (<= 1e-9) and float32 (<= 1e-4); J1 and
+     J2 (the loglik's gradient, and its gradient and Hessian, along K
+     directions, ``csrc/kalman_wide.cu``) at d in {1, 2, 3, 6, 8, 13, 16}
+     and K = 3 and 16 (the most) against autograd of the plain loop,
+     directly and through ``torch.autograd.functional.hessian`` (<= 1e-9);
+     ten launches of each at the bsts_llt and phase 7 shapes,
+     bit-identical; then their times beside bounds and plain times
+     (``boom_tpu_torch/kernels/kalman_timing.py``), registers and spills;
   4. the reference's bsts_llt workload at full width (bench.py:170-200) on
      the bench's own series (``boom_tpu_torch/data``, drawn by the
      reference from ``jax.random.key(4207)``):
@@ -98,7 +107,23 @@ Phases:
      0-3 with probability >= 0.99, and forecast within half the reference's
      forecast sd of its median at each of the 30 steps; it prints
      sweeps/s, min-ESS/s, each phase's share of a sweep and the device's
-     busy share.
+     busy share;
+  7. config #5 with the TIM marginal move (``marginal_sigma_slice=True,
+     marginal_move="tim"``, 16 trials) on phase 6's data at its width and
+     length (4096 chains, 300 + 250 sweeps, float32, smoother in float64):
+     the proposal's mode search through J1 and J2 at d = 8, then the run
+     through K1w (the move's 17 points a chain on the chain's y - X beta),
+     K2w, K3 and kernel (a)'s per-chain entry; gated by finite draws, R-hat
+     < 1.02 on beta[0:4], on each variance R-hat - 1 at most 1.10 times the
+     reference's own run with the move at this length + 0.01, half its
+     min-ESS per draw and medians within 10 % (variances) and 2 %
+     (beta[0:4]) of its; then ``log_lik`` and ``prediction_errors(
+     cutpoints=[400])`` of 200 draws (a refit of y[:400] and the holdout
+     filter), log_lik and the in-sample errors within 1e-4 of their plain
+     versions on the card. It prints sweeps/s, min-ESS/s, the proposal
+     build's wall time, each phase's share of a sweep, the device's busy
+     share, whether the move lifts the level and slope variances' R-hat
+     from phase 6's, and its own time.
 
     python3 chip_smoke.py --gate-check
 
@@ -159,18 +184,37 @@ REPLACES = {"filter": "boom_tpu/statespace/pallas_scan.py:273",
 
 # phase 2b: the sequential kernels and the XLA scans of the reference they
 # replace (kalman.py's lax.scan of kalman_loglik; the fused smoother's
-# forward scan, with _smoother_passes' two scans at :322 and :349; J1 and
-# J2, the loglik's derivatives, replace jax.value_and_grad of that scan in
-# numopt.bfgs and jax.hessian in numopt.newton_raphson and bsts.py:661)
+# forward scan, with _smoother_passes' two scans at :322 and :349); K1's
+# row reads phase 4's launches
 KALMAN_SOURCE = "boom_tpu_torch/csrc/kalman_seq.cu"
 KALMAN_KERNELS = {"loglik": ("kalman_loglik",
                              "boom_tpu/statespace/kalman.py:282"),
-                  "loglik_grad": ("kalman_loglik_grad",
-                                  "boom_tpu/numopt.py:43"),
-                  "loglik_hess": ("kalman_loglik_hess",
-                                  "boom_tpu/numopt.py:101"),
                   "smoother": ("kalman_simulation_smoother",
                                "boom_tpu/statespace/kalman.py:476")}
+# K1w, the loglik at 7 <= d <= 16, and J1 and J2, the loglik's derivatives
+# along K directions (they replace jax.value_and_grad of the loglik's scan
+# in numopt.bfgs and jax.hessian in numopt.newton_raphson and bsts.py:661),
+# in kalman_wide.cu; their rows read phase 7's launches and its shapes
+TIM_KERNELS = {"loglik_wide": ("kalman_loglik_wide",
+                               "boom_tpu/statespace/kalman.py:282"),
+               "loglik_grad": ("kalman_loglik_grad",
+                               "boom_tpu/numopt.py:43"),
+               "loglik_hess": ("kalman_loglik_hess",
+                               "boom_tpu/numopt.py:101")}
+# K1 with a series a group of systems: d, and chains of TIM points (each
+# chain's points on its own series); K1w: d, T about the warps, series
+# counts of a partial block and ragged last ones (each also dense and
+# masked, shared and a series a system)
+PER_CHAIN_D_CHECK = (1, 2, 3, 6)
+PER_CHAIN_CHAINS = (33, 4095)
+LOGLIK_WIDE_D_CHECK = (7, 8, 9, 13, 16)
+LOGLIK_WIDE_T_CHECK = (2, 31, 32, 33, 500)
+LOGLIK_WIDE_SERIES = (33, 4095, 4097)
+# the jets along directions: d, and K at TIM's 3 and at the most; T of
+# the checks (autograd of the plain loop over 500 steps, a backward pass
+# a direction, would take ~100 s of the script) but for phase 7's shape
+JET_D_CHECK = (1, 2, 3, 6, 8, 13, 16)
+JET_T = 150
 # K2 stages 32 steps at a time (kalman_kernel.SMOOTHER_CHUNK): one below,
 # at and one above a chunk, a ragged last chunk, the bsts_llt T and 4096;
 # masked at MASKED_T; chain counts that leave the last warp partly empty
@@ -331,6 +375,39 @@ REG_FAULTS = {
     "shared_border": "kernel (a) reads chain 0's border of S0 for every "
                      "chain"}
 
+
+# phase 7: config #5 with the TIM move (marginal_sigma_slice=True,
+# marginal_move="tim", 16 trials), phase 6's data, width and length
+TIM_REG_TRIALS = 16
+TIM_REG_SEED = 0
+TIM_REG_DRAWS = 200  # draws of log_lik and the prediction errors
+TIM_REG_CUTPOINT = 400
+# the refit's draws (``holdout_prediction_errors``' default, the
+# reference's): at most this many rows of holdout errors
+TIM_REG_REFIT_DRAWS = 100
+TIM_REG_TOL = 1e-4  # log_lik and the errors against their plain versions
+# The JAX reference's run with the move on the committed data (x64 off, as
+# the bench runs), 1024 chains, 300 burn-in + 250 draws (phase 7's
+# length), REG_MONITOR's order, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim_reg.py \
+#         bench 1024 300 250 7
+# (801 s on 8 CPU cores). The move lifts the recorded level and slope
+# variances' R-hat from the reference's 1.4895 / 1.4379 without it
+# (REFERENCE_RHAT_REG) to 1.0978 / 1.0684; the observation variance's and
+# beta's trajectories are those of the run without it (the move's draws
+# are redrawn by the next sweep's variance step, and it takes noise of its
+# own), so their R-hat is the same
+REFERENCE_MEDIANS_TIM_REG = {
+    "sigsq_obs": 0.35566186904907227, "sigma_level_sq": 0.005520816659554839,
+    "sigma_slope_sq": 0.00013150530139682814,
+    "sigma_seasonal_sq": 0.0019371098605915904,
+    "beta[0]": 3.017993211746216, "beta[1]": -2.0129021406173706,
+    "beta[2]": 1.4406251907348633, "beta[3]": 0.9968388378620148}
+REFERENCE_RHAT_TIM_REG = (1.033916377831742, 1.097790944625607,
+                          1.0683782474636725, 1.012961346467776,
+                          1.0019848446602277, 1.0019373305918495,
+                          1.0016245705207818, 1.0018420056521857)
+REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.0248025826492084
 
 # the keys of every row of the kernels line
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -628,48 +705,123 @@ def _kalman_vs_plain(rng, dtype, c, d, t_len, masked):
     return out
 
 
-def _derivatives_vs_plain(rng):
-    """J1 and J2 against autograd of the plain loop: directly, in the
-    kernels' parameters at the mode search's shape (B=1, T=500, d=2,
-    float64), masked and dense, and through ``torch.autograd`` in the log
-    variances at d in {1, 2}, as the TIM mode search asks for them (a
-    gradient launches J1, a Hessian J1 and J2). Returns ({check: normwise
-    relative error}, {kernel: max abs error at the mode search's shape})."""
+def _loglik_rows_vs_plain(rng, dtype, b, series, d, t_len, masked):
+    """K1 or K1w with its innovations against the plain filter on the card,
+    ``b`` systems on ``series`` rows of y (1: one shared series): (worst
+    normwise relative error of ll, v and f, max abs error of ll)."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
     from boom_tpu_torch.statespace import kalman
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
+    params = kt.system(rng, b, d, str(dtype).split(".")[-1])
+    shape = (series, t_len) if series > 1 else (t_len,)
+    y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=dtype,
+                     device="cuda")
+    obs = (torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
+           if masked else None)
+    got = kk.launch_loglik(params.h, params.rqr, params.z, params.t_mat,
+                           params.a0, params.p0, y, obs, innovations=True)
+    want = kalman.kalman_loglik(params, y, obs, innovations=True)
+    torch.cuda.synchronize()
+    return (max(_rel(a, w) for a, w in zip(got, want)),
+            float((got[0] - want[0]).abs().max()))
+
+
+def _loglik_rows_checks(rng):
+    """K1 with a series a chain (d in PER_CHAIN_D_CHECK, PER_CHAIN_CHAINS
+    chains x TIM_POINTS systems) and K1w (LOGLIK_WIDE_D_CHECK x
+    LOGLIK_WIDE_T_CHECK at 33 series, and LOGLIK_WIDE_SERIES), shared and
+    a series a system, masked and dense, both dtypes: [failures]."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    cases = [(d, c * kt.TIM_POINTS, c, 67, c == 33)
+             for d in PER_CHAIN_D_CHECK for c in PER_CHAIN_CHAINS]
+    cases += [(d, 33, 33 if t_len in (32, 500) else 1, t_len,
+               t_len in (31, 33))
+              for d in LOGLIK_WIDE_D_CHECK for t_len in LOGLIK_WIDE_T_CHECK]
+    cases += [(d, c, c if c == 4095 else 1, 33, c == 4097)
+              for d in LOGLIK_WIDE_D_CHECK for c in LOGLIK_WIDE_SERIES[1:]]
+    bad, worst = [], {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for d, b, series, t_len, masked in cases:
+            err, _abs = _loglik_rows_vs_plain(rng, dtype, b, series, d,
+                                              t_len, masked)
+            kind = "K1w" if d >= 7 else "K1"
+            key = (kind, tag)
+            worst[key] = max(worst.get(key, 0.0), err)
+            if not (np.isfinite(err) and err <= SCAN_TOL[tag]):
+                bad.append(f"{kind} {tag} d={d} B={b} S={series} "
+                           f"T={t_len} masked={masked}: {err:.3e}")
+    for (kind, tag), v in sorted(worst.items()):
+        print(f"{kind} (a series a group of systems, innovations) {tag}: "
+              f"worst ll/v/f relative error {v:.3e} over "
+              f"{len(cases)} cases (tolerance {SCAN_TOL[tag]:g})")
+    return bad
+
+
+def _jets_vs_plain(rng):
+    """J1 and J2 along K directions against autograd of the plain loop on
+    the card: directly at d in JET_D_CHECK, K = 3 (T = JET_T, masked and
+    dense, one shared series and a series a system) and K at the most
+    (T = 64), and through ``torch.autograd`` of ``loglik_along`` in log
+    variances at K = 3 (a gradient launches J1, a Hessian J1 and J2).
+    Returns ({check: normwise relative error}, {kernel: max abs error at
+    phase 7's shape: d = 8, K = 3, one series, T = REG_T})."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.kernels.host_rehearsal import directions
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
     errs, max_abs = {}, {}
-    for masked in (False, True):
-        params = kt.system(rng, 1, 2, "float64")
-        y = torch.tensor(rng.normal(size=LLT_T).cumsum(),
+
+    def direct(d, k, b, series, t_len, masked):
+        params = kt.system(rng, b, d, "float64")
+        shape = (series, t_len) if series > 1 else (t_len,)
+        y = torch.tensor(rng.normal(size=shape).cumsum(-1),
                          dtype=torch.float64, device="cuda")
-        obs = (torch.tensor(rng.uniform(size=LLT_T) > 0.2, device="cuda")
+        obs = (torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
                if masked else None)
+        dirs = [x.to("cuda") for x in directions(rng, k, d)]
         fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
-                  params.a0, params.p0, y, obs)
-        for order, kind in ((1, "loglik_grad"), (2, "loglik_hess")):
-            got = kk.launch_loglik(*fields, order=order)
-            want = kk.loglik_jets_plain(*fields, order=order)
-            errs[f"{kind} masked={masked}"] = max(
-                _rel(a, b) for a, b in zip(got, want))
-            if not masked:
-                max_abs[kind] = float((got[-1] - want[-1]).abs().max())
-    for d in (1, 2):
+                  params.a0, params.p0, y, obs, *dirs)
+        out = {}
+        for order in (1, 2):
+            got = kk.launch_jets(*fields, order=order)
+            want = kalman.loglik_jets(*fields, order)
+            out[kk.JET_KINDS[order]] = (
+                max(_rel(a, w) for a, w in zip(got, want)),
+                float((got[-1] - want[-1]).abs().max()))
+        return out
+
+    for d in JET_D_CHECK:
+        for k, b, series, t_len, masked in (
+                (kt.TIM_GROUPS, 3, 1, JET_T, False),
+                (kt.TIM_GROUPS, 3, 3, JET_T, True),
+                (kk.JET_MAX_DIRECTIONS, 1, 1, 64, True)):
+            for kind, (err, _abs) in direct(d, k, b, series, t_len,
+                                            masked).items():
+                errs[f"{kind} d={d} K={k} S={series} masked={masked}"] = err
         params = kt.system(rng, 1, d, "float64")
-        y = torch.tensor(rng.normal(size=LLT_T).cumsum(),
+        y = torch.tensor(rng.normal(size=JET_T).cumsum(),
                          dtype=torch.float64, device="cuda")
+        dh, dm = (x.to("cuda") for x in directions(rng, kt.TIM_GROUPS, d))
+        h0, q0 = 0.5 * params.h, 0.5 * params.rqr
 
-        def lp(fn, u, params=params, d=d, y=y):
-            return fn(params._replace(q_mat=torch.diag_embed(
-                torch.exp(u[:d]))[None], h=torch.exp(u[d:])), y)[0]
+        def lp(fn, u):
+            return fn(torch.exp(u)[None], h0, q0, dh, dm, params.z,
+                      params.t_mat, params.a0, params.p0, y)[0]
 
-        u0 = torch.linspace(-1.0, 0.2, d + 1, dtype=torch.float64,
+        u0 = torch.linspace(-1.0, 0.2, kt.TIM_GROUPS, dtype=torch.float64,
                             device="cuda")
         res = []
-        for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+        for fn in (kk.loglik_along, kalman.loglik_along):
             before = dict(kk.LAUNCHES)
             u = u0.clone().requires_grad_(True)
             (g,) = torch.autograd.grad(lp(fn, u), u)
@@ -677,24 +829,32 @@ def _derivatives_vs_plain(rng):
             hess = torch.autograd.functional.hessian(
                 lambda x, fn=fn: lp(fn, x), u0)
             res.append((g, hess))
-            if fn is kk.kalman_loglik:
-                launched = [{k: b[k] - a[k] for k in kk.LOGLIK_KINDS}
+            if fn is kk.loglik_along:
+                kinds = ("loglik", "loglik_wide", *kk.JET_KINDS.values())
+                launched = [{k: b[k] - a[k] for k in kinds}
                             for a, b in ((before, after_grad),
                                          (after_grad, kk.LAUNCHES))]
                 check(launched == [
-                    {"loglik": 0, "loglik_grad": 1, "loglik_hess": 0},
-                    {"loglik": 0, "loglik_grad": 1, "loglik_hess": 1}],
+                    {"loglik": 0, "loglik_wide": 0, "loglik_grad": 1,
+                     "loglik_hess": 0},
+                    {"loglik": 0, "loglik_wide": 0, "loglik_grad": 1,
+                     "loglik_hess": 1}],
                     f"a gradient and a Hessian launched {launched}, not "
                     "J1, then J1 and J2")
         errs[f"autograd gradient d={d}"] = _rel(res[0][0], res[1][0])
         errs[f"autograd Hessian d={d}"] = _rel(res[0][1], res[1][1])
+    for kind, (_err, err_abs) in direct(8, kt.TIM_GROUPS, 1, 1, REG_T,
+                                        False).items():
+        max_abs[kind] = err_abs
     return errs, max_abs
 
 
 def phase2b_kalman_vs_plain():
     """K1 and K2 against their plain versions over KALMAN_T_CHECK and at
-    the bsts_llt width; the derivative kernel; determinism; times. Returns
-    the bsts_llt shape's numbers per kernel."""
+    the bsts_llt width; K1 with a series a chain and K1w with their
+    innovations; J1 and J2 along directions; determinism; times. Returns
+    the rows' numbers per kernel (K1, K2 at the bsts_llt shapes; K1w, J1,
+    J2 at phase 7's)."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
@@ -734,8 +894,22 @@ def phase2b_kalman_vs_plain():
     check(not bad, "kalman kernel disagrees with its plain version: "
           + "; ".join(bad))
 
-    errs, max_abs = _derivatives_vs_plain(rng)
-    print(f"J1, J2 vs autograd of the plain loop (B=1, T={LLT_T}, f64): "
+    bad = _loglik_rows_checks(rng)
+    check(not bad, "K1 / K1w with a series a group disagree with the plain "
+          "filter: " + "; ".join(bad))
+    # phase 7's main path width: K1w over 4096 chains x 17 points, each
+    # chain's points on its own series
+    tag, batch, d, t_len, series = kt.TIM_REG_SHAPES["loglik_wide"]
+    err, err_abs = _loglik_rows_vs_plain(rng, getattr(torch, tag), batch,
+                                         series, d, t_len, False)
+    print(f"K1w {tag} B={batch} S={series} d={d} T={t_len} (phase 7): "
+          f"rel {err:.2e} abs {err_abs:.2e}")
+    check(np.isfinite(err) and err <= SCAN_TOL[tag],
+          f"K1w at phase 7's width: {err:.3e}")
+    at_llt["loglik_wide"] = {"max_abs_err": err_abs}
+
+    errs, max_abs = _jets_vs_plain(rng)
+    print("J1, J2 along directions vs autograd of the plain loop (f64): "
           + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
           + f" (tolerance {DERIV_TOL:g})")
     bad = [f"{k}: {v:.3e}" for k, v in errs.items()
@@ -745,8 +919,10 @@ def phase2b_kalman_vs_plain():
         at_llt[kind] = {"max_abs_err": err}
 
     same = {}
-    for name, (tag, batch, d, t_len) in kt.SHAPES.items():
-        kern = kt.kalman_cases(rng, name, tag, batch, d, t_len)[0]
+    shapes = {**{k: (*v, 1) for k, v in kt.SHAPES.items()},
+              **kt.TIM_REG_SHAPES}
+    for name, (tag, batch, d, t_len, series) in shapes.items():
+        kern = kt.kalman_cases(rng, name, tag, batch, d, t_len, series)[0]
         first = kern()
         first = first if isinstance(first, tuple) else (first,)
         same[name] = True
@@ -756,7 +932,8 @@ def phase2b_kalman_vs_plain():
             same[name] &= all(torch.equal(a, b)
                               for a, b in zip(first, again))
     torch.cuda.synchronize()
-    print("ten repeated launches at the bsts_llt shapes bit-identical: "
+    print("ten repeated launches at the bsts_llt and phase 7 shapes "
+          "bit-identical: "
           + ", ".join(f"{k} {v}" for k, v in same.items()))
     check(all(same.values()), f"repeated launches differ: {same}")
 
@@ -774,14 +951,22 @@ def phase2b_kalman_vs_plain():
               f"{wrap}plain {plain}, {bound}one call on the host clock "
               f"{r['call_ms']:.4f} ms" + (f"; blocks: {blocks}"
                                           if blocks else ""))
-        if name in at_llt:
-            at_llt[name].update({k: r[k] for k in (
+        # the rows: K1, K2 at the bsts_llt shapes; K1w, J1, J2 at phase 7's
+        row = {"loglik_grad_wide": "loglik_grad",
+               "loglik_hess_wide": "loglik_hess"}.get(name, name)
+        if row in at_llt and name not in ("loglik_grad", "loglik_hess"):
+            at_llt[row].update({k: r[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")})
     from boom_tpu_torch.kernels import _build
 
-    log = _build.log_path("kalman_seq")
-    if log.exists():
-        for inst, rep in kt.nvcc_report(log.read_text()).items():
+    reports = {}
+    for source, read in (("kalman_seq", kt.nvcc_report),
+                         ("kalman_wide", kt.wide_nvcc_report)):
+        log = _build.log_path(source)
+        if log.exists():
+            reports.update(read(log.read_text()))
+    for inst, rep in reports.items():
+        if inst.startswith(("loglik", "smoother ")):
             print(f"nvcc {inst}: {rep['registers']} registers, "
                   f"{rep['spill_bytes']} bytes spill stores, "
                   f"{rep['stack_bytes']} bytes stack")
@@ -1656,6 +1841,176 @@ def phase6_bsts_reg(card):
         SWEEP_PHASES))
     for _gate, ok, msg in _reg_gates(r):
         check(ok, msg)
+    return launches, r["rhat"]
+
+
+def phase7_bsts_reg_tim(card, rhat_without):
+    """Config #5 with the TIM move at full width: the proposal built
+    through J1 and J2, then REG_CHAINS chains x (REG_BURN + REG_DRAWS)
+    sweeps through K1w (the move's points), K2w, K3 and kernel (a)'s
+    per-chain entry, gated against the reference's run with the move;
+    then log_lik and the in-sample and holdout prediction errors of
+    TIM_REG_DRAWS draws. ``rhat_without``: phase 6's R-hat (the same model
+    without the move). Returns the kernels' launch counts of the main
+    path (the build and the run)."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
+
+    t_phase = time.perf_counter()
+    x_all, _y_np, x, y = _reg_data()
+    for counts in (kk.LAUNCHES, sk.LAUNCHES, ssk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _reg_model(x, y, REG_CHAINS, marginal_sigma_slice=True,
+                       marginal_move="tim",
+                       marginal_tim_trials=TIM_REG_TRIALS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mode, chol = model._tim_prop
+    print(f"bsts_reg TIM proposal built in {build_s:.2f} s "
+          f"({kk.LAUNCHES['loglik_grad']} J1, {kk.LAUNCHES['loglik_hess']} "
+          f"J2 launches): mode {mode.tolist()}, chol diagonal "
+          f"{chol.diag().tolist()}")
+    check(len(model._sigma_groups()) == 3
+          and kk.LAUNCHES["loglik_grad"] >= 1
+          and kk.LAUNCHES["loglik_hess"] >= 1,
+          f"the proposal did not go through the jets: {kk.LAUNCHES}")
+    gen = prng.generator(TIM_REG_SEED, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   REG_DRAWS, generator=gen, num_chains=REG_CHAINS,
+                   burn=REG_BURN, extract=_reg_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    launches = {"loglik_wide": kk.LAUNCHES["loglik_wide"],
+                "loglik_grad": kk.LAUNCHES["loglik_grad"],
+                "loglik_hess": kk.LAUNCHES["loglik_hess"],
+                "smoother_wide": kk.LAUNCHES["smoother_wide"],
+                "dpath": kk.LAUNCHES["dpath"],
+                "ssvs_sweep_border": ssk.LAUNCHES["ssvs_sweep_border"]}
+    others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES,
+                                **ssk.LAUNCHES}.items()
+              if k not in launches and v}
+    sweeps = REG_BURN + REG_DRAWS
+    print(f"bsts_reg TIM: T={REG_T} d=8 p={REG_P} chains={REG_CHAINS} "
+          f"burn={REG_BURN} draws={REG_DRAWS} trials={TIM_REG_TRIALS} in "
+          f"{elapsed:.2f} s; launches {launches}, other kernels {others}")
+    check(launches["loglik_wide"] >= sweeps
+          and launches["smoother_wide"] >= sweeps + 1
+          and launches["dpath"] >= sweeps
+          and launches["ssvs_sweep_border"] >= sweeps,
+          f"the bsts_reg TIM run did not go through its kernels: {launches}")
+
+    d = res.draws
+    tr, se = d["blocks"]["trend"], d["blocks"]["seasonal_7"]
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for v in (d["sigsq_obs"], d["beta"], d["alpha"],
+                           *tr.values(), *se.values()))
+    check(finite, "non-finite bsts_reg TIM draws")
+    mon = torch.cat([torch.stack([d["sigsq_obs"], tr["sigma_level_sq"],
+                                  tr["sigma_slope_sq"],
+                                  se["sigma_seasonal_sq"]], dim=-1),
+                     d["beta"][..., :4]], dim=-1).double()
+    ess = diagnostics.effective_sample_size(mon).cpu().numpy()
+    rhat = diagnostics.potential_scale_reduction(mon).cpu().numpy()
+    per_draw = ess / (REG_CHAINS * REG_DRAWS)
+    med = mon.reshape(-1, len(REG_MONITOR)).median(0).values.cpu().numpy()
+    gates = []
+    for i, name in enumerate(REG_MONITOR):
+        ref = REFERENCE_MEDIANS_TIM_REG[name]
+        print(f"bsts_reg TIM {name}: median {med[i]:.6g} (reference "
+              f"{ref:.6g}, ratio {med[i] / ref:.4f}) rhat {rhat[i]:.4f} "
+              f"(reference's {REFERENCE_RHAT_TIM_REG[i]:.4f}; phase 6, "
+              f"without the move, {rhat_without[i]:.4f}) ess per draw "
+              f"{per_draw[i]:.5f}")
+        if name.startswith("beta"):
+            gates.append((rhat[i] < RHAT_GATE,
+                          f"bsts_reg TIM R-hat of {name} {rhat[i]:.4f} >= "
+                          f"{RHAT_GATE}"))
+        else:
+            limit = (1.0 + REG_RHAT_FACTOR
+                     * (REFERENCE_RHAT_TIM_REG[i] - 1.0) + REG_RHAT_SLACK)
+            gates.append((rhat[i] <= limit,
+                          f"bsts_reg TIM R-hat of {name} {rhat[i]:.4f} > "
+                          f"{limit:.4f} (the reference's "
+                          f"{REFERENCE_RHAT_TIM_REG[i]:.4f})"))
+        tol = REG_BETA_TOL if name.startswith("beta") else REG_VARIANCE_TOL
+        gates.append((abs(med[i] / ref - 1.0) <= tol,
+                      f"bsts_reg TIM median of {name} {med[i]:.5g} is not "
+                      f"within {tol:.0%} of the reference's {ref:.5g}"))
+    min_per_draw = float(per_draw.min())
+    gates.append((min_per_draw >= 0.5 * REFERENCE_MIN_ESS_PER_DRAW_TIM_REG,
+                  f"bsts_reg TIM min-ESS per draw {min_per_draw:.5f} is "
+                  f"below half the reference's "
+                  f"{REFERENCE_MIN_ESS_PER_DRAW_TIM_REG:.5f}"))
+    lifted = all(rhat[i] < rhat_without[i] for i in (1, 2))
+    print(f"bsts_reg TIM rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {float(ess.min()):.1f} ({min_per_draw:.5f} a draw, the "
+          f"reference's {REFERENCE_MIN_ESS_PER_DRAW_TIM_REG:.5f}), min-ESS/s "
+          f"{float(ess.min()) / elapsed:.2f}, proposal build "
+          f"{build_s:.2f} s")
+    print(f"bsts_reg TIM finding: the move "
+          f"{'lifts' if lifted else 'does not lift'} the level and slope "
+          f"variances' R-hat: {rhat[1]:.4f} / {rhat[2]:.4f} with it, "
+          f"{rhat_without[1]:.4f} / {rhat_without[2]:.4f} without it "
+          "(phase 6)")
+    _print_profile(f"bsts_reg TIM [{card}]", *_phase_profile(
+        model, res.final_state, gen, REG_CHAINS, "bsts", SWEEP_PHASES))
+
+    # log_lik and the errors of TIM_REG_DRAWS draws, against their plain
+    # versions on the card
+    fit = BstsModel(_model=model, _result=res)
+    t2 = time.perf_counter()
+    sub = fit._subsampled_states(0, TIM_REG_DRAWS)
+    before = dict(kk.LAUNCHES)
+    ll = model.log_lik(sub)
+    errs = fit.prediction_errors(cutpoints=[TIM_REG_CUTPOINT],
+                                 max_draws=TIM_REG_DRAWS)
+    torch.cuda.synchronize()
+    pe_s = time.perf_counter() - t2
+    ran = {k: kk.LAUNCHES[k] - before[k] for k in ("loglik_wide",
+                                                    "loglik_grad")}
+    want = kalman.kalman_loglik(model.ssm_params(sub),
+                                model.adjusted_series(sub),
+                                innovations=True)
+    ll_err = _rel(ll.double(), want[0].double())
+    pe_err = _rel(errs["in.sample"].double(),
+                  (want[1] / torch.sqrt(want[2])).double())
+    held = errs[str(TIM_REG_CUTPOINT)]
+    hold = held[:, TIM_REG_CUTPOINT:].double()
+    print(f"bsts_reg TIM log_lik and prediction_errors(cutpoints="
+          f"[{TIM_REG_CUTPOINT}]) of {TIM_REG_DRAWS} draws in {pe_s:.2f} s "
+          f"(launches {ran}): log_lik rel {ll_err:.2e}, in-sample errors rel "
+          f"{pe_err:.2e} (tolerance {TIM_REG_TOL:g}); holdout "
+          f"{tuple(held.shape)}, past the cutpoint mean "
+          f"{float(hold.mean()):.4f} sd {float(hold.std()):.4f}")
+    gates += [
+        (np.isfinite(ll_err) and ll_err <= TIM_REG_TOL,
+         f"log_lik is {ll_err:.3e} off its plain version"),
+        (np.isfinite(pe_err) and pe_err <= TIM_REG_TOL,
+         f"the in-sample errors are {pe_err:.3e} off their plain version"),
+        (ran["loglik_wide"] >= 2 and ran["loglik_grad"] >= 1,
+         f"log_lik and the errors did not run through K1w, J1: {ran}"),
+        (tuple(held.shape) == (min(TIM_REG_DRAWS, TIM_REG_REFIT_DRAWS),
+                               REG_T)
+         and bool(torch.isfinite(held).all()),
+         f"the holdout errors are {tuple(held.shape)} or not finite")]
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in gates:
+        check(ok, msg)
     return launches
 
 
@@ -1764,7 +2119,8 @@ def main():
         at_ssvs = phase2c_ssvs_vs_plain()
         ssvs_launches = phase5_spike_slab(card)
         at_reg = phase2d_wide_vs_plain()
-        reg_launches = phase6_bsts_reg(card)
+        reg_launches, reg_rhat = phase6_bsts_reg(card)
+        tim_launches = phase7_bsts_reg_tim(card, reg_rhat)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1779,6 +2135,11 @@ def main():
                         "source": KALMAN_SOURCE, "replaces": replaces,
                         "launches": llt_launches[f"kalman_{k}"],
                         **at_llt[k], "library_ms": None})
+    for k, (name, replaces) in TIM_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": WIDE_SOURCE, "replaces": replaces,
+                        "launches": tim_launches[k], **at_llt[k],
+                        "library_ms": None})
     # library_ms: no PyTorch call computes a Gibbs sweep over indicators
     kernels.append({"name": "ssvs_sweep", "route": "cuda",
                     "source": SSVS_SOURCE, "replaces": SSVS_REPLACES,

@@ -500,8 +500,11 @@ def test_bsts_model_builder_on_the_cpu():
     assert contrib["trend"].shape[-1] == t_len
     errs = model.prediction_errors()["in.sample"]
     assert errs.shape == (50, t_len) and bool(torch.isfinite(errs).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prediction_errors(cutpoints=[150])
+    # a cutpoint refits to y[:150] and filters through the holdout
+    held = model.prediction_errors(cutpoints=[150], max_draws=8)
+    assert set(held) == {"in.sample", "150"}
+    assert held["150"].shape == (8, t_len)
+    assert bool(torch.isfinite(held["150"]).all())
     with pytest.raises(ValueError, match="regression"):
         model.coefficients()
 
@@ -532,6 +535,10 @@ def test_bsts_model_with_regression_on_the_cpu():
 
 
 def test_regression_needs_its_prior_and_refuses_the_marginal_move():
+    """A regression needs its prior and X [T, p]; with it the TIM move
+    builds its proposal over the state variances alone (the observation
+    variance is the regression's), and the marginal moves that are not
+    ported (grid here) raise naming ROADMAP.md."""
     x, y = (torch.tensor(a) for a in _reg_data())
     blocks = [Seasonal(nseasons=4, sigma_prior=SdPrior(0.1))]
     with pytest.raises(ValueError, match="reg_prior"):
@@ -539,9 +546,15 @@ def test_regression_needs_its_prior_and_refuses_the_marginal_move():
     prior = reg.SpikeSlabPrior.from_data(x, y)
     with pytest.raises(ValueError, match="predictors must be"):
         pbsts.Bsts(y=y, blocks=blocks, predictors=x[:-1], reg_prior=prior)
+    model = pbsts.Bsts(y=y, blocks=blocks, predictors=x, reg_prior=prior,
+                       marginal_sigma_slice=True)
+    mode, chol = model._tim_prop
+    assert mode.shape == (1,) and chol.shape == (1, 1)
+    assert model._sigma_groups() == [((blocks[0].name, "sigma_seasonal_sq"),
+                                      blocks[0].sigma_prior)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pbsts.Bsts(y=y, blocks=blocks, predictors=x, reg_prior=prior,
-                   marginal_sigma_slice=True)
+                   marginal_sigma_slice=True, marginal_move="grid")
 
 
 

@@ -169,8 +169,9 @@ def test_host_compiled_bsts_reg_sweep_matches_plain():
     got = model.kernel()(noise, state)
     launched = {k: v - before[k] for k, v in {**kk.LAUNCHES,
                                               **ssvs_kernel.LAUNCHES}.items()}
-    assert launched == {"loglik": 0, "loglik_grad": 0, "loglik_hess": 0,
-                        "smoother": 0, "smoother_wide": 1, "dpath": 1,
+    assert launched == {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
+                        "loglik_hess": 0, "smoother": 0, "smoother_wide": 1,
+                        "dpath": 1,
                         "ssvs_sweep": 0, "ssvs_sweep_border": 1}
     for mod in (kk, ssvs_kernel):
         mod._on_card = lambda x: False  # the plain versions (undone after)

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (the parallel scans, the sequential
-Kalman loglik K1, its derivative kernels J1 and J2, the simulation
+Kalman loglik K1 and K1w, its derivative kernels J1 and J2, the simulation
 smoothers K2 and K2w, the ASIS D-path K3, and kernel (a), the SSVS
 indicator sweep, with one S0 and with a border of S0 a chain) against
 their plain PyTorch versions, on the card. These need
@@ -217,71 +217,96 @@ def test_kalman_kernels_at_block_edges_match_plain(card, c, d, masked):
     _kalman_case_matches_plain(card, d, 67, c, masked, seed=c + d)
 
 
-@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("d", [1, 2, 3, 8, 16])
 def test_loglik_derivatives_match_plain(card, d):
-    """J1 (the gradient) and J2 (gradient and Hessian) against autograd of
-    the plain loop, both on the card: directly in the kernels' parameters
-    (three series, masked and dense; ten launches of each bit-identical),
-    and through autograd in the log variances, where a gradient launches
-    J1 and a Hessian J1 and J2."""
-    for masked in (False, True):
+    """J1 (the gradient) and J2 (gradient and Hessian) along K directions
+    against autograd of the plain loop, both on the card: directly (three
+    systems, one shared series and a series a system, masked and dense, K
+    at 3 and at the most the kernels take; ten launches of each
+    bit-identical), and through autograd of ``loglik_along`` in the log
+    variances, where a gradient launches J1 and a Hessian J1 and J2."""
+    from boom_tpu_torch.kernels.host_rehearsal import directions
+
+    rng = np.random.default_rng(40 + d)
+    for masked, per_system, k in ((False, False, 3), (True, True, 3),
+                                  (True, False, kk.JET_MAX_DIRECTIONS)):
         params, y, obs, _ = _kalman_inputs(card, torch.float64, d, 300,
                                            seed=9 + masked, c=3,
                                            masked=masked)
+        if per_system:
+            y = torch.stack([y, 0.5 * y, y.flip(0)])
+        dh, dm = (x.to(card) for x in directions(rng, k, d))
         fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
-                  params.a0, params.p0, y, obs)
+                  params.a0, params.p0, y, obs, dh, dm)
         for order in (1, 2):
-            first = kk.launch_loglik(*fields, order=order)
-            want = kk.loglik_jets_plain(*fields, order=order)
+            first = kk.launch_jets(*fields, order=order)
+            want = kalman.loglik_jets(*fields, order)
             assert len(first) == order + 1
             for got, ref in zip(first, want):
                 assert _rel(got, ref) <= 1e-9
             for _ in range(9):
-                again = kk.launch_loglik(*fields, order=order)
+                again = kk.launch_jets(*fields, order=order)
                 assert all(torch.equal(a, b) for a, b in zip(first, again))
 
     params, y, obs, _ = _kalman_inputs(card, torch.float64, d, 300, seed=9,
                                        c=1, masked=True)
+    dh, dm = (x.to(card) for x in directions(rng, 3, d))
+    h0, q0 = 0.5 * params.h, 0.5 * params.rqr
 
     def lp(fn, u):
-        p = params._replace(q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
-                            h=torch.exp(u[d:]))
-        return fn(p, y, obs)[0]
+        return fn(torch.exp(u)[None], h0, q0, dh, dm, params.z,
+                  params.t_mat, params.a0, params.p0, y, obs)[0]
 
-    u0 = torch.linspace(-1.0, 0.5, d + 1, dtype=torch.float64, device=card)
+    u0 = torch.linspace(-1.0, 0.5, 3, dtype=torch.float64, device=card)
     out = []
-    for fn in (kk.kalman_loglik, kalman.kalman_loglik):
+    for fn in (kk.loglik_along, kalman.loglik_along):
         before = dict(kk.LAUNCHES)
         u = u0.clone().requires_grad_(True)
         (g,) = torch.autograd.grad(lp(fn, u), u)
         hess = torch.autograd.functional.hessian(
             lambda x, fn=fn: lp(fn, x), u0)
         out.append((g, hess))
-        launched = {k: kk.LAUNCHES[k] - before[k] for k in kk.LOGLIK_KINDS}
-        if fn is kk.kalman_loglik:
-            assert launched == {"loglik": 0, "loglik_grad": 2,
-                                "loglik_hess": 1}
+        launched = {k: kk.LAUNCHES[k] - before[k]
+                    for k in ("loglik", "loglik_wide", *kk.JET_KINDS.values())}
+        if fn is kk.loglik_along:
+            assert launched == {"loglik": 0, "loglik_wide": 0,
+                                "loglik_grad": 2, "loglik_hess": 1}
     assert _rel(out[0][0], out[1][0]) <= 1e-9
     assert _rel(out[0][1], out[1][1]) <= 1e-9
 
 
 def test_loglik_derivative_kernels_refuse_what_they_do_not_take(card):
-    """J1 and J2 run float64 at d in {1, 2}: d=3 and float32 raise."""
+    """J1 and J2 run float64 at d 1..16 along 1..JET_MAX_DIRECTIONS
+    directions: d = 17, K past the most and float32 raise, and so does a
+    gradient of ``kalman_loglik``, which takes none on the card."""
+    from boom_tpu_torch.kernels.host_rehearsal import directions
+
+    rng = np.random.default_rng(3)
+    big, y17, _obs, _ = _kalman_inputs(card, torch.float64, 17, 20, seed=3)
+    dirs = [x.to(card) for x in directions(rng, 2, 17)]
+    fields = (big.h, big.rqr.contiguous(), big.z, big.t_mat, big.a0,
+              big.p0, y17, None)
+    for order in (1, 2):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            kk.launch_jets(*fields, *dirs, order=order)
     params, y, _obs, _ = _kalman_inputs(card, torch.float64, 3, 20, seed=3)
+    many = [x.to(card) for x in directions(rng, kk.JET_MAX_DIRECTIONS + 1,
+                                            3)]
     fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
               params.a0, params.p0, y, None)
     for order in (1, 2):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kk.launch_loglik(*fields, order=order)
+        with pytest.raises(NotImplementedError, match="directions"):
+            kk.launch_jets(*fields, *many, order=order)
     narrow, y2, _obs, _ = _kalman_inputs(card, torch.float32, 2, 20, seed=4)
     fields = (narrow.h, narrow.rqr.contiguous(), narrow.z, narrow.t_mat,
               narrow.a0, narrow.p0, y2, None)
+    dirs = [x.float().to(card) for x in directions(rng, 2, 2)]
     for order in (1, 2):
         with pytest.raises(TypeError, match="float64"):
-            kk.launch_loglik(*fields, order=order)
-    h = narrow.h.clone().requires_grad_(True)
-    with pytest.raises(TypeError, match="float64"):
-        kk.kalman_loglik(narrow._replace(h=h), y2)
+            kk.launch_jets(*fields, *dirs, order=order)
+    h = params.h.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="loglik_along"):
+        kk.kalman_loglik(params._replace(h=h), y)
 
 
 def test_kalman_kernels_are_bit_identical(card):
@@ -301,14 +326,18 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError, match="float64"):
         kk.simulation_smoother(SsmParams(*(p.float() for p in params)),
                                y.float(), *(n.float() for n in normals))
-    with pytest.raises(ValueError, match="one series"):
-        kk.kalman_loglik(params, y.expand(5, -1))
-    h = params.h.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kk.kalman_loglik(params._replace(h=h), y)  # d=3: no jet kernel
+    # a series count that does not divide the systems
+    with pytest.raises(ValueError, match="dividing"):
+        kk.kalman_loglik(params, y.expand(3, -1))
+    with pytest.raises(ValueError, match="a series a chain"):
+        kk.simulation_smoother(params, y.expand(3, -1), *normals)
     big, y17, _, n17 = _kalman_inputs(card, torch.float64, 17, 20, seed=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kk.simulation_smoother(big, y17, *n17)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kk.kalman_loglik(big, y17)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kk.kalman_loglik(SsmParams(*(p.half() for p in params)), y.half())
 
 
 # -- kernel (a), the SSVS indicator sweep -----------------------------------
@@ -452,16 +481,26 @@ def test_ssvs_border_kernel_matches_plain(card, p, chains):
     assert torch.equal(got, want)
 
 
-def test_log_lik_with_a_regression_refuses_the_card(card):
-    """K1 takes one series for every chain; bsts with a regression gives a
-    series a chain, y - X beta: on the card ``log_lik`` raises rather than
-    run the plain filter."""
+def test_log_lik_and_errors_with_a_regression_run_on_the_card(card):
+    """bsts with a regression gives a series a chain, y - X beta: on the
+    card ``log_lik`` runs K1 (d = 5 here) with a series a chain and the
+    one-step errors its innovations, within 1e-4 (float32) of the plain
+    filter on the same draws."""
     from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.statespace import bsts
 
     rng = np.random.default_rng(9)
     x = rng.normal(size=(40, 3))
     y = x[:, 0] + np.cumsum(rng.normal(size=40))
     fit = (BstsModel().add_local_linear_trend().add_seasonal(nseasons=4)
            .fit(y, predictors=x, niter=2, burn=1, num_chains=4, seed=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit._model.log_lik(fit._flat())
+    model, flat = fit._model, fit._flat()
+    before = dict(kk.LAUNCHES)
+    got = model.log_lik(flat)
+    errs = bsts.one_step_prediction_errors(model, flat)
+    assert kk.LAUNCHES["loglik"] == before["loglik"] + 2
+    params = model.ssm_params(flat)
+    y_adj = model.adjusted_series(flat)
+    want = kalman.kalman_loglik(params, y_adj, innovations=True)
+    assert _rel(got, want[0]) <= TOL[torch.float32]
+    assert _rel(errs, want[1] / torch.sqrt(want[2])) <= TOL[torch.float32]

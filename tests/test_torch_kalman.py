@@ -163,54 +163,64 @@ def test_loglik_derivatives_match_reference():
 
 @pytest.mark.parametrize("d, masked", [(1, False), (2, False), (2, True)])
 def test_loglik_autograd_launches_j1_then_j2(monkeypatch, d, masked):
-    """The routing of the loglik's ``autograd.Function`` on the card, with
-    ``_on_card`` and the launches stubbed by the plain loop (K1 by
-    ``kalman.kalman_loglik``, J1 and J2 by ``loglik_jets_plain``): a value
-    under no_grad launches K1; ``torch.autograd.grad`` J1 alone; a
-    Hessian J1, then J2 in the backward pass that builds a graph. Both
-    derivatives are autograd of the plain loop's to 1e-12."""
+    """The routing of ``loglik_along``'s ``autograd.Function`` on the card,
+    with ``_on_card`` and the launches stubbed by the plain loop (K1 by
+    ``kalman.kalman_loglik``, J1 and J2 by ``kalman.loglik_jets``), in the
+    log variances (directions: Q's diagonal, then h): a value under no_grad
+    launches K1; ``torch.autograd.grad`` J1 alone; a Hessian J1, then J2 in
+    the backward pass that builds a graph. Both derivatives are autograd of
+    the plain loop's to 1e-12. ``kalman_loglik`` itself gives no
+    derivatives on the card."""
     launched = []
 
-    def plain_launch(h, rqr, z, t_mat, a0, p0, y, observed, order=0):
-        launched.append(kalman_kernel.LOGLIK_KINDS[order])
-        if order:
-            return kalman_kernel.loglik_jets_plain(h, rqr, z, t_mat, a0, p0,
-                                                   y, observed, order)
+    def plain_launch(h, rqr, z, t_mat, a0, p0, y, observed):
+        launched.append("loglik")
         eye = torch.eye(z.shape[-1], dtype=h.dtype).expand_as(rqr)
         return kalman.kalman_loglik(kalman.SsmParams(z, t_mat, eye, rqr, h,
                                                      a0, p0), y, observed)
 
+    def plain_jets(*fields, order):
+        launched.append(kalman_kernel.JET_KINDS[order])
+        return kalman.loglik_jets(*fields, order)
+
     monkeypatch.setattr(kalman_kernel, "_on_card", lambda x: True)
     monkeypatch.setattr(kalman_kernel, "launch_loglik", plain_launch)
+    monkeypatch.setattr(kalman_kernel, "launch_jets", plain_jets)
     rng = np.random.default_rng(6 + d)
     base = ssm_params_from_numpy(_systems(rng, 1, d), device="cpu")
     y = torch.tensor(rng.normal(size=40).cumsum())
     obs = torch.tensor(rng.uniform(size=40) > 0.3) if masked else None
+    dh = torch.eye(d + 1, dtype=torch.float64)[d]
+    dm = torch.zeros(d + 1, d, d, dtype=torch.float64)
+    dm[:d] = torch.diag_embed(torch.eye(d, dtype=torch.float64))
+    h0, q0 = torch.zeros(1, dtype=torch.float64), 0.0 * dm[:1]
 
     def lp(fn, u):
-        p = base._replace(q_mat=torch.diag_embed(torch.exp(u[:d]))[None],
-                          h=torch.exp(u[d:]))
-        return fn(p, y, obs)[0]
+        return fn(torch.exp(u)[None], h0, q0, dh, dm, base.z, base.t_mat,
+                  base.a0, base.p0, y, obs)[0]
 
     u0 = torch.linspace(-1.0, 0.4, d + 1, dtype=torch.float64)
     with torch.no_grad():
-        value = lp(kalman_kernel.kalman_loglik, u0)
+        value = lp(kalman_kernel.loglik_along, u0)
     assert launched == ["loglik"]
     u = u0.clone().requires_grad_(True)
-    (grad,) = torch.autograd.grad(lp(kalman_kernel.kalman_loglik, u), u)
+    (grad,) = torch.autograd.grad(lp(kalman_kernel.loglik_along, u), u)
     assert launched[1:] == ["loglik_grad"]
     hess = torch.autograd.functional.hessian(
-        lambda x: lp(kalman_kernel.kalman_loglik, x), u0)
+        lambda x: lp(kalman_kernel.loglik_along, x), u0)
     assert launched[2:] == ["loglik_grad", "loglik_hess"]
 
     u = u0.clone().requires_grad_(True)
-    (ref_grad,) = torch.autograd.grad(lp(kalman.kalman_loglik, u), u)
+    (ref_grad,) = torch.autograd.grad(lp(kalman.loglik_along, u), u)
     ref_hess = torch.autograd.functional.hessian(
-        lambda x: lp(kalman.kalman_loglik, x), u0)
-    _close(value, lp(kalman.kalman_loglik, u0).detach().numpy(),
+        lambda x: lp(kalman.loglik_along, x), u0)
+    _close(value, lp(kalman.loglik_along, u0).detach().numpy(),
            rtol=1e-12)
     _close(grad, ref_grad.numpy(), rtol=1e-12)
     _close(hess, ref_hess.numpy(), rtol=1e-12)
+    with pytest.raises(NotImplementedError, match="loglik_along"):
+        kalman_kernel.kalman_loglik(
+            base._replace(h=base.h.clone().requires_grad_(True)), y)
 
 
 def test_time_varying_systems_raise():

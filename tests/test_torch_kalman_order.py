@@ -228,15 +228,16 @@ def test_k1_f32_order_matches_reference(ref_dtype, t_len, d, masked):
 
 @pytest.fixture
 def host_kernels(monkeypatch):
-    """kalman_kernel's wrappers bound to kalman_seq.cu compiled for the
-    host, launching on CPU tensors."""
+    """kalman_kernel's wrappers bound to kalman_seq.cu and kalman_wide.cu
+    (the jets) compiled for the host, launching on CPU tensors."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels for the host")
     from boom_tpu_torch.kernels import host_rehearsal
 
-    lib = host_rehearsal.build_host_library()
+    libs = {name: host_rehearsal.build_host_library(name, variant="order")
+            for name in ("kalman_seq", "kalman_wide")}
     monkeypatch.setattr(_build, "build",
-                        lambda names=None: {n: lib for n in names})
+                        lambda names=None: {n: libs[n] for n in names})
     monkeypatch.setattr(kk, "_on_card", lambda x: True)
     monkeypatch.setattr(kk, "_stream", lambda device: 0)
     _build.library.cache_clear()
@@ -245,28 +246,29 @@ def host_kernels(monkeypatch):
 
 
 def test_host_compiled_kernels_match_plain(host_kernels):
-    """K1 (float64, float32), K2, J1 and J2 (the loglik's derivatives, at
-    d in {1, 2}, masked and dense, directly and through autograd), compiled
-    from the kernels' source for the host, against the plain versions at
-    K2's chunk edges and with a second, ragged warp of chains."""
+    """K1 (float64, float32), K2, and J1 and J2 (the loglik's derivatives,
+    at d in {1, 2}, masked and dense, through autograd along the unit
+    directions of h and R Q R'), compiled from the kernels' source for the
+    host, against the plain versions at K2's chunk edges and with a second,
+    ragged warp of chains."""
     worst = host_kernels.check_kernels()
     tol = {"loglik float64": 1e-9, "smoother": 1e-9,
-           "loglik float32": K1_F32_TOL, "loglik_grad": 1e-9,
-           "loglik_hess": 1e-9, "gradient": 1e-9, "hessian": 1e-9}
+           "loglik float32": K1_F32_TOL, "gradient": 1e-9, "hessian": 1e-9}
     assert set(worst) == set(tol)
     for name, err in worst.items():
         assert err <= tol[name], (name, err)
 
 
-# excerpts of the toolchain's listings for J2 at d=2 without a mask
-_J2 = ("_ZN46_GLOBAL__N__bea6d392_13_kalman_seq_cu_88ddba7010jet_kernelIdLi2"
-       "ELi2ELb0EEEvPKT_S3_S3_S3_S3_S3_S3_PKhPS1_S6_S6_ii")
-_PTXAS = f"""ptxas info    : Compiling entry function '{_J2}' for 'sm_90a'
-ptxas info    : Function properties for {_J2}
+# excerpts of the toolchain's listings for K1 at d=2 in float64, without a
+# mask, on a series a group of systems
+_K1 = ("_ZN46_GLOBAL__N__bea6d392_13_kalman_seq_cu_88ddba7013loglik_kernelIdLi2"
+       "ELb0ELb0EEEvPKT_S3_S3_S3_S3_S3_S3_PKhPS1_S6_S6_iii")
+_PTXAS = f"""ptxas info    : Compiling entry function '{_K1}' for 'sm_90a'
+ptxas info    : Function properties for {_K1}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 166 registers, used 1 barriers
+ptxas info    : Used 64 registers, used 1 barriers
 """
-_SASS = f"""\t\tFunction : {_J2}
+_SASS = f"""\t\tFunction : {_K1}
         /*0000*/                   LDC R1, c[0x0][0x28] ;
         /*0010*/                   DFMA R2, R4, R6, R2 ;
         /*0020*/                   DMUL R8, R2, R2 ;
@@ -284,12 +286,29 @@ def test_timing_reports_read_the_toolchain_listings():
     the most float arithmetic, the inner one on a tie)."""
     from boom_tpu_torch.kernels import kalman_timing as kt
 
-    assert kt.nvcc_report(_PTXAS) == {"loglik_hess f64 d2 dense": {
-        "registers": 166, "spill_bytes": 0, "stack_bytes": 0}}
-    assert kt.sass_step_ops(_SASS) == {"loglik_hess f64 d2 dense": {
+    key = "loglik f64 d2 dense per-series"
+    assert kt.nvcc_report(_PTXAS) == {key: {
+        "registers": 64, "spill_bytes": 0, "stack_bytes": 0}}
+    assert kt.sass_step_ops(_SASS) == {key: {
         "instructions": 4, "float_ops": 3}}
+    # K1w, J1 and J2 in kalman_wide.cu's report
+    jet = ("_ZN12_GLOBAL__N_118wide_loglik_kernelIdNS_7TangentIdLi2EEELi8E"
+           "Li2EEEvPKT_")
+    k1w = "_ZN12_GLOBAL__N_118wide_loglik_kernelIffLi13ELi0EEEvPKT_"
+    log = "".join(f"""ptxas info    : Compiling entry function '{n}' for 'sm_90a'
+ptxas info    : Function properties for {n}
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used {r} registers, used 1 barriers
+""" for n, r in ((jet, 128), (k1w, 90)))
+    assert kt.wide_nvcc_report(log) == {
+        "loglik_hess f64 d08": {"registers": 128, "spill_bytes": 4,
+                                "stack_bytes": 8},
+        "loglik_wide f32 d13": {"registers": 90, "spill_bytes": 4,
+                                "stack_bytes": 8}}
     # J2's bound counts the work of the loglik with gradient and Hessian
-    # as the one-thread jet that J1 and J2 replaced did; J1's, with
-    # first-order jets
+    # as a one-thread jet computes it; J1's, with first-order jets; both
+    # over K directions (default: h and R Q R''s upper triangle)
     assert kt.jet_step_flops(2) == 2127
+    assert kt.jet_step_flops(2, 4) == kt.jet_step_flops(2)
     assert kt.dual_step_flops(2) < kt.jet_step_flops(2)
+    assert kt.jet_step_flops(8, 3) < kt.jet_step_flops(8)
