@@ -134,30 +134,28 @@ def _jet_step_ops(d):
             "mul": d + d ** 3 + 1, "div": d + 1, "log": 1}
 
 
-def jet_step_flops(d, k=None):
+def jet_step_flops(d, k):
     """Floating-point operations of one step of the loglik with its
     gradient and Hessian (J2's function): the filter step and the log
-    density with every scalar a jet of value, gradient [N] and upper
-    Hessian [H] over N = k directions (default 1 + d(d+1)/2, h and R Q R''s
-    upper triangle), counted per jet operation as a one-thread jet computes
-    it (the work of the function, whatever implements it)."""
-    n = 1 + d * (d + 1) // 2 if k is None else k
-    hh = n * (n + 1) // 2
-    cost = {"add": 1 + n + hh,  # jet +- jet, constant +- jet
-            "scale": 1 + n + hh,  # constant * jet
-            "mul": 1 + 3 * n + 7 * hh,  # jet * jet
-            "div": 1 + 3 * n + 7 * hh,  # jet / jet
-            "log": 1 + n + 3 * hh}
-    return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
+    density with every scalar a jet of value, gradient [k] and upper
+    Hessian [k(k+1)/2] over k directions, counted per jet operation as a
+    one-thread jet computes it (the work of the function, whatever
+    implements it)."""
+    hh = k * (k + 1) // 2
+    cost = {"add": 1 + k + hh,  # jet +- jet, constant +- jet
+            "scale": 1 + k + hh,  # constant * jet
+            "mul": 1 + 3 * k + 7 * hh,  # jet * jet
+            "div": 1 + 3 * k + 7 * hh,  # jet / jet
+            "log": 1 + k + 3 * hh}
+    return sum(cost[op] * n for op, n in _jet_step_ops(d).items())
 
 
-def dual_step_flops(d, k=None):
+def dual_step_flops(d, k):
     """The same for the loglik with its gradient alone (J1's function):
-    first-order jets of value and gradient [N]."""
-    n = 1 + d * (d + 1) // 2 if k is None else k
-    cost = {"add": 1 + n, "scale": 1 + n, "mul": 1 + 3 * n,
-            "div": 1 + 3 * n, "log": 1 + n}
-    return sum(cost[k] * v for k, v in _jet_step_ops(d).items())
+    first-order jets of value and gradient [k]."""
+    cost = {"add": 1 + k, "scale": 1 + k, "mul": 1 + 3 * k,
+            "div": 1 + 3 * k, "log": 1 + k}
+    return sum(cost[op] * n for op, n in _jet_step_ops(d).items())
 
 
 def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS):

@@ -499,7 +499,10 @@ class Bsts:
         """(dh [G], dm [G, d, d]): h and R Q R' are linear in each of the
         marginal move's variances (``_sigma_groups``); the direction of
         group g is the system at variance 1 for g and 0 for the others, less
-        the system at 0 for all (of a template chain)."""
+        the system at 0 for all (of a template chain). Raises
+        NotImplementedError for a block whose system is not so: z, T, a0 or
+        P0 varying with its variance, or h and R Q R' not linear in it
+        (checked at 0, 1 and 2)."""
         groups = self._sigma_groups()
         dev, dt = self.y.device, self.y.dtype
         template = {
@@ -513,8 +516,10 @@ class Bsts:
         base = self.ssm_params(template)
         dh, dm = [], []
         for path, _prior in groups:
-            unit = self.ssm_params(_set_var(template, path,
-                                            self.y.new_ones(1)))
+            unit, two = (self.ssm_params(_set_var(template, path,
+                                                  self.y.new_full((1,), v)))
+                         for v in (1.0, 2.0))
+            _check_linear(path, base, unit, two)
             dh.append(unit.h[0] - base.h[0])
             dm.append(unit.rqr[0] - base.rqr[0])
         return torch.stack(dh), torch.stack(dm)
@@ -653,6 +658,25 @@ def _set_var(st, path, value):
     out["blocks"][bname] = dict(st["blocks"][bname])
     out["blocks"][bname][pname] = value
     return out
+
+
+def _check_linear(path, base, unit, two):
+    """The marginal move's directions hold for ``path``'s variance: the
+    systems at variance 0, 1 and 2 share z, T, a0 and P0, and h and R Q R'
+    move by the same step from 0 to 1 as from 1 to 2."""
+    tol = 64 * torch.finfo(base.h.dtype).eps
+    fixed = all(torch.equal(getattr(base, f), getattr(m, f))
+                for f in ("z", "t_mat", "a0", "p0") for m in (unit, two))
+    linear = all(
+        torch.allclose(getattr(two, f) - getattr(unit, f),
+                       getattr(unit, f) - getattr(base, f), rtol=tol,
+                       atol=tol * float(getattr(two, f).abs().max()))
+        for f in ("h", "rqr"))
+    if not (fixed and linear):
+        raise NotImplementedError(
+            f"the marginal move needs z, T, a0 and P0 free of the variance "
+            f"{path[-1]!r} of {path[0]!r} and h and R Q R' linear in it; "
+            f"this block is not so (ROADMAP.md, queue 1 item 7)")
 
 
 def _sic_logp(sigsq, prior):

@@ -115,16 +115,21 @@ def _at(y, t):
     return y[..., t]
 
 
-def per_system(y, b):
-    """y [T] as it is, or y [S, T] with S dividing ``b`` as [b, T]: system
-    i reads series i // (b / S)."""
-    if y.dim() == 1 or y.shape[0] == b:
-        return y
-    s = y.shape[0]
-    if y.dim() != 2 or s < 1 or b % s:
+def series_count(y, b):
+    """S of y [T] (1) or of y [S, T], S dividing the ``b`` systems: system i
+    reads series i // (b / S)."""
+    if y.dim() == 1:
+        return 1
+    if y.dim() != 2 or y.shape[0] < 1 or b % y.shape[0]:
         raise ValueError(f"y must be [T] or [S, T] with S dividing the {b} "
                          f"systems; got {tuple(y.shape)}")
-    return y.repeat_interleave(b // s, dim=0)
+    return y.shape[0]
+
+
+def per_system(y, b):
+    """y [T] as it is, or y [S, T] (``series_count``) as [b, T]."""
+    s = series_count(y, b)
+    return y if y.dim() == 1 else y.repeat_interleave(b // s, dim=0)
 
 
 def _filter_step(a, p, y_t, obs_t, z, h, rqr, t_mat):

@@ -123,15 +123,11 @@ def _series(y, dtype, device):
 
 
 def _series_rows(y, b, dtype, device):
-    """The loglik kernels' series: (y [S, T] contiguous, S), S dividing the
-    ``b`` systems (y [T]: S = 1)."""
+    """The loglik kernels' series: (y [S, T] contiguous, S), as
+    ``kalman.series_count`` takes them."""
     y = torch.as_tensor(y, dtype=dtype, device=device)
-    if y.dim() == 1:
-        y = y[None]
-    if y.dim() != 2 or y.shape[0] < 1 or b % y.shape[0]:
-        raise ValueError(f"y must be [T] or [S, T] with S dividing the {b} "
-                         f"systems; got {tuple(y.shape)}")
-    return y.contiguous(), y.shape[0]
+    s = kalman.series_count(y, b)
+    return y.reshape(s, -1).contiguous(), s
 
 
 def _loglik_operands(h, rqr, z, t_mat, a0, p0, y, observed, dtypes, dims,

@@ -770,8 +770,9 @@ def _jets_vs_plain(rng):
     dense, one shared series and a series a system) and K at the most
     (T = 64), and through ``torch.autograd`` of ``loglik_along`` in log
     variances at K = 3 (a gradient launches J1, a Hessian J1 and J2).
-    Returns ({check: normwise relative error}, {kernel: max abs error at
-    phase 7's shape: d = 8, K = 3, one series, T = REG_T})."""
+    Also directly at the main paths' shapes (d = 8, T = REG_T and d = 2,
+    T = LLT_T; K = 3, one series). Returns ({check: normwise relative
+    error}, {kernel: max abs error at phase 7's shape})."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
@@ -843,9 +844,14 @@ def _jets_vs_plain(rng):
                     "J1, then J1 and J2")
         errs[f"autograd gradient d={d}"] = _rel(res[0][0], res[1][0])
         errs[f"autograd Hessian d={d}"] = _rel(res[0][1], res[1][1])
-    for kind, (_err, err_abs) in direct(8, kt.TIM_GROUPS, 1, 1, REG_T,
-                                        False).items():
-        max_abs[kind] = err_abs
+    # the main paths' shapes, B = 1: phase 7's proposal build (d = 8) and
+    # phase 4's (bsts_llt, d = 2), K = 3, T = 500
+    for d, t_len, path in ((8, REG_T, "phase 7"), (2, LLT_T, "phase 4")):
+        for kind, (err, err_abs) in direct(d, kt.TIM_GROUPS, 1, 1, t_len,
+                                           False).items():
+            errs[f"{kind} d={d} K={kt.TIM_GROUPS} T={t_len} ({path})"] = err
+            if d == 8:
+                max_abs[kind] = err_abs
     return errs, max_abs
 
 

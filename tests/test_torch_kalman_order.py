@@ -307,8 +307,8 @@ ptxas info    : Used {r} registers, used 1 barriers
                                 "stack_bytes": 8}}
     # J2's bound counts the work of the loglik with gradient and Hessian
     # as a one-thread jet computes it; J1's, with first-order jets; both
-    # over K directions (default: h and R Q R''s upper triangle)
-    assert kt.jet_step_flops(2) == 2127
-    assert kt.jet_step_flops(2, 4) == kt.jet_step_flops(2)
-    assert kt.dual_step_flops(2) < kt.jet_step_flops(2)
-    assert kt.jet_step_flops(8, 3) < kt.jet_step_flops(8)
+    # over K directions (K = 4 at d = 2: h and R Q R''s upper triangle)
+    assert kt.jet_step_flops(2, 4) == 2127
+    assert kt.dual_step_flops(2, 4) < kt.jet_step_flops(2, 4)
+    assert kt.jet_step_flops(8, 3) < kt.jet_step_flops(8, 37)
+    assert kt.jet_step_flops(2, 3) < kt.jet_step_flops(2, 4)

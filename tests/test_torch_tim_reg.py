@@ -1,6 +1,5 @@
 """The TIM marginal move of the port's bsts with a regression against the
-JAX reference (float64, CPU), and the kernels on its path compiled for the
-host against their plain versions.
+JAX reference (float64, CPU).
 
 - The proposal: mode rtol 1e-6 and Cholesky factor rtol 1e-4, as
   test_torch_tim.py (the two mode searches differentiate different code,
@@ -11,15 +10,11 @@ host against their plain versions.
   PyTorch's ~1e-9 relative error of the incomplete gamma).
 - ``log_lik``, the one-step errors and the holdout filter on the same
   states: 1e-10 (the same operations in another order at most).
-- K1 with a series a group of systems, K1w and their innovations, and J1
-  and J2 along K directions (``kernels/host_rehearsal.py``: a block's
-  threads as host threads, real barriers): 1e-12 normwise in float64, 1e-5
-  in float32, against ``kalman.kalman_loglik(..., innovations=True)`` and
-  autograd of the plain loop (``kalman.loglik_jets``).
-- The reference's own statistical checks of the one-step and holdout
-  errors (tests/test_cat_hmm_holdout.py:58-100,
-  tests/test_serialize_diag.py:81) through the port on the CPU, on data
-  drawn with numpy, with its assertions.
+
+The kernels on this path compiled for the host are held against their plain
+versions in test_torch_tim_reg_kernels.py, and the reference's own
+statistical checks of the one-step and holdout errors run through the port
+in test_torch_holdout.py: three files, so that the three run side by side.
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim_reg.py \
         bench 1024 300 250 7
@@ -33,7 +28,6 @@ of the four variances and beta[0:4] (1024 chains: ~15 min on 8 CPU cores).
 """
 
 import copy
-import shutil
 import sys
 
 import jax
@@ -47,18 +41,13 @@ from boom_tpu.models.glm.regression import SpikeSlabPrior as JaxPrior
 from boom_tpu.statespace import bsts as jbsts
 from boom_tpu.statespace.bsts import Bsts as JaxBsts
 from boom_tpu.statespace.state_models import (
-    LocalLevel as JaxLocalLevel,
     LocalLinearTrend as JaxLocalLinearTrend,
     Seasonal as JaxSeasonal,
 )
 from boom_tpu_torch import rng as prng
-from boom_tpu_torch.api import BstsModel
 from boom_tpu_torch.convert import model_from_jax, state_from_numpy
 from boom_tpu_torch.inference import driver
-from boom_tpu_torch.kernels import _build, host_rehearsal
 from boom_tpu_torch.statespace import bsts as pbsts
-from boom_tpu_torch.statespace import kalman
-from boom_tpu_torch.statespace import kalman_kernel as kk
 from boom_tpu_torch.statespace.bsts import Bsts
 from boom_tpu_torch.statespace.state_models import LocalLevel
 
@@ -67,7 +56,6 @@ torch.set_num_threads(1)
 RTOL = 1e-10
 SWEEP_RTOL = 1e-9
 CHAINS, T_SMALL, P_SMALL = 8, 60, 3
-HOST_TOL = {"float64": 1e-12, "float32": 1e-5}
 REG_T = 500
 MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq",
            "sigma_seasonal_sq", "beta[0]", "beta[1]", "beta[2]", "beta[3]")
@@ -140,6 +128,31 @@ def test_sigma_groups_leave_the_observation_variance_to_the_regression(
     # R E_g R' of a selector R: a one on the diagonal a group, else zeros
     assert bool((dm.sum((1, 2)) == 1.0).all())
     assert bool((dm == dm.transpose(1, 2)).all())
+
+
+@pytest.mark.parametrize("fault", ["p0", "quadratic"])
+def test_variance_directions_refuse_a_system_outside_their_form(
+        monkeypatch, fault):
+    """The directions hold only where z, T, a0 and P0 do not depend on a
+    variance and h and R Q R' are linear in it: a block whose P0 grows with
+    its variance, or whose Q is its variance squared, raises, naming it."""
+    y = torch.tensor(np.random.default_rng(0).normal(size=30).cumsum())
+    dh, dm = Bsts(y=y, blocks=[LocalLevel.default(y)])._variance_directions
+    assert dh.tolist() == [0.0, 1.0] and dm[:, 0, 0].tolist() == [1.0, 0.0]
+    build = Bsts.ssm_params
+
+    def faulty(self, state):
+        p = build(self, state)
+        v = state["blocks"]["local_level"]["sigma_level_sq"]
+        if fault == "p0":
+            return p._replace(p0=p.p0 * (1.0 + v)[:, None, None])
+        return p._replace(q_mat=p.q_mat * v[:, None, None])
+
+    monkeypatch.setattr(Bsts, "ssm_params", faulty)
+    model = Bsts(y=y, blocks=[LocalLevel.default(y)])
+    with pytest.raises(NotImplementedError,
+                       match="'sigma_level_sq' of 'local_level'"):
+        model._variance_directions
 
 
 def test_tim_proposal_matches_reference(tim_reference):
@@ -282,209 +295,6 @@ def test_compare_bsts_models_matches_reference(monkeypatch, tim_reference):
     _close(got["a"], want["a"], RTOL)
     with pytest.raises(ValueError, match="generator"):
         pbsts.compare_bsts_models({"a": (model, res)}, cutpoint=40)
-
-
-# -- the reference's statistical checks, through the port -------------------
-# on the reference tests' own data (drawn from their keys with JAX)
-
-
-def _fit(model, seed, draws, burn, chains=2):
-    return driver.run_mcmc(
-        model.kernel(), model.draw_noise,
-        lambda g, c: model.init_state(model.draw_init_noise(g, c)), draws,
-        generator=prng.generator(seed, "cpu"), num_chains=chains, burn=burn)
-
-
-def test_compare_bsts_models_prefers_the_trend():
-    """tests/test_cat_hmm_holdout.py::test_compare_bsts_models: a local
-    level fit of trending data accumulates larger one-step errors than a
-    local linear trend."""
-    from boom_tpu_torch.statespace.state_models import LocalLinearTrend
-
-    k1, k2 = jax.random.split(jax.random.key(0))
-    t_len = 250
-    slope_path = jnp.cumsum(0.02 * jax.random.normal(k1, (t_len,))) + 0.5
-    y = torch.tensor(np.asarray(jnp.cumsum(slope_path) + 0.5
-                                * jax.random.normal(k2, (t_len,))))
-    m_ll = Bsts(y=y, blocks=[LocalLevel.default(y)])
-    m_llt = Bsts(y=y, blocks=[LocalLinearTrend.default(y)])
-    cum = pbsts.compare_bsts_models(
-        {"local_level": (m_ll, _fit(m_ll, 1, 80, 80)),
-         "llt": (m_llt, _fit(m_llt, 2, 80, 80))}, max_draws=20)
-    assert float(cum["local_level"][-1]) > float(cum["llt"][-1])
-
-
-def test_holdout_errors_are_one_step():
-    """tests/test_cat_hmm_holdout.py::test_holdout_errors_are_one_step: the
-    holdout filter assimilates each held-out observation, so for a
-    well-specified model the standardized holdout errors stay ~N(0, 1) and
-    do not grow with the horizon."""
-    k1, k2 = jax.random.split(jax.random.key(0))
-    t_len, cut = 400, 300
-    lvl = jnp.cumsum(0.25 * jax.random.normal(k1, (t_len,)))
-    y = torch.tensor(np.asarray(lvl + 0.6 * jax.random.normal(k2,
-                                                                (t_len,))))
-    model = Bsts(y=y, blocks=[LocalLevel.default(y)])
-    errs = pbsts.holdout_prediction_errors(
-        model, prng.generator(3, "cpu"), cut, num_draws=80, num_chains=2,
-        burn=80, max_draws=20)
-    assert errs.shape == (20, t_len)
-    hold = errs[:, cut:].numpy()
-    assert abs(hold.mean()) < 0.25, hold.mean()
-    assert 0.75 < hold.std() < 1.35, hold.std()
-    early = np.abs(hold[:, :50]).mean()
-    late = np.abs(hold[:, 50:]).mean()
-    assert late < 1.5 * early, (early, late)
-
-
-def test_bsts_prediction_errors_holdout():
-    """tests/test_serialize_diag.py::test_bsts_prediction_errors_holdout
-    through BstsModel on the CPU: in-sample and cutpoint entries."""
-    k1, k2 = jax.random.split(jax.random.key(3))
-    t_len = 120
-    trend = jnp.cumsum(0.05 * jax.random.normal(k1, (t_len,)))
-    y = np.asarray(trend + 0.3 * jax.random.normal(k2, (t_len,)))
-    fit = BstsModel().add_local_level().fit(y, niter=150, num_chains=2,
-                                            burn=100, device="cpu")
-    errs = fit.prediction_errors(cutpoints=[90], max_draws=8)
-    assert set(errs) == {"in.sample", "90"}
-    for v in errs.values():
-        assert v.shape[-1] == 120
-        assert bool(torch.isfinite(v).all())
-
-
-# -- K1, K1w and the jets compiled for the host --------------------------------
-
-
-@pytest.fixture(scope="module")
-def host_libraries():
-    """kalman_seq.cu and kalman_wide.cu compiled for the host, once for the
-    module (in directories of their own)."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernels for the host")
-    return {name: host_rehearsal.build_host_library(name, variant="tim_reg")
-            for name in ("kalman_seq", "kalman_wide")}
-
-
-@pytest.fixture
-def host_kernels(monkeypatch, host_libraries):
-    monkeypatch.setattr(_build, "build",
-                        lambda names=None: {n: host_libraries[n]
-                                            for n in names})
-    monkeypatch.setattr(kk, "_on_card", lambda x: True)
-    monkeypatch.setattr(kk, "_stream", lambda device: 0)
-    _build.library.cache_clear()
-    yield
-    _build.library.cache_clear()
-
-
-@pytest.mark.parametrize("case", host_rehearsal.LOGLIK_CASES,
-                         ids=lambda c: "d{}-B{}-S{}-T{}-{}".format(*c))
-@pytest.mark.usefixtures("host_kernels")
-def test_host_compiled_loglik_matches_plain(case):
-    """K1 (d <= 6) and K1w with a series a group of systems (shared, one
-    a system, two a series) and their innovations v and f, float64 and
-    float32: one launch each, the loglik alone bit-identical to the one
-    with innovations."""
-    kind = "loglik_wide" if case[0] >= 7 else "loglik"
-    before = dict(kk.LAUNCHES)
-    errs = host_rehearsal.check_loglik(seed=sum(case), cases=[case])
-    assert kk.LAUNCHES[kind] == before[kind] + 4
-    for name, err in errs.items():
-        assert err <= HOST_TOL[name.split()[1]], (name, err)
-
-
-@pytest.mark.parametrize("case", host_rehearsal.JET_CASES,
-                         ids=lambda c: "d{}-K{}-B{}-S{}-{}".format(*c))
-@pytest.mark.usefixtures("host_kernels")
-def test_host_compiled_jets_match_plain(case):
-    """J1 and J2 along K directions, d 1-16, K 1-16, one shared series and
-    a series a system, masked and dense, against autograd of the plain
-    loop."""
-    before = dict(kk.LAUNCHES)
-    errs = host_rehearsal.check_jets(seed=sum(case), cases=[case])
-    assert kk.LAUNCHES["loglik_grad"] == before["loglik_grad"] + 1
-    assert kk.LAUNCHES["loglik_hess"] == before["loglik_hess"] + 1
-    for name, err in errs.items():
-        assert err <= HOST_TOL["float64"], (name, err)
-
-
-@pytest.mark.usefixtures("host_kernels")
-def test_host_compiled_tim_proposal_and_sweep_match_plain():
-    """The TIM proposal build (J1, J2 at d = 8 along the three variances)
-    and one sweep with the move (K1w over 8 chains x 17 points, each
-    chain's points on its own y - X beta) through the host-compiled
-    kernels, against the same through the plain versions."""
-    from test_torch_bsts_reg import _reg_data
-
-    from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
-    from boom_tpu_torch.statespace.state_models import (
-        LocalLinearTrend,
-        Seasonal,
-    )
-
-    x, y = (torch.tensor(a) for a in _reg_data(40, P_SMALL, 7))
-
-    def build():
-        return Bsts(y=y, blocks=[LocalLinearTrend.default(y),
-                                 Seasonal.default(y, nseasons=7)],
-                    predictors=x, reg_prior=SpikeSlabPrior.from_data(x, y),
-                    parallel_smoother=False, marginal_sigma_slice=True)
-
-    before = dict(kk.LAUNCHES)
-    model = build()
-    built = {k: kk.LAUNCHES[k] - before[k] for k in kk.LAUNCHES}
-    assert built["loglik_grad"] >= 1 and built["loglik_hess"] >= 1
-    gen = prng.generator(4, "cpu")
-    state = model.init_state(model.draw_init_noise(gen, CHAINS))
-    noise = model.draw_noise(gen, CHAINS)
-    before = dict(kk.LAUNCHES)
-    got = model.kernel()(noise, state)
-    assert kk.LAUNCHES["loglik_wide"] == before["loglik_wide"] + 1
-    kk._on_card = lambda x: False  # the plain versions (undone after)
-    plain = build()
-    for a, b in zip(model._tim_prop, plain._tim_prop):
-        assert float((a - b).norm() / b.norm()) <= 1e-8
-    object.__setattr__(plain, "_tim_prop", model._tim_prop)
-    want = plain.kernel()(noise, state)
-    for k in ("sigsq_obs", "beta", "alpha"):
-        err = float((got[k] - want[k]).norm() / want[k].norm())
-        assert err <= 1e-10, (k, err)
-    for name, params in want["blocks"].items():
-        for pname, v in params.items():
-            err = float((got["blocks"][name][pname] - v).norm() / v.norm())
-            assert err <= 1e-10, (pname, err)
-
-
-def test_loglik_wrappers_refuse_what_the_kernels_do_not_take():
-    """Past the kernels' range the wrappers raise before anything is
-    launched: d = 17 (K1w, the jets), more directions than the jets take,
-    and a series count that does not divide the systems."""
-    from boom_tpu_torch.kernels.kalman_timing import system
-
-    rng = np.random.default_rng(0)
-    big = system(rng, 2, 17, "float64", device="cpu")
-    y = torch.zeros(10, dtype=torch.float64)
-    fields = (big.h, big.rqr, big.z, big.t_mat, big.a0, big.p0, y, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kk.launch_loglik(*fields)
-    dirs = host_rehearsal.directions(rng, 2, 17)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kk.launch_jets(*fields, *dirs, order=1)
-    small = system(rng, 3, 2, "float64", device="cpu")
-    fields = (small.h, small.rqr, small.z, small.t_mat, small.a0, small.p0,
-              y, None)
-    many = host_rehearsal.directions(rng, kk.JET_MAX_DIRECTIONS + 1, 2)
-    with pytest.raises(NotImplementedError, match="directions"):
-        kk.launch_jets(*fields, *many, order=2)
-    with pytest.raises(ValueError, match="dividing"):
-        kk.launch_loglik(*fields[:6], torch.zeros(2, 10, dtype=torch.float64),
-                         None)
-    with pytest.raises(ValueError, match="dividing"):
-        kalman.kalman_loglik(small, torch.zeros(2, 10, dtype=torch.float64))
-    with pytest.raises(TypeError, match="float64"):
-        kk.launch_jets(*(f.float() for f in fields[:7]), None,
-                       *(d.float() for d in dirs), order=1)
 
 
 def reference(chains=512, burn=300, draws=250, seed=7):
