@@ -1,6 +1,7 @@
 // Sequential Kalman recurrences for wider states, hand-written for Hopper
 // (sm_90a): several chains (or D-path series) packed into a warp, a lane a
-// row of the state, the state dimension fixed at compile time.
+// row of the state, or (K1w in float32 to d = 13) a thread a system; the
+// state dimension fixed at compile time.
 //
 // Replaces the reference's XLA time scans (not Pallas kernels) where the
 // state is wider than kalman_seq.cu's one-thread-a-chain kernels take:
@@ -16,12 +17,14 @@
 //      (boom_tpu/statespace/bsts.py:1077-1084, a lax.scan): D_0 = 0,
 //      D_t = T_c D_{t-1} + w_{c,g,t} for every chain c and variance group
 //      g, float32 or float64, d in 1..16: every d of the ASIS pass.
-//   K1w `wide_loglik_kernel<T, T, D, 0>`: the marginal loglik
-//      (kalman.py `kalman_loglik` :229, its lax.scan at :282) of every
-//      (chain, TIM point) system at 7 <= d <= 16, float32 or float64, on
-//      one series or on a series a group of systems (bsts with a
-//      regression: each chain's y - X beta), and optionally the
-//      innovations v and f (`kalman_filter` :218, the one-step errors).
+//   K1w `loglik_thread_kernel<D, shared T>` (float32, 7 <= d <= 13) and
+//      `wide_loglik_kernel<T, T, D, 0>` (float32 at d 14-16, float64 at
+//      7-16: a static choice of the dispatch, kThreadLoglikMaxD): the
+//      marginal loglik (kalman.py `kalman_loglik` :229, its lax.scan at
+//      :282) of every (chain, TIM point) system, on one series or on a
+//      series a group of systems (bsts with a regression: each chain's
+//      y - X beta), and optionally the innovations v and f
+//      (`kalman_filter` :218, the one-step errors).
 //   J1 and J2 `wide_loglik_kernel<double, Tangent<double, order>, D,
 //      order>`: the same loglik with its first (J1) or first and second
 //      (J2) derivatives along K <= 16 directions of (h, R Q R'), forward
@@ -43,9 +46,14 @@
 // K3 does d^2 multiply-adds a step and series; its bytes bound it (w in,
 // the D-paths out: 0.39 GB in float32 at 4096 chains, 3 groups, d = 8).
 // K1w at bsts_reg's TIM batch (4096 chains x 17 points, T = 500, d = 8,
-// float32) does 90 GFLOP: 1.35 ms at 67 TFLOP/s; like K2w's pass 1 it is
-// a chain of dependent steps, three __syncwarp()s each. J1 and J2 run once
-// a model on one series: latency alone.
+// float32) needs 66 GFLOP (the symmetric step, 1,905 flops): 0.99 ms at 67
+// TFLOP/s. Its thread kernel is held by the FP32 pipe's issue: ~1,000
+// multiply-adds a thread a step and ~150 other instructions, 16 one-warp
+// blocks an SM (registers), the 2,176 warps in 1.03 waves (PERF.md). In
+// the group layout it was held by the shared-memory pipe instead (~54
+// loads, stores and shuffles a series-step, three __syncwarp()s a step:
+// 7.2 ms).
+// J1 and J2 run once a model on one series: latency alone.
 //
 // Design:
 //   - d is a template parameter (K2w 7..16, K3 1..16); the C entries
@@ -94,15 +102,32 @@
 //     256 where one wave of such blocks holds it (bsts_llt's 512 warps, one
 //     block an SM: a warp needs more bytes in flight); the launcher asks
 //     the card's occupancy.
-//   - K1w, J1 and J2 are K2w's pass 1 without alpha+ and without the
-//     (v/f, K) stream, one template over the scalar S that carries the
-//     derivatives (T, or a dual / hyper-dual Tangent): a unit (a series;
-//     for the jets a (series, direction pair)) takes a group of W lanes,
-//     its P lives in shared memory in S (K2w's layout is sized in doubles,
-//     so this one has its own), lane i holds row i of T; y is read one
-//     step ahead from the cache, its series b / per_series. The jets stage
-//     their K directions once a block; each unit recomputes the value
-//     chain, so units never exchange data.
+//   - K1w in float32 to d = 13 (`loglik_thread_kernel`): a thread a
+//     system, a block one warp. P is the upper triangle in the thread's
+//     registers (36 floats at d = 8); a step is the measurement update on
+//     P (P -= (P z)(P z)' / f) and the time update P' = T P T' + R Q R' on
+//     the upper triangle alone, a row of T P at a time, P' formed in
+//     shared memory and read back once a step: no butterfly, no
+//     __syncwarp() in a step. T shared by every system (Bsts' T, which the
+//     wrapper passes as its one row) sits in the constant bank, so each
+//     multiply-add reads T as an operand; a T a system is staged once into
+//     shared memory entry-major (a warp's load meets 32 banks). R Q R''s
+//     upper triangle is staged once the same way, z, a and h are
+//     registers. y is staged a chunk of 8 steps ahead with cp.async (the
+//     warp's two or three series), v and f leave through shared memory a
+//     chunk at a time as rows. Registers (nvcc -Xptxas -v, PERF.md):
+//     112-128 at d 7-8, no spill (16 blocks an SM); 186-255 at d
+//     9-13, where d = 12, 13 with T shared spill 4, 52 bytes (7 blocks an
+//     SM at d = 13: shared memory).
+//   - K1w past d = 13 and in float64, J1 and J2 are K2w's pass 1 without
+//     alpha+ and without the (v/f, K) stream, one template over the
+//     scalar S that carries the derivatives (T, or a dual / hyper-dual
+//     Tangent): a unit (a series; for the jets a (series, direction pair))
+//     takes a group of W lanes, its P lives in shared memory in S (K2w's
+//     layout is sized in doubles, so this one has its own), lane i holds
+//     row i of T; y is read one step ahead from the cache, its series b /
+//     per_series. The jets stage their K directions once a block; each
+//     unit recomputes the value chain, so units never exchange data.
 //   - Not the float64 tensor cores: mma.sync.m8n8k4.f64 would fit d = 8's
 //     T P, but each chain is 500 dependent steps of 8 x 8 algebra, so the
 //     time is set by a step's latency and by occupancy, not by the f64
@@ -317,15 +342,17 @@ __device__ __forceinline__ T dot(const T (&x)[D], const T* v) {
   return acc;
 }
 
-// 8-byte asynchronous copy global -> shared (cp.async, cached in L1).
-__device__ __forceinline__ void copy8_async(void* smem, const void* gmem) {
+// An asynchronous copy of kBytes (4 or 8) global -> shared (cp.async,
+// cached in L1).
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem) {
 #ifdef __CUDA_ARCH__
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-               "l"(gmem)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(kBytes)
                : "memory");
 #else
-  std::memcpy(smem, gmem, 8);
+  std::memcpy(smem, gmem, kBytes);
 #endif
 }
 
@@ -520,7 +547,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
   auto stage_run = [&](double* dst, const double* src, int count,
                        int every, int pitch) {
     for (int g = il; g < count; g += W)
-      copy8_async(dst + g / every * pitch + g % every, src + g);
+      copy_async<8>(dst + g / every * pitch + g % every, src + g);
   };
   auto store_run = [&](double* dst, const double* src, int count) {
     if (live)
@@ -966,7 +993,8 @@ __global__ void __launch_bounds__(kBlock)
                        T* __restrict__ ll, T* __restrict__ grad,
                        T* __restrict__ hess, T* __restrict__ vout,
                        T* __restrict__ fout, int batch, int t_len,
-                       int per_series, int n_dirs) {
+                       int per_series, int n_dirs, int tm_stride,
+                       int z_stride) {
   using L = WideLoglik<T, S, D>;
   constexpr int W = L::kW, kLd = L::kLd;
   BOOM_SHARED_BYTES(smem_raw);
@@ -1009,7 +1037,7 @@ __global__ void __launch_bounds__(kBlock)
   T* zv = reinterpret_cast<T*>(xa + D);
 
   const long long bd = static_cast<long long>(b) * D;
-  const T* tm_b = tm + bd * D;
+  const T* tm_b = tm + static_cast<long long>(b) * tm_stride;
   const T* q_b = rqr + bd * D;
   const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
   T trow[D], qv[L::kQInRegisters ? D : 1];
@@ -1023,7 +1051,7 @@ __global__ void __launch_bounds__(kBlock)
     const int r = k / D;
     px[r * kLd + (k - r * D)] = S(p0[bd * D + k]);
   }
-  const T zi = act ? z[bd + i] : T(0);
+  const T zi = act ? z[static_cast<long long>(b) * z_stride + i] : T(0);
   if (act) zv[i] = zi;
   S a_i = S(a0[bd + i]);
   // h and the column of R Q R' with their derivatives along (di, dj)
@@ -1128,6 +1156,264 @@ __global__ void __launch_bounds__(kBlock)
       hess[(bk + dj) * n_dirs + di] = acc.c;
     }
   }
+}
+
+// ---- K1w: a thread a system ----------------------------------------------
+
+// Entry (i, j) of a symmetric D x D matrix's upper triangle, row by row.
+// Not recursive, so that it inlines and folds in the unrolled loops (a
+// register array indexed by a value known only at run time lives in local
+// memory).
+template <int D>
+__host__ __device__ __forceinline__ constexpr int upper(int i, int j) {
+  return i <= j ? i * D - i * (i - 1) / 2 + (j - i)
+                : j * D - j * (j - 1) / 2 + (i - j);
+}
+
+// float32 K1w takes the thread kernel to this d; past it, and in float64,
+// the group kernel (wide_loglik_kernel<T, T, D, 0>)
+constexpr int kThreadLoglikMaxD = 13;
+
+// The thread kernel's T where every system has the same one (kSharedT): in
+// the constant bank, so that each multiply-add reads its entry of T as an
+// operand, no load at all. Copied there on the launch's stream before each
+// launch (cudaMemcpyToSymbolAsync from the device, no host sync): launches
+// on other streams at once would share it.
+__constant__ float c_tm[kThreadLoglikMaxD * kThreadLoglikMaxD];
+
+// The thread kernel's layout: a block is one warp, a thread a system. Its
+// shared memory (floats, each part 16-byte aligned): where each system has
+// its own T, the warp's 32 matrices entry-major (entry e of thread r at e
+// kPitch + r: a warp's load meets 32 banks); the upper triangle of 0.5
+// (R Q R' + (R Q R')') and P' (each thread writes and reads back only its
+// own), entry-major; two stage buffers of y, a row of kChunk steps (pitch
+// kChunk + 1) for each series the warp reads; with the innovations, v and
+// f of a chunk, a row a thread.
+template <int D, bool kSharedT>
+struct ThreadLoglik {
+  static constexpr int kUpper = D * (D + 1) / 2;
+  static constexpr int kPitch = kWarp + 1;
+  static constexpr int kChunk = 8;
+  static constexpr int align(int n) { return (n + 3) / 4 * 4; }
+  static constexpr int kTm = kSharedT ? 0 : align(D * D * kPitch);
+  static constexpr int kQ = align(kUpper * kPitch);
+  static constexpr int kStage = align(kWarp * (kChunk + 1));
+  static constexpr int bytes(bool innovations) {
+    return (kTm + 2 * kQ + (innovations ? 4 : 2) * kStage) * 4;
+  }
+  static_assert(D <= kThreadLoglikMaxD &&
+                    bytes(true) <= kSmemPerSm - kSmemPerBlock,
+                "K1w's thread layout");
+};
+
+// Resident one-warp blocks an SM that __launch_bounds__ asks for: 16 to
+// d = 8, four a scheduler of the SM at most 128 registers each (17 would
+// put five on one scheduler and leave 96: d = 8 then spilled 140 bytes);
+// 8 (255 registers) past it.
+__host__ __device__ constexpr int thread_loglik_min_blocks(int d) {
+  return d <= 8 ? 16 : 8;
+}
+
+// Row i of T into r: the constant bank's entries (kSharedT), or the
+// thread's own from shared memory through volatile loads, so that the
+// compiler loads a row where it is used and does not keep the rows of one
+// step's unrolled loops live in registers from one row to the next.
+template <int D, bool kSharedT>
+__device__ __forceinline__ void t_row(float (&r)[D], const float* tsm, int i,
+                                      int lane) {
+  if constexpr (kSharedT) {
+#pragma unroll
+    for (int m = 0; m < D; ++m) r[m] = c_tm[i * D + m];
+  } else {
+    const volatile float* own = tsm + lane;
+#pragma unroll
+    for (int m = 0; m < D; ++m)
+      r[m] = own[(i * D + m) * ThreadLoglik<D, kSharedT>::kPitch];
+  }
+}
+
+// K1w (float32, 7 <= d <= kThreadLoglikMaxD): the loglik of each system b
+// over series b / per_series of y [n_series, T], and with vout the
+// innovations v and f [B, T], as wide_loglik_kernel<T, T, D, 0> computes
+// them. A thread a system, a block a warp: P is the upper triangle in the
+// thread's registers, and a step is the symmetric Riccati step as the
+// measurement update, then the time update:
+//   v = y - z'a, P z, f = z'P z + h; where observed a += P z v / f and
+//   P -= (P z)(P z)' / f (unobserved: both stay);
+//   a' = T a; P' = T P T' + R Q R', a row m of T P at a time and from it
+//   the upper triangle's row of m T', into shared memory, read back into
+//   P at the end of the step;
+// the same function as the plain version's (T P) L' + R Q R',
+// symmetrised, with L = T - K z', K = T P z / f. No lane exchanges
+// anything during a step: the warp meets only once a chunk of y. P0 and
+// R Q R' are symmetrised as they are read. A thread past the batch shadows
+// the last system and writes nothing.
+template <int D, bool kSharedT>
+__global__ void __launch_bounds__(kWarp, thread_loglik_min_blocks(D))
+    loglik_thread_kernel(const float* __restrict__ z,
+                         const float* __restrict__ tm,
+                         const float* __restrict__ rqr,
+                         const float* __restrict__ h,
+                         const float* __restrict__ a0,
+                         const float* __restrict__ p0,
+                         const float* __restrict__ y,
+                         const unsigned char* __restrict__ obs,
+                         float* __restrict__ ll, float* __restrict__ vout,
+                         float* __restrict__ fout, int batch, int t_len,
+                         int per_series, int z_stride) {
+  using L = ThreadLoglik<D, kSharedT>;
+  using T = float;
+  constexpr int kP = L::kPitch, kChunk = L::kChunk, kSp = kChunk + 1;
+  constexpr int kDD = D * D;
+  BOOM_SHARED_BYTES(smem_raw);
+  T* tsm = reinterpret_cast<T*>(smem_raw);
+  T* qsm = tsm + L::kTm;
+  T* nsm = qsm + L::kQ;          // P' (upper triangle)
+  T* ysm = nsm + L::kQ;          // two stage buffers of y
+  T* vsm = ysm + 2 * L::kStage;  // v, then f, of a chunk
+  T* fsm = vsm + L::kStage;
+  const int lane = threadIdx.x;
+  const int b0 = blockIdx.x * kWarp;
+  const int last = (batch - b0 < kWarp ? batch : b0 + kWarp) - 1;
+  const bool live = b0 + lane <= last;
+  const int b = live ? b0 + lane : last;
+  auto sys = [&](int r) { return b0 + r <= last ? b0 + r : last; };
+
+  // the warp's constants, once a launch
+  if constexpr (!kSharedT) {
+    for (int g = lane; g < kWarp * kDD; g += kWarp) {
+      const int r = g / kDD, e = g - r * kDD;
+      tsm[e * kP + r] = tm[static_cast<long long>(sys(r)) * kDD + e];
+    }
+  }
+  for (int g = lane; g < kWarp * kDD; g += kWarp) {
+    const int r = g / kDD, e = g - r * kDD, i = e / D, j = e - i * D;
+    if (j < i) continue;
+    const T* q = rqr + static_cast<long long>(sys(r)) * kDD;
+    qsm[upper<D>(i, j) * kP + r] = T(0.5) * (q[i * D + j] + q[j * D + i]);
+  }
+  T zk[D], a[D], p[L::kUpper];
+  const T* p0_b = p0 + static_cast<long long>(b) * kDD;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    zk[i] = z[static_cast<long long>(b) * z_stride + i];
+    a[i] = a0[static_cast<long long>(b) * D + i];
+#pragma unroll
+    for (int j = i; j < D; ++j)
+      p[upper<D>(i, j)] = T(0.5) * (p0_b[i * D + j] + p0_b[j * D + i]);
+  }
+  const T hh = h[b];
+  // 0.5 (R Q R' + (R Q R')')(u) at qs[u kP], P'(u) at pn[u kP]: volatile,
+  // so that the compiler neither hoists the one out of the step loop nor
+  // forwards the other from its stores to its loads, either of which would
+  // keep 36-91 more values live in registers
+  const volatile T* qs = qsm + lane;
+  volatile T* pn = nsm + lane;
+
+  // y, a chunk of steps ahead: the rows of the warp's series
+  const int s_lo = b0 / per_series;
+  const int rows = last / per_series - s_lo + 1;
+  const int row = b / per_series - s_lo;
+  const T* y_lo = y + static_cast<long long>(s_lo) * t_len;
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
+  auto stage = [&](int j, int buf) {
+    const int t0 = j * kChunk;
+    const int n = t_len - t0 < kChunk ? t_len - t0 : kChunk;
+    T* dst = ysm + buf * L::kStage;
+    for (int g = lane; g < rows * kChunk; g += kWarp) {
+      const int r = g / kChunk, k = g - r * kChunk;
+      if (k < n)
+        copy_async<sizeof(T)>(dst + r * kSp + k,
+                              y_lo + static_cast<long long>(r) * t_len + t0 +
+                                  k);
+    }
+  };
+  T acc = T(0);
+  bool o_n = obs == nullptr || obs[0] != 0;
+  __syncwarp();  // the constants are whole
+  stage(0, 0);
+  async_commit();
+  for (int j = 0; j < n_chunks; ++j) {
+    const int buf = j & 1, t0 = j * kChunk;
+    const int n = t_len - t0 < kChunk ? t_len - t0 : kChunk;
+    if (j + 1 < n_chunks) stage(j + 1, buf ^ 1);
+    async_commit();
+    async_wait<1>();
+    __syncwarp();  // chunk j of y is whole in buffer buf
+    const T* ys = ysm + buf * L::kStage + row * kSp;
+    for (int s = 0; s < n; ++s) {
+      const int t = t0 + s;
+      const bool ob = o_n;
+      if (t + 1 < t_len) o_n = obs == nullptr || obs[t + 1] != 0;
+      // the measurement update
+      const T v = ob ? ys[s] - dot<D>(zk, a) : T(0);
+      T pz[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T acc_i = p[upper<D>(i, 0)] * zk[0];
+#pragma unroll
+        for (int k = 1; k < D; ++k)
+          acc_i = acc_i + p[upper<D>(i, k)] * zk[k];
+        pz[i] = acc_i;
+      }
+      const T f = dot<D>(zk, pz) + hh;
+      const T rf = reciprocal(f);
+      const T vf = v * rf;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        a[i] = a[i] + pz[i] * vf;
+        const T ki = ob ? pz[i] * rf : T(0);
+#pragma unroll
+        for (int k = i; k < D; ++k)
+          p[upper<D>(i, k)] = p[upper<D>(i, k)] - ki * pz[k];
+      }
+      if (ob) acc = acc + log_density(v, f, rf);
+      if (vout != nullptr) {
+        vsm[lane * kSp + s] = v;
+        fsm[lane * kSp + s] = f;
+      }
+      // the time update, a row of T P at a time
+      T an[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T ti[D];
+        t_row<D, kSharedT>(ti, tsm, i, lane);
+        an[i] = dot<D>(ti, a);
+        T m[D];  // row i of T P
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          T acc_k = ti[0] * p[upper<D>(0, k)];
+#pragma unroll
+          for (int l = 1; l < D; ++l)
+            acc_k = acc_k + ti[l] * p[upper<D>(l, k)];
+          m[k] = acc_k;
+        }
+#pragma unroll
+        for (int k = i; k < D; ++k) {
+          T tk[D];
+          t_row<D, kSharedT>(tk, tsm, k, lane);
+          const int u = upper<D>(i, k);
+          pn[u * kP] = dot<D>(m, tk) + qs[u * kP];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) a[i] = an[i];
+#pragma unroll
+      for (int k = 0; k < L::kUpper; ++k) p[k] = pn[k * kP];
+    }
+    if (vout != nullptr) {
+      __syncwarp();  // v and f of the chunk are whole
+      for (int g = lane; g < kWarp * n; g += kWarp) {
+        const int r = g / n, k = g - r * n;
+        if (b0 + r > last) break;
+        const long long at = static_cast<long long>(b0 + r) * t_len + t0 + k;
+        vout[at] = vsm[r * kSp + k];
+        fout[at] = fsm[r * kSp + k];
+      }
+    }
+    __syncwarp();  // buffer buf, v and f are read before they are refilled
+  }
+  if (live) ll[b] = acc;
 }
 
 // ---- launches ------------------------------------------------------------
@@ -1277,7 +1563,8 @@ int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
                        const void* y, const void* obs, const void* dh,
                        const void* dm, void* ll, void* grad, void* hess,
                        void* vout, void* fout, int batch, int t_len,
-                       int n_series, int n_dirs, int threads, void* stream) {
+                       int n_series, int n_dirs, int tm_stride, int z_stride,
+                       int threads, void* stream) {
   using L = WideLoglik<T, S, D>;
   auto kernel = wide_loglik_kernel<T, S, D, kOrder>;
   static const cudaError_t attr = allow_shared(kernel, L::kMaxBytes);
@@ -1300,8 +1587,66 @@ int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
       static_cast<const T*>(dh), static_cast<const T*>(dm),
       static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
       static_cast<T*>(vout), static_cast<T*>(fout), batch, t_len,
-      batch / n_series, n_dirs);
+      batch / n_series, n_dirs, tm_stride, z_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1w's thread kernel over `batch` systems: one launch, one warp a block;
+// a T shared by every system goes to the constant bank first.
+template <int D, bool kSharedT>
+int launch_thread_loglik(const void* z, const void* tm, const void* rqr,
+                         const void* h, const void* a0, const void* p0,
+                         const void* y, const void* obs, void* ll, void* vout,
+                         void* fout, int batch, int t_len, int n_series,
+                         int z_stride, void* stream) {
+  using L = ThreadLoglik<D, kSharedT>;
+  auto kernel = loglik_thread_kernel<D, kSharedT>;
+  static const cudaError_t attr = allow_shared(kernel, L::bytes(true));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSharedT) {
+    const cudaError_t err =
+        cudaMemcpyToSymbolAsync(c_tm, tm, D * D * sizeof(float), 0,
+                                cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (batch + kWarp - 1) / kWarp;
+  kernel<<<blocks, kWarp, L::bytes(vout != nullptr), st>>>(
+      static_cast<const float*>(z), static_cast<const float*>(tm),
+      static_cast<const float*>(rqr), static_cast<const float*>(h),
+      static_cast<const float*>(a0), static_cast<const float*>(p0),
+      static_cast<const float*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<float*>(ll), static_cast<float*>(vout),
+      static_cast<float*>(fout), batch, t_len, batch / n_series, z_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1w's layout bits: T is one [d, d] matrix of every system, z one [d]
+// vector (a stride-0 field of the wrapper's)
+constexpr int kSharedTm = 1, kSharedZ = 2;
+
+template <typename T, int D>
+int launch_loglik_wide(const void* z, const void* tm, const void* rqr,
+                       const void* h, const void* a0, const void* p0,
+                       const void* y, const void* obs, void* ll, void* vout,
+                       void* fout, int batch, int t_len, int n_series,
+                       int shared, int threads, void* stream) {
+  const int tm_stride = shared & kSharedTm ? 0 : D * D;
+  const int z_stride = shared & kSharedZ ? 0 : D;
+  if constexpr (sizeof(T) == 4 && D <= kThreadLoglikMaxD) {
+    return tm_stride == 0
+               ? launch_thread_loglik<D, true>(z, tm, rqr, h, a0, p0, y, obs,
+                                               ll, vout, fout, batch, t_len,
+                                               n_series, z_stride, stream)
+               : launch_thread_loglik<D, false>(z, tm, rqr, h, a0, p0, y, obs,
+                                                ll, vout, fout, batch, t_len,
+                                                n_series, z_stride, stream);
+  } else {
+    return launch_wide_loglik<T, T, D, 0>(
+        z, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr,
+        nullptr, vout, fout, batch, t_len, n_series, 0, tm_stride, z_stride,
+        threads, stream);
+  }
 }
 
 bool bad_series(int batch, int t_len, int n_series, int threads) {
@@ -1314,17 +1659,19 @@ int dispatch_loglik_wide(const void* z, const void* tm, const void* rqr,
                          const void* h, const void* a0, const void* p0,
                          const void* y, const void* obs, void* ll,
                          void* vout, void* fout, int batch, int t_len,
-                         int n_series, int d, int threads, void* stream) {
+                         int n_series, int d, int shared, int threads,
+                         void* stream) {
   if (bad_series(batch, t_len, n_series, threads) ||
-      (vout == nullptr) != (fout == nullptr))
+      (vout == nullptr) != (fout == nullptr) ||
+      (shared & ~(kSharedTm | kSharedZ)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   switch (d) {
 #define BOOM_LOGLIK_WIDE_CASE(D)                                            \
   case D:                                                                   \
-    return launch_wide_loglik<T, T, D, 0>(                                  \
-        z, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr,       \
-        nullptr, vout, fout, batch, t_len, n_series, 0, threads, stream);
+    return launch_loglik_wide<T, D>(z, tm, rqr, h, a0, p0, y, obs, ll,      \
+                                    vout, fout, batch, t_len, n_series,     \
+                                    shared, threads, stream);
     BOOM_LOGLIK_WIDE_CASE(7) BOOM_LOGLIK_WIDE_CASE(8)
     BOOM_LOGLIK_WIDE_CASE(9) BOOM_LOGLIK_WIDE_CASE(10)
     BOOM_LOGLIK_WIDE_CASE(11) BOOM_LOGLIK_WIDE_CASE(12)
@@ -1349,7 +1696,7 @@ int dispatch_jet(const void* z, const void* tm, const void* rqr,
   case D:                                                                   \
     return launch_wide_loglik<double, S, D, kOrder>(                        \
         z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, grad, hess, nullptr,     \
-        nullptr, batch, t_len, n_series, n_dirs, threads, stream);
+        nullptr, batch, t_len, n_series, n_dirs, D * D, D, threads, stream);
     BOOM_JET_CASE(1) BOOM_JET_CASE(2) BOOM_JET_CASE(3) BOOM_JET_CASE(4)
     BOOM_JET_CASE(5) BOOM_JET_CASE(6) BOOM_JET_CASE(7) BOOM_JET_CASE(8)
     BOOM_JET_CASE(9) BOOM_JET_CASE(10) BOOM_JET_CASE(11) BOOM_JET_CASE(12)
@@ -1370,11 +1717,13 @@ int dispatch_jet(const void* z, const void* tm, const void* rqr,
 // aligned; 1 <= d <= 16. K1w (7 <= d <= 16) and the jets (float64, 1 <= d
 // <= 16): z, tm, rqr, h, a0 [B, d], p0 as K2w's; y [S, T] (S = n_series,
 // dividing B: system b reads series b / (B / S)), obs [T] bytes or nullptr;
-// ll [B]; K1w's vout and fout [B, T] (both nullptr: no innovations); the
-// jets' directions dh [K] and dm [K, d, d] (1 <= K <= kMaxDirections),
-// grad [B, K], hess [B, K, K] (order 2). threads: a multiple of 32 up to
-// 128. stream: a cudaStream_t. Returns the cudaError_t of the launch
-// (0 = success).
+// ll [B]; K1w's vout and fout [B, T] (both nullptr: no innovations) and
+// its `shared` bits: kSharedTm, tm is one [d, d] matrix of every system;
+// kSharedZ, z is one [d] vector; the jets' directions dh [K] and dm [K, d,
+// d] (1 <= K <= kMaxDirections), grad [B, K], hess [B, K, K] (order 2).
+// threads: a multiple of 32 up to 128 (K1w's thread kernel takes blocks of
+// one warp whatever it is). stream: a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int boom_kalman_smoother_wide_f64(
     const void* z, const void* tm, const void* rqr, const void* h,
     const void* p0, const void* alpha1, const void* w, const void* eps,
@@ -1416,9 +1765,9 @@ extern "C" int boom_kalman_loglik_wide_f32(
     const void* z, const void* tm, const void* rqr, const void* h,
     const void* a0, const void* p0, const void* y, const void* obs, void* ll,
     void* vout, void* fout, int batch, int t_len, int n_series, int d,
-    int threads, void* stream) {
+    int shared, int threads, void* stream) {
   return dispatch_loglik_wide<float>(z, tm, rqr, h, a0, p0, y, obs, ll, vout,
-                                     fout, batch, t_len, n_series, d,
+                                     fout, batch, t_len, n_series, d, shared,
                                      threads, stream);
 }
 
@@ -1426,10 +1775,10 @@ extern "C" int boom_kalman_loglik_wide_f64(
     const void* z, const void* tm, const void* rqr, const void* h,
     const void* a0, const void* p0, const void* y, const void* obs, void* ll,
     void* vout, void* fout, int batch, int t_len, int n_series, int d,
-    int threads, void* stream) {
+    int shared, int threads, void* stream) {
   return dispatch_loglik_wide<double>(z, tm, rqr, h, a0, p0, y, obs, ll,
                                       vout, fout, batch, t_len, n_series, d,
-                                      threads, stream);
+                                      shared, threads, stream);
 }
 
 extern "C" int boom_kalman_jet_f64(

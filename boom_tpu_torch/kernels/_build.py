@@ -62,8 +62,8 @@ _ARGTYPES = {
     # z, tm, rqr, h, a0, p0, y, obs, ll, vout, fout, batch, t_len,
     # n_series, threads, stream
     "loglik": [_P] * 11 + [_I] * 4 + [_P],
-    # ... as "loglik", then d before threads
-    "loglik_wide": [_P] * 11 + [_I] * 5 + [_P],
+    # ... as "loglik", then d and the shared bits before threads
+    "loglik_wide": [_P] * 11 + [_I] * 6 + [_P],
     # z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, grad, hess, batch, t_len,
     # n_series, d, n_dirs, order, threads, stream
     "jet": [_P] * 13 + [_I] * 7 + [_P],

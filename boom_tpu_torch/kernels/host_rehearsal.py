@@ -70,6 +70,7 @@ SHIM = r"""#pragma once
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __constant__
 typedef void* cudaStream_t;
 enum cudaError_t {
   cudaSuccess = 0,
@@ -82,6 +83,15 @@ enum cudaFuncAttribute {
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
 };
 struct cudaFuncAttributes { int maxThreadsPerBlock; };
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+// launches run one after another on the host: the copy is made at once
+template <class S>
+cudaError_t cudaMemcpyToSymbolAsync(S& symbol, const void* src, size_t count,
+                                    size_t offset, cudaMemcpyKind,
+                                    cudaStream_t) {
+  std::memcpy(reinterpret_cast<char*>(&symbol) + offset, src, count);
+  return cudaSuccess;
+}
 static cudaError_t host_last_error = cudaSuccess;
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = host_last_error;
@@ -385,11 +395,16 @@ def _series_of(rng, shape, dtype):
 # K1 (d 1, 2, 3, 6) and K1w (7, 8, 9, 13, 16) with a series a group of
 # systems: (d, systems, series, T, masked); 6 systems of 3 series (two a
 # series), 5 of one shared series, 33 of 33 (a partial block of K1w's
-# units), 34 of 17; T across K1w's warps and one step
+# units), 34 of 17; T across K1w's warps and one step; then K1w over
+# several blocks with a ragged last one (17 points a chain of 7 chains, on
+# a series a chain and on one), T across the thread kernel's chunks of 8
+# steps
 LOGLIK_CASES = [(d, b, s, t_len, masked) for d in (1, 2, 3, 6, 7, 8, 9, 13, 16)
                 for b, s, t_len, masked in ((6, 3, 33, False), (5, 1, 20, True),
                                             (33, 33, 9, True), (34, 17, 2, False),
                                             (3, 3, 1, False))]
+LOGLIK_CASES += [(d, 17 * 7, s, 20, s > 1) for d in (7, 8, 13, 16)
+                 for s in (7, 1)]
 
 
 def check_loglik(seed=0, cases=LOGLIK_CASES, dtypes=("float64", "float32")):
@@ -421,6 +436,69 @@ def check_loglik(seed=0, cases=LOGLIK_CASES, dtypes=("float64", "float32")):
             out[f"loglik {dtype} d={d} B={b} S={s} T={t_len} "
                 f"masked={masked}"] = max(_rel(a, w)
                                           for a, w in zip(got, want))
+    return out
+
+
+def skewed(params, rng):
+    """The systems with T made non-symmetric (``system``'s are symmetric):
+    T -> M T M^-1, M = I + a random strictly upper triangle, the spectrum
+    and so the stability kept."""
+    import torch
+
+    d = params.z.shape[1]
+    m = np.eye(d) + np.triu(rng.normal(scale=0.4, size=(d, d)), 1)
+    m = torch.tensor(m, dtype=params.t_mat.dtype)
+    return params._replace(t_mat=(m @ params.t_mat @ torch.linalg.inv(m))
+                           .contiguous())
+
+
+# K1w with T and z one of every system (expanded, as Bsts builds them) and
+# the same materialised: (d, systems, series, T, masked)
+LOGLIK_SHARED_CASES = [(7, 17 * 7, 7, 20, True), (8, 17 * 7, 7, 20, False),
+                       (8, 70, 1, 33, True), (13, 17 * 7, 7, 20, True),
+                       (16, 40, 4, 17, False)]
+
+
+def check_loglik_shared(seed=0, cases=LOGLIK_SHARED_CASES,
+                        dtypes=("float64", "float32")):
+    """K1w on non-symmetric systems (:func:`skewed`) against the plain
+    filter: a T a system, and T and z shared, expanded over the systems
+    and materialised, which must give the same bits: {case: (worst normwise
+    relative error of ll, v, f, whether expanded and materialised agree
+    bit for bit)}."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dtype in dtypes:
+        for d, b, s, t_len, masked in cases:
+            own = skewed(system(rng, b, d, dtype, device="cpu"), rng)
+            one = own._replace(t_mat=own.t_mat[:1].expand(b, d, d),
+                               z=own.z[:1].expand(b, d))
+            flat = one._replace(t_mat=one.t_mat.contiguous(),
+                                z=one.z.contiguous())
+            y = _series_of(rng, (s, t_len), dtype)
+            obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
+                   else None)
+            got = {}
+            for name, params in (("own", own), ("expanded", one),
+                                 ("flat", flat)):
+                got[name] = kk.launch_loglik(
+                    params.h, params.rqr, params.z, params.t_mat, params.a0,
+                    params.p0, y, obs, innovations=True)
+            err = 0.0
+            for name, params in (("own", own), ("flat", flat)):
+                want = kalman.kalman_loglik(params, y, obs, innovations=True)
+                err = max(err, *(_rel(a, w) for a, w in zip(got[name],
+                                                              want)))
+            same = all(torch.equal(a, w) for a, w in zip(got["expanded"],
+                                                          got["flat"]))
+            out[f"loglik shared {dtype} d={d} B={b} S={s} T={t_len} "
+                f"masked={masked}"] = (err, same)
     return out
 
 

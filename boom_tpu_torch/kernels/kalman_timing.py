@@ -6,7 +6,8 @@ beside their bounds and their plain versions, at the shapes of the
 bsts_llt workload (K1, K2, J1, J2), of the bsts_reg workload (K2w, K3; K3
 also at the bsts_llt D-path's shape, beside kernel (c)'s affine scan of
 the same D-paths, their route before K3 took every d) and of bsts_reg
-with the TIM move (K1 with a series a chain, K1w, J1 and J2 at d = 8).
+with the TIM move (K1 with a series a chain, K1w, J1 and J2 at d = 8; K1w
+also at d = 13 and 16, in float64, and with a T a system).
 
     python3 boom_tpu_torch/kernels/kalman_timing.py                # JSON
     python3 boom_tpu_torch/kernels/kalman_timing.py --compare DIR  # both
@@ -16,13 +17,14 @@ device time (K2w's also by pass, from the profiler), the plain
 version's time, the bound and what sets it, the times at other block sizes
 and batches, the ``nvcc -Xptxas -v`` registers and spills of every
 instantiation, and the instructions of K1's step loops (``cuobjdump
--sass``). ``--compare DIR`` runs the same script of the
+-sass``). ``--compare DIR`` runs this script on the package of the
 checkout DIR (another commit of this repository, unpacked with ``git
-archive``; its kernels build under DIR) and of this tree in turns (DIR,
-this, this, DIR), each in its own process on the same card, prints the
-times side by side and the time of ``nvcc`` on each tree's
-``kalman_wide.cu`` alone, and with ``--json PATH`` writes every number of
-the four runs to PATH.
+archive``; its kernels build under DIR) and on this tree's in turns (DIR,
+this, this, DIR), each in its own process on the same card, so that both
+trees take the same inputs at the same shapes (``--tree DIR`` is one such
+run), prints the times side by side and the time of ``nvcc`` on each
+tree's ``kalman_wide.cu`` alone, and with ``--json PATH`` writes every
+number of the four runs to PATH.
 ``chip_smoke.py`` takes its shapes, inputs and bounds from here. Needs a
 CUDA card.
 """
@@ -40,7 +42,11 @@ from pathlib import Path
 import numpy as np
 
 if __package__ in (None, ""):
-    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    # the package timed: this checkout's, or with --tree DIR the checkout
+    # DIR's (``compare`` times another commit's kernels with this script)
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--tree") + 1])
+                           .resolve() if "--tree" in sys.argv[:-1]
+                           else Path(__file__).resolve().parents[2]))
 
 from boom_tpu_torch.kernels.scan_timing import (  # noqa: E402
     HBM_BYTES_PER_S,
@@ -93,6 +99,25 @@ TIM_REG_SHAPES = {
                     REG_CHAINS),
     "loglik_grad_wide": ("float64", 1, REG_D, REG_T, 1),
     "loglik_hess_wide": ("float64", 1, REG_D, REG_T, 1)}
+# K1w at phase 7's batch in its other layouts and dims, timed by this
+# script alone (the plain version not timed): d = 13 (a trend and a
+# monthly cycle), d = 8 with a T a system (the layout before Bsts kept T
+# one matrix), and where K1w takes the group kernel: float64 at d = 8,
+# float32 at d = 16
+K1W_SHAPES = {
+    "loglik_wide_d13": ("float32", REG_CHAINS * TIM_POINTS, 13, REG_T,
+                        REG_CHAINS),
+    "loglik_wide_own_t": ("float32", REG_CHAINS * TIM_POINTS, REG_D, REG_T,
+                          REG_CHAINS),
+    "loglik_wide_f64": ("float64", REG_CHAINS * TIM_POINTS, REG_D, REG_T,
+                        REG_CHAINS),
+    "loglik_wide_d16": ("float32", REG_CHAINS * TIM_POINTS, 16, REG_T,
+                        REG_CHAINS)}
+# the shapes whose systems share one T and one z, expanded over the batch
+# as Bsts.ssm_params builds them (phase 7's K1w; K1w then reads them as
+# broadcasts)
+SHARED_SYSTEM = ("loglik_wide", "loglik_wide_d13", "loglik_wide_f64",
+                 "loglik_wide_d16")
 
 # K1's block sizes (0: the grid laid out from the card's SM count); K2's
 # block is one warp by design
@@ -106,10 +131,22 @@ SCALING = {"loglik": (LLT_CHAINS * TIM_POINTS // 16,
 
 
 def filter_step_flops(d):
-    """Floating-point operations of one filter step as the kernels compute
-    it (v, P z, f, K, a', T P, L, (T P) L' + RQR, the symmetrization of the
-    upper triangle)."""
-    return 4 * d ** 3 + 8 * d ** 2 + 3 * d
+    """Floating-point operations of one filter step, the least the function
+    needs (a multiply-add two): the symmetric Riccati step on the upper
+    triangle, as K1w's thread kernel computes it. z'a and v; P z and f =
+    z'P z + h; 1 / f, K = P z / f and a + K v; the rank-1 update of P's
+    upper triangle; T P (d^3 multiply-adds); the upper triangle of
+    (T P) T' and R Q R' added to it; T a. The dense step that the plain
+    version and the group kernels compute, (T P) L' + R Q R' and its
+    symmetrisation, is 4 d^3 + 8 d^2 + 3 d."""
+    upper = d * (d + 1) // 2
+    return ((2 * d - 1) + 1  # z'a, v
+            + d * (2 * d - 1) + 2 * d  # P z, f
+            + 1 + d + 2 * d  # 1 / f, K, a + K v
+            + 2 * upper  # P - K (P z)'
+            + d * d * (2 * d - 1)  # T P
+            + upper * (2 * d - 1) + upper  # (T P) T' + R Q R'
+            + d * (2 * d - 1))  # T a
 
 
 def loglik_flops(batch, d, t_len):
@@ -222,7 +259,8 @@ def kalman_cases(rng, name, dtype, batch, d, t_len, series=1):
     TIM_GROUPS random directions); the wrapper call is the public function
     on the card, with the operands' preparation (none for J1 and J2, which
     autograd reaches). ``series``: the loglik's rows of y (a series a
-    group of batch / series systems)."""
+    group of batch / series systems). The systems of a shape in
+    SHARED_SYSTEM share T and z, expanded over the batch."""
     import torch
 
     from boom_tpu_torch.kernels.host_rehearsal import directions
@@ -231,6 +269,9 @@ def kalman_cases(rng, name, dtype, batch, d, t_len, series=1):
 
     tdt = getattr(torch, dtype)
     params = system(rng, batch, d, dtype)
+    if name in SHARED_SYSTEM:
+        params = params._replace(t_mat=params.t_mat[:1].expand(batch, d, d),
+                                 z=params.z[:1].expand(batch, d))
     shape = (series, t_len) if series > 1 else (t_len,)
     y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
                      device="cuda")
@@ -425,19 +466,28 @@ _WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel|"
                         r"wide_loglik_kernel)I(?:([fd]))?"
                         r"(?:[fd]|N\w*?TangentI[fd]Li\dEEE)?"
                         r"Li(\d+)ELi(\d+)E")
+_THREAD_NAME = re.compile(r"loglik_thread_kernelILi(\d+)ELb([01])E")
 _JET_NAMES = {"0": "loglik_wide", "1": "loglik_grad", "2": "loglik_hess"}
 
 
 def wide_nvcc_report(log_text):
     """{"smoother_wide f64 d<D> pass<P>" | "dpath <type> d<D> chunk<B>" |
-    "loglik_wide <type> d<D>" | "loglik_grad f64 d<D>" | "loglik_hess f64
-    d<D>": {"registers", "spill_bytes", "stack_bytes"}} for every
-    instantiation of K2w (each of its three passes), K3 (each chunk length,
-    bytes a lane), K1w, J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v``
-    log."""
+    "loglik_wide <type> d<D>" | "loglik_wide <type> d<D> thread
+    shared-T|own-T" | "loglik_grad f64 d<D>" | "loglik_hess f64 d<D>":
+    {"registers", "spill_bytes", "stack_bytes"}} for every instantiation
+    of K2w (each of its three passes), K3 (each chunk length, bytes a
+    lane), K1w (its group kernel, and its thread kernel in either layout
+    of T), J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = _WIDE_NAME.search(name)
+        t = _THREAD_NAME.search(name)
+        if t:
+            d, shared = t.groups()
+            key = (f"loglik_wide f32 d{int(d):02d} thread "
+                   f"{'shared-T' if shared == '1' else 'own-T'}")
+            report[key] = {"registers": nregs, "spill_bytes": spill,
+                           "stack_bytes": stack}
         if not m:
             continue
         kernel, ty, d, extra = m.groups()
@@ -512,7 +562,9 @@ def run():
     _build.build()
     rng = np.random.default_rng(20261016)
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
-           "kernels": {**time_kalman(rng), **time_wide(rng)}}
+           "kernels": {**time_kalman(rng),
+                       **time_kalman(rng, plain=False, shapes=K1W_SHAPES),
+                       **time_wide(rng)}}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
     log = _build.log_path("kalman_wide")
@@ -545,14 +597,16 @@ def nvcc_seconds(tree, name="kalman_wide"):
 
 
 def compare(parent, here, json_path=None):
-    """Runs parent, here, here, parent, each tree's own script in a fresh
-    process, and prints the kernels' times side by side, then times
-    ``nvcc`` on each tree's ``kalman_wide.cu`` alone."""
+    """Runs parent, here, here, parent: this script in a fresh process on
+    each tree's package (its kernels, built under it, its wrappers and its
+    plain versions; these shapes, inputs and bounds), and prints the
+    kernels' times side by side, then times ``nvcc`` on each tree's
+    ``kalman_wide.cu`` alone."""
     runs = []
     for label, tree in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        script = tree / "boom_tpu_torch" / "kernels" / "kalman_timing.py"
-        proc = subprocess.run([sys.executable, str(script)],
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--tree", str(tree)],
                               capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             raise SystemExit(f"kalman_timing in {tree} failed:\n"
@@ -604,6 +658,8 @@ def main():
                     help="checkout to time in turns with this one")
     ap.add_argument("--json", type=Path,
                     help="with --compare: file for every number of the runs")
+    ap.add_argument("--tree", type=Path,
+                    help="time the package of this checkout instead")
     args = ap.parse_args()
     if args.compare:
         here = Path(__file__).resolve().parents[2]

@@ -61,9 +61,14 @@ SMOOTHER_DTYPE = torch.float64
 SWEEP_PHASES = ("regression", "variance_draws", "impute", "asis", "tim")
 
 
-def _block_diag(mats):
-    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]."""
+def _block_diag(mats, keep_expanded=False):
+    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]. With
+    ``keep_expanded``, one [R, S] matrix expanded over the C chains where
+    every block is one expanded (stride 0 along the chains: the blocks' T),
+    which K1w reads as one matrix (``kalman_kernel.launch_loglik``)."""
     c = mats[0].shape[0]
+    if keep_expanded and c > 1 and all(m.stride(0) == 0 for m in mats):
+        return _block_diag([m[:1] for m in mats]).expand(c, -1, -1)
     rows = sum(m.shape[-2] for m in mats)
     cols = sum(m.shape[-1] for m in mats)
     out = mats[0].new_zeros(c, rows, cols)
@@ -181,8 +186,9 @@ class Bsts:
         z = torch.cat([b.z(dev, dt) for b in self.blocks])
         return SsmParams(
             z=z.expand(c, -1),
-            t_mat=_block_diag(ts), r_mat=_block_diag(rs),
-            q_mat=_block_diag(qs), h=state["sigsq_obs"],
+            t_mat=_block_diag(ts, keep_expanded=True),
+            r_mat=_block_diag(rs), q_mat=_block_diag(qs),
+            h=state["sigsq_obs"],
             a0=torch.cat(a0s).expand(c, -1),
             p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1))
 

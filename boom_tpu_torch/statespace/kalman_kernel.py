@@ -1,8 +1,9 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
 ``csrc/kalman_seq.cu`` (K1 and K2: one thread a series walking the T steps)
-and ``csrc/kalman_wide.cu`` (K1w, J1, J2, K2w and K3: a group of lanes a
-chain, series or (series, entry), 32 / W groups a warp, a lane a row of the
-state, d fixed at compile time).
+and ``csrc/kalman_wide.cu`` (K1w in float32 to d = 13: a thread a system,
+P in its registers; K1w past it and in float64, J1, J2, K2w and K3: a group
+of lanes a chain, series or (series, entry), 32 / W groups a warp, a lane a
+row of the state; d fixed at compile time).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
@@ -12,7 +13,9 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
   on a series a group of systems (y [S, T], S dividing B: bsts with a
   regression, each chain's y - X beta for its TIM points);
   :func:`innovations` runs the same kernels for the prediction errors v and
-  variances f [B, T].
+  variances f [B, T]. A T or z expanded over the systems (stride 0, as
+  ``Bsts.ssm_params`` builds them) goes to K1w as its one row, which the
+  thread kernel reads as broadcasts.
 - :func:`loglik_along` (K1/K1w, J1, J2): the loglik as a function of c
   [B, K], the system moved along K directions (h = h0 + sum_k c_k dh_k,
   R Q R' = Q0 + sum_k c_k dm_k; the TIM mode search's log variances), twice
@@ -54,6 +57,9 @@ LAUNCHES = {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
 # the loglik's jets by the order of derivatives they give: J1, J2
 JET_KINDS = {1: "loglik_grad", 2: "loglik_hess"}
 JET_MAX_DIRECTIONS = _build.JET_MAX_DIRECTIONS
+# K1w's layout bits (kalman_wide.cu, kSharedTm and kSharedZ): T, z is one
+# matrix, vector of every system
+SHARED_T, SHARED_Z = 1, 2
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # block sizes: 0 lets K1 lay its grid out from the card (one block of
@@ -105,9 +111,12 @@ def _checked(tensors: dict, dtype, device):
     return out
 
 
-def _shape_check(p, b, d):
-    want = {"z": (b, d), "t_mat": (b, d, d), "rqr": (b, d, d), "h": (b,),
-            "a0": (b, d), "p0": (b, d, d)}
+def _shape_check(p, b, d, shared=0):
+    """Raise unless every field is [b, ...] (one row for a field taken as
+    one of every system: the ``shared`` bits)."""
+    want = {"z": (1 if shared & SHARED_Z else b, d),
+            "t_mat": (1 if shared & SHARED_T else b, d, d), "rqr": (b, d, d),
+            "h": (b,), "a0": (b, d), "p0": (b, d, d)}
     for name, shape in want.items():
         if name in p and tuple(p[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}; got "
@@ -131,8 +140,12 @@ def _series_rows(y, b, dtype, device):
 
 
 def _loglik_operands(h, rqr, z, t_mat, a0, p0, y, observed, dtypes, dims,
-                     what):
-    """The loglik kernels' checked operands: (fields, y [S, T], S, mask)."""
+                     what, share=False):
+    """The loglik kernels' checked operands: (fields, y [S, T], S, mask,
+    shared bits). With ``share``, a T or z of stride 0 along the systems (one
+    matrix expanded over them, as ``Bsts.ssm_params`` builds it) is passed
+    as its one row, its bit set: the layout alone decides, never its
+    values."""
     dtype, device = h.dtype, h.device
     if _DTYPE_TAG.get(dtype) not in dtypes:
         names = {"f32": "float32", "f64": "float64"}
@@ -144,11 +157,19 @@ def _loglik_operands(h, rqr, z, t_mat, a0, p0, y, observed, dtypes, dims,
         raise NotImplementedError(
             f"the {what} takes state dims {dims[0]}..{dims[-1]}, not {d} "
             + _NO_KERNEL)
-    p = _checked({"z": z, "t_mat": t_mat, "rqr": rqr, "h": h, "a0": a0,
-                  "p0": p0}, dtype, device)
-    _shape_check(p, b, d)
+    fields = {"z": z, "t_mat": t_mat, "rqr": rqr, "h": h, "a0": a0,
+              "p0": p0}
+    shared = 0
+    for bit, name in ((SHARED_T, "t_mat"), (SHARED_Z, "z")):
+        x = fields[name]
+        if share and b > 1 and x.shape[0] == b and x.stride(0) == 0:
+            fields[name] = x[:1]
+            shared |= bit
+    p = _checked(fields, dtype, device)
+    _shape_check(p, b, d, shared)
     y, n_series = _series_rows(y, b, dtype, device)
-    return p, y, n_series, _observed_bytes(observed, y.shape[1], device)
+    return (p, y, n_series, _observed_bytes(observed, y.shape[1], device),
+            shared)
 
 
 _FIELDS = ("z", "t_mat", "rqr", "h", "a0", "p0")
@@ -159,11 +180,11 @@ def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
     or float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]).
     y: [T], or [S, T] with S dividing B (system b reads series b // (B/S))."""
     tags, dims = _build.KALMAN_ENTRIES["loglik"]
-    p, y, n_series, obs = _loglik_operands(
+    wide = z.shape[-1] in _build.WIDE_DIMS
+    p, y, n_series, obs, shared = _loglik_operands(
         h, rqr, z, t_mat, a0, p0, y, observed, tags,
-        dims + _build.WIDE_DIMS, "loglik kernels (K1, K1w)")
-    (b, d), t_len = p["z"].shape, y.shape[1]
-    wide = d in _build.WIDE_DIMS
+        dims + _build.WIDE_DIMS, "loglik kernels (K1, K1w)", share=wide)
+    b, d, t_len = p["h"].shape[0], p["z"].shape[1], y.shape[1]
     out = [torch.empty(b, dtype=h.dtype, device=h.device)]
     if innovations:
         out += [torch.empty(b, t_len, dtype=h.dtype, device=h.device)
@@ -175,7 +196,8 @@ def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
         kind = "loglik_wide"
         rc = getattr(_build.library("kalman_wide"),
                      f"boom_kalman_loglik_wide_{tag}")(
-            *ptrs, b, t_len, n_series, d, WIDE_THREADS, _stream(h.device))
+            *ptrs, b, t_len, n_series, d, shared, WIDE_THREADS,
+            _stream(h.device))
     else:
         kind = "loglik"
         rc = getattr(_build.library("kalman_seq"),
@@ -192,7 +214,7 @@ def launch_jets(h, rqr, z, t_mat, a0, p0, y, observed, dh, dm, order):
     hess [B, K, K]) on the card: the loglik and its derivatives along the
     directions dh [K], dm [K, d, d] at (h, R Q R'), float64, d 1..16,
     1 <= K <= JET_MAX_DIRECTIONS; y as :func:`launch_loglik` takes it."""
-    p, y, n_series, obs = _loglik_operands(
+    p, y, n_series, obs, _shared = _loglik_operands(
         h, rqr, z, t_mat, a0, p0, y, observed, ("f64",), _build.JET_DIMS,
         "loglik's derivative kernels")
     (b, d), t_len = p["z"].shape, y.shape[1]

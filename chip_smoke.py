@@ -34,8 +34,10 @@ Phases:
      (d in {1, 2, 3, 6}, 33 and 4095 chains x 17 systems) and K1w (the
      loglik for 7 <= d <= 16, ``csrc/kalman_wide.cu``: d in {7, 8, 9, 13,
      16}, T in {2, 31, 32, 33, 500}, 33, 4095 and 4097 series, one shared
-     series and a series a system, masked and dense, and at phase 7's width,
-     4096 chains x 17 points on their chains' series), each with its
+     series and a series a system, masked and dense, a T a system and T
+     and z one of every system (expanded, as Bsts builds them: the same
+     bits as materialised), and at phase 7's width, 4096 chains x 17
+     points on their chains' series, in both layouts), each with its
      innovations v and f, float64 (<= 1e-9) and float32 (<= 1e-4); J1 and
      J2 (the loglik's gradient, and its gradient and Hessian, along K
      directions, ``csrc/kalman_wide.cu``) at d in {1, 2, 3, 6, 8, 13, 16}
@@ -705,10 +707,14 @@ def _kalman_vs_plain(rng, dtype, c, d, t_len, masked):
     return out
 
 
-def _loglik_rows_vs_plain(rng, dtype, b, series, d, t_len, masked):
+def _loglik_rows_vs_plain(rng, dtype, b, series, d, t_len, masked,
+                          shared=False):
     """K1 or K1w with its innovations against the plain filter on the card,
     ``b`` systems on ``series`` rows of y (1: one shared series): (worst
-    normwise relative error of ll, v and f, max abs error of ll)."""
+    normwise relative error of ll, v and f, max abs error of ll, and with
+    ``shared`` whether K1w gave the same bits for T and z one of every
+    system expanded over the systems, as Bsts builds them, and
+    materialised; else None)."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
@@ -716,6 +722,9 @@ def _loglik_rows_vs_plain(rng, dtype, b, series, d, t_len, masked):
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     params = kt.system(rng, b, d, str(dtype).split(".")[-1])
+    if shared:
+        params = params._replace(t_mat=params.t_mat[:1].expand(b, d, d),
+                                 z=params.z[:1].expand(b, d))
     shape = (series, t_len) if series > 1 else (t_len,)
     y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=dtype,
                      device="cuda")
@@ -724,9 +733,16 @@ def _loglik_rows_vs_plain(rng, dtype, b, series, d, t_len, masked):
     got = kk.launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                            params.a0, params.p0, y, obs, innovations=True)
     want = kalman.kalman_loglik(params, y, obs, innovations=True)
+    same = None
+    if shared:
+        flat = kk.launch_loglik(params.h, params.rqr,
+                                params.z.contiguous(),
+                                params.t_mat.contiguous(), params.a0,
+                                params.p0, y, obs, innovations=True)
+        same = all(torch.equal(a, w) for a, w in zip(got, flat))
     torch.cuda.synchronize()
     return (max(_rel(a, w) for a, w in zip(got, want)),
-            float((got[0] - want[0]).abs().max()))
+            float((got[0] - want[0]).abs().max()), same)
 
 
 def _loglik_rows_checks(rng):
@@ -738,25 +754,32 @@ def _loglik_rows_checks(rng):
 
     from boom_tpu_torch.kernels import kalman_timing as kt
 
-    cases = [(d, c * kt.TIM_POINTS, c, 67, c == 33)
+    cases = [(d, c * kt.TIM_POINTS, c, 67, c == 33, False)
              for d in PER_CHAIN_D_CHECK for c in PER_CHAIN_CHAINS]
     cases += [(d, 33, 33 if t_len in (32, 500) else 1, t_len,
-               t_len in (31, 33))
+               t_len in (31, 33), False)
               for d in LOGLIK_WIDE_D_CHECK for t_len in LOGLIK_WIDE_T_CHECK]
-    cases += [(d, c, c if c == 4095 else 1, 33, c == 4097)
-              for d in LOGLIK_WIDE_D_CHECK for c in LOGLIK_WIDE_SERIES[1:]]
+    # K1w's ragged batches with a T a system, and with T and z one of every
+    # system (the broadcast layout Bsts gives it)
+    cases += [(d, c, c if c == 4095 else 1, 33, c == 4097, shared)
+              for d in LOGLIK_WIDE_D_CHECK for c in LOGLIK_WIDE_SERIES[1:]
+              for shared in (False, True)]
     bad, worst = [], {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).split(".")[-1]
-        for d, b, series, t_len, masked in cases:
-            err, _abs = _loglik_rows_vs_plain(rng, dtype, b, series, d,
-                                              t_len, masked)
+        for d, b, series, t_len, masked, shared in cases:
+            err, _abs, same = _loglik_rows_vs_plain(
+                rng, dtype, b, series, d, t_len, masked, shared)
             kind = "K1w" if d >= 7 else "K1"
             key = (kind, tag)
             worst[key] = max(worst.get(key, 0.0), err)
             if not (np.isfinite(err) and err <= SCAN_TOL[tag]):
                 bad.append(f"{kind} {tag} d={d} B={b} S={series} "
-                           f"T={t_len} masked={masked}: {err:.3e}")
+                           f"T={t_len} masked={masked} shared={shared}: "
+                           f"{err:.3e}")
+            if same is False:
+                bad.append(f"{kind} {tag} d={d} B={b}: T and z expanded "
+                           f"and materialised give other bits")
     for (kind, tag), v in sorted(worst.items()):
         print(f"{kind} (a series a group of systems, innovations) {tag}: "
               f"worst ll/v/f relative error {v:.3e} over "
@@ -904,14 +927,21 @@ def phase2b_kalman_vs_plain():
     check(not bad, "K1 / K1w with a series a group disagree with the plain "
           "filter: " + "; ".join(bad))
     # phase 7's main path width: K1w over 4096 chains x 17 points, each
-    # chain's points on its own series
+    # chain's points on its own series: a T a system, and T and z one of
+    # every system as Bsts builds them (the main path's layout; the same
+    # bits as the systems materialised)
     tag, batch, d, t_len, series = kt.TIM_REG_SHAPES["loglik_wide"]
-    err, err_abs = _loglik_rows_vs_plain(rng, getattr(torch, tag), batch,
-                                         series, d, t_len, False)
-    print(f"K1w {tag} B={batch} S={series} d={d} T={t_len} (phase 7): "
-          f"rel {err:.2e} abs {err_abs:.2e}")
-    check(np.isfinite(err) and err <= SCAN_TOL[tag],
-          f"K1w at phase 7's width: {err:.3e}")
+    for shared in (False, True):
+        err, err_abs, same = _loglik_rows_vs_plain(
+            rng, getattr(torch, tag), batch, series, d, t_len, False, shared)
+        print(f"K1w {tag} B={batch} S={series} d={d} T={t_len} (phase 7, "
+              f"{'T and z shared' if shared else 'a T a system'}): "
+              f"rel {err:.2e} abs {err_abs:.2e}"
+              + (f", expanded and materialised bit-identical {same}"
+                 if shared else ""))
+        check(np.isfinite(err) and err <= SCAN_TOL[tag] and same is not False,
+              f"K1w at phase 7's width (shared={shared}): {err:.3e}, "
+              f"bit-identical {same}")
     at_llt["loglik_wide"] = {"max_abs_err": err_abs}
 
     errs, max_abs = _jets_vs_plain(rng)

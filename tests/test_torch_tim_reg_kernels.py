@@ -54,15 +54,43 @@ def host_kernels(monkeypatch, host_libraries):
 @pytest.mark.usefixtures("host_kernels")
 def test_host_compiled_loglik_matches_plain(case):
     """K1 (d <= 6) and K1w with a series a group of systems (shared, one
-    a system, two a series) and their innovations v and f, float64 and
-    float32: one launch each, the loglik alone bit-identical to the one
-    with innovations."""
+    a system, two a series; over several of K1w's blocks, the last
+    ragged) and their innovations v and f, float64 and float32: one launch
+    each, the loglik alone bit-identical to the one with innovations."""
     kind = "loglik_wide" if case[0] >= 7 else "loglik"
     before = dict(kk.LAUNCHES)
     errs = host_rehearsal.check_loglik(seed=sum(case), cases=[case])
     assert kk.LAUNCHES[kind] == before[kind] + 4
     for name, err in errs.items():
         assert err <= HOST_TOL[name.split()[1]], (name, err)
+
+
+@pytest.mark.parametrize("case", host_rehearsal.LOGLIK_SHARED_CASES,
+                         ids=lambda c: "d{}-B{}-S{}-T{}-{}".format(*c))
+@pytest.mark.usefixtures("host_kernels")
+def test_host_compiled_loglik_shared_system_matches_plain(case):
+    """K1w on non-symmetric systems, float64 and float32: T and z one of
+    every system, expanded over the systems as Bsts builds them (the
+    wrapper passes their one row: the thread kernel's broadcast layout),
+    give the bits of the same systems materialised, and these and a T a
+    system agree with the plain filter."""
+    from boom_tpu_torch.kernels.kalman_timing import system
+
+    d, b = case[:2]
+    one = system(np.random.default_rng(0), b, d, "float64", device="cpu")
+    expanded = (one.h, one.rqr, one.z[:1].expand(b, d),
+                one.t_mat[:1].expand(b, d, d), one.a0, one.p0,
+                torch.zeros(5, dtype=torch.float64), None, ("f64",), (d,),
+                "K1w")
+    p, *_rest, shared = kk._loglik_operands(*expanded, share=True)
+    assert shared == kk.SHARED_T | kk.SHARED_Z
+    assert p["t_mat"].shape == (1, d, d) and p["z"].shape == (1, d)
+    before = kk.LAUNCHES["loglik_wide"]
+    errs = host_rehearsal.check_loglik_shared(seed=sum(case), cases=[case])
+    assert kk.LAUNCHES["loglik_wide"] == before + 6
+    for name, (err, same) in errs.items():
+        assert same, f"{name}: expanded and materialised differ"
+        assert err <= HOST_TOL[name.split()[2]], (name, err)
 
 
 @pytest.mark.parametrize("case", host_rehearsal.JET_CASES,
@@ -125,6 +153,31 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
         for pname, v in params.items():
             err = float((got["blocks"][name][pname] - v).norm() / v.norm())
             assert err <= 1e-10, (pname, err)
+
+
+def test_ssm_params_keep_the_blocks_t_one_matrix():
+    """Bsts.ssm_params keeps T one matrix expanded over the chains (stride
+    0: every block's T is one), which K1w takes as its broadcast layout,
+    with the values of the block-diagonal materialised; R stays
+    materialised."""
+    from boom_tpu_torch.statespace import bsts as bsts_mod
+    from boom_tpu_torch.statespace.state_models import (
+        LocalLinearTrend,
+        Seasonal,
+    )
+
+    y = torch.tensor(np.random.default_rng(3).normal(size=40).cumsum())
+    model = Bsts(y=y, blocks=[LocalLinearTrend.default(y),
+                              Seasonal.default(y, nseasons=7)])
+    gen = prng.generator(5, "cpu")
+    state = model.init_state(model.draw_init_noise(gen, CHAINS))
+    params = model.ssm_params(state)
+    assert params.t_mat.shape == (CHAINS, 8, 8)
+    assert params.t_mat.stride(0) == 0 and params.z.stride(0) == 0
+    assert params.r_mat.stride(0) != 0
+    ts = [b.build(state["blocks"][b.name])[0] for b in model.blocks]
+    flat = bsts_mod._block_diag([t.contiguous() for t in ts])
+    assert flat.stride(0) != 0 and torch.equal(params.t_mat, flat)
 
 
 def test_loglik_wrappers_refuse_what_the_kernels_do_not_take():
