@@ -14,9 +14,10 @@ card it raises rather than falling back to the CPU.
 
 ``LmSpike`` takes the default prior's keywords; the ``priors`` module,
 formulas, plots and saving are not ported yet. ``BstsModel`` has the
-local-level, local-linear-trend and seasonal blocks, Gaussian observations
-and the spike-and-slab regression. Other options raise
-``NotImplementedError`` naming their ROADMAP.md item.
+local-level, local-linear-trend, Student local-linear-trend, seasonal,
+dynamic-regression and random-walk-holiday blocks, Gaussian observations,
+the spike-and-slab regression and irregular or duplicated ``timestamps``.
+Other options raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -159,6 +160,7 @@ class BstsModel:
     _specs: list = dataclasses.field(default_factory=list)
     _model: Any = None
     _result: McmcResult | None = None
+    _timestamp_info: Any = None
 
     def add_local_level(self, **kw):
         self._specs.append(("local_level", kw))
@@ -168,8 +170,26 @@ class BstsModel:
         self._specs.append(("local_linear_trend", kw))
         return self
 
+    def add_student_local_linear_trend(self, **kw):
+        self._specs.append(("student_local_linear_trend", kw))
+        return self
+
     def add_seasonal(self, nseasons, **kw):
         self._specs.append(("seasonal", dict(kw, nseasons=nseasons)))
+        return self
+
+    def add_dynamic_regression(self, predictors, **kw):
+        """Coefficients that follow random walks on ``predictors`` [T, p],
+        one row a time point of the (regularized) grid."""
+        self._specs.append(("dynamic_regression",
+                            dict(kw, predictors=np.asarray(predictors))))
+        return self
+
+    def add_random_walk_holiday(self, active, window, **kw):
+        """A holiday window of ``window`` days: ``active`` [T] gives each
+        time point's day of the window, -1 outside it."""
+        self._specs.append(("holiday", dict(kw, active=np.asarray(active),
+                                            window=window)))
         return self
 
     def _build_blocks(self, y):
@@ -179,7 +199,12 @@ class BstsModel:
             "local_level": lambda kw: sm.LocalLevel.default(y, **kw),
             "local_linear_trend":
                 lambda kw: sm.LocalLinearTrend.default(y, **kw),
+            "student_local_linear_trend":
+                lambda kw: sm.StudentLocalLinearTrend.default(y, **kw),
             "seasonal": lambda kw: sm.Seasonal.default(y, **kw),
+            "dynamic_regression":
+                lambda kw: sm.DynamicRegression.default(y, **kw),
+            "holiday": lambda kw: sm.RandomWalkHoliday.default(y, **kw),
         }
         return [builders[name](kw) for name, kw in self._specs]
 
@@ -191,7 +216,13 @@ class BstsModel:
         ``timestamps`` are the reference's, in its order: ``predictors``
         [T, p] add a spike-and-slab regression whose prior is
         ``SpikeSlabPrior.from_data`` with ``expected_model_size``, as the
-        reference builds it (api.py:458-463); ``timestamps`` raise.
+        reference builds it (api.py:458-463). ``timestamps`` (numeric,
+        numpy datetime64 or dates, one a raw observation) regularize the
+        series as the reference's (api.py:411-452, ``utils.timestamps``):
+        gaps become unobserved grid points and duplicated stamps one grid
+        point of their mean, y and ``predictors`` averaged onto the grid;
+        the time-varying blocks' series (``add_dynamic_regression``,
+        ``add_random_walk_holiday``) are on that grid.
         ``device`` is the CUDA card unless the caller asks for ``"cpu"``; a
         CUDA device on a machine without one raises. ``dtype`` defaults to
         float64 on the CPU and float32 on a CUDA device."""
@@ -202,12 +233,29 @@ class BstsModel:
             raise NotImplementedError(
                 f"family={family!r} is not ported yet (ROADMAP.md, queue 1: "
                 "statespace families)")
-        if timestamps is not None:
-            raise NotImplementedError(
-                "timestamps are not ported yet (ROADMAP.md, queue 1 item 7: "
-                "the observed/timestamps path)")
         device = rng.resolve_device(device)
         dtype = dtype or _DEFAULT_DTYPE[device.type]
+        if timestamps is not None:
+            from boom_tpu_torch.utils.timestamps import (
+                collapse_to_grid,
+                regularize_timestamps,
+            )
+
+            info = regularize_timestamps(timestamps)
+            if not info.timestamps_are_trivial:
+                grid = collapse_to_grid(
+                    np.asarray(y), info, predictors=None
+                    if predictors is None else np.asarray(predictors))
+                y = grid["y_grid"]
+                model_kw.setdefault("observed", torch.as_tensor(
+                    grid["observed"], device=device))
+                model_kw.setdefault("obs_weights", torch.as_tensor(
+                    grid["weights"], dtype=dtype, device=device))
+                model_kw.setdefault("extra_obs_ss", torch.as_tensor(
+                    grid["extra_ss_t"], dtype=dtype, device=device))
+                if predictors is not None:
+                    predictors = grid["predictors_grid"]
+            self._timestamp_info = info
         y = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
         reg_prior = None
         if predictors is not None:
@@ -302,8 +350,11 @@ class BstsModel:
         """Posterior-predictive forecasts [draws, horizon] simulated forward
         from ``max_draws`` thinned posterior draws (reference api.py:723);
         the normals from a generator seeded with ``seed`` on the fit's
-        device. With ``future_predictors`` [horizon, p] the regression's
-        X beta is added."""
+        device. ``future_z`` {block name: [horizon, dim]} gives the future
+        rows of the blocks with a time-varying z (the dynamic regression's
+        predictors, the holiday's one-hot days), as the reference's. With
+        ``future_predictors`` [horizon, p] the regression's X beta is
+        added."""
         model = self._model
         sub = self._subsampled_states(0, max_draws)
         take = _leading(sub)

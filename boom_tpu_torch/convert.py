@@ -29,19 +29,39 @@ def _tensor(x, device, dtype):
     return torch.tensor(x, dtype=dtype, device=resolve_device(device))
 
 
-def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64):
+def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64,
+                          h_scale=None):
     """Port ``SsmParams`` from a mapping (or a NamedTuple, such as the
     reference's ``SsmParams``) of arrays that carry a leading chain axis.
-    The reference's optional time-varying fields must be absent or None."""
+    A time-varying z [C, T, d] must be one [T, d] for every chain (it is
+    passed expanded); q_scale [C, T, q] is carried as it is. h must be [C]:
+    a reference h [C, T] of observation weights is h [C] with ``h_scale``
+    [T] (1 / max(w, 1)). ``t_seq`` is not ported and raises."""
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
-    for extra in ("q_scale", "t_seq"):
-        if fields.get(extra) is not None:
-            raise NotImplementedError(
-                f"time-varying SsmParams ({extra}) are not ported yet "
-                "(ROADMAP.md, queue 1: statespace/kalman.py)")
-    return SsmParams(**{k: _tensor(fields[k], device, dtype)
-                        for k in SsmParams._fields})
+    if fields.get("t_seq") is not None:
+        raise NotImplementedError(
+            "time-varying transitions (t_seq) are not ported yet "
+            "(ROADMAP.md, queue 1 item 7: MonthlyAnnualCycle)")
+    out = {k: _tensor(fields[k], device, dtype)
+           for k in SsmParams._fields
+           if k not in ("q_scale", "h_scale") and k != "z"}
+    z = np.asarray(fields["z"])
+    if z.ndim == 3:
+        if not (z == z[:1]).all():
+            from boom_tpu_torch.statespace.kalman import _PER_SYSTEM_Z
+            raise NotImplementedError(_PER_SYSTEM_Z)
+        out["z"] = _tensor(z[0], device, dtype).expand(z.shape[0], -1, -1)
+    else:
+        out["z"] = _tensor(z, device, dtype)
+    if out["h"].dim() != 1:
+        raise ValueError("h must be [C]; pass a time-varying h as h [C] and "
+                         "h_scale [T]")
+    if fields.get("q_scale") is not None:
+        out["q_scale"] = _tensor(fields["q_scale"], device, dtype)
+    if h_scale is not None:
+        out["h_scale"] = _tensor(h_scale, device, dtype)
+    return SsmParams(**out)
 
 
 def state_from_numpy(tree, device="cuda", dtype=torch.float64):
@@ -85,7 +105,7 @@ def _prior(p):
                       upper_limit=float(p.upper_limit))
 
 
-def _block(b):
+def _block(b, device, dtype):
     kind = type(b).__name__
     if kind == "LocalLevel":
         return sm.LocalLevel(
@@ -104,6 +124,25 @@ def _block(b):
         return sm.Seasonal(
             nseasons=int(b.nseasons), sigma_prior=_prior(b.sigma_prior),
             initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "DynamicRegression":
+        return sm.DynamicRegression(
+            predictors=_tensor(b.predictors, device, dtype),
+            sigma_prior=_prior(b.sigma_prior),
+            initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "RandomWalkHoliday":
+        return sm.RandomWalkHoliday(
+            active=_tensor(np.asarray(b.active).astype(np.int64), device,
+                           dtype),
+            window=int(b.window), sigma_prior=_prior(b.sigma_prior),
+            initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "StudentLocalLinearTrend":
+        return sm.StudentLocalLinearTrend(
+            t_len=int(b.t_len), level_prior=_prior(b.level_prior),
+            slope_prior=_prior(b.slope_prior),
+            initial_level_mean=float(b.initial_level_mean),
+            initial_level_sd=float(b.initial_level_sd),
+            initial_slope_sd=float(b.initial_slope_sd),
+            nu_prior_rate=float(b.nu_prior_rate), name=b.name)
     raise NotImplementedError(
         f"state block {kind} is not ported yet (ROADMAP.md, queue 1: the "
         "other block classes)")
@@ -111,19 +150,19 @@ def _block(b):
 
 def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
     """The port's ``Bsts`` with the reference model's series, state blocks,
-    observation prior, regression (predictors, prior, max flips) and
-    sampler options. ``overrides`` replace options (for example
+    observation prior, regression (predictors, prior, max flips), gaps and
+    weights (observed, obs_weights, extra_obs_ss) and sampler options. ``overrides`` replace options (for example
     ``parallel_smoother``)."""
     from boom_tpu_torch.statespace.bsts import Bsts
 
-    for name in ("observed", "obs_weights"):
-        if getattr(bsts, name) is not None:
-            raise NotImplementedError(
-                f"bsts with {name} is not ported yet (ROADMAP.md, queue 1)")
     opts = dict(parallel_smoother=bsts.parallel_smoother,
                 chains_hint=bsts.chains_hint, asis=bsts.asis,
                 asis_passes=bsts.asis_passes,
-                reg_max_flips=bsts.reg_max_flips)
+                reg_max_flips=bsts.reg_max_flips,
+                extra_obs_ss=float(bsts.extra_obs_ss))
+    for name in ("observed", "obs_weights"):
+        if getattr(bsts, name) is not None:
+            opts[name] = _tensor(getattr(bsts, name), device, dtype)
     if bsts.predictors is not None:
         opts["predictors"] = _tensor(bsts.predictors, device, dtype)
         opts["reg_prior"] = spike_slab_prior_from_numpy(bsts.reg_prior,
@@ -133,6 +172,6 @@ def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
                  if f.name.startswith("marginal_")})
     opts.update(overrides)
     return Bsts(y=_tensor(bsts.y, device, dtype),
-                blocks=[_block(b) for b in bsts.blocks],
+                blocks=[_block(b, device, dtype) for b in bsts.blocks],
                 obs_prior=(None if bsts.obs_prior is None
                            else _prior(bsts.obs_prior)), **opts)

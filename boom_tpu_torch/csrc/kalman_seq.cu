@@ -331,6 +331,74 @@ __global__ void loglik_kernel(const T* __restrict__ z,
   if (idx < batch) ll[b] = acc;
 }
 
+// K1 of a time-varying system (the dynamic regression's z_t, the observation
+// weights' h_t, the Student trend's and the holiday's Q_t): one thread per
+// series, as loglik_kernel, reading its step's inputs from the cache: z_t
+// of zt [T, D] (one for every system), h_t = h * hs[t] (hs [T]) and
+// R Q_t R' = (u_t u_t') o R Q R', u_t of u [., T, D] at u + b u_stride
+// (u_stride 0: one for every system; R is a 0/1 selection, so that this is
+// the reference's R ((q_t q_t') o Q) R' entry by entry). y [S, T] of
+// series b / per_series (one series: per_series = batch); the mask as K1's
+// (nullptr: every step observed); vout and fout as K1's.
+template <typename T, int D>
+__global__ void loglik_tv_kernel(const T* __restrict__ tm,
+                                 const T* __restrict__ rqr,
+                                 const T* __restrict__ h,
+                                 const T* __restrict__ a0,
+                                 const T* __restrict__ p0,
+                                 const T* __restrict__ y,
+                                 const unsigned char* __restrict__ obs,
+                                 const T* __restrict__ zt,
+                                 const T* __restrict__ hs,
+                                 const T* __restrict__ u,
+                                 T* __restrict__ ll, T* __restrict__ vout,
+                                 T* __restrict__ fout, int batch, int t_len,
+                                 int per_series, long long u_stride) {
+  constexpr bool kFast = std::is_same<T, float>::value;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = idx < batch ? idx : batch - 1;
+  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
+  const T* u_b = u + static_cast<long long>(b) * u_stride;
+  T tt[D][D], a[D], p[D][D], q[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    a[i] = a0[b * D + i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int ij = (b * D + i) * D + j;
+      tt[i][j] = tm[ij];
+      p[i][j] = p0[ij];
+      q[i][j] = rqr[ij];
+    }
+  }
+  const T hh = h[b];
+  const bool innov = vout != nullptr && idx < batch;
+  T acc(0);
+  for (int t = 0; t < t_len; ++t) {
+    const bool o = obs == nullptr || obs[t] != 0;
+    T zz[D], ut[D], qt[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      zz[i] = zt[t * D + i];
+      ut[i] = u_b[t * D + i];
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) qt[i][j] = (ut[i] * ut[j]) * q[i][j];
+    }
+    T v, f, k[D], rf;
+    filter_step<T, D, kFast>(a, p, y_b[t], o, zz, hh * hs[t], qt, tt, v, f,
+                             k, rf);
+    if (o) acc = acc + log_density<T, kFast>(v, f, rf);
+    if (innov) {
+      vout[static_cast<long long>(b) * t_len + t] = v;
+      fout[static_cast<long long>(b) * t_len + t] = f;
+    }
+  }
+  if (idx < batch) ll[b] = acc;
+}
+
 // ---- K2 ------------------------------------------------------------------
 
 // K2's block is one warp, a lane a chain; the streams are staged kChunk
@@ -409,12 +477,16 @@ __device__ __forceinline__ void store_rows(const double* buf, double* base,
 // K2: one lane per chain; the three passes of the fused simulation
 // smoother. w [C, T-1, D] = R chol(Q) eta and eps [C, T] = sqrt(h) eps_z
 // are the draws' noise, alpha1 [C, D] the unconditional initial state.
+// kTv (a time-varying system): step t of pass 1 reads z_t of zt [T, D],
+// h_t = h * hs[t] and R Q_t R' = (u_t u_t') o R Q R' (u_t of u [., T, D]
+// at u + c u_stride), pass 2 z_t, pass 3 R Q_{t-1} R', each from the cache
+// (loglik_tv_kernel's inputs); z is not read.
 // scratch [C, T, D+1]: pass 1 writes (v/f, K) of step t at slot t, pass 2
 // overwrites its first D with r_{t-1}, pass 3 reads them. Every row is
 // staged and written a chunk at a time by the whole warp (a lane writes
 // back exactly the elements it staged, so a lane reads its own stores
 // across passes). Lanes past the batch follow its last chain.
-template <int D>
+template <int D, bool kTv>
 __global__ void __launch_bounds__(kLanes)
     smoother_kernel(const double* __restrict__ z,
                     const double* __restrict__ tm,
@@ -427,7 +499,9 @@ __global__ void __launch_bounds__(kLanes)
                     const double* __restrict__ y,
                     const unsigned char* __restrict__ obs,
                     double* __restrict__ scratch, double* __restrict__ out,
-                    int batch, int t_len) {
+                    int batch, int t_len, const double* __restrict__ zt,
+                    const double* __restrict__ hs,
+                    const double* __restrict__ u, long long u_stride) {
   using Sm = SmootherSmem<D>;
   constexpr int kRec = Sm::kRec;
   BOOM_SHARED_BYTES(smem_raw);
@@ -437,7 +511,7 @@ __global__ void __launch_bounds__(kLanes)
   double zz[D], tt[D][D], q[D][D], a[D], p[D][D], sim[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    zz[i] = z[c * D + i];
+    zz[i] = kTv ? 0.0 : z[c * D + i];
     sim[i] = alpha1[c * D + i];
     a[i] = 0.0;  // the filter on y - y+ starts from a0 = 0
 #pragma unroll
@@ -449,6 +523,22 @@ __global__ void __launch_bounds__(kLanes)
     }
   }
   const double hh = h[c];
+  const double* u_c = u + static_cast<long long>(c) * u_stride;
+  // a time-varying system's z_t and R Q_{t'} R' of step t into zz, qt
+  auto step_z = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) zz[i] = zt[t * D + i];
+  };
+  auto step_q = [&](int t, double (&qt)[D][D]) {
+    double ut[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) ut[i] = u_c[t * D + i];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) qt[i][j] = (ut[i] * ut[j]) * q[i][j];
+    }
+  };
   const long long w_stride = static_cast<long long>(t_len - 1) * D;
   const long long s_stride = static_cast<long long>(t_len) * kRec;
   const long long o_stride = static_cast<long long>(t_len) * D;
@@ -515,13 +605,24 @@ __global__ void __launch_bounds__(kLanes)
       double ws[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) ws[i] = slot[i * kPitch];
+      double hq = hh;
+      double qt[kTv ? D : 1][kTv ? D : 1];
+      if constexpr (kTv) {
+        step_z(t);
+        step_q(t, qt);
+        hq = hh * hs[t];
+      }
       double zs = zz[0] * sim[0];
 #pragma unroll
       for (int i = 1; i < D; ++i) zs = zs + zz[i] * sim[i];
       const double yd = yb[s] - (zs + slot[D * kPitch]);
       double v, f, k[D], rf;
-      filter_step<double, D, true>(a, p, yd, observed(b, s), zz, hh, q, tt,
-                                   v, f, k, rf);
+      if constexpr (kTv)
+        filter_step<double, D, true>(a, p, yd, observed(b, s), zz, hq, qt,
+                                     tt, v, f, k, rf);
+      else
+        filter_step<double, D, true>(a, p, yd, observed(b, s), zz, hh, q, tt,
+                                     v, f, k, rf);
       slot[0] = v * rf;
 #pragma unroll
       for (int i = 0; i < D; ++i) slot[(1 + i) * kPitch] = k[i];
@@ -567,6 +668,7 @@ __global__ void __launch_bounds__(kLanes)
     double* col = buffer(b) + lane;
     for (int s = n - 1; s >= 0; --s) {
       const bool ob = observed(b, s);
+      if constexpr (kTv) step_z(t0 + s);
       double* slot = col + s * kRec * kPitch;
       const double vf = slot[0];
       double k[D];
@@ -651,15 +753,24 @@ __global__ void __launch_bounds__(kLanes)
     }
     for (; s < n; ++s) {
       const double* rs = col + s * kRec * kPitch;
+      double qt[kTv ? D : 1][kTv ? D : 1];
+      if constexpr (kTv) step_q(t0 + s - 1, qt);
       double an[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         double ta = tt[i][0] * ah[0];
 #pragma unroll
         for (int m = 1; m < D; ++m) ta = ta + tt[i][m] * ah[m];
-        double qr = q[i][0] * rs[0];
+        double qr;
+        if constexpr (kTv) {
+          qr = qt[i][0] * rs[0];
 #pragma unroll
-        for (int m = 1; m < D; ++m) qr = qr + q[i][m] * rs[m * kPitch];
+          for (int m = 1; m < D; ++m) qr = qr + qt[i][m] * rs[m * kPitch];
+        } else {
+          qr = q[i][0] * rs[0];
+#pragma unroll
+          for (int m = 1; m < D; ++m) qr = qr + q[i][m] * rs[m * kPitch];
+        }
         an[i] = ta + qr;
       }
 #pragma unroll
@@ -731,17 +842,49 @@ int launch_loglik(const void* z, const void* tm, const void* rqr,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename T, int D>
+int launch_loglik_tv(const void* tm, const void* rqr, const void* h,
+                     const void* a0, const void* p0, const void* y,
+                     const void* obs, const void* zt, const void* hs,
+                     const void* u, void* ll, void* vout, void* fout,
+                     int batch, int t_len, int n_series, long long u_stride,
+                     int threads, void* stream) {
+  if (bad_launch(batch, threads) || t_len < 1 || n_series < 1 ||
+      (batch > 0 && batch % n_series != 0) ||
+      (vout == nullptr) != (fout == nullptr) || u_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  auto kernel = loglik_tv_kernel<T, D>;
+  threads = loglik_block(kernel, batch, threads);
+  if (threads <= 0) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  }
+  const int blocks = (batch + threads - 1) / threads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, threads, 0, st>>>(
+      static_cast<const T*>(tm), static_cast<const T*>(rqr),
+      static_cast<const T*>(h), static_cast<const T*>(a0),
+      static_cast<const T*>(p0), static_cast<const T*>(y),
+      static_cast<const unsigned char*>(obs), static_cast<const T*>(zt),
+      static_cast<const T*>(hs), static_cast<const T*>(u),
+      static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
+      batch, t_len, batch / n_series, u_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kTv>
 int launch_smoother(const void* z, const void* tm, const void* rqr,
                     const void* h, const void* p0, const void* alpha1,
                     const void* w, const void* eps, const void* y,
                     const void* obs, void* scratch, void* out, int batch,
-                    int t_len, int threads, void* stream) {
-  if (batch < 0 || threads != kLanes || t_len < 1)
+                    int t_len, const void* zt, const void* hs, const void* u,
+                    long long u_stride, int threads, void* stream) {
+  if (batch < 0 || threads != kLanes || t_len < 1 || u_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   using Sm = SmootherSmem<D>;
-  auto kernel = smoother_kernel<D>;
+  auto kernel = smoother_kernel<D, kTv>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -759,9 +902,10 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
   double* sd = static_cast<double*>(scratch);
   double* outd = static_cast<double*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, kLanes, Sm::kBytes, st>>>(zd, tmd, qd, hd, pd, a1, wd,
-                                             ed, yd, od, sd, outd, batch,
-                                             t_len);
+  kernel<<<blocks, kLanes, Sm::kBytes, st>>>(
+      zd, tmd, qd, hd, pd, a1, wd, ed, yd, od, sd, outd, batch, t_len,
+      static_cast<const double*>(zt), static_cast<const double*>(hs),
+      static_cast<const double*>(u), u_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -793,8 +937,39 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
       const void* p0, const void* alpha1, const void* w, const void* eps,    \
       const void* y, const void* obs, void* scratch, void* out, int batch,   \
       int t_len, int threads, void* stream) {                                \
-    return launch_smoother<D>(z, tm, rqr, h, p0, alpha1, w, eps, y, obs,    \
-                              scratch, out, batch, t_len, threads, stream);  \
+    return launch_smoother<D, false>(z, tm, rqr, h, p0, alpha1, w, eps, y,  \
+                                     obs, scratch, out, batch, t_len,        \
+                                     nullptr, nullptr, nullptr, 0, threads,  \
+                                     stream);                                \
+  }
+
+// The time-varying system's K1 and K2 (loglik_tv_kernel, smoother_kernel<D,
+// true>): K1's and K2's arrays without z, then zt [T, D] (one z_t for every
+// system), hs [T] (h_t = h hs[t]) and u [U, T, D] with u_stride = T D
+// (U = B, a u a system) or 0 (U = 1, one for every system), R a 0/1
+// selection with at most one 1 a row.
+#define BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, D)                                  \
+  extern "C" int boom_kalman_loglik_tv_##TYNAME##_d##D(                      \
+      const void* tm, const void* rqr, const void* h, const void* a0,        \
+      const void* p0, const void* y, const void* obs, const void* zt,        \
+      const void* hs, const void* u, void* ll, void* vout, void* fout,       \
+      int batch, int t_len, int n_series, long long u_stride, int threads,   \
+      void* stream) {                                                        \
+    return launch_loglik_tv<TY, D>(tm, rqr, h, a0, p0, y, obs, zt, hs, u,    \
+                                   ll, vout, fout, batch, t_len, n_series,   \
+                                   u_stride, threads, stream);               \
+  }
+
+#define BOOM_SMOOTHER_TV_ENTRY(D)                                            \
+  extern "C" int boom_kalman_smoother_tv_f64_d##D(                           \
+      const void* tm, const void* rqr, const void* h, const void* p0,        \
+      const void* alpha1, const void* w, const void* eps, const void* y,     \
+      const void* obs, const void* zt, const void* hs, const void* u,        \
+      void* scratch, void* out, int batch, int t_len, long long u_stride,    \
+      int threads, void* stream) {                                           \
+    return launch_smoother<D, true>(nullptr, tm, rqr, h, p0, alpha1, w, eps, \
+                                    y, obs, scratch, out, batch, t_len, zt,  \
+                                    hs, u, u_stride, threads, stream);       \
   }
 
 #define BOOM_LOGLIK_ALL_D(TY, TYNAME) \
@@ -813,3 +988,20 @@ BOOM_SMOOTHER_ENTRY(double, f64, 3)
 BOOM_SMOOTHER_ENTRY(double, f64, 4)
 BOOM_SMOOTHER_ENTRY(double, f64, 5)
 BOOM_SMOOTHER_ENTRY(double, f64, 6)
+
+#define BOOM_LOGLIK_TV_ALL_D(TY, TYNAME) \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 1)    \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 2)    \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 3)    \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 4)    \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 5)    \
+  BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, 6)
+
+BOOM_LOGLIK_TV_ALL_D(float, f32)
+BOOM_LOGLIK_TV_ALL_D(double, f64)
+BOOM_SMOOTHER_TV_ENTRY(1)
+BOOM_SMOOTHER_TV_ENTRY(2)
+BOOM_SMOOTHER_TV_ENTRY(3)
+BOOM_SMOOTHER_TV_ENTRY(4)
+BOOM_SMOOTHER_TV_ENTRY(5)
+BOOM_SMOOTHER_TV_ENTRY(6)

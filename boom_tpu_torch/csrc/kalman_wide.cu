@@ -458,7 +458,7 @@ __device__ __forceinline__ double dot_shared(const double* a,
 // 8 doubles, so the broadcast loads of a warp's 2 or 4 chains fall in
 // different banks. kChunk is the longest (16, 8, 6, 4 or 2 steps) with
 // which kWideMinBlocks blocks fit an SM.
-template <int D, int kPass>
+template <int D, int kPass, bool kTv = false>
 struct Wide {
   static constexpr int kW = group_lanes(D);
   static constexpr int kPerWarp = kWarp / kW;
@@ -467,7 +467,14 @@ struct Wide {
   static constexpr int kVec = D + D % 2;
   static constexpr int kRec = D + 1;
   static constexpr int kP = kPass == 1 ? D * kLd : 0;
-  static constexpr int kStep = kPass == 3 ? 2 * D + 1 : D + 1;
+  // a time-varying system's pass 1 stages z_t at kZ (pair-aligned), u_t at
+  // kU and hs[t] at kS of a step's slot; its pass 3 u_{t-1} after w
+  static constexpr int kZ = (D + 2) / 2 * 2;
+  static constexpr int kU = kZ + D;
+  static constexpr int kS = kU + D;
+  static constexpr int kStep = kPass == 1   ? (kTv ? (kS + 2) / 2 * 2 : D + 1)
+                               : kPass == 3 ? (kTv ? 3 * D + 1 : 2 * D + 1)
+                                            : D + 1;
   // Registers: at most 128 (four blocks an SM), with no spill. Past d = 8
   // pass 1 reads the column of R Q R' from the cache, not from registers
   // (they hold T's row, L's row and the sums), and past d = 12 it unrolls
@@ -493,8 +500,13 @@ struct Wide {
 // as K2's (kalman_seq.cu): w [C, T-1, D] = R chol(Q) eta, eps [C, T] =
 // sqrt(h) eps_z, alpha1 [C, D]; scratch [C, T, D+1]: pass 1 writes
 // (v/f, K) of step t at slot t, pass 2 overwrites its first D with
-// r_{t-1}, pass 3 reads them and writes the draw.
-template <int D, int kPass>
+// r_{t-1}, pass 3 reads them and writes the draw. kTv (a time-varying
+// system): z_t of zt [T, D] (one for every chain) in place of z, h_t =
+// h hs[t], and R Q_t R' = (u_t u_t') o R Q R' with u_t of u [., T, D] at
+// u + c u_stride (R a 0/1 selection); pass 1 stages z_t, u_t and hs[t]
+// into the step's slot with w_t and eps_t, pass 2 reads its lane's z_t[i]
+// one step ahead, pass 3 stages u_{t-1} beside w.
+template <int D, int kPass, bool kTv>
 __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     smoother_wide_kernel(const double* __restrict__ z,
                          const double* __restrict__ tm,
@@ -507,8 +519,11 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
                          const double* __restrict__ y,
                          const unsigned char* __restrict__ obs,
                          double* __restrict__ scratch,
-                         double* __restrict__ out, int batch, int t_len) {
-  using S = Wide<D, kPass>;
+                         double* __restrict__ out, int batch, int t_len,
+                         const double* __restrict__ zt,
+                         const double* __restrict__ hs,
+                         const double* __restrict__ u, long long u_stride) {
+  using S = Wide<D, kPass, kTv>;
   constexpr int W = S::kW, kLd = S::kLd, kVec = S::kVec, kRec = S::kRec;
   constexpr int kChunk = S::kChunk;
   BOOM_SHARED_BYTES(smem_raw);
@@ -531,7 +546,8 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
   const double* q_c = rqr + cd * D;
   const double* w_c = w + static_cast<long long>(c) * (t_len - 1) * D;
   double* scr_c = scratch + static_cast<long long>(c) * t_len * kRec;
-  const double zi = act ? z[cd + i] : 0.0;
+  const double* u_c = u + static_cast<long long>(c) * u_stride;
+  double zi = act && !kTv ? z[cd + i] : 0.0;
   const int n_chunks = (t_len + kChunk - 1) / kChunk;
   auto chunk_len = [&](int j) {
     const int left = t_len - j * kChunk;
@@ -553,6 +569,16 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     if (live)
       for (int g = il; g < count; g += W) dst[g] = src[g];
   };
+  // the group stores `count` doubles of its chain's slots (kRec each, a
+  // step's slot kStep apart in src) as one contiguous run
+  auto store_slots = [&](double* dst, const double* src, int count) {
+    if constexpr (S::kStep == kRec) {
+      store_run(dst, src, count);
+    } else if (live) {
+      for (int g = il; g < count; g += W)
+        dst[g] = src[g / kRec * S::kStep + g % kRec];
+    }
+  };
 
   if constexpr (kPass == 1) {
     // 1. forward: simulate alpha+ and filter y - y+ (kalman.py:460-473); a
@@ -572,12 +598,19 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
       const int r = e / D;
       px[r * kLd + (e - r * D)] = p0[cd * D + e];
     }
-    if (act) zv[i] = zi;
+    if (act && !kTv) zv[i] = zi;
     const double hh = h[c];
     auto stage1 = [&](int j, int b) {
       const int t0 = j * kChunk;
-      stage_run(stage(b), w_c + t0 * D, w_len(j) * D, D, kRec);
-      stage_run(stage(b) + D, eps_c + t0, chunk_len(j), 1, kRec);
+      stage_run(stage(b), w_c + t0 * D, w_len(j) * D, D, S::kStep);
+      stage_run(stage(b) + D, eps_c + t0, chunk_len(j), 1, S::kStep);
+      if constexpr (kTv) {
+        stage_run(stage(b) + S::kZ, zt + t0 * D, chunk_len(j) * D, D,
+                  S::kStep);
+        stage_run(stage(b) + S::kU, u_c + t0 * D, chunk_len(j) * D, D,
+                  S::kStep);
+        stage_run(stage(b) + S::kS, hs + t0, chunk_len(j), 1, S::kStep);
+      }
     };
     double a_i = 0.0;  // the filter on y - y+ starts from a0 = 0
     double sim_i = alpha1[cd + i];
@@ -594,7 +627,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
       __syncwarp();
       for (int s = 0; s < n; ++s) {
         const int t = t0 + s;
-        double* slot = stage(b) + s * kRec;
+        double* slot = stage(b) + s * S::kStep;
         const double yt = y_n;
         const bool ob = o_n;
         if (t + 1 < t_len) {
@@ -603,10 +636,17 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         }
         const double wt = slot[i];  // w_t[i] (none at t = T - 1)
         const double et = slot[D];
+        double ht = hh, ui = 0.0;
+        if constexpr (kTv) {
+          zv = slot + S::kZ;
+          zi = act ? zv[i] : 0.0;
+          ui = slot[S::kU + i];
+          ht = hh * slot[S::kS];
+        }
         const double pz = dot_shared<D>(px + i * kLd, zv);  // P z, row i
         const double zs = group_sum<W>(zi * sim_i, lane);
         const double za = group_sum<W>(zi * a_i, lane);
-        const double f = group_sum<W>(zi * pz, lane) + hh;
+        const double f = group_sum<W>(zi * pz, lane) + ht;
         const double v = ob ? (yt - (zs + et)) - za : 0.0;
         const double rf = reciprocal(f);
         // (T P) row i into Y, two columns at a time
@@ -653,6 +693,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
             q = qv[jj];
           else
             q = q_c[jj * D + i];
+          if constexpr (kTv) q = (slot[S::kU + jj] * ui) * q;
           const double pn = dot_pairs<D>(lrow, py + jj * kLd) + q;
           if (act) px[jj * kLd + i] = pn;
         }
@@ -674,7 +715,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         px = py;
         py = swap;
       }
-      store_run(scr_c + t0 * kRec, stage(b), n * kRec);
+      store_slots(scr_c + t0 * kRec, stage(b), n * kRec);
       __syncwarp();  // the group is done with buffer b before it is refilled
     }
   } else if constexpr (kPass == 2) {
@@ -692,6 +733,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     stage2(n_chunks - 1, 0);
     async_commit();
     bool o_n = obs == nullptr || obs[t_len - 1] != 0;
+    double z_n = kTv && act ? zt[(t_len - 1) * D + i] : zi;
     for (int jj = 0; jj < n_chunks; ++jj) {
       const int j = n_chunks - 1 - jj, b = jj & 1;
       const int t0 = j * kChunk, n = chunk_len(j);
@@ -704,6 +746,10 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         double* slot = stage(b) + s * kRec;
         const bool ob = o_n;
         if (t > 0) o_n = obs == nullptr || obs[t - 1] != 0;
+        if constexpr (kTv) {
+          zi = z_n;
+          if (t > 0 && act) z_n = zt[(t - 1) * D + i];
+        }
         const double vf = slot[0];
         double* xk = ex + (t & 1) * 2 * kVec;  // K, then r
         if (act) {
@@ -743,10 +789,17 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
       trow[m] = tm_c[i * D + m];
       qrow[m] = q_c[i * D + m];  // row i of R Q R'
     }
+    // u_{t-1} of step t of chunk j (none at t = 0) at kChunk (kRec + D)
+    constexpr int kUOff = kChunk * (kRec + D);
     auto stage3 = [&](int j, int b) {
       const int t0 = j * kChunk;
       stage_run(stage(b), scr_c + t0 * kRec, chunk_len(j) * kRec, 1, 1);
       stage_run(stage(b) + kChunk * kRec, w_c + t0 * D, w_len(j) * D, 1, 1);
+      if constexpr (kTv) {
+        const int s0 = j == 0 ? 1 : 0;
+        stage_run(stage(b) + kUOff + s0 * D, u_c + (t0 - 1 + s0) * D,
+                  (chunk_len(j) - s0) * D, 1, 1);
+      }
     };
     double sim_i = alpha1[cd + i];
     double ah = 0.0;
@@ -775,7 +828,17 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
           for (int m = 1; m < D; ++m) ah = ah + p0_c[i * D + m] * rs[m];
         } else {
           const double ta = dot_pairs<D>(trow, xa);
-          const double qr = dot<D>(qrow, rs);
+          double qr;
+          if constexpr (kTv) {
+            // row i of R Q_{t-1} R' = (u_i u_m) R Q R'[i][m]
+            const double* us = stage(b) + kUOff + s * D;
+            const double ui = us[i];
+            qr = ((ui * us[0]) * qrow[0]) * rs[0];
+#pragma unroll
+            for (int m = 1; m < D; ++m) qr = qr + ((ui * us[m]) * qrow[m]) * rs[m];
+          } else {
+            qr = dot<D>(qrow, rs);
+          }
           ah = ta + qr;
         }
         const double draw = sim_i + ah;
@@ -939,16 +1002,17 @@ constexpr int kMaxDirections = 16;
 // the scalar that carries the derivatives: T in K1w, a Tangent in J1 and
 // J2), the exchange vectors P z and a (D of S each) and z (D of T). J1 and
 // J2 stage the directions ahead of the units: dh [K], then dm [K, D, D].
-template <typename T, typename S, int D>
+template <typename T, typename S, int D, bool kTv = false>
 struct WideLoglik {
   static constexpr int kW = group_lanes(D);
   static constexpr int kPerWarp = kWarp / kW;
   static constexpr int kUnits = kBlock / kWarp * kPerWarp;
   static constexpr int kLd = D + 1;
+  // a time-varying system's u_t (D of T) follows z
   static constexpr int kUnitBytes =
       (2 * D * kLd * static_cast<int>(sizeof(S)) +
-       2 * D * static_cast<int>(sizeof(S)) + D * static_cast<int>(sizeof(T)) +
-       15) / 16 * 16;
+       2 * D * static_cast<int>(sizeof(S)) +
+       (kTv ? 2 : 1) * D * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
   // K1w keeps the column of R Q R' in registers while it costs at most 16
   // of them (float32 at every d, float64 to d = 8) and reads it from the
   // cache past that
@@ -981,8 +1045,13 @@ struct WideLoglik {
 // the diagonal exact, into Y; three __syncwarp()s a step. z'a and z'P z are
 // group butterflies (the same bits on every lane of the group, so the units
 // never diverge and repeated launches are bit-identical). A unit past the
-// last shadows it and writes nothing; lanes i >= D shadow row 0.
-template <typename T, typename S, int D, int kOrder>
+// last shadows it and writes nothing; lanes i >= D shadow row 0. kTv (K1w
+// of a time-varying system, kOrder 0): z_t of zt [T, D] (one for every
+// system) in place of z, h_t = h hs[t], and R Q_t R' = (u_t u_t') o R Q R'
+// with u_t of ut_s [., T, D] at ut_s + b u_stride (R a 0/1 selection); lane i
+// publishes u_t[i] with P z and a, and z_{t+1}[i] once P' is whole, each
+// read from the cache a step ahead.
+template <typename T, typename S, int D, int kOrder, bool kTv = false>
 __global__ void __launch_bounds__(kBlock)
     wide_loglik_kernel(const T* __restrict__ z, const T* __restrict__ tm,
                        const T* __restrict__ rqr, const T* __restrict__ h,
@@ -994,8 +1063,11 @@ __global__ void __launch_bounds__(kBlock)
                        T* __restrict__ hess, T* __restrict__ vout,
                        T* __restrict__ fout, int batch, int t_len,
                        int per_series, int n_dirs, int tm_stride,
-                       int z_stride) {
-  using L = WideLoglik<T, S, D>;
+                       int z_stride, const T* __restrict__ zt,
+                       const T* __restrict__ hs, const T* __restrict__ ut_s,
+                       long long u_stride) {
+  static_assert(!kTv || kOrder == 0, "a time-varying system's loglik only");
+  using L = WideLoglik<T, S, D, kTv>;
   constexpr int W = L::kW, kLd = L::kLd;
   BOOM_SHARED_BYTES(smem_raw);
   const int lane = threadIdx.x % kWarp;
@@ -1035,6 +1107,7 @@ __global__ void __launch_bounds__(kBlock)
   S* xpz = py + D * kLd;               // P z
   S* xa = xpz + D;                     // a
   T* zv = reinterpret_cast<T*>(xa + D);
+  T* xu = zv + D;                      // u_t (kTv)
 
   const long long bd = static_cast<long long>(b) * D;
   const T* tm_b = tm + static_cast<long long>(b) * tm_stride;
@@ -1051,7 +1124,9 @@ __global__ void __launch_bounds__(kBlock)
     const int r = k / D;
     px[r * kLd + (k - r * D)] = S(p0[bd * D + k]);
   }
-  const T zi = act ? z[static_cast<long long>(b) * z_stride + i] : T(0);
+  const T* u_b = ut_s + static_cast<long long>(b) * u_stride;
+  T zi = act ? (kTv ? zt[i] : z[static_cast<long long>(b) * z_stride + i])
+             : T(0);
   if (act) zv[i] = zi;
   S a_i = S(a0[bd + i]);
   // h and the column of R Q R' with their derivatives along (di, dj)
@@ -1078,19 +1153,31 @@ __global__ void __launch_bounds__(kBlock)
   S acc = zero;
   T y_n = y_b[0];
   bool o_n = obs == nullptr || obs[0] != 0;
+  T u_n = kTv ? u_b[i] : T(0), s_n = kTv ? hs[0] : T(1);
   __syncwarp();
   for (int t = 0; t < t_len; ++t) {
     const T yt = y_n;
     const bool ob = o_n;
+    const T ut = u_n, st = s_n;
+    T z_n = zi;
     if (t + 1 < t_len) {
       y_n = y_b[t + 1];
       o_n = obs == nullptr || obs[t + 1] != 0;
+      if constexpr (kTv) {
+        u_n = u_b[(t + 1) * D + i];
+        s_n = hs[t + 1];
+        if (act) z_n = zt[(t + 1) * D + i];
+      }
     }
     S pz = px[i * kLd] * zv[0];  // P z, row i
 #pragma unroll
     for (int j = 1; j < D; ++j) pz = pz + px[i * kLd + j] * zv[j];
     const S za = group_sum<W>(zi * a_i, lane);
-    const S f = group_sum<W>(zi * pz, lane) + hh;
+    S f;
+    if constexpr (kTv)
+      f = group_sum<W>(zi * pz, lane) + hh * st;
+    else
+      f = group_sum<W>(zi * pz, lane) + hh;
     const S v = ob ? yt - za : zero;
     const S rf = reciprocal(f);
     // (T P) row i into Y
@@ -1104,6 +1191,7 @@ __global__ void __launch_bounds__(kBlock)
     if (act) {
       xpz[i] = pz;
       xa[i] = a_i;
+      if constexpr (kTv) xu[i] = ut;
     }
     __syncwarp();  // P z, a and T P are whole; P is read
     S tpz = trow[0] * xpz[0], ta = trow[0] * xa[0];
@@ -1120,7 +1208,10 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int m = 1; m < D; ++m)
         pn = pn + (trow[m] - k * zv[m]) * py[jj * kLd + m];
-      pn = pn + q_of(jj);
+      if constexpr (kTv)
+        pn = pn + (xu[jj] * ut) * q_of(jj);
+      else
+        pn = pn + q_of(jj);
       if (act) px[jj * kLd + i] = pn;
     }
     a_i = ta + k * v;
@@ -1132,6 +1223,10 @@ __global__ void __launch_bounds__(kBlock)
     }
     if (ob) acc = acc + log_density(v, f, rf);
     __syncwarp();  // P' is whole in X
+    if constexpr (kTv) {  // every read of z_t and u_t is done
+      zi = z_n;
+      if (act) zv[i] = zi;
+    }
     // 0.5 (P' + P'^T), the diagonal P'_ii exactly, row i into Y
     if (act) {
       for (int jj = 0; jj < D; ++jj)
@@ -1434,15 +1529,17 @@ bool bad_block(int threads) {
   return threads < kWarp || threads > kBlock || threads % kWarp != 0;
 }
 
-template <int D, int kPass>
+template <int D, int kPass, bool kTv>
 cudaError_t launch_wide_pass(const void* z, const void* tm, const void* rqr,
                              const void* h, const void* p0,
                              const void* alpha1, const void* w,
                              const void* eps, const void* y, const void* obs,
                              void* scratch, void* out, int batch, int t_len,
-                             int threads, cudaStream_t st) {
-  using S = Wide<D, kPass>;
-  auto kernel = smoother_wide_kernel<D, kPass>;
+                             const void* zt, const void* hs, const void* u,
+                             long long u_stride, int threads,
+                             cudaStream_t st) {
+  using S = Wide<D, kPass, kTv>;
+  auto kernel = smoother_wide_kernel<D, kPass, kTv>;
   static const cudaError_t attr = allow_shared(kernel, S::kBlockBytes);
   if (attr != cudaSuccess) return attr;
   const int chains = threads / kWarp * S::kPerWarp;
@@ -1454,28 +1551,33 @@ cudaError_t launch_wide_pass(const void* z, const void* tm, const void* rqr,
       static_cast<const double*>(w), static_cast<const double*>(eps),
       static_cast<const double*>(y), static_cast<const unsigned char*>(obs),
       static_cast<double*>(scratch), static_cast<double*>(out), batch,
-      t_len);
+      t_len, static_cast<const double*>(zt), static_cast<const double*>(hs),
+      static_cast<const double*>(u), u_stride);
   return cudaGetLastError();
 }
 
 // K2w's three passes, one launch each on the stream (each reads what the
 // one before it wrote).
-template <int D>
+template <int D, bool kTv>
 int launch_smoother_wide(const void* z, const void* tm, const void* rqr,
                          const void* h, const void* p0, const void* alpha1,
                          const void* w, const void* eps, const void* y,
                          const void* obs, void* scratch, void* out,
-                         int batch, int t_len, int threads, void* stream) {
+                         int batch, int t_len, const void* zt, const void* hs,
+                         const void* u, long long u_stride, int threads,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_wide_pass<D, 1>(z, tm, rqr, h, p0, alpha1, w, eps,
-                                           y, obs, scratch, out, batch,
-                                           t_len, threads, st);
+  cudaError_t err = launch_wide_pass<D, 1, kTv>(
+      z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch, t_len,
+      zt, hs, u, u_stride, threads, st);
   if (err == cudaSuccess)
-    err = launch_wide_pass<D, 2>(z, tm, rqr, h, p0, alpha1, w, eps, y, obs,
-                                 scratch, out, batch, t_len, threads, st);
+    err = launch_wide_pass<D, 2, kTv>(z, tm, rqr, h, p0, alpha1, w, eps, y,
+                                      obs, scratch, out, batch, t_len, zt, hs,
+                                      u, u_stride, threads, st);
   if (err == cudaSuccess)
-    err = launch_wide_pass<D, 3>(z, tm, rqr, h, p0, alpha1, w, eps, y, obs,
-                                 scratch, out, batch, t_len, threads, st);
+    err = launch_wide_pass<D, 3, kTv>(z, tm, rqr, h, p0, alpha1, w, eps, y,
+                                      obs, scratch, out, batch, t_len, zt, hs,
+                                      u, u_stride, threads, st);
   return static_cast<int>(err);
 }
 
@@ -1556,17 +1658,20 @@ int dispatch_dpath(const void* tm, const void* w, void* out, int batch,
   }
 }
 
-// K1w (kOrder 0) or J1 / J2 over `batch` systems: one launch.
-template <typename T, typename S, int D, int kOrder>
+// K1w (kOrder 0; kTv: of a time-varying system) or J1 / J2 over `batch`
+// systems: one launch.
+template <typename T, typename S, int D, int kOrder, bool kTv = false>
 int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
                        const void* h, const void* a0, const void* p0,
                        const void* y, const void* obs, const void* dh,
                        const void* dm, void* ll, void* grad, void* hess,
                        void* vout, void* fout, int batch, int t_len,
                        int n_series, int n_dirs, int tm_stride, int z_stride,
-                       int threads, void* stream) {
-  using L = WideLoglik<T, S, D>;
-  auto kernel = wide_loglik_kernel<T, S, D, kOrder>;
+                       int threads, void* stream, const void* zt = nullptr,
+                       const void* hs = nullptr, const void* u = nullptr,
+                       long long u_stride = 0) {
+  using L = WideLoglik<T, S, D, kTv>;
+  auto kernel = wide_loglik_kernel<T, S, D, kOrder, kTv>;
   static const cudaError_t attr = allow_shared(kernel, L::kMaxBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long entries = kOrder == 0   ? 1
@@ -1587,7 +1692,9 @@ int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
       static_cast<const T*>(dh), static_cast<const T*>(dm),
       static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
       static_cast<T*>(vout), static_cast<T*>(fout), batch, t_len,
-      batch / n_series, n_dirs, tm_stride, z_stride);
+      batch / n_series, n_dirs, tm_stride, z_stride,
+      static_cast<const T*>(zt), static_cast<const T*>(hs),
+      static_cast<const T*>(u), u_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1683,6 +1790,41 @@ int dispatch_loglik_wide(const void* z, const void* tm, const void* rqr,
   }
 }
 
+// K1w of a time-varying system: every one goes to the group kernel
+// (wide_loglik_kernel<T, T, D, 0, true>), the thread kernel keeps static
+// systems.
+template <typename T>
+int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
+                            const void* a0, const void* p0, const void* y,
+                            const void* obs, const void* zt, const void* hs,
+                            const void* u, void* ll, void* vout, void* fout,
+                            int batch, int t_len, int n_series, int d,
+                            int shared, long long u_stride, int threads,
+                            void* stream) {
+  if (bad_series(batch, t_len, n_series, threads) ||
+      (vout == nullptr) != (fout == nullptr) || u_stride < 0 ||
+      (shared & ~kSharedTm) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  switch (d) {
+#define BOOM_LOGLIK_WIDE_TV_CASE(D)                                         \
+  case D:                                                                   \
+    return launch_wide_loglik<T, T, D, 0, true>(                            \
+        nullptr, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr, \
+        nullptr, vout, fout, batch, t_len, n_series, 0,                     \
+        shared & kSharedTm ? 0 : D * D, 0, threads, stream, zt, hs, u,      \
+        u_stride);
+    BOOM_LOGLIK_WIDE_TV_CASE(7) BOOM_LOGLIK_WIDE_TV_CASE(8)
+    BOOM_LOGLIK_WIDE_TV_CASE(9) BOOM_LOGLIK_WIDE_TV_CASE(10)
+    BOOM_LOGLIK_WIDE_TV_CASE(11) BOOM_LOGLIK_WIDE_TV_CASE(12)
+    BOOM_LOGLIK_WIDE_TV_CASE(13) BOOM_LOGLIK_WIDE_TV_CASE(14)
+    BOOM_LOGLIK_WIDE_TV_CASE(15) BOOM_LOGLIK_WIDE_TV_CASE(16)
+#undef BOOM_LOGLIK_WIDE_TV_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int kOrder>
 int dispatch_jet(const void* z, const void* tm, const void* rqr,
                  const void* h, const void* a0, const void* p0,
@@ -1735,13 +1877,44 @@ extern "C" int boom_kalman_smoother_wide_f64(
   switch (d) {
 #define BOOM_WIDE_CASE(D)                                                   \
   case D:                                                                   \
-    return launch_smoother_wide<D>(z, tm, rqr, h, p0, alpha1, w, eps, y,    \
-                                   obs, scratch, out, batch, t_len, threads, \
-                                   stream);
+    return launch_smoother_wide<D, false>(z, tm, rqr, h, p0, alpha1, w, eps, \
+                                          y, obs, scratch, out, batch, t_len,\
+                                          nullptr, nullptr, nullptr, 0,     \
+                                          threads, stream);
     BOOM_WIDE_CASE(7) BOOM_WIDE_CASE(8) BOOM_WIDE_CASE(9) BOOM_WIDE_CASE(10)
     BOOM_WIDE_CASE(11) BOOM_WIDE_CASE(12) BOOM_WIDE_CASE(13)
     BOOM_WIDE_CASE(14) BOOM_WIDE_CASE(15) BOOM_WIDE_CASE(16)
 #undef BOOM_WIDE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2w of a time-varying system (smoother_wide_kernel<D, pass, true>): the
+// static entry's arrays without z, then zt [T, d] (one z_t for every
+// chain), hs [T] (h_t = h hs[t]) and u [U, T, d] with u_stride = T d (U =
+// B) or 0 (U = 1), R a 0/1 selection with at most one 1 a row.
+extern "C" int boom_kalman_smoother_wide_tv_f64(
+    const void* tm, const void* rqr, const void* h, const void* p0,
+    const void* alpha1, const void* w, const void* eps, const void* y,
+    const void* obs, const void* zt, const void* hs, const void* u,
+    void* scratch, void* out, int batch, int t_len, long long u_stride,
+    int d, int threads, void* stream) {
+  if (batch < 0 || t_len < 1 || bad_block(threads) || u_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  switch (d) {
+#define BOOM_WIDE_TV_CASE(D)                                                \
+  case D:                                                                   \
+    return launch_smoother_wide<D, true>(nullptr, tm, rqr, h, p0, alpha1, w,\
+                                         eps, y, obs, scratch, out, batch,  \
+                                         t_len, zt, hs, u, u_stride,        \
+                                         threads, stream);
+    BOOM_WIDE_TV_CASE(7) BOOM_WIDE_TV_CASE(8) BOOM_WIDE_TV_CASE(9)
+    BOOM_WIDE_TV_CASE(10) BOOM_WIDE_TV_CASE(11) BOOM_WIDE_TV_CASE(12)
+    BOOM_WIDE_TV_CASE(13) BOOM_WIDE_TV_CASE(14) BOOM_WIDE_TV_CASE(15)
+    BOOM_WIDE_TV_CASE(16)
+#undef BOOM_WIDE_TV_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1779,6 +1952,33 @@ extern "C" int boom_kalman_loglik_wide_f64(
   return dispatch_loglik_wide<double>(z, tm, rqr, h, a0, p0, y, obs, ll,
                                       vout, fout, batch, t_len, n_series, d,
                                       shared, threads, stream);
+}
+
+// K1w of a time-varying system: K1w's arrays without z, then zt [T, d],
+// hs [T] and u [U, T, d] as boom_kalman_smoother_wide_tv_f64 takes them;
+// `shared` may hold kSharedTm alone.
+extern "C" int boom_kalman_loglik_wide_tv_f32(
+    const void* tm, const void* rqr, const void* h, const void* a0,
+    const void* p0, const void* y, const void* obs, const void* zt,
+    const void* hs, const void* u, void* ll, void* vout, void* fout,
+    int batch, int t_len, int n_series, int d, int shared,
+    long long u_stride, int threads, void* stream) {
+  return dispatch_loglik_wide_tv<float>(tm, rqr, h, a0, p0, y, obs, zt, hs,
+                                        u, ll, vout, fout, batch, t_len,
+                                        n_series, d, shared, u_stride,
+                                        threads, stream);
+}
+
+extern "C" int boom_kalman_loglik_wide_tv_f64(
+    const void* tm, const void* rqr, const void* h, const void* a0,
+    const void* p0, const void* y, const void* obs, const void* zt,
+    const void* hs, const void* u, void* ll, void* vout, void* fout,
+    int batch, int t_len, int n_series, int d, int shared,
+    long long u_stride, int threads, void* stream) {
+  return dispatch_loglik_wide_tv<double>(tm, rqr, h, a0, p0, y, obs, zt, hs,
+                                         u, ll, vout, fout, batch, t_len,
+                                         n_series, d, shared, u_stride,
+                                         threads, stream);
 }
 
 extern "C" int boom_kalman_jet_f64(

@@ -21,6 +21,20 @@ needs JAX to make them (numpy only).
   of x are the fit's, rows 500-529 the forecast's future predictors.
   ``tests/test_torch_bsts_reg_data.py`` remakes them with JAX and
   compares, and writes the file when run as a script.
+- ``bsts_tv.npz``: the bsts_tv configuration's data, made with numpy
+  alone by :func:`make_bsts_tv` (``tests/test_torch_bsts_tv_data.py``
+  remakes it and compares, and writes the file when run as a script): a
+  daily series on a grid of 500 days, with about 5 % of the days dropped
+  and about 2 % observed twice (``timestamps`` [n] in days, ``y`` [n],
+  float32); its signal is a local linear trend with Student-t (3 df)
+  innovations (level sd 0.1, slope sd 0.01), a 7-day dummy seasonal, two
+  dynamic regressors ``x_dyn`` [530, 2] whose coefficients are random
+  walks (sd 0.02), a 3-day holiday window recurring every ~60 days
+  (``active`` [530]: the day of the window, -1 outside it; each day's
+  effect a random walk, sd 0.2, that moves when the day recurs) and 20
+  static predictors ``x`` [n, 20] (a duplicated day repeats its row) with
+  beta = (3, -2, 1.5, 1, 0 x 16), plus N(0, 0.5^2) noise. Rows 500-529 of
+  ``x_dyn`` and ``active``, and ``x_future`` [30, 20], are the forecast's.
 """
 
 from __future__ import annotations
@@ -32,6 +46,11 @@ import numpy as np
 BSTS_LLT_Y = Path(__file__).resolve().parent / "bsts_llt_y.txt"
 SPIKE_SLAB_XY = Path(__file__).resolve().parent / "spike_slab_xy.npz"
 BSTS_REG_XY = Path(__file__).resolve().parent / "bsts_reg.npz"
+BSTS_TV = Path(__file__).resolve().parent / "bsts_tv.npz"
+# bsts_tv: the grid's days, the forecast's, the static predictors, the
+# holiday window's days and the seed of make_bsts_tv
+BSTS_TV_GRID, BSTS_TV_HORIZON, BSTS_TV_P, BSTS_TV_WINDOW = 500, 30, 20, 3
+BSTS_TV_SEED = 2027
 
 
 def bsts_llt_series() -> np.ndarray:
@@ -51,3 +70,46 @@ def bsts_reg_xy() -> tuple[np.ndarray, np.ndarray]:
     predictors), y [500], float32."""
     with np.load(BSTS_REG_XY, allow_pickle=False) as f:
         return f["x"], f["y"]
+
+
+def make_bsts_tv(seed=BSTS_TV_SEED) -> dict:
+    """The bsts_tv data from a numpy seed (see the module's docstring)."""
+    rng = np.random.default_rng(seed)
+    t_all = BSTS_TV_GRID + BSTS_TV_HORIZON
+    slope = np.cumsum(0.01 * rng.standard_t(3, t_all))
+    level = np.cumsum(slope + 0.1 * rng.standard_t(3, t_all))
+    pattern = rng.normal(size=7)
+    season = (pattern - pattern.mean())[np.arange(t_all) % 7]
+    x_dyn = rng.normal(size=(t_all, 2))
+    coef = np.array([1.0, -0.5]) + np.cumsum(
+        0.02 * rng.normal(size=(t_all, 2)), axis=0)
+    active = np.full(t_all, -1, np.int64)
+    effect = np.array([2.0, 3.0, 1.0])
+    holiday = np.zeros(t_all)
+    for start in range(20, t_all - BSTS_TV_WINDOW, 60):
+        start += int(rng.integers(-3, 4))
+        for j in range(BSTS_TV_WINDOW):
+            effect[j] += 0.2 * rng.normal()
+            active[start + j] = j
+            holiday[start + j] = effect[j]
+    x = rng.normal(size=(t_all, BSTS_TV_P))
+    beta = np.zeros(BSTS_TV_P)
+    beta[:4] = (3.0, -2.0, 1.5, 1.0)
+    signal = level + season + (x_dyn * coef).sum(1) + holiday + x @ beta
+    days = np.arange(BSTS_TV_GRID)
+    keep = rng.random(BSTS_TV_GRID) >= 0.05
+    keep[[0, -1]] = True
+    twice = keep & (rng.random(BSTS_TV_GRID) < 0.02)
+    obs = np.repeat(days, keep.astype(np.int64) + twice)
+    y = signal[obs] + 0.5 * rng.normal(size=obs.shape[0])
+    f32 = np.float32
+    return {"timestamps": obs.astype(np.int64), "y": y.astype(f32),
+            "x": x[obs].astype(f32),
+            "x_future": x[BSTS_TV_GRID:].astype(f32),
+            "x_dyn": x_dyn.astype(f32), "active": active}
+
+
+def bsts_tv() -> dict:
+    """The committed bsts_tv data (:func:`make_bsts_tv`'s keys)."""
+    with np.load(BSTS_TV, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}

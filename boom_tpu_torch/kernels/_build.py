@@ -38,9 +38,12 @@ SCAN_DIMS = tuple(range(1, 7))
 SCAN_MIN_TILE = 128
 
 # the C entries of kalman_seq.cu: (dtype tags, state dims) of each kernel
-# (K1 "loglik", K2 "smoother")
+# (K1 "loglik", K2 "smoother"; "loglik_tv", "smoother_tv": their forms for
+# a time-varying system)
 KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
-                  "smoother": (("f64",), tuple(range(1, 7)))}
+                  "smoother": (("f64",), tuple(range(1, 7))),
+                  "loglik_tv": (("f32", "f64"), tuple(range(1, 7))),
+                  "smoother_tv": (("f64",), tuple(range(1, 7)))}
 # the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
 SSVS_DTYPES = ("f32", "f64")
 # kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS), K3
@@ -76,6 +79,17 @@ _ARGTYPES = {
     "ssvs_sweep": [_P] * 15 + [_I] * 5 + [_P],
     # the smoother's pointers, batch, t_len, d, threads, stream
     "smoother_wide": [_P] * 12 + [_I] * 4 + [_P],
+    # a time-varying system's (no z; zt, hs, u and u_stride added):
+    # tm, rqr, h, a0, p0, y, obs, zt, hs, u, ll, vout, fout, batch, t_len,
+    # n_series, u_stride, threads, stream
+    "loglik_tv": [_P] * 13 + [_I] * 3 + [_L, _I, _P],
+    # tm, rqr, h, p0, alpha1, w, eps, y, obs, zt, hs, u, scratch, out,
+    # batch, t_len, u_stride, threads, stream
+    "smoother_tv": [_P] * 14 + [_I, _I, _L, _I, _P],
+    # K1w's: as "loglik_tv" with d and the shared bits after n_series
+    "loglik_wide_tv": [_P] * 13 + [_I] * 5 + [_L, _I, _P],
+    # K2w's: as "smoother_tv" with d after u_stride
+    "smoother_wide_tv": [_P] * 14 + [_I, _I, _L, _I, _I, _P],
     # tm, w, out, batch, groups, t_len, d, threads, stream
     "dpath": [_P] * 3 + [_I] * 5 + [_P],
 }
@@ -156,10 +170,13 @@ def library(name: str) -> ctypes.CDLL:
             _declare(lib, "ssvs_sweep", f"boom_ssvs_sweep_{tag}")
     elif name == "kalman_wide":
         _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
+        _declare(lib, "smoother_wide_tv", "boom_kalman_smoother_wide_tv_f64")
         for tag in DPATH_DTYPES:
             _declare(lib, "dpath", f"boom_dpath_{tag}")
         for tag in LOGLIK_WIDE_DTYPES:
             _declare(lib, "loglik_wide", f"boom_kalman_loglik_wide_{tag}")
+            _declare(lib, "loglik_wide_tv",
+                     f"boom_kalman_loglik_wide_tv_{tag}")
         _declare(lib, "jet", "boom_kalman_jet_f64")
     else:
         for kind, (tags, dims) in KALMAN_ENTRIES.items():

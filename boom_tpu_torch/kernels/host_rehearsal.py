@@ -599,6 +599,55 @@ def check_wide(seed=0, wide_cases=WIDE_CASES, dpath_cases=DPATH_CASES):
     return out
 
 
+# the time-varying forms of K1 (d 1, 2, 3, 6), K1w (7, 8, 13, 16), K2 and
+# K2w: (d, systems, series, T, masked, q_scale) with q_scale one a system,
+# one for all or none; K1w over two blocks of 8 units at d 8 (17 systems)
+TV_CASES = [(d, b, s, t_len, masked, q_mode)
+            for d in (1, 2, 3, 6, 7, 8, 13, 16)
+            for b, s, t_len, masked, q_mode in (
+                (5, 1, 33, True, "chain"), (6, 3, 20, False, "shared"),
+                (3, 3, 9, True, None), (2, 1, 1, False, "chain"))]
+TV_CASES += [(8, 17, 17, 34, True, "chain"), (2, 33, 33, 40, True, "chain")]
+
+
+def check_time_varying(seed=0, cases=TV_CASES,
+                       dtypes=("float64", "float32")):
+    """K1, K1w (with their innovations), K2 and K2w of a time-varying
+    system (``kalman_timing.time_varying_system``) against the plain
+    versions: {case: worst normwise relative error}; the smoothers in
+    float64 only, on a series a chain where there are as many series as
+    systems."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import time_varying_system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dtype in dtypes:
+        for d, b, s, t_len, masked, q_mode in cases:
+            params = time_varying_system(rng, b, d, t_len, dtype, q_mode,
+                                         device="cpu")
+            y = _series_of(rng, (s, t_len) if s > 1 else (t_len,), dtype)
+            obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
+                   else None)
+            name = f"d={d} B={b} S={s} T={t_len} masked={masked} q={q_mode}"
+            got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+            want = kalman.kalman_loglik(params, y, obs, innovations=True)
+            out[f"loglik_tv {dtype} {name}"] = max(
+                _rel(a, w) for a, w in zip(got, want))
+            if dtype != "float64" or (s != 1 and s != b):
+                continue
+            nz = [torch.tensor(rng.normal(size=shape))
+                  for shape in ((b, d), (b, t_len - 1, d - 1 if d > 1 else 1),
+                                (b, t_len))]
+            out[f"smoother_tv {name}"] = _rel(
+                kk.simulation_smoother(params, y, *nz, observed=obs),
+                kalman.simulation_smoother(params, y, *nz, observed=obs))
+    return out
+
+
 def set_occupancy(lib, blocks):
     """The resident blocks an SM the host library's occupancy query
     reports: 0 makes K3's launcher take its short chunks, as on a card
@@ -714,6 +763,8 @@ def main():
         for k, v in check().items():
             print(f"host-compiled {k}: relative error {v:.3e}")
     for k, v in check_wide().items():
+        print(f"host-compiled {k}: relative error {v:.3e}")
+    for k, v in check_time_varying().items():
         print(f"host-compiled {k}: relative error {v:.3e}")
     set_occupancy(libs["kalman_wide"], 0)
     for k, v in check_wide(wide_cases=[]).items():

@@ -113,6 +113,18 @@ K1W_SHAPES = {
                         REG_CHAINS),
     "loglik_wide_d16": ("float32", REG_CHAINS * TIM_POINTS, 16, REG_T,
                         REG_CHAINS)}
+# the time-varying forms (z_t, h_t, Q_t with a q_t a chain: the Student
+# trend's weights) at chip_smoke.py phase 8's shapes: name: (dtype, batch,
+# d, T, series); K2w imputes every chain of bsts_tv (d = 13, a series a
+# chain: y - X beta), K1w scores log_lik's 200 draws (each on its own
+# series); K2 and K1 at the same widths at d = 4 (a Student trend and a
+# 2-column dynamic regression)
+TV_CHAINS, TV_T, TV_D, TV_DRAWS = 4096, 500, 13, 200
+TV_SHAPES = {
+    "smoother_wide_tv": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS),
+    "loglik_wide_tv": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS),
+    "smoother_tv": ("float64", TV_CHAINS, 4, TV_T, TV_CHAINS),
+    "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS)}
 # the shapes whose systems share one T and one z, expanded over the batch
 # as Bsts.ssm_params builds them (phase 7's K1w; K1w then reads them as
 # broadcasts)
@@ -195,7 +207,15 @@ def dual_step_flops(d, k):
     return sum(cost[op] * n for op, n in _jet_step_ops(d).items())
 
 
-def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS):
+def tv_step_flops(d):
+    """The operations a time-varying system adds to a filter step: R Q_t R'
+    = (u_t u_t') o R Q R' on the upper triangle (two products an entry)
+    and h_t = h s_t."""
+    return d * (d + 1) + 1
+
+
+def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
+             tv_rows=0):
     """The least time the card could take: each input read once and each
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
@@ -207,12 +227,20 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS):
     chain and writes the draw [T, d] (its scratch is not counted); K3
     ("dpath", ``batch`` the chains x groups) reads w [T-1, d] and writes
     D [T, d] a series (T, d x d a chain, is counted in the caller's
-    ``dpath_bound_ms``)."""
+    ``dpath_bound_ms``). ``tv_rows`` > 0: a time-varying system (K1 and K2
+    "loglik" and "smoother", and their wide forms) that also reads z_t [T,
+    d], h_scale [T] and ``tv_rows`` rows of u_t [T, d] (the batch's, or
+    one for all), and forms R Q_t R' and h_t a step (:func:`tv_step_flops`;
+    twice in the smoother: its forward and its state pass)."""
     item = 8 if dtype == "float64" else 4
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
+    tv_bytes = (t_len * d + t_len + tv_rows * t_len * d) * item \
+        if tv_rows else 0
     if name == "loglik":
-        n_bytes = (batch * (system + 1) + series * t_len) * item
+        n_bytes = (batch * (system + 1) + series * t_len) * item + tv_bytes
         flops = loglik_flops(batch, d, t_len)
+        if tv_rows:
+            flops += batch * t_len * tv_step_flops(d)
     elif name in ("loglik_grad", "loglik_hess"):
         hess = name == "loglik_hess"
         n_bytes = (batch * (system + 1 + k + hess * k * k) + k * (1 + d * d)
@@ -221,8 +249,10 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS):
                                  else dual_step_flops(d, k))
     elif name == "smoother":
         n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
-                   + t_len) * item
+                   + series * t_len) * item + tv_bytes
         flops = smoother_flops(batch, d, t_len)
+        if tv_rows:
+            flops += 2 * batch * t_len * tv_step_flops(d)
     elif name.startswith("dpath"):
         # K3 (``batch`` = chains x groups series of one chain's T): the
         # chain's T once, w [T-1, d] in, D [T, d] out a series; d^2
@@ -247,8 +277,40 @@ def system(rng, batch, d, dtype, device="cuda"):
     base = random_system(rng, min(batch, 64), d, getattr(torch, dtype),
                          device=device)
     reps = -(-batch // base.z.shape[0])
-    return SsmParams(*(f.repeat_interleave(reps, dim=0)[:batch].contiguous()
+    return SsmParams(*(None if f is None else
+                       f.repeat_interleave(reps, dim=0)[:batch].contiguous()
                        for f in base))
+
+
+def time_varying_system(rng, batch, d, t_len, dtype, q_mode="chain",
+                        device="cuda"):
+    """``batch`` stable systems (64 random ones, repeated) made
+    time-varying as bsts' blocks make them: z_t [T, d] one for every system
+    (expanded), h_scale [T] in [0.3, 1.5), and q_scale of the q = max(1, d
+    - 1) state errors (R the first q rows of the identity, a selection
+    whose last row is zero) in [0.5, 2): one a system ("chain", [B, T, q]),
+    one for all ("shared", [T, q] expanded) or none (None)."""
+    import torch
+
+    from boom_tpu_torch.statespace.kalman import SsmParams
+
+    tdt = getattr(torch, dtype)
+    q = max(1, d - 1)
+    base = random_system(rng, min(batch, 64), d, tdt, q=q, device=device)
+    reps = -(-batch // base.z.shape[0])
+    params = SsmParams(*(None if f is None else
+                         f.repeat_interleave(reps, dim=0)[:batch].contiguous()
+                         for f in base))
+
+    def rand(lo, hi, shape):
+        return torch.tensor(rng.uniform(lo, hi, size=shape), dtype=tdt,
+                            device=device)
+
+    zt = torch.tensor(rng.normal(size=(t_len, d)), dtype=tdt, device=device)
+    q_scale = {None: None, "shared": rand(0.5, 2.0, (1, t_len, q)).expand(
+        batch, t_len, q), "chain": rand(0.5, 2.0, (batch, t_len, q))}[q_mode]
+    return params._replace(z=zt[None].expand(batch, t_len, d),
+                           h_scale=rand(0.3, 1.5, (t_len,)), q_scale=q_scale)
 
 
 def kalman_cases(rng, name, dtype, batch, d, t_len, series=1):
@@ -340,7 +402,7 @@ def wide_cases(rng, name, dtype, batch, d, t_len, groups):
             lambda: kk.dpath(t_mat, w), scan)
 
 
-_WIDE_PASS = re.compile(r"smoother_wide_kernel<\d+, (\d)>")
+_WIDE_PASS = re.compile(r"smoother_wide_kernel<\d+, (\d), (?:false|true)>")
 
 
 def wide_pass_ms(kern, calls=10, tries=3):
@@ -396,6 +458,62 @@ def time_wide(rng, plain=True):
     return out
 
 
+def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain"):
+    """(kernel call, plain call, wrapper call) of a time-varying form (K1 or
+    K1w with the innovations: "loglik_tv", "loglik_wide_tv"; K2 or K2w:
+    "smoother_tv", "smoother_wide_tv") on a :func:`time_varying_system` of
+    its shape, a mask of ~5 % gaps and ``series`` series (the smoothers'
+    a chain's through eps, as bsts with a regression gives them)."""
+    import torch
+
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    tdt = getattr(torch, dtype)
+    params = time_varying_system(rng, batch, d, t_len, dtype, q_mode)
+    shape = (series, t_len) if series > 1 else (t_len,)
+    y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
+                     device="cuda")
+    obs = torch.tensor(rng.uniform(size=t_len) > 0.05, device="cuda")
+    if name.startswith("loglik"):
+        return (lambda: kk.launch_loglik_tv(params, y, obs, innovations=True),
+                lambda: kalman.kalman_loglik(params, y, obs,
+                                             innovations=True),
+                lambda: kk.innovations(params, y, obs))
+    q = params.q_mat.shape[-1]
+    normals = [torch.tensor(rng.normal(size=s), dtype=tdt, device="cuda")
+               for s in ((batch, d), (batch, t_len - 1, q),
+                         (batch, t_len))]
+    operands = kk.smoother_operands(params, y, *normals, observed=obs)
+    return (lambda: kk.launch_smoother(*operands),
+            lambda: kalman.simulation_smoother(params, y, *normals,
+                                               observed=obs),
+            lambda: kk.simulation_smoother(params, y, *normals,
+                                           observed=obs))
+
+
+def time_tv(rng, plain=True, shapes=None):
+    """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
+    shape, pass_ms}} of the time-varying forms at TV_SHAPES (or
+    ``shapes``); pass_ms: K2w's passes."""
+    out = {}
+    for name, (dtype, batch, d, t_len, series) in (shapes
+                                                   or TV_SHAPES).items():
+        kern, ref, wrapper = tv_cases(rng, name, dtype, batch, d, t_len,
+                                      series)
+        row = {"shape": [dtype, batch, d, t_len, series],
+               "ms": median_ms(kern), "call_ms": call_ms(kern),
+               "wrapper_ms": median_ms(wrapper),
+               "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
+        kind = "loglik" if name.startswith("loglik") else "smoother"
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            kind, dtype, batch, d, t_len, series, tv_rows=batch)
+        if name == "smoother_wide_tv":
+            row["pass_ms"] = wide_pass_ms(kern)
+        out[name] = row
+    return out
+
+
 def _bound_name(name):
     """bound_ms's name of a shape's kernel (loglik_wide -> loglik, ...)."""
     for kind in ("loglik_grad", "loglik_hess", "loglik"):
@@ -443,29 +561,33 @@ def time_kalman(rng, plain=True, shapes=None):
     return out
 
 
-_KERNEL_NAME = re.compile(r"(loglik_kernel|smoother_kernel)"
+_KERNEL_NAME = re.compile(r"(loglik_kernel|loglik_tv_kernel|smoother_kernel)"
                           r"I(?:([fd]))?Li(\d)E(?:Lb([01])E)?(?:Lb([01])E)?")
 
 
 def _instantiation(mangled):
     """"<kernel> <type> d<D>[ dense][ per-series]" of a mangled
     kalman_seq.cu kernel name (K1's instantiations without a mask end in
-    " dense", those reading a series a group of systems in " per-series"),
-    or None."""
+    " dense", those reading a series a group of systems in " per-series";
+    the time-varying forms are "loglik_tv <type> d<D>" and "smoother f64
+    d<D> tv"), or None."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
         return None
-    kernel, ty, d, masked, shared = m.groups()
-    kind = {"loglik_kernel": "loglik", "smoother_kernel": "smoother"}[kernel]
+    kernel, ty, d, first, shared = m.groups()
+    kind = {"loglik_kernel": "loglik", "loglik_tv_kernel": "loglik_tv",
+            "smoother_kernel": "smoother"}[kernel]
     key = f"{kind} {'f32' if ty == 'f' else 'f64'} d{d}"
-    key += " dense" if masked == "0" else ""
+    if kind == "smoother":
+        return key + " tv" if first == "1" else key
+    key += " dense" if first == "0" else ""
     return key + " per-series" if shared == "0" else key
 
 
 _WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel|"
                         r"wide_loglik_kernel)I(?:([fd]))?"
                         r"(?:[fd]|N\w*?TangentI[fd]Li\dEEE)?"
-                        r"Li(\d+)ELi(\d+)E")
+                        r"Li(\d+)ELi(\d+)E(?:Lb([01])E)?")
 _THREAD_NAME = re.compile(r"loglik_thread_kernelILi(\d+)ELb([01])E")
 _JET_NAMES = {"0": "loglik_wide", "1": "loglik_grad", "2": "loglik_hess"}
 
@@ -477,7 +599,8 @@ def wide_nvcc_report(log_text):
     {"registers", "spill_bytes", "stack_bytes"}} for every instantiation
     of K2w (each of its three passes), K3 (each chunk length, bytes a
     lane), K1w (its group kernel, and its thread kernel in either layout
-    of T), J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v`` log."""
+    of T), J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v`` log; the
+    time-varying forms of K2w and K1w end in " tv"."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = _WIDE_NAME.search(name)
@@ -490,7 +613,7 @@ def wide_nvcc_report(log_text):
                            "stack_bytes": stack}
         if not m:
             continue
-        kernel, ty, d, extra = m.groups()
+        kernel, ty, d, extra, tv = m.groups()
         tag = "f32" if ty == "f" else "f64"
         if kernel == "smoother_wide_kernel":
             key = f"smoother_wide f64 d{int(d):02d} pass{extra}"
@@ -498,6 +621,7 @@ def wide_nvcc_report(log_text):
             key = f"{_JET_NAMES[extra]} {tag} d{int(d):02d}"
         else:
             key = f"dpath {tag} d{int(d):02d} chunk{extra}"
+        key += " tv" if tv == "1" else ""
         report[key] = {"registers": nregs, "spill_bytes": spill,
                        "stack_bytes": stack}
     return dict(sorted(report.items()))
@@ -561,10 +685,15 @@ def run():
     t0 = time.perf_counter()
     _build.build()
     rng = np.random.default_rng(20261016)
+    kernels = {**time_kalman(rng),
+               **time_kalman(rng, plain=False, shapes=K1W_SHAPES),
+               **time_wide(rng)}
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    if hasattr(kk, "launch_loglik_tv"):  # a tree with the time-varying forms
+        kernels.update(time_tv(rng, plain=False))
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
-           "kernels": {**time_kalman(rng),
-                       **time_kalman(rng, plain=False, shapes=K1W_SHAPES),
-                       **time_wide(rng)}}
+           "kernels": kernels}
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
     log = _build.log_path("kalman_wide")

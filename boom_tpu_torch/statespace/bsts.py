@@ -7,6 +7,13 @@ spike-and-slab regression (port of boom_tpu/statespace/bsts.py:
 :1132, ``_training_slice`` :1162, ``holdout_prediction_errors`` :1172 and
 ``compare_bsts_models`` :1220).
 
+Time-varying blocks (the dynamic regression, the random-walk holiday, the
+Student trend) give the system z_t and Q_t (``SsmParams.q_scale``), and a
+series on a regular grid with gaps and multiplexed time points
+(``utils.timestamps``) gives the ``observed`` mask, the observation
+weights (h_t = sigma^2 / max(w_t, 1), ``SsmParams.h_scale``) and the
+within-time-point sum of squares ``extra_obs_ss``, as the reference's.
+
 One Gibbs sweep, for all chains at once (leading chain axis ``[C, ...]``):
 
   1. draw the observation model given the current state path: the
@@ -84,7 +91,13 @@ def _block_diag(mats, keep_expanded=False):
 class Bsts:
     """Structural time series with Gaussian observations.
 
-    y: [T] series on the run's device, in the run's dtype.
+    y: [T] series on the run's device, in the run's dtype (0 at a gap of a
+    regularized grid).
+    observed: [T] bool, False at a grid point without data; obs_weights:
+    [T] number of raw observations averaged into y_t (0 at a gap);
+    extra_obs_ss: their within-time-point sum of squares, a float or [T] a
+    time point (which ``_training_slice`` slices); all as the reference's
+    (``utils.timestamps.collapse_to_grid``).
     predictors: [T, p] design of a spike-and-slab regression component with
     ``reg_prior`` (a ``SpikeSlabPrior``), or None; ``reg_max_flips`` caps
     the indicator flips a sweep.
@@ -109,6 +122,7 @@ class Bsts:
     reg_max_flips: int | None = None
     observed: torch.Tensor | None = None
     obs_weights: torch.Tensor | None = None
+    extra_obs_ss: float | torch.Tensor = 0.0
     parallel_smoother: bool | str = "auto"
     chains_hint: int = 1
     asis: bool = True
@@ -136,19 +150,25 @@ class Bsts:
             if tuple(self.predictors.shape[:1]) != (self.t_len,):
                 raise ValueError(f"predictors must be [T={self.t_len}, p]; "
                                  f"got {tuple(self.predictors.shape)}")
-        if self.observed is not None or self.obs_weights is not None:
-            raise NotImplementedError(
-                "observed/obs_weights (gaps, timestamps) are not ported yet "
-                "(ROADMAP.md, queue 1: the observed/obs_weights path)")
+        for name, dtype in (("observed", torch.bool),
+                            ("obs_weights", self.y.dtype)):
+            val = getattr(self, name)
+            if val is not None:
+                val = torch.as_tensor(val, dtype=dtype, device=self.y.device)
+                if tuple(val.shape) != (self.t_len,):
+                    raise ValueError(f"{name} must be [T={self.t_len}]; got "
+                                     f"{tuple(val.shape)}")
+                object.__setattr__(self, name, val)
         if self.marginal_sigma_slice and self.marginal_move != "tim":
             raise NotImplementedError(
                 f"marginal_move={self.marginal_move!r} is not ported; only "
                 "'tim' is (ROADMAP.md, queue 7: the other marginal moves)")
         for b in self.blocks:
-            if not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec"):
+            if (not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec")
+                    or hasattr(b, "t_seq") or hasattr(b, "z_seq_params")):
                 raise NotImplementedError(
                     f"state block {type(b).__name__} is not ported yet "
-                    "(ROADMAP.md, queue 1: the other block classes)")
+                    "(ROADMAP.md, queue 1 item 7: the other block classes)")
         if self.obs_prior is None and self.reg_prior is None:
             sd = float(torch.std(self.y, correction=0))
             object.__setattr__(
@@ -176,21 +196,60 @@ class Bsts:
             start += b.dim
         return out
 
+    @property
+    def _time_varying_z(self):
+        return any(hasattr(b, "z_seq") for b in self.blocks)
+
+    @property
+    def _time_varying_q(self):
+        return any(hasattr(b, "q_scale_seq") for b in self.blocks)
+
+    @property
+    def time_varying(self):
+        """Whether the chains' systems vary in time (reference
+        ``SsmParams.time_varying`` of ``ssm_params``)."""
+        return (self._time_varying_z or self._time_varying_q
+                or self.obs_weights is not None)
+
     def ssm_params(self, state):
-        """The chains' static systems from their parameters."""
+        """The chains' systems from their parameters (reference :238-296):
+        z [C, d], or [C, T, d] (one [T, d] expanded) with a time-varying
+        block; q_scale [C, T, q] with one (expanded where no block's
+        differs by chain); h_scale = 1 / max(w, 1) [T] with observation
+        weights."""
         dev, dt = self.y.device, self.y.dtype
         c = state["sigsq_obs"].shape[0]
+        t_len = self.t_len
         ts, rs, qs = zip(*(b.build(state["blocks"][b.name])
                            for b in self.blocks))
         a0s, p0s = zip(*(b.init_dist(dev, dt) for b in self.blocks))
-        z = torch.cat([b.z(dev, dt) for b in self.blocks])
+        if self._time_varying_z:
+            z = torch.cat([b.z_seq(dev, dt) if hasattr(b, "z_seq")
+                           else b.z(dev, dt).expand(t_len, b.dim)
+                           for b in self.blocks], dim=-1).expand(c, -1, -1)
+        else:
+            z = torch.cat([b.z(dev, dt) for b in self.blocks]).expand(c, -1)
+        q_scale = None
+        if self._time_varying_q:
+            scales = [b.q_scale_seq(state["blocks"][b.name])
+                      if hasattr(b, "q_scale_seq")
+                      else torch.ones(t_len, b.err_dim, device=dev, dtype=dt)
+                      for b in self.blocks]
+            if all(sc.dim() == 2 for sc in scales):
+                q_scale = torch.cat(scales, dim=-1).expand(c, -1, -1)
+            else:
+                q_scale = torch.cat([sc.expand(c, -1, -1) for sc in scales],
+                                    dim=-1)
+        h_scale = (None if self.obs_weights is None
+                   else 1.0 / torch.clamp_min(self.obs_weights, 1.0))
         return SsmParams(
-            z=z.expand(c, -1),
+            z=z,
             t_mat=_block_diag(ts, keep_expanded=True),
             r_mat=_block_diag(rs), q_mat=_block_diag(qs),
             h=state["sigsq_obs"],
             a0=torch.cat(a0s).expand(c, -1),
-            p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1))
+            p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1),
+            q_scale=q_scale, h_scale=h_scale)
 
     # -- noise --------------------------------------------------------------
     def _smoother_noise_spec(self):
@@ -295,15 +354,21 @@ class Bsts:
         returned in the run's dtype."""
         y_adj = self.y if y_adj is None else y_adj
         wide = SMOOTHER_DTYPE
+        # a mask sends the draw to the sequential smoother, which takes it
+        masked = {} if self.observed is None else {"observed": self.observed}
         draw = self._smoother()(
-            SsmParams(*(p.to(wide) for p in params)), y_adj.to(wide),
+            params.cast(wide), y_adj.to(wide),
             *(noise[k].to(wide) for k in ("sim_alpha1", "sim_eta",
-                                          "sim_eps")))
+                                          "sim_eps")), **masked)
         return draw.to(self.y.dtype)
 
     def _smoother(self):
         """Simulation-smoother dispatch (the reference's
-        ``parallel_smoother`` values)."""
+        ``parallel_smoother`` values, :324-341): a gapped series or a
+        time-varying system takes the sequential smoother whatever the
+        mode, as the reference's does."""
+        if self.observed is not None or self.time_varying:
+            return kalman_kernel.simulation_smoother
         mode = self.parallel_smoother
         if mode is True:
             return parallel_kalman.parallel_simulation_smoother
@@ -328,6 +393,7 @@ class Bsts:
         factor of the regression's posterior failed in the run."""
         draw_regression = (self._regression_draw()
                            if self.predictors is not None else None)
+        w_obs, n_obs = self._obs_weights()
 
         def sweep(noise, state, do_marginal=True):
             # each phase is a named profiler range (SWEEP_PHASES); the
@@ -335,7 +401,8 @@ class Bsts:
             # state path, which is re-imputed last (reference :364-370)
             out = dict(state)
             params_cur = self.ssm_params(state)
-            state_contrib = (state["alpha"] * params_cur.z[:, None]).sum(-1)
+            state_contrib = (state["alpha"]
+                             * params_cur.zs(self.t_len)).sum(-1)
             y_adj = self.y
             if draw_regression is not None:
                 # 1. regression | current state: (gamma, sigma^2, beta)
@@ -345,10 +412,20 @@ class Bsts:
                     y_adj = self.adjusted_series(out)
             with record_function("bsts.variance_draws"):
                 if draw_regression is None:
-                    # 1. observation variance | current state
+                    # 1. observation variance | current state; with weights
+                    # (gaps 0, a multiplexed time point its count) the
+                    # weighted sum of squares and the within-time-point
+                    # sum of squares (reference :404-413)
                     resid = self.y - state_contrib
-                    out["sigsq_obs"] = self.obs_prior.draw_variance(
-                        noise["obs_u"], self.t_len, (resid * resid).sum(-1))
+                    if w_obs is None:
+                        out["sigsq_obs"] = self.obs_prior.draw_variance(
+                            noise["obs_u"], self.t_len,
+                            (resid * resid).sum(-1))
+                    else:
+                        out["sigsq_obs"] = self.obs_prior.draw_variance(
+                            noise["obs_u"], n_obs,
+                            (w_obs * resid * resid).sum(-1)
+                            + self._extra_ss())
 
                 # 2. state-model parameters | current state path
                 out["blocks"] = {
@@ -390,17 +467,42 @@ class Bsts:
             run.finish = draw_regression.finish
         return run
 
+    def _obs_weights(self):
+        """(w [T], n = sum w) of the observation model's draws: the
+        observation weights, else the mask as 0/1, else (None, None) (the
+        dense path; reference :347-352)."""
+        if self.obs_weights is not None:
+            w = self.obs_weights
+        elif self.observed is not None:
+            w = self.observed.to(self.y.dtype)
+        else:
+            return None, None
+        return w, w.sum()
+
+    def _extra_ss(self):
+        """The within-time-point sum of squares, summed over time points."""
+        extra = self.extra_obs_ss
+        return extra.sum() if isinstance(extra, torch.Tensor) else extra
+
     def _regression_draw(self):
         """``draw(noise, state, y_reg) -> {gamma, beta, sigsq_obs}``: the
         spike-and-slab draw on each chain's residual y_reg = y - Z alpha
         [C, T] (reference :354-403; ``regression.gibbs_draw``). The
-        statistics X'y and y'y are per chain, X'X is shared; the indicators
-        take kernel (a)'s per-chain entry on the card when the SWEEP path
-        is exact for the prior (``valid_for_prior``), else the Cholesky
-        sweep. ``draw.finish`` raises if a Cholesky factor failed."""
+        statistics X'y and y'y are per chain, X'X is shared; with weights
+        (gaps 0, a multiplexed time point its count) X'W X, X'W y, y'W y
+        plus the within-time-point sum of squares, and n their sum. The
+        indicators take kernel (a)'s per-chain entry on the card when the
+        SWEEP path is exact for the prior (``valid_for_prior``), else the
+        Cholesky sweep. ``draw.finish`` raises if a Cholesky factor
+        failed."""
         x, prior = self.predictors, self.reg_prior
-        xtx = x.T @ x
-        n = torch.tensor(self.t_len, dtype=x.dtype, device=x.device)
+        w_obs, n_obs = self._obs_weights()
+        if w_obs is None:
+            xtx = x.T @ x
+            n = torch.tensor(self.t_len, dtype=x.dtype, device=x.device)
+        else:
+            xtx = x.T @ (w_obs[:, None] * x)
+            n = n_obs
         swept = regression_sweep.valid_for_prior(prior)
         operands = None
         if swept and x.device.type == "cuda":
@@ -413,8 +515,13 @@ class Bsts:
             x.device, "the regression's posterior")
 
         def draw(noise, state, y_reg):
-            suf = RegSuf(xtx=xtx, xty=y_reg @ x, yty=(y_reg * y_reg).sum(-1),
-                         n=n)
+            if w_obs is None:
+                suf = RegSuf(xtx=xtx, xty=y_reg @ x,
+                             yty=(y_reg * y_reg).sum(-1), n=n)
+            else:
+                suf = RegSuf(xtx=xtx, xty=(w_obs * y_reg) @ x,
+                             yty=(w_obs * y_reg * y_reg).sum(-1)
+                             + self._extra_ss(), n=n)
             gamma, sigsq, beta, bad = regression.gibbs_draw(
                 noise, suf, prior, state["gamma"], swept=swept,
                 max_flips=self.reg_max_flips, operands=operands)
@@ -425,8 +532,22 @@ class Bsts:
         return draw
 
     def _asis_pass(self, noise, state, y_adj):
-        return asis_redraw(noise, self.blocks, self.ssm_params(state),
-                           state, y_adj, state["sigsq_obs"])
+        params = self.ssm_params(state)
+        return asis_redraw(noise, self.blocks, params, state, y_adj,
+                           self._asis_h(params))
+
+    def _asis_h(self, params):
+        """The observation variances ASIS's likelihood terms take: h [C],
+        or with a mask or weights h_t [C, T], inf where y_t is not
+        observed. The reference passes sigma^2 alone (bsts.py:851-853),
+        which counts a gap's 0 as data and drops the weights; the filter
+        and the smoother take neither so (ROADMAP.md, sec. 3)."""
+        if self.observed is None and self.obs_weights is None:
+            return params.h
+        h = params.hs(self.t_len)
+        if self.observed is not None:
+            h = torch.where(self.observed, h, torch.inf)
+        return h
 
     # -- likelihood, contributions, forecasts -------------------------------
     def adjusted_series(self, state):
@@ -449,7 +570,9 @@ class Bsts:
         regression's X beta as ``"regression"`` (reference :906-921)."""
         out = {}
         for (start, dim), b in zip(self._slices(), self.blocks):
-            z_b = b.z(self.y.device, self.y.dtype)
+            z_b = (b.z_seq(self.y.device, self.y.dtype)
+                   if hasattr(b, "z_seq")
+                   else b.z(self.y.device, self.y.dtype))
             out[b.name] = (state["alpha"][..., start:start + dim]
                            * z_b).sum(-1)
         if self.predictors is not None:
@@ -465,27 +588,51 @@ class Bsts:
     def predict(self, noise, final_state, horizon: int, future_z=None,
                 future_q_scale=None):
         """y_{T+1:T+h} [N, h] simulated from N posterior draws' parameters
-        and last imputed state (reference :924-1007, static blocks):
-        alpha_{t+1} = T alpha_t + R chol(Q) eta_t, y_{t+1} = z' alpha_{t+1}
-        + sqrt(sigma^2) eps_t. Reads only the last row of each draw's alpha
+        and last imputed state (reference :924-1007): alpha_{t+1} = T
+        alpha_t + R (s_t o chol(Q) eta_t), y_{t+1} = z_t' alpha_{t+1} +
+        sqrt(sigma^2) eps_t. Reads only the last row of each draw's alpha
         [N, *, d]. noise: :meth:`predict_noise_spec`'s ``eta`` [N, h, q] and
-        ``eps`` [N, h]. The regression's future X beta is the caller's
+        ``eps`` [N, h]. A block with a time-varying z needs its rows
+        ``future_z[name]`` [h, dim] (the dynamic regression's future
+        predictors, the holiday's one-hot days); ``future_q_scale[name]``
+        [h, err] scales a block's errors (default 1, as the reference's).
+        The regression's future X beta is the caller's
         (``BstsModel.predict``), as in the reference."""
-        if future_z or future_q_scale:
-            raise NotImplementedError(
-                "future_z / future_q_scale of time-varying blocks are not "
-                "ported yet (ROADMAP.md, queue 1 item 7: the time-varying "
-                "systems)")
+        future_z = future_z or {}
+        future_q_scale = future_q_scale or {}
+        dev, dt = self.y.device, self.y.dtype
+        z_rows, s_rows = [], []
+        for b in self.blocks:
+            if b.name in future_z:
+                z_rows.append(torch.as_tensor(future_z[b.name], dtype=dt,
+                                              device=dev))
+            elif hasattr(b, "z_seq"):
+                raise ValueError(
+                    f"block {b.name!r} has a time-varying z; pass "
+                    f"future_z[{b.name!r}] with shape [{horizon}, {b.dim}]")
+            else:
+                z_rows.append(b.z(dev, dt).expand(horizon, b.dim))
+            s_rows.append(torch.as_tensor(future_q_scale[b.name], dtype=dt,
+                                          device=dev)
+                          if b.name in future_q_scale
+                          else torch.ones(horizon, b.err_dim, dtype=dt,
+                                          device=dev))
+        z_fut = torch.cat(z_rows, dim=-1)
+        s_fut = torch.cat(s_rows, dim=-1)
+        if z_fut.shape != (horizon, self.state_dim):
+            raise ValueError(f"future_z must give [{horizon}, "
+                             f"{self.state_dim}] rows; got "
+                             f"{tuple(z_fut.shape)}")
         params = self.ssm_params(final_state)
         q_chol = kalman._chol_jitter(params.q_mat)
         alpha = final_state["alpha"][:, -1]
         sd = torch.sqrt(final_state["sigsq_obs"])
         ys = []
         for t in range(horizon):
-            eta = kalman._mv(q_chol, noise["eta"][:, t])
+            eta = s_fut[t] * kalman._mv(q_chol, noise["eta"][:, t])
             alpha = (kalman._mv(params.t_mat, alpha)
                      + kalman._mv(params.r_mat, eta))
-            ys.append((params.z * alpha).sum(-1) + sd * noise["eps"][:, t])
+            ys.append((z_fut[t] * alpha).sum(-1) + sd * noise["eps"][:, t])
         return torch.stack(ys, dim=1)
 
     # -- TIM marginal move ----------------------------------------------------
@@ -509,6 +656,11 @@ class Bsts:
         NotImplementedError for a block whose system is not so: z, T, a0 or
         P0 varying with its variance, or h and R Q R' not linear in it
         (checked at 0, 1 and 2)."""
+        if self.time_varying:
+            raise NotImplementedError(
+                "the TIM marginal move on a time-varying system (z_t, Q_t "
+                "or observation weights) is not ported yet (ROADMAP.md, "
+                "queue 1 item 7: the TIM move on a time-varying system)")
         groups = self._sigma_groups()
         dev, dt = self.y.device, self.y.dtype
         template = {
@@ -723,10 +875,13 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
 
     noise: ``h_u``, ``u_u`` [C, slice_steps, G] and ``shrink_u``
     [C, slice_steps, G, shrink_iters] uniforms. y_adj: [T], or [C, T] (a
-    series a chain, y - X beta). h: [C] observation variances.
+    series a chain, y - X beta). h: [C] observation variances, or [C, T]
+    (h_t, inf where y_t is not observed: no likelihood term). The system's
+    z may vary in time (z_t).
     """
     alpha = state["alpha"]  # [C, T, d]
-    t_mat, r_mat, z = params.t_mat, params.r_mat, params.z
+    t_mat, r_mat = params.t_mat, params.r_mat
+    zs = params.zs(alpha.shape[1])  # [C, T, d]
     # innovations [C, T-1, q]: R is column-orthonormal (selector/identity)
     diff = alpha[:, 1:] - (t_mat[:, None] * alpha[:, :-1, None, :]).sum(-1)
     eta = (r_mat[:, None] * diff[..., :, None]).sum(-2)
@@ -747,10 +902,10 @@ def asis_redraw(noise, blocks, params: SsmParams, state, y_adj, h,
     tilde = eta[:, :, None, :] * cols / sigs[:, None, :, None]
     w_all = torch.einsum("cdq,ctgq->cgtd", r_mat, tilde)  # [C, G, T-1, d]
     dstack = kalman_kernel.dpath(t_mat, w_all)  # [C, G, T, d]
-    g_mat = (dstack * z[:, None, None, :]).sum(-1)  # [C, G, T]
+    g_mat = (dstack * zs[:, None]).sum(-1)  # [C, G, T]
     alpha_base = alpha - torch.einsum("cg,cgtd->ctd", sigs, dstack)
-    r0 = y_adj - (alpha_base * z[:, None, :]).sum(-1)  # [C, T]
-    g_over_h = g_mat / h[:, None, None]
+    r0 = y_adj - (alpha_base * zs).sum(-1)  # [C, T]
+    g_over_h = g_mat / (h[:, None, :] if h.dim() == 2 else h[:, None, None])
     gram = torch.einsum("cgt,cet->cge", g_over_h, g_mat)  # [C, G, G]
     c_vec = torch.einsum("cgt,ct->cg", g_over_h, r0)  # [C, G]
 
@@ -813,6 +968,12 @@ def _training_slice(model: Bsts, cutpoint: int):
     for name in ("predictors", "observed", "obs_weights"):
         if getattr(model, name) is not None:
             repl[name] = getattr(model, name)[:cutpoint]
+    if isinstance(model.extra_obs_ss, torch.Tensor):
+        repl["extra_obs_ss"] = model.extra_obs_ss[:cutpoint]
+    # the time-varying blocks' series with it (the reference slices
+    # neither, so its holdout of such a model fails)
+    repl["blocks"] = [b.sliced(cutpoint) if hasattr(b, "sliced") else b
+                      for b in model.blocks]
     return dataclasses.replace(model, **repl)
 
 
@@ -847,9 +1008,16 @@ def holdout_prediction_errors(model: Bsts, generator, cutpoint: int,
                    lambda g, c: train.init_state(train.draw_init_noise(g, c)),
                    max(1, num_draws // num_chains), generator=generator,
                    num_chains=num_chains, burn=burn)
-    flat = tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
-                    res.draws)
-    return one_step_prediction_errors(model, thinned(flat, max_draws))
+    flat = thinned(tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                            res.draws), max_draws)
+    # a block's per-step parameters past the cutpoint (the Student trend's
+    # weights at 1, as the forecast takes them)
+    flat["blocks"] = {b.name: (b.extend_params(flat["blocks"][b.name],
+                                               model.t_len)
+                               if hasattr(b, "extend_params")
+                               else flat["blocks"][b.name])
+                      for b in model.blocks}
+    return one_step_prediction_errors(model, flat)
 
 
 def compare_bsts_models(models_and_results, cutpoint=None, max_draws=50, *,

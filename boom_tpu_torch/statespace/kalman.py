@@ -19,13 +19,22 @@ filter also one a group of systems, ``[S, T]`` with S dividing B, system b
 reading series b // (B / S)) and ``observed`` mask [T] serve them all.
 :func:`loglik_jets` differentiates the loglik along directions of the
 system (the TIM mode search's derivatives in the variances).
-Only static systems are ported: a time-varying ``z`` [B, T, d] or ``h``
-[B, T] raises. The functions here are the plain PyTorch versions, one
-Python step per time step; ``kalman_kernel.py`` runs ``kalman_loglik`` and
-``simulation_smoother`` as hand-written CUDA kernels on the card. The
-arithmetic follows the reference's order step for step (``_mv``, ``_mm``,
-the ``0.5 (P + P')`` symmetrization, the ``where(observed, ...)`` zeros and
-the ``1e-12`` Cholesky jitter), so both agree to rounding. Random numbers
+
+A system may vary in time as the reference's does (kalman.py:67-120): z
+[B, T, d], one [T, d] expanded over the systems (stride 0: the dynamic
+regression's x_t, the holiday's one-hot day); h_t = h * h_scale_t with
+h_scale [T] (1 / max(w_t, 1) of the observation weights); and Q_t =
+(q_t q_t') o Q with q_scale [B, T, q] (the Student trend's latent weights
+a chain, the holiday's refresh days, expanded). Row t of z and h serves
+observation t, row t of q_scale the transition t -> t+1. A z that differs
+from system to system (the regression holiday's) and a time-varying T
+(``t_seq``) are not ported and raise. The functions here are the plain
+PyTorch versions, one Python step per time step; ``kalman_kernel.py`` runs
+``kalman_loglik`` and ``simulation_smoother`` as hand-written CUDA kernels
+on the card. The arithmetic follows the reference's order step for step
+(``_mv``, ``_mm``, the ``0.5 (P + P')`` symmetrization, the ``where(observed,
+...)`` zeros and the ``1e-12`` Cholesky jitter), so both agree to rounding.
+Random numbers
 come in as standard normals, never drawn here.
 """
 
@@ -37,35 +46,74 @@ from typing import NamedTuple
 import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
-_TIME_VARYING = ("time-varying systems (z [B, T, d], h [B, T], q_scale, "
-                 "t_seq) are not ported yet (ROADMAP.md, queue 7: the rest "
-                 "of statespace)")
+_PER_SYSTEM_Z = ("a z [B, T, d] that differs from system to system (the "
+                 "regression holiday's z_seq_params) is not ported yet "
+                 "(ROADMAP.md, queue 1 item 7: RegressionHoliday and "
+                 "HierarchicalRegressionHoliday); pass one [T, d] expanded "
+                 "over the systems")
 
 
 class SsmParams(NamedTuple):
-    """Batched static system; every field has a leading series axis."""
+    """Batched system; every field has a leading series axis (see the
+    module's docstring for the time-varying fields)."""
 
-    z: torch.Tensor  # [B, d] observation vector
+    z: torch.Tensor  # [B, d] or [B, T, d] (one [T, d], expanded)
     t_mat: torch.Tensor  # [B, d, d] transition
     r_mat: torch.Tensor  # [B, d, q] error expander
     q_mat: torch.Tensor  # [B, q, q] state error covariance
     h: torch.Tensor  # [B] observation variance
     a0: torch.Tensor  # [B, d] initial state mean
     p0: torch.Tensor  # [B, d, d] initial state covariance
+    q_scale: torch.Tensor | None = None  # [B, T, q] sd scale of Q
+    h_scale: torch.Tensor | None = None  # [T] scale of h
 
     @property
     def rqr(self):
-        """[B, d, d] state error covariance R Q R'."""
+        """[B, d, d] state error covariance R Q R' (of q_scale 1)."""
         return self.r_mat @ self.q_mat @ self.r_mat.transpose(-1, -2)
 
     @property
     def time_varying(self):
-        """Always False: the port's system is static (z [B, d], h [B])."""
-        return False
+        """z [B, T, d], a q_scale or an h_scale (reference
+        ``SsmParams.time_varying``)."""
+        return (self.z.dim() == 3 or self.q_scale is not None
+                or self.h_scale is not None)
 
     def zs(self, t_len):
         """[B, T, d] observation vectors."""
+        if self.z.dim() == 3:
+            return self.z
         return self.z[:, None, :].expand(-1, t_len, -1)
+
+    def hs(self, t_len):
+        """[B, T] observation variances h_t = h * h_scale_t."""
+        if self.h_scale is None:
+            return self.h[:, None].expand(-1, t_len)
+        return self.h[:, None] * self.h_scale
+
+    def rqrs(self, t_len):
+        """[B, T, d, d] state error covariances R Q_t R' with Q_t =
+        (q_t q_t') o Q (reference ``rqrs``, kalman.py:111-120)."""
+        if self.q_scale is None:
+            return self.rqr[:, None].expand(-1, t_len, -1, -1)
+        s = self.q_scale
+        q_t = s[..., :, None] * s[..., None, :] * self.q_mat[:, None]
+        return torch.einsum("bdq,btqr,ber->btde", self.r_mat, q_t,
+                            self.r_mat)
+
+    def cast(self, dtype):
+        """The system with every field in ``dtype``; a field expanded over
+        the systems (stride 0: one z_t, T or q_scale for all) stays so."""
+        return SsmParams(*(None if f is None else _cast(f, dtype)
+                           for f in self))
+
+
+def _cast(x, dtype):
+    """x in ``dtype``, one row expanded where x is expanded over its
+    leading axis (``Tensor.to`` would materialise it)."""
+    if x.dim() > 1 and x.shape[0] > 1 and x.stride(0) == 0:
+        return x[:1].to(dtype).expand_as(x)
+    return x.to(dtype)
 
 
 class FilterResult(NamedTuple):
@@ -91,10 +139,39 @@ def _vdot(a, b):
     return (a * b).sum(-1)
 
 
-def check_static(params: SsmParams):
-    """Raise for a time-varying system, which is not ported."""
-    if params.z.dim() != 2 or params.h.dim() != 1:
-        raise NotImplementedError(_TIME_VARYING)
+def check_system(params: SsmParams):
+    """Raise for a system the port does not take: z [B, T, d] of more
+    than one row along the systems (a z a system), h not [B]."""
+    z = params.z
+    if z.dim() == 3 and z.shape[0] > 1 and z.stride(0) != 0:
+        raise NotImplementedError(_PER_SYSTEM_Z)
+    if params.h.dim() != 1:
+        raise ValueError(f"h must be [B] (a time-varying h is h * h_scale, "
+                         f"h_scale [T]); got {tuple(params.h.shape)}")
+
+
+class _Steps(NamedTuple):
+    """The system's per-step inputs: rows t of z, h and R Q R' [B, ...]
+    (static fields broadcast)."""
+
+    z: torch.Tensor  # [B, d] or [B, T, d]
+    h: torch.Tensor  # [B] or [B, T]
+    rqr: torch.Tensor  # [B, d, d] or [B, T, d, d]
+
+    def at(self, t):
+        z = self.z[:, t] if self.z.dim() == 3 else self.z
+        h = self.h[:, t] if self.h.dim() == 2 else self.h
+        rqr = self.rqr[:, t] if self.rqr.dim() == 4 else self.rqr
+        return z, h, rqr
+
+
+def _steps(params: SsmParams, t_len) -> _Steps:
+    check_system(params)
+    return _Steps(z=params.z,
+                  h=params.h if params.h_scale is None
+                  else params.hs(t_len),
+                  rqr=params.rqr if params.q_scale is None
+                  else params.rqrs(t_len))
 
 
 def _mask(observed, t_len, device):
@@ -154,16 +231,15 @@ def _step_loglik(obs_t, v, f):
 def _filter_core(params: SsmParams, y, observed, want_ap: bool):
     """The forward pass: per-step (v, f, k, ll) stacked along T, plus the
     predicted (a, P) when ``want_ap``."""
-    check_static(params)
     y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
-    rqr = params.rqr
+    steps = _steps(params, t_len)
     a, p = params.a0, params.p0
     out = {"v": [], "f": [], "k": [], "ll": [], "a": [], "p": []}
     for t in range(t_len):
         v, f, k_gain, a_next, p_next = _filter_step(
-            a, p, _at(y, t), obs[t], params.z, params.h, rqr, params.t_mat)
+            a, p, _at(y, t), obs[t], *steps.at(t), params.t_mat)
         for name, val in (("v", v), ("f", f), ("k", k_gain),
                           ("ll", _step_loglik(obs[t], v, f))):
             out[name].append(val)
@@ -188,17 +264,16 @@ def kalman_loglik(params: SsmParams, y, observed=None, innovations=False):
     the prediction errors v and their variances f [B, T] (as
     ``kalman_filter`` gives them: the reference's ``kalman_filter``,
     kalman.py:218), as (ll, v, f)."""
-    check_static(params)
     y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
-    rqr = params.rqr
+    steps = _steps(params, t_len)
     a, p = params.a0, params.p0
     ll = torch.zeros_like(params.h)
     vs, fs = [], []
     for t in range(t_len):
-        v, f, _k, a, p = _filter_step(a, p, _at(y, t), obs[t], params.z,
-                                      params.h, rqr, params.t_mat)
+        v, f, _k, a, p = _filter_step(a, p, _at(y, t), obs[t],
+                                      *steps.at(t), params.t_mat)
         ll = ll + _step_loglik(obs[t], v, f)
         if innovations:
             vs.append(v)
@@ -247,10 +322,11 @@ def _smoother_passes(params: SsmParams, v, f, k, observed):
     filter's (v [B, T], f [B, T], k [B, T, d]) streams -> [B, T, d]."""
     t_len = v.shape[1]
     obs = _mask(observed, t_len, v.device)
-    z, t_mat, rqr = params.z, params.t_mat, params.rqr
+    steps, t_mat = _steps(params, t_len), params.t_mat
     r = torch.zeros_like(params.a0)
     rs = [None] * t_len
     for t in range(t_len - 1, -1, -1):
+        z = steps.at(t)[0]
         l_mat = t_mat - k[:, t, :, None] * z[..., None, :]
         r = (torch.where(obs[t], z * (v[:, t] / f[:, t])[:, None], 0.0)
              + _mv(l_mat.transpose(-1, -2), r))
@@ -258,7 +334,8 @@ def _smoother_passes(params: SsmParams, v, f, k, observed):
     alpha = params.a0 + _mv(params.p0, rs[0])
     alphas = [alpha]
     for t in range(1, t_len):
-        alpha = _mv(t_mat, alpha) + _mv(rqr, rs[t])
+        # alpha_{t+1} = T alpha_t + R Q_t R' r_t (reference :340-343)
+        alpha = _mv(t_mat, alpha) + _mv(steps.at(t - 1)[2], rs[t])
         alphas.append(alpha)
     return torch.stack(alphas, dim=1)
 
@@ -285,51 +362,60 @@ def _chol_jitter(m):
 
 def simulation_inputs(params: SsmParams, alpha1_z, eta_z, eps_z):
     """The fused smoother's draws from standard normals: alpha_1 [B, d],
-    the state innovations w = R chol(Q) eta [B, T-1, d] and the observation
-    noise sqrt(h) eps [B, T] (reference kalman.py:442-455)."""
+    the state innovations w = R (q_t o chol(Q) eta_t) [B, T-1, d] and the
+    observation noise sqrt(h_t) eps [B, T] (reference kalman.py:442-455;
+    with q_scale and h_scale as ``simulate`` forms them, :383-390, :409)."""
     p0_chol = _chol_jitter(params.p0)
     alpha1 = params.a0 + _mv(p0_chol, alpha1_z)
     q_chol = _chol_jitter(params.q_mat)
-    w = torch.einsum("bdq,btq->btd", params.r_mat,
-                     torch.einsum("bij,btj->bti", q_chol, eta_z))
-    eps = torch.sqrt(params.h)[:, None] * eps_z
+    eta = torch.einsum("bij,btj->bti", q_chol, eta_z)
+    if params.q_scale is not None:
+        eta = params.q_scale[:, :-1] * eta
+    w = torch.einsum("bdq,btq->btd", params.r_mat, eta)
+    eps = torch.sqrt(params.hs(eps_z.shape[-1])) * eps_z
     return alpha1, w, eps
 
 
 def simulate(params: SsmParams, t_len: int, alpha1_z, eta_z, eps_z):
     """Unconditional (alpha [B, T, d], y [B, T]) draw from the standard
     normals alpha1_z [B, d], eta_z [B, T-1, q], eps_z [B, T]."""
-    check_static(params)
+    check_system(params)
     alpha = params.a0 + (_chol_jitter(params.p0) @ alpha1_z[..., None])[
         ..., 0]
     etas = torch.einsum("bij,btj->bti", _chol_jitter(params.q_mat), eta_z)
+    if params.q_scale is not None:
+        etas = params.q_scale[:, :-1] * etas
     alphas = [alpha]
     for t in range(t_len - 1):
         alpha = _mv(params.t_mat, alpha) + _mv(params.r_mat, etas[:, t])
         alphas.append(alpha)
     alphas = torch.stack(alphas, dim=1)
-    eps = torch.sqrt(params.h)[:, None] * eps_z
+    eps = torch.sqrt(params.hs(t_len)) * eps_z
     return alphas, torch.einsum("btd,btd->bt", params.zs(t_len), alphas) + eps
 
 
 def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
                         observed=None):
     """Draw alpha ~ p(alpha | y) [B, T, d] by the Durbin-Koopman
-    mean-correction smoother, static path: the unconditional simulation is
-    fused into the filter's forward pass on y - y+, then the backward r
-    pass and the forward state pass give E_0[alpha | y - y+], and the draw
-    is alpha+ + that. Normals: alpha1_z [B, d], eta_z [B, T-1, q], eps_z
-    [B, T] (``bsts._smoother_noise_spec``'s ``sim_alpha1``, ``sim_eta``,
-    ``sim_eps``)."""
-    check_static(params)
+    mean-correction smoother: the unconditional simulation is fused into
+    the filter's forward pass on y - y+, then the backward r pass and the
+    forward state pass give E_0[alpha | y - y+], and the draw is alpha+ +
+    that. Normals: alpha1_z [B, d], eta_z [B, T-1, q], eps_z [B, T]
+    (``bsts._smoother_noise_spec``'s ``sim_alpha1``, ``sim_eta``,
+    ``sim_eps``). A time-varying system takes this fused form too, where
+    the reference simulates first and then smooths y - y+
+    (kalman.py:432-437): the same draw from the same normals, to
+    rounding."""
     y = _series(y, params)
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
+    steps = _steps(params, t_len)
     alpha_sim, w, eps = simulation_inputs(params, alpha1_z, eta_z, eps_z)
-    z, h, t_mat, rqr = params.z, params.h, params.t_mat, params.rqr
+    t_mat = params.t_mat
     a, p = torch.zeros_like(params.a0), params.p0
     plus, vs, fs, ks = [], [], [], []
     for t in range(t_len):
+        z, h, rqr = steps.at(t)
         yd = _at(y, t) - (_vdot(z, alpha_sim) + eps[:, t])
         v, f, k_gain, a, p = _filter_step(a, p, yd, obs[t], z, h, rqr,
                                           t_mat)

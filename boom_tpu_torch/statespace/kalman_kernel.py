@@ -35,6 +35,17 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
   every chain's groups, float32 or float64, d 1..16, as ``kalman.dpath``
   (bsts' ASIS pass at every d).
 
+A time-varying system (``SsmParams.time_varying``: z_t, h_t = h h_scale_t,
+Q_t = (q_t q_t') o Q) takes the same four kernels in their time-varying
+forms (K1 and K2 ``loglik_tv_kernel`` and ``smoother_kernel<D, true>``, K1w
+the group kernel ``wide_loglik_kernel<T, T, D, 0, true>``, K2w
+``smoother_wide_kernel<D, pass, true>``), which read three streams a step
+(:func:`time_varying_operands`): z_t [T, d], one for every system;
+h_scale [T]; and u_t = R q_t [., T, d], where R is a 0/1 selection (at
+most one 1 a row: every ported block's), so that R Q_t R' = (u_t u_t') o
+R Q R'. A z a system and an R that is no selection raise, naming their
+ROADMAP item.
+
 Dispatch is by the device of the tensors, as in ``scan_kernel.py``: a CUDA
 tensor launches the kernel (or raises — there is no fallback), a CPU tensor
 runs the plain version in ``kalman.py``. ``LAUNCHES`` counts kernel
@@ -53,7 +64,9 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
 LAUNCHES = {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
-            "loglik_hess": 0, "smoother": 0, "smoother_wide": 0, "dpath": 0}
+            "loglik_hess": 0, "smoother": 0, "smoother_wide": 0, "dpath": 0,
+            "loglik_tv": 0, "loglik_wide_tv": 0, "smoother_tv": 0,
+            "smoother_wide_tv": 0}
 # the loglik's jets by the order of derivatives they give: J1, J2
 JET_KINDS = {1: "loglik_grad", 2: "loglik_hess"}
 JET_MAX_DIRECTIONS = _build.JET_MAX_DIRECTIONS
@@ -75,6 +88,10 @@ WIDE_THREADS = 128
 DPATH_THREADS = 128
 _NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for state dimensions past "
               "16 and the other block classes)")
+_NOT_SELECTION = ("the time-varying kernels take R Q_t R' as (u_t u_t') o "
+                  "R Q R' with u_t = R q_t, which needs R to be a 0/1 "
+                  "selection with at most one 1 a row; this R is not "
+                  "(ROADMAP.md, queue 1 item 7: the other block classes)")
 
 
 def _stream(device) -> int:
@@ -175,6 +192,50 @@ def _loglik_operands(h, rqr, z, t_mat, a0, p0, y, observed, dtypes, dims,
 _FIELDS = ("z", "t_mat", "rqr", "h", "a0", "p0")
 
 
+def _is_selection(r_mat):
+    """R [B, d, q] is 0/1 with at most one 1 a row (one host sync)."""
+    r = r_mat[:1] if r_mat.shape[0] > 1 and r_mat.stride(0) == 0 else r_mat
+    return bool((((r == 0) | (r == 1)).all()
+                 & ((r != 0).sum(-1) <= 1).all()).item())
+
+
+def time_varying_operands(params: SsmParams, t_len, dtype, device):
+    """The time-varying kernels' streams of ``params``: (zt [T, d], one z_t
+    for every system; hs [T], h_t = h hs[t]; u [U, T, d], u_t = R q_t;
+    u_stride, T d where U = B, 0 where U = 1), contiguous, in ``dtype``. A
+    field the system keeps static becomes its stream (z broadcast along T,
+    hs and u ones). u is one row where q_scale and R are one expanded over
+    the systems (stride 0). Raises NotImplementedError for a z a system
+    (``kalman.check_system``) and an R that is no selection."""
+    kalman.check_system(params)
+    b, d = params.h.shape[0], params.t_mat.shape[-1]
+    z = params.z
+    if z.dim() == 2 and b > 1 and z.stride(0) != 0:
+        raise NotImplementedError(kalman._PER_SYSTEM_Z)
+    zt = z[0] if z.dim() == 3 else z[0].expand(t_len, d)
+    hs = (params.h_scale if params.h_scale is not None
+          else torch.ones(t_len, dtype=dtype, device=device))
+    q = params.q_scale
+    if q is None:
+        u = torch.ones(1, t_len, d, dtype=dtype, device=device)
+    else:
+        r = params.r_mat
+        if not _is_selection(r):
+            raise NotImplementedError(_NOT_SELECTION)
+        if b == 1 or (q.stride(0) == 0 and r.stride(0) == 0):
+            u = torch.einsum("dq,tq->td", r[0], q[0])[None]
+        else:
+            u = torch.einsum("bdq,btq->btd", r, q)
+    ops = _checked({"zt": zt, "hs": hs, "u": u.to(dtype)}, dtype, device)
+    if (ops["zt"].shape != (t_len, d) or ops["hs"].shape != (t_len,)
+            or ops["u"].shape[1:] != (t_len, d)
+            or ops["u"].shape[0] not in (1, b)):
+        raise ValueError(f"a time-varying system's z [T, d], h_scale [T] and "
+                         f"q_scale [B, T, q] must span T = {t_len} steps")
+    u_stride = 0 if ops["u"].shape[0] == 1 else t_len * d
+    return ops["zt"], ops["hs"], ops["u"], u_stride
+
+
 def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
     """The loglik on the card, K1 (d <= 6) or K1w (7 <= d <= 16), float32
     or float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]).
@@ -209,11 +270,74 @@ def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
     return tuple(out) if innovations else out[0]
 
 
+def launch_loglik_tv(params: SsmParams, y, observed, innovations=False):
+    """The loglik of a time-varying system on the card, K1's (d <= 6) or
+    K1w's (7 <= d <= 16, the group kernel) time-varying form, float32 or
+    float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]). y as
+    :func:`launch_loglik` takes it; the streams of
+    :func:`time_varying_operands`."""
+    h = params.h
+    dtype, device = h.dtype, h.device
+    tags, dims = _build.KALMAN_ENTRIES["loglik_tv"]
+    if _DTYPE_TAG.get(dtype) not in tags:
+        raise TypeError(f"the loglik kernels (K1, K1w) run float32 or "
+                        f"float64, not {dtype}")
+    b, d = h.shape[0], params.t_mat.shape[-1]
+    wide = d in _build.WIDE_DIMS
+    if d not in dims and not wide:
+        raise NotImplementedError(
+            f"the loglik kernels (K1, K1w) take state dims {dims[0]}.."
+            f"{_build.WIDE_DIMS[-1]}, not {d} " + _NO_KERNEL)
+    fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": h,
+              "a0": params.a0, "p0": params.p0}
+    shared = 0
+    if wide and b > 1 and params.t_mat.stride(0) == 0:
+        fields["t_mat"] = params.t_mat[:1]
+        shared = SHARED_T
+    p = _checked(fields, dtype, device)
+    _shape_check(p, b, d, shared)
+    y, n_series = _series_rows(y, b, dtype, device)
+    t_len = y.shape[1]
+    zt, hs, u, u_stride = time_varying_operands(params, t_len, dtype, device)
+    obs = _observed_bytes(observed, t_len, device)
+    out = [torch.empty(b, dtype=dtype, device=device)]
+    if innovations:
+        out += [torch.empty(b, t_len, dtype=dtype, device=device)
+                for _ in range(2)]
+    ptrs = [p[k].data_ptr() for k in ("t_mat", "rqr", "h", "a0", "p0")]
+    ptrs += [y.data_ptr(), _ptr(obs), zt.data_ptr(), hs.data_ptr(),
+             u.data_ptr(), out[0].data_ptr(),
+             *(_ptr(o) for o in (out[1:] or (None,) * 2))]
+    tag = _DTYPE_TAG[dtype]
+    if wide:
+        kind = "loglik_wide_tv"
+        rc = getattr(_build.library("kalman_wide"),
+                     f"boom_kalman_loglik_wide_tv_{tag}")(
+            *ptrs, b, t_len, n_series, d, shared, u_stride, WIDE_THREADS,
+            _stream(device))
+    else:
+        kind = "loglik_tv"
+        rc = getattr(_build.library("kalman_seq"),
+                     f"boom_kalman_loglik_tv_{tag}_d{d}")(
+            *ptrs, b, t_len, n_series, u_stride, LOGLIK_THREADS,
+            _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
+    LAUNCHES[kind] += 1
+    return tuple(out) if innovations else out[0]
+
+
 def launch_jets(h, rqr, z, t_mat, a0, p0, y, observed, dh, dm, order):
     """J1 (``order`` 1) -> (ll [B], grad [B, K]) or J2 (2) -> (ll, grad,
     hess [B, K, K]) on the card: the loglik and its derivatives along the
     directions dh [K], dm [K, d, d] at (h, R Q R'), float64, d 1..16,
-    1 <= K <= JET_MAX_DIRECTIONS; y as :func:`launch_loglik` takes it."""
+    1 <= K <= JET_MAX_DIRECTIONS; y as :func:`launch_loglik` takes it. A
+    static system only: z [B, d], h [B]."""
+    if z.dim() != 2 or h.dim() != 1:
+        raise NotImplementedError(
+            "the loglik's derivative kernels (J1, J2) take static systems; "
+            "the TIM move on a time-varying system is not ported yet "
+            "(ROADMAP.md, queue 1 item 7)")
     p, y, n_series, obs, _shared = _loglik_operands(
         h, rqr, z, t_mat, a0, p0, y, observed, ("f64",), _build.JET_DIMS,
         "loglik's derivative kernels")
@@ -314,11 +438,14 @@ def kalman_loglik(params: SsmParams, y, observed=None):
     system with :func:`loglik_along`."""
     if not _on_card(params.h):
         return kalman.kalman_loglik(params, y, observed)
-    kalman.check_static(params)
-    if torch.is_grad_enabled() and any(f.requires_grad for f in params):
+    kalman.check_system(params)
+    if torch.is_grad_enabled() and any(
+            f is not None and f.requires_grad for f in params):
         raise NotImplementedError(
             "kalman_kernel.kalman_loglik gives no derivatives on the card: "
             "move the system along directions with loglik_along (J1, J2)")
+    if params.time_varying:
+        return launch_loglik_tv(params, y, observed)
     return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                          params.a0, params.p0, y, observed)
 
@@ -329,7 +456,9 @@ def innovations(params: SsmParams, y, observed=None):
     ``kalman.kalman_loglik(..., innovations=True)`` on a CPU tensor)."""
     if not _on_card(params.h):
         return kalman.kalman_loglik(params, y, observed, innovations=True)[1:]
-    kalman.check_static(params)
+    kalman.check_system(params)
+    if params.time_varying:
+        return launch_loglik_tv(params, y, observed, innovations=True)[1:]
     return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                          params.a0, params.p0, y, observed,
                          innovations=True)[1:]
@@ -357,14 +486,16 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     kernels take one series y [T] for all chains; a series a chain y_c
     [C, T] enters through the observation noise: the smoother reads eps
     only in y - y+ = y - (z' alpha+ + eps), so y_c with eps is the shared
-    series 0 with eps - y_c (the same draw up to rounding)."""
-    kalman.check_static(params)
+    series 0 with eps - y_c (the same draw up to rounding). A time-varying
+    system adds the streams of :func:`time_varying_operands` ("zt", "hs",
+    "u" and the int "u_stride") and drops z."""
+    kalman.check_system(params)
     dtype, device = params.h.dtype, params.h.device
     tags, dims = _build.KALMAN_ENTRIES["smoother"]
     if _DTYPE_TAG.get(dtype) not in tags:
         raise TypeError(f"the smoother kernel runs float64 (bsts."
                         f"SMOOTHER_DTYPE), not {dtype}")
-    c, d = params.z.shape
+    c, d = params.h.shape[0], params.t_mat.shape[-1]
     if d not in dims and d not in _build.WIDE_DIMS:
         raise NotImplementedError(
             f"the smoother kernels take state dims {dims} (K2) and "
@@ -382,22 +513,50 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
         eps = eps - y
         y = y.new_zeros(t_len)
     y = _series(y, dtype, device)
-    p = _checked({"z": params.z, "t_mat": params.t_mat, "rqr": params.rqr,
-                  "h": params.h, "p0": params.p0, "alpha1": alpha1, "w": w,
-                  "eps": eps}, dtype, device)
+    fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": params.h,
+              "p0": params.p0, "alpha1": alpha1, "w": w, "eps": eps}
+    if not params.time_varying:
+        fields["z"] = params.z
+    p = _checked(fields, dtype, device)
     _shape_check(p, c, d)
     if p["w"].shape != (c, t_len - 1, d) or p["eps"].shape != (c, t_len):
         raise ValueError(f"normals must give w [{c}, {t_len - 1}, {d}] and "
                          f"eps [{c}, {t_len}]")
+    if params.time_varying:
+        p["zt"], p["hs"], p["u"], p["u_stride"] = time_varying_operands(
+            params, t_len, dtype, device)
     return p, y, _observed_bytes(observed, t_len, device)
 
 
 def launch_smoother(p, y, obs):
     """K2 (d <= 6) or K2w on operands from :func:`smoother_operands` ->
-    [C, T, d]."""
-    (c, d), t_len = p["z"].shape, y.shape[0]
-    scratch = p["z"].new_empty(c, t_len, d + 1)
-    out = p["z"].new_empty(c, t_len, d)
+    [C, T, d], in their time-varying forms where the operands hold the
+    time-varying streams."""
+    (c, d), t_len = p["alpha1"].shape, y.shape[0]
+    scratch = p["alpha1"].new_empty(c, t_len, d + 1)
+    out = p["alpha1"].new_empty(c, t_len, d)
+    if "zt" in p:
+        ptrs = [p[k].data_ptr() for k in ("t_mat", "rqr", "h", "p0",
+                                          "alpha1", "w", "eps")]
+        ptrs += [y.data_ptr(), _ptr(obs), p["zt"].data_ptr(),
+                 p["hs"].data_ptr(), p["u"].data_ptr(), scratch.data_ptr(),
+                 out.data_ptr()]
+        if d in _build.WIDE_DIMS:
+            kind = "smoother_wide_tv"
+            rc = _build.library(
+                "kalman_wide").boom_kalman_smoother_wide_tv_f64(
+                *ptrs, c, t_len, p["u_stride"], d, WIDE_THREADS,
+                _stream(y.device))
+        else:
+            kind = "smoother_tv"
+            fn = getattr(_build.library("kalman_seq"),
+                         f"boom_kalman_smoother_tv_f64_d{d}")
+            rc = fn(*ptrs, c, t_len, p["u_stride"], SMOOTHER_THREADS,
+                    _stream(y.device))
+        if rc != 0:
+            raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
+        LAUNCHES[kind] += 1
+        return out
     ptrs = [p[k].data_ptr() for k in ("z", "t_mat", "rqr", "h", "p0",
                                       "alpha1", "w", "eps")]
     ptrs += [y.data_ptr(), _ptr(obs), scratch.data_ptr(), out.data_ptr()]

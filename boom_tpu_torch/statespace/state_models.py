@@ -1,6 +1,8 @@
 """State-model blocks on the bsts slice (port of
-boom_tpu/statespace/state_models.py:35-246): ``SdPrior``, ``LocalLevel``,
-``LocalLinearTrend`` and ``Seasonal``.
+boom_tpu/statespace/state_models.py:35-246, :677-925): ``SdPrior``,
+``LocalLevel``, ``LocalLinearTrend``, ``Seasonal``, and the time-varying
+``DynamicRegression``, ``RandomWalkHoliday`` and
+``StudentLocalLinearTrend``.
 
 A block is a frozen dataclass of floats (the model spec) whose methods work
 on a batch of chains:
@@ -13,6 +15,11 @@ on a batch of chains:
     noise_spec()                -> per-chain uniforms of draw_params
     draw_params(noise, params, path [C,T,dim]) -> dict of [C] parameters
     asis_groups()               -> [(param name, SdPrior, error dims)]
+
+A time-varying block adds ``z_seq(device, dtype)`` -> [T, dim] observation
+rows (one for every chain) and/or ``q_scale_seq(params)`` -> sd scales of
+its errors, [T, err] for every chain or [C, T, err] a chain; row t of
+q_scale_seq scales the transition t -> t+1 (reference ``SsmParams``).
 
 Random numbers come in through ``noise`` mappings (see
 ``boom_tpu_torch.rng``); the blocks never draw.
@@ -27,6 +34,7 @@ import torch
 
 from boom_tpu_torch import dists
 from boom_tpu_torch.dists.truncated import trun_gamma_lower_fast
+from boom_tpu_torch.inference.kernels.slice import slice_step
 
 
 def _sd(y: torch.Tensor) -> float:
@@ -266,3 +274,337 @@ class Seasonal:
 
     def asis_groups(self):
         return [("sigma_seasonal_sq", self.sigma_prior, (0,))]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DynamicRegression:
+    """Time-varying regression coefficients (reference DynamicRegression,
+    state_models.py:677-736; bsts add.dynamic.regression): beta_{t+1,j} =
+    beta_{t,j} + eta_j, a random-walk sd a coefficient, Z_t = x_t."""
+
+    predictors: torch.Tensor  # [T, p]
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    name: str = "dynamic_regression"
+
+    @property
+    def dim(self):
+        return self.predictors.shape[1]
+
+    @property
+    def err_dim(self):
+        return self.predictors.shape[1]
+
+    @staticmethod
+    def default(y, predictors, name="dynamic_regression"):
+        sd = _sd(y)
+        predictors = torch.as_tensor(predictors, dtype=y.dtype,
+                                     device=y.device)
+        xsd = float(torch.std(predictors, dim=0, correction=0).mean()
+                    + 1e-12)
+        return DynamicRegression(
+            predictors=predictors,
+            sigma_prior=SdPrior(sigma_guess=0.01 * sd / xsd,
+                                upper_limit=sd / xsd),
+            initial_sd=sd / xsd, name=name)
+
+    def z(self, device, dtype):
+        """The static fallback, x_0 (the composite uses z_seq)."""
+        return self.predictors[0].to(device=device, dtype=dtype)
+
+    def sliced(self, t_len):
+        """The block on the first ``t_len`` steps (a holdout's refit)."""
+        return dataclasses.replace(self, predictors=self.predictors[:t_len])
+
+    def z_seq(self, device, dtype):
+        return self.predictors.to(device=device, dtype=dtype)
+
+    def build(self, params):
+        var = params["sigma_dynreg_sq"]
+        c, d = var.shape
+        eye = torch.eye(d, device=var.device, dtype=var.dtype)
+        return _chain_mats(eye, c), _chain_mats(eye, c), torch.diag_embed(var)
+
+    def init_dist(self, device, dtype):
+        d = self.dim
+        return (torch.zeros(d, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(d, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"dynreg_u": ((self.dim,), "uniform")}
+
+    def init_params(self, noise):
+        u = noise["dynreg_u"] * (0.3 - 0.02) + 0.02
+        return {"sigma_dynreg_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"dynreg_u": ((self.dim,), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        eta = path[:, 1:] - path[:, :-1]
+        return {"sigma_dynreg_sq": self.sigma_prior.draw_variance(
+            noise["dynreg_u"], eta.shape[1], (eta * eta).sum(1))}
+
+    def asis_groups(self):
+        return []
+
+
+def _one_hot_days(days, window, dtype):
+    """[T, window]: row t the one-hot of day days[t] of the window, zeros
+    where days[t] < 0."""
+    hot = torch.nn.functional.one_hot(days.clamp_min(0), window).to(dtype)
+    return torch.where((days >= 0)[:, None], hot, 0.0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RandomWalkHoliday:
+    """Holiday-window effects (reference RandomWalkHoliday,
+    state_models.py:740-817; bsts add.random.walk.holiday): a state a day
+    of the window, each a random walk that moves only when its day recurs
+    (Q_t's sd 1 on the transition into an active day of that day, else 0);
+    the observation loads the active day's effect (a one-hot Z_t).
+
+    active: [T] int, active[t] = j when time t is day j of the window, else
+    -1."""
+
+    active: torch.Tensor  # [T] int64
+    window: int
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    name: str = "holiday"
+
+    @property
+    def dim(self):
+        return self.window
+
+    @property
+    def err_dim(self):
+        return self.window
+
+    @staticmethod
+    def default(y, active, window, name="holiday"):
+        sd = _sd(y)
+        return RandomWalkHoliday(
+            active=torch.as_tensor(active, dtype=torch.int64,
+                                   device=y.device),
+            window=window,
+            sigma_prior=SdPrior(sigma_guess=0.1 * sd, upper_limit=sd),
+            initial_sd=sd, name=name)
+
+    def z(self, device, dtype):
+        return torch.zeros(self.window, device=device, dtype=dtype)
+
+    def sliced(self, t_len):
+        """The block on the first ``t_len`` steps (a holdout's refit)."""
+        return dataclasses.replace(self, active=self.active[:t_len])
+
+    def z_seq(self, device, dtype):
+        return _one_hot_days(self.active.to(device), self.window, dtype)
+
+    def _next_days(self):
+        """The day active at t + 1 of each transition t -> t + 1 (-1 after
+        the last step)."""
+        return torch.cat([self.active[1:], self.active.new_full((1,), -1)])
+
+    def q_scale_seq(self, params):
+        """[T, window], one for every chain: transition t -> t + 1
+        refreshes the day active at t + 1."""
+        var = params["sigma_holiday_sq"]
+        return _one_hot_days(self._next_days().to(var.device), self.window,
+                             var.dtype)
+
+    def build(self, params):
+        var = params["sigma_holiday_sq"]
+        c, d = var.shape[0], self.window
+        eye = torch.eye(d, device=var.device, dtype=var.dtype)
+        return (_chain_mats(eye, c), _chain_mats(eye, c),
+                var[:, None, None] * eye)
+
+    def init_dist(self, device, dtype):
+        d = self.window
+        return (torch.zeros(d, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(d, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"holiday_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u = noise["holiday_u"] * (0.5 - 0.05) + 0.05
+        return {"sigma_holiday_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"holiday_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        """The variance from the innovations of the refresh steps only."""
+        mask = _one_hot_days(self._next_days().to(path.device), self.window,
+                             path.dtype)[:-1]
+        eta = (path[:, 1:] - path[:, :-1]) * mask
+        return {"sigma_holiday_sq": self.sigma_prior.draw_variance(
+            noise["holiday_u"], mask.sum(), (eta * eta).sum((1, 2)))}
+
+    def asis_groups(self):
+        return []
+
+
+# the slice step of the Student trend's degrees of freedom (the reference
+# slice_step's defaults)
+NU_EXPAND, NU_SHRINK = 16, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class StudentLocalLinearTrend:
+    """Local linear trend with Student-t level and slope innovations
+    (reference StudentLocalLinearTrend, state_models.py:821-925; bsts
+    add.student.local.linear.trend): a scale mixture of normals, Q_t =
+    diag(sigma_level^2 / w_level_t, sigma_slope^2 / w_slope_t). The latent
+    weights w [C, T-1] are parameters, imputed every sweep from the state
+    path; nu is slice-sampled."""
+
+    t_len: int
+    level_prior: SdPrior
+    slope_prior: SdPrior
+    initial_level_mean: float = 0.0
+    initial_level_sd: float = 1.0
+    initial_slope_sd: float = 1.0
+    nu_prior_rate: float = 0.1
+    name: str = "student_trend"
+    dim: int = 2
+    err_dim: int = 2
+
+    @staticmethod
+    def default(y, name="student_trend"):
+        sd = _sd(y)
+        return StudentLocalLinearTrend(
+            t_len=int(y.shape[0]),
+            level_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            slope_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            initial_level_mean=float(y[0]), initial_level_sd=sd,
+            initial_slope_sd=sd, name=name)
+
+    def z(self, device, dtype):
+        return torch.tensor([1.0, 0.0], device=device, dtype=dtype)
+
+    def sliced(self, t_len):
+        """The block on the first ``t_len`` steps (a holdout's refit)."""
+        return dataclasses.replace(self, t_len=t_len)
+
+    def extend_params(self, params, t_len):
+        """Parameters of a fit to fewer steps carried to ``t_len``: the
+        weights of the steps it did not see at 1, their mean, as the
+        forecast takes them (a holdout's filter past its cutpoint)."""
+        out = dict(params)
+        for k in ("w_level", "w_slope"):
+            w = params[k]
+            out[k] = torch.cat([w, w.new_ones(w.shape[0],
+                                              t_len - 1 - w.shape[1])], 1)
+        return out
+
+    def _t(self, device, dtype):
+        return torch.tensor([[1.0, 1.0], [0.0, 1.0]], device=device,
+                            dtype=dtype)
+
+    def build(self, params):
+        lvl, slope = params["sigma_level_sq"], params["sigma_slope_sq"]
+        c = lvl.shape[0]
+        eye = torch.eye(2, device=lvl.device, dtype=lvl.dtype)
+        return (_chain_mats(self._t(lvl.device, lvl.dtype), c),
+                _chain_mats(eye, c),
+                torch.diag_embed(torch.stack([lvl, slope], dim=-1)))
+
+    def q_scale_seq(self, params):
+        """[C, T, 2]: 1 / sqrt(w) of each transition, 1 on the last row."""
+        w = torch.stack([params["w_level"], params["w_slope"]], dim=-1)
+        scale = 1.0 / torch.sqrt(torch.clamp_min(w, 1e-12))
+        return torch.cat([scale, torch.ones_like(scale[:, :1])], dim=1)
+
+    def init_dist(self, device, dtype):
+        return (torch.tensor([self.initial_level_mean, 0.0], device=device,
+                             dtype=dtype),
+                torch.diag(torch.tensor([self.initial_level_sd ** 2,
+                                         self.initial_slope_sd ** 2],
+                                        device=device, dtype=dtype)))
+
+    def init_noise_spec(self):
+        return {"level_u": ((), "uniform"), "slope_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u1 = noise["level_u"] * (0.5 - 0.05) + 0.05
+        u2 = noise["slope_u"] * (0.2 - 0.01) + 0.01
+        ones = u1.new_ones(u1.shape[0], self.t_len - 1)
+        ten = torch.full_like(u1, 10.0)
+        # the slope's initial sd is the level's, as the reference's
+        return {"sigma_level_sq": (self.initial_level_sd * u1) ** 2,
+                "sigma_slope_sq": (self.initial_level_sd * u2) ** 2,
+                "nu_level": ten, "nu_slope": ten.clone(),
+                "w_level": ones, "w_slope": ones.clone()}
+
+    def noise_spec(self):
+        n = self.t_len - 1
+        spec = {"w_level_u": ((n,), "uniform_pos"),
+                "w_slope_u": ((n,), "uniform_pos"),
+                "level_u": ((), "uniform_pos"),
+                "slope_u": ((), "uniform_pos")}
+        for part in ("level", "slope"):
+            spec.update({f"nu_{part}_h_u": ((), "uniform_pos"),
+                         f"nu_{part}_u_u": ((), "uniform"),
+                         f"nu_{part}_shrink_u": ((NU_SHRINK,), "uniform")})
+        return spec
+
+    def innovations(self, path):
+        """[C, T-1, 2] level and slope innovations of the state path."""
+        return _innovations(path, _chain_mats(
+            self._t(path.device, path.dtype), path.shape[0]))
+
+    @staticmethod
+    def impute_weights(u, e, sigsq, nu):
+        """The latent weights' draw, Gamma((nu + 1) / 2, rate (nu + e^2 /
+        sigma^2) / 2), by inverse CDF at the uniforms ``u`` [C, T-1] (the
+        reference draws jax.random.gamma: the same distribution)."""
+        a = 0.5 * (nu[:, None] + 1.0)
+        b = 0.5 * (nu[:, None] + e * e / sigsq[:, None])
+        return trun_gamma_lower_fast(u, a, b, 0.0, newton_iters=8)
+
+    def draw_params(self, noise, params, path):
+        eta = self.innovations(path)
+        w_lvl = self.impute_weights(noise["w_level_u"], eta[..., 0],
+                                    params["sigma_level_sq"],
+                                    params["nu_level"])
+        w_slp = self.impute_weights(noise["w_slope_u"], eta[..., 1],
+                                    params["sigma_slope_sq"],
+                                    params["nu_slope"])
+        return self.draw_given_weights(noise, params, eta, w_lvl, w_slp)
+
+    def draw_given_weights(self, noise, params, eta, w_lvl, w_slp):
+        """The variances and nu given the imputed weights (reference
+        :889-918): the variances from the weighted sums of squares, each nu
+        by a slice step on its weights' log posterior."""
+        n = eta.shape[1]
+        lvl = self.level_prior.draw_variance(
+            noise["level_u"], n, (w_lvl * eta[..., 0] ** 2).sum(-1))
+        slp = self.slope_prior.draw_variance(
+            noise["slope_u"], n, (w_slp * eta[..., 1] ** 2).sum(-1))
+
+        def nu_step(part, nu, w):
+            sum_log_w, sum_w = torch.log(w).sum(-1), w.sum(-1)
+
+            def logpost(v):
+                half = 0.5 * v
+                return (n * (half * torch.log(half) - torch.lgamma(half))
+                        + (half - 1.0) * sum_log_w - half * sum_w
+                        - self.nu_prior_rate * v)
+
+            return slice_step(nu, logpost, 2.0, noise[f"nu_{part}_h_u"],
+                              noise[f"nu_{part}_u_u"],
+                              noise[f"nu_{part}_shrink_u"],
+                              expand_iters=NU_EXPAND, lower=0.5, upper=500.0)
+
+        return {"sigma_level_sq": lvl, "sigma_slope_sq": slp,
+                "nu_level": nu_step("level", params["nu_level"], w_lvl),
+                "nu_slope": nu_step("slope", params["nu_slope"], w_slp),
+                "w_level": w_lvl, "w_slope": w_slp}
+
+    def asis_groups(self):
+        return []

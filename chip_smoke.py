@@ -27,13 +27,13 @@ Phases:
   2b. the sequential Kalman kernels (K1, the loglik; K2, the fused
      simulation smoother; ``csrc/kalman_seq.cu``) against their plain
      versions on the card: d in {1, 2, 3, 6}, T in {2, 31, 32, 33, 67,
-     500, 4096} (K2 stages 32 steps at a time: one below, at, one above a
+     500, 1025} (K2 stages 32 steps at a time: one below, at, one above a
      chunk, a ragged last one), 33 and 4095 chains (a last warp partly
      empty), masked and dense, float64 (<= 1e-9) and float32 (K1, <= 1e-4),
      K1 at the bsts_llt width (69,632 series); K1 with a series a chain
      (d in {1, 2, 3, 6}, 33 and 4095 chains x 17 systems) and K1w (the
      loglik for 7 <= d <= 16, ``csrc/kalman_wide.cu``: d in {7, 8, 9, 13,
-     16}, T in {2, 31, 32, 33, 500}, 33, 4095 and 4097 series, one shared
+     16}, T in {2, 31, 32, 33, 67}, 33, 4095 and 4097 series, one shared
      series and a series a system, masked and dense, a T a system and T
      and z one of every system (expanded, as Bsts builds them: the same
      bits as materialised), and at phase 7's width, 4096 chains x 17
@@ -41,8 +41,9 @@ Phases:
      innovations v and f, float64 (<= 1e-9) and float32 (<= 1e-4); J1 and
      J2 (the loglik's gradient, and its gradient and Hessian, along K
      directions, ``csrc/kalman_wide.cu``) at d in {1, 2, 3, 6, 8, 13, 16}
-     and K = 3 and 16 (the most) against autograd of the plain loop,
-     directly and through ``torch.autograd.functional.hessian`` (<= 1e-9);
+     and K = 3 and 16 (the most), T = 64, against autograd of the plain
+     loop, directly and through ``torch.autograd.functional.hessian``
+     (<= 1e-9), and at phase 7's and phase 4's shapes (T = 500);
      ten launches of each at the bsts_llt and phase 7 shapes,
      bit-identical; then their times beside bounds and plain times
      (``boom_tpu_torch/kernels/kalman_timing.py``), registers and spills;
@@ -80,7 +81,8 @@ Phases:
   2d. the kernels of the bsts_reg path against their plain versions on the
      card: K2w (the simulation smoother for 7 <= d <= 16,
      ``csrc/kalman_wide.cu``) at d in {7, 8, 9, 13, 16}, T in {31, 32, 33,
-     500}, 33, 4095 and 4097 chains (<= 1e-9), K3 (the ASIS D-path of
+     67}, 33, 4095 and 4097 chains (<= 1e-9), and at phase 6's shapes (T =
+     500, d = 8 and 13), K3 (the ASIS D-path of
      every d) at d in {1, 2, 3, 7, 8, 13, 16}, G in {1, 2, 3}, 33, 4096
      and 4097 chains, T=500, and at the fit's D-paths (8 chains, d=2, G=2,
      T=4096) (float64 <= 1e-9, float32 <= 1e-4), and
@@ -97,8 +99,9 @@ Phases:
      float64 sweep of 33 chains on the card against the CPU's on the same
      noise; then ``Bsts`` with a local linear trend, a 7-season cycle
      (d = 8) and a spike-and-slab regression of p = 20, T = 500, 4096
-     chains, 300 burn-in + 250 draws, float32 (smoother in float64),
-     through ``run_mcmc`` and ``BstsModel.predict(horizon=30,
+     chains, 200 burn-in + 200 draws (300 + 250 until phase 8 came),
+     float32 (smoother in float64), through ``run_mcmc`` and
+     ``BstsModel.predict(horizon=30,
      future_predictors=x[500:])`` from 200 draws. It must run through K2w,
      K3 and kernel (a)'s per-chain entry, give finite draws, pass split
      R-hat < 1.02 on beta[0:4] and, on the four variances, R-hat - 1 at
@@ -112,7 +115,7 @@ Phases:
      busy share;
   7. config #5 with the TIM marginal move (``marginal_sigma_slice=True,
      marginal_move="tim"``, 16 trials) on phase 6's data at its width and
-     length (4096 chains, 300 + 250 sweeps, float32, smoother in float64):
+     length (4096 chains, 200 + 200 sweeps, float32, smoother in float64):
      the proposal's mode search through J1 and J2 at d = 8, then the run
      through K1w (the move's 17 points a chain on the chain's y - X beta),
      K2w, K3 and kernel (a)'s per-chain entry; gated by finite draws, R-hat
@@ -125,7 +128,40 @@ Phases:
      versions on the card. It prints sweeps/s, min-ESS/s, the proposal
      build's wall time, each phase's share of a sweep, the device's busy
      share, whether the move lifts the level and slope variances' R-hat
-     from phase 6's, and its own time.
+     from phase 6's, and its own time;
+  2e. the time-varying forms of K1, K1w, K2 and K2w (z_t shared by the
+     systems, h_t = h h_scale_t, Q_t = (q_t q_t') o Q with q_t a system,
+     one for all or none; a mask) against their plain versions on the
+     card: d in {1, 2, 6, 7, 13, 16}, T in {33, 67}, 33 systems on 11
+     series and 257 on one, K1 / K1w with their innovations in float64
+     (<= 1e-9) and float32 (<= 1e-4), K2 / K2w in float64; at phase 8's
+     shapes (``kalman_timing.TV_SHAPES``), ten launches there
+     bit-identical; their times beside bounds and plain times, registers
+     and spills;
+  8. bsts_tv: a daily series on a grid of 500 days with gaps and
+     duplicated days (``boom_tpu_torch/data/bsts_tv.npz``), fit with its
+     timestamps through ``BstsModel().add_student_local_linear_trend()
+     .add_seasonal(7).add_dynamic_regression(x_dyn)
+     .add_random_walk_holiday(active, 3).fit(y, predictors=x,
+     timestamps=ts)`` (d = 13, p = 20) on the card: the front end briefly;
+     one float64 sweep of 33 chains against the CPU's (<= 1e-8); then
+     4096 chains x (200 + 200) sweeps, float32 (smoother float64), through
+     K2w's time-varying form, K3 and kernel (a)'s per-chain entry, gated
+     against the reference's own run (tests/test_torch_bsts_tv.py bench
+     1024 200 200 7): each monitored parameter's R-hat - 1 at most 1.10
+     times the reference's + 0.01, medians within 10 % (variances, nu) and
+     2 % (beta[0:4]), half its min-ESS per draw, columns 0-3 included with
+     probability >= 0.99; ``predict(horizon=30)`` of 200 draws with the
+     future predictors and holiday days within half the reference's sd of
+     its median; ``log_lik`` and ``prediction_errors(cutpoints=[400])`` of
+     200 draws through K1w's time-varying form, within 1e-4 of the plain
+     filter; then a d = 4 model (a Student trend and the dynamic
+     regression, 64 chains x (20 + 20)) through K2's and K1's. It prints
+     sweeps/s, min-ESS/s, each phase's share of a sweep and the device's
+     busy share.
+
+Every phase prints its time (``phase N took X s``), and the whole run its
+own.
 
     python3 chip_smoke.py --gate-check
 
@@ -153,6 +189,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # fit configuration of phase 3 (the reference's bsts(y, niter) regime: one
 # long series and a handful of chains)
@@ -204,23 +241,28 @@ TIM_KERNELS = {"loglik_wide": ("kalman_loglik_wide",
                "loglik_hess": ("kalman_loglik_hess",
                                "boom_tpu/numopt.py:101")}
 # K1 with a series a group of systems: d, and chains of TIM points (each
-# chain's points on its own series); K1w: d, T about the warps, series
-# counts of a partial block and ragged last ones (each also dense and
-# masked, shared and a series a system)
+# chain's points on its own series); K1w: d, T about the warps and a
+# longer one (67: 500 until phase 8 came; phase 7's width runs T = 500),
+# series counts of a partial block and ragged last ones (each also dense
+# and masked, shared and a series a system)
 PER_CHAIN_D_CHECK = (1, 2, 3, 6)
 PER_CHAIN_CHAINS = (33, 4095)
 LOGLIK_WIDE_D_CHECK = (7, 8, 9, 13, 16)
-LOGLIK_WIDE_T_CHECK = (2, 31, 32, 33, 500)
+LOGLIK_WIDE_T_CHECK = (2, 31, 32, 33, 67)
 LOGLIK_WIDE_SERIES = (33, 4095, 4097)
 # the jets along directions: d, and K at TIM's 3 and at the most; T of
 # the checks (autograd of the plain loop over 500 steps, a backward pass
-# a direction, would take ~100 s of the script) but for phase 7's shape
+# a direction, would take ~100 s of the script) but for phase 7's and
+# phase 4's shapes, which stay at T = 500 (cut from 150 to 64 with the
+# other off-path T of phases 2b and 2d when phase 8 came: its time)
 JET_D_CHECK = (1, 2, 3, 6, 8, 13, 16)
-JET_T = 150
+JET_T = 64
 # K2 stages 32 steps at a time (kalman_kernel.SMOOTHER_CHUNK): one below,
-# at and one above a chunk, a ragged last chunk, the bsts_llt T and 4096;
-# masked at MASKED_T; chain counts that leave the last warp partly empty
-KALMAN_T_CHECK = (2, 31, 32, 33, 67, 500, 4096)
+# at and one above a chunk, a ragged last chunk, the bsts_llt T and a long
+# ragged one (1025: 4096 until phase 8 came; no main path runs K1 or K2
+# at the fit's T, which the scans serve); masked at MASKED_T; chain counts
+# that leave the last warp partly empty
+KALMAN_T_CHECK = (2, 31, 32, 33, 67, 500, 1025)
 KALMAN_MASKED_T = (33, 67, 500)
 KALMAN_CHAIN_CHECK = (33, 4095)
 # derivative check: normwise relative error of J1's and J2's gradient and
@@ -290,13 +332,15 @@ WIDE_KERNELS = {"smoother_wide": ("kalman_simulation_smoother_wide",
                                   "boom_tpu/statespace/kalman.py:476"),
                 "dpath": ("asis_dpath", "boom_tpu/statespace/bsts.py:1082")}
 # K2w: d 7, 8 (four chains a warp), 9, 13, 16 (two); T about the chunk
-# edges; 33 chains (a partial block), 4095 and 4097 (a ragged last pack).
+# edges and a longer one (67: 500 until phase 8 came; the main path's T =
+# 500 is checked at phase 6's shapes); 33 chains (a partial block), 4095
+# and 4097 (a ragged last pack).
 # K3: d 1, 2, 3 (32, 16 and 8 series a warp) to 16 at T = LLT_T; 33
 # chains and 4096, 4097 (the short chunks of a full card); and the fit's
 # D-paths (phase 3: 8 chains x 2 groups, d = 2, T = T_FIT, many long
 # chunks a series)
 WIDE_D_CHECK = (7, 8, 9, 13, 16)
-WIDE_T_CHECK = (31, 32, 33, 500)
+WIDE_T_CHECK = (31, 32, 33, 67)
 WIDE_CHAIN_CHECK = (33, 4095, 4097)
 DPATH_D_CHECK = (1, 2, 3, 7, 8, 13, 16)
 DPATH_G_CHECK = (1, 2, 3)
@@ -307,62 +351,67 @@ BORDER_CHAIN_CHECK = (33, 4096)
 
 # phase 6: bsts_reg, BASELINE config #5 (BASELINE.md:32; README.md:40-44)
 REG_T, REG_P, REG_HORIZON = 500, 20, 30
-REG_CHAINS, REG_BURN, REG_DRAWS, REG_SEED = 4096, 300, 250, 0
+# 200 + 200 sweeps (300 + 250 before phase 8 came: cut to pay for its
+# time, the references remade at this length)
+REG_CHAINS, REG_BURN, REG_DRAWS, REG_SEED = 4096, 200, 200, 0
 REG_FORECAST_DRAWS = 200
 REG_SWEEP_CHAINS = 33
 REG_MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq",
                "sigma_seasonal_sq", "beta[0]", "beta[1]", "beta[2]",
                "beta[3]")
 # The JAX reference's run on the committed data (x64 off, as the bench
-# runs): 64 chains, 500 burn-in + 2000 draws, from
+# runs) at phase 6's length: 1024 chains, 200 burn-in + 200 draws, from
 #     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
-#         bench 64 500 2000 2026
+#         bench 1024 200 200 7
+# (before phase 8 came, the medians, min-ESS and forecast came from a
+# 64-chain, 500 + 2000 run of the same script, and phase 6 ran 300 + 250
+# sweeps)
 REFERENCE_MEDIANS_REG = {
-    "sigsq_obs": 0.3552930951118469, "sigma_level_sq": 0.0056000081822276115,
-    "sigma_slope_sq": 0.0001308427017647773,
-    "sigma_seasonal_sq": 0.0019495957531034946,
-    "beta[0]": 3.0178589820861816, "beta[1]": -2.0128607749938965,
-    "beta[2]": 1.4407904148101807, "beta[3]": 0.9968891143798828}
-REFERENCE_MIN_ESS_PER_DRAW_REG = 0.006821736849527832
+    "sigsq_obs": 0.3558697998523712, "sigma_level_sq": 0.005264243111014366,
+    "sigma_slope_sq": 0.00013638802920468152,
+    "sigma_seasonal_sq": 0.001924860174767673,
+    "beta[0]": 3.0179710388183594, "beta[1]": -2.0129971504211426,
+    "beta[2]": 1.440704345703125, "beta[3]": 0.9968365430831909}
+REFERENCE_MIN_ESS_PER_DRAW_REG = 0.008446132327265007
 REFERENCE_FORECAST_MEDIAN_REG = (
-    -62.5980339050293, -58.61228942871094, -60.14018249511719,
-    -60.13082504272461, -67.90896606445312, -58.72581481933594,
-    -66.874755859375, -65.05384063720703, -63.49400329589844,
-    -61.678993225097656, -68.87454223632812, -64.82650756835938,
-    -64.33843231201172, -63.99015808105469, -73.91768646240234,
-    -67.31756591796875, -66.91307067871094, -61.61737060546875,
-    -73.06929016113281, -65.45597839355469, -68.3524169921875,
-    -69.45564270019531, -58.59198760986328, -71.50546264648438,
-    -70.0760726928711, -73.66845703125, -74.600341796875, -73.59306335449219,
-    -76.43486785888672, -67.3539810180664)
+    -62.49315643310547, -58.691287994384766, -60.241668701171875,
+    -60.087890625, -67.88286590576172, -58.73298645019531, -66.79112243652344,
+    -64.96575927734375, -63.53178405761719, -61.65713119506836,
+    -68.98260498046875, -64.76028442382812, -64.16488647460938,
+    -63.76995849609375, -73.85674285888672, -67.45150756835938,
+    -66.78168487548828, -61.4560546875, -73.0467529296875, -65.44558715820312,
+    -68.26403045654297, -69.30841064453125, -58.779991149902344,
+    -71.25563049316406, -69.95750427246094, -73.60853576660156,
+    -74.59906768798828, -73.40187072753906, -76.34567260742188,
+    -67.35681915283203)
 REFERENCE_FORECAST_SD_REG = (
-    0.6791679263114929, 0.713959276676178, 0.6960288882255554,
-    0.8467196822166443, 0.7776634693145752, 0.7945913076400757,
-    0.8424422740936279, 0.9043722152709961, 0.9787407517433167,
-    0.9796078205108643, 0.9466345310211182, 0.9433966279029846,
-    1.0416755676269531, 1.0465636253356934, 1.0396223068237305,
-    1.1606380939483643, 1.2282204627990723, 1.1850286722183228,
-    1.3270279169082642, 1.4231960773468018, 1.4499027729034424,
-    1.4140335321426392, 1.5332988500595093, 1.649139404296875,
-    1.6279475688934326, 1.7510836124420166, 1.823449969291687,
-    1.8342525959014893, 1.8131062984466553, 1.9720864295959473)
-# Split R-hat of the reference at this run length (300 burn-in + 250
+    0.6355166435241699, 0.7717800736427307, 0.7398772835731506,
+    0.7878442406654358, 0.8726757764816284, 0.8229374885559082,
+    0.8069803714752197, 0.8939924240112305, 0.9933972358703613,
+    0.9663235545158386, 1.0376207828521729, 1.041511058807373,
+    1.083634853363037, 1.1028894186019897, 1.120147705078125,
+    1.2477887868881226, 1.3617892265319824, 1.3529096841812134,
+    1.47734534740448, 1.401212215423584, 1.4028939008712769,
+    1.565682053565979, 1.666903018951416, 1.776099443435669,
+    1.7498217821121216, 1.8296884298324585, 1.8828915357589722,
+    1.9566642045974731, 2.0707485675811768, 2.0374257564544678)
+# Split R-hat of the reference at this run length (200 burn-in + 200
 # draws, 1024 chains, x64 off), REG_MONITOR's order, from
 #     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
-#         bench 1024 300 250 7
+#         bench 1024 200 200 7
 # The level and slope variances mix slowly in the reference's own sampler
-# (ESS per draw ~0.007-0.008): their R-hat at 250 draws is far above 1.02,
-# so the port's gate on the variances is the reference's own R-hat here
-REFERENCE_RHAT_REG = (1.033916377831742, 1.4894978317194372,
-                      1.4379444480299992, 1.0702209304820018,
-                      1.0019848446602277, 1.0019373305918495,
-                      1.0016245705207818, 1.0018420056521857)
+# (ESS per draw ~0.008): their R-hat at 200 draws is far above 1.02, so
+# the port's gate on the variances is the reference's own R-hat here
+REFERENCE_RHAT_REG = (1.0394572742850805, 1.6024094262627024,
+                      1.5203009650118393, 1.088908786556291,
+                      1.0019999063664073, 1.0024865331415278,
+                      1.002393135816731, 1.00219769679277)
 # the port's R-hat - 1 at most REG_RHAT_FACTOR times the reference's, plus
-# REG_RHAT_SLACK (both estimates carry the noise of a finite run). Sound
-# runs from seeds 0, 1 and 2 read at most 1.0348 / 1.5147 / 1.4474 /
-# 1.0716 against these limits of 1.0473 / 1.5484 / 1.4917 / 1.0872;
-# ``--gate-check`` reads 1.7526 on the level variance with the ASIS pass
-# skipped
+# REG_RHAT_SLACK (both estimates carry the noise of a finite run). At
+# 300 + 250 sweeps sound runs from seeds 0, 1 and 2 read at most
+# 1.0348 / 1.5147 / 1.4474 / 1.0716 against limits of 1.0473 / 1.5484 /
+# 1.4917 / 1.0872, and ``--gate-check`` read 1.7526 on the level variance
+# with the ASIS pass skipped
 REG_RHAT_FACTOR, REG_RHAT_SLACK = 1.10, 0.01
 REG_VARIANCE_TOL, REG_BETA_TOL = 0.10, 0.02
 REG_MIN_INCLUSION = 0.99
@@ -389,27 +438,122 @@ TIM_REG_CUTPOINT = 400
 TIM_REG_REFIT_DRAWS = 100
 TIM_REG_TOL = 1e-4  # log_lik and the errors against their plain versions
 # The JAX reference's run with the move on the committed data (x64 off, as
-# the bench runs), 1024 chains, 300 burn-in + 250 draws (phase 7's
+# the bench runs), 1024 chains, 200 burn-in + 200 draws (phase 7's
 # length), REG_MONITOR's order, from
 #     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim_reg.py \
-#         bench 1024 300 250 7
-# (801 s on 8 CPU cores). The move lifts the recorded level and slope
-# variances' R-hat from the reference's 1.4895 / 1.4379 without it
-# (REFERENCE_RHAT_REG) to 1.0978 / 1.0684; the observation variance's and
+#         bench 1024 200 200 7
+# (550 s on 8 CPU cores). The move lifts the recorded level and slope
+# variances' R-hat from the reference's 1.6024 / 1.5203 without it
+# (REFERENCE_RHAT_REG) to 1.1071 / 1.0744; the observation variance's and
 # beta's trajectories are those of the run without it (the move's draws
 # are redrawn by the next sweep's variance step, and it takes noise of its
 # own), so their R-hat is the same
 REFERENCE_MEDIANS_TIM_REG = {
-    "sigsq_obs": 0.35566186904907227, "sigma_level_sq": 0.005520816659554839,
-    "sigma_slope_sq": 0.00013150530139682814,
-    "sigma_seasonal_sq": 0.0019371098605915904,
-    "beta[0]": 3.017993211746216, "beta[1]": -2.0129021406173706,
-    "beta[2]": 1.4406251907348633, "beta[3]": 0.9968388378620148}
-REFERENCE_RHAT_TIM_REG = (1.033916377831742, 1.097790944625607,
-                          1.0683782474636725, 1.012961346467776,
-                          1.0019848446602277, 1.0019373305918495,
-                          1.0016245705207818, 1.0018420056521857)
-REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.0248025826492084
+    "sigsq_obs": 0.3558697998523712, "sigma_level_sq": 0.005329350242391229,
+    "sigma_slope_sq": 0.00013400850730249658,
+    "sigma_seasonal_sq": 0.0019298071274533868,
+    "beta[0]": 3.01797091960907, "beta[1]": -2.0129971504211426,
+    "beta[2]": 1.440704345703125, "beta[3]": 0.9968365430831909}
+REFERENCE_RHAT_TIM_REG = (1.0394572742850805, 1.1070918721201572,
+                          1.0744286989176746, 1.0143159800834192,
+                          1.0019999063664073, 1.0024865331415278,
+                          1.002393135816731, 1.00219769679277)
+REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.028240124111220188
+
+# phase 2e: the time-varying forms of K1, K1w, K2 and K2w (z_t, h_t =
+# h h_scale_t, Q_t = (q_t q_t') o Q), the reference's XLA scans they
+# replace (kalman_loglik's lax.scan, which takes zs, hs and rqrs of a
+# time-varying system; simulation_smoother's time-varying path, simulate
+# then smooth_states on y - y+); their rows read phase 8's launches (K2w,
+# K1w: the bsts_tv run and its log_lik; K2, K1: the d = 4 model's)
+TV_KERNELS = {
+    "smoother_wide_tv": ("kalman_simulation_smoother_wide_tv", WIDE_SOURCE,
+                         "boom_tpu/statespace/kalman.py:432"),
+    "loglik_wide_tv": ("kalman_loglik_wide_tv", WIDE_SOURCE,
+                       "boom_tpu/statespace/kalman.py:282"),
+    "smoother_tv": ("kalman_simulation_smoother_tv", KALMAN_SOURCE,
+                    "boom_tpu/statespace/kalman.py:432"),
+    "loglik_tv": ("kalman_loglik_tv", KALMAN_SOURCE,
+                  "boom_tpu/statespace/kalman.py:282")}
+# d of the checks (K1 and K2 at 1, 2, 6; K1w and K2w at 7, 13, 16), T, a
+# q_t a system, one for all or none; 33 systems on 11 series and 257 on
+# one (a ragged last block)
+TV_D_CHECK = (1, 2, 6, 7, 13, 16)
+TV_T_CHECK = (33, 67)
+TV_Q_CHECK = ("chain", "shared", None)
+
+# phase 8: bsts_tv, a daily series on a grid of 500 days with gaps and
+# duplicated days (``boom_tpu_torch/data/bsts_tv.npz``): a Student trend, a
+# 7-day cycle, a 2-column dynamic regression and a 3-day random-walk
+# holiday (d = 13), a spike-and-slab regression of p = 20, fit with its
+# timestamps
+TV_CHAINS, TV_BURN, TV_DRAWS, TV_SEED = 4096, 200, 200, 0
+TV_FORECAST_DRAWS = 200
+TV_CUTPOINT = 400
+TV_SWEEP_CHAINS = 33
+# the d = 4 model (a Student trend and the dynamic regression) that runs
+# K1's and K2's time-varying forms: chains, burn-in, draws
+TV_SMALL = (64, 20, 20)
+TV_MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq", "nu_level",
+              "nu_slope", "sigma_seasonal_sq", "sigma_dynreg_sq[0]",
+              "sigma_dynreg_sq[1]", "sigma_holiday_sq", "beta[0]",
+              "beta[1]", "beta[2]", "beta[3]")
+# The JAX reference's run on the committed data (x64 off, as the bench
+# runs; its ASIS redraw given the filter's observation variances, a fault
+# of the reference corrected: ROADMAP.md, sec. 3), 1024 chains, 200
+# burn-in + 200 draws (phase 8's length), TV_MONITOR's order, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_tv.py \
+#         bench 1024 200 200 7
+# (about 12 minutes on 8 CPU cores). Its level and slope variances, nu and
+# the dynamic regression's variances mix slowly at this length (R-hat
+# 1.63-1.89, ESS per draw ~0.007), so phase 8 holds each R-hat - 1 to
+# REG_RHAT_FACTOR times the reference's + REG_RHAT_SLACK, as phase 6
+REFERENCE_MEDIANS_TV = {
+    "sigsq_obs": 0.3007541745901108,
+    "sigma_level_sq": 0.010432387236505747,
+    "sigma_slope_sq": 0.00020652662351494655,
+    "nu_level": 12.198681354522705,
+    "nu_slope": 13.083141326904297,
+    "sigma_seasonal_sq": 0.00016765972395660356,
+    "sigma_dynreg_sq[0]": 0.0005435570201370865,
+    "sigma_dynreg_sq[1]": 0.00039738582563586533,
+    "sigma_holiday_sq": 0.041085587814450264,
+    "beta[0]": 3.001819372177124,
+    "beta[1]": -2.030407667160034,
+    "beta[2]": 1.4802201986312866,
+    "beta[3]": 0.9655955731868744}
+REFERENCE_RHAT_TV = (
+    1.0436637172303511, 1.8346827036922466, 1.6298962434654125,
+    1.8900867005571838, 1.8663537776105579, 1.024266948606765,
+    1.8374670313787824, 1.8256653510690748, 1.1027888093928464,
+    1.003408002202693, 1.0034715777735792, 1.008828404435497,
+    1.002602357493974)
+REFERENCE_MIN_ESS_PER_DRAW_TV = 0.0071020904862332665
+REFERENCE_FORECAST_MEDIAN_TV = (
+    -37.16552734375, -43.72484588623047, -45.822906494140625,
+    -46.096866607666016, -51.41563415527344, -41.0736083984375,
+    -38.182464599609375, -48.7662239074707, -36.05126190185547,
+    -41.711219787597656, -42.572391510009766, -41.84668731689453,
+    -36.26859664916992, -39.099700927734375, -38.877685546875,
+    -48.041099548339844, -49.62646484375, -44.79119110107422,
+    -41.39777374267578, -49.39680862426758, -39.146522521972656,
+    -42.72175598144531, -48.21085739135742, -41.9118537902832,
+    -45.504913330078125, -38.004844665527344, -36.95187759399414,
+    -44.007232666015625, -56.85428237915039, -45.217376708984375)
+REFERENCE_FORECAST_SD_TV = (
+    0.6361469626426697, 0.9117140769958496, 0.9689147472381592,
+    1.023921012878418, 0.8181862831115723, 0.8909514546394348,
+    0.9196645617485046, 0.9831339120864868, 1.029069423675537,
+    1.1874287128448486, 1.1277897357940674, 1.2560088634490967,
+    1.3649027347564697, 1.345676064491272, 1.3720375299453735,
+    1.5790433883666992, 1.67475163936615, 1.7740757465362549,
+    1.7809972763061523, 1.8930866718292236, 1.9362565279006958,
+    2.0857560634613037, 2.12402081489563, 2.3930115699768066,
+    2.353912830352783, 2.429535388946533, 2.528822422027588,
+    2.5958359241485596, 2.7273616790771484, 2.789325475692749)
+# log_lik and the errors of TV_FORECAST_DRAWS draws against their plain
+# versions on the card (float32: the normwise 1e-4 of the kernels' gate)
+TV_TOL = 1e-4
 
 # the keys of every row of the kernels line
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -2050,6 +2194,458 @@ def phase7_bsts_reg_tim(card, rhat_without):
     return launches
 
 
+def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series):
+    """The time-varying forms of K1 / K1w (with the innovations) and, in
+    float64, K2 / K2w against their plain versions on one time-varying
+    system (``kalman_timing.time_varying_system``), masked: ({kernel: (rel,
+    abs)})."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    tag = str(dtype).split(".")[-1]
+    params = kt.time_varying_system(rng, b, d, t_len, tag, q_mode)
+    y = torch.tensor(rng.normal(size=(series, t_len)).cumsum(-1),
+                     dtype=dtype, device="cuda")
+    obs = torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
+    wide = d in (7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+    out = {}
+    got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+    want = kalman.kalman_loglik(params, y, obs, innovations=True)
+    out["loglik_wide_tv" if wide else "loglik_tv"] = (
+        max(_rel(g, w) for g, w in zip(got, want)),
+        max(float((g - w).abs().max()) for g, w in zip(got, want)))
+    if dtype == torch.float64:
+        q = params.q_mat.shape[-1]
+        normals = [torch.tensor(rng.normal(size=sh), dtype=dtype,
+                                device="cuda")
+                   for sh in ((b, d), (b, t_len - 1, q), (b, t_len))]
+        y1 = y[0] if series != b else y
+        got = kk.simulation_smoother(params, y1, *normals, observed=obs)
+        want = kalman.simulation_smoother(params, y1, *normals,
+                                          observed=obs)
+        out["smoother_wide_tv" if wide else "smoother_tv"] = (
+            _rel(got, want), float((got - want).abs().max()))
+    return out
+
+
+def phase2e_tv_vs_plain():
+    """K1, K1w, K2 and K2w in their time-varying forms against their plain
+    versions (d in TV_D_CHECK, T in TV_T_CHECK, q_t a system, one for all
+    or none, a mask, float64 and float32), at phase 8's shapes
+    (``kalman_timing.TV_SHAPES``), ten launches bit-identical there, and
+    their times beside bounds and plain times. Returns the rows' numbers."""
+    import torch
+
+    from boom_tpu_torch.kernels import _build
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20261020)
+    bad, worst = [], {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        for d in TV_D_CHECK:
+            for t_len in TV_T_CHECK:
+                for q_mode in TV_Q_CHECK:
+                    for b, series in ((33, 11), (257, 1)):
+                        res = _tv_vs_plain(rng, dtype, d, t_len, q_mode, b,
+                                           series)
+                        for k, (rel, _abs) in res.items():
+                            worst[(k, tag)] = max(worst.get((k, tag), 0.0),
+                                                  rel)
+                            if not (np.isfinite(rel)
+                                    and rel <= SCAN_TOL[tag]):
+                                bad.append(f"{k} {tag} d={d} T={t_len} "
+                                           f"q={q_mode} B={b}: {rel:.3e}")
+    for (k, tag), v in sorted(worst.items()):
+        print(f"worst {k} {tag} over d {TV_D_CHECK}, T {TV_T_CHECK}, q_t "
+              f"{TV_Q_CHECK}: {v:.3e} (tolerance {SCAN_TOL[tag]:g})")
+    check(not bad, "a time-varying kernel disagrees with its plain version: "
+          + "; ".join(bad[:20]))
+
+    at_tv, same = {}, {}
+    for name, (tag, batch, d, t_len, series) in kt.TV_SHAPES.items():
+        kern, ref, _wrapper = kt.tv_cases(rng, name, tag, batch, d, t_len,
+                                          series)
+        first, want = kern(), ref()
+        first = first if isinstance(first, tuple) else (first,)
+        want = want if isinstance(want, tuple) else (want,)
+        rel = max(_rel(g.double(), w.double()) for g, w in zip(first, want))
+        at_tv[name] = {"max_abs_err": max(float((g - w).abs().max())
+                                          for g, w in zip(first, want))}
+        print(f"{name} {tag} B={batch} d={d} T={t_len} S={series} (phase "
+              f"8's shape): rel {rel:.2e} abs {at_tv[name]['max_abs_err']:.2e}")
+        check(np.isfinite(rel) and rel <= SCAN_TOL[tag],
+              f"{name} at phase 8's shape: {rel:.3e}")
+        same[name] = True
+        for _ in range(9):
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            same[name] &= all(torch.equal(a, b) for a, b in zip(first,
+                                                                  again))
+    torch.cuda.synchronize()
+    print("ten repeated launches at phase 8's shapes bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+
+    for name, r in kt.time_tv(rng).items():
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); one call "
+              f"on the host clock {r['call_ms']:.4f} ms")
+        if r.get("pass_ms"):
+            print(f"time {name} by pass (profiler, device ms a call): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in sorted(r["pass_ms"].items())))
+        at_tv[name].update({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")})
+    for source, read in (("kalman_seq", kt.nvcc_report),
+                         ("kalman_wide", kt.wide_nvcc_report)):
+        log = _build.log_path(source)
+        if log.exists():
+            for inst, rep in read(log.read_text()).items():
+                if inst.endswith(" tv") or inst.startswith("loglik_tv"):
+                    print(f"nvcc {inst}: {rep['registers']} registers, "
+                          f"{rep['spill_bytes']} bytes spill stores, "
+                          f"{rep['stack_bytes']} bytes stack")
+    print(f"phase 2e took {time.perf_counter() - t_phase:.1f} s")
+    return at_tv
+
+
+def _tv_builder(raw, small=False):
+    """bsts_tv's model as a user builds it: ``BstsModel()
+    .add_student_local_linear_trend().add_seasonal(7)
+    .add_dynamic_regression(x_dyn).add_random_walk_holiday(active, 3)``
+    (``small``: the Student trend and the dynamic regression, d = 4)."""
+    from boom_tpu_torch import data
+    from boom_tpu_torch.api import BstsModel
+
+    g = data.BSTS_TV_GRID
+    model = BstsModel().add_student_local_linear_trend()
+    if not small:
+        model = model.add_seasonal(7)
+    model = model.add_dynamic_regression(raw["x_dyn"][:g])
+    if not small:
+        model = model.add_random_walk_holiday(raw["active"][:g],
+                                              data.BSTS_TV_WINDOW)
+    return model
+
+
+def _tv_future_z(raw):
+    """The forecast's rows of the time-varying blocks: the dynamic
+    regression's future predictors, the holiday's one-hot future days."""
+    from boom_tpu_torch import data
+
+    g = data.BSTS_TV_GRID
+    act = raw["active"][g:]
+    return {"dynamic_regression": raw["x_dyn"][g:],
+            "holiday": np.where((act >= 0)[:, None],
+                                np.eye(data.BSTS_TV_WINDOW)[
+                                    np.maximum(act, 0)], 0.0)}
+
+
+def _tv_extract(state):
+    """bsts_tv's draws: the variances, nu and the Student weights (the
+    forecast and log_lik read them), the regression and the last row of
+    the state."""
+    return {"sigsq_obs": state["sigsq_obs"],
+            "blocks": {name: dict(v) for name, v in state["blocks"].items()},
+            "beta": state["beta"], "gamma": state["gamma"],
+            "alpha": state["alpha"][:, -1:]}
+
+
+def _tv_sweep_vs_cpu(raw):
+    """One float64 sweep (init included) of TV_SWEEP_CHAINS chains of
+    bsts_tv's model on the card against the CPU's on the same noise:
+    (chains whose masks agree, worst relative difference over them)."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference.driver import tree_map
+
+    c = TV_SWEEP_CHAINS
+    out, models = {}, {}
+    gen = prng.generator(3, "cpu")
+    for device in ("cpu", "cuda"):
+        fit = _tv_builder(raw).fit(
+            raw["y"], predictors=raw["x"], timestamps=raw["timestamps"],
+            niter=1, burn=0, num_chains=1, seed=0, device=device,
+            dtype=torch.float64)
+        models[device] = fit._model
+        if device == "cpu":
+            init_noise = models[device].draw_init_noise(gen, c)
+            noise = models[device].draw_noise(gen, c)
+        moved = [tree_map(lambda t, dev=device: t.to(dev), n)
+                 for n in (init_noise, noise)]
+        state = models[device].init_state(moved[0])
+        state = models[device].kernel()(moved[1], state)
+        out[device] = tree_map(lambda t: t.cpu(), state)
+    agree = (out["cuda"]["gamma"] == out["cpu"]["gamma"]).all(-1)
+    errs = []
+    tree_map(lambda a, b: errs.append(_rel(a[agree].double(),
+                                           b[agree].double())),
+             out["cuda"], out["cpu"])
+    return int(agree.sum()), max(errs)
+
+
+def _tv_small_path(raw):
+    """The d = 4 model (a Student trend and the dynamic regression) on the
+    card through the front end: TV_SMALL chains and sweeps, then log_lik
+    and the in-sample errors of its draws; it runs K2's and K1's
+    time-varying forms. Returns (launches, log_lik and errors' relative
+    difference from the plain filter)."""
+    import torch
+
+    from boom_tpu_torch.statespace import bsts as pbsts
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    chains, burn, draws = TV_SMALL
+    for k in kk.LAUNCHES:
+        kk.LAUNCHES[k] = 0
+    fit = _tv_builder(raw, small=True).fit(
+        raw["y"], predictors=raw["x"], timestamps=raw["timestamps"],
+        niter=draws, burn=burn, num_chains=chains, seed=2)
+    model = fit._model
+    sub = fit._subsampled_states(0, TV_FORECAST_DRAWS)
+    ll = model.log_lik(sub)
+    errs = pbsts.one_step_prediction_errors(model, sub)
+    torch.cuda.synchronize()
+    launches = dict(kk.LAUNCHES)
+    check(model.state_dim == 4, f"the small model's d = {model.state_dim}")
+    want = kalman.kalman_loglik(model.ssm_params(sub),
+                                model.adjusted_series(sub), model.observed,
+                                innovations=True)
+    err = max(_rel(ll.double(), want[0].double()),
+              _rel(errs.double(), (want[1] / torch.sqrt(want[2])).double()))
+    return launches, err
+
+
+def phase8_bsts_tv(card):
+    """bsts_tv at full width on its committed data, fit with its
+    timestamps through the front end: a Student trend, a 7-day cycle, the
+    dynamic regression and the holiday (d = 13) with a spike-and-slab
+    regression (p = 20); one float64 sweep of 33 chains against the
+    CPU's; TV_CHAINS chains x (TV_BURN + TV_DRAWS) sweeps through K2w's
+    time-varying form, K3 and kernel (a)'s per-chain entry, gated against
+    the reference's run; the forecast with the future predictors and
+    holiday days; log_lik and prediction_errors(cutpoints=[TV_CUTPOINT])
+    of TV_FORECAST_DRAWS draws through K1w's time-varying form; then the
+    d = 4 model through K2's and K1's. Returns the kernels' launch
+    counts of the main paths."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.inference import diagnostics
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models.glm import ssvs_kernel as ssk
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES
+
+    t_phase = time.perf_counter()
+    raw = data.bsts_tv()
+    g = data.BSTS_TV_GRID
+
+    # the front end on its default device (the card), briefly
+    t0 = time.perf_counter()
+    fit = _tv_builder(raw).fit(raw["y"], predictors=raw["x"],
+                               timestamps=raw["timestamps"], niter=10,
+                               burn=5, num_chains=64, seed=1)
+    model = fit._model
+    fcast = fit.predict(horizon=data.BSTS_TV_HORIZON,
+                        future_z=_tv_future_z(raw),
+                        future_predictors=raw["x_future"], max_draws=50)
+    torch.cuda.synchronize()
+    gaps = int((~model.observed).sum())
+    dup = int((model.obs_weights > 1).sum())
+    print(f"bsts_tv front end on the card: fit (64 chains, 5 + 10 sweeps) "
+          f"and predict in {time.perf_counter() - t0:.2f} s; grid T={g}, "
+          f"{raw['y'].shape[0]} observations, {gaps} gaps, {dup} days "
+          f"observed twice, d={model.state_dim}, p={model.num_predictors}")
+    check(model.y.device.type == "cuda" and model.time_varying
+          and model.state_dim == 13 and model.t_len == g and gaps > 0
+          and dup > 0, "the bsts_tv front end did not build its model on "
+          "the card")
+    check(tuple(fcast.shape) == (50, data.BSTS_TV_HORIZON)
+          and bool(torch.isfinite(fcast).all()), "front-end forecast")
+
+    n_agree, worst = _tv_sweep_vs_cpu(raw)
+    print(f"bsts_tv float64 sweep C={TV_SWEEP_CHAINS}: card vs CPU masks "
+          f"agree on {n_agree} chains, worst relative difference there "
+          f"{worst:.3e} (tolerance {SWEEP_TOL:g})")
+    check(np.isfinite(worst) and worst <= SWEEP_TOL,
+          f"the bsts_tv sweep on the card disagrees: {worst:.3e}")
+    check(n_agree >= TV_SWEEP_CHAINS - 1,
+          f"the bsts_tv masks agree on {n_agree} chains")
+
+    for counts in (kk.LAUNCHES, sk.LAUNCHES, ssk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    gen = prng.generator(TV_SEED, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda gn, c: model.init_state(model.draw_init_noise(gn,
+                                                                        c)),
+                   TV_DRAWS, generator=gen, num_chains=TV_CHAINS,
+                   burn=TV_BURN, extract=_tv_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    launches = {"smoother_wide_tv": kk.LAUNCHES["smoother_wide_tv"],
+                "dpath": kk.LAUNCHES["dpath"],
+                "ssvs_sweep_border": ssk.LAUNCHES["ssvs_sweep_border"]}
+    others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES,
+                                **ssk.LAUNCHES}.items()
+              if k not in launches and v}
+    sweeps = TV_BURN + TV_DRAWS
+    print(f"bsts_tv: T={g} d=13 p={model.num_predictors} chains={TV_CHAINS} "
+          f"burn={TV_BURN} draws={TV_DRAWS} in {elapsed:.2f} s; launches "
+          f"{launches}, other kernels {others}")
+    check(launches["smoother_wide_tv"] >= sweeps + 1
+          and launches["dpath"] >= sweeps
+          and launches["ssvs_sweep_border"] >= sweeps and not others,
+          f"the bsts_tv run did not go through its kernels: {launches}, "
+          f"{others}")
+
+    d = res.draws
+    b = d["blocks"]
+    tr = b["student_trend"]
+    cols = [d["sigsq_obs"], tr["sigma_level_sq"], tr["sigma_slope_sq"],
+            tr["nu_level"], tr["nu_slope"],
+            b["seasonal_7"]["sigma_seasonal_sq"],
+            b["dynamic_regression"]["sigma_dynreg_sq"][..., 0],
+            b["dynamic_regression"]["sigma_dynreg_sq"][..., 1],
+            b["holiday"]["sigma_holiday_sq"]]
+    mon = torch.cat([torch.stack(cols, dim=-1), d["beta"][..., :4]],
+                    dim=-1).double()
+    finite = bool(torch.isfinite(mon).all()) and all(
+        bool(torch.isfinite(v.float()).all())
+        for v in (d["alpha"], tr["w_level"], tr["w_slope"]))
+    check(finite, "non-finite bsts_tv draws")
+    ess = diagnostics.effective_sample_size(mon).cpu().numpy()
+    rhat = diagnostics.potential_scale_reduction(mon).cpu().numpy()
+    per_draw = ess / (TV_CHAINS * TV_DRAWS)
+    med = mon.reshape(-1, len(TV_MONITOR)).median(0).values.cpu().numpy()
+    inclusion = d["gamma"].double().mean((0, 1)).cpu().numpy()
+    gates = []
+    for i, name in enumerate(TV_MONITOR):
+        ref = REFERENCE_MEDIANS_TV[name]
+        limit = (1.0 + REG_RHAT_FACTOR * (REFERENCE_RHAT_TV[i] - 1.0)
+                 + REG_RHAT_SLACK)
+        print(f"bsts_tv {name}: median {med[i]:.6g} (reference {ref:.6g}, "
+              f"ratio {med[i] / ref:.4f}) rhat {rhat[i]:.4f} (reference's "
+              f"{REFERENCE_RHAT_TV[i]:.4f}, limit {limit:.4f}) ess per draw "
+              f"{per_draw[i]:.5f}")
+        gates.append((rhat[i] <= limit,
+                       f"bsts_tv R-hat of {name} {rhat[i]:.4f} > {limit:.4f} "
+                       f"(the reference's {REFERENCE_RHAT_TV[i]:.4f})"))
+        tol = REG_BETA_TOL if name.startswith("beta") else REG_VARIANCE_TOL
+        gates.append((abs(med[i] / ref - 1.0) <= tol,
+                      f"bsts_tv median of {name} {med[i]:.5g} is not within "
+                      f"{tol:.0%} of the reference's {ref:.5g}"))
+    min_per_draw = float(per_draw.min())
+    gates.append((min_per_draw >= 0.5 * REFERENCE_MIN_ESS_PER_DRAW_TV,
+                  f"bsts_tv min-ESS per draw {min_per_draw:.5f} is below half "
+                  f"the reference's {REFERENCE_MIN_ESS_PER_DRAW_TV:.5f}"))
+    gates.append((bool((inclusion[:4] >= REG_MIN_INCLUSION).all()),
+                  f"bsts_tv inclusion of columns 0-3 {inclusion[:4].tolist()}"))
+    print("bsts_tv inclusion probabilities: "
+          + ", ".join(f"{v:.4f}" for v in inclusion))
+    print(f"bsts_tv rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, min-ESS "
+          f"{float(ess.min()):.1f} ({min_per_draw:.5f} a draw, the "
+          f"reference's {REFERENCE_MIN_ESS_PER_DRAW_TV:.5f}), min-ESS/s "
+          f"{float(ess.min()) / elapsed:.2f}, max R-hat "
+          f"{float(rhat.max()):.4f}")
+    _print_profile(f"bsts_tv [{card}]", *_phase_profile(
+        model, res.final_state, gen, TV_CHAINS, "bsts", SWEEP_PHASES))
+
+    # the forecast, log_lik and the errors of TV_FORECAST_DRAWS draws
+    fit = BstsModel(_model=model, _result=res)
+    t2 = time.perf_counter()
+    fcast = fit.predict(horizon=data.BSTS_TV_HORIZON,
+                        future_z=_tv_future_z(raw),
+                        future_predictors=raw["x_future"],
+                        max_draws=TV_FORECAST_DRAWS)
+    f_med = fcast.double().median(0).values.cpu().numpy()
+    gap = (np.abs(f_med - np.asarray(REFERENCE_FORECAST_MEDIAN_TV))
+           / np.asarray(REFERENCE_FORECAST_SD_TV))
+    print(f"bsts_tv forecast {list(fcast.shape)}: |median - reference's| / "
+          f"reference's sd at steps 1, 10, 30: {gap[0]:.3f}, {gap[9]:.3f}, "
+          f"{gap[-1]:.3f}; worst {float(gap.max()):.3f} (gate "
+          f"{REG_FORECAST_SDS})")
+    gates += [(tuple(fcast.shape) == (TV_FORECAST_DRAWS,
+                                      data.BSTS_TV_HORIZON)
+               and bool(torch.isfinite(fcast).all()),
+               f"the bsts_tv forecast is {tuple(fcast.shape)} or not finite"),
+              (float(gap.max()) <= REG_FORECAST_SDS,
+               f"the bsts_tv forecast's median is {float(gap.max()):.3f} "
+               "reference sds from the reference's")]
+    sub = fit._subsampled_states(0, TV_FORECAST_DRAWS)
+    before = dict(kk.LAUNCHES)
+    ll = model.log_lik(sub)
+    errs = fit.prediction_errors(cutpoints=[TV_CUTPOINT],
+                                 max_draws=TV_FORECAST_DRAWS)
+    torch.cuda.synchronize()
+    pe_s = time.perf_counter() - t2
+    ran = {k: kk.LAUNCHES[k] - before[k] for k in ("loglik_wide_tv",
+                                                    "smoother_wide_tv")}
+    launches["loglik_wide_tv"] = ran["loglik_wide_tv"]
+    want = kalman.kalman_loglik(model.ssm_params(sub),
+                                model.adjusted_series(sub), model.observed,
+                                innovations=True)
+    ll_err = _rel(ll.double(), want[0].double())
+    pe_err = _rel(errs["in.sample"].double(),
+                  (want[1] / torch.sqrt(want[2])).double())
+    held = errs[str(TV_CUTPOINT)]
+    hold = held[:, TV_CUTPOINT:][:, model.observed[TV_CUTPOINT:]].double()
+    print(f"bsts_tv forecast, log_lik and prediction_errors(cutpoints="
+          f"[{TV_CUTPOINT}]) of {TV_FORECAST_DRAWS} draws in {pe_s:.2f} s "
+          f"(launches {ran}): log_lik rel {ll_err:.2e}, in-sample errors "
+          f"rel {pe_err:.2e} (tolerance {TV_TOL:g}); holdout "
+          f"{tuple(held.shape)}, past the cutpoint (observed days) mean "
+          f"{float(hold.mean()):.4f} sd {float(hold.std()):.4f}")
+    gates += [
+        (np.isfinite(ll_err) and ll_err <= TV_TOL,
+         f"bsts_tv log_lik is {ll_err:.3e} off its plain version"),
+        (np.isfinite(pe_err) and pe_err <= TV_TOL,
+         f"bsts_tv's in-sample errors are {pe_err:.3e} off their plain "
+         "version"),
+        (ran["loglik_wide_tv"] >= 3,
+         f"log_lik and the errors did not run through K1w's time-varying "
+         f"form: {ran}"),
+        (tuple(held.shape)[1] == g and bool(torch.isfinite(held).all())
+         and bool((held[:, ~model.observed] == 0).all()),
+         f"the bsts_tv holdout errors are {tuple(held.shape)}, not finite "
+         "or not 0 at the gaps")]
+
+    small, small_err = _tv_small_path(raw)
+    print(f"bsts_tv d=4 (a Student trend and the dynamic regression, "
+          f"{TV_SMALL[0]} chains x ({TV_SMALL[1]} + {TV_SMALL[2]}) sweeps, "
+          f"log_lik and errors): launches "
+          f"{ {k: v for k, v in small.items() if v} }, log_lik and errors "
+          f"rel {small_err:.2e}")
+    launches["smoother_tv"] = small["smoother_tv"]
+    launches["loglik_tv"] = small["loglik_tv"]
+    gates += [(small["smoother_tv"] >= sum(TV_SMALL[1:])
+               and small["loglik_tv"] >= 2,
+               f"the d = 4 model did not run K2's and K1's time-varying "
+               f"forms: {small}"),
+              (np.isfinite(small_err) and small_err <= TV_TOL,
+               f"the d = 4 model's log_lik and errors are {small_err:.3e} "
+               "off the plain filter")]
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in gates:
+        check(ok, msg)
+    return launches
+
+
 @contextlib.contextmanager
 def _planted(fault):
     """Plant one of REG_FAULTS in the port for the duration of a run, by
@@ -2134,8 +2730,16 @@ def gate_check(card):
     return 0
 
 
+def _timed(label, fn, *args):
+    """fn(*args), then ``phase <label> took X s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
-    card = phase0_environment()
+    card = _timed("0", phase0_environment)
     import torch
 
     if sys.argv[1:] == ["--gate-check"]:
@@ -2146,17 +2750,21 @@ def main():
             print(f"chip_smoke --gate-check FAILED: {exc}", file=sys.stderr)
             return 1
     try:
-        phase1_build()
-        at_fit = phase2_kernels_vs_plain()
-        at_llt = phase2b_kalman_vs_plain()
-        phase3_sweep_vs_plain()
-        launches = phase3_fit(card)
-        llt_launches = phase4_bsts_llt(card)
-        at_ssvs = phase2c_ssvs_vs_plain()
-        ssvs_launches = phase5_spike_slab(card)
-        at_reg = phase2d_wide_vs_plain()
-        reg_launches, reg_rhat = phase6_bsts_reg(card)
+        _timed("1", phase1_build)
+        at_fit = _timed("2", phase2_kernels_vs_plain)
+        at_llt = _timed("2b", phase2b_kalman_vs_plain)
+        _timed("3 (the sweep against the CPU's)", phase3_sweep_vs_plain)
+        launches = _timed("3 (the fit)", phase3_fit, card)
+        llt_launches = _timed("4", phase4_bsts_llt, card)
+        at_ssvs = _timed("2c", phase2c_ssvs_vs_plain)
+        ssvs_launches = _timed("5", phase5_spike_slab, card)
+        at_reg = _timed("2d", phase2d_wide_vs_plain)
+        reg_launches, reg_rhat = _timed("6", phase6_bsts_reg, card)
+        # phases 7, 2e and 8 print their own times, before their gates
         tim_launches = phase7_bsts_reg_tim(card, reg_rhat)
+        at_tv = phase2e_tv_vs_plain()
+        tv_launches = phase8_bsts_tv(card)
+        print(f"chip_smoke took {time.perf_counter() - T_START:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2190,6 +2798,10 @@ def main():
                     "source": SSVS_SOURCE, "replaces": SSVS_REPLACES,
                     "launches": reg_launches["ssvs_sweep_border"],
                     **at_reg["ssvs_sweep_border"], "library_ms": None})
+    for k, (name, source, replaces) in TV_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": tv_launches[k],
+                        **at_tv[k], "library_ms": None})
     lacking = {k["name"]: sorted(KERNEL_KEYS - set(k)) for k in kernels
                if KERNEL_KEYS - set(k)}
     if lacking:

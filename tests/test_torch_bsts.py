@@ -279,8 +279,8 @@ def test_smoother_dispatch():
 
 
 @pytest.mark.parametrize("option", [
-    {"obs_weights": torch.ones(T_LEN)},
-    {"observed": torch.ones(T_LEN, dtype=torch.bool)},
+    {"marginal_sigma_slice": True, "marginal_move": "slice"},
+    {"marginal_sigma_slice": True, "marginal_move": "grid"},
     {"marginal_sigma_slice": True, "marginal_move": "mtm"},
 ])
 def test_unported_options_raise(option):
@@ -313,8 +313,8 @@ def test_fit_on_cpu_gives_finite_draws_of_the_right_shape():
 
 def test_fit_takes_the_reference_parameters_in_order():
     """BstsModel.fit's parameters are the reference's, in its order and
-    with its defaults, then ``device`` and ``dtype``; ``timestamps`` raise
-    naming their ROADMAP item."""
+    with its defaults, then ``device`` and ``dtype``; ``timestamps`` of
+    monthly dates (a calendar grid) raise naming their ROADMAP item."""
     from boom_tpu.api import BstsModel as JaxBstsModel
 
     ref = list(inspect.signature(JaxBstsModel.fit).parameters.values())
@@ -328,7 +328,7 @@ def test_fit_takes_the_reference_parameters_in_order():
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         BstsModel().add_local_linear_trend().fit(
             _llt_series(), niter=2, burn=1, num_chains=2, device="cpu",
-            timestamps=np.arange(T_LEN))
+            timestamps=np.arange(T_LEN).astype("datetime64[M]"))
 
 
 def test_fit_defaults_to_the_card():

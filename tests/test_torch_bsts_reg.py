@@ -348,10 +348,14 @@ def test_predict_matches_reference(reference_sweep):
                                                 device="cpu"), horizon)
     assert got.shape == (CHAINS, horizon)
     _close(got, want, RTOL, 1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.predict(noise, state_from_numpy(_numpy_tree(ref),
-                                              device="cpu"), horizon,
-                      future_z={"trend": np.zeros((horizon, 2))})
+    # a future_z row replaces a block's z, as the reference's
+    zero = {"trend": np.zeros((horizon, 2))}
+    want = jax.vmap(lambda k, s: jmodel.predict(
+        k, s, horizon, future_z={"trend": jnp.asarray(zero["trend"])}))(
+        keys, ref)
+    _close(model.predict(noise, state_from_numpy(_numpy_tree(ref),
+                                                 device="cpu"), horizon,
+                         future_z=zero), want, RTOL, 1e-12)
 
 
 def test_asis_redraw_at_d8_matches_reference():

@@ -324,7 +324,7 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
     params, y, _obs, normals = _kalman_inputs(card, torch.float64, 3, 20,
                                               seed=1)
     with pytest.raises(TypeError, match="float64"):
-        kk.simulation_smoother(SsmParams(*(p.float() for p in params)),
+        kk.simulation_smoother(params.cast(torch.float32),
                                y.float(), *(n.float() for n in normals))
     # a series count that does not divide the systems
     with pytest.raises(ValueError, match="dividing"):
@@ -337,7 +337,7 @@ def test_kalman_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kk.kalman_loglik(big, y17)
     with pytest.raises(TypeError, match="float32 or float64"):
-        kk.kalman_loglik(SsmParams(*(p.half() for p in params)), y.half())
+        kk.kalman_loglik(params.cast(torch.float16), y.half())
 
 
 # -- kernel (a), the SSVS indicator sweep -----------------------------------
@@ -504,3 +504,98 @@ def test_log_lik_and_errors_with_a_regression_run_on_the_card(card):
     want = kalman.kalman_loglik(params, y_adj, innovations=True)
     assert _rel(got, want[0]) <= TOL[torch.float32]
     assert _rel(errs, want[1] / torch.sqrt(want[2])) <= TOL[torch.float32]
+
+
+# -- the time-varying forms of K1, K1w, K2 and K2w -----------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [1, 2, 6, 7, 13, 16])
+@pytest.mark.parametrize("q_mode", ["chain", "shared", None])
+@pytest.mark.parametrize("t_len", [1, 33, 500])
+def test_time_varying_kernels_match_plain(card, dtype, d, q_mode, t_len):
+    """K1 / K1w with their innovations (both dtypes) and K2 / K2w (float64)
+    of a time-varying system (z_t shared, h_t, Q_t with q_t a system, one
+    for all or none), masked, a series a group: each against its plain
+    version, one launch of its time-varying form."""
+    from boom_tpu_torch.kernels.kalman_timing import time_varying_system
+
+    rng = np.random.default_rng(d * 1000 + t_len)
+    tag = str(dtype).split(".")[-1]
+    b = 34
+    params = time_varying_system(rng, b, d, t_len, tag, q_mode)
+    y = torch.tensor(rng.normal(size=(17, t_len)).cumsum(-1), dtype=dtype,
+                     device=card)
+    obs = torch.tensor(rng.uniform(size=t_len) > 0.2, device=card)
+    wide = d >= 7
+    before = dict(kk.LAUNCHES)
+    got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+    want = kalman.kalman_loglik(params, y, obs, innovations=True)
+    for g, w in zip(got, want):
+        assert _within(g, w, TOL[dtype])
+    kind = "loglik_wide_tv" if wide else "loglik_tv"
+    assert kk.LAUNCHES[kind] == before[kind] + 1
+    if dtype == torch.float64:
+        y1 = y[0]
+        q = params.q_mat.shape[-1]
+        normals = [torch.tensor(rng.normal(size=s), dtype=dtype, device=card)
+                   for s in ((b, d), (b, t_len - 1, q), (b, t_len))]
+        got = kk.simulation_smoother(params, y1, *normals, observed=obs)
+        want = kalman.simulation_smoother(params, y1, *normals,
+                                          observed=obs)
+        assert _within(got, want, TOL[dtype])
+        kind = "smoother_wide_tv" if wide else "smoother_tv"
+        assert kk.LAUNCHES[kind] == before[kind] + 1
+
+
+def test_time_varying_kernels_are_bit_identical(card):
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    rng = np.random.default_rng(3)
+    for name, (tag, batch, d, t_len, series) in kt.TV_SHAPES.items():
+        kern = kt.tv_cases(rng, name, tag, min(batch, 257), d, t_len,
+                           min(series, 257))[0]
+        first = kern()
+        first = first if isinstance(first, tuple) else (first,)
+        for _ in range(9):
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            assert all(torch.equal(a, w) for a, w in zip(first, again)), name
+
+
+def test_tv_bsts_runs_on_the_card(card):
+    """A gapped time-varying bsts (a Student trend and a dynamic regression,
+    d = 4; with a seasonal and a holiday, d = 13) fit on the card goes
+    through K2 / K2w and K1 / K1w in their time-varying forms, and its
+    log_lik and errors agree with the plain filter."""
+    from boom_tpu_torch import data
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.statespace import bsts as pbsts
+
+    raw = data.bsts_tv()
+    keep = raw["timestamps"] < 120
+    for small in (True, False):
+        model = BstsModel().add_student_local_linear_trend()
+        if not small:
+            model = model.add_seasonal(7)
+        model = model.add_dynamic_regression(raw["x_dyn"][:120])
+        if not small:
+            model = model.add_random_walk_holiday(raw["active"][:120], 3)
+        before = dict(kk.LAUNCHES)
+        fit = model.fit(raw["y"][keep], predictors=raw["x"][keep],
+                        timestamps=raw["timestamps"][keep], niter=4, burn=2,
+                        num_chains=8, seed=1)
+        m = fit._model
+        states = fit._flat()
+        ll = m.log_lik(states)
+        errs = pbsts.one_step_prediction_errors(m, states)
+        sm_kind = "smoother_tv" if small else "smoother_wide_tv"
+        ll_kind = "loglik_tv" if small else "loglik_wide_tv"
+        assert kk.LAUNCHES[sm_kind] >= before[sm_kind] + 7
+        assert kk.LAUNCHES[ll_kind] == before[ll_kind] + 2
+        want = kalman.kalman_loglik(m.ssm_params(states),
+                                    m.adjusted_series(states), m.observed,
+                                    innovations=True)
+        assert _within(ll.double(), want[0].double(), 1e-4)
+        assert _within(errs.double(),
+                       (want[1] / torch.sqrt(want[2])).double(), 1e-4)

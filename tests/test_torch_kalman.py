@@ -224,10 +224,14 @@ def test_loglik_autograd_launches_j1_then_j2(monkeypatch, d, masked):
 
 
 def test_time_varying_systems_raise():
+    """What the port does not take of the time-varying systems raises,
+    naming its ROADMAP item: a z [B, T, d] that differs by system (the
+    regression holiday's; one z_t for every system is taken,
+    test_torch_tv_kalman.py)."""
     rng = np.random.default_rng(4)
     params = ssm_params_from_numpy(_systems(rng, 2, 2), device="cpu")
     y = torch.zeros(5, dtype=torch.float64)
-    tv = params._replace(h=params.h[:, None].expand(2, 5))
+    tv = params._replace(z=params.z[:, None].expand(2, 5, 2).contiguous())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kalman.kalman_loglik(tv, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

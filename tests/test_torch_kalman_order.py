@@ -218,8 +218,7 @@ def test_k1_f32_order_matches_reference(ref_dtype, t_len, d, masked):
         jk.SsmParams(**p), jnp.asarray(y, dtype=ref_dtype),
         observed)))(cast)
     params = ssm_params_from_numpy(fields, device="cpu")
-    params = params._replace(**{k: v.float()
-                                for k, v in params._asdict().items()})
+    params = params.cast(torch.float32)
     got = k1_f32_order(params, torch.tensor(y, dtype=torch.float32),
                        torch.tensor(observed))
     assert got.dtype == torch.float32
