@@ -49,7 +49,12 @@
 // pass 2 has no division and overwrites a slot's first D with r_{t-1};
 // pass 3 regenerates alpha+ from alpha_1 and w with pass 1's operations
 // and writes alpha+ + alpha-hat once, so the draw is written once. What is
-// left is pass 1's f64 Riccati chain a step (PERF.md, Findings).
+// left is pass 1's f64 Riccati chain a step (PERF.md, Findings). The
+// time-varying form (`smoother_kernel<D, true>`) stages its streams the
+// same way: u_t's rows beside w in passes 1 and 3 (u_{t-1} in pass 3), z_t
+// and h_scale a lane a step beside y and the mask, read by every lane at
+// one address; its pass 3 holds 3 D + 1 doubles a step, so past d = 4 it
+// stages 16 steps a chunk (SmootherSmem).
 //
 // Design. The state (a, P, the loglik) lives in registers; d is a template
 // parameter (1..6), unrolled at compile time. The operation order is the
@@ -402,8 +407,9 @@ __global__ void loglik_tv_kernel(const T* __restrict__ tm,
 // ---- K2 ------------------------------------------------------------------
 
 // K2's block is one warp, a lane a chain; the streams are staged kChunk
-// steps at a time (kChunk == kLanes: lane l stages step t0 + l of y and
-// the mask).
+// steps at a time (kChunk == kLanes: lane l stages step t0 + l of y, the
+// mask and, in the time-varying form, z_t and h_scale; the time-varying
+// form past d = 4 stages half a chunk, SmootherSmem).
 constexpr int kLanes = 32;
 constexpr int kChunk = 32;
 static_assert(kChunk == kLanes, "a lane stages one step of y and the mask");
@@ -415,16 +421,23 @@ constexpr int kPitch = kLanes + 1;
 
 // K2's shared memory: two buffers, each of kChunk steps of every chain of
 // the warp (the widest pass, pass 3, holds a slot of D + 1 and w [D] a
-// step), then y [kChunk] and the mask [kChunk] of the chunk.
-template <int D>
+// step, and in the time-varying form u_{t-1} [D]), then y [kChunk] and the
+// mask [kChunk] of the chunk, and in the time-varying form z_t [kChunk][D]
+// and h_scale [kChunk]. Two buffers of 32 steps of the time-varying form
+// fit the 227 KB to d = 4; past it the time-varying form stages 16 steps.
+template <int D, bool kTv = false>
 struct SmootherSmem {
+  static constexpr int kChunk = kTv && D > 4 ? kLanes / 2 : kLanes;
   static constexpr int kRec = D + 1;  // a step's slot: (v/f, K), later r
-  static constexpr int kElems = kChunk * (2 * D + 1);
+  static constexpr int kElems = kChunk * ((kTv ? 3 : 2) * D + 1);
   static constexpr int kY = kElems * kPitch * 8;  // byte offsets
   static constexpr int kMask = kY + kChunk * 8;
-  static constexpr int kBuf = (kMask + kChunk + 15) / 16 * 16;
+  static constexpr int kZ = (kMask + kChunk + 15) / 16 * 16;
+  static constexpr int kHs = kZ + kChunk * D * 8;
+  static constexpr int kBuf = kTv ? (kHs + kChunk * 8 + 15) / 16 * 16 : kZ;
   static constexpr int kBytes = 2 * kBuf;
-  static_assert(kBytes <= 232448, "two chunks must fit in 227 KB");
+  static_assert(kChunk <= kLanes && kBytes <= 232448,
+                "two chunks must fit in 227 KB");
 };
 
 // The warp copies `count` doubles of the row of each of its chains (row of
@@ -479,8 +492,10 @@ __device__ __forceinline__ void store_rows(const double* buf, double* base,
 // are the draws' noise, alpha1 [C, D] the unconditional initial state.
 // kTv (a time-varying system): step t of pass 1 reads z_t of zt [T, D],
 // h_t = h * hs[t] and R Q_t R' = (u_t u_t') o R Q R' (u_t of u [., T, D]
-// at u + c u_stride), pass 2 z_t, pass 3 R Q_{t-1} R', each from the cache
-// (loglik_tv_kernel's inputs); z is not read.
+// at u + c u_stride), pass 2 z_t, pass 3 R Q_{t-1} R'; z is not read.
+// They are staged a chunk ahead as the static streams are: the u_t rows
+// with w (a copy reads 32 consecutive doubles of a row), z_t and h_scale
+// with y and the mask, a lane a step, read by every lane at one address.
 // scratch [C, T, D+1]: pass 1 writes (v/f, K) of step t at slot t, pass 2
 // overwrites its first D with r_{t-1}, pass 3 reads them. Every row is
 // staged and written a chunk at a time by the whole warp (a lane writes
@@ -502,8 +517,8 @@ __global__ void __launch_bounds__(kLanes)
                     int batch, int t_len, const double* __restrict__ zt,
                     const double* __restrict__ hs,
                     const double* __restrict__ u, long long u_stride) {
-  using Sm = SmootherSmem<D>;
-  constexpr int kRec = Sm::kRec;
+  using Sm = SmootherSmem<D, kTv>;
+  constexpr int kRec = Sm::kRec, kChunk = Sm::kChunk;
   BOOM_SHARED_BYTES(smem_raw);
   const int lane = threadIdx.x;
   const int chain0 = blockIdx.x * kLanes;
@@ -523,16 +538,18 @@ __global__ void __launch_bounds__(kLanes)
     }
   }
   const double hh = h[c];
-  const double* u_c = u + static_cast<long long>(c) * u_stride;
-  // a time-varying system's z_t and R Q_{t'} R' of step t into zz, qt
-  auto step_z = [&](int t) {
+  // a time-varying system's z_t of step s of buffer b into zz, and
+  // R Q_{t'} R' into qt from u_{t'} at element e of the lane's column
+  auto step_z = [&](int b, int s) {
+    const double* zs = reinterpret_cast<const double*>(smem_raw +
+                                                       b * Sm::kBuf + Sm::kZ);
 #pragma unroll
-    for (int i = 0; i < D; ++i) zz[i] = zt[t * D + i];
+    for (int i = 0; i < D; ++i) zz[i] = zs[s * D + i];
   };
-  auto step_q = [&](int t, double (&qt)[D][D]) {
+  auto step_q = [&](const double* col, int e, double (&qt)[D][D]) {
     double ut[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) ut[i] = u_c[t * D + i];
+    for (int i = 0; i < D; ++i) ut[i] = col[(e + i) * kPitch];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
@@ -559,10 +576,26 @@ __global__ void __launch_bounds__(kLanes)
     const int left = t_len - 1 - j * kChunk;
     return left < kChunk ? left : kChunk;
   };
-  // y (when with_y) and the mask of chunk j, one step a lane
+  // y (when with_y) and the mask of chunk j, one step a lane; in the
+  // time-varying form also z_t and (with y) h_scale
   auto stage_series = [&](int j, int b, bool with_y) {
     const int t0 = j * kChunk, t = t0 + lane;
-    if (with_y && t < t_len) copy8_async(ys(b) + lane, y + t);
+    const bool in = kChunk == kLanes || lane < kChunk;
+    if (with_y && t < t_len && in) copy8_async(ys(b) + lane, y + t);
+    if constexpr (kTv) {
+      if (t < t_len && in) {
+        double* zs = reinterpret_cast<double*>(smem_raw + b * Sm::kBuf +
+                                               Sm::kZ);
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          copy8_async(zs + lane * D + i,
+                      zt + static_cast<long long>(t) * D + i);
+        if (with_y)
+          copy8_async(reinterpret_cast<double*>(smem_raw + b * Sm::kBuf +
+                                                Sm::kHs) + lane,
+                      hs + t);
+      }
+    }
     if (obs != nullptr && 4 * lane < kChunk) {
       const int left = t_len - (t0 + 4 * lane);
       if (left > 0)
@@ -584,6 +617,10 @@ __global__ void __launch_bounds__(kLanes)
                chain0, batch, w_len(j) * D, steps);
     stage_rows(buffer(b), eps + t0, t_len, chain0, batch, chunk_len(j),
                [](int g) { return g * (D + 1) + D; });
+    if constexpr (kTv)  // u_t [D] a step after the slots
+      stage_rows(buffer(b), u + static_cast<long long>(t0) * D, u_stride,
+                 chain0, batch, chunk_len(j) * D,
+                 [](int g) { return Sm::kChunk * (D + 1) + g; });
     stage_series(j, b, true);
   };
   stage1(0, 0);
@@ -608,9 +645,10 @@ __global__ void __launch_bounds__(kLanes)
       double hq = hh;
       double qt[kTv ? D : 1][kTv ? D : 1];
       if constexpr (kTv) {
-        step_z(t);
-        step_q(t, qt);
-        hq = hh * hs[t];
+        step_z(b, s);
+        step_q(col, kChunk * (D + 1) + s * D, qt);
+        hq = hh * reinterpret_cast<const double*>(smem_raw + b * Sm::kBuf +
+                                                  Sm::kHs)[s];
       }
       double zs = zz[0] * sim[0];
 #pragma unroll
@@ -668,7 +706,7 @@ __global__ void __launch_bounds__(kLanes)
     double* col = buffer(b) + lane;
     for (int s = n - 1; s >= 0; --s) {
       const bool ob = observed(b, s);
-      if constexpr (kTv) step_z(t0 + s);
+      if constexpr (kTv) step_z(b, s);
       double* slot = col + s * kRec * kPitch;
       const double vf = slot[0];
       double k[D];
@@ -704,7 +742,13 @@ __global__ void __launch_bounds__(kLanes)
                s_stride, chain0, batch, chunk_len(j) * kRec, slots);
     stage_rows(buffer(b), w + static_cast<long long>(t0) * D, w_stride,
                chain0, batch, w_len(j) * D,
-               [](int g) { return kChunk * (D + 1) + g; });
+               [](int g) { return Sm::kChunk * (D + 1) + g; });
+    if constexpr (kTv) {  // u_{t-1} [D] of step t after w (none at t = 0)
+      const int s0 = j == 0 ? 1 : 0;
+      stage_rows(buffer(b), u + static_cast<long long>(t0 - 1 + s0) * D,
+                 u_stride, chain0, batch, (chunk_len(j) - s0) * D,
+                 [s0](int g) { return Sm::kChunk * (2 * D + 1) + s0 * D + g; });
+    }
   };
 #pragma unroll
   for (int i = 0; i < D; ++i) sim[i] = alpha1[c * D + i];
@@ -753,8 +797,15 @@ __global__ void __launch_bounds__(kLanes)
     }
     for (; s < n; ++s) {
       const double* rs = col + s * kRec * kPitch;
-      double qt[kTv ? D : 1][kTv ? D : 1];
-      if constexpr (kTv) step_q(t0 + s - 1, qt);
+      // R Q_{t-1} R' r = u_i sum_m R Q R'[i][m] (u_m r_m), u = u_{t-1}
+      double ut[kTv ? D : 1], ur[kTv ? D : 1];
+      if constexpr (kTv) {
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          ut[i] = col[(kChunk * (2 * D + 1) + s * D + i) * kPitch];
+          ur[i] = ut[i] * rs[i * kPitch];
+        }
+      }
       double an[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
@@ -763,9 +814,10 @@ __global__ void __launch_bounds__(kLanes)
         for (int m = 1; m < D; ++m) ta = ta + tt[i][m] * ah[m];
         double qr;
         if constexpr (kTv) {
-          qr = qt[i][0] * rs[0];
+          qr = q[i][0] * ur[0];
 #pragma unroll
-          for (int m = 1; m < D; ++m) qr = qr + qt[i][m] * rs[m * kPitch];
+          for (int m = 1; m < D; ++m) qr = qr + q[i][m] * ur[m];
+          qr = ut[i] * qr;
         } else {
           qr = q[i][0] * rs[0];
 #pragma unroll
@@ -883,7 +935,7 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
   if (batch < 0 || threads != kLanes || t_len < 1 || u_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  using Sm = SmootherSmem<D>;
+  using Sm = SmootherSmem<D, kTv>;
   auto kernel = smoother_kernel<D, kTv>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);

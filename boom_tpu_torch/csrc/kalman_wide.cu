@@ -12,7 +12,11 @@
 //      cycle is d = 8): the unconditional simulation fused into the filter
 //      on y - y+, the backward r pass and the forward state pass, one
 //      launch each behind one C entry; the draw is alpha+ +
-//      E_0[alpha | y - y+]. float64 (bsts.SMOOTHER_DTYPE).
+//      E_0[alpha | y - y+]. float64 (bsts.SMOOTHER_DTYPE). Of a
+//      time-varying system (z_t, h_t, R Q_t R'), the same smoother in two
+//      forms: `smoother_wide_kernel<D, pass, true>` where each chain has
+//      its own T, and `smoother_wide_nz_kernel<D, pass>` where every chain
+//      shares one (Bsts'), its products over T's non-zeros.
 //   K3 `dpath_kernel<T, D, chunk>`: the ASIS D-path recurrence of bsts.asis_redraw
 //      (boom_tpu/statespace/bsts.py:1077-1084, a lax.scan): D_0 = 0,
 //      D_t = T_c D_{t-1} + w_{c,g,t} for every chain c and variance group
@@ -128,6 +132,23 @@
 //     row i of T; y is read one step ahead from the cache, its series b /
 //     per_series. The jets stage their K directions once a block; each
 //     unit recomputes the value chain, so units never exchange data.
+//   - K2w's structured time-varying form (`smoother_wide_nz_kernel`): T's
+//     non-zeros are kernel parameters (NzT: a row's first one, then the
+//     rest in a list), so bsts' T (phase 8's: 19 non-zeros of 169 at
+//     d = 13) costs its non-zeros, not d^2 a product. The layout is K2w's
+//     (a lane a row), but each product runs so that every lane does the
+//     same terms: V = M T' is a lane's own row of M by the right, and
+//     P' = T V is read down column i of V (by symmetry, row i of P' is
+//     column i of T V), so a loop over T's rows is the same instruction
+//     stream on every lane whatever the rows' lengths (the season's top
+//     row of six costs each lane six terms once). P's row lives in the
+//     lane's registers; M, V and P' pass through two D x kLo buffers (kLo
+//     odd: a row and a column both meet D banks). The step is the
+//     symmetric one, M = P - (P z)(P z)' / f before T, and the filter's
+//     state and the simulation share one row b = a + alpha+ (v needs only
+//     their sum). z_t and h_scale are staged once for the block
+//     (__syncthreads() a chunk), so a chain's slot holds only w_t, eps_t
+//     and u_t: 8 steps a chunk at d = 13 (the dense form's 4).
 //   - Not the float64 tensor cores: mma.sync.m8n8k4.f64 would fit d = 8's
 //     T P, but each chain is 500 dependent steps of 8 x 8 algebra, so the
 //     time is set by a step's latency and by occupancy, not by the f64
@@ -843,6 +864,474 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         }
         const double draw = sim_i + ah;
         if (t < t_len - 1) sim_i = dot_pairs<D>(trow, xa + kVec) + ws[i];
+        if (act) ws[i] = draw;
+      }
+      __syncwarp();
+      store_run(out_c + t0 * D, stage(b) + kChunk * kRec, n * D);
+      __syncwarp();
+    }
+  }
+}
+
+// ---- K2w's structured time-varying form -----------------------------------
+
+// T's non-zeros where every chain shares one T (Bsts' T, whose blocks no
+// chain's parameters move), as kernel parameters: row j's first non-zero
+// (its primary: column pcol[j], value pval[j]; an empty row a 0 at column
+// 0), then its others, the extras, at [obeg[j], obeg[j + 1]) of orow
+// (= j), ocol and oval, in column order. A loop over j reads row j's
+// entries at offsets known at compile time or the same for every lane:
+// operands of the constant bank. kMaxNzD bounds d.
+constexpr int kMaxNzD = 16;
+struct NzT {
+  unsigned char pcol[kMaxNzD];
+  unsigned char obeg[kMaxNzD + 1];
+  unsigned char orow[kMaxNzD * (kMaxNzD - 1)];
+  unsigned char ocol[kMaxNzD * (kMaxNzD - 1)];
+  double pval[kMaxNzD];
+  double oval[kMaxNzD * (kMaxNzD - 1)];
+};
+
+// flush(j, s) with s = sum of T[j][m] x(m) over row j's extras, for every
+// row j that has extras: one loop over all of T's extras (the same for
+// every lane), a row's terms summed in a register.
+template <int D, class Get, class Flush>
+__device__ __forceinline__ void for_extras(const NzT& nz, Get x,
+                                           Flush flush) {
+  const int n = nz.obeg[D];
+  int row = -1;
+  double part = 0.0;
+  for (int k = 0; k < n; ++k) {
+    const int r = nz.orow[k];
+    if (r != row) {
+      if (row >= 0) flush(row, part);
+      row = r;
+      part = 0.0;
+    }
+    part = part + nz.oval[k] * x(nz.ocol[k]);
+  }
+  if (row >= 0) flush(row, part);
+}
+
+// The extras of its own row that a lane keeps in registers in passes 2
+// and 3: a row of up to 1 + kOwnNz non-zeros (the season's top row of six)
+// is held whole, and a longer one reads the rest from the constant bank.
+constexpr int kOwnNz = 5;
+
+// Row i's extras of nz into ev, ec (kOwnNz of them, padded with zeros at
+// the primary's column), and the range [k_more, k_end) of the rest.
+__device__ __forceinline__ void own_row(const NzT& nz, int i, int pc,
+                                        double (&ev)[kOwnNz],
+                                        int (&ec)[kOwnNz], int& k_more,
+                                        int& k_end) {
+  const int kb = nz.obeg[i];
+  k_end = nz.obeg[i + 1];
+#pragma unroll
+  for (int e = 0; e < kOwnNz; ++e) {
+    const bool has = kb + e < k_end;
+    ec[e] = has ? nz.ocol[kb + e] : pc;
+    ev[e] = has ? nz.oval[kb + e] : 0.0;
+  }
+  k_more = kb + kOwnNz < k_end ? kb + kOwnNz : k_end;
+}
+
+// Row i of T times x (x(m): element m, from shared memory) over the row's
+// non-zeros: its primary (pc, pv), the extras own_row kept, the rest.
+template <class Get>
+__device__ __forceinline__ double own_row_dot(const NzT& nz, int pc,
+                                              double pv,
+                                              const double (&ev)[kOwnNz],
+                                              const int (&ec)[kOwnNz],
+                                              int k_more, int k_end,
+                                              Get x) {
+  double acc = pv * x(pc);
+#pragma unroll
+  for (int e = 0; e < kOwnNz; ++e) acc = acc + ev[e] * x(ec[e]);
+  for (int k = k_more; k < k_end; ++k)
+    acc = acc + nz.oval[k] * x(nz.ocol[k]);
+  return acc;
+}
+
+// The structured form's layout at state dimension D for pass kPass: a
+// group of W lanes a chain, lane i a row, as Wide. A chain's shared memory
+// (doubles): the exchange vectors (passes 1 and 2 two of kVec, pass 3
+// four), in pass 1 two D x kLo buffers A (M, then the P' a lane forms) and
+// B (V = M T'), kLo odd so that the lanes of a group meet D banks both
+// along a row and down a column; two stage buffers of kChunk steps of
+// kStep doubles: pass 1 w_t, eps_t and u_t (kU), a step's (v/f, K)
+// written over w_t and eps_t; pass 2 the slots; pass 3 the slots, w_t and
+// u_{t-1}. Pass 1 stages z_t and h_scale once for the block, ahead of the
+// chains, two buffers of kChunk steps of kVec + 1 (kBlk doubles), so a
+// chain's slot holds only its own streams.
+template <int D, int kPass>
+struct WideNz {
+  static constexpr int kW = group_lanes(D);
+  static constexpr int kPerWarp = kWarp / kW;
+  static constexpr int kChainsPerBlock = kBlock / kWarp * kPerWarp;
+  static constexpr int kLo = D | 1;
+  static constexpr int kVec = D + D % 2;
+  static constexpr int kRec = D + 1;
+  static constexpr int kSq = kPass == 1 ? D * kLo : 0;
+  static constexpr int kEx = kPass == 3 ? 4 * kVec : 2 * kVec;
+  static constexpr int kU = (D + 2) / 2 * 2;
+  static constexpr int kStep = kPass == 1   ? (kU + D + 1) / 2 * 2
+                               : kPass == 3 ? 3 * D + 1
+                                            : D + 1;
+  // pass 1 keeps row i of R Q R' in registers beside row i of P
+  static constexpr bool kQInRegisters = D <= 13;
+  static constexpr int blk_doubles(int chunk) {
+    return kPass == 1 ? 2 * chunk * (kVec + 1) : 0;
+  }
+  static constexpr int chain_doubles(int chunk) {
+    return (kEx + 2 * kSq + 2 * chunk * kStep + 3) / 8 * 8 + 4;
+  }
+  static constexpr bool fits(int chunk) {
+    return kWideMinBlocks * ((kChainsPerBlock * chain_doubles(chunk) +
+                              blk_doubles(chunk)) * 8 +
+                             kSmemPerBlock) <= kSmemPerSm;
+  }
+  static constexpr int kChunk = fits(16) ? 16 : fits(8) ? 8 : fits(6) ? 6
+                              : fits(4) ? 4 : 2;
+  static constexpr int kBlk = blk_doubles(kChunk);
+  static constexpr int kDoubles = chain_doubles(kChunk);
+  static constexpr int kBlockBytes =
+      (kChainsPerBlock * kDoubles + kBlk) * 8;
+  static_assert(D >= 2 && D <= kMaxNzD && fits(kChunk), "K2w's nz layout");
+};
+
+// K2w's structured time-varying form, pass kPass: the function of
+// smoother_wide_kernel<D, kPass, true> (its operands but T, which is nz:
+// T's non-zeros in passes 1 and 3, T''s in pass 2) with T's products over
+// its non-zeros. Every product is laid out so that a lane's work is T's
+// non-zeros whatever its row's length: a lane forms its row of a product
+// by the right (a row of M T' from its own row of M) or reads a column
+// (P' = T V, row i of it is column i of T V by symmetry, from column i of
+// V), so a loop over T's rows j, each term of its own offsets, is the same
+// instruction stream on every lane, and the season's long top row costs
+// every lane its six terms once, not six times the row. A step of pass 1
+// is the symmetric Riccati step:
+//   P z, f = z'P z + h_t; v = (y - eps_t) - z'b with b = a + alpha+ (the
+//   filter on y - y+ and the simulation share a row: v needs only their
+//   sum, and their next values are T (a + K~ v) + T alpha+ + w_t, K~ =
+//   P z / f);
+//   M = P - (P z)(P z)' / f where observed (P elsewhere), row i into A;
+//   V = M T', row i into B (its primaries, then the extras);
+//   K = T P z / f and b' = T (b + K~ v) + w_t, row i from the exchange;
+//   P' = T V + R Q_t R', column i of T V into row i of A;
+//   P = 0.5 (P' + P'^T), the diagonal exact, row i into registers;
+// the plain version's (T P) L' + R Q_t R' and its symmetrisation to
+// rounding. Pass 2 is r_{t-1} = where(obs, z v/f, 0) + T' r - z (K . r),
+// its L' r with the sum K . r a butterfly; pass 3 forms T alpha-hat and
+// T alpha+ over T's non-zeros. Three __syncwarp()s a step in pass 1, one
+// in passes 2 and 3, and one __syncthreads() a chunk in pass 1 (the
+// block's stage of z_t and h_scale).
+template <int D, int kPass>
+__global__ void __launch_bounds__(kBlock, kWideMinBlocks)
+    smoother_wide_nz_kernel(const __grid_constant__ NzT nz,
+                            const double* __restrict__ rqr,
+                            const double* __restrict__ h,
+                            const double* __restrict__ p0,
+                            const double* __restrict__ alpha1,
+                            const double* __restrict__ w,
+                            const double* __restrict__ eps,
+                            const double* __restrict__ y,
+                            const unsigned char* __restrict__ obs,
+                            double* __restrict__ scratch,
+                            double* __restrict__ out, int batch, int t_len,
+                            const double* __restrict__ zt,
+                            const double* __restrict__ hs,
+                            const double* __restrict__ u,
+                            long long u_stride) {
+  using S = WideNz<D, kPass>;
+  constexpr int W = S::kW, kLo = S::kLo, kVec = S::kVec, kRec = S::kRec;
+  constexpr int kChunk = S::kChunk, kStep = S::kStep;
+  BOOM_SHARED_BYTES(smem_raw);
+  const int lane = threadIdx.x % kWarp;
+  const int il = lane % W;  // the row of this lane
+  const bool act = il < D;
+  const int i = act ? il : 0;  // idle lanes shadow row 0, write nothing
+  const int cb = threadIdx.x / kWarp * S::kPerWarp + lane / W;
+  const int c_at = blockIdx.x * (blockDim.x / kWarp * S::kPerWarp) + cb;
+  const bool live = c_at < batch;  // a group past the batch writes nothing
+  const int c = live ? c_at : batch - 1;
+  double* blk = reinterpret_cast<double*>(smem_raw);
+  double* ex = blk + S::kBlk + static_cast<long long>(cb) * S::kDoubles;
+  double* stage0 = ex + S::kEx + 2 * S::kSq;
+  auto stage = [&](int b) { return stage0 + b * kChunk * kStep; };
+
+  const long long cd = static_cast<long long>(c) * D;
+  const double* q_c = rqr + cd * D;
+  const double* w_c = w + static_cast<long long>(c) * (t_len - 1) * D;
+  double* scr_c = scratch + static_cast<long long>(c) * t_len * kRec;
+  const double* u_c = u + static_cast<long long>(c) * u_stride;
+  // the primary of this lane's row (of T; of T' in pass 2)
+  const int pc = nz.pcol[i];
+  const double pv = nz.pval[i];
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
+  auto chunk_len = [&](int j) {
+    const int left = t_len - j * kChunk;
+    return left < kChunk ? left : kChunk;
+  };
+  auto w_len = [&](int j) {  // rows of w chunk j uses (T - 1 in all)
+    const int left = t_len - 1 - j * kChunk;
+    return left < 0 ? 0 : left < kChunk ? left : kChunk;
+  };
+  // the group copies `count` doubles of its chain from src: element g to
+  // dst[g / every * pitch + g % every]
+  auto stage_run = [&](double* dst, const double* src, int count,
+                       int every, int pitch) {
+    for (int g = il; g < count; g += W)
+      copy_async<8>(dst + g / every * pitch + g % every, src + g);
+  };
+  auto store_run = [&](double* dst, const double* src, int count) {
+    if (live)
+      for (int g = il; g < count; g += W) dst[g] = src[g];
+  };
+
+  if constexpr (kPass == 1) {
+    // 1. forward: simulate alpha+ and filter y - y+ (kalman.py:460-473)
+    double* exz = ex;           // P z
+    double* exx = ex + kVec;    // b + K~ v
+    double* ma = ex + 2 * kVec; // A: M, then P'
+    double* vb = ma + S::kSq;   // B: V = M T'
+    const double* eps_c = eps + static_cast<long long>(c) * t_len;
+    double prow[D], qv[S::kQInRegisters ? D : 1];
+#pragma unroll
+    for (int j = 0; j < D; ++j) prow[j] = p0[(cd + i) * D + j];
+    if constexpr (S::kQInRegisters) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) qv[j] = q_c[i * D + j];  // row i
+    }
+    const double hh = h[c];
+    // the block's z_t [kChunk][kVec], then h_scale [kChunk], of buffer b
+    auto zbuf = [&](int b) { return blk + b * kChunk * (kVec + 1); };
+    auto stage1 = [&](int j, int b) {
+      const int t0 = j * kChunk, n = chunk_len(j);
+      double* zb = zbuf(b);
+      for (int g = threadIdx.x; g < n * D; g += blockDim.x)
+        copy_async<8>(zb + g / D * kVec + g % D, zt + t0 * D + g);
+      for (int g = threadIdx.x; g < n; g += blockDim.x)
+        copy_async<8>(zb + kChunk * kVec + g, hs + t0 + g);
+      stage_run(stage(b), w_c + t0 * D, w_len(j) * D, D, kStep);
+      stage_run(stage(b) + D, eps_c + t0, n, 1, kStep);
+      stage_run(stage(b) + S::kU, u_c + t0 * D, n * D, D, kStep);
+    };
+    double b_i = alpha1[cd + i];  // a_1 + alpha+_1, a_1 = 0
+    double y_n = y[0];
+    bool o_n = obs == nullptr || obs[0] != 0;
+    stage1(0, 0);
+    async_commit();
+    for (int j = 0; j < n_chunks; ++j) {
+      const int b = j & 1, t0 = j * kChunk, n = chunk_len(j);
+      async_wait<0>();
+      __syncthreads();  // chunk j is staged; every group is past chunk j - 1
+      if (j + 1 < n_chunks) stage1(j + 1, b ^ 1);
+      async_commit();
+      const double* zb = zbuf(b);
+      for (int s = 0; s < n; ++s) {
+        const int t = t0 + s;
+        double* slot = stage(b) + s * kStep;
+        const double* zr = zb + s * kVec;
+        const double yt = y_n;
+        const bool ob = o_n;
+        if (t + 1 < t_len) {
+          y_n = y[t + 1];
+          o_n = obs == nullptr || obs[t + 1] != 0;
+        }
+        const double wt = slot[i];  // w_t[i] (none at t = T - 1)
+        const double et = slot[D];
+        const double ui = slot[S::kU + i];
+        const double ht = hh * zb[kChunk * kVec + s];
+        const double zi = act ? zr[i] : 0.0;
+        const double pz = dot_pairs<D>(prow, zr);  // (P z)_i
+        const double f = group_sum<W>(zi * pz, lane) + ht;
+        const double zb_i = group_sum<W>(zi * b_i, lane);
+        const double v = ob ? (yt - et) - zb_i : 0.0;
+        const double rf = reciprocal(f);
+        const double kt = ob ? pz * rf : 0.0;  // K~_i
+        if (act) {
+          exz[i] = pz;
+          exx[i] = b_i + kt * v;
+        }
+        __syncwarp();  // P z and b + K~ v are whole
+        if (act) {
+          double* mrow = ma + i * kLo;
+#pragma unroll
+          for (int jj = 0; jj + 1 < D; jj += 2) {
+            const Pair q = ld_pair(exz + jj);
+            mrow[jj] = ob ? prow[jj] - (pz * q.x) * rf : prow[jj];
+            mrow[jj + 1] = ob ? prow[jj + 1] - (pz * q.y) * rf : prow[jj + 1];
+          }
+          if constexpr (D % 2 == 1)
+            mrow[D - 1] =
+                ob ? prow[D - 1] - (pz * exz[D - 1]) * rf : prow[D - 1];
+          // V[i][j] = sum_m T[j][m] M[i][m]: every primary, then the
+          // extras of the rows that have them
+          double* vrow = vb + i * kLo;
+#pragma unroll
+          for (int jj = 0; jj < D; ++jj)
+            vrow[jj] = nz.pval[jj] * mrow[nz.pcol[jj]];
+          for_extras<D>(nz, [&](int m) { return mrow[m]; },
+                        [&](int j, double part) { vrow[j] += part; });
+        }
+        __syncwarp();  // V is whole
+        // (T P z)_i and (T (b + K~ v))_i over row i's non-zeros: a loop
+        // over all of T's extras, the same for every lane
+        double tp = pv * exz[pc], tx = pv * exx[pc];
+        for (int k = 0; k < nz.obeg[D]; ++k) {
+          if (nz.orow[k] == i) {
+            tp = tp + nz.oval[k] * exz[nz.ocol[k]];
+            tx = tx + nz.oval[k] * exx[nz.ocol[k]];
+          }
+        }
+        const double kg = ob ? tp * rf : 0.0;
+        if (act) slot[1 + i] = kg;  // lane i + 1 read w_t[i + 1] there
+        if (il == 0) slot[0] = v * rf;
+        if (t < t_len - 1) b_i = tx + wt;
+        // P'[i][j] = (T V)[j][i] + R Q_t R'[i][j], R Q_t R' = (u_t u_t') o
+        // R Q R' (idle lanes shadow row 0 and write nothing)
+        // row i of P' = (T V)[j][i] + R Q_t R'[i][j], R Q_t R' = (u_t u_t')
+        // o R Q R', in place of P's row (M holds what this step needed of
+        // it), a row's extras added through a select of compile-time
+        // indices; then into A (idle lanes shadow row 0, write nothing)
+#pragma unroll
+        for (int jj = 0; jj < D; ++jj)
+          prow[jj] = nz.pval[jj] * vb[nz.pcol[jj] * kLo + i];
+        for_extras<D>(nz, [&](int m) { return vb[m * kLo + i]; },
+                      [&](int j, double part) {
+#pragma unroll
+                        for (int jj = 0; jj < D; ++jj)
+                          if (jj == j) prow[jj] = prow[jj] + part;
+                      });
+#pragma unroll
+        for (int jj = 0; jj < D; ++jj) {
+          double q;
+          if constexpr (S::kQInRegisters)
+            q = qv[jj];
+          else
+            q = q_c[i * D + jj];
+          prow[jj] = prow[jj] + (ui * slot[S::kU + jj]) * q;
+          if (act) ma[i * kLo + jj] = prow[jj];
+        }
+        __syncwarp();  // P' is whole in A
+        // P = 0.5 (P' + P'^T), the diagonal P'_ii exactly, row i
+#pragma unroll
+        for (int jj = 0; jj < D; ++jj)
+          if (jj != i) prow[jj] = 0.5 * (prow[jj] + ma[jj * kLo + i]);
+      }
+      if (live)
+        for (int g = il; g < n * kRec; g += W)
+          scr_c[t0 * kRec + g] = stage(b)[g / kRec * kStep + g % kRec];
+    }
+  } else if constexpr (kPass == 2) {
+    // 2. backward: r_{t-1} = where(obs, z v/f, 0) + L' r_t
+    // (kalman.py:315-323) = where(obs, z v/f, 0) + T' r_t - z (K . r_t),
+    // chunks in reverse; r_{t-1} replaces the first D of slot t. nz holds
+    // T''s non-zeros: this lane's row of T' is column i of T.
+    auto stage2 = [&](int j, int b) {
+      stage_run(stage(b), scr_c + j * kChunk * kRec, chunk_len(j) * kRec, 1,
+                1);
+    };
+    double ev[kOwnNz];
+    int ec[kOwnNz], k_more, k_end;
+    own_row(nz, i, pc, ev, ec, k_more, k_end);
+    double r_i = 0.0;
+    stage2(n_chunks - 1, 0);
+    async_commit();
+    bool o_n = obs == nullptr || obs[t_len - 1] != 0;
+    double z_n = act ? zt[(t_len - 1) * D + i] : 0.0;
+    for (int jj = 0; jj < n_chunks; ++jj) {
+      const int j = n_chunks - 1 - jj, b = jj & 1;
+      const int t0 = j * kChunk, n = chunk_len(j);
+      if (j > 0) stage2(j - 1, b ^ 1);
+      async_commit();
+      async_wait<1>();
+      __syncwarp();
+      for (int s = n - 1; s >= 0; --s) {
+        const int t = t0 + s;
+        double* slot = stage(b) + s * kRec;
+        const bool ob = o_n;
+        if (t > 0) o_n = obs == nullptr || obs[t - 1] != 0;
+        const double zi = z_n;
+        if (t > 0 && act) z_n = zt[(t - 1) * D + i];
+        const double vf = slot[0];
+        const double ki = act ? slot[1 + i] : 0.0;
+        double* xr = ex + (t & 1) * kVec;  // r_t
+        if (act) xr[i] = r_i;
+        const double kr = group_sum<W>(ki * r_i, lane);  // K . r_t
+        __syncwarp();  // the other parity's readers are two steps behind
+        const double tr = own_row_dot(nz, pc, pv, ev, ec, k_more, k_end,
+                                      [&](int m) { return xr[m]; });
+        r_i = (ob ? zi * vf : 0.0) + (tr - zi * kr);
+        if (act) slot[i] = r_i;  // lane i - 1 read K_{i-1} there
+      }
+      __syncwarp();
+      store_run(scr_c + t0 * kRec, stage(b), n * kRec);
+      __syncwarp();
+    }
+  } else {
+    // 3. forward state: alpha_1 = P0 r_0, alpha_{t+1} = T alpha_t +
+    // R Q_t R' r_t (kalman.py:325, :345-350), added to alpha+ regenerated
+    // from alpha_1 and w as pass 1 made it (:481); a chunk holds the slots
+    // (r in their first D), w [D] a step at kChunk kRec (the draw replaces
+    // it) and u_{t-1} [D] a step at kChunk (kRec + D)
+    double* out_c = out + static_cast<long long>(c) * t_len * D;
+    double qrow[D];
+#pragma unroll
+    for (int m = 0; m < D; ++m) qrow[m] = q_c[i * D + m];  // row i
+    constexpr int kUOff = kChunk * (kRec + D);
+    auto stage3 = [&](int j, int b) {
+      const int t0 = j * kChunk;
+      stage_run(stage(b), scr_c + t0 * kRec, chunk_len(j) * kRec, 1, 1);
+      stage_run(stage(b) + kChunk * kRec, w_c + t0 * D, w_len(j) * D, 1, 1);
+      const int s0 = j == 0 ? 1 : 0;
+      stage_run(stage(b) + kUOff + s0 * D, u_c + (t0 - 1 + s0) * D,
+                (chunk_len(j) - s0) * D, 1, 1);
+    };
+    double ev[kOwnNz];
+    int ec[kOwnNz], k_more, k_end;
+    own_row(nz, i, pc, ev, ec, k_more, k_end);
+    double sim_i = alpha1[cd + i];
+    double ah = 0.0;
+    stage3(0, 0);
+    async_commit();
+    for (int j = 0; j < n_chunks; ++j) {
+      const int b = j & 1, t0 = j * kChunk, n = chunk_len(j);
+      if (j + 1 < n_chunks) stage3(j + 1, b ^ 1);
+      async_commit();
+      async_wait<1>();
+      __syncwarp();
+      for (int s = 0; s < n; ++s) {
+        const int t = t0 + s;
+        const double* rs = stage(b) + s * kRec;
+        double* ws = stage(b) + kChunk * kRec + s * D;
+        double* xa = ex + (t & 1) * 2 * kVec;  // alpha-hat_{t-1}, alpha+_t
+        if (act) {
+          xa[i] = ah;
+          xa[kVec + i] = sim_i;
+        }
+        __syncwarp();  // the other parity's readers are two steps behind
+        if (t == 0) {
+          const double* p0_c = p0 + cd * D;
+          ah = p0_c[i * D] * rs[0];
+#pragma unroll
+          for (int m = 1; m < D; ++m) ah = ah + p0_c[i * D + m] * rs[m];
+        } else {
+          // row i of R Q_{t-1} R' = (u_i u_m) R Q R'[i][m]
+          const double* us = stage(b) + kUOff + s * D;
+          const double ui = us[i];
+          double qr = ((ui * us[0]) * qrow[0]) * rs[0];
+#pragma unroll
+          for (int m = 1; m < D; ++m)
+            qr = qr + ((ui * us[m]) * qrow[m]) * rs[m];
+          // (T alpha-hat_{t-1})_i over row i's non-zeros
+          ah = own_row_dot(nz, pc, pv, ev, ec, k_more, k_end,
+                           [&](int m) { return xa[m]; }) + qr;
+        }
+        const double draw = sim_i + ah;
+        if (t < t_len - 1)  // (T alpha+_t)_i
+          sim_i = own_row_dot(nz, pc, pv, ev, ec, k_more, k_end,
+                              [&](int m) { return xa[kVec + m]; }) + ws[i];
         if (act) ws[i] = draw;
       }
       __syncwarp();
@@ -1581,6 +2070,99 @@ int launch_smoother_wide(const void* z, const void* tm, const void* rqr,
   return static_cast<int>(err);
 }
 
+// T's non-zeros from its CSR form (rowptr [d + 1], cols and vals of row r
+// at [rowptr[r], rowptr[r + 1])) as the structured form's NzT: of T, or
+// with `transpose` of T'. False where the CSR is not one of a d x d matrix
+// (a column out of range or twice in a row).
+bool nz_of(NzT* out, int d, const int* rowptr, const int* cols,
+           const double* vals, bool transpose) {
+  if (d < 1 || d > kMaxNzD || rowptr[0] != 0) return false;
+  bool seen[kMaxNzD][kMaxNzD] = {};
+  double tm[kMaxNzD][kMaxNzD] = {};
+  for (int r = 0; r < d; ++r) {
+    if (rowptr[r + 1] < rowptr[r] || rowptr[r + 1] > d * d) return false;
+    for (int k = rowptr[r]; k < rowptr[r + 1]; ++k) {
+      const int col = cols[k];
+      if (col < 0 || col >= d || seen[r][col]) return false;
+      seen[r][col] = true;
+      tm[r][col] = vals[k];
+    }
+  }
+  std::memset(out, 0, sizeof(NzT));
+  int k = 0;
+  for (int r = 0; r < d; ++r) {
+    bool first = true;
+    out->obeg[r] = static_cast<unsigned char>(k);
+    for (int col = 0; col < d; ++col) {
+      const int a = transpose ? col : r, b = transpose ? r : col;
+      if (!seen[a][b]) continue;
+      if (first) {
+        out->pcol[r] = static_cast<unsigned char>(col);
+        out->pval[r] = tm[a][b];
+        first = false;
+      } else {
+        out->orow[k] = static_cast<unsigned char>(r);
+        out->ocol[k] = static_cast<unsigned char>(col);
+        out->oval[k] = tm[a][b];
+        ++k;
+      }
+    }
+  }
+  for (int r = d; r <= kMaxNzD; ++r)
+    out->obeg[r] = static_cast<unsigned char>(k);
+  return true;
+}
+
+template <int D, int kPass>
+cudaError_t launch_nz_pass(const NzT& nz, const void* rqr, const void* h,
+                           const void* p0, const void* alpha1, const void* w,
+                           const void* eps, const void* y, const void* obs,
+                           void* scratch, void* out, int batch, int t_len,
+                           const void* zt, const void* hs, const void* u,
+                           long long u_stride, int threads,
+                           cudaStream_t st) {
+  using S = WideNz<D, kPass>;
+  auto kernel = smoother_wide_nz_kernel<D, kPass>;
+  static const cudaError_t attr = allow_shared(kernel, S::kBlockBytes);
+  if (attr != cudaSuccess) return attr;
+  const int chains = threads / kWarp * S::kPerWarp;
+  const int blocks = (batch + chains - 1) / chains;
+  kernel<<<blocks, threads, (chains * S::kDoubles + S::kBlk) * 8, st>>>(
+      nz, static_cast<const double*>(rqr), static_cast<const double*>(h),
+      static_cast<const double*>(p0), static_cast<const double*>(alpha1),
+      static_cast<const double*>(w), static_cast<const double*>(eps),
+      static_cast<const double*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<double*>(scratch), static_cast<double*>(out), batch,
+      t_len, static_cast<const double*>(zt), static_cast<const double*>(hs),
+      static_cast<const double*>(u), u_stride);
+  return cudaGetLastError();
+}
+
+// K2w's structured time-varying form: its three passes, T's non-zeros in
+// passes 1 and 3, T''s in pass 2.
+template <int D>
+int launch_smoother_wide_nz(const NzT& t_nz, const NzT& tt_nz,
+                            const void* rqr, const void* h, const void* p0,
+                            const void* alpha1, const void* w,
+                            const void* eps, const void* y, const void* obs,
+                            void* scratch, void* out, int batch, int t_len,
+                            const void* zt, const void* hs, const void* u,
+                            long long u_stride, int threads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_nz_pass<D, 1>(
+      t_nz, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch, t_len,
+      zt, hs, u, u_stride, threads, st);
+  if (err == cudaSuccess)
+    err = launch_nz_pass<D, 2>(tt_nz, rqr, h, p0, alpha1, w, eps, y, obs,
+                               scratch, out, batch, t_len, zt, hs, u,
+                               u_stride, threads, st);
+  if (err == cudaSuccess)
+    err = launch_nz_pass<D, 3>(t_nz, rqr, h, p0, alpha1, w, eps, y, obs,
+                               scratch, out, batch, t_len, zt, hs, u,
+                               u_stride, threads, st);
+  return static_cast<int>(err);
+}
+
 // K3's two chunk lengths (bytes a lane-step, Dpath)
 constexpr int kDpathShort = 64, kDpathLong = 256;
 
@@ -1915,6 +2497,45 @@ extern "C" int boom_kalman_smoother_wide_tv_f64(
     BOOM_WIDE_TV_CASE(13) BOOM_WIDE_TV_CASE(14) BOOM_WIDE_TV_CASE(15)
     BOOM_WIDE_TV_CASE(16)
 #undef BOOM_WIDE_TV_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K2w's structured time-varying form (smoother_wide_nz_kernel<D, pass>),
+// where every chain shares one T: the time-varying entry's arrays without
+// tm, then T's non-zeros in CSR form, host arrays read before the launch
+// (rowptr [d + 1] ints, cols ints and vals doubles of row r at
+// [rowptr[r], rowptr[r + 1])).
+extern "C" int boom_kalman_smoother_wide_nz_f64(
+    const void* rqr, const void* h, const void* p0, const void* alpha1,
+    const void* w, const void* eps, const void* y, const void* obs,
+    const void* zt, const void* hs, const void* u, void* scratch, void* out,
+    const void* rowptr, const void* cols, const void* vals, int batch,
+    int t_len, long long u_stride, int d, int threads, void* stream) {
+  if (batch < 0 || t_len < 1 || bad_block(threads) || u_stride < 0 ||
+      rowptr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NzT t_nz, tt_nz;
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* cl = static_cast<const int*>(cols);
+  const double* vl = static_cast<const double*>(vals);
+  if (!nz_of(&t_nz, d, rp, cl, vl, false) ||
+      !nz_of(&tt_nz, d, rp, cl, vl, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  switch (d) {
+#define BOOM_WIDE_NZ_CASE(D)                                                \
+  case D:                                                                   \
+    return launch_smoother_wide_nz<D>(t_nz, tt_nz, rqr, h, p0, alpha1, w,   \
+                                      eps, y, obs, scratch, out, batch,     \
+                                      t_len, zt, hs, u, u_stride, threads,  \
+                                      stream);
+    BOOM_WIDE_NZ_CASE(7) BOOM_WIDE_NZ_CASE(8) BOOM_WIDE_NZ_CASE(9)
+    BOOM_WIDE_NZ_CASE(10) BOOM_WIDE_NZ_CASE(11) BOOM_WIDE_NZ_CASE(12)
+    BOOM_WIDE_NZ_CASE(13) BOOM_WIDE_NZ_CASE(14) BOOM_WIDE_NZ_CASE(15)
+    BOOM_WIDE_NZ_CASE(16)
+#undef BOOM_WIDE_NZ_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

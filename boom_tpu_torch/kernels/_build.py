@@ -46,7 +46,8 @@ KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
                   "smoother_tv": (("f64",), tuple(range(1, 7)))}
 # the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
 SSVS_DTYPES = ("f32", "f64")
-# kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS), K3
+# kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS, and one
+# each for its time-varying forms: dense T, and T's non-zeros), K3
 # (one entry a dtype, every d in DPATH_DIMS), K1w (one entry a dtype, every
 # d in WIDE_DIMS) and the loglik's jets J1 and J2 (one float64 entry, every
 # d in JET_DIMS, at most JET_MAX_DIRECTIONS directions: kMaxDirections)
@@ -90,6 +91,9 @@ _ARGTYPES = {
     "loglik_wide_tv": [_P] * 13 + [_I] * 5 + [_L, _I, _P],
     # K2w's: as "smoother_tv" with d after u_stride
     "smoother_wide_tv": [_P] * 14 + [_I, _I, _L, _I, _I, _P],
+    # K2w's structured form: as K2w's without tm, then T's non-zeros
+    # (rowptr, cols, vals: host arrays) after out
+    "smoother_wide_nz": [_P] * 16 + [_I, _I, _L, _I, _I, _P],
     # tm, w, out, batch, groups, t_len, d, threads, stream
     "dpath": [_P] * 3 + [_I] * 5 + [_P],
 }
@@ -171,6 +175,7 @@ def library(name: str) -> ctypes.CDLL:
     elif name == "kalman_wide":
         _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
         _declare(lib, "smoother_wide_tv", "boom_kalman_smoother_wide_tv_f64")
+        _declare(lib, "smoother_wide_nz", "boom_kalman_smoother_wide_nz_f64")
         for tag in DPATH_DTYPES:
             _declare(lib, "dpath", f"boom_dpath_{tag}")
         for tag in LOGLIK_WIDE_DTYPES:

@@ -28,7 +28,9 @@ the SSVS indicator sweep, against ``regression_sweep.draw_indicators_swept``
 unset and set, float64 and float32: masks identical), K2w and K3 against
 ``kalman.simulation_smoother`` and ``kalman.dpath`` (:func:`check_wide`)
 and kernel (a)'s per-chain entry against the plain sweep on per-chain
-statistics (:func:`check_ssvs_border`). ``--llt`` then
+statistics (:func:`check_ssvs_border`), and the time-varying forms
+(:func:`check_time_varying`: K2w's structured form where every chain
+shares T, its dense form where each has its own). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -71,6 +73,7 @@ SHIM = r"""#pragma once
 #define __restrict__
 #define __launch_bounds__(...)
 #define __constant__
+#define __grid_constant__
 typedef void* cudaStream_t;
 enum cudaError_t {
   cudaSuccess = 0,
@@ -611,12 +614,13 @@ TV_CASES += [(8, 17, 17, 34, True, "chain"), (2, 33, 33, 40, True, "chain")]
 
 
 def check_time_varying(seed=0, cases=TV_CASES,
-                       dtypes=("float64", "float32")):
+                       dtypes=("float64", "float32"), t_kind="chain"):
     """K1, K1w (with their innovations), K2 and K2w of a time-varying
-    system (``kalman_timing.time_varying_system``) against the plain
-    versions: {case: worst normwise relative error}; the smoothers in
-    float64 only, on a series a chain where there are as many series as
-    systems."""
+    system (``kalman_timing.time_varying_system``, its T of ``t_kind``:
+    a T a system, K2w's dense form, or one for all, its structured form)
+    against the plain versions: {case: worst normwise relative error}; the
+    smoothers in float64 only, on a series a chain where there are as many
+    series as systems."""
     import torch
 
     from boom_tpu_torch.kernels.kalman_timing import time_varying_system
@@ -628,11 +632,12 @@ def check_time_varying(seed=0, cases=TV_CASES,
     for dtype in dtypes:
         for d, b, s, t_len, masked, q_mode in cases:
             params = time_varying_system(rng, b, d, t_len, dtype, q_mode,
-                                         device="cpu")
+                                         device="cpu", t_kind=t_kind)
             y = _series_of(rng, (s, t_len) if s > 1 else (t_len,), dtype)
             obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
                    else None)
-            name = f"d={d} B={b} S={s} T={t_len} masked={masked} q={q_mode}"
+            name = (f"d={d} B={b} S={s} T={t_len} masked={masked} "
+                    f"q={q_mode} T's kind {t_kind}")
             got = kk.launch_loglik_tv(params, y, obs, innovations=True)
             want = kalman.kalman_loglik(params, y, obs, innovations=True)
             out[f"loglik_tv {dtype} {name}"] = max(
@@ -766,6 +771,14 @@ def main():
         print(f"host-compiled {k}: relative error {v:.3e}")
     for k, v in check_time_varying().items():
         print(f"host-compiled {k}: relative error {v:.3e}")
+    # K2w's structured form: one T for all chains, of each kind
+    from boom_tpu_torch.kernels.kalman_timing import T_KINDS
+
+    for t_kind in T_KINDS[1:]:
+        for k, v in check_time_varying(
+                cases=[c for c in TV_CASES if c[0] >= 7],
+                dtypes=("float64",), t_kind=t_kind).items():
+            print(f"host-compiled {k}: relative error {v:.3e}")
     set_occupancy(libs["kalman_wide"], 0)
     for k, v in check_wide(wide_cases=[]).items():
         print(f"host-compiled {k} (short chunks): relative error {v:.3e}")

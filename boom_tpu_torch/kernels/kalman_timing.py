@@ -115,16 +115,26 @@ K1W_SHAPES = {
                         REG_CHAINS)}
 # the time-varying forms (z_t, h_t, Q_t with a q_t a chain: the Student
 # trend's weights) at chip_smoke.py phase 8's shapes: name: (dtype, batch,
-# d, T, series); K2w imputes every chain of bsts_tv (d = 13, a series a
-# chain: y - X beta), K1w scores log_lik's 200 draws (each on its own
-# series); K2 and K1 at the same widths at d = 4 (a Student trend and a
-# 2-column dynamic regression)
+# d, T, series, T's kind: T_KINDS); K2w imputes every chain of bsts_tv (d
+# = 13, a series a chain: y - X beta) over phase 8's T ("bsts", its
+# structured form) and, at the same shape, with a T a chain (its dense
+# form); K1w scores log_lik's 200 draws (each on its own series); K2 and
+# K1 at the same widths at d = 4 (a Student trend and a 2-column dynamic
+# regression)
 TV_CHAINS, TV_T, TV_D, TV_DRAWS = 4096, 500, 13, 200
 TV_SHAPES = {
-    "smoother_wide_tv": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS),
-    "loglik_wide_tv": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS),
-    "smoother_tv": ("float64", TV_CHAINS, 4, TV_T, TV_CHAINS),
-    "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS)}
+    "smoother_wide_tv": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS,
+                         "bsts"),
+    "smoother_wide_tv_dense": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS,
+                               "chain"),
+    "loglik_wide_tv": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS, "chain"),
+    "smoother_tv": ("float64", TV_CHAINS, 4, TV_T, TV_CHAINS, "chain"),
+    "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS, "chain")}
+# the static K2 at K2's time-varying shape (d = 4, a series a chain; no
+# mask), timed by this script alone (the plain version not timed) as
+# that form's yardstick: (dtype, batch, d, T, series)
+K2_TV_YARDSTICK = {"smoother_d4": ("float64", TV_CHAINS, 4, TV_T,
+                                   TV_CHAINS)}
 # the shapes whose systems share one T and one z, expanded over the batch
 # as Bsts.ssm_params builds them (phase 7's K1w; K1w then reads them as
 # broadcasts)
@@ -142,7 +152,22 @@ SCALING = {"loglik": (LLT_CHAINS * TIM_POINTS // 16,
            "smoother": (32, 512)}
 
 
-def filter_step_flops(d):
+def _t_products(d, rows):
+    """Operations of T's products a step: (T M [d, d] or M T', the upper
+    triangle of (T M) T', T x [d]) over T's non-zeros ``rows`` (a count a
+    row: each product's terms are T's non-zeros, a sum of n terms n - 1
+    additions), or over every entry (``rows`` None, the dense count). The
+    triangle takes whichever of its rows or columns is cheaper: entry (i,
+    j) of T V is row i of T on column j of V."""
+    rows = (d,) * d if rows is None else tuple(rows)
+    nnz = sum(rows)
+    vec = sum(2 * n - 1 for n in rows if n)  # T x
+    upper = min(sum((d - i) * (2 * n - 1) for i, n in enumerate(rows) if n),
+                sum((i + 1) * (2 * n - 1) for i, n in enumerate(rows) if n))
+    return {"square": d * vec, "upper": upper, "vector": vec, "nnz": nnz}
+
+
+def filter_step_flops(d, rows=None):
     """Floating-point operations of one filter step, the least the function
     needs (a multiply-add two): the symmetric Riccati step on the upper
     triangle, as K1w's thread kernel computes it. z'a and v; P z and f =
@@ -150,26 +175,39 @@ def filter_step_flops(d):
     upper triangle; T P (d^3 multiply-adds); the upper triangle of
     (T P) T' and R Q R' added to it; T a. The dense step that the plain
     version and the group kernels compute, (T P) L' + R Q R' and its
-    symmetrisation, is 4 d^3 + 8 d^2 + 3 d."""
+    symmetrisation, is 4 d^3 + 8 d^2 + 3 d. ``rows``: T's non-zeros a row
+    (a T shared by every chain, K2w's structured form), T's products over
+    them alone (:func:`_t_products`); None counts every entry of T (the
+    dense-symmetric count)."""
     upper = d * (d + 1) // 2
+    tp = _t_products(d, rows)
     return ((2 * d - 1) + 1  # z'a, v
             + d * (2 * d - 1) + 2 * d  # P z, f
             + 1 + d + 2 * d  # 1 / f, K, a + K v
             + 2 * upper  # P - K (P z)'
-            + d * d * (2 * d - 1)  # T P
-            + upper * (2 * d - 1) + upper  # (T P) T' + R Q R'
-            + d * (2 * d - 1))  # T a
+            + tp["square"]  # T P
+            + tp["upper"] + upper  # (T P) T' + R Q R'
+            + tp["vector"])  # T a
 
 
 def loglik_flops(batch, d, t_len):
     return batch * t_len * (filter_step_flops(d) + 7)  # + the log density
 
 
-def smoother_flops(batch, d, t_len):
+def smoother_flops(batch, d, t_len, rows=None):
     """The forward pass (filter on y - y+ and the simulation), the backward
-    r pass and the forward state pass (alpha+ counted once)."""
-    step = (filter_step_flops(d) + 2 * d * d + 2 * d + 1
-            + 4 * d * d + d + 1 + 4 * d * d)
+    r pass and the forward state pass (alpha+ counted once). With ``rows``
+    (T's non-zeros a row, :func:`filter_step_flops`) T's products run over
+    them: the simulation's T alpha+, pass 2's L' r as T' r - z (K . r) and
+    pass 3's T alpha-hat; R Q R' r stays dense."""
+    if rows is None:
+        step = (filter_step_flops(d) + 2 * d * d + 2 * d + 1
+                + 4 * d * d + d + 1 + 4 * d * d)
+    else:
+        vec = _t_products(d, rows)["vector"]
+        step = (filter_step_flops(d, rows) + vec + 3 * d + 1  # alpha+
+                + vec + 5 * d  # pass 2
+                + vec + 2 * d * d)  # pass 3
     return batch * t_len * step
 
 
@@ -215,7 +253,7 @@ def tv_step_flops(d):
 
 
 def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
-             tv_rows=0):
+             tv_rows=0, rows=None, q=None):
     """The least time the card could take: each input read once and each
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
@@ -223,18 +261,23 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
     write one loglik a series; J1 and J2 ("loglik_grad", "loglik_hess")
     also read ``k`` directions and write a gradient [k] (J1) and a Hessian
     [k, k] (J2); K2 (and K2w:
-    ``name`` "smoother") reads a system, alpha_1, w [T-1, d] and eps [T] a
-    chain and writes the draw [T, d] (its scratch is not counted); K3
+    ``name`` "smoother") reads a system, alpha_1, eta [T-1, q] and eps [T]
+    a chain (the normals it takes; q, the state errors, ``q`` or d) and
+    writes the draw [T, d] (its scratch is not counted); K3
     ("dpath", ``batch`` the chains x groups) reads w [T-1, d] and writes
     D [T, d] a series (T, d x d a chain, is counted in the caller's
     ``dpath_bound_ms``). ``tv_rows`` > 0: a time-varying system (K1 and K2
     "loglik" and "smoother", and their wide forms) that also reads z_t [T,
-    d], h_scale [T] and ``tv_rows`` rows of u_t [T, d] (the batch's, or
+    d], h_scale [T] and ``tv_rows`` rows of q_t [T, q] (the batch's, or
     one for all), and forms R Q_t R' and h_t a step (:func:`tv_step_flops`;
-    twice in the smoother: its forward and its state pass)."""
+    twice in the smoother: its forward and its state pass). ``rows``: T's
+    non-zeros a row where every system shares T (the smoother's
+    structured form), the operations over them (:func:`smoother_flops`);
+    T itself is then read once, not a system."""
     item = 8 if dtype == "float64" else 4
+    q = d if q is None else q
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
-    tv_bytes = (t_len * d + t_len + tv_rows * t_len * d) * item \
+    tv_bytes = (t_len * d + t_len + tv_rows * t_len * q) * item \
         if tv_rows else 0
     if name == "loglik":
         n_bytes = (batch * (system + 1) + series * t_len) * item + tv_bytes
@@ -248,9 +291,10 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
         flops = batch * t_len * (jet_step_flops(d, k) if hess
                                  else dual_step_flops(d, k))
     elif name == "smoother":
-        n_bytes = (batch * (system + (t_len - 1) * d + t_len + t_len * d)
-                   + series * t_len) * item + tv_bytes
-        flops = smoother_flops(batch, d, t_len)
+        shared_t = 0 if rows is None else (batch - 1) * d * d
+        n_bytes = (batch * (system + (t_len - 1) * q + t_len + t_len * d)
+                   - shared_t + series * t_len) * item + tv_bytes
+        flops = smoother_flops(batch, d, t_len, rows)
         if tv_rows:
             flops += 2 * batch * t_len * tv_step_flops(d)
     elif name.startswith("dpath"):
@@ -282,25 +326,88 @@ def system(rng, batch, d, dtype, device="cuda"):
                        for f in base))
 
 
+def bsts_transition(d):
+    """(T [d, d], R [d, q]) of bsts blocks at state dimension d: a local
+    linear trend ([[1, 1], [0, 1]], both rows' errors; a local level at d =
+    1), a seasonal cycle of min(6, d - 2) rows (a row of -1s, then a
+    shift; the top row's error) and an identity for the rest (a dynamic
+    regression's and a holiday's, every row's error); at d = 13 phase 8's
+    T (its Student trend, 7-day cycle, two regression columns and 3-day
+    holiday: 19 non-zeros) and R (q = 8)."""
+    t_mat = np.zeros((d, d))
+    trend = min(2, d)
+    t_mat[:trend, :trend] = np.triu(np.ones((trend, trend)))
+    rows = list(range(trend))
+    s = min(6, d - trend)
+    if s > 0:
+        t_mat[trend, trend:trend + s] = -1.0
+        for k in range(1, s):
+            t_mat[trend + k, trend + k - 1] = 1.0
+        rows.append(trend)
+    for k in range(trend + max(s, 0), d):
+        t_mat[k, k] = 1.0
+        rows.append(k)
+    return t_mat, np.eye(d)[:, rows]
+
+
+def shared_transition(rng, d, kind):
+    """A T [d, d] for every system: "bsts" (:func:`bsts_transition`),
+    "sparse" (a random pattern of about a quarter of the entries, row 1
+    empty and row d - 2 full) or "dense", the random ones scaled to a
+    spectral radius of 0.97 at most."""
+    if kind == "bsts":
+        return bsts_transition(d)[0]
+    t_mat = rng.normal(size=(d, d))
+    if kind == "sparse":
+        t_mat *= rng.uniform(size=(d, d)) < 0.25
+        t_mat[1] = 0.0
+        t_mat[d - 2] = rng.normal(size=d)
+    radius = max(abs(np.linalg.eigvals(t_mat)).max(), 1e-3)
+    return t_mat * min(1.0, 0.97 / radius)
+
+
+# K2w's time-varying systems: T a chain (its dense form), or one T for all
+# (its structured form) with bsts' pattern, a random one or a dense one
+T_KINDS = ("chain", "bsts", "sparse", "dense")
+
+
+def state_errors(d, t_kind):
+    """q, the state errors of a :func:`time_varying_system` at d: bsts' R's
+    columns for a "bsts" T, else max(1, d - 1)."""
+    return bsts_transition(d)[1].shape[1] if t_kind == "bsts" \
+        else max(1, d - 1)
+
+
 def time_varying_system(rng, batch, d, t_len, dtype, q_mode="chain",
-                        device="cuda"):
+                        device="cuda", t_kind="chain"):
     """``batch`` stable systems (64 random ones, repeated) made
     time-varying as bsts' blocks make them: z_t [T, d] one for every system
     (expanded), h_scale [T] in [0.3, 1.5), and q_scale of the q = max(1, d
     - 1) state errors (R the first q rows of the identity, a selection
     whose last row is zero) in [0.5, 2): one a system ("chain", [B, T, q]),
-    one for all ("shared", [T, q] expanded) or none (None)."""
+    one for all ("shared", [T, q] expanded) or none (None). ``t_kind``
+    (T_KINDS): T a system, or one T expanded over the systems as
+    Bsts.ssm_params gives it (:func:`shared_transition`; "bsts" also takes
+    bsts' R and its q)."""
     import torch
 
     from boom_tpu_torch.statespace.kalman import SsmParams
 
     tdt = getattr(torch, dtype)
-    q = max(1, d - 1)
+    r_bsts = bsts_transition(d)[1] if t_kind == "bsts" else None
+    q = state_errors(d, t_kind)
     base = random_system(rng, min(batch, 64), d, tdt, q=q, device=device)
     reps = -(-batch // base.z.shape[0])
     params = SsmParams(*(None if f is None else
                          f.repeat_interleave(reps, dim=0)[:batch].contiguous()
                          for f in base))
+    if t_kind != "chain":
+        one = torch.tensor(shared_transition(rng, d, t_kind), dtype=tdt,
+                           device=device)
+        params = params._replace(t_mat=one[None].expand(batch, d, d))
+    if r_bsts is not None:
+        params = params._replace(r_mat=torch.tensor(
+            r_bsts, dtype=tdt, device=device)[None].expand(batch, d, q))
 
     def rand(lo, hi, shape):
         return torch.tensor(rng.uniform(lo, hi, size=shape), dtype=tdt,
@@ -402,7 +509,8 @@ def wide_cases(rng, name, dtype, batch, d, t_len, groups):
             lambda: kk.dpath(t_mat, w), scan)
 
 
-_WIDE_PASS = re.compile(r"smoother_wide_kernel<\d+, (\d), (?:false|true)>")
+_WIDE_PASS = re.compile(r"smoother_wide(?:_nz)?_kernel<\d+, (\d)"
+                        r"(?:, (?:false|true))?>")
 
 
 def wide_pass_ms(kern, calls=10, tries=3):
@@ -458,19 +566,30 @@ def time_wide(rng, plain=True):
     return out
 
 
-def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain"):
+def transition_rows(d, t_kind):
+    """T's non-zeros a row of a shared T of kind ``t_kind`` that the bound
+    counts (bsts': :func:`bsts_transition`), or None (every entry)."""
+    if t_kind != "bsts":
+        return None
+    return tuple(int(n) for n in (bsts_transition(d)[0] != 0).sum(1))
+
+
+def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
+             t_kind="chain"):
     """(kernel call, plain call, wrapper call) of a time-varying form (K1 or
     K1w with the innovations: "loglik_tv", "loglik_wide_tv"; K2 or K2w:
     "smoother_tv", "smoother_wide_tv") on a :func:`time_varying_system` of
-    its shape, a mask of ~5 % gaps and ``series`` series (the smoothers'
-    a chain's through eps, as bsts with a regression gives them)."""
+    its shape and ``t_kind``, a mask of ~5 % gaps and ``series`` series
+    (the smoothers' a chain's through eps, as bsts with a regression gives
+    them)."""
     import torch
 
     from boom_tpu_torch.statespace import kalman
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     tdt = getattr(torch, dtype)
-    params = time_varying_system(rng, batch, d, t_len, dtype, q_mode)
+    params = time_varying_system(rng, batch, d, t_len, dtype, q_mode,
+                                 t_kind=t_kind)
     shape = (series, t_len) if series > 1 else (t_len,)
     y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
                      device="cuda")
@@ -494,21 +613,27 @@ def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain"):
 
 def time_tv(rng, plain=True, shapes=None):
     """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
-    shape, pass_ms}} of the time-varying forms at TV_SHAPES (or
-    ``shapes``); pass_ms: K2w's passes."""
+    bound_dense_ms, shape, pass_ms}} of the time-varying forms at TV_SHAPES
+    (or ``shapes``); bound_dense_ms: the bound with every entry of T
+    counted (the dense-symmetric step), beside the one over T's non-zeros;
+    pass_ms: K2w's passes."""
     out = {}
-    for name, (dtype, batch, d, t_len, series) in (shapes
-                                                   or TV_SHAPES).items():
+    for name, (dtype, batch, d, t_len, series, t_kind) in (
+            shapes or TV_SHAPES).items():
         kern, ref, wrapper = tv_cases(rng, name, dtype, batch, d, t_len,
-                                      series)
-        row = {"shape": [dtype, batch, d, t_len, series],
+                                      series, t_kind=t_kind)
+        row = {"shape": [dtype, batch, d, t_len, series, t_kind],
                "ms": median_ms(kern), "call_ms": call_ms(kern),
                "wrapper_ms": median_ms(wrapper),
                "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
         kind = "loglik" if name.startswith("loglik") else "smoother"
+        q = state_errors(d, t_kind)
         row["bound_ms"], row["bound_by"] = bound_ms(
-            kind, dtype, batch, d, t_len, series, tv_rows=batch)
-        if name == "smoother_wide_tv":
+            kind, dtype, batch, d, t_len, series, tv_rows=batch,
+            rows=transition_rows(d, t_kind), q=q)
+        row["bound_dense_ms"] = bound_ms(kind, dtype, batch, d, t_len,
+                                         series, tv_rows=batch, q=q)[0]
+        if name.startswith("smoother_wide"):
             row["pass_ms"] = wide_pass_ms(kern)
         out[name] = row
     return out
@@ -516,7 +641,7 @@ def time_tv(rng, plain=True, shapes=None):
 
 def _bound_name(name):
     """bound_ms's name of a shape's kernel (loglik_wide -> loglik, ...)."""
-    for kind in ("loglik_grad", "loglik_hess", "loglik"):
+    for kind in ("loglik_grad", "loglik_hess", "loglik", "smoother"):
         if name.startswith(kind):
             return kind
     return name
@@ -537,11 +662,19 @@ def time_kalman(rng, plain=True, shapes=None):
     for name, (dtype, batch, d, t_len, series) in shapes.items():
         kern, ref, wrapper = kalman_cases(rng, name, dtype, batch, d, t_len,
                                           series)
+        # the jets' plain version (autograd of the plain loop, seconds a
+        # call) is timed by one call on the host clock: it is no yardstick
+        if not plain:
+            plain_ms = None
+        elif wrapper is None:
+            plain_ms = call_ms(ref)
+        else:
+            plain_ms = median_ms(ref, reps=3, per=1)
         row = {"shape": [dtype, batch, d, t_len]
                + ([series] if series > 1 else []),
                "ms": median_ms(kern), "call_ms": call_ms(kern),
                "wrapper_ms": median_ms(wrapper) if wrapper else None,
-               "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
+               "plain_ms": plain_ms}
         row["bound_ms"], row["bound_by"] = bound_ms(
             _bound_name(name), dtype, batch, d, t_len, series)
         if name in BLOCK_SIZES:
@@ -584,8 +717,8 @@ def _instantiation(mangled):
     return key + " per-series" if shared == "0" else key
 
 
-_WIDE_NAME = re.compile(r"(smoother_wide_kernel|dpath_kernel|"
-                        r"wide_loglik_kernel)I(?:([fd]))?"
+_WIDE_NAME = re.compile(r"(smoother_wide_kernel|smoother_wide_nz_kernel|"
+                        r"dpath_kernel|wide_loglik_kernel)I(?:([fd]))?"
                         r"(?:[fd]|N\w*?TangentI[fd]Li\dEEE)?"
                         r"Li(\d+)ELi(\d+)E(?:Lb([01])E)?")
 _THREAD_NAME = re.compile(r"loglik_thread_kernelILi(\d+)ELb([01])E")
@@ -600,7 +733,8 @@ def wide_nvcc_report(log_text):
     of K2w (each of its three passes), K3 (each chunk length, bytes a
     lane), K1w (its group kernel, and its thread kernel in either layout
     of T), J1 and J2 in kalman_wide.cu's ``nvcc -Xptxas -v`` log; the
-    time-varying forms of K2w and K1w end in " tv"."""
+    time-varying forms of K2w and K1w end in " tv", K2w's structured one
+    (over T's non-zeros) in " tv nz"."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
         m = _WIDE_NAME.search(name)
@@ -615,7 +749,9 @@ def wide_nvcc_report(log_text):
             continue
         kernel, ty, d, extra, tv = m.groups()
         tag = "f32" if ty == "f" else "f64"
-        if kernel == "smoother_wide_kernel":
+        if kernel == "smoother_wide_nz_kernel":
+            key = f"smoother_wide f64 d{int(d):02d} pass{extra} tv nz"
+        elif kernel == "smoother_wide_kernel":
             key = f"smoother_wide f64 d{int(d):02d} pass{extra}"
         elif kernel == "wide_loglik_kernel":
             key = f"{_JET_NAMES[extra]} {tag} d{int(d):02d}"
@@ -692,6 +828,8 @@ def run():
 
     if hasattr(kk, "launch_loglik_tv"):  # a tree with the time-varying forms
         kernels.update(time_tv(rng, plain=False))
+        kernels.update(time_kalman(rng, plain=False,
+                                   shapes=K2_TV_YARDSTICK))
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
            "kernels": kernels}
     log = _build.log_path("kalman_seq")

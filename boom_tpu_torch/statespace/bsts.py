@@ -68,14 +68,9 @@ SMOOTHER_DTYPE = torch.float64
 SWEEP_PHASES = ("regression", "variance_draws", "impute", "asis", "tim")
 
 
-def _block_diag(mats, keep_expanded=False):
-    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]. With
-    ``keep_expanded``, one [R, S] matrix expanded over the C chains where
-    every block is one expanded (stride 0 along the chains: the blocks' T),
-    which K1w reads as one matrix (``kalman_kernel.launch_loglik``)."""
+def _block_diag(mats):
+    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]."""
     c = mats[0].shape[0]
-    if keep_expanded and c > 1 and all(m.stride(0) == 0 for m in mats):
-        return _block_diag([m[:1] for m in mats]).expand(c, -1, -1)
     rows = sum(m.shape[-2] for m in mats)
     cols = sum(m.shape[-1] for m in mats)
     out = mats[0].new_zeros(c, rows, cols)
@@ -216,12 +211,14 @@ class Bsts:
         z [C, d], or [C, T, d] (one [T, d] expanded) with a time-varying
         block; q_scale [C, T, q] with one (expanded where no block's
         differs by chain); h_scale = 1 / max(w, 1) [T] with observation
-        weights."""
+        weights. T and R are the model's (:attr:`_transition`), one matrix
+        expanded over the chains, which K1w reads as one matrix
+        (``kalman_kernel.launch_loglik``) and K2w by its pattern."""
         dev, dt = self.y.device, self.y.dtype
         c = state["sigsq_obs"].shape[0]
         t_len = self.t_len
-        ts, rs, qs = zip(*(b.build(state["blocks"][b.name])
-                           for b in self.blocks))
+        t_mat, r_mat = self._transition
+        qs = [b.variance(state["blocks"][b.name]) for b in self.blocks]
         a0s, p0s = zip(*(b.init_dist(dev, dt) for b in self.blocks))
         if self._time_varying_z:
             z = torch.cat([b.z_seq(dev, dt) if hasattr(b, "z_seq")
@@ -244,8 +241,8 @@ class Bsts:
                    else 1.0 / torch.clamp_min(self.obs_weights, 1.0))
         return SsmParams(
             z=z,
-            t_mat=_block_diag(ts, keep_expanded=True),
-            r_mat=_block_diag(rs), q_mat=_block_diag(qs),
+            t_mat=t_mat.expand(c, -1, -1), r_mat=r_mat.expand(c, -1, -1),
+            q_mat=_block_diag(qs),
             h=state["sigsq_obs"],
             a0=torch.cat(a0s).expand(c, -1),
             p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1),
@@ -351,16 +348,46 @@ class Bsts:
     def _impute(self, params, noise, y_adj=None):
         """A state path draw from the smoother on ``y_adj`` (default y [T];
         [C, T] with a regression), computed in ``SMOOTHER_DTYPE`` and
-        returned in the run's dtype."""
+        returned in the run's dtype. A time-varying system whose T and R
+        are the model's (``ssm_params``') takes them in ``SMOOTHER_DTYPE``
+        as its pattern's (:attr:`_transition_pattern`): K2w then runs over
+        T's non-zeros and no launch reads the host."""
         y_adj = self.y if y_adj is None else y_adj
         wide = SMOOTHER_DTYPE
         # a mask sends the draw to the sequential smoother, which takes it
-        masked = {} if self.observed is None else {"observed": self.observed}
+        kw = {} if self.observed is None else {"observed": self.observed}
+        if self.time_varying and all(
+                kalman_kernel.expands(x, own) for x, own in zip(
+                    (params.t_mat, params.r_mat), self._transition)):
+            pattern = self._transition_pattern
+            c = params.h.shape[0]
+            params = params._replace(t_mat=pattern.t_mat.expand(c, -1, -1),
+                                     r_mat=pattern.r_mat.expand(c, -1, -1))
+            kw["pattern"] = pattern
         draw = self._smoother()(
             params.cast(wide), y_adj.to(wide),
             *(noise[k].to(wide) for k in ("sim_alpha1", "sim_eta",
-                                          "sim_eps")), **masked)
+                                          "sim_eps")), **kw)
         return draw.to(self.y.dtype)
+
+    @functools.cached_property
+    def _transition(self):
+        """The model's T [d, d] and R [d, q] on the run's device and in its
+        dtype: the block-diagonal of its blocks' ``transition``, constants
+        of their specs, built once a model."""
+        dev, dt = self.y.device, self.y.dtype
+        ts, rs = zip(*(b.transition(dev, dt) for b in self.blocks))
+        return (_block_diag([t[None] for t in ts])[0],
+                _block_diag([r[None] for r in rs])[0])
+
+    @functools.cached_property
+    def _transition_pattern(self):
+        """T's non-zeros and R's selection (``kalman_kernel
+        .TransitionPattern``) of the model's T and R in ``SMOOTHER_DTYPE``,
+        found once a model."""
+        t_mat, r_mat = self._transition
+        return kalman_kernel.TransitionPattern(t_mat.to(SMOOTHER_DTYPE),
+                                               r_mat.to(SMOOTHER_DTYPE))
 
     def _smoother(self):
         """Simulation-smoother dispatch (the reference's

@@ -38,13 +38,17 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
 A time-varying system (``SsmParams.time_varying``: z_t, h_t = h h_scale_t,
 Q_t = (q_t q_t') o Q) takes the same four kernels in their time-varying
 forms (K1 and K2 ``loglik_tv_kernel`` and ``smoother_kernel<D, true>``, K1w
-the group kernel ``wide_loglik_kernel<T, T, D, 0, true>``, K2w
-``smoother_wide_kernel<D, pass, true>``), which read three streams a step
-(:func:`time_varying_operands`): z_t [T, d], one for every system;
-h_scale [T]; and u_t = R q_t [., T, d], where R is a 0/1 selection (at
-most one 1 a row: every ported block's), so that R Q_t R' = (u_t u_t') o
-R Q R'. A z a system and an R that is no selection raise, naming their
-ROADMAP item.
+the group kernel ``wide_loglik_kernel<T, T, D, 0, true>``), which read
+three streams a step (:func:`time_varying_operands`): z_t [T, d], one for
+every system; h_scale [T]; and u_t = R q_t [., T, d], where R is a 0/1
+selection (at most one 1 a row: every ported block's), so that R Q_t R' =
+(u_t u_t') o R Q R'. K2w has two: where every chain shares T (Bsts'),
+``smoother_wide_nz_kernel<D, pass>`` runs T's products over its non-zeros
+(a :class:`TransitionPattern`, given or found from T), and where each
+chain has its own, ``smoother_wide_kernel<D, pass, true>`` (the dense
+form): a choice by the operands' layout, each with its ``LAUNCHES`` key.
+A z a system and an R that is no selection raise, naming their ROADMAP
+item.
 
 Dispatch is by the device of the tensors, as in ``scan_kernel.py``: a CUDA
 tensor launches the kernel (or raises — there is no fallback), a CPU tensor
@@ -53,6 +57,8 @@ launches, so a run can show its main path went through the kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -63,10 +69,12 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
+# (K2w's time-varying forms: "smoother_wide_tv" over T's non-zeros,
+# "smoother_wide_tv_dense" with a T a chain)
 LAUNCHES = {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
             "loglik_hess": 0, "smoother": 0, "smoother_wide": 0, "dpath": 0,
             "loglik_tv": 0, "loglik_wide_tv": 0, "smoother_tv": 0,
-            "smoother_wide_tv": 0}
+            "smoother_wide_tv": 0, "smoother_wide_tv_dense": 0}
 # the loglik's jets by the order of derivatives they give: J1, J2
 JET_KINDS = {1: "loglik_grad", 2: "loglik_hess"}
 JET_MAX_DIRECTIONS = _build.JET_MAX_DIRECTIONS
@@ -199,14 +207,118 @@ def _is_selection(r_mat):
                  & ((r != 0).sum(-1) <= 1).all()).item())
 
 
-def time_varying_operands(params: SsmParams, t_len, dtype, device):
+def _one_of_all(x):
+    """x [B, ...] holds one row for every system: B = 1, or stride 0."""
+    return x.shape[0] == 1 or x.stride(0) == 0
+
+
+def expands(x, own):
+    """x [B, ...] is ``own`` expanded over B (or B = 1): the same memory,
+    dtype and device."""
+    return (x.dtype == own.dtype and x.device == own.device
+            and _one_of_all(x) and tuple(x.shape[1:]) == tuple(own.shape)
+            and x[0].data_ptr() == own.data_ptr()
+            and x[0].stride() == own.stride())
+
+
+def _expands(x, own, version):
+    """:func:`expands`, and ``own`` not written since its ``_version`` was
+    ``version``."""
+    return (own is not None and expands(x, own)
+            and own._version == version)
+
+
+class TransitionPattern:
+    """T's non-zeros and R's selection of a system whose chains all share
+    one T [d, d] and one R [d, q] (Bsts': no block's T or R moves with a
+    chain's parameters), found once with one read of the host. K2w's
+    structured time-varying form takes T's rows, their columns and values
+    (``rows``, ``values``), as kernel parameters; and where ``r_mat`` is a
+    selection (``selection``), u_t = R q_t is formed without
+    ``_is_selection``'s read. ``t_mat`` and ``r_mat`` are the tensors they
+    were found from: a system whose T and R are these, expanded over its
+    chains and not written since, agrees with no further read, and any
+    other T is compared with the pattern on the host (:meth:`check`)."""
+
+    def __init__(self, t_mat, r_mat=None):
+        d = t_mat.shape[-1]
+        if tuple(t_mat.shape) != (d, d):
+            raise ValueError(f"a transition pattern takes one T [d, d]; got "
+                             f"{tuple(t_mat.shape)}")
+        self.t_mat, self.r_mat = t_mat, r_mat
+        self._versions = (t_mat._version,
+                          None if r_mat is None else r_mat._version)
+        t = t_mat.detach().to("cpu", torch.float64)
+        self.rows = tuple(tuple(int(j) for j in torch.nonzero(t[i])[:, 0])
+                          for i in range(d))
+        self.values = tuple(tuple(float(t[i, j]) for j in cols)
+                            for i, cols in enumerate(self.rows))
+        self.selection = r_mat is not None and _is_selection(r_mat[None])
+        ptr = [0]
+        for cols in self.rows:
+            ptr.append(ptr[-1] + len(cols))
+        n = max(ptr[-1], 1)
+        self._csr = ((ctypes.c_int * (d + 1))(*ptr),
+                     (ctypes.c_int * n)(*(j for c in self.rows for j in c)),
+                     (ctypes.c_double * n)(*(v for r in self.values
+                                             for v in r)))
+
+    @property
+    def nnz(self):
+        return sum(len(cols) for cols in self.rows)
+
+    def row_counts(self):
+        """T's non-zeros a row."""
+        return tuple(len(cols) for cols in self.rows)
+
+    def csr_pointers(self):
+        """Host addresses of T's CSR arrays: rowptr [d + 1] ints, the
+        columns (ints) and the values (doubles)."""
+        return [ctypes.addressof(a) for a in self._csr]
+
+    def owns_r(self, r_mat):
+        """R [B, d, q] is this pattern's R, expanded (no read)."""
+        return _expands(r_mat, self.r_mat, self._versions[1])
+
+    def check(self, t_mat):
+        """Raise ValueError unless T [B, d, d] is the pattern's: its own
+        tensor expanded and not written since (no read), or else, compared
+        on the host, every chain's T with the pattern's values at its
+        non-zeros and 0 elsewhere."""
+        if _expands(t_mat, self.t_mat, self._versions[0]):
+            return
+        d = len(self.rows)
+        want = torch.zeros(d, d, dtype=torch.float64)
+        for i, (cols, vals) in enumerate(zip(self.rows, self.values)):
+            want[i, list(cols)] = torch.tensor(vals, dtype=torch.float64)
+        t = t_mat[:1] if _one_of_all(t_mat) else t_mat
+        got = t.detach().to("cpu", torch.float64)
+        if tuple(got.shape[1:]) != (d, d) or not bool((got == want).all()):
+            raise ValueError(
+                "the transition pattern disagrees with T: the kernels would "
+                "take T's non-zeros from the pattern; pass the T it was "
+                "found from, or none (the pattern is then found from T)")
+
+
+def _pattern_found(params: SsmParams):
+    """The pattern of the system's T, one for every chain, found from T (a
+    read of the host)."""
+    r = params.r_mat
+    return TransitionPattern(params.t_mat[0],
+                             r[0] if _one_of_all(r) else None)
+
+
+def time_varying_operands(params: SsmParams, t_len, dtype, device,
+                          pattern=None):
     """The time-varying kernels' streams of ``params``: (zt [T, d], one z_t
     for every system; hs [T], h_t = h hs[t]; u [U, T, d], u_t = R q_t;
     u_stride, T d where U = B, 0 where U = 1), contiguous, in ``dtype``. A
     field the system keeps static becomes its stream (z broadcast along T,
     hs and u ones). u is one row where q_scale and R are one expanded over
-    the systems (stride 0). Raises NotImplementedError for a z a system
-    (``kalman.check_system``) and an R that is no selection."""
+    the systems (stride 0). R is known to be a selection where it is a
+    ``pattern``'s own selection (no read of the host), else it is checked.
+    Raises NotImplementedError for a z a system (``kalman.check_system``)
+    and an R that is no selection."""
     kalman.check_system(params)
     b, d = params.h.shape[0], params.t_mat.shape[-1]
     z = params.z
@@ -220,9 +332,11 @@ def time_varying_operands(params: SsmParams, t_len, dtype, device):
         u = torch.ones(1, t_len, d, dtype=dtype, device=device)
     else:
         r = params.r_mat
-        if not _is_selection(r):
+        known = (pattern is not None and pattern.selection
+                 and pattern.owns_r(r))
+        if not known and not _is_selection(r):
             raise NotImplementedError(_NOT_SELECTION)
-        if b == 1 or (q.stride(0) == 0 and r.stride(0) == 0):
+        if _one_of_all(r) and _one_of_all(q):
             u = torch.einsum("dq,tq->td", r[0], q[0])[None]
         else:
             u = torch.einsum("bdq,btq->btd", r, q)
@@ -465,20 +579,24 @@ def innovations(params: SsmParams, y, observed=None):
 
 
 def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
-                        observed=None):
+                        observed=None, pattern=None):
     """alpha+ + E_0[alpha | y - y+] [C, T, d] for every chain (K2 or K2w on
     a CUDA tensor, the plain ``kalman.simulation_smoother`` on a CPU
     tensor). y: [T], or [C, T] a series a chain. Normals as
-    ``kalman.simulation_smoother`` takes them."""
+    ``kalman.simulation_smoother`` takes them. ``pattern``: a
+    :class:`TransitionPattern` of the system's T and R (Bsts finds its own
+    once a model), checked against T on either device."""
     if not _on_card(params.h):
+        if pattern is not None:
+            pattern.check(params.t_mat)
         return kalman.simulation_smoother(params, y, alpha1_z, eta_z, eps_z,
                                           observed)
     return launch_smoother(*smoother_operands(params, y, alpha1_z, eta_z,
-                                              eps_z, observed))
+                                              eps_z, observed, pattern))
 
 
 def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
-                      observed=None):
+                      observed=None, pattern=None):
     """K2's (d <= 6) or K2w's (7 <= d <= 16) checked, contiguous operands:
     ({name: tensor}, y [T], the mask bytes or None). The draws' noise
     (alpha_1, w = R chol(Q) eta, sqrt(h) eps) is formed here by
@@ -488,7 +606,11 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     only in y - y+ = y - (z' alpha+ + eps), so y_c with eps is the shared
     series 0 with eps - y_c (the same draw up to rounding). A time-varying
     system adds the streams of :func:`time_varying_operands` ("zt", "hs",
-    "u" and the int "u_stride") and drops z."""
+    "u" and the int "u_stride") and drops z; at 7 <= d <= 16 where every
+    chain shares T, also "nz", the :class:`TransitionPattern` of its T
+    (``pattern`` once checked against T, or one found from T), which
+    K2w's structured form takes in T's place (T is then not copied). A
+    given ``pattern`` that disagrees with T raises ValueError."""
     kalman.check_system(params)
     dtype, device = params.h.dtype, params.h.device
     tags, dims = _build.KALMAN_ENTRIES["smoother"]
@@ -513,46 +635,65 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
         eps = eps - y
         y = y.new_zeros(t_len)
     y = _series(y, dtype, device)
+    # K2w's structured form: a pattern given, or one T for every chain
+    structured = (params.time_varying and d in _build.WIDE_DIMS
+                  and (pattern is not None or _one_of_all(params.t_mat)))
     fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": params.h,
               "p0": params.p0, "alpha1": alpha1, "w": w, "eps": eps}
     if not params.time_varying:
         fields["z"] = params.z
+    if structured:
+        # it reads T's non-zeros from the pattern: T is checked where it
+        # lies (its first row), not copied
+        _checked({"t_mat": fields.pop("t_mat")[:1]}, dtype, device)
     p = _checked(fields, dtype, device)
-    _shape_check(p, c, d)
+    _shape_check({**p, "t_mat": params.t_mat}, c, d)
     if p["w"].shape != (c, t_len - 1, d) or p["eps"].shape != (c, t_len):
         raise ValueError(f"normals must give w [{c}, {t_len - 1}, {d}] and "
                          f"eps [{c}, {t_len}]")
+    if pattern is not None:
+        pattern.check(params.t_mat)
+    elif structured:
+        pattern = _pattern_found(params)
     if params.time_varying:
         p["zt"], p["hs"], p["u"], p["u_stride"] = time_varying_operands(
-            params, t_len, dtype, device)
+            params, t_len, dtype, device, pattern)
+    if structured:
+        p["nz"] = pattern
     return p, y, _observed_bytes(observed, t_len, device)
 
 
 def launch_smoother(p, y, obs):
     """K2 (d <= 6) or K2w on operands from :func:`smoother_operands` ->
     [C, T, d], in their time-varying forms where the operands hold the
-    time-varying streams."""
+    time-varying streams (K2w's structured form where they hold "nz")."""
     (c, d), t_len = p["alpha1"].shape, y.shape[0]
     scratch = p["alpha1"].new_empty(c, t_len, d + 1)
     out = p["alpha1"].new_empty(c, t_len, d)
     if "zt" in p:
-        ptrs = [p[k].data_ptr() for k in ("t_mat", "rqr", "h", "p0",
-                                          "alpha1", "w", "eps")]
+        ptrs = [p[k].data_ptr() for k in ("rqr", "h", "p0", "alpha1", "w",
+                                          "eps")]
         ptrs += [y.data_ptr(), _ptr(obs), p["zt"].data_ptr(),
                  p["hs"].data_ptr(), p["u"].data_ptr(), scratch.data_ptr(),
                  out.data_ptr()]
-        if d in _build.WIDE_DIMS:
+        if "nz" in p:
             kind = "smoother_wide_tv"
             rc = _build.library(
+                "kalman_wide").boom_kalman_smoother_wide_nz_f64(
+                *ptrs, *p["nz"].csr_pointers(), c, t_len, p["u_stride"],
+                d, WIDE_THREADS, _stream(y.device))
+        elif d in _build.WIDE_DIMS:
+            kind = "smoother_wide_tv_dense"
+            rc = _build.library(
                 "kalman_wide").boom_kalman_smoother_wide_tv_f64(
-                *ptrs, c, t_len, p["u_stride"], d, WIDE_THREADS,
-                _stream(y.device))
+                p["t_mat"].data_ptr(), *ptrs, c, t_len, p["u_stride"], d,
+                WIDE_THREADS, _stream(y.device))
         else:
             kind = "smoother_tv"
             fn = getattr(_build.library("kalman_seq"),
                          f"boom_kalman_smoother_tv_f64_d{d}")
-            rc = fn(*ptrs, c, t_len, p["u_stride"], SMOOTHER_THREADS,
-                    _stream(y.device))
+            rc = fn(p["t_mat"].data_ptr(), *ptrs, c, t_len, p["u_stride"],
+                    SMOOTHER_THREADS, _stream(y.device))
         if rc != 0:
             raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
         LAUNCHES[kind] += 1

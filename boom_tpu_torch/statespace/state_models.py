@@ -8,6 +8,9 @@ A block is a frozen dataclass of floats (the model spec) whose methods work
 on a batch of chains:
 
     z(device, dtype)            -> [dim] observation weights
+    transition(device, dtype)   -> (T [dim,dim], R [dim,err]), constants of
+                                   the spec, one for every chain
+    variance(params)            -> Q [C,err,err]
     build(params)               -> (T [C,dim,dim], R [C,dim,err], Q [C,err,err])
     init_dist(device, dtype)    -> (a0 [dim], P0 [dim,dim])
     init_noise_spec()           -> per-chain uniforms of init_params
@@ -75,6 +78,14 @@ def _chain_mats(mat, c):
     return mat.expand(c, *mat.shape)
 
 
+def _built(block, q_mat):
+    """(T, R, Q) [C, ...] of ``block`` whose Q is ``q_mat`` [C, err, err]:
+    its T and R expanded over the chains."""
+    t_mat, r_mat = block.transition(q_mat.device, q_mat.dtype)
+    c = q_mat.shape[0]
+    return _chain_mats(t_mat, c), _chain_mats(r_mat, c), q_mat
+
+
 @dataclasses.dataclass(frozen=True)
 class LocalLevel:
     """Random-walk level (reference LocalLevelStateModel; bsts
@@ -97,12 +108,15 @@ class LocalLevel:
     def z(self, device, dtype):
         return torch.ones(1, device=device, dtype=dtype)
 
+    def transition(self, device, dtype):
+        one = torch.ones(1, 1, device=device, dtype=dtype)
+        return one, one
+
+    def variance(self, params):
+        return params["sigma_level_sq"][:, None, None]
+
     def build(self, params):
-        var = params["sigma_level_sq"]
-        one = torch.ones(1, 1, device=var.device, dtype=var.dtype)
-        c = var.shape[0]
-        return (_chain_mats(one, c), _chain_mats(one, c),
-                var[:, None, None])
+        return _built(self, self.variance(params))
 
     def init_dist(self, device, dtype):
         return (torch.tensor([self.initial_mean], device=device,
@@ -162,13 +176,16 @@ class LocalLinearTrend:
         return torch.tensor([[1.0, 1.0], [0.0, 1.0]], device=device,
                             dtype=dtype)
 
+    def transition(self, device, dtype):
+        return (self._t(device, dtype),
+                torch.eye(2, device=device, dtype=dtype))
+
+    def variance(self, params):
+        return torch.diag_embed(torch.stack(
+            [params["sigma_level_sq"], params["sigma_slope_sq"]], dim=-1))
+
     def build(self, params):
-        lvl, slope = params["sigma_level_sq"], params["sigma_slope_sq"]
-        c = lvl.shape[0]
-        q_mat = torch.diag_embed(torch.stack([lvl, slope], dim=-1))
-        eye = torch.eye(2, device=lvl.device, dtype=lvl.dtype)
-        return (_chain_mats(self._t(lvl.device, lvl.dtype), c),
-                _chain_mats(eye, c), q_mat)
+        return _built(self, self.variance(params))
 
     def init_dist(self, device, dtype):
         return (torch.tensor([self.initial_level_mean,
@@ -243,13 +260,16 @@ class Seasonal:
         shift = torch.eye(d - 1, d, device=device, dtype=dtype)
         return torch.cat([top, shift], dim=0)
 
-    def build(self, params):
-        var = params["sigma_seasonal_sq"]
-        c = var.shape[0]
-        r_mat = torch.zeros(self.dim, 1, device=var.device, dtype=var.dtype)
+    def transition(self, device, dtype):
+        r_mat = torch.zeros(self.dim, 1, device=device, dtype=dtype)
         r_mat[0, 0] = 1.0
-        return (_chain_mats(self._t(var.device, var.dtype), c),
-                _chain_mats(r_mat, c), var[:, None, None])
+        return self._t(device, dtype), r_mat
+
+    def variance(self, params):
+        return params["sigma_seasonal_sq"][:, None, None]
+
+    def build(self, params):
+        return _built(self, self.variance(params))
 
     def init_dist(self, device, dtype):
         return (torch.zeros(self.dim, device=device, dtype=dtype),
@@ -319,11 +339,15 @@ class DynamicRegression:
     def z_seq(self, device, dtype):
         return self.predictors.to(device=device, dtype=dtype)
 
+    def transition(self, device, dtype):
+        eye = torch.eye(self.dim, device=device, dtype=dtype)
+        return eye, eye
+
+    def variance(self, params):
+        return torch.diag_embed(params["sigma_dynreg_sq"])
+
     def build(self, params):
-        var = params["sigma_dynreg_sq"]
-        c, d = var.shape
-        eye = torch.eye(d, device=var.device, dtype=var.dtype)
-        return _chain_mats(eye, c), _chain_mats(eye, c), torch.diag_embed(var)
+        return _built(self, self.variance(params))
 
     def init_dist(self, device, dtype):
         d = self.dim
@@ -414,12 +438,17 @@ class RandomWalkHoliday:
         return _one_hot_days(self._next_days().to(var.device), self.window,
                              var.dtype)
 
-    def build(self, params):
+    def transition(self, device, dtype):
+        eye = torch.eye(self.window, device=device, dtype=dtype)
+        return eye, eye
+
+    def variance(self, params):
         var = params["sigma_holiday_sq"]
-        c, d = var.shape[0], self.window
-        eye = torch.eye(d, device=var.device, dtype=var.dtype)
-        return (_chain_mats(eye, c), _chain_mats(eye, c),
-                var[:, None, None] * eye)
+        return var[:, None, None] * torch.eye(self.window, device=var.device,
+                                              dtype=var.dtype)
+
+    def build(self, params):
+        return _built(self, self.variance(params))
 
     def init_dist(self, device, dtype):
         d = self.window
@@ -506,13 +535,16 @@ class StudentLocalLinearTrend:
         return torch.tensor([[1.0, 1.0], [0.0, 1.0]], device=device,
                             dtype=dtype)
 
+    def transition(self, device, dtype):
+        return (self._t(device, dtype),
+                torch.eye(2, device=device, dtype=dtype))
+
+    def variance(self, params):
+        return torch.diag_embed(torch.stack(
+            [params["sigma_level_sq"], params["sigma_slope_sq"]], dim=-1))
+
     def build(self, params):
-        lvl, slope = params["sigma_level_sq"], params["sigma_slope_sq"]
-        c = lvl.shape[0]
-        eye = torch.eye(2, device=lvl.device, dtype=lvl.dtype)
-        return (_chain_mats(self._t(lvl.device, lvl.dtype), c),
-                _chain_mats(eye, c),
-                torch.diag_embed(torch.stack([lvl, slope], dim=-1)))
+        return _built(self, self.variance(params))
 
     def q_scale_seq(self, params):
         """[C, T, 2]: 1 / sqrt(w) of each transition, 1 on the last row."""

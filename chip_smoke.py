@@ -134,10 +134,14 @@ Phases:
      one for all or none; a mask) against their plain versions on the
      card: d in {1, 2, 6, 7, 13, 16}, T in {33, 67}, 33 systems on 11
      series and 257 on one, K1 / K1w with their innovations in float64
-     (<= 1e-9) and float32 (<= 1e-4), K2 / K2w in float64; at phase 8's
-     shapes (``kalman_timing.TV_SHAPES``), ten launches there
-     bit-identical; their times beside bounds and plain times, registers
-     and spills;
+     (<= 1e-9) and float32 (<= 1e-4), K2 / K2w in float64; K2w in its
+     dense form (a T a system) and, at d 7, 13 and 16 and on 4097 chains
+     at d = 13, in its structured form (one T for all: bsts' pattern, a
+     random one with an empty and a full row, a dense one), each case
+     taking its form's launch key; at phase 8's shapes
+     (``kalman_timing.TV_SHAPES``: K2w in both forms), ten launches
+     there bit-identical; their times beside bounds (over T's non-zeros
+     and dense) and plain times, registers and spills;
   8. bsts_tv: a daily series on a grid of 500 days with gaps and
      duplicated days (``boom_tpu_torch/data/bsts_tv.npz``), fit with its
      timestamps through ``BstsModel().add_student_local_linear_trend()
@@ -146,7 +150,8 @@ Phases:
      timestamps=ts)`` (d = 13, p = 20) on the card: the front end briefly;
      one float64 sweep of 33 chains against the CPU's (<= 1e-8); then
      4096 chains x (200 + 200) sweeps, float32 (smoother float64), through
-     K2w's time-varying form, K3 and kernel (a)'s per-chain entry, gated
+     K2w's structured time-varying form (all 401 smoother launches, or the
+     phase fails), K3 and kernel (a)'s per-chain entry, gated
      against the reference's own run (tests/test_torch_bsts_tv.py bench
      1024 200 200 7): each monitored parameter's R-hat - 1 at most 1.10
      times the reference's + 0.01, medians within 10 % (variances, nu) and
@@ -469,6 +474,9 @@ REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.028240124111220188
 TV_KERNELS = {
     "smoother_wide_tv": ("kalman_simulation_smoother_wide_tv", WIDE_SOURCE,
                          "boom_tpu/statespace/kalman.py:432"),
+    "smoother_wide_tv_dense": ("kalman_simulation_smoother_wide_tv_dense",
+                               WIDE_SOURCE,
+                               "boom_tpu/statespace/kalman.py:432"),
     "loglik_wide_tv": ("kalman_loglik_wide_tv", WIDE_SOURCE,
                        "boom_tpu/statespace/kalman.py:282"),
     "smoother_tv": ("kalman_simulation_smoother_tv", KALMAN_SOURCE,
@@ -477,10 +485,16 @@ TV_KERNELS = {
                   "boom_tpu/statespace/kalman.py:282")}
 # d of the checks (K1 and K2 at 1, 2, 6; K1w and K2w at 7, 13, 16), T, a
 # q_t a system, one for all or none; 33 systems on 11 series and 257 on
-# one (a ragged last block)
+# one (a ragged last block); each with a T a system, and at K2w's d in
+# float64 also with one T for all of bsts' pattern, a random pattern
+# (an empty row and a full one) and a dense one (K2w's structured form:
+# ``kalman_timing.T_KINDS``), and 4097 chains at d = 13 (a ragged last
+# block of K2w's) with bsts' T and with a T a chain
 TV_D_CHECK = (1, 2, 6, 7, 13, 16)
 TV_T_CHECK = (33, 67)
 TV_Q_CHECK = ("chain", "shared", None)
+TV_SHARED_T = ("bsts", "sparse", "dense")
+TV_RAGGED = (4097, 13, 33)  # chains, d, T
 
 # phase 8: bsts_tv, a daily series on a grid of 500 days with gaps and
 # duplicated days (``boom_tpu_torch/data/bsts_tv.npz``): a Student trend, a
@@ -2194,11 +2208,12 @@ def phase7_bsts_reg_tim(card, rhat_without):
     return launches
 
 
-def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series):
+def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series, t_kind="chain"):
     """The time-varying forms of K1 / K1w (with the innovations) and, in
     float64, K2 / K2w against their plain versions on one time-varying
-    system (``kalman_timing.time_varying_system``), masked: ({kernel: (rel,
-    abs)})."""
+    system (``kalman_timing.time_varying_system`` with its T of
+    ``t_kind``), masked: ({kernel: (rel, abs)}); K2w's key is its form's
+    (a T a system: "smoother_wide_tv_dense")."""
     import torch
 
     from boom_tpu_torch.kernels import kalman_timing as kt
@@ -2206,7 +2221,8 @@ def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series):
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     tag = str(dtype).split(".")[-1]
-    params = kt.time_varying_system(rng, b, d, t_len, tag, q_mode)
+    params = kt.time_varying_system(rng, b, d, t_len, tag, q_mode,
+                                    t_kind=t_kind)
     y = torch.tensor(rng.normal(size=(series, t_len)).cumsum(-1),
                      dtype=dtype, device="cuda")
     obs = torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
@@ -2223,11 +2239,15 @@ def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series):
                                 device="cuda")
                    for sh in ((b, d), (b, t_len - 1, q), (b, t_len))]
         y1 = y[0] if series != b else y
+        before = dict(kk.LAUNCHES)
         got = kk.simulation_smoother(params, y1, *normals, observed=obs)
         want = kalman.simulation_smoother(params, y1, *normals,
                                           observed=obs)
-        out["smoother_wide_tv" if wide else "smoother_tv"] = (
-            _rel(got, want), float((got - want).abs().max()))
+        key = ("smoother_tv" if not wide else "smoother_wide_tv_dense"
+               if t_kind == "chain" else "smoother_wide_tv")
+        check(kk.LAUNCHES[key] == before[key] + 1,
+              f"d={d} T={t_kind}: the smoother did not take {key}")
+        out[key] = (_rel(got, want), float((got - want).abs().max()))
     return out
 
 
@@ -2245,39 +2265,46 @@ def phase2e_tv_vs_plain():
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20261020)
     bad, worst = [], {}
-    for dtype in (torch.float64, torch.float32):
+    cases = [(dtype, d, t_len, q_mode, b, series, "chain")
+             for dtype in (torch.float64, torch.float32)
+             for d in TV_D_CHECK for t_len in TV_T_CHECK
+             for q_mode in TV_Q_CHECK for b, series in ((33, 11), (257, 1))]
+    cases += [(torch.float64, d, t_len, q_mode, b, series, t_kind)
+              for d in TV_D_CHECK if d >= 7 for t_kind in TV_SHARED_T
+              for t_len in TV_T_CHECK for q_mode in TV_Q_CHECK
+              for b, series in ((33, 11), (257, 1))]
+    chains, d_r, t_r = TV_RAGGED
+    cases += [(torch.float64, d_r, t_r, "chain", chains, 1, t_kind)
+              for t_kind in ("bsts", "chain")]
+    for dtype, d, t_len, q_mode, b, series, t_kind in cases:
         tag = str(dtype).split(".")[-1]
-        for d in TV_D_CHECK:
-            for t_len in TV_T_CHECK:
-                for q_mode in TV_Q_CHECK:
-                    for b, series in ((33, 11), (257, 1)):
-                        res = _tv_vs_plain(rng, dtype, d, t_len, q_mode, b,
-                                           series)
-                        for k, (rel, _abs) in res.items():
-                            worst[(k, tag)] = max(worst.get((k, tag), 0.0),
-                                                  rel)
-                            if not (np.isfinite(rel)
-                                    and rel <= SCAN_TOL[tag]):
-                                bad.append(f"{k} {tag} d={d} T={t_len} "
-                                           f"q={q_mode} B={b}: {rel:.3e}")
+        res = _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series, t_kind)
+        for k, (rel, _abs) in res.items():
+            worst[(k, tag)] = max(worst.get((k, tag), 0.0), rel)
+            if not (np.isfinite(rel) and rel <= SCAN_TOL[tag]):
+                bad.append(f"{k} {tag} d={d} T={t_len} q={q_mode} B={b} "
+                           f"T's kind {t_kind}: {rel:.3e}")
     for (k, tag), v in sorted(worst.items()):
         print(f"worst {k} {tag} over d {TV_D_CHECK}, T {TV_T_CHECK}, q_t "
-              f"{TV_Q_CHECK}: {v:.3e} (tolerance {SCAN_TOL[tag]:g})")
+              f"{TV_Q_CHECK}, T's kinds (chain,) + {TV_SHARED_T} at d >= 7, "
+              f"{TV_RAGGED[0]} chains at d = {TV_RAGGED[1]}: {v:.3e} "
+              f"(tolerance {SCAN_TOL[tag]:g})")
     check(not bad, "a time-varying kernel disagrees with its plain version: "
           + "; ".join(bad[:20]))
 
     at_tv, same = {}, {}
-    for name, (tag, batch, d, t_len, series) in kt.TV_SHAPES.items():
+    for name, (tag, batch, d, t_len, series, t_kind) in kt.TV_SHAPES.items():
         kern, ref, _wrapper = kt.tv_cases(rng, name, tag, batch, d, t_len,
-                                          series)
+                                          series, t_kind=t_kind)
         first, want = kern(), ref()
         first = first if isinstance(first, tuple) else (first,)
         want = want if isinstance(want, tuple) else (want,)
         rel = max(_rel(g.double(), w.double()) for g, w in zip(first, want))
         at_tv[name] = {"max_abs_err": max(float((g - w).abs().max())
                                           for g, w in zip(first, want))}
-        print(f"{name} {tag} B={batch} d={d} T={t_len} S={series} (phase "
-              f"8's shape): rel {rel:.2e} abs {at_tv[name]['max_abs_err']:.2e}")
+        print(f"{name} {tag} B={batch} d={d} T={t_len} S={series} T's kind "
+              f"{t_kind} (phase 8's shape): rel {rel:.2e} abs "
+              f"{at_tv[name]['max_abs_err']:.2e}")
         check(np.isfinite(rel) and rel <= SCAN_TOL[tag],
               f"{name} at phase 8's shape: {rel:.3e}")
         same[name] = True
@@ -2294,7 +2321,8 @@ def phase2e_tv_vs_plain():
     for name, r in kt.time_tv(rng).items():
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
               f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); one call "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; every "
+              f"entry of T counted {r['bound_dense_ms']:.6f} ms); one call "
               f"on the host clock {r['call_ms']:.4f} ms")
         if r.get("pass_ms"):
             print(f"time {name} by pass (profiler, device ms a call): "
@@ -2307,7 +2335,7 @@ def phase2e_tv_vs_plain():
         log = _build.log_path(source)
         if log.exists():
             for inst, rep in read(log.read_text()).items():
-                if inst.endswith(" tv") or inst.startswith("loglik_tv"):
+                if " tv" in inst or inst.startswith("loglik_tv"):
                     print(f"nvcc {inst}: {rep['registers']} registers, "
                           f"{rep['spill_bytes']} bytes spill stores, "
                           f"{rep['stack_bytes']} bytes stack")
@@ -2499,6 +2527,8 @@ def phase8_bsts_tv(card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t1
     launches = {"smoother_wide_tv": kk.LAUNCHES["smoother_wide_tv"],
+                "smoother_wide_tv_dense":
+                    kk.LAUNCHES["smoother_wide_tv_dense"],
                 "dpath": kk.LAUNCHES["dpath"],
                 "ssvs_sweep_border": ssk.LAUNCHES["ssvs_sweep_border"]}
     others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES,
@@ -2508,11 +2538,17 @@ def phase8_bsts_tv(card):
     print(f"bsts_tv: T={g} d=13 p={model.num_predictors} chains={TV_CHAINS} "
           f"burn={TV_BURN} draws={TV_DRAWS} in {elapsed:.2f} s; launches "
           f"{launches}, other kernels {others}")
-    check(launches["smoother_wide_tv"] >= sweeps + 1
+    print(f"bsts_tv: {launches['smoother_wide_tv']} of the run's "
+          f"{sweeps + 1} smoother launches over T's non-zeros (K2w's "
+          f"structured form), {launches['smoother_wide_tv_dense']} in its "
+          f"dense form")
+    check(launches["smoother_wide_tv"] == sweeps + 1
+          and launches["smoother_wide_tv_dense"] == 0
           and launches["dpath"] >= sweeps
           and launches["ssvs_sweep_border"] >= sweeps and not others,
-          f"the bsts_tv run did not go through its kernels: {launches}, "
-          f"{others}")
+          f"the bsts_tv run did not go through its kernels (each of its "
+          f"{sweeps + 1} smoother launches in K2w's structured form): "
+          f"{launches}, {others}")
 
     d = res.draws
     b = d["blocks"]

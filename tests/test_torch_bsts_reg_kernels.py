@@ -173,6 +173,7 @@ def test_host_compiled_bsts_reg_sweep_matches_plain():
                         "loglik_hess": 0, "smoother": 0, "smoother_wide": 1,
                         "dpath": 1, "loglik_tv": 0, "loglik_wide_tv": 0,
                         "smoother_tv": 0, "smoother_wide_tv": 0,
+                        "smoother_wide_tv_dense": 0,
                         "ssvs_sweep": 0, "ssvs_sweep_border": 1}
     for mod in (kk, ssvs_kernel):
         mod._on_card = lambda x: False  # the plain versions (undone after)

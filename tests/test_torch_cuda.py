@@ -513,17 +513,22 @@ def test_log_lik_and_errors_with_a_regression_run_on_the_card(card):
 @pytest.mark.parametrize("d", [1, 2, 6, 7, 13, 16])
 @pytest.mark.parametrize("q_mode", ["chain", "shared", None])
 @pytest.mark.parametrize("t_len", [1, 33, 500])
-def test_time_varying_kernels_match_plain(card, dtype, d, q_mode, t_len):
+@pytest.mark.parametrize("t_kind", ["chain", "bsts"])
+def test_time_varying_kernels_match_plain(card, dtype, d, q_mode, t_len,
+                                          t_kind):
     """K1 / K1w with their innovations (both dtypes) and K2 / K2w (float64)
     of a time-varying system (z_t shared, h_t, Q_t with q_t a system, one
-    for all or none), masked, a series a group: each against its plain
-    version, one launch of its time-varying form."""
+    for all or none), masked, a series a group, T a system or bsts' T for
+    all: each against its plain version, one launch of its time-varying
+    form (K2w's dense form with a T a system, its structured form with one
+    T for all)."""
     from boom_tpu_torch.kernels.kalman_timing import time_varying_system
 
     rng = np.random.default_rng(d * 1000 + t_len)
     tag = str(dtype).split(".")[-1]
     b = 34
-    params = time_varying_system(rng, b, d, t_len, tag, q_mode)
+    params = time_varying_system(rng, b, d, t_len, tag, q_mode,
+                                 t_kind=t_kind)
     y = torch.tensor(rng.normal(size=(17, t_len)).cumsum(-1), dtype=dtype,
                      device=card)
     obs = torch.tensor(rng.uniform(size=t_len) > 0.2, device=card)
@@ -544,7 +549,8 @@ def test_time_varying_kernels_match_plain(card, dtype, d, q_mode, t_len):
         want = kalman.simulation_smoother(params, y1, *normals,
                                           observed=obs)
         assert _within(got, want, TOL[dtype])
-        kind = "smoother_wide_tv" if wide else "smoother_tv"
+        kind = ("smoother_tv" if not wide else "smoother_wide_tv_dense"
+                if t_kind == "chain" else "smoother_wide_tv")
         assert kk.LAUNCHES[kind] == before[kind] + 1
 
 
@@ -552,9 +558,9 @@ def test_time_varying_kernels_are_bit_identical(card):
     from boom_tpu_torch.kernels import kalman_timing as kt
 
     rng = np.random.default_rng(3)
-    for name, (tag, batch, d, t_len, series) in kt.TV_SHAPES.items():
+    for name, (tag, batch, d, t_len, series, t_kind) in kt.TV_SHAPES.items():
         kern = kt.tv_cases(rng, name, tag, min(batch, 257), d, t_len,
-                           min(series, 257))[0]
+                           min(series, 257), t_kind=t_kind)[0]
         first = kern()
         first = first if isinstance(first, tuple) else (first,)
         for _ in range(9):

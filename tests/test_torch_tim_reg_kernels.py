@@ -158,8 +158,8 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
 def test_ssm_params_keep_the_blocks_t_one_matrix():
     """Bsts.ssm_params keeps T one matrix expanded over the chains (stride
     0: every block's T is one), which K1w takes as its broadcast layout,
-    with the values of the block-diagonal materialised; R stays
-    materialised."""
+    with the values of the block-diagonal materialised; R likewise (the
+    blocks' T and R are constants of their specs, built once a model)."""
     from boom_tpu_torch.statespace import bsts as bsts_mod
     from boom_tpu_torch.statespace.state_models import (
         LocalLinearTrend,
@@ -174,10 +174,11 @@ def test_ssm_params_keep_the_blocks_t_one_matrix():
     params = model.ssm_params(state)
     assert params.t_mat.shape == (CHAINS, 8, 8)
     assert params.t_mat.stride(0) == 0 and params.z.stride(0) == 0
-    assert params.r_mat.stride(0) != 0
-    ts = [b.build(state["blocks"][b.name])[0] for b in model.blocks]
-    flat = bsts_mod._block_diag([t.contiguous() for t in ts])
-    assert flat.stride(0) != 0 and torch.equal(params.t_mat, flat)
+    assert params.r_mat.stride(0) == 0
+    for k, field in enumerate((params.t_mat, params.r_mat)):
+        mats = [b.build(state["blocks"][b.name])[k] for b in model.blocks]
+        flat = bsts_mod._block_diag([m.contiguous() for m in mats])
+        assert flat.stride(0) != 0 and torch.equal(field, flat)
 
 
 def test_loglik_wrappers_refuse_what_the_kernels_do_not_take():
