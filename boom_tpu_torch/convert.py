@@ -175,3 +175,57 @@ def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
                 blocks=[_block(b, device, dtype) for b in bsts.blocks],
                 obs_prior=(None if bsts.obs_prior is None
                            else _prior(bsts.obs_prior)), **opts)
+
+
+def _data(x, device, dtype):
+    """A data array as a float tensor (counts included)."""
+    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                        device=resolve_device(device))
+
+
+def _scalars(model, names):
+    """The reference model's scalar options as Python floats."""
+    return {n: float(np.asarray(getattr(model, n))) for n in names}
+
+
+def beta_binomial_from_jax(model, device="cuda", dtype=torch.float64):
+    """The port's ``BetaBinomialModel`` with the reference model's data
+    (trials, successes) and priors."""
+    from boom_tpu_torch.models.beta_binomial import BetaBinomialModel
+
+    return BetaBinomialModel(
+        trials=_data(model.trials, device, dtype),
+        successes=_data(model.successes, device, dtype),
+        **_scalars(model, ("prob_a", "prob_b", "size_shape", "size_rate",
+                           "slice_width")))
+
+
+def mixture_from_jax(model, device="cuda", dtype=torch.float64):
+    """The port's ``GaussianMixtureModel`` with the reference model's y and
+    priors (a weight prior the same for every component)."""
+    from boom_tpu_torch.models.mixtures import GaussianMixtureModel
+
+    prior = np.asarray(model.weight_prior, dtype=np.float64)
+    if prior.ndim and not (prior == prior.flat[0]).all():
+        raise NotImplementedError(
+            "a weight prior that differs by component is not ported yet "
+            "(ROADMAP.md, queue 1 item 8)")
+    return GaussianMixtureModel(
+        y=_data(model.y, device, dtype),
+        num_components=int(model.num_components),
+        weight_prior=float(prior.flat[0]),
+        **_scalars(model, ("mean_guess", "mean_nobs", "sigma_df",
+                           "sigma_guess")))
+
+
+def hmm_from_jax(model, device="cuda", dtype=torch.float64, **overrides):
+    """The port's ``GaussianHmm`` with the reference model's y, state
+    count, priors and ``parallel_filter``; ``overrides`` replace options."""
+    from boom_tpu_torch.models.hmm import GaussianHmm
+
+    opts = dict(num_states=int(model.num_states),
+                parallel_filter=bool(model.parallel_filter),
+                **_scalars(model, ("trans_prior", "init_prior", "mean_guess",
+                                   "mean_nobs", "sigma_df", "sigma_guess")))
+    opts.update(overrides)
+    return GaussianHmm(y=_data(model.y, device, dtype), **opts)

@@ -35,6 +35,21 @@ needs JAX to make them (numpy only).
   static predictors ``x`` [n, 20] (a duplicated day repeats its row) with
   beta = (3, -2, 1.5, 1, 0 x 16), plus N(0, 0.5^2) noise. Rows 500-529 of
   ``x_dyn`` and ``active``, and ``x_future`` [30, 20], are the forecast's.
+- ``hmm.npz``, ``mixture.npz``, ``beta_binomial.npz``: the data of
+  BASELINE configs #4, #3 and #1, drawn with JAX (x64 on, float64) by the
+  reference's own simulators from the keys and truths of its tests, and
+  remade and compared by ``tests/test_torch_baseline_data.py`` (which writes
+  them when run as a script). ``hmm.npz``: y [1200] and the true path z
+  [1200] of ``GaussianHmm.simulate(jax.random.key(0), 1200, [[0.92, 0.08],
+  [0.12, 0.88]], [-1.5, 1.8], [0.8, 0.6])`` (``HMM_TRUTH``;
+  ``tests/test_hmm.py::test_hmm_gibbs_recovers_truth``). ``mixture.npz``: y
+  [1500] and z of ``GaussianMixtureModel.simulate(jax.random.key(0), 1500,
+  [0.35, 0.4, 0.25], [-3.0, 0.5, 4.0], [0.7, 0.5, 1.0])``
+  (``MIXTURE_TRUTH``; ``tests/test_mixtures.py:13-19``).
+  ``beta_binomial.npz``: trials n and successes y [200] of
+  ``BetaBinomialModel.simulate(k, 200, 25, 6.0, 14.0)``, k the first key of
+  ``jax.random.split(jax.random.key(42))`` (``BETA_BINOMIAL_TRUTH``;
+  ``tests/test_beta_binomial_e2e.py:21-26``).
 """
 
 from __future__ import annotations
@@ -51,6 +66,15 @@ BSTS_TV = Path(__file__).resolve().parent / "bsts_tv.npz"
 # holiday window's days and the seed of make_bsts_tv
 BSTS_TV_GRID, BSTS_TV_HORIZON, BSTS_TV_P, BSTS_TV_WINDOW = 500, 30, 20, 3
 BSTS_TV_SEED = 2027
+HMM = Path(__file__).resolve().parent / "hmm.npz"
+MIXTURE = Path(__file__).resolve().parent / "mixture.npz"
+BETA_BINOMIAL = Path(__file__).resolve().parent / "beta_binomial.npz"
+# the truths the three files were drawn from
+HMM_TRUTH = {"trans": [[0.92, 0.08], [0.12, 0.88]], "mu": [-1.5, 1.8],
+             "sd": [0.8, 0.6]}
+MIXTURE_TRUTH = {"weights": [0.35, 0.4, 0.25], "mu": [-3.0, 0.5, 4.0],
+                 "sd": [0.7, 0.5, 1.0]}
+BETA_BINOMIAL_TRUTH = {"groups": 200, "trials": 25, "a": 6.0, "b": 14.0}
 
 
 def bsts_llt_series() -> np.ndarray:
@@ -113,3 +137,23 @@ def bsts_tv() -> dict:
     """The committed bsts_tv data (:func:`make_bsts_tv`'s keys)."""
     with np.load(BSTS_TV, allow_pickle=False) as f:
         return {k: f[k] for k in f.files}
+
+
+def _npz(path) -> dict:
+    with np.load(path, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}
+
+
+def hmm() -> dict:
+    """Config #4's data: y [1200] float64, the true path z [1200]."""
+    return _npz(HMM)
+
+
+def mixture() -> dict:
+    """Config #3's data: y [1500] float64, the true labels z [1500]."""
+    return _npz(MIXTURE)
+
+
+def beta_binomial() -> dict:
+    """Config #1's data: trials n and successes y [200], float64."""
+    return _npz(BETA_BINOMIAL)

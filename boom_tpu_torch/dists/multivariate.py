@@ -1,5 +1,6 @@
 """Multivariate T (port of ``mvt`` in boom_tpu/dists/multivariate.py:121-147,
-with the triangular solve and log-determinant it uses, :21-45).
+with the triangular solve and log-determinant it uses, :21-45) and the
+Dirichlet (:153).
 
 Batched over leading dimensions; the samplers take their normals and
 uniforms as tensors (see ``boom_tpu_torch.rng``).
@@ -11,6 +12,7 @@ import math
 
 import torch
 
+from boom_tpu_torch.dists.continuous import gamma
 from boom_tpu_torch.dists.truncated import trun_gamma_lower_fast
 
 
@@ -57,3 +59,21 @@ class mvt:
         w = trun_gamma_lower_fast(chi_u, 0.5 * df, 0.5 * df, 0.0,
                                   newton_iters=8)
         return mean + g / torch.sqrt(w)[..., None]
+
+
+class dirichlet:
+    """Dirichlet over the last axis (reference multivariate.py:153)."""
+
+    @staticmethod
+    def logpdf(x, alpha):
+        return ((alpha - 1.0) * torch.log(x)).sum(-1) + torch.lgamma(
+            alpha.sum(-1)) - torch.lgamma(alpha).sum(-1)
+
+    @staticmethod
+    def sample(u, alpha):
+        """Gammas (rate 1) by inverse CDF at the uniforms ``u`` (the shape
+        of ``alpha`` broadcast), normalised over the last axis. The
+        reference normalises ``jax.random.gamma`` draws: the same
+        distribution."""
+        g = gamma.sample(u, alpha)
+        return g / g.sum(-1, keepdim=True)

@@ -4,7 +4,11 @@ boom_tpu/inference/kernels/slice.py:21-81, ``slice_step``).
 Stepping out is bounded by ``expand_iters`` fixed-width steps and shrinkage
 by the number of shrink uniforms; an unconverged lane keeps its current
 point, which leaves the target invariant. Every lane (chain) is an
-independent coordinate. The reference splits its key into the slice
+independent coordinate. Each loop stops once no lane can change (no lane
+grew; every lane is done), reading one flag on the host a round: the
+reference's fixed trip counts run the remaining rounds to the same result
+(a lane that stopped growing evaluates the same endpoint again, a lane that
+is done changes nothing). The reference splits its key into the slice
 height, the interval offset and one uniform per shrink step; here those
 uniforms are arguments.
 """
@@ -35,6 +39,8 @@ def slice_step(x: torch.Tensor, log_target: Callable, width, h_u, u_u,
     for _ in range(expand_iters):
         grow_l = (log_target(left) > logy) & (left > lower)
         grow_r = (log_target(right) > logy) & (right < upper)
+        if not bool((grow_l | grow_r).any()):
+            break
         left = torch.where(grow_l, torch.clamp(left - width, min=lower),
                            left)
         right = torch.where(grow_r, torch.clamp(right + width, max=upper),
@@ -48,6 +54,8 @@ def slice_step(x: torch.Tensor, log_target: Callable, width, h_u, u_u,
         ok = log_target(prop) > logy
         cur = torch.where(ok & ~done, prop, cur)
         done = done | ok
+        if bool(done.all()):
+            break
         left = torch.where(~done & (prop < x), prop, left)
         right = torch.where(~done & (prop >= x), prop, right)
     return cur

@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"parallel_scan": _PKG / "csrc" / "parallel_scan.cu",
            "kalman_seq": _PKG / "csrc" / "kalman_seq.cu",
            "ssvs_sweep": _PKG / "csrc" / "ssvs_sweep.cu",
-           "kalman_wide": _PKG / "csrc" / "kalman_wide.cu"}
+           "kalman_wide": _PKG / "csrc" / "kalman_wide.cu",
+           "hmm": _PKG / "csrc" / "hmm.cu"}
 BUILD_DIR = _PKG.parent / "build" / "boom_tpu_torch"
 # --split-compile=0: optimise the instantiations on all host cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,6 +58,10 @@ DPATH_DIMS = tuple(range(1, 17))
 LOGLIK_WIDE_DTYPES = ("f32", "f64")
 JET_DIMS = tuple(range(1, 17))
 JET_MAX_DIRECTIONS = 16
+# hmm.cu (H1, the forward filter; H2, the backward sampler): one entry a
+# dtype each, S in HMM_STATES chosen at run time
+HMM_DTYPES = ("f32", "f64")
+HMM_STATES = tuple(range(1, 17))
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each entry family (pointers, then ints, then stream)
@@ -96,6 +101,11 @@ _ARGTYPES = {
     "smoother_wide_nz": [_P] * 16 + [_I, _I, _L, _I, _I, _P],
     # tm, w, out, batch, groups, t_len, d, threads, stream
     "dpath": [_P] * 3 + [_I] * 5 + [_P],
+    # log_lik, log_trans, log_init, alphas, loglike, chains, t_len, s, stream
+    "hmm_forward": [_P] * 5 + [_I] * 3 + [_P],
+    # alphas, log_trans, y, path_u, z, n, sum, sumsq, counts, first, chains,
+    # t_len, s, stream
+    "hmm_backward": [_P] * 10 + [_I] * 3 + [_P],
 }
 
 
@@ -172,6 +182,10 @@ def library(name: str) -> ctypes.CDLL:
     elif name == "ssvs_sweep":
         for tag in SSVS_DTYPES:
             _declare(lib, "ssvs_sweep", f"boom_ssvs_sweep_{tag}")
+    elif name == "hmm":
+        for tag in HMM_DTYPES:
+            _declare(lib, "hmm_forward", f"boom_hmm_forward_{tag}")
+            _declare(lib, "hmm_backward", f"boom_hmm_backward_{tag}")
     elif name == "kalman_wide":
         _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
         _declare(lib, "smoother_wide_tv", "boom_kalman_smoother_wide_tv_f64")

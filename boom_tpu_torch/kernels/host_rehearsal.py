@@ -1,11 +1,11 @@
 """Rehearse the sequential Kalman kernels (K1, K2; K1w, J1, J2, K2w and
-K3) and kernel (a) on a machine without a card.
+K3), kernel (a) and the HMM's H1 and H2 on a machine without a card.
 
     python3 boom_tpu_torch/kernels/host_rehearsal.py          # kernels
     python3 boom_tpu_torch/kernels/host_rehearsal.py --llt    # + bsts_llt
 
-``csrc/kalman_seq.cu``, ``csrc/kalman_wide.cu`` and ``csrc/ssvs_sweep.cu``
-are compiled as host C++ with ``g++``: a shim header defines the CUDA keywords away and gives
+``csrc/kalman_seq.cu``, ``csrc/kalman_wide.cu``, ``csrc/ssvs_sweep.cu`` and
+``csrc/hmm.cu`` are compiled as host C++ with ``g++``: a shim header defines the CUDA keywords away and gives
 ``blockIdx``/``blockDim``/``threadIdx`` as thread-local globals, and every
 ``kernel<<<blocks, threads, ...>>>(args)`` becomes ``host_launch``, which
 runs a block's threads as host threads, one block after another. Its
@@ -30,7 +30,9 @@ unset and set, float64 and float32: masks identical), K2w and K3 against
 and kernel (a)'s per-chain entry against the plain sweep on per-chain
 statistics (:func:`check_ssvs_border`), and the time-varying forms
 (:func:`check_time_varying`: K2w's structured form where every chain
-shares T, its dense form where each has its own). ``--llt`` then
+shares T, its dense form where each has its own), and H1 and H2 against
+``hmm.forward_filter`` and ``hmm.backward_sample_stats`` (:func:`check_hmm`:
+S 1-16, T across the staged chunks' edges). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -304,14 +306,15 @@ def build_host_library(name="kalman_seq", text=None, variant="") -> Path:
 
 
 def bind(libs: dict):
-    """Make kalman_kernel and ssvs_kernel launch the host libraries
-    ({source name: library}) on CPU tensors."""
+    """Make kalman_kernel, ssvs_kernel and hmm_kernel launch the host
+    libraries ({source name: library}) on CPU tensors."""
+    from boom_tpu_torch.models import hmm_kernel as hk
     from boom_tpu_torch.models.glm import ssvs_kernel as sk
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     _build.build = lambda names=None: {n: libs[n] for n in names}
     _build.library.cache_clear()
-    for mod in (kk, sk):
+    for mod in (kk, sk, hk):
         mod._on_card = lambda x: True
         mod._stream = lambda device: 0
 
@@ -715,6 +718,52 @@ def check_ssvs(seed=0, chains=33, draws=3):
     return out
 
 
+# H1 and H2: (S, T, chains); T across the staged chunks' edges (256 bytes
+# a chain's row: 16 steps of S = 2 in float64, 32 in float32; 10 of S = 3
+# in float64) and a second, ragged warp of chains
+HMM_CASES = [(s, t_len, c) for s in (1, 2, 3, 8, 16)
+             for t_len in (1, 2, 33) for c in (3, 33)]
+HMM_CASES += [(2, t_len, 5) for t_len in (15, 16, 17, 31, 32, 65)]
+HMM_CASES += [(3, t_len, 5) for t_len in (10, 11, 21)]
+
+
+def check_hmm(seed=0, cases=HMM_CASES, dtypes=("float64", "float32")):
+    """H1 and H2 against ``hmm.forward_filter`` and
+    ``hmm.backward_sample_stats``: {case: (H1's normwise relative error,
+    the share of chains whose H2 path differs, H2's statistics' worst
+    relative error against ``hmm.path_stats`` of its own path)}; H1 without
+    its alphas must give the same loglike."""
+    import torch
+
+    from boom_tpu_torch.kernels.hmm_timing import problem
+    from boom_tpu_torch.models import hmm
+    from boom_tpu_torch.models import hmm_kernel as hk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dtype in dtypes:
+        for s, t_len, c in cases:
+            p = problem(rng, c, t_len, s, dtype, device="cpu")
+            args = (p["log_lik"], p["log_trans"], p["log_init"])
+            la, ll = hk.launch_forward(*args)
+            want_la, want_ll = hmm.forward_filter(*args)
+            _, alone = hk.launch_forward(*args, want_alphas=False)
+            assert torch.equal(alone, ll), "H1 without alphas differs"
+            z, suf, counts, first = hk.launch_backward(
+                want_la, p["log_trans"], p["path_u"], p["y"])
+            want_z = hmm.backward_sample(want_la, p["log_trans"],
+                                         p["path_u"])
+            own_suf, own_counts, own_first = hmm.path_stats(
+                z, p["y"].double(), s)
+            stats = max(_rel(g.double(), w) for g, w in zip(
+                (*suf, counts, first), (*own_suf, own_counts, own_first)))
+            out[f"hmm {dtype} S={s} T={t_len} C={c}"] = (
+                max(_rel(la.double(), want_la.double()),
+                    _rel(ll.double(), want_ll.double())),
+                float((z != want_z).any(-1).double().mean()), stats)
+    return out
+
+
 def rehearse_llt(chains=32, burn=100, draws=200, t_len=500, seed=0):
     """The bsts_llt path (chip_smoke.py phase 4's model and monitor) on the
     CPU: {statistic: (R-hat, ESS)} and the variances' medians."""
@@ -760,8 +809,11 @@ def main():
     args = ap.parse_args()
     torch.set_num_threads(4)
     libs = {name: build_host_library(name)
-            for name in ("kalman_seq", "kalman_wide", "ssvs_sweep")}
+            for name in ("kalman_seq", "kalman_wide", "ssvs_sweep", "hmm")}
     bind(libs)
+    for k, (rel, paths, stats) in check_hmm().items():
+        print(f"host-compiled {k}: H1 relative error {rel:.3e}, H2 paths "
+              f"differing {paths:.3f}, statistics {stats:.3e}")
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
     for check in (check_loglik, check_jets):

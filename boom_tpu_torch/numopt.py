@@ -1,6 +1,7 @@
 """Numerical optimization on the bsts path (port of ``OptResult``, ``bfgs``
 and ``newton_raphson`` in boom_tpu/numopt.py:25-133), for the TIM
-proposal's mode search.
+proposal's mode search, and ``linear_assignment`` (:279) for the
+mixtures' relabelling.
 
 Both routines MINIMIZE a scalar function of a flat tensor ``x`` with the
 reference's iteration and backtracking counts and tolerances. Gradients and
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -101,3 +103,57 @@ def newton_raphson(fn: Callable, x0, max_iters: int = 50, tol: float = 1e-10,
         it += 1
     return OptResult(x=z, value=val, converged=_max_abs(g) < 1e-5,
                      iterations=it)
+
+
+def linear_assignment(cost):
+    """Minimum-cost perfect assignment on a square cost matrix (port of
+    boom_tpu/numopt.py:279): the host-side O(n^3) Hungarian (Jonker-
+    Volgenant potentials) in numpy, the reference's own, so that a tie
+    resolves as there (mixture relabelling, analysis-time).
+
+    Returns row_to_col: row i is assigned column row_to_col[i]."""
+    c = np.asarray(cost, dtype=float)
+    assert c.ndim == 2 and c.shape[0] == c.shape[1], c.shape
+    n = c.shape[0]
+    # potentials u (rows), v (cols); way[j] = predecessor col on the
+    # augmenting path; p[j] = row matched to col j (1-indexed internals)
+    inf = float("inf")
+    u = np.zeros(n + 1)
+    v = np.zeros(n + 1)
+    p = np.zeros(n + 1, dtype=int)
+    way = np.zeros(n + 1, dtype=int)
+    for i in range(1, n + 1):
+        p[0] = i
+        j0 = 0
+        minv = np.full(n + 1, inf)
+        used = np.zeros(n + 1, dtype=bool)
+        while True:
+            used[j0] = True
+            i0, delta, j1 = p[j0], inf, 0
+            for j in range(1, n + 1):
+                if not used[j]:
+                    cur = c[i0 - 1, j - 1] - u[i0] - v[j]
+                    if cur < minv[j]:
+                        minv[j] = cur
+                        way[j] = j0
+                    if minv[j] < delta:
+                        delta = minv[j]
+                        j1 = j
+            for j in range(n + 1):
+                if used[j]:
+                    u[p[j]] += delta
+                    v[j] -= delta
+                else:
+                    minv[j] -= delta
+            j0 = j1
+            if p[j0] == 0:
+                break
+        while j0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    row_to_col = np.zeros(n, dtype=int)
+    for j in range(1, n + 1):
+        if p[j] > 0:
+            row_to_col[p[j] - 1] = j - 1
+    return row_to_col

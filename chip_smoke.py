@@ -164,6 +164,33 @@ Phases:
      regression, 64 chains x (20 + 20)) through K2's and K1's. It prints
      sweeps/s, min-ESS/s, each phase's share of a sweep and the device's
      busy share.
+  2f. H1 and H2, the HMM's forward filter and backward sampler
+     (``csrc/hmm.cu``), against their plain versions on the card: S in
+     {1, 2, 3, 4, 8, 16}, T in {1, 2, 33, 1200}, 1, 33 and 4097 chains,
+     float64 and float32: H1 within a normwise 1e-9 / 1e-4 (with and
+     without its alphas), H2's paths identical in float64 and on >= 99.5 %
+     of chains in float32 (near-ties only), its statistics those of its own
+     path (1e-12 / 1e-5); ten launches bit-identical at phase 9's shape;
+     times beside bounds and the plain versions' (``kernels/hmm_timing.py``);
+  9. BASELINE configs #4, #3 and #1 (``BASELINE.md:29-33``) on their
+     committed data (``boom_tpu_torch/data``), each held to the reference's
+     own run at its length (``tests/test_torch_{hmm,mixtures,
+     beta_binomial}.py bench``): ``GaussianHmm`` (S = 2, T = 1,200), 4096
+     chains x (200 + 200) through H1 and H2 (one of each a sweep, or the
+     phase fails); ``FiniteMixture(3).fit`` (n = 1,500) on the card, 4096
+     chains x (200 + 200); ``BetaBinomialModel`` (200 groups), 1024 chains
+     x (500 + 500). Medians within 10 % of the reference's, R-hat - 1 at
+     most 1.10 times its + 0.01 and half its min-ESS per draw (for the HMM
+     and the mixture over the chains that stayed in the main mode, and
+     the share of those within 4 binomial sds of the reference's), the
+     truth in the draws' central 98 % intervals (HMM, mixture), the
+     Beta-Binomial's
+     posterior moments against 2-d quadrature with the reference test's
+     bounds and R-hat < 1.02; one float64 sweep of 33 chains of each
+     against the CPU's (<= 1e-8); the HMM's ``log_lik`` of 200 draws
+     through H1 within 1e-4 of the plain filter; ``components()`` near the
+     truth and ``cluster_probs()``' rows summing to 1. It prints sweeps/s,
+     min-ESS/s and the device's busy share.
 
 Every phase prints its time (``phase N took X s``), and the whole run its
 own.
@@ -568,6 +595,97 @@ REFERENCE_FORECAST_SD_TV = (
 # log_lik and the errors of TV_FORECAST_DRAWS draws against their plain
 # versions on the card (float32: the normwise 1e-4 of the kernels' gate)
 TV_TOL = 1e-4
+
+# phase 2f: H1 and H2, csrc/hmm.cu, and the reference's XLA scans they
+# replace; their rows read phase 9's launches and its shape
+HMM_SOURCE = "boom_tpu_torch/csrc/hmm.cu"
+HMM_KERNELS = {"hmm_forward": ("hmm_forward_filter",
+                               "boom_tpu/models/hmm.py:52"),
+               "hmm_backward": ("hmm_backward_sample",
+                                "boom_tpu/models/hmm.py:72")}
+HMM_S_CHECK = (1, 2, 3, 4, 8, 16)
+HMM_T_CHECK = (1, 2, 33, 1200)
+HMM_CHAIN_CHECK = (1, 33, 4097)
+# H2's float32 paths: the share of chains that must agree, and the
+# largest logit margin (relative) at which two may choose differently
+HMM_AGREE, HMM_TIE = 0.995, 1e-5
+# H2's statistics against those of its own path
+HMM_STATS_TOL = {"float64": 1e-12, "float32": 1e-5}
+
+# phase 9: BASELINE configs #4 (GaussianHmm), #3 (FiniteMixture) and #1
+# (BetaBinomialModel) on their committed data, float32 on the card
+BASE_CHAINS, BASE_BURN, BASE_DRAWS, BASE_SEED = 4096, 200, 200, 7
+BB_CHAINS, BB_BURN, BB_DRAWS = 1024, 500, 500
+BASE_SWEEP_CHAINS = 33
+HMM_LOGLIK_DRAWS = 200
+BASE_MEDIAN_TOL = 0.10
+BB_RHAT_GATE = 1.02
+# the truth in the draws' central BASE_CONFIDENCE intervals (the reference
+# tests' check_mcmc_matrix, boom_tpu/testing.py:34)
+BASE_CONFIDENCE = 0.98
+# the reference's runs at these lengths, 1024 chains from
+# jax.random.key(7), x64 off, as their bench entries print them:
+# PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_hmm.py bench 1024
+# 200 200 7 (and test_torch_mixtures.py the same; test_torch_beta_binomial.py
+# bench 1024 500 500 7). The monitors' order is the tests' MONITOR (states
+# and components sorted by mu in every draw). A few chains of the HMM's and
+# the mixture's runs enter a degenerate mode (two components on one
+# cluster) and keep it or leave it late, which alone puts R-hat over all
+# chains near 3 (8.5 for the mixture's middle mean) and makes it a reading
+# of how many chains did so: their R-hat and min-ESS gates read the chains
+# that stayed in the main mode (``mixtures.main_mode``), and the share of
+# chains that did is held to the reference's within BASE_SHARE_SIGMAS
+# binomial sds
+HMM_MONITOR = ("mu0", "mu1", "sd0", "sd1", "p00", "p11")
+REFERENCE_HMM = {
+    'chains': 1024,
+    'burn': 200,
+    'draws': 200,
+    'seed': 7,
+    'medians': [-1.475430965423584, 1.834120512008667, 0.7884320020675659,
+                0.5951301455497742, 0.9235700368881226, 0.8931198120117188],
+    'rhat': [3.012906551361084, 3.218822956085205, 2.981130599975586,
+             3.075474739074707, 2.680893898010254, 2.614750862121582],
+    'min_ess_per_draw': 0.005589270032942295,
+    'main_share': 0.970703125,
+    'main_rhat': [1.0003772974014282, 1.0002646446228027, 1.000856637954712,
+                  1.001111626625061, 1.0001171827316284, 0.9998492002487183],
+    'main_min_ess_per_draw': 0.8782951615945674,
+}
+MIX_MONITOR = ("mu0", "mu1", "mu2", "sd0", "sd1", "sd2", "w0", "w1", "w2")
+REFERENCE_MIX = {
+    'chains': 1024,
+    'burn': 200,
+    'draws': 200,
+    'seed': 7,
+    'medians': [-2.98004150390625, 0.4654783606529236, 3.908781051635742,
+                0.7133865356445312, 0.5381610989570618, 0.97624671459198,
+                0.3550760746002197, 0.39605677127838135, 0.24792152643203735],
+    'rhat': [1.0855118036270142, 8.522127151489258, 1.0537809133529663,
+             1.1882597208023071, 1.1647484302520752, 1.5955734252929688,
+             4.1927289962768555, 3.218186616897583, 4.874109745025635],
+    'min_ess_per_draw': 0.005097101908177137,
+    'main_share': 0.955078125,
+    'main_rhat': [1.0003005266189575, 1.002277135848999, 1.0044912099838257,
+                  1.0015027523040771, 1.0072314739227295, 1.0080455541610718,
+                  0.9999221563339233, 1.0011411905288696, 1.001192569732666],
+    'main_min_ess_per_draw': 0.41631801987474437,
+}
+BB_MONITOR = ("prob", "size")
+REFERENCE_BB = {
+    'chains': 1024,
+    'burn': 500,
+    'draws': 500,
+    'seed': 7,
+    'medians': [0.2942471504211426, 14.959651947021484],
+    'rhat': [1.0000513792037964, 1.000104308128357],
+    'min_ess_per_draw': 0.9537791609764099,
+}
+BASE_SHARE_SIGMAS = 4.0
+# components(): each mean and sd within this of the truth, each weight
+# within MIX_WEIGHT_TOL
+# (components() averages every chain's draws, the degenerate mode's too)
+MIX_COMPONENT_TOL, MIX_WEIGHT_TOL = 0.3, 0.05
 
 # the keys of every row of the kernels line
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -1583,8 +1701,12 @@ def _dpath_vs_plain(rng, c, d, groups, t_len, dtype):
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     t_mat = kt.system(rng, c, d, dtype).t_mat.contiguous()
-    w = torch.tensor(rng.normal(size=(c, groups, t_len - 1, d)),
-                     dtype=getattr(torch, dtype), device="cuda")
+    # drawn on the card (numpy's draw of 4097 x 3 x 499 x 16 normals took
+    # seconds a case)
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 62)))
+    w = torch.randn((c, groups, t_len - 1, d), generator=gen,
+                    dtype=getattr(torch, dtype), device="cuda")
     got, want = kk.dpath(t_mat, w), kalman.dpath(t_mat, w)
     torch.cuda.synchronize()
     return _rel(got, want), float((got - want).abs().max())
@@ -2682,6 +2804,516 @@ def phase8_bsts_tv(card):
     return launches
 
 
+def _hmm_vs_plain(rng, dtype, c, t_len, s):
+    """H1 (with and without its alphas) and H2 against their plain
+    versions on one problem: (H1's normwise relative error, the chains
+    whose H2 path differs, the largest margin at a chain's last differing
+    step, H2's statistics' worst relative error against those of its own
+    path)."""
+    import torch
+
+    from boom_tpu_torch.kernels.hmm_timing import problem
+    from boom_tpu_torch.models import hmm
+    from boom_tpu_torch.models import hmm_kernel as hk
+
+    p = problem(rng, c, t_len, s, dtype)
+    args = (p["log_lik"], p["log_trans"], p["log_init"])
+    la, ll = hk.launch_forward(*args)
+    want_la, want_ll = hmm.forward_filter(*args)
+    _, alone = hk.launch_forward(*args, want_alphas=False)
+    check(torch.equal(alone, ll), f"H1 without its alphas gives another "
+          f"loglike ({dtype} C={c} T={t_len} S={s})")
+    rel = max(_rel(la.double(), want_la.double()),
+              _rel(ll.double(), want_ll.double()))
+    z, suf, counts, first = hk.launch_backward(want_la, p["log_trans"],
+                                               p["path_u"], p["y"])
+    want_z = hmm.backward_sample(want_la, p["log_trans"], p["path_u"])
+    own_suf, own_counts, own_first = hmm.path_stats(z, p["y"].double(), s)
+    stats = max(_rel(g.double(), w) for g, w in zip(
+        (*suf, counts, first), (*own_suf, own_counts, own_first)))
+    differ = (z != want_z).any(-1)
+    margin = 0.0
+    for ci in torch.nonzero(differ).flatten().tolist():
+        # the last step at which the two paths differ (they are drawn
+        # backward, so the steps after it agree): the two states' logits
+        # there, in float64
+        t = int(torch.nonzero(z[ci] != want_z[ci]).max())
+        logits = (want_la[ci, t].double()
+                  - torch.log(-torch.log(p["path_u"][ci, t].double())))
+        if t < t_len - 1:
+            logits = logits + p["log_trans"][ci, :, int(z[ci, t + 1])].double()
+        a, b = logits[int(z[ci, t])], logits[int(want_z[ci, t])]
+        margin = max(margin, float((a - b).abs()
+                                   / max(1.0, float(b.abs()))))
+    return rel, int(differ.sum()), margin, stats
+
+
+def phase2f_hmm_vs_plain():
+    """H1 and H2 against their plain versions (S in HMM_S_CHECK, T in
+    HMM_T_CHECK, chains in HMM_CHAIN_CHECK, float64 and float32), ten
+    launches bit-identical at phase 9's shape, and their times beside
+    bounds and the plain versions' (``kernels/hmm_timing.py``). Returns
+    the rows' numbers."""
+    import torch
+
+    from boom_tpu_torch.kernels import _build
+    from boom_tpu_torch.kernels import hmm_timing as ht
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20261022)
+    bad, worst = [], {}
+    chains = {"float64": 0, "float32": 0}
+    differ = {"float64": 0, "float32": 0}
+    margin = 0.0
+    for dtype in ("float64", "float32"):
+        for s in HMM_S_CHECK:
+            for t_len in HMM_T_CHECK:
+                for c in HMM_CHAIN_CHECK:
+                    rel, n_diff, m, stats = _hmm_vs_plain(
+                        rng, dtype, c, t_len, s)
+                    case = f"{dtype} S={s} T={t_len} C={c}"
+                    worst[dtype] = max(worst.get(dtype, 0.0), rel)
+                    worst[f"{dtype} stats"] = max(
+                        worst.get(f"{dtype} stats", 0.0), stats)
+                    chains[dtype] += c
+                    differ[dtype] += n_diff
+                    margin = max(margin, m)
+                    if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
+                        bad.append(f"H1 {case}: {rel:.3e}")
+                    if not stats <= HMM_STATS_TOL[dtype]:
+                        bad.append(f"H2's statistics {case}: {stats:.3e}")
+                    if dtype == "float64" and n_diff:
+                        bad.append(f"H2 {case}: {n_diff} paths differ")
+    for dtype in ("float64", "float32"):
+        agree = 1.0 - differ[dtype] / chains[dtype]
+        stats = worst[f"{dtype} stats"]
+        print(f"hmm {dtype} over S {HMM_S_CHECK}, T {HMM_T_CHECK}, chains "
+              f"{HMM_CHAIN_CHECK}: H1 worst {worst[dtype]:.3e} (tolerance "
+              f"{SCAN_TOL[dtype]:g}); H2 paths differ on {differ[dtype]} "
+              f"of {chains[dtype]} chains (agreement {agree:.5f}); "
+              f"statistics against their own path's {stats:.3e} "
+              f"(tolerance {HMM_STATS_TOL[dtype]:g})")
+        if dtype == "float32" and agree < HMM_AGREE:
+            bad.append(f"H2 float32 paths agree on {agree:.5f} of chains")
+    print(f"hmm float32: the largest logit margin where two paths part "
+          f"{margin:.3e} (near-ties only: gate < {HMM_TIE:g})")
+    if margin >= HMM_TIE:
+        bad.append(f"H2 float32 paths part at a margin of {margin:.3e}")
+    check(not bad, "an HMM kernel disagrees with its plain version: "
+          + "; ".join(bad[:20]))
+
+    at_hmm, same = {}, {}
+    tag, c, t_len, s = ht.SHAPES["phase9"]
+    for name, (kern, plain) in ht.cases(rng, tag, c, t_len, s).items():
+        first, want = kern(), plain()
+        if name == "hmm_forward":
+            got_t, want_t = first, want
+        else:
+            got_t, want_t = (first[0],), (want[0],)
+        at_hmm[name] = {"max_abs_err": max(
+            float((g.double() - w.double()).abs().max())
+            for g, w in zip(got_t, want_t))}
+        flat = [t for o in first for t in (o if isinstance(o, tuple)
+                                          else (o,))]
+        same[name] = True
+        for _ in range(9):
+            again = kern()
+            again = [t for o in again for t in (o if isinstance(o, tuple)
+                                               else (o,))]
+            same[name] &= all(torch.equal(a, b) for a, b in zip(flat, again))
+        print(f"{name} {tag} C={c} T={t_len} S={s} (phase 9's shape): max "
+              f"abs error against the plain version "
+              f"{at_hmm[name]['max_abs_err']:.3e}"
+              + (" (H2: of the paths)" if name == "hmm_backward" else ""))
+    torch.cuda.synchronize()
+    print("ten repeated launches at phase 9's shape bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+
+    for shape, per in ht.time_hmm(rng).items():
+        for name, r in per.items():
+            plain = (f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None
+                     else "not timed")
+            floor = (f"; the T-step chain's estimated floor "
+                     f"{r['chain_floor_ms']:.4f} ms"
+                     if "chain_floor_ms" in r else "")
+            print(f"time {name} {shape} {r['shape']}: kernel {r['ms']:.4f} "
+                  f"ms, plain {plain}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}){floor}")
+            if shape == "phase9":
+                at_hmm[name].update({k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")})
+    log = _build.log_path("hmm")
+    if log.exists():
+        for inst, rep in sorted(ht.nvcc_report(log.read_text()).items()):
+            print(f"nvcc {inst}: {rep['registers']} registers, "
+                  f"{rep['spill_bytes']} bytes spill stores, "
+                  f"{rep['stack_bytes']} bytes stack")
+    print(f"phase 2f took {time.perf_counter() - t_phase:.1f} s")
+    return at_hmm
+
+
+def _covers(draws, truth):
+    """The reference tests' check_mcmc_matrix (boom_tpu/testing.py:34) in
+    numpy: each column's central BASE_CONFIDENCE interval covers its true
+    value, a few misses allowed for several columns."""
+    a = np.asarray(draws).reshape(-1, len(truth))
+    alpha = 1.0 - BASE_CONFIDENCE
+    lo = np.quantile(a, alpha / 2, axis=0)
+    hi = np.quantile(a, 1 - alpha / 2, axis=0)
+    covered = (lo <= truth) & (truth <= hi)
+    se = np.sqrt(BASE_CONFIDENCE * (1 - BASE_CONFIDENCE) / len(truth))
+    return (bool(covered.mean() >= BASE_CONFIDENCE - 2.5 * se - 1e-9)
+            or bool(covered.all()))
+
+
+def _sweep_vs_cpu(make, chains=BASE_SWEEP_CHAINS, seed=0):
+    """One float64 sweep of ``chains`` chains of the model ``make(device)``
+    on the card against the same on the CPU, from the CPU's start and
+    noise: the worst normwise relative difference of the new state."""
+    import torch
+
+    cpu, card = make("cpu"), make("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    st = cpu.init_state(cpu.draw_init_noise(gen, chains))
+    noise = cpu.draw_noise(gen, chains)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.cuda()
+
+    want = cpu.kernel()(noise, st)
+    got = card.kernel()(to_card(noise), to_card(st))
+    return max(_rel(got[k].cpu(), want[k]) for k in want)
+
+
+def _base_gates(label, mon, names, ref, draws, main=None):
+    """Phase 9's gates against the reference's run ``ref`` on the monitored
+    draws mon [C, N, k]: the medians over every chain; R-hat and min-ESS
+    over the chains of the main mode (``main``, a [C] mask, where ``ref``
+    has the main mode's numbers; else over every chain), and the share of
+    chains in it. Returns (gates, R-hat, ESS of the gated chains)."""
+    import torch
+
+    from boom_tpu_torch.inference import diagnostics
+
+    med = np.median(mon.reshape(-1, len(names)), 0)
+    gated, ref_rhat, ref_per_draw = mon, ref["rhat"], ref["min_ess_per_draw"]
+    gates = []
+    if main is not None and "main_share" in ref:
+        share, want = float(main.mean()), ref["main_share"]
+        sd = np.sqrt(want * (1 - want) / ref["chains"]
+                     + share * (1 - share) / mon.shape[0])
+        limit = BASE_SHARE_SIGMAS * sd + 1.0 / ref["chains"]
+        print(f"{label}: {int(main.sum())} of {mon.shape[0]} chains in the "
+              f"main mode ({share:.4f}; the reference's {want:.4f}, gate "
+              f"|difference| <= {limit:.4f})")
+        gates.append((abs(share - want) <= limit,
+                      f"{label}: the share of chains in the main mode "
+                      f"{share:.4f} is not within {limit:.4f} of the "
+                      f"reference's {want:.4f}"))
+        gated, ref_rhat = mon[main], ref["main_rhat"]
+        ref_per_draw = ref["main_min_ess_per_draw"]
+    gated_t = torch.as_tensor(gated)
+    rhat = diagnostics.potential_scale_reduction(gated_t).numpy()
+    ess = diagnostics.effective_sample_size(gated_t).numpy()
+    per_draw = ess / (gated.shape[0] * draws)
+    all_rhat = diagnostics.potential_scale_reduction(
+        torch.as_tensor(mon)).numpy()
+    for i, name in enumerate(names):
+        ref_med = ref["medians"][i]
+        limit = (1.0 + REG_RHAT_FACTOR * (ref_rhat[i] - 1.0)
+                 + REG_RHAT_SLACK)
+        print(f"{label} {name}: median {med[i]:.6g} (reference {ref_med:.6g}"
+              f", ratio {med[i] / ref_med:.4f}) rhat {rhat[i]:.4f} "
+              f"(reference's {ref_rhat[i]:.4f}, limit {limit:.4f}; every "
+              f"chain's {all_rhat[i]:.4f}, the reference's "
+              f"{ref['rhat'][i]:.4f}) ess per draw {per_draw[i]:.5f}")
+        gates.append((rhat[i] <= limit, f"{label} R-hat of {name} "
+                      f"{rhat[i]:.4f} > {limit:.4f}"))
+        gates.append((abs(med[i] / ref_med - 1.0) <= BASE_MEDIAN_TOL,
+                      f"{label} median of {name} {med[i]:.5g} is not within "
+                      f"{BASE_MEDIAN_TOL:.0%} of the reference's "
+                      f"{ref_med:.5g}"))
+    gates.append((float(per_draw.min()) >= 0.5 * ref_per_draw,
+                  f"{label} min-ESS per draw {float(per_draw.min()):.5f} is "
+                  f"below half the reference's {ref_per_draw:.5f}"))
+    return gates, rhat, ess, per_draw
+
+
+def _base_rate(label, card, sweeps, elapsed, ess, rhat, per_draw):
+    print(f"{label} rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, min-ESS "
+          f"{float(ess.min()):.1f} ({float(per_draw.min()):.5f} a draw), "
+          f"min-ESS/s {float(ess.min()) / elapsed:.2f}, max R-hat "
+          f"{float(rhat.max()):.4f} (the gated chains)")
+
+
+def _phase9_hmm(card, gates):
+    """Config #4: GaussianHmm on hmm.npz; returns H1's and H2's launches."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models import hmm, mixtures
+    from boom_tpu_torch.models import hmm_kernel as hk
+
+    raw = data.hmm()
+    truth = data.HMM_TRUTH
+
+    def make(device, dtype=torch.float64):
+        return hmm.GaussianHmm(y=torch.tensor(raw["y"], dtype=dtype,
+                                              device=device), num_states=2)
+
+    worst = _sweep_vs_cpu(make)
+    print(f"hmm float64 sweep C={BASE_SWEEP_CHAINS}: card vs CPU, worst "
+          f"relative difference {worst:.3e} (tolerance {SWEEP_TOL:g})")
+    gates.append((np.isfinite(worst) and worst <= SWEEP_TOL,
+                  f"the hmm sweep on the card disagrees: {worst:.3e}"))
+
+    model = make("cuda", torch.float32)
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    gen = prng.generator(BASE_SEED, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   BASE_DRAWS, generator=gen, num_chains=BASE_CHAINS,
+                   burn=BASE_BURN)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    sweeps = BASE_BURN + BASE_DRAWS
+    print(f"hmm: T={model.y.shape[0]} S=2 chains={BASE_CHAINS} "
+          f"burn={BASE_BURN} draws={BASE_DRAWS} in {elapsed:.2f} s; "
+          f"launches {launches}")
+    gates.append((launches == {"hmm_forward": sweeps,
+                               "hmm_backward": sweeps},
+                  f"the hmm run did not launch H1 and H2 once a sweep: "
+                  f"{launches}"))
+    d = res.draws
+    mu, sigsq, trans = (d[k].double().cpu().numpy()
+                        for k in ("mu", "sigsq", "trans"))
+    check(all(np.isfinite(a).all() for a in (mu, sigsq, trans)),
+          "non-finite hmm draws")
+    order = np.argsort(mu, axis=-1)
+    take = np.take_along_axis
+    diag = take(np.diagonal(trans, axis1=-2, axis2=-1), order, -1)
+    mon = np.concatenate([take(mu, order, -1),
+                          np.sqrt(take(sigsq, order, -1)), diag], -1)
+    main = mixtures.main_mode(mu).numpy()
+    g, rhat, ess, per_draw = _base_gates("hmm", mon, HMM_MONITOR,
+                                         REFERENCE_HMM, BASE_DRAWS, main)
+    gates += g
+    want_diag = [truth["trans"][0][0], truth["trans"][1][1]]
+    for what, cols, want in (("mu", slice(0, 2), truth["mu"]),
+                             ("sd", slice(2, 4), truth["sd"]),
+                             ("the transition diagonal", slice(4, 6),
+                              want_diag)):
+        ok = _covers(mon[..., cols], np.asarray(want))
+        print(f"hmm truth {what} {want} inside the draws' central "
+              f"{BASE_CONFIDENCE:.0%} intervals: {ok}")
+        gates.append((ok, f"the hmm draws' {BASE_CONFIDENCE:.0%} intervals "
+                      f"miss the true {what}"))
+    _base_rate("hmm", card, sweeps, elapsed, ess, rhat, per_draw)
+    _print_profile(f"hmm [{card}]", *_phase_profile(
+        model, res.final_state, gen, BASE_CHAINS, "hmm", ()))
+
+    # log_lik of HMM_LOGLIK_DRAWS draws through H1, against the plain filter
+    sub = {k: v[:HMM_LOGLIK_DRAWS, -1] for k, v in d.items()}
+    before = hk.LAUNCHES["hmm_forward"]
+    ll = model.log_lik(sub)
+    _, want = hmm.forward_filter(model.emission_loglik(sub),
+                                 torch.log(sub["trans"]),
+                                 torch.log(sub["init"]))
+    ll_err = _rel(ll.double(), want.double())
+    print(f"hmm log_lik of {HMM_LOGLIK_DRAWS} draws through H1: rel "
+          f"{ll_err:.2e} against the plain filter (tolerance {TV_TOL:g})")
+    gates.append((hk.LAUNCHES["hmm_forward"] == before + 1
+                  and np.isfinite(ll_err) and ll_err <= TV_TOL,
+                  f"the hmm log_lik is {ll_err:.3e} off its plain version or "
+                  "did not run through H1"))
+    return launches
+
+
+def _phase9_mixture(card, gates):
+    """Config #3: FiniteMixture(3).fit on mixture.npz on the card."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.frontends import FiniteMixture
+    from boom_tpu_torch.models import mixtures
+
+    raw = data.mixture()
+    truth = data.MIXTURE_TRUTH
+
+    def make(device):
+        return mixtures.GaussianMixtureModel(
+            y=torch.tensor(raw["y"], device=device), num_components=3)
+
+    worst = _sweep_vs_cpu(make)
+    print(f"mixture float64 sweep C={BASE_SWEEP_CHAINS}: card vs CPU, worst "
+          f"relative difference {worst:.3e} (tolerance {SWEEP_TOL:g})")
+    gates.append((np.isfinite(worst) and worst <= SWEEP_TOL,
+                  f"the mixture sweep on the card disagrees: {worst:.3e}"))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = FiniteMixture(num_components=3).fit(
+        raw["y"], niter=BASE_DRAWS, num_chains=BASE_CHAINS, burn=BASE_BURN,
+        seed=BASE_SEED)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    model = fit._model
+    check(model.y.device.type == "cuda" and model.y.dtype == torch.float32,
+          "FiniteMixture.fit did not run on the card in float32")
+    sweeps = BASE_BURN + BASE_DRAWS
+    print(f"mixture: n={model.y.shape[0]} K=3 chains={BASE_CHAINS} "
+          f"burn={BASE_BURN} draws={BASE_DRAWS} through FiniteMixture.fit "
+          f"in {elapsed:.2f} s")
+    mu, sigsq, w = (fit.draws[k].double().cpu().numpy()
+                    for k in ("mu", "sigsq", "weights"))
+    check(all(np.isfinite(a).all() for a in (mu, sigsq, w)),
+          "non-finite mixture draws")
+    order = np.argsort(mu, axis=-1)
+    take = np.take_along_axis
+    mon = np.concatenate([take(mu, order, -1),
+                          np.sqrt(take(sigsq, order, -1)),
+                          take(w, order, -1)], -1)
+    g, rhat, ess, per_draw = _base_gates("mixture", mon, MIX_MONITOR,
+                                         REFERENCE_MIX, BASE_DRAWS,
+                                         mixtures.main_mode(mu).numpy())
+    gates += g
+    for what, cols, want in (("mu", slice(0, 3), truth["mu"]),
+                             ("sd", slice(3, 6), truth["sd"]),
+                             ("weights", slice(6, 9), truth["weights"])):
+        ok = _covers(mon[..., cols], np.asarray(want))
+        print(f"mixture truth {what} {want} inside the draws' central "
+              f"{BASE_CONFIDENCE:.0%} intervals: {ok}")
+        gates.append((ok, f"the mixture draws' {BASE_CONFIDENCE:.0%} "
+                      f"intervals miss the true {what}"))
+    comps = fit.components()
+    print("mixture components(): " + "; ".join(
+        f"mean {c['mean']:.4f} sd {c['sd']:.4f} weight {c['weight']:.4f}"
+        for c in comps))
+    near = all(abs(c["mean"] - m) <= MIX_COMPONENT_TOL
+               and abs(c["sd"] - sd) <= MIX_COMPONENT_TOL
+               and abs(c["weight"] - wt) <= MIX_WEIGHT_TOL
+               for c, m, sd, wt in zip(comps, truth["mu"], truth["sd"],
+                                       truth["weights"]))
+    gates.append((near, f"components() are not near the truth: {comps}"))
+    probs = fit.cluster_probs()
+    row_err = float(np.abs(probs.sum(1) - 1.0).max())
+    print(f"mixture cluster_probs() {probs.shape}: rows sum to 1 within "
+          f"{row_err:.2e}")
+    gates.append((probs.shape == (model.y.shape[0], 3) and row_err <= 1e-5,
+                  f"cluster_probs() is {probs.shape}, rows off 1 by "
+                  f"{row_err:.2e}"))
+    _base_rate("mixture", card, sweeps, elapsed, ess, rhat, per_draw)
+    _print_profile(f"mixture [{card}]", *_phase_profile(
+        model, fit._result.final_state, prng.generator(1, "cuda"),
+        BASE_CHAINS, "mixture", ()))
+
+
+def _phase9_beta_binomial(card, gates):
+    """Config #1: BetaBinomialModel on beta_binomial.npz."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.models.beta_binomial import BetaBinomialModel
+
+    raw = data.beta_binomial()
+
+    def make(device, dtype=torch.float64):
+        return BetaBinomialModel(
+            trials=torch.tensor(raw["n"], dtype=dtype, device=device),
+            successes=torch.tensor(raw["y"], dtype=dtype, device=device))
+
+    worst = _sweep_vs_cpu(make)
+    print(f"beta_binomial float64 sweep C={BASE_SWEEP_CHAINS}: card vs CPU, "
+          f"worst relative difference {worst:.3e} (tolerance "
+          f"{SWEEP_TOL:g})")
+    gates.append((np.isfinite(worst) and worst <= SWEEP_TOL,
+                  f"the beta_binomial sweep on the card disagrees: "
+                  f"{worst:.3e}"))
+
+    model = make("cuda", torch.float32)
+    gen = prng.generator(BASE_SEED, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda g, c: model.init_state(model.draw_init_noise(g, c)),
+                   BB_DRAWS, generator=gen, num_chains=BB_CHAINS,
+                   burn=BB_BURN)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    sweeps = BB_BURN + BB_DRAWS
+    print(f"beta_binomial: {raw['n'].shape[0]} groups, chains={BB_CHAINS} "
+          f"burn={BB_BURN} draws={BB_DRAWS} in {elapsed:.2f} s")
+    mon = np.stack([res.draws["prob"].double().cpu().numpy(),
+                    res.draws["size"].double().cpu().numpy()], -1)
+    check(np.isfinite(mon).all(), "non-finite beta_binomial draws")
+    g, rhat, ess, per_draw = _base_gates("beta_binomial", mon, BB_MONITOR,
+                                         REFERENCE_BB, BB_DRAWS)
+    gates += g
+    gates.append((float(rhat.max()) < BB_RHAT_GATE,
+                  f"beta_binomial R-hat {float(rhat.max()):.4f} >= "
+                  f"{BB_RHAT_GATE}"))
+    # the reference test's quadrature (tests/test_beta_binomial_e2e.py:
+    # 46-72): the posterior on a dense grid, float64 on the host
+    cpu = make("cpu")
+    probs = np.linspace(0.15, 0.55, 201)
+    log_sizes = np.linspace(np.log(3.0), np.log(200.0), 201)
+    pg, lg = np.meshgrid(probs, log_sizes, indexing="ij")
+    lp = cpu.log_post(torch.tensor(pg.ravel()),
+                      torch.tensor(np.exp(lg.ravel()))).numpy()
+    lp = lp.reshape(pg.shape) + lg
+    wq = np.exp(lp - lp.max())
+    wq /= wq.sum()
+    want_p, want_s = (wq * pg).sum(), (wq * np.exp(lg)).sum()
+    sd_p = np.sqrt((wq * (pg - want_p) ** 2).sum())
+    sd_s = np.sqrt((wq * (np.exp(lg) - want_s) ** 2).sum())
+    prob, size = mon[..., 0].ravel(), mon[..., 1].ravel()
+    print(f"beta_binomial against quadrature: prob mean {prob.mean():.5f} "
+          f"(quadrature {want_p:.5f}, bound {4 * sd_p / np.sqrt(200):.5f}) "
+          f"sd {prob.std():.5f} ({sd_p:.5f}); size mean {size.mean():.4f} "
+          f"({want_s:.4f}, bound {4 * sd_s / np.sqrt(200):.4f}) sd "
+          f"{size.std():.4f} ({sd_s:.4f})")
+    gates += [
+        (abs(prob.mean() - want_p) < 4 * sd_p / np.sqrt(200.0),
+         "the beta_binomial prob mean is off the quadrature's"),
+        (abs(size.mean() - want_s) < 4 * sd_s / np.sqrt(200.0),
+         "the beta_binomial size mean is off the quadrature's"),
+        (abs(prob.std() / sd_p - 1.0) < 0.15,
+         "the beta_binomial prob sd is off the quadrature's"),
+        (abs(size.std() / sd_s - 1.0) < 0.25,
+         "the beta_binomial size sd is off the quadrature's")]
+    _base_rate("beta_binomial", card, sweeps, elapsed, ess, rhat,
+               per_draw)
+    _print_profile(f"beta_binomial [{card}]", *_phase_profile(
+        model, res.final_state, gen, BB_CHAINS, "beta_binomial", ()))
+
+
+def phase9_baseline(card):
+    """BASELINE configs #4, #3 and #1 on their committed data, each held to
+    the reference's own run; returns H1's and H2's launches of the HMM
+    run."""
+    t_phase = time.perf_counter()
+    gates = []
+    launches = _phase9_hmm(card, gates)
+    _phase9_mixture(card, gates)
+    _phase9_beta_binomial(card, gates)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in gates:
+        check(ok, msg)
+    return launches
+
+
 @contextlib.contextmanager
 def _planted(fault):
     """Plant one of REG_FAULTS in the port for the duration of a run, by
@@ -2800,6 +3432,8 @@ def main():
         tim_launches = phase7_bsts_reg_tim(card, reg_rhat)
         at_tv = phase2e_tv_vs_plain()
         tv_launches = phase8_bsts_tv(card)
+        at_hmm = phase2f_hmm_vs_plain()
+        hmm_launches = phase9_baseline(card)
         print(f"chip_smoke took {time.perf_counter() - T_START:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -2838,6 +3472,11 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": tv_launches[k],
                         **at_tv[k], "library_ms": None})
+    # library_ms: no PyTorch call computes an HMM recursion
+    for k, (name, replaces) in HMM_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": HMM_SOURCE,
+                        "replaces": replaces, "launches": hmm_launches[k],
+                        **at_hmm[k], "library_ms": None})
     lacking = {k["name"]: sorted(KERNEL_KEYS - set(k)) for k in kernels
                if KERNEL_KEYS - set(k)}
     if lacking:

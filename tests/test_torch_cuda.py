@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels (the parallel scans, the sequential
 Kalman loglik K1 and K1w, its derivative kernels J1 and J2, the simulation
-smoothers K2 and K2w, the ASIS D-path K3, and kernel (a), the SSVS
-indicator sweep, with one S0 and with a border of S0 a chain) against
-their plain PyTorch versions, on the card. These need
+smoothers K2 and K2w, the ASIS D-path K3, kernel (a), the SSVS
+indicator sweep, with one S0 and with a border of S0 a chain, and the
+HMM's H1 and H2) against their plain PyTorch versions, on the card. These need
 a CUDA device and ``nvcc``: here they skip. Run them on a machine with the
 card (the repository's conftest imports JAX, which that machine need not
 have):
@@ -605,3 +605,86 @@ def test_tv_bsts_runs_on_the_card(card):
         assert _within(ll.double(), want[0].double(), 1e-4)
         assert _within(errs.double(),
                        (want[1] / torch.sqrt(want[2])).double(), 1e-4)
+
+
+# -- H1 and H2, csrc/hmm.cu (chip_smoke.py phase 2f's checks) ---------------
+
+HMM_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+# H2's statistics against those of its own path
+HMM_STATS_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("t_len", [1, 2, 33, 1200])
+@pytest.mark.parametrize("c", [1, 33, 4097])
+def test_hmm_kernels_match_plain(card, dtype, s, t_len, c):
+    """H1 within a normwise 1e-9 (float64) / 1e-4 (float32) of the plain
+    filter, with and without its alphas; H2's paths identical in float64
+    and on at least 99.5 % of chains in float32; its statistics those of
+    its own path."""
+    from boom_tpu_torch.kernels.hmm_timing import problem
+    from boom_tpu_torch.models import hmm, hmm_kernel
+
+    tag = str(dtype).split(".")[-1]
+    p = problem(np.random.default_rng(s * t_len + c), c, t_len, s, tag,
+                device=card)
+    args = (p["log_lik"], p["log_trans"], p["log_init"])
+    la, ll = hmm_kernel.launch_forward(*args)
+    want_la, want_ll = hmm.forward_filter(*args)
+    assert _within(la.double(), want_la.double(), HMM_TOL[dtype])
+    assert _within(ll.double(), want_ll.double(), HMM_TOL[dtype])
+    assert torch.equal(hmm_kernel.launch_forward(*args, want_alphas=False)[1],
+                       ll)
+    z, suf, counts, first = hmm_kernel.launch_backward(
+        want_la, p["log_trans"], p["path_u"], p["y"])
+    want_z = hmm.backward_sample(want_la, p["log_trans"], p["path_u"])
+    agree = float((z == want_z).all(-1).double().mean())
+    assert agree == 1.0 if dtype == torch.float64 else agree >= 0.995
+    own = hmm.path_stats(z, p["y"].double(), s)
+    for got, want in zip((*suf, counts, first), (*own[0], *own[1:])):
+        assert _within(got.double(), want, HMM_STATS_TOL[dtype])
+
+
+def _tensors(out):
+    """Every tensor of a kernel's output, nested tuples flattened."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in (out or ()) for t in _tensors(o)]
+
+
+def test_hmm_kernels_are_bit_identical(card):
+    """Ten launches of each at phase 9's shape (4096 chains, T = 1200,
+    S = 2, float32)."""
+    from boom_tpu_torch.kernels.hmm_timing import cases
+
+    for name, (kern, _plain) in cases(np.random.default_rng(0), "float32",
+                                      4096, 1200, 2).items():
+        first = _tensors(kern())
+        for _ in range(9):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(first, _tensors(kern()))), name
+
+
+def test_gaussian_hmm_sweeps_on_the_card(card):
+    """A float64 sweep of 33 chains on the card against the CPU's on the
+    same noise; a sweep launches H1 and H2 once."""
+    from boom_tpu_torch import data
+    from boom_tpu_torch.models import hmm, hmm_kernel
+
+    y = data.hmm()["y"]
+    models = {dev: hmm.GaussianHmm(y=torch.tensor(y, device=dev),
+                                   num_states=2) for dev in ("cpu", "cuda")}
+    gen = torch.Generator().manual_seed(0)
+    cpu = models["cpu"]
+    st = cpu.init_state(cpu.draw_init_noise(gen, 33))
+    noise = cpu.draw_noise(gen, 33)
+    want = cpu.kernel()(noise, st)
+    before = dict(hmm_kernel.LAUNCHES)
+    got = models["cuda"].kernel()(
+        {k: v.cuda() for k, v in noise.items()},
+        {k: v.cuda() for k, v in st.items()})
+    assert {k: hmm_kernel.LAUNCHES[k] - before[k] for k in before} == {
+        "hmm_forward": 1, "hmm_backward": 1}
+    for k in want:
+        assert _within(got[k].cpu(), want[k], 1e-8)

@@ -165,3 +165,107 @@ def test_summary_matches_reference():
     for k in ref:
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    rtol=1e-10, err_msg=k)
+
+
+# -- the distributions of BASELINE configs #1, #3 and #4 --------------------
+
+GAMMA_SHAPES = (0.5, 0.7, 1.0, 1.5, 3.0, 10.0, 50.0, 200.0, 1200.0)
+# from 1e-150: below it shape 0.5's quantile, (u Gamma(1.5))^2, leaves the
+# float64 range (the sampler then returns its rounding, 0)
+GAMMA_LEVELS = (1e-150, 1e-30, 1e-8, 1e-3, 0.1, 0.5, 0.9, 1 - 1e-3,
+                1 - 1e-8, 1 - 2.0 ** -52)
+
+
+@pytest.mark.parametrize("a", GAMMA_SHAPES)
+def test_gamma_sample_inverts_the_cdf(a):
+    """The inverse CDF at shapes 0.5-1,200 and levels from 1e-150 to 1 -
+    2^-52 in float64 (the CDF's own accuracy: ~1e-14 relative below shape
+    ~20, ~1e-9 above), and at float32 levels (tiny to 1 - 2^-24) within
+    float32's rounding of the draw."""
+    u = np.asarray(GAMMA_LEVELS)
+    x = dists.gamma.sample(_t(u), a).numpy()
+    lower = u <= 0.5
+    got = np.where(lower, scipy.special.gammainc(a, x),
+                   scipy.special.gammaincc(a, x))
+    want = np.where(lower, u, 1.0 - u)
+    rtol = 1e-12 if a < 20 else 5e-9
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    # the rate divides the unit-rate draw
+    np.testing.assert_allclose(dists.gamma.sample(_t(u), a, 4.0).numpy(),
+                               x / 4.0, rtol=1e-15)
+    u32 = np.asarray([np.finfo(np.float32).tiny, 1e-20, 1e-6, 0.01, 0.3,
+                      0.5, 0.8, 0.999, 1 - 2.0 ** -24], np.float32)
+    a32 = torch.tensor(a, dtype=torch.float32)
+    x32 = dists.gamma.sample(torch.tensor(u32), a32)
+    assert x32.dtype == torch.float32
+    want32 = scipy.special.gammaincinv(float(a32), u32.astype(np.float64))
+    np.testing.assert_allclose(x32.numpy(), want32, rtol=2e-7,
+                               atol=np.finfo(np.float32).tiny)
+
+
+def test_gamma_sample_matches_reference_draws():
+    """u = F(g) at the reference's jax.random.gamma draws maps back to
+    g (shapes 0.5-1,200, the Dirichlet and variance draws' range)."""
+    a = np.concatenate([[0.5, 0.5, 1.0, 1.0], np.geomspace(0.6, 1200.0, 60)])
+    g = jax.random.gamma(jax.random.key(3), jnp.asarray(a), a.shape,
+                         jnp.float64)
+    u = jax.scipy.special.gammainc(jnp.asarray(a), g)
+    np.testing.assert_allclose(dists.gamma.sample(_t(u), _t(a)).numpy(),
+                               np.asarray(g), rtol=1e-9)
+
+
+def test_baseline_densities_match_reference():
+    from boom_tpu.dists import discrete as jdisc
+    from boom_tpu.dists import multivariate as jmv
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=20)
+    mean, sd = rng.normal(size=20), rng.uniform(0.1, 3.0, 20)
+    np.testing.assert_allclose(
+        dists.normal.logpdf(_t(x), _t(mean), _t(sd)).numpy(),
+        np.asarray(jcont.normal.logpdf(x, mean, sd)), rtol=1e-14)
+    p = np.concatenate([rng.uniform(size=18), [0.0, 1.0]])
+    a, b = rng.uniform(0.3, 30.0, 20), rng.uniform(0.3, 30.0, 20)
+    np.testing.assert_allclose(
+        dists.beta.logpdf(_t(p), _t(a), _t(b)).numpy(),
+        np.asarray(jcont.beta.logpdf(p, a, b)), rtol=1e-12)
+    n = rng.integers(1, 60, 20).astype(float)
+    k = np.concatenate([np.floor(rng.uniform(size=17) * n[:17]),
+                        [n[17] + 1, -1.0, 2.5]])
+    np.testing.assert_allclose(
+        dists.beta_binomial.logpmf(_t(k), _t(n), _t(a), _t(b)).numpy(),
+        np.asarray(jdisc.beta_binomial.logpmf(k, n, a, b)), rtol=1e-12)
+    alpha = rng.uniform(0.5, 20.0, (5, 4))
+    w = rng.dirichlet(np.ones(4), 5)
+    np.testing.assert_allclose(
+        dists.dirichlet.logpdf(_t(w), _t(alpha)).numpy(),
+        np.asarray(jmv.dirichlet.logpdf(w, alpha)), rtol=1e-12)
+
+
+def test_beta_and_dirichlet_samples():
+    """Beta(a, b) as two gammas and the Dirichlet as normalised gammas:
+    their means at 20,000 draws, and the Dirichlet's rows sum to 1."""
+    gen = torch.Generator().manual_seed(4)
+    u = torch.rand((2, 20_000), generator=gen, dtype=torch.float64)
+    x = dists.beta.sample(u[0], u[1], 2.0, 5.0)
+    assert abs(float(x.mean()) - 2.0 / 7.0) < 4 * np.sqrt(
+        10.0 / (49 * 8) / 20_000)
+    alpha = torch.tensor([0.5, 1.0, 7.0], dtype=torch.float64)
+    w = dists.dirichlet.sample(torch.rand((20_000, 3), generator=gen,
+                                          dtype=torch.float64), alpha)
+    np.testing.assert_allclose(w.sum(-1).numpy(), 1.0, rtol=1e-14)
+    np.testing.assert_allclose(w.mean(0).numpy(), (alpha / 8.5).numpy(),
+                               atol=0.01)
+
+
+def test_gamma_sample_many_is_each_sample():
+    """sample_many's lanes side by side give each pair's own draws."""
+    gen = torch.Generator().manual_seed(5)
+    pairs = [(torch.rand((4, 2), generator=gen, dtype=torch.float64),
+              torch.tensor([0.5, 30.0], dtype=torch.float64)),
+             (torch.rand((4, 3, 3), generator=gen, dtype=torch.float64),
+              1.0 + 600.0 * torch.rand((4, 3, 3), generator=gen,
+                                       dtype=torch.float64))]
+    for got, (u, a) in zip(dists.gamma.sample_many(*pairs), pairs):
+        assert got.shape == u.shape
+        assert torch.equal(got, dists.gamma.sample(u, a))
