@@ -76,7 +76,7 @@ class LmSpike:
                  **prior_kw):
         if prior is not None:
             raise _not_ported("LmSpike(prior=...) (the priors module)",
-                              "item 13")
+                              "item 14")
         self._prior_kw = dict(prior_kw,
                               expected_model_size=expected_model_size)
         self._names = names
@@ -143,13 +143,13 @@ class LmSpike:
 
     def fit_formula(self, formula, data, **fit_kw):
         raise _not_ported("LmSpike.fit_formula (the formula module)",
-                          "item 13")
+                          "item 14")
 
     def plot(self, kind="inclusion", ax=None, **kw):
-        raise _not_ported("LmSpike.plot (rplots)", "item 13")
+        raise _not_ported("LmSpike.plot (rplots)", "item 9")
 
     def save(self, path):
-        raise _not_ported("LmSpike.save (serialize)", "item 8")
+        raise _not_ported("LmSpike.save (serialize)", "item 9")
 
 
 @dataclasses.dataclass

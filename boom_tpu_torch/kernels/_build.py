@@ -106,6 +106,10 @@ _ARGTYPES = {
     # alphas, log_trans, y, path_u, z, n, sum, sumsq, counts, first, chains,
     # t_len, s, stream
     "hmm_backward": [_P] * 10 + [_I] * 3 + [_P],
+    # backward (0: H1, 1: H2), f64, s, chains
+    "hmm_lanes": [_I] * 4,
+    # lanes (0: chosen from C)
+    "hmm_set_lanes": [_I],
 }
 
 
@@ -186,6 +190,8 @@ def library(name: str) -> ctypes.CDLL:
         for tag in HMM_DTYPES:
             _declare(lib, "hmm_forward", f"boom_hmm_forward_{tag}")
             _declare(lib, "hmm_backward", f"boom_hmm_backward_{tag}")
+        _declare(lib, "hmm_lanes", "boom_hmm_lanes")
+        _declare(lib, "hmm_set_lanes", "boom_hmm_set_lanes")
     elif name == "kalman_wide":
         _declare(lib, "smoother_wide", "boom_kalman_smoother_wide_f64")
         _declare(lib, "smoother_wide_tv", "boom_kalman_smoother_wide_tv_f64")

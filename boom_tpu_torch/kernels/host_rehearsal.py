@@ -8,15 +8,16 @@ K3), kernel (a) and the HMM's H1 and H2 on a machine without a card.
 ``csrc/hmm.cu`` are compiled as host C++ with ``g++``: a shim header defines the CUDA keywords away and gives
 ``blockIdx``/``blockDim``/``threadIdx`` as thread-local globals, and every
 ``kernel<<<blocks, threads, ...>>>(args)`` becomes ``host_launch``, which
-runs a block's threads as host threads, one block after another. Its
-barriers are real: one for the block (``__syncthreads``), one for each
-warp of 32 (``__syncwarp``, and ``__shfl_sync`` and ``__ballot_sync``,
-which exchange values through the warp's slots between two of its
-barriers). A thread that waits at a barrier longer than a deadline (60 s,
-``boom_host_set_deadline``) ends the launch: every thread of the block
-leaves at its next barrier and the launch returns
-``cudaErrorLaunchTimeout`` (702), which the wrappers raise, so that a
-barrier that is never met fails a check instead of hanging it. The
+runs a block's threads as fibers on the calling thread, one block after
+another: a thread runs until it reaches a barrier, one for the block
+(``__syncthreads``), one for each warp of 32 (``__syncwarp``, and
+``__shfl_sync`` and ``__ballot_sync``, which exchange values through the
+warp's slots at one of its barriers), and the barrier opens when all its
+threads have reached it. When no thread can run and some have not
+ended, a barrier is never met: every waiting thread leaves at its
+barrier and the launch returns ``cudaErrorLaunchTimeout`` (702), which
+the wrappers raise, so that such a barrier fails a check instead of
+hanging it. The
 library is bound in place of the ``nvcc`` build, so ``kalman_kernel``'s
 wrappers run the kernels' own arithmetic on CPU tensors, which are checked
 against the plain versions (K1 and K1w with a series a group of systems
@@ -32,7 +33,8 @@ statistics (:func:`check_ssvs_border`), and the time-varying forms
 (:func:`check_time_varying`: K2w's structured form where every chain
 shares T, its dense form where each has its own), and H1 and H2 against
 ``hmm.forward_filter`` and ``hmm.backward_sample_stats`` (:func:`check_hmm`:
-S 1-16, T across the staged chunks' edges). ``--llt`` then
+S 1-16, L lanes a chain of 1, 8 and 32, T across the split's and the staged
+chunks' edges, log alphas below -87). ``--llt`` then
 runs the bsts_llt path (the bench's series, T=500, TIM, float32, smoother
 in float64) for 32 chains, 100 + 200 sweeps, through the host-compiled
 kernels and prints R-hat, ESS and the
@@ -59,15 +61,12 @@ from boom_tpu_torch.kernels import _build  # noqa: E402
 
 SHIM = r"""#pragma once
 #include <algorithm>
-#include <atomic>
-#include <chrono>
 #include <cmath>
-#include <condition_variable>
 #include <cstring>
 #include <memory>
-#include <mutex>
-#include <thread>
 #include <vector>
+
+#include <sys/mman.h>
 #define __global__
 #define __device__
 #define __host__
@@ -132,81 +131,124 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
 struct HostDim3 { int x, y, z; };
 static thread_local HostDim3 blockIdx, blockDim, threadIdx;
 
-// Seconds a thread waits at a barrier before the launch gives up: then
-// every thread of the block leaves at its next barrier and the launch
-// returns cudaErrorLaunchTimeout, so that a barrier that is never met
-// fails a check instead of hanging it.
-static double host_deadline_s = 60.0;
-extern "C" void boom_host_set_deadline(double seconds) {
-  host_deadline_s = seconds;
-}
+// A block's threads run as fibers on the launching thread: each runs until
+// it reaches a barrier (or ends), then the next one that can run does. A
+// barrier that every thread of its block (__syncthreads) or warp
+// (__syncwarp, a shuffle, a ballot) has reached opens; when no thread can
+// run and some have not ended, a barrier is never met: the launch ends at
+// once with cudaErrorLaunchTimeout, every waiting thread leaving at its
+// barrier, so that a barrier mismatch fails a check instead of hanging it.
+// A barrier costs a switch of stacks, not a wake-up of host threads.
 struct HostAbort {};
-static std::atomic<bool> host_aborted{false};
+static bool host_aborted = false;
+// bounds nothing since an unmet barrier is found at once; kept settable
+extern "C" void boom_host_set_deadline(double) {}
+
+// saves the callee-saved registers and the stack pointer into *save_sp,
+// then loads load_sp's and returns into the fiber it belongs to
+extern "C" void boom_host_switch(void** save_sp, void* load_sp);
+#if defined(__x86_64__)
+asm(R"(
+  .text
+  .p2align 4
+  .globl boom_host_switch
+  .hidden boom_host_switch
+  .type boom_host_switch, @function
+boom_host_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size boom_host_switch, .-boom_host_switch
+)");
+#else
+#error "the host rehearsal's fibers switch stacks for x86-64 only"
+#endif
+
+class HostBarrier;
+struct HostWarp;
+struct HostFiber {
+  void* sp = nullptr;
+  int t = 0;
+  HostWarp* warp = nullptr;
+  int slot_set = 0;
+  HostBarrier* waiting = nullptr;
+  long wait_gen = 0;
+  bool done = false;
+};
+static thread_local HostFiber* host_fiber;
+static thread_local void* host_sched_sp;
 
 class HostBarrier {
  public:
   explicit HostBarrier(int n) : n_(n) {}
   void wait() {
-    std::unique_lock<std::mutex> lock(mu_);
     if (host_aborted) throw HostAbort{};
-    const long gen = gen_;
     if (++count_ == n_) {
       count_ = 0;
       ++gen_;
-      cv_.notify_all();
       return;
     }
-    const auto until = std::chrono::steady_clock::now() +
-                       std::chrono::duration<double>(host_deadline_s);
-    while (gen_ == gen) {
-      if (host_aborted) throw HostAbort{};
-      if (cv_.wait_until(lock, until) == std::cv_status::timeout &&
-          gen_ == gen) {
-        host_aborted = true;
-        throw HostAbort{};
-      }
-    }
+    host_fiber->waiting = this;
+    host_fiber->wait_gen = gen_;
+    boom_host_switch(&host_fiber->sp, host_sched_sp);
+    if (host_aborted) throw HostAbort{};
   }
-  void wake() {
-    std::lock_guard<std::mutex> lock(mu_);
-    cv_.notify_all();
-  }
+  bool open(long gen) const { return gen_ != gen; }
 
  private:
-  std::mutex mu_;
-  std::condition_variable cv_;
   int n_, count_ = 0;
   long gen_ = 0;
 };
 
-// A warp's barrier and its exchange slots (__shfl_sync, __ballot_sync).
+// A warp's barrier and its exchange slots (__shfl_sync, __ballot_sync),
+// two sets used in turn: a lane writes one set, meets the others at the
+// barrier and reads it; the next exchange writes the other set, and the
+// first is written again only after every lane has passed the barrier
+// that follows its reads.
 struct HostWarp {
   explicit HostWarp(int lanes) : bar(lanes) {}
   HostBarrier bar;
-  unsigned long long slot[32];
+  unsigned long long slot[2][32];
 };
-static HostBarrier* host_block_bar;
-static thread_local HostWarp* host_warp;
+static thread_local HostBarrier* host_block_bar;
 
 inline void __syncthreads() { host_block_bar->wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar.wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  host_fiber->warp->bar.wait();
+}
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   static_assert(sizeof(T) <= sizeof(unsigned long long), "shfl");
-  std::memcpy(&host_warp->slot[threadIdx.x & 31], &v, sizeof(T));
-  host_warp->bar.wait();
+  HostFiber* f = host_fiber;
+  unsigned long long* slot = f->warp->slot[f->slot_set];
+  f->slot_set ^= 1;
+  std::memcpy(&slot[threadIdx.x & 31], &v, sizeof(T));
+  f->warp->bar.wait();
   T out;
-  std::memcpy(&out, &host_warp->slot[src & 31], sizeof(T));
-  host_warp->bar.wait();
+  std::memcpy(&out, &slot[src & 31], sizeof(T));
   return out;
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
-  host_warp->slot[threadIdx.x & 31] = pred != 0;
-  host_warp->bar.wait();
+  HostFiber* f = host_fiber;
+  unsigned long long* slot = f->warp->slot[f->slot_set];
+  f->slot_set ^= 1;
+  slot[threadIdx.x & 31] = pred != 0;
+  f->warp->bar.wait();
   unsigned bits = 0;
   for (int l = 0; l < 32 && (threadIdx.x & ~31) + l < blockDim.x; ++l)
-    bits |= static_cast<unsigned>(host_warp->slot[l]) << l;
-  host_warp->bar.wait();
+    bits |= static_cast<unsigned>(slot[l]) << l;
   return bits;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
@@ -215,6 +257,7 @@ inline void __threadfence_block() {}
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline double __drcp_rn(double x) { return 1.0 / x; }
 inline float __logf(float x) { return std::log(x); }
+inline float __expf(float x) { return std::exp(x); }
 // one IEEE operation each (x86-64 without -mfma does not contract them)
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -227,37 +270,69 @@ inline double __ddiv_rn(double a, double b) { return a / b; }
 using std::log;
 alignas(16) static unsigned char host_shared[232448];
 #define BOOM_SHARED_BYTES(name) unsigned char* name = host_shared
-// a block's threads run as host threads, with a real barrier for the
-// block and one for each warp of 32; blocks run one after another and
-// share host_shared; a barrier past its deadline ends the launch
+static thread_local void (*host_call)(void*);
+static thread_local void* host_arg;
+// a fiber's first frame: the block's body, then back to the scheduler
+static void host_fiber_main() {
+  try {
+    host_call(host_arg);
+  } catch (const HostAbort&) {
+  }
+  host_fiber->done = true;
+  boom_host_switch(&host_fiber->sp, host_sched_sp);
+  __builtin_trap();
+}
+// blocks run one after another and share host_shared; a block's threads
+// are fibers with stacks of 4 MB each (reserved, touched as used)
 template <class Body>
 void host_launch(int blocks, int threads, Body body) {
+  constexpr size_t kStack = size_t(1) << 22;
   host_aborted = false;
-  HostBarrier block(threads);
-  std::vector<std::unique_ptr<HostWarp>> warps;
-  for (int w = 0; w * 32 < threads; ++w)
-    warps.emplace_back(new HostWarp(std::min(32, threads - w * 32)));
-  host_block_bar = &block;
-  auto wake_all = [&] {
-    block.wake();
-    for (auto& w : warps) w->bar.wake();
-  };
+  host_call = [](void* p) { (*static_cast<Body*>(p))(); };
+  host_arg = &body;
+  char* stacks = static_cast<char*>(
+      mmap(nullptr, kStack * threads, PROT_READ | PROT_WRITE,
+           MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0));
+  std::vector<HostFiber> fibers(threads);
   for (int b = 0; b < blocks && !host_aborted; ++b) {
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&, b, t] {
-        blockIdx = {b, 0, 0};
-        blockDim = {threads, 1, 1};
-        threadIdx = {t, 0, 0};
-        host_warp = warps[t / 32].get();
-        try {
-          body();
-        } catch (const HostAbort&) {
-          wake_all();
-        }
-      });
-    for (auto& th : pool) th.join();
+    HostBarrier block(threads);
+    std::vector<std::unique_ptr<HostWarp>> warps;
+    for (int w = 0; w * 32 < threads; ++w)
+      warps.emplace_back(new HostWarp(std::min(32, threads - w * 32)));
+    host_block_bar = &block;
+    blockIdx = {b, 0, 0};
+    blockDim = {threads, 1, 1};
+    for (int t = 0; t < threads; ++t) {
+      fibers[t] = HostFiber{};
+      fibers[t].t = t;
+      fibers[t].warp = warps[t / 32].get();
+      // the first switch pops six registers and returns into
+      // host_fiber_main with the stack as a call leaves it
+      void** sp = reinterpret_cast<void**>(stacks + kStack * (t + 1)) - 2;
+      *sp = reinterpret_cast<void*>(&host_fiber_main);
+      sp -= 6;
+      for (int i = 0; i < 6; ++i) sp[i] = nullptr;
+      fibers[t].sp = sp;
+    }
+    for (int left = threads; left > 0;) {
+      bool ran = false;
+      for (HostFiber& f : fibers) {
+        if (f.done || (!host_aborted && f.waiting != nullptr &&
+                       !f.waiting->open(f.wait_gen)))
+          continue;
+        f.waiting = nullptr;
+        host_fiber = &f;
+        threadIdx = {f.t, 0, 0};
+        boom_host_switch(&host_sched_sp, f.sp);
+        ran = true;
+        if (f.done) --left;
+      }
+      // no thread can run: a barrier is never met; resume the waiting
+      // threads, which leave at their barriers
+      if (!ran) host_aborted = true;
+    }
   }
+  munmap(stacks, kStack * threads);
   if (host_aborted) host_last_error = cudaErrorLaunchTimeout;
 }
 """
@@ -718,21 +793,35 @@ def check_ssvs(seed=0, chains=33, draws=3):
     return out
 
 
-# H1 and H2: (S, T, chains); T across the staged chunks' edges (256 bytes
-# a chain's row: 16 steps of S = 2 in float64, 32 in float32; 10 of S = 3
-# in float64) and a second, ragged warp of chains
-HMM_CASES = [(s, t_len, c) for s in (1, 2, 3, 8, 16)
-             for t_len in (1, 2, 33) for c in (3, 33)]
-HMM_CASES += [(2, t_len, 5) for t_len in (15, 16, 17, 31, 32, 65)]
-HMM_CASES += [(3, t_len, 5) for t_len in (10, 11, 21)]
+# H1 and H2: (S, T, chains, lanes a chain: None for the kernels' choice,
+# 32 at these chains where S allows the split, else 1; 8 forced); T across the
+# split's edges (T < L, a multiple of L and one either side), across the
+# staged chunks' edges (256 bytes a lane's row, 128 for H2 with L > 1: 16
+# steps of S = 2 in float32, 8 in float64) and a second, ragged warp of
+# chains
+HMM_CASES = [(s, t_len, c, None) for s in (1, 2, 3, 8, 16)
+             for t_len in (1, 2, 31, 32, 33, 150) for c in (1, 33)]
+HMM_CASES += [(s, t_len, 5, 8) for s in (2, 3)
+              for t_len in (7, 8, 9, 15, 16, 17, 33, 65)]
+HMM_CASES += [(s, t_len, 9, 8) for s in (1, 7, 8) for t_len in (3, 17, 67)]
+HMM_CASES += [(3, t_len, 5, None) for t_len in (10, 11, 21)]
+HMM_CASES += [(16, t_len, 5, None) for t_len in (1, 2, 3)]
+# H2 keeps a lane's maps in shared memory where they fit; at S = 8 and T =
+# 6,000 (188 steps a lane) they do not, and go through z
+HMM_CASES += [(8, 6000, 1, None)]
 
 
-def check_hmm(seed=0, cases=HMM_CASES, dtypes=("float64", "float32")):
+def check_hmm(seed=0, cases=HMM_CASES, dtypes=("float64", "float32"),
+              deep=False):
     """H1 and H2 against ``hmm.forward_filter`` and
     ``hmm.backward_sample_stats``: {case: (H1's normwise relative error,
     the share of chains whose H2 path differs, H2's statistics' worst
     relative error against ``hmm.path_stats`` of its own path)}; H1 without
-    its alphas must give the same loglike."""
+    its alphas must give the same loglike, and a second launch of each the
+    same bits. ``deep``: problems whose odd states' log alphas fall below
+    -87 (``hmm_timing.problem``)."""
+    import contextlib
+
     import torch
 
     from boom_tpu_torch.kernels.hmm_timing import problem
@@ -742,22 +831,37 @@ def check_hmm(seed=0, cases=HMM_CASES, dtypes=("float64", "float32")):
     rng = np.random.default_rng(seed)
     out = {}
     for dtype in dtypes:
-        for s, t_len, c in cases:
-            p = problem(rng, c, t_len, s, dtype, device="cpu")
+        for s, t_len, c, lanes in cases:
+            p = problem(rng, c, t_len, s, dtype, device="cpu", deep=deep)
             args = (p["log_lik"], p["log_trans"], p["log_init"])
-            la, ll = hk.launch_forward(*args)
             want_la, want_ll = hmm.forward_filter(*args)
-            _, alone = hk.launch_forward(*args, want_alphas=False)
+            if deep:
+                assert float(want_la.min()) < -87.0, "not deep"
+            with (hk.forced_lanes(lanes) if lanes
+                  else contextlib.nullcontext()):
+                la, ll = hk.launch_forward(*args)
+                _, alone = hk.launch_forward(*args, want_alphas=False)
+                z, suf, counts, first = hk.launch_backward(
+                    want_la, p["log_trans"], p["path_u"], p["y"])
+                again = hk.launch_backward(want_la, p["log_trans"],
+                                           p["path_u"], p["y"])
+                used = {name: hk.lanes(name, la.dtype, s, c)
+                        for name in ("hmm_forward", "hmm_backward")}
             assert torch.equal(alone, ll), "H1 without alphas differs"
-            z, suf, counts, first = hk.launch_backward(
-                want_la, p["log_trans"], p["path_u"], p["y"])
+            assert torch.equal(again[0], z) and all(
+                torch.equal(a, b) for a, b in zip(
+                    (*again[1], *again[2:]), (*suf, counts, first))), (
+                "H2 differs between two launches")
             want_z = hmm.backward_sample(want_la, p["log_trans"],
                                          p["path_u"])
             own_suf, own_counts, own_first = hmm.path_stats(
                 z, p["y"].double(), s)
             stats = max(_rel(g.double(), w) for g, w in zip(
                 (*suf, counts, first), (*own_suf, own_counts, own_first)))
-            out[f"hmm {dtype} S={s} T={t_len} C={c}"] = (
+            name = (f"hmm {dtype} S={s} T={t_len} C={c} "
+                    f"L={used['hmm_forward']}/{used['hmm_backward']}"
+                    + (" deep" if deep else ""))
+            out[name] = (
                 max(_rel(la.double(), want_la.double()),
                     _rel(ll.double(), want_ll.double())),
                 float((z != want_z).any(-1).double().mean()), stats)

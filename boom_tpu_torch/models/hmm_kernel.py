@@ -1,6 +1,8 @@
 """The HMM's forward filter and backward sampler through H1 and H2,
 ``csrc/hmm.cu``: one launch filters every chain's T steps (H1), one draws
-every chain's path and its statistics (H2), a lane a chain.
+every chain's path and its statistics (H2), L lanes a chain, each walking
+one segment of the T steps (L chosen at launch from C and S:
+:func:`lanes`).
 
 The reference runs them as XLA ``lax.scan``s (boom_tpu/models/hmm.py:52,
 :72); in eager PyTorch each step would be several small launches, ~7,000 a
@@ -13,6 +15,8 @@ raises; there is no fallback), a CPU tensor runs the plain version in
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -28,6 +32,25 @@ MAX_STATES = max(_build.HMM_STATES)
 _TOO_MANY = ("H1 and H2 hold a chain's alphas in registers, S <= {max} "
              "(S = {s}); more states are not ported yet (ROADMAP.md, queue 1 "
              "item 8)")
+
+
+def lanes(name, dtype, s, chains) -> int:
+    """The lanes a chain that H1 (``name`` "hmm_forward") or H2
+    ("hmm_backward") takes at this dtype, S and C."""
+    return int(_build.library("hmm").boom_hmm_lanes(
+        int(name == "hmm_backward"), int(dtype == torch.float64), s, chains))
+
+
+@contextlib.contextmanager
+def forced_lanes(n):
+    """Launches inside take 32 lanes a chain for n >= 32, else 8, in place
+    of the choice from C (1 where S is past the split layout's)."""
+    lib = _build.library("hmm")
+    before = lib.boom_hmm_set_lanes(n)
+    try:
+        yield
+    finally:
+        lib.boom_hmm_set_lanes(before)
 
 
 def _stream(device) -> int:

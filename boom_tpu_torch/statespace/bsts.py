@@ -157,7 +157,8 @@ class Bsts:
         if self.marginal_sigma_slice and self.marginal_move != "tim":
             raise NotImplementedError(
                 f"marginal_move={self.marginal_move!r} is not ported; only "
-                "'tim' is (ROADMAP.md, queue 7: the other marginal moves)")
+                "'tim' is (ROADMAP.md, queue 1 item 7: the other marginal "
+                "moves)")
         for b in self.blocks:
             if (not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec")
                     or hasattr(b, "t_seq") or hasattr(b, "z_seq_params")):

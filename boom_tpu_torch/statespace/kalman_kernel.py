@@ -94,8 +94,8 @@ SMOOTHER_CHUNK = 32
 # (kalman_wide.cu)
 WIDE_THREADS = 128
 DPATH_THREADS = 128
-_NO_KERNEL = ("(ROADMAP.md, queue 7: kernel (b) for state dimensions past "
-              "16 and the other block classes)")
+_NO_KERNEL = ("(ROADMAP.md, queue 1 item 7: kernel (b) for state "
+              "dimensions past 16 and the other block classes)")
 _NOT_SELECTION = ("the time-varying kernels take R Q_t R' as (u_t u_t') o "
                   "R Q R' with u_t = R q_t, which needs R to be a 0/1 "
                   "selection with at most one 1 a row; this R is not "
@@ -512,7 +512,7 @@ class _LoglikAlong(torch.autograd.Function):
         if any(ctx.needs_input_grad[1:]):
             raise NotImplementedError(
                 "the loglik kernels differentiate along the directions' "
-                "coefficients c only (ROADMAP.md, queue 7: kernel (b))")
+                "coefficients c only (ROADMAP.md, queue 1 item 7: kernel (b))")
         h, rqr = kalman.along(h0, q0, dh, dm, c)
         fields = (h, rqr, z, t_mat, a0, p0, y, observed)
         if not ctx.needs_input_grad[0]:

@@ -166,12 +166,18 @@ Phases:
      busy share.
   2f. H1 and H2, the HMM's forward filter and backward sampler
      (``csrc/hmm.cu``), against their plain versions on the card: S in
-     {1, 2, 3, 4, 8, 16}, T in {1, 2, 33, 1200}, 1, 33 and 4097 chains,
+     {1, 2, 3, 4, 7, 8, 16}, T in {1, 2, 33, 1200}, 1, 33 and 4097 chains,
      float64 and float32: H1 within a normwise 1e-9 / 1e-4 (with and
      without its alphas), H2's paths identical in float64 and on >= 99.5 %
      of chains in float32 (near-ties only), its statistics those of its own
-     path (1e-12 / 1e-5); ten launches bit-identical at phase 9's shape;
-     times beside bounds and the plain versions' (``kernels/hmm_timing.py``);
+     path (1e-12 / 1e-5); around the kernels' split of a chain's T steps
+     over L lanes (``hmm_kernel.lanes``: L = 32 at 1 and 33 chains, 8 at
+     4097), T just below, at and above a multiple of L and T < L; a
+     problem whose log alphas fall below -87 (float32's exp underflows
+     there); ten launches bit-identical at phase 9's shape and at few
+     chains on a long series (8 chains, T = 4,096, L = 32); times beside
+     bounds, the lanes' chains' floors and the plain versions'
+     (``kernels/hmm_timing.py``);
   9. BASELINE configs #4, #3 and #1 (``BASELINE.md:29-33``) on their
      committed data (``boom_tpu_torch/data``), each held to the reference's
      own run at its length (``tests/test_torch_{hmm,mixtures,
@@ -603,9 +609,15 @@ HMM_KERNELS = {"hmm_forward": ("hmm_forward_filter",
                                "boom_tpu/models/hmm.py:52"),
                "hmm_backward": ("hmm_backward_sample",
                                 "boom_tpu/models/hmm.py:72")}
-HMM_S_CHECK = (1, 2, 3, 4, 8, 16)
+HMM_S_CHECK = (1, 2, 3, 4, 7, 8, 16)
 HMM_T_CHECK = (1, 2, 33, 1200)
 HMM_CHAIN_CHECK = (1, 33, 4097)
+# T around the split of a chain's steps over its L lanes: L - 1 (T < L),
+# L, L + 1 and 2 L + 1 (just above a multiple), where not in HMM_T_CHECK
+HMM_EDGE_T = (-1, 0, 1, None)
+# the problems whose odd states' log alphas fall far below -87 (S, chains;
+# T = 1200): float32's exp underflows there, log space does not
+HMM_DEEP_CHECK = ((2, 33), (3, 4097))
 # H2's float32 paths: the share of chains that must agree, and the
 # largest logit margin (relative) at which two may choose differently
 HMM_AGREE, HMM_TIE = 0.995, 1e-5
@@ -2804,19 +2816,20 @@ def phase8_bsts_tv(card):
     return launches
 
 
-def _hmm_vs_plain(rng, dtype, c, t_len, s):
+def _hmm_vs_plain(rng, dtype, c, t_len, s, deep=False):
     """H1 (with and without its alphas) and H2 against their plain
-    versions on one problem: (H1's normwise relative error, the chains
-    whose H2 path differs, the largest margin at a chain's last differing
-    step, H2's statistics' worst relative error against those of its own
-    path)."""
+    versions on one problem (``hmm_timing.problem``, ``deep`` passed on):
+    (H1's normwise relative error, the chains whose H2 path differs, the
+    largest margin at a chain's last differing step, H2's statistics' worst
+    relative error against those of its own path, the smallest log alpha
+    of the plain filter)."""
     import torch
 
     from boom_tpu_torch.kernels.hmm_timing import problem
     from boom_tpu_torch.models import hmm
     from boom_tpu_torch.models import hmm_kernel as hk
 
-    p = problem(rng, c, t_len, s, dtype)
+    p = problem(rng, c, t_len, s, dtype, deep=deep)
     args = (p["log_lik"], p["log_trans"], p["log_init"])
     la, ll = hk.launch_forward(*args)
     want_la, want_ll = hmm.forward_filter(*args)
@@ -2845,15 +2858,38 @@ def _hmm_vs_plain(rng, dtype, c, t_len, s):
         a, b = logits[int(z[ci, t])], logits[int(want_z[ci, t])]
         margin = max(margin, float((a - b).abs()
                                    / max(1.0, float(b.abs()))))
-    return rel, int(differ.sum()), margin, stats
+    return rel, int(differ.sum()), margin, stats, float(want_la.min())
+
+
+def _hmm_cases():
+    """(dtype, S, T, chains, deep) of phase 2f: HMM_S_CHECK x HMM_T_CHECK x
+    HMM_CHAIN_CHECK, the T of HMM_EDGE_T around the lanes a chain that H1
+    and H2 take there, and HMM_DEEP_CHECK."""
+    import torch
+
+    from boom_tpu_torch.models import hmm_kernel as hk
+
+    out = []
+    for dtype in ("float64", "float32"):
+        for s in HMM_S_CHECK:
+            for c in HMM_CHAIN_CHECK:
+                t_lens = list(HMM_T_CHECK)
+                for name in HMM_KERNELS:
+                    lanes = hk.lanes(name, getattr(torch, dtype), s, c)
+                    for d in HMM_EDGE_T:
+                        t = 2 * lanes + 1 if d is None else lanes + d
+                        if t >= 1 and t not in t_lens:
+                            t_lens.append(t)
+                out += [(dtype, s, t, c, False) for t in sorted(t_lens)]
+        out += [(dtype, s, 1200, c, True) for s, c in HMM_DEEP_CHECK]
+    return out
 
 
 def phase2f_hmm_vs_plain():
-    """H1 and H2 against their plain versions (S in HMM_S_CHECK, T in
-    HMM_T_CHECK, chains in HMM_CHAIN_CHECK, float64 and float32), ten
-    launches bit-identical at phase 9's shape, and their times beside
-    bounds and the plain versions' (``kernels/hmm_timing.py``). Returns
-    the rows' numbers."""
+    """H1 and H2 against their plain versions (``_hmm_cases``), ten
+    launches bit-identical at phase 9's shape and at few chains, and their
+    times beside bounds, floors and the plain versions'
+    (``kernels/hmm_timing.py``). Returns the rows' numbers."""
     import torch
 
     from boom_tpu_torch.kernels import _build
@@ -2865,30 +2901,37 @@ def phase2f_hmm_vs_plain():
     chains = {"float64": 0, "float32": 0}
     differ = {"float64": 0, "float32": 0}
     margin = 0.0
-    for dtype in ("float64", "float32"):
-        for s in HMM_S_CHECK:
-            for t_len in HMM_T_CHECK:
-                for c in HMM_CHAIN_CHECK:
-                    rel, n_diff, m, stats = _hmm_vs_plain(
-                        rng, dtype, c, t_len, s)
-                    case = f"{dtype} S={s} T={t_len} C={c}"
-                    worst[dtype] = max(worst.get(dtype, 0.0), rel)
-                    worst[f"{dtype} stats"] = max(
-                        worst.get(f"{dtype} stats", 0.0), stats)
-                    chains[dtype] += c
-                    differ[dtype] += n_diff
-                    margin = max(margin, m)
-                    if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
-                        bad.append(f"H1 {case}: {rel:.3e}")
-                    if not stats <= HMM_STATS_TOL[dtype]:
-                        bad.append(f"H2's statistics {case}: {stats:.3e}")
-                    if dtype == "float64" and n_diff:
-                        bad.append(f"H2 {case}: {n_diff} paths differ")
+    cases = _hmm_cases()
+    for dtype, s, t_len, c, deep in cases:
+        rel, n_diff, m, stats, lowest = _hmm_vs_plain(rng, dtype, c, t_len,
+                                                      s, deep)
+        case = f"{dtype} S={s} T={t_len} C={c}" + (" deep" if deep else "")
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        worst[f"{dtype} stats"] = max(worst.get(f"{dtype} stats", 0.0),
+                                      stats)
+        chains[dtype] += c
+        differ[dtype] += n_diff
+        margin = max(margin, m)
+        if deep:
+            print(f"hmm {case}: the plain filter's lowest log alpha "
+                  f"{lowest:.1f}; H1 {rel:.3e}, H2 paths differing "
+                  f"{n_diff}")
+            if not lowest < -87.0:
+                bad.append(f"{case}: its log alphas stay above -87")
+        if not (np.isfinite(rel) and rel <= SCAN_TOL[dtype]):
+            bad.append(f"H1 {case}: {rel:.3e}")
+        if not stats <= HMM_STATS_TOL[dtype]:
+            bad.append(f"H2's statistics {case}: {stats:.3e}")
+        if dtype == "float64" and n_diff:
+            bad.append(f"H2 {case}: {n_diff} paths differ")
     for dtype in ("float64", "float32"):
         agree = 1.0 - differ[dtype] / chains[dtype]
         stats = worst[f"{dtype} stats"]
-        print(f"hmm {dtype} over S {HMM_S_CHECK}, T {HMM_T_CHECK}, chains "
-              f"{HMM_CHAIN_CHECK}: H1 worst {worst[dtype]:.3e} (tolerance "
+        t_seen = sorted({t for d, _s, t, _c, _d in cases if d == dtype})
+        print(f"hmm {dtype} over S {HMM_S_CHECK}, T {t_seen}, chains "
+              f"{HMM_CHAIN_CHECK} and {len(HMM_DEEP_CHECK)} deep problems"
+              f" ({sum(d == dtype for d, *_ in cases)} problems): H1 worst "
+              f"{worst[dtype]:.3e} (tolerance "
               f"{SCAN_TOL[dtype]:g}); H2 paths differ on {differ[dtype]} "
               f"of {chains[dtype]} chains (agreement {agree:.5f}); "
               f"statistics against their own path's {stats:.3e} "
@@ -2903,30 +2946,33 @@ def phase2f_hmm_vs_plain():
           + "; ".join(bad[:20]))
 
     at_hmm, same = {}, {}
-    tag, c, t_len, s = ht.SHAPES["phase9"]
-    for name, (kern, plain) in ht.cases(rng, tag, c, t_len, s).items():
-        first, want = kern(), plain()
-        if name == "hmm_forward":
-            got_t, want_t = first, want
-        else:
-            got_t, want_t = (first[0],), (want[0],)
-        at_hmm[name] = {"max_abs_err": max(
-            float((g.double() - w.double()).abs().max())
-            for g, w in zip(got_t, want_t))}
-        flat = [t for o in first for t in (o if isinstance(o, tuple)
-                                          else (o,))]
-        same[name] = True
-        for _ in range(9):
-            again = kern()
-            again = [t for o in again for t in (o if isinstance(o, tuple)
-                                               else (o,))]
-            same[name] &= all(torch.equal(a, b) for a, b in zip(flat, again))
-        print(f"{name} {tag} C={c} T={t_len} S={s} (phase 9's shape): max "
-              f"abs error against the plain version "
-              f"{at_hmm[name]['max_abs_err']:.3e}"
-              + (" (H2: of the paths)" if name == "hmm_backward" else ""))
+    for shape in ("phase9", "few_chains"):
+        tag, c, t_len, s = ht.SHAPES[shape]
+        for name, (kern, plain) in ht.cases(rng, tag, c, t_len, s).items():
+            first, want = kern(), plain()
+            if name == "hmm_forward":
+                got_t, want_t = first, want
+            else:
+                got_t, want_t = (first[0],), (want[0],)
+            err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got_t, want_t))
+            if shape == "phase9":
+                at_hmm[name] = {"max_abs_err": err}
+            flat = [t for o in first for t in (o if isinstance(o, tuple)
+                                              else (o,))]
+            same[f"{name} {shape}"] = True
+            for _ in range(9):
+                again = kern()
+                again = [t for o in again
+                         for t in (o if isinstance(o, tuple) else (o,))]
+                same[f"{name} {shape}"] &= all(
+                    torch.equal(a, b) for a, b in zip(flat, again))
+            print(f"{name} {tag} C={c} T={t_len} S={s} ({shape}): max abs "
+                  f"error against the plain version {err:.3e}"
+                  + (" (H2: of the paths)" if name == "hmm_backward"
+                     else ""))
     torch.cuda.synchronize()
-    print("ten repeated launches at phase 9's shape bit-identical: "
+    print("ten repeated launches bit-identical: "
           + ", ".join(f"{k} {v}" for k, v in same.items()))
     check(all(same.values()), f"repeated launches differ: {same}")
 
@@ -2934,12 +2980,10 @@ def phase2f_hmm_vs_plain():
         for name, r in per.items():
             plain = (f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None
                      else "not timed")
-            floor = (f"; the T-step chain's estimated floor "
-                     f"{r['chain_floor_ms']:.4f} ms"
-                     if "chain_floor_ms" in r else "")
             print(f"time {name} {shape} {r['shape']}: kernel {r['ms']:.4f} "
                   f"ms, plain {plain}, bound {r['bound_ms']:.5f} ms "
-                  f"({r['bound_by']}){floor}")
+                  f"({r['bound_by']}); L {r['lanes']}, a lane's chain's "
+                  f"estimated floor {r['floor_ms']:.4f} ms")
             if shape == "phase9":
                 at_hmm[name].update({k: r[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by")})

@@ -539,8 +539,8 @@ UNMET_DEADLINE_S = 2.0
 def test_host_barrier_never_met_makes_the_launch_raise(monkeypatch):
     """A barrier that thread 0 reaches and no other thread does (one more
     __syncthreads at the end of kernel (a), compiled for the host) ends
-    the host launch at the shim's deadline with cudaErrorLaunchTimeout,
-    and the wrapper raises: a barrier mismatch fails its test instead of
+    the host launch with cudaErrorLaunchTimeout, within the deadline, and
+    the wrapper raises: a barrier mismatch fails its test instead of
     hanging the suite."""
     import ctypes
     import shutil
