@@ -22,18 +22,18 @@
 //      D_t = T_c D_{t-1} + w_{c,g,t} for every chain c and variance group
 //      g, float32 or float64, d in 1..16: every d of the ASIS pass.
 //   K1w `loglik_thread_kernel<D, shared T>` (float32, 7 <= d <= 13) and
-//      `wide_loglik_kernel<T, T, D, 0>` (float32 at d 14-16, float64 at
+//      `wide_loglik_kernel<T, D>` (float32 at d 14-16, float64 at
 //      7-16: a static choice of the dispatch, kThreadLoglikMaxD): the
 //      marginal loglik (kalman.py `kalman_loglik` :229, its lax.scan at
 //      :282) of every (chain, TIM point) system, on one series or on a
 //      series a group of systems (bsts with a regression: each chain's
 //      y - X beta), and optionally the innovations v and f
 //      (`kalman_filter` :218, the one-step errors).
-//   J1 and J2 `wide_loglik_kernel<double, Tangent<double, order>, D,
-//      order>`: the same loglik with its first (J1) or first and second
-//      (J2) derivatives along K <= 16 directions of (h, R Q R'), forward
-//      mode, d in 1..16, for the TIM proposal's mode search in the
-//      variances (`jax.value_and_grad` in numopt.bfgs,
+//   J1 and J2 `jet_warp_kernel<D, order>`: the same loglik with its first
+//      (J1) or first and second (J2) derivatives along K <= 16 directions
+//      of (h, R Q R'), forward mode (a dual / hyper-dual Tangent a unit of
+//      (series, direction or pair)), d in 1..16, for the TIM proposal's
+//      mode search in the variances (`jax.value_and_grad` in numopt.bfgs,
 //      boom_tpu/numopt.py:43, and `jax.hessian` in newton_raphson, :101,
 //      and bsts.py:661).
 // The plain PyTorch versions are boom_tpu_torch/statespace/kalman.py
@@ -57,7 +57,11 @@
 // the group layout it was held by the shared-memory pipe instead (~54
 // loads, stores and shuffles a series-step, three __syncwarp()s a step:
 // 7.2 ms).
-// J1 and J2 run once a model on one series: latency alone.
+// J1 and J2 run once a model on one series (B = 1, K = 3: 3 or 6 units),
+// so the card's rates bound nothing (0.0002-0.0007 ms at d = 8): a unit's
+// 500 dependent steps do, and how many instructions a step issues on the
+// one warp that holds it (PERF.md; kernels/kalman_timing.py jet_floor_ms,
+// the chain by assumed latencies).
 //
 // Design:
 //   - d is a template parameter (K2w 7..16, K3 1..16); the C entries
@@ -123,15 +127,20 @@
 //     112-128 at d 7-8, no spill (16 blocks an SM); 186-255 at d
 //     9-13, where d = 12, 13 with T shared spill 4, 52 bytes (7 blocks an
 //     SM at d = 13: shared memory).
-//   - K1w past d = 13 and in float64, J1 and J2 are K2w's pass 1 without
-//     alpha+ and without the (v/f, K) stream, one template over the
-//     scalar S that carries the derivatives (T, or a dual / hyper-dual
-//     Tangent): a unit (a series; for the jets a (series, direction pair))
-//     takes a group of W lanes, its P lives in shared memory in S (K2w's
-//     layout is sized in doubles, so this one has its own), lane i holds
-//     row i of T; y is read one step ahead from the cache, its series b /
-//     per_series. The jets stage their K directions once a block; each
-//     unit recomputes the value chain, so units never exchange data.
+//   - K1w past d = 13 and in float64 is K2w's pass 1 without alpha+ and
+//     without the (v/f, K) stream (`wide_loglik_kernel`): a series takes a
+//     group of W lanes, its P lives in shared memory, lane i holds row i of
+//     T; y is read one step ahead from the cache, its series b /
+//     per_series.
+//   - J1 and J2: a unit is a (series, direction) (J1) or a (series,
+//     direction pair) (J2); each unit carries the value chain with its
+//     derivatives, so units never exchange data. A warp a unit
+//     (`jet_warp_kernel`, a block a unit, so the 3-6 units of a proposal
+//     build take an SM each): P in shared memory, the symmetric Riccati
+//     step, its products as jobs over the 32 lanes in three phases, three
+//     __syncwarp()s a step. y comes 32 steps ahead into registers, the
+//     log of f leaves the step (a log a lane a chunk), and 1 / f comes
+//     from the SFU and two Newton steps.
 //   - K2w's structured time-varying form (`smoother_wide_nz_kernel`): T's
 //     non-zeros are kernel parameters (NzT: a row's first one, then the
 //     rest in a list), so bsts' T (phase 8's: 19 non-zeros of 169 at
@@ -188,13 +197,20 @@ __host__ __device__ constexpr int group_lanes(int d) {
 
 // A scalar with its derivatives along two directions i and j: v, a = dv/di,
 // b = dv/dj, c = d2v/didj (kOrder = 2, a hyper-dual number); kOrder = 1
-// carries v and a alone (a dual number), b and c unused.
+// carries v and a alone (a dual number). 16-byte aligned, so that one
+// shared-memory load takes two of its parts.
 template <typename T, int kOrder>
-struct Tangent {
+struct alignas(16) Tangent {
   T v, a, b, c;
   __device__ Tangent() {}
   __device__ Tangent(T x)  // NOLINT: a constant promotes to a tangent
       : v(x), a(T(0)), b(T(0)), c(T(0)) {}
+};
+template <typename T>
+struct alignas(16) Tangent<T, 1> {
+  T v, a;
+  __device__ Tangent() {}
+  __device__ Tangent(T x) : v(x), a(T(0)) {}  // NOLINT: as above
 };
 
 // A system parameter as the filter reads it: value v and its derivatives
@@ -226,6 +242,19 @@ __device__ __forceinline__ Tangent<T, K> operator+(const Tangent<T, K>& x,
   if constexpr (K == 2) {
     r.b = x.b + s.sb;
     r.c = x.c;
+  }
+  return r;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ Tangent<T, K> operator-(const Tangent<T, K>& x,
+                                                   const Tangent<T, K>& y) {
+  Tangent<T, K> r;
+  r.v = x.v - y.v;
+  r.a = x.a - y.a;
+  if constexpr (K == 2) {
+    r.b = x.b - y.b;
+    r.c = x.c - y.c;
   }
   return r;
 }
@@ -281,12 +310,28 @@ __device__ __forceinline__ Tangent<T, K> operator*(const Tangent<T, K>& x,
 __device__ __forceinline__ float reciprocal(float x) { return __frcp_rn(x); }
 __device__ __forceinline__ double reciprocal(double x) { return __drcp_rn(x); }
 
-// q = 1 / f with one correctly rounded reciprocal of f.v:
+// 1 / x to about an ulp: the SFU's approximation and two Newton steps,
+// without __drcp_rn's fix-up for the correct rounding, which lengthened
+// the jets' steps at small d (PERF.md). The host rehearsal takes 1 / x.
+__device__ __forceinline__ double fast_reciprocal(double x) {
+#ifdef __CUDA_ARCH__
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  double e = fma(-x, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-x, r, 1.0);
+  return fma(r, e, r);
+#else
+  return 1.0 / x;
+#endif
+}
+
+// q = 1 / f from fast_reciprocal(f.v):
 // q' = -f' / f^2, q''_ij = (2 f'_i f'_j / f - f''_ij) / f^2
 template <typename T, int K>
 __device__ __forceinline__ Tangent<T, K> reciprocal(const Tangent<T, K>& f) {
   Tangent<T, K> q;
-  q.v = reciprocal(f.v);
+  q.v = fast_reciprocal(f.v);
   const T fa = f.a * q.v;
   q.a = -fa * q.v;
   if constexpr (K == 2) {
@@ -308,40 +353,12 @@ __device__ __forceinline__ double log_density(double v, double f,
   return -0.5 * ((kLog2Pi + log(f)) + v * v * rf);
 }
 
-// The same for a tangent: log f has l' = f' / f, l''_ij = f''_ij / f -
-// l'_i l'_j.
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> log_density(
-    const Tangent<T, K>& v, const Tangent<T, K>& f,
-    const Tangent<T, K>& rf) {
-  Tangent<T, K> lf;
-  lf.v = log(f.v);
-  lf.a = f.a * rf.v;
-  if constexpr (K == 2) {
-    lf.b = f.b * rf.v;
-    lf.c = f.c * rf.v - lf.a * lf.b;
-  }
-  return T(-0.5) * ((Tangent<T, K>(T(kLog2Pi)) + lf) + v * v * rf);
-}
-
-// The value of lane `src` of the warp (each part of a tangent).
+// The value of lane `src` of the warp.
 __device__ __forceinline__ float shfl(float v, int src) {
   return __shfl_sync(kFull, v, src);
 }
 __device__ __forceinline__ double shfl(double v, int src) {
   return __shfl_sync(kFull, v, src);
-}
-template <typename T, int K>
-__device__ __forceinline__ Tangent<T, K> shfl(const Tangent<T, K>& x,
-                                              int src) {
-  Tangent<T, K> r;
-  r.v = shfl(x.v, src);
-  r.a = shfl(x.a, src);
-  if constexpr (K == 2) {
-    r.b = shfl(x.b, src);
-    r.c = shfl(x.c, src);
-  }
-  return r;
 }
 
 // Sum over a group of W lanes by a fixed butterfly (xor offsets < W); every
@@ -1478,20 +1495,13 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// ---- K1w, J1, J2 --------------------------------------------------------
+// ---- K1w's group kernel ---------------------------------------------------
 
-// The most directions J1 and J2 take: they are staged in the block's shared
-// memory, K (1 + D^2) doubles (33 KB at K = 16, D = 16, beside the units'
-// hyper-dual P buffers).
-constexpr int kMaxDirections = 16;
-
-// The loglik's layout: a group of W lanes a unit (K1w: a series; J1, J2: a
-// (series, entry) pair), kPerWarp units a warp, kUnits a block. A unit's
-// shared memory, 16-byte aligned: P in two buffers X and Y (D x kLd of S,
-// the scalar that carries the derivatives: T in K1w, a Tangent in J1 and
-// J2), the exchange vectors P z and a (D of S each) and z (D of T). J1 and
-// J2 stage the directions ahead of the units: dh [K], then dm [K, D, D].
-template <typename T, typename S, int D, bool kTv = false>
+// The loglik's layout: a group of W lanes a series, kPerWarp series a warp,
+// kUnits a block. A series' shared memory, 16-byte aligned: P in two
+// buffers X and Y (D x kLd), the exchange vectors P z and a (D each) and z
+// (D).
+template <typename T, int D, bool kTv = false>
 struct WideLoglik {
   static constexpr int kW = group_lanes(D);
   static constexpr int kPerWarp = kWarp / kW;
@@ -1499,103 +1509,63 @@ struct WideLoglik {
   static constexpr int kLd = D + 1;
   // a time-varying system's u_t (D of T) follows z
   static constexpr int kUnitBytes =
-      (2 * D * kLd * static_cast<int>(sizeof(S)) +
-       2 * D * static_cast<int>(sizeof(S)) +
+      (2 * D * kLd * static_cast<int>(sizeof(T)) +
+       2 * D * static_cast<int>(sizeof(T)) +
        (kTv ? 2 : 1) * D * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
-  // K1w keeps the column of R Q R' in registers while it costs at most 16
-  // of them (float32 at every d, float64 to d = 8) and reads it from the
-  // cache past that
-  static constexpr bool kQInRegisters =
-      sizeof(S) == sizeof(T) && D * sizeof(T) <= 64;
-  __host__ __device__ static constexpr int dir_bytes(int n_dirs) {
-    return sizeof(S) == sizeof(T)
-               ? 0
-               : (n_dirs * (1 + D * D) * static_cast<int>(sizeof(T)) + 15) /
-                     16 * 16;
-  }
-  static constexpr int kMaxBytes =
-      dir_bytes(kMaxDirections) + kUnits * kUnitBytes;
+  // the column of R Q R' stays in registers while it costs at most 16 of
+  // them (float32 at every d, float64 to d = 8) and is read from the cache
+  // past that
+  static constexpr bool kQInRegisters = D * sizeof(T) <= 64;
+  static constexpr int kMaxBytes = kUnits * kUnitBytes;
   static_assert(kMaxBytes <= kSmemPerSm - kSmemPerBlock, "the loglik's layout");
 };
 
-// K1w (kOrder = 0, S = T): the loglik of each system b over series
-// b / per_series of y [n_series, T], and with vout the innovations v and f
-// [B, T]. J1 (kOrder = 1) and J2 (kOrder = 2, S = Tangent<double, kOrder>):
-// the loglik with its gradient grad [B, K] and Hessian hess [B, K, K] along
-// K directions of the system: h = h0 + sum_k c_k dh_k, R Q R' = Q0 +
-// sum_k c_k dm_k at c = 0 (h and rqr hold h0 and Q0). Unit (b, e): in J1,
-// entry e is direction e, a dual number; in J2 the e-th pair (i, j), i <= j,
-// of the upper triangle in row-major order, a hyper-dual number, and pair
-// (i, i) also gives grad_i. Lane i < D of a unit's group holds row i of T
-// and a, the unit's P is in shared memory; a filter step is K2w's pass 1
-// without alpha+: lane i forms row i of P z and of T P (into Y), publishes
-// P z and a; then K_i = (T P z)_i / f, its own row of L = T - K z' and
-// column i of P' = (T P) L' + R Q R' over X; then row i of 0.5 (P' + P'^T),
-// the diagonal exact, into Y; three __syncwarp()s a step. z'a and z'P z are
-// group butterflies (the same bits on every lane of the group, so the units
-// never diverge and repeated launches are bit-identical). A unit past the
-// last shadows it and writes nothing; lanes i >= D shadow row 0. kTv (K1w
-// of a time-varying system, kOrder 0): z_t of zt [T, D] (one for every
-// system) in place of z, h_t = h hs[t], and R Q_t R' = (u_t u_t') o R Q R'
-// with u_t of ut_s [., T, D] at ut_s + b u_stride (R a 0/1 selection); lane i
-// publishes u_t[i] with P z and a, and z_{t+1}[i] once P' is whole, each
-// read from the cache a step ahead.
-template <typename T, typename S, int D, int kOrder, bool kTv = false>
+// K1w: the loglik of each system b over series b / per_series of y
+// [n_series, T], and with vout the innovations v and f [B, T]. Lane i < D
+// of a system's group holds row i of T and a, the system's P is in shared
+// memory; a filter step is K2w's pass 1 without alpha+: lane i forms row i
+// of P z and of T P (into Y), publishes P z and a; then K_i = (T P z)_i /
+// f, its own row of L = T - K z' and column i of P' = (T P) L' + R Q R'
+// over X; then row i of 0.5 (P' + P'^T), the diagonal exact, into Y; three
+// __syncwarp()s a step. z'a and z'P z are group butterflies (the same bits
+// on every lane of the group, so the groups never diverge and repeated
+// launches are bit-identical). A group past the last shadows it and writes
+// nothing; lanes i >= D shadow row 0. kTv (of a time-varying system): z_t
+// of zt [T, D] (one for every system) in place of z, h_t = h hs[t], and
+// R Q_t R' = (u_t u_t') o R Q R' with u_t of ut_s [., T, D] at ut_s + b
+// u_stride (R a 0/1 selection); lane i publishes u_t[i] with P z and a,
+// and z_{t+1}[i] once P' is whole, each read from the cache a step ahead.
+template <typename T, int D, bool kTv = false>
 __global__ void __launch_bounds__(kBlock)
     wide_loglik_kernel(const T* __restrict__ z, const T* __restrict__ tm,
                        const T* __restrict__ rqr, const T* __restrict__ h,
                        const T* __restrict__ a0, const T* __restrict__ p0,
                        const T* __restrict__ y,
                        const unsigned char* __restrict__ obs,
-                       const T* __restrict__ dh, const T* __restrict__ dm,
-                       T* __restrict__ ll, T* __restrict__ grad,
-                       T* __restrict__ hess, T* __restrict__ vout,
+                       T* __restrict__ ll, T* __restrict__ vout,
                        T* __restrict__ fout, int batch, int t_len,
-                       int per_series, int n_dirs, int tm_stride,
-                       int z_stride, const T* __restrict__ zt,
-                       const T* __restrict__ hs, const T* __restrict__ ut_s,
-                       long long u_stride) {
-  static_assert(!kTv || kOrder == 0, "a time-varying system's loglik only");
-  using L = WideLoglik<T, S, D, kTv>;
+                       int per_series, int tm_stride, int z_stride,
+                       const T* __restrict__ zt, const T* __restrict__ hs,
+                       const T* __restrict__ ut_s, long long u_stride) {
+  using L = WideLoglik<T, D, kTv>;
   constexpr int W = L::kW, kLd = L::kLd;
   BOOM_SHARED_BYTES(smem_raw);
   const int lane = threadIdx.x % kWarp;
   const int il = lane % W;
   const bool act = il < D;
   const int i = act ? il : 0;
-  const int entries = kOrder == 0   ? 1
-                      : kOrder == 1 ? n_dirs
-                                    : n_dirs * (n_dirs + 1) / 2;
-  const long long n_units = static_cast<long long>(batch) * entries;
   const int ub = threadIdx.x / kWarp * L::kPerWarp + lane / W;
   const long long u_at =
       static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp * L::kPerWarp) +
       ub;
-  const bool live = u_at < n_units;
-  const long long u = live ? u_at : n_units - 1;
-  const int b = static_cast<int>(u / entries);
-  const int e = static_cast<int>(u - static_cast<long long>(b) * entries);
-  int di = e, dj = e;  // the unit's directions
-  if constexpr (kOrder == 2) {
-    di = 0;
-    int left = e;
-    while (left >= n_dirs - di) left -= n_dirs - di++;
-    dj = di + left;
-  }
-  T* dirs = reinterpret_cast<T*>(smem_raw);
-  if constexpr (kOrder > 0) {
-    const int n = n_dirs * (1 + D * D);
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-      dirs[k] = k < n_dirs ? dh[k] : dm[k - n_dirs];
-    __syncthreads();
-  }
-  unsigned char* unit =
-      smem_raw + L::dir_bytes(n_dirs) + ub * L::kUnitBytes;
-  S* px = reinterpret_cast<S*>(unit);  // P
-  S* py = px + D * kLd;                // T P, then the next P
-  S* xpz = py + D * kLd;               // P z
-  S* xa = xpz + D;                     // a
-  T* zv = reinterpret_cast<T*>(xa + D);
+  const bool live = u_at < batch;
+  const int b = static_cast<int>(live ? u_at : batch - 1);
+  unsigned char* unit = smem_raw + ub * L::kUnitBytes;
+  T* px = reinterpret_cast<T*>(unit);  // P
+  T* py = px + D * kLd;                // T P, then the next P
+  T* xpz = py + D * kLd;               // P z
+  T* xa = xpz + D;                     // a
+  T* zv = xa + D;
   T* xu = zv + D;                      // u_t (kTv)
 
   const long long bd = static_cast<long long>(b) * D;
@@ -1611,35 +1581,23 @@ __global__ void __launch_bounds__(kBlock)
   }
   for (int k = il; k < D * D; k += W) {
     const int r = k / D;
-    px[r * kLd + (k - r * D)] = S(p0[bd * D + k]);
+    px[r * kLd + (k - r * D)] = p0[bd * D + k];
   }
   const T* u_b = ut_s + static_cast<long long>(b) * u_stride;
   T zi = act ? (kTv ? zt[i] : z[static_cast<long long>(b) * z_stride + i])
              : T(0);
   if (act) zv[i] = zi;
-  S a_i = S(a0[bd + i]);
-  // h and the column of R Q R' with their derivatives along (di, dj)
-  auto h_of = [&]() {
-    if constexpr (kOrder == 0)
-      return h[b];
-    else
-      return Seed<T>{h[b], dirs[di], dirs[dj]};
-  };
+  T a_i = a0[bd + i];
+  // the column of R Q R'
   auto q_of = [&](int jj) {
-    if constexpr (kOrder == 0) {
-      if constexpr (L::kQInRegisters)
-        return qv[jj];
-      else
-        return q_b[jj * D + i];
-    } else {
-      const T* m = dirs + n_dirs;
-      return Seed<T>{q_b[jj * D + i], m[(di * D + jj) * D + i],
-                     m[(dj * D + jj) * D + i]};
-    }
+    if constexpr (L::kQInRegisters)
+      return qv[jj];
+    else
+      return q_b[jj * D + i];
   };
-  const auto hh = h_of();
-  const S zero(T(0));
-  S acc = zero;
+  const T hh = h[b];
+  const T zero(0);
+  T acc = zero;
   T y_n = y_b[0];
   bool o_n = obs == nullptr || obs[0] != 0;
   T u_n = kTv ? u_b[i] : T(0), s_n = kTv ? hs[0] : T(1);
@@ -1658,21 +1616,21 @@ __global__ void __launch_bounds__(kBlock)
         if (act) z_n = zt[(t + 1) * D + i];
       }
     }
-    S pz = px[i * kLd] * zv[0];  // P z, row i
+    T pz = px[i * kLd] * zv[0];  // P z, row i
 #pragma unroll
     for (int j = 1; j < D; ++j) pz = pz + px[i * kLd + j] * zv[j];
-    const S za = group_sum<W>(zi * a_i, lane);
-    S f;
+    const T za = group_sum<W>(zi * a_i, lane);
+    T f;
     if constexpr (kTv)
       f = group_sum<W>(zi * pz, lane) + hh * st;
     else
       f = group_sum<W>(zi * pz, lane) + hh;
-    const S v = ob ? yt - za : zero;
-    const S rf = reciprocal(f);
+    const T v = ob ? yt - za : zero;
+    const T rf = reciprocal(f);
     // (T P) row i into Y
-#pragma unroll(sizeof(S) == sizeof(T) ? D : 1)
+#pragma unroll
     for (int jj = 0; jj < D; ++jj) {
-      S tp = trow[0] * px[jj];
+      T tp = trow[0] * px[jj];
 #pragma unroll
       for (int m = 1; m < D; ++m) tp = tp + trow[m] * px[m * kLd + jj];
       if (act) py[i * kLd + jj] = tp;
@@ -1683,17 +1641,17 @@ __global__ void __launch_bounds__(kBlock)
       if constexpr (kTv) xu[i] = ut;
     }
     __syncwarp();  // P z, a and T P are whole; P is read
-    S tpz = trow[0] * xpz[0], ta = trow[0] * xa[0];
+    T tpz = trow[0] * xpz[0], ta = trow[0] * xa[0];
 #pragma unroll
     for (int m = 1; m < D; ++m) {
       tpz = tpz + trow[m] * xpz[m];
       ta = ta + trow[m] * xa[m];
     }
-    const S k = ob ? tpz * rf : zero;
+    const T k = ob ? tpz * rf : zero;
     // column i of P' = (T P) L' + R Q R', L row i = T row i - K_i z'
-#pragma unroll(sizeof(S) == sizeof(T) ? D : 1)
+#pragma unroll
     for (int jj = 0; jj < D; ++jj) {
-      S pn = (trow[0] - k * zv[0]) * py[jj * kLd];
+      T pn = (trow[0] - k * zv[0]) * py[jj * kLd];
 #pragma unroll
       for (int m = 1; m < D; ++m)
         pn = pn + (trow[m] - k * zv[m]) * py[jj * kLd + m];
@@ -1704,11 +1662,9 @@ __global__ void __launch_bounds__(kBlock)
       if (act) px[jj * kLd + i] = pn;
     }
     a_i = ta + k * v;
-    if constexpr (kOrder == 0) {
-      if (vout != nullptr && live && il == 0) {
-        vout[static_cast<long long>(b) * t_len + t] = v;
-        fout[static_cast<long long>(b) * t_len + t] = f;
-      }
+    if (vout != nullptr && live && il == 0) {
+      vout[static_cast<long long>(b) * t_len + t] = v;
+      fout[static_cast<long long>(b) * t_len + t] = f;
     }
     if (ob) acc = acc + log_density(v, f, rf);
     __syncwarp();  // P' is whole in X
@@ -1724,22 +1680,11 @@ __global__ void __launch_bounds__(kBlock)
                     : T(0.5) * (px[i * kLd + jj] + px[jj * kLd + i]);
     }
     __syncwarp();  // P is whole in Y
-    S* swap = px;
+    T* swap = px;
     px = py;
     py = swap;
   }
-  if (!live || il != 0) return;
-  if constexpr (kOrder == 0) {
-    ll[b] = acc;
-  } else {
-    const long long bk = static_cast<long long>(b) * n_dirs;
-    if (e == 0) ll[b] = acc.v;
-    if (di == dj) grad[bk + di] = acc.a;
-    if constexpr (kOrder == 2) {
-      hess[(bk + di) * n_dirs + dj] = acc.c;
-      hess[(bk + dj) * n_dirs + di] = acc.c;
-    }
-  }
+  if (live && il == 0) ll[b] = acc;
 }
 
 // ---- K1w: a thread a system ----------------------------------------------
@@ -1755,7 +1700,7 @@ __host__ __device__ __forceinline__ constexpr int upper(int i, int j) {
 }
 
 // float32 K1w takes the thread kernel to this d; past it, and in float64,
-// the group kernel (wide_loglik_kernel<T, T, D, 0>)
+// the group kernel (wide_loglik_kernel<T, D>)
 constexpr int kThreadLoglikMaxD = 13;
 
 // The thread kernel's T where every system has the same one (kSharedT): in
@@ -1818,7 +1763,7 @@ __device__ __forceinline__ void t_row(float (&r)[D], const float* tsm, int i,
 
 // K1w (float32, 7 <= d <= kThreadLoglikMaxD): the loglik of each system b
 // over series b / per_series of y [n_series, T], and with vout the
-// innovations v and f [B, T], as wide_loglik_kernel<T, T, D, 0> computes
+// innovations v and f [B, T], as wide_loglik_kernel<T, D> computes
 // them. A thread a system, a block a warp: P is the upper triangle in the
 // thread's registers, and a step is the symmetric Riccati step as the
 // measurement update, then the time update:
@@ -1998,6 +1943,314 @@ __global__ void __launch_bounds__(kWarp, thread_loglik_min_blocks(D))
     __syncwarp();  // buffer buf, v and f are read before they are refilled
   }
   if (live) ll[b] = acc;
+}
+
+// ---- J1, J2: the loglik's derivatives along directions -------------------
+
+// The most directions J1 and J2 take.
+constexpr int kMaxDirections = 16;
+
+// Unit e's directions (di, dj): in J1 (kOrder 1) entry e is direction e; in
+// J2 the e-th pair i <= j of the upper triangle, row by row.
+template <int kOrder>
+__device__ __forceinline__ void unit_directions(int e, int n_dirs, int& di,
+                                                int& dj) {
+  di = e;
+  dj = e;
+  if constexpr (kOrder == 2) {
+    di = 0;
+    int left = e;
+    while (left >= n_dirs - di) left -= n_dirs - di++;
+    dj = di + left;
+  }
+}
+
+// (i, j), i <= j, of entry k of a D x D upper triangle, row by row.
+template <int D>
+__device__ __forceinline__ void upper_entry(int k, int& i, int& j) {
+  i = 0;
+  while (k >= D - i) k -= D - i++;
+  j = i + k;
+}
+
+// Entry (i, j) of 0.5 (m + m') for a row-major D x D matrix m.
+template <int D>
+__device__ __forceinline__ double sym_entry(const double* m, int i, int j) {
+  return 0.5 * (m[i * D + j] + m[j * D + i]);
+}
+
+// Entry (i, j) of the unit's R Q R', symmetrised, with its derivatives along
+// its directions di and dj (dm [K, D, D]).
+template <int D>
+__device__ __forceinline__ Seed<double> q_seed(const double* q_b,
+                                               const double* dm, int di,
+                                               int dj, int i, int j) {
+  return {sym_entry<D>(q_b, i, j), sym_entry<D>(dm + di * D * D, i, j),
+          sym_entry<D>(dm + dj * D * D, i, j)};
+}
+
+// The unit's loglik and its derivatives into ll [B], grad [B, K] and (J2)
+// hess [B, K, K]: entry 0 writes the value, a unit along (i, i) grad_i.
+template <int kOrder>
+__device__ __forceinline__ void write_jet(const Tangent<double, kOrder>& acc,
+                                          int b, int e, int di, int dj,
+                                          int n_dirs, double* ll,
+                                          double* grad, double* hess) {
+  const long long bk = static_cast<long long>(b) * n_dirs;
+  if (e == 0) ll[b] = acc.v;
+  if (di == dj) grad[bk + di] = acc.a;
+  if constexpr (kOrder == 2) {
+    hess[(bk + di) * n_dirs + dj] = acc.c;
+    hess[(bk + dj) * n_dirs + di] = acc.c;
+  }
+}
+
+// sum_m x(m) c(m) over m < D, left to right (kParts 1) or in two partial
+// sums, the even and the odd terms, added at the end (kParts 2: a chain of
+// ceil(D / 2) + 1 additions for one more instruction).
+template <int D, int kParts, typename S, class X, class C>
+__device__ __forceinline__ S dot_parts(X x, C c) {
+  S even = x(0) * c(0);
+  if constexpr (D == 1) {
+    return even;
+  } else if constexpr (kParts == 1) {
+#pragma unroll
+    for (int m = 1; m < D; ++m) even = even + x(m) * c(m);
+    return even;
+  } else {
+    S odd = x(1) * c(1);
+#pragma unroll
+    for (int m = 2; m < D; m += 2) {
+      even = even + x(m) * c(m);
+      if (m + 1 < D) odd = odd + x(m + 1) * c(m + 1);
+    }
+    return even + odd;
+  }
+}
+
+// One step's log density as log_density(v, f, rf) gives it, but for its
+// log f value term: -0.5 (log 2 pi + v v / f) with the derivatives of
+// -0.5 log f. The jets add -0.5 sum_t log f_t a chunk of steps at a time,
+// whose logs (a chain of ~30 dependent operations each) then run side by
+// side instead of one a step.
+template <int K>
+__device__ __forceinline__ Tangent<double, K> log_density_but_log(
+    const Tangent<double, K>& v, const Tangent<double, K>& f,
+    const Tangent<double, K>& rf) {
+  Tangent<double, K> lf;
+  lf.v = kLog2Pi;
+  lf.a = f.a * rf.v;
+  if constexpr (K == 2) {
+    lf.b = f.b * rf.v;
+    lf.c = f.c * rf.v - lf.a * lf.b;
+  }
+  return -0.5 * (lf + v * v * rf);
+}
+
+// The warp form's layout (one unit a block of one warp). Shared memory, D
+// + 1 rows of kLd = D + 1 entries each: X (tangents) holds P in its first
+// D rows and columns, a as row D, and T P z in column D (rows < D); Y
+// (tangents) receives the products of phase 1, [P; a] [T' z] (W = P T' in
+// its first D rows and columns, P z in column D, T a in row D, z'a at (D,
+// D)); B (doubles) holds T in its first D rows and z as row D; z'P z goes
+// to X at (D, D). A step's
+// products are jobs, each a sum over m < D of a tangent row or column
+// times a row of B, spread over the lanes in rounds (job lane + 32 r):
+// phase 1 every (i, j) <= (D, D) of Y, X row i by B row j (kJobs1); phase
+// 2 T W on P's upper triangle, W column j by B row i (the lane keeps its
+// own for phase 3, where it forms the same entries of P'), then T P z,
+// Y column D by B row j, and z'P z, Y column D by B row D (kJobs2).
+template <int D, int kOrder>
+struct JetWarp {
+  using S = Tangent<double, kOrder>;
+  static constexpr int kLd = D + 1;
+  static constexpr int kU = D * (D + 1) / 2;
+  static constexpr int kJobs1 = (D + 1) * (D + 1);
+  static constexpr int kJobs2 = kU + D + 1;
+  static constexpr int kRounds1 = (kJobs1 + kWarp - 1) / kWarp;
+  static constexpr int kRounds2 = (kJobs2 + kWarp - 1) / kWarp;
+  static constexpr int kOwnP = (kU + kWarp - 1) / kWarp;
+  static constexpr int kY = (D + 1) * kLd;  // Y after X, in tangents
+  static constexpr int kBytes =
+      2 * kY * static_cast<int>(sizeof(S)) +
+      (D + 1) * kLd * static_cast<int>(sizeof(double));
+  static_assert(kBytes <= 48 * 1024, "the jets' warp layout");
+};
+
+// J1 (kOrder 1, S a dual number) and J2 (kOrder 2, a hyper-dual number) a
+// warp a unit, a block one unit: the loglik of system b over series b /
+// per_series of y [n_series, T] with its derivatives along the unit's
+// directions (h = h0 + sum_k c_k dh_k, R Q R' = Q0 + sum_k c_k dm_k at c =
+// 0; h and rqr hold h0 and Q0). Unit (b, e): in J1 entry e is direction e;
+// in J2 the e-th pair (i, j), i <= j, and pair (i, i) also gives grad_i.
+// Each unit carries the value chain itself, so units never exchange data.
+// P is in shared memory and a step's products are spread over the lanes
+// (JetWarp). A step, three __syncwarp()s:
+//   1. the jobs of W = P T', P z, T a and z'a;
+//   2. the jobs of T W (P's upper triangle), T P z and z'P z;
+//   3. every lane forms f = z'P z + h and 1 / f (the same bits on every
+//      lane) and v; P'_ij = (T W)_ij - (T P z)_i (T P z)_j / f + (R Q
+//      R')_ij into both halves of P, a'_i = (T a)_i + (T P z)_i v / f;
+// the symmetric step T (P - P z z'P / f) T' + R Q R' (unobserved: T P T' +
+// R Q R', a' = T a), the plain version's function, (T P) L' + R Q R'
+// symmetrised, with L = T - K z', K = T P z / f.
+// Each sum over m (dot_parts) reads at offsets fixed at compile time from
+// the job's row or column. y and the mask come a chunk
+// of 32 steps at a time, a step a lane (the next chunk's loads in flight),
+// and a step takes its own by a shuffle; lane s keeps step s's f and the
+// chunk's 32 logs run one a lane at its end, summed by a fixed butterfly
+// (the same bits on every lane).
+template <int D, int kOrder>
+__global__ void __launch_bounds__(kWarp)
+    jet_warp_kernel(const double* __restrict__ z,
+                    const double* __restrict__ tm,
+                    const double* __restrict__ rqr,
+                    const double* __restrict__ h,
+                    const double* __restrict__ a0,
+                    const double* __restrict__ p0,
+                    const double* __restrict__ y,
+                    const unsigned char* __restrict__ obs,
+                    const double* __restrict__ dh,
+                    const double* __restrict__ dm, double* __restrict__ ll,
+                    double* __restrict__ grad, double* __restrict__ hess,
+                    int t_len, int per_series, int n_dirs) {
+  using L = JetWarp<D, kOrder>;
+  using S = typename L::S;
+  constexpr int kLd = L::kLd;
+  // J1's sums run left to right, J2's in two partial sums: the faster of
+  // the two for each at d = 4-13 (PERF.md; issue, not the chain, holds
+  // them)
+  constexpr int kParts = kOrder == 1 ? 1 : 2;
+  auto sum = [](auto x, auto c) { return dot_parts<D, kParts, S>(x, c); };
+  BOOM_SHARED_BYTES(smem_raw);
+  S* xs = reinterpret_cast<S*>(smem_raw);  // P, a, T P z
+  S* ys = xs + L::kY;                      // W, P z, T a, z'a
+  double* bs = reinterpret_cast<double*>(ys + L::kY);  // T, z
+  const int lane = threadIdx.x;
+  const int entries = kOrder == 1 ? n_dirs : n_dirs * (n_dirs + 1) / 2;
+  const int b = blockIdx.x / entries;
+  const int e = blockIdx.x - b * entries;
+  int di, dj;
+  unit_directions<kOrder>(e, n_dirs, di, dj);
+  const long long bd = static_cast<long long>(b) * D;
+  const double* tm_b = tm + bd * D;
+  const double* p0_b = p0 + bd * D;
+  for (int k = lane; k < D * D; k += kWarp) {
+    const int i = k / D, j = k - i * D;
+    bs[i * kLd + j] = tm_b[k];
+    xs[i * kLd + j] = S(sym_entry<D>(p0_b, i, j));
+  }
+  if (lane < D) {
+    bs[D * kLd + lane] = z[bd + lane];
+    xs[D * kLd + lane] = S(a0[bd + lane]);
+  }
+  // the lane's jobs: phase 1 (X row, B row), phase 2 (Y column, B row);
+  // a lane past the last job of a round does job 0 and writes nothing
+  int x1[L::kRounds1], b1[L::kRounds1], y2[L::kRounds2], b2[L::kRounds2];
+#pragma unroll
+  for (int r = 0; r < L::kRounds1; ++r) {
+    const int k = lane + r * kWarp < L::kJobs1 ? lane + r * kWarp : 0;
+    x1[r] = k / kLd;
+    b1[r] = k - x1[r] * kLd;
+  }
+  int pi[L::kOwnP], pj[L::kOwnP];
+#pragma unroll
+  for (int r = 0; r < L::kRounds2; ++r) {
+    const int k = lane + r * kWarp < L::kJobs2 ? lane + r * kWarp : 0;
+    int i, j;
+    if (k < L::kU) {  // (T W)_ij = W column j . T row i
+      upper_entry<D>(k, i, j);
+    } else {  // (T P z)_i = (P z) . T row i; i = D: z'P z
+      i = k - L::kU;
+      j = D;
+    }
+    y2[r] = j;
+    b2[r] = i;
+    if (r < L::kOwnP) {
+      pi[r] = i;
+      pj[r] = j;
+    }
+  }
+  Seed<double> qv[L::kOwnP];
+#pragma unroll
+  for (int r = 0; r < L::kOwnP; ++r)
+    qv[r] = q_seed<D>(rqr + bd * D, dm, di, dj, pi[r] < D ? pi[r] : 0,
+                      pj[r] < D ? pj[r] : 0);
+  const Seed<double> hh{h[b], dh[di], dh[dj]};
+  const double* y_b = y + static_cast<long long>(b / per_series) * t_len;
+  const S zero(0.0);
+  S acc = zero;
+  double log_f = 0.0;  // sum of log f over the observed steps
+  double y_next = lane < t_len ? y_b[lane] : 0.0;
+  int o_next = lane < t_len && (obs == nullptr || obs[lane] != 0);
+  __syncwarp();  // P, a, T and z are whole
+  for (int t0 = 0; t0 < t_len; t0 += kWarp) {
+    const double y_mine = y_next;
+    const int o_mine = o_next;
+    const int tn = t0 + kWarp + lane;
+    if (tn < t_len) {
+      y_next = y_b[tn];
+      o_next = obs == nullptr || obs[tn] != 0;
+    }
+    const int n = t_len - t0 < kWarp ? t_len - t0 : kWarp;
+    double f_mine = 1.0;  // step lane's f (1: no step, or unobserved)
+    for (int s = 0; s < n; ++s) {
+      const double yt = shfl(y_mine, s);
+      const bool ob = __shfl_sync(kFull, o_mine, s) != 0;
+      // 1. Y = [P; a] [T' z]
+#pragma unroll
+      for (int r = 0; r < L::kRounds1; ++r) {
+        const S* xr = xs + x1[r] * kLd;
+        const double* br = bs + b1[r] * kLd;
+        const S x = sum([&](int m) { return xr[m]; },
+                        [&](int m) { return br[m]; });
+        if (lane + r * kWarp < L::kJobs1) ys[x1[r] * kLd + b1[r]] = x;
+      }
+      __syncwarp();  // Y is whole; P and a are read
+      // 2. T W (kept), T P z and z'P z (into X's column D)
+      S tw[L::kRounds2];
+#pragma unroll
+      for (int r = 0; r < L::kRounds2; ++r) {
+        const S* yc = ys + y2[r];
+        const double* br = bs + b2[r] * kLd;
+        tw[r] = sum([&](int m) { return yc[m * kLd]; },
+                    [&](int m) { return br[m]; });
+        if (y2[r] == D && lane + r * kWarp < L::kJobs2)
+          xs[b2[r] * kLd + D] = tw[r];
+      }
+      __syncwarp();  // T P z and z'P z are whole; W and P z are read
+      // 3. f, 1 / f, v; P' and a'
+      const S f = xs[D * kLd + D] + hh;
+      const S v = ob ? yt - ys[D * kLd + D] : zero;
+      const S rf = reciprocal(f);
+      const S rk = ob ? rf : zero;  // no gain where y_t is missing
+#pragma unroll
+      for (int r = 0; r < L::kOwnP; ++r) {
+        const S pn = (tw[r] - (xs[pi[r] * kLd + D] * xs[pj[r] * kLd + D]) * rk)
+                     + qv[r];
+        if (lane + r * kWarp < L::kU) {
+          xs[pi[r] * kLd + pj[r]] = pn;
+          xs[pj[r] * kLd + pi[r]] = pn;
+        }
+      }
+      if (lane < D)
+        xs[D * kLd + lane] =
+            ys[D * kLd + lane] + xs[lane * kLd + D] * (v * rf);
+      if (ob) {
+        acc = acc + log_density_but_log(v, f, rf);
+        if (lane == s) f_mine = f.v;
+      }
+      __syncwarp();  // P' and a' are whole; T a and T P z are read
+    }
+    // the chunk's logs, a step a lane, summed by a fixed butterfly
+    double lg = log(f_mine);
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      lg = lg + shfl(lg, lane ^ off);
+    log_f = log_f + lg;
+  }
+  acc.v = acc.v - 0.5 * log_f;
+  if (lane == 0) write_jet<kOrder>(acc, b, e, di, dj, n_dirs, ll, grad, hess);
 }
 
 // ---- launches ------------------------------------------------------------
@@ -2240,41 +2493,34 @@ int dispatch_dpath(const void* tm, const void* w, void* out, int batch,
   }
 }
 
-// K1w (kOrder 0; kTv: of a time-varying system) or J1 / J2 over `batch`
-// systems: one launch.
-template <typename T, typename S, int D, int kOrder, bool kTv = false>
+// K1w's group kernel (kTv: of a time-varying system) over `batch` systems:
+// one launch.
+template <typename T, int D, bool kTv = false>
 int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
                        const void* h, const void* a0, const void* p0,
-                       const void* y, const void* obs, const void* dh,
-                       const void* dm, void* ll, void* grad, void* hess,
-                       void* vout, void* fout, int batch, int t_len,
-                       int n_series, int n_dirs, int tm_stride, int z_stride,
-                       int threads, void* stream, const void* zt = nullptr,
-                       const void* hs = nullptr, const void* u = nullptr,
-                       long long u_stride = 0) {
-  using L = WideLoglik<T, S, D, kTv>;
-  auto kernel = wide_loglik_kernel<T, S, D, kOrder, kTv>;
+                       const void* y, const void* obs, void* ll, void* vout,
+                       void* fout, int batch, int t_len, int n_series,
+                       int tm_stride, int z_stride, int threads, void* stream,
+                       const void* zt = nullptr, const void* hs = nullptr,
+                       const void* u = nullptr, long long u_stride = 0) {
+  using L = WideLoglik<T, D, kTv>;
+  auto kernel = wide_loglik_kernel<T, D, kTv>;
   static const cudaError_t attr = allow_shared(kernel, L::kMaxBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long entries = kOrder == 0   ? 1
-                            : kOrder == 1 ? n_dirs
-                                          : n_dirs * (n_dirs + 1) / 2;
   const int per_block = threads / kWarp * L::kPerWarp;
   const long long blocks =
-      (static_cast<long long>(batch) * entries + per_block - 1) / per_block;
+      (static_cast<long long>(batch) + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(blocks);
-  const int bytes = L::dir_bytes(n_dirs) + per_block * L::kUnitBytes;
+  const int bytes = per_block * L::kUnitBytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   kernel<<<grid, threads, bytes, st>>>(
       static_cast<const T*>(z), static_cast<const T*>(tm),
       static_cast<const T*>(rqr), static_cast<const T*>(h),
       static_cast<const T*>(a0), static_cast<const T*>(p0),
       static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
-      static_cast<const T*>(dh), static_cast<const T*>(dm),
-      static_cast<T*>(ll), static_cast<T*>(grad), static_cast<T*>(hess),
-      static_cast<T*>(vout), static_cast<T*>(fout), batch, t_len,
-      batch / n_series, n_dirs, tm_stride, z_stride,
+      static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
+      batch, t_len, batch / n_series, tm_stride, z_stride,
       static_cast<const T*>(zt), static_cast<const T*>(hs),
       static_cast<const T*>(u), u_stride);
   return static_cast<int>(cudaGetLastError());
@@ -2331,10 +2577,9 @@ int launch_loglik_wide(const void* z, const void* tm, const void* rqr,
                                                 ll, vout, fout, batch, t_len,
                                                 n_series, z_stride, stream);
   } else {
-    return launch_wide_loglik<T, T, D, 0>(
-        z, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr,
-        nullptr, vout, fout, batch, t_len, n_series, 0, tm_stride, z_stride,
-        threads, stream);
+    return launch_wide_loglik<T, D>(z, tm, rqr, h, a0, p0, y, obs, ll, vout,
+                                    fout, batch, t_len, n_series, tm_stride,
+                                    z_stride, threads, stream);
   }
 }
 
@@ -2373,7 +2618,7 @@ int dispatch_loglik_wide(const void* z, const void* tm, const void* rqr,
 }
 
 // K1w of a time-varying system: every one goes to the group kernel
-// (wide_loglik_kernel<T, T, D, 0, true>), the thread kernel keeps static
+// (wide_loglik_kernel<T, D, true>), the thread kernel keeps static
 // systems.
 template <typename T>
 int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
@@ -2391,11 +2636,10 @@ int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
   switch (d) {
 #define BOOM_LOGLIK_WIDE_TV_CASE(D)                                         \
   case D:                                                                   \
-    return launch_wide_loglik<T, T, D, 0, true>(                            \
-        nullptr, tm, rqr, h, a0, p0, y, obs, nullptr, nullptr, ll, nullptr, \
-        nullptr, vout, fout, batch, t_len, n_series, 0,                     \
-        shared & kSharedTm ? 0 : D * D, 0, threads, stream, zt, hs, u,      \
-        u_stride);
+    return launch_wide_loglik<T, D, true>(                                  \
+        nullptr, tm, rqr, h, a0, p0, y, obs, ll, vout, fout, batch, t_len,  \
+        n_series, shared & kSharedTm ? 0 : D * D, 0, threads, stream, zt,   \
+        hs, u, u_stride);
     BOOM_LOGLIK_WIDE_TV_CASE(7) BOOM_LOGLIK_WIDE_TV_CASE(8)
     BOOM_LOGLIK_WIDE_TV_CASE(9) BOOM_LOGLIK_WIDE_TV_CASE(10)
     BOOM_LOGLIK_WIDE_TV_CASE(11) BOOM_LOGLIK_WIDE_TV_CASE(12)
@@ -2407,20 +2651,44 @@ int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
   }
 }
 
+// J1 or J2 over `batch` systems: one launch, a block (one warp) a unit.
+template <int D, int kOrder>
+int launch_jet(const void* z, const void* tm, const void* rqr, const void* h,
+               const void* a0, const void* p0, const void* y, const void* obs,
+               const void* dh, const void* dm, void* ll, void* grad,
+               void* hess, int batch, int t_len, int n_series, int n_dirs,
+               void* stream) {
+  const long long units =
+      static_cast<long long>(batch) *
+      (kOrder == 1 ? n_dirs : n_dirs * (n_dirs + 1) / 2);
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = jet_warp_kernel<D, kOrder>;
+  const int grid = static_cast<int>(units);
+  const int bytes = JetWarp<D, kOrder>::kBytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, kWarp, bytes, st>>>(
+      static_cast<const double*>(z), static_cast<const double*>(tm),
+      static_cast<const double*>(rqr), static_cast<const double*>(h),
+      static_cast<const double*>(a0), static_cast<const double*>(p0),
+      static_cast<const double*>(y), static_cast<const unsigned char*>(obs),
+      static_cast<const double*>(dh), static_cast<const double*>(dm),
+      static_cast<double*>(ll), static_cast<double*>(grad),
+      static_cast<double*>(hess), t_len, batch / n_series, n_dirs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kOrder>
 int dispatch_jet(const void* z, const void* tm, const void* rqr,
                  const void* h, const void* a0, const void* p0,
                  const void* y, const void* obs, const void* dh,
                  const void* dm, void* ll, void* grad, void* hess, int batch,
-                 int t_len, int n_series, int d, int n_dirs, int threads,
-                 void* stream) {
-  using S = Tangent<double, kOrder>;
+                 int t_len, int n_series, int d, int n_dirs, void* stream) {
   switch (d) {
 #define BOOM_JET_CASE(D)                                                    \
   case D:                                                                   \
-    return launch_wide_loglik<double, S, D, kOrder>(                        \
-        z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, grad, hess, nullptr,     \
-        nullptr, batch, t_len, n_series, n_dirs, D * D, D, threads, stream);
+    return launch_jet<D, kOrder>(z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll, \
+                                 grad, hess, batch, t_len, n_series, n_dirs,\
+                                 stream);
     BOOM_JET_CASE(1) BOOM_JET_CASE(2) BOOM_JET_CASE(3) BOOM_JET_CASE(4)
     BOOM_JET_CASE(5) BOOM_JET_CASE(6) BOOM_JET_CASE(7) BOOM_JET_CASE(8)
     BOOM_JET_CASE(9) BOOM_JET_CASE(10) BOOM_JET_CASE(11) BOOM_JET_CASE(12)
@@ -2445,8 +2713,8 @@ int dispatch_jet(const void* z, const void* tm, const void* rqr,
 // its `shared` bits: kSharedTm, tm is one [d, d] matrix of every system;
 // kSharedZ, z is one [d] vector; the jets' directions dh [K] and dm [K, d,
 // d] (1 <= K <= kMaxDirections), grad [B, K], hess [B, K, K] (order 2).
-// threads: a multiple of 32 up to 128 (K1w's thread kernel takes blocks of
-// one warp whatever it is). stream: a cudaStream_t. Returns the
+// threads: a multiple of 32 up to 128 (K1w's thread kernel and the jets
+// take blocks of one warp whatever it is). stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int boom_kalman_smoother_wide_f64(
     const void* z, const void* tm, const void* rqr, const void* h,
@@ -2616,8 +2884,8 @@ extern "C" int boom_kalman_jet_f64(
   return order == 1
              ? dispatch_jet<1>(z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll,
                                grad, hess, batch, t_len, n_series, d, n_dirs,
-                               threads, stream)
+                               stream)
              : dispatch_jet<2>(z, tm, rqr, h, a0, p0, y, obs, dh, dm, ll,
                                grad, hess, batch, t_len, n_series, d, n_dirs,
-                               threads, stream);
+                               stream);
 }

@@ -593,16 +593,26 @@ def directions(rng, k, d):
             torch.tensor(a @ a.transpose(0, 2, 1)))
 
 
-# J1 and J2: (d, K, systems, series, masked) at d 1-16, K 1 to the most
+# J1 and J2: (d, K, systems, series, masked[, T]) at d 1-16, K 1 to the
+# most, T 25 where not given. Then d = 2 and 3 (one and two rounds of
+# phase 2's jobs) at K 3 and 16; the paths' shapes (d 2 and 8, K 3, one
+# series, T 500); T about the kernel's chunks of 32 steps of y (31, 32,
+# 33, 65); K 1 and 16 over several systems on one series and on a series
+# a system, masked
 JET_CASES = [(1, 1, 2, 1, False), (1, 16, 1, 1, True), (2, 4, 5, 5, True),
              (3, 7, 3, 1, False), (6, 3, 4, 2, True), (8, 3, 2, 2, False),
-             (8, 16, 1, 1, False), (13, 2, 3, 3, True), (16, 4, 1, 1, True)]
+             (8, 16, 1, 1, False), (13, 2, 3, 3, True), (16, 4, 1, 1, True),
+             (2, 3, 3, 1, True, 40), (3, 3, 3, 1, True, 40),
+             (2, 16, 2, 2, True, 40), (3, 16, 2, 2, True, 40),
+             (2, 3, 1, 1, False, 500), (8, 3, 1, 1, False, 500),
+             (4, 1, 5, 1, True, 31), (5, 1, 3, 3, True, 32),
+             (8, 16, 2, 1, True, 33), (16, 16, 2, 2, True, 65)]
 
 
 def check_jets(seed=0, cases=JET_CASES, t_len=25):
     """J1 and J2 along K directions against ``kalman.loglik_jets`` (autograd
-    of the plain loop): {case: worst normwise relative error of ll, grad and
-    hess}."""
+    of the plain loop): {case: (worst normwise relative error of ll, grad
+    and hess; a second launch bit-identical)}."""
     import torch
 
     from boom_tpu_torch.kernels.kalman_timing import system
@@ -611,19 +621,22 @@ def check_jets(seed=0, cases=JET_CASES, t_len=25):
 
     rng = np.random.default_rng(seed)
     out = {}
-    for d, k, b, s, masked in cases:
+    for d, k, b, s, masked, *rest in cases:
+        t = rest[0] if rest else t_len
         params = system(rng, b, d, "float64", device="cpu")
         dh, dm = directions(rng, k, d)
-        y = _series_of(rng, (s, t_len), "float64")
-        obs = torch.tensor(rng.uniform(size=t_len) > 0.3) if masked else None
+        y = _series_of(rng, (s, t), "float64")
+        obs = torch.tensor(rng.uniform(size=t) > 0.3) if masked else None
         fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
                   params.a0, params.p0, y, obs, dh, dm)
         for order in (1, 2):
             got = kk.launch_jets(*fields, order=order)
+            again = kk.launch_jets(*fields, order=order)
             want = kalman.loglik_jets(*fields, order)
             out[f"{kk.JET_KINDS[order]} d={d} K={k} B={b} S={s} "
-                f"masked={masked}"] = max(_rel(a, w)
-                                          for a, w in zip(got, want))
+                f"masked={masked} T={t}"] = (
+                max(_rel(a, w) for a, w in zip(got, want)),
+                all(torch.equal(a, c) for a, c in zip(got, again)))
     return out
 
 
@@ -920,9 +933,11 @@ def main():
               f"differing {paths:.3f}, statistics {stats:.3e}")
     for k, v in check_kernels().items():
         print(f"host-compiled {k}: worst relative error {v:.3e}")
-    for check in (check_loglik, check_jets):
-        for k, v in check().items():
-            print(f"host-compiled {k}: relative error {v:.3e}")
+    for k, v in check_loglik().items():
+        print(f"host-compiled {k}: relative error {v:.3e}")
+    for k, (v, same) in check_jets().items():
+        print(f"host-compiled {k}: relative error {v:.3e}, a second launch "
+              f"bit-identical {same}")
     for k, v in check_wide().items():
         print(f"host-compiled {k}: relative error {v:.3e}")
     for k, v in check_time_varying().items():

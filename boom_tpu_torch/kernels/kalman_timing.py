@@ -20,11 +20,13 @@ instantiation, and the instructions of K1's step loops (``cuobjdump
 -sass``). ``--compare DIR`` runs this script on the package of the
 checkout DIR (another commit of this repository, unpacked with ``git
 archive``; its kernels build under DIR) and on this tree's in turns (DIR,
-this, this, DIR), each in its own process on the same card, so that both
-trees take the same inputs at the same shapes (``--tree DIR`` is one such
-run), prints the times side by side and the time of ``nvcc`` on each
-tree's ``kalman_wide.cu`` alone, and with ``--json PATH`` writes every
-number of the four runs to PATH.
+this, this, DIR; ``--rounds N``: N times over), each in its own process
+on the same card, so that both trees take the same inputs at the same
+shapes (``--tree DIR`` is one such run; ``--only NAMES`` times those
+shapes alone), prints the times side by side, whether K1w's group
+kernels compiled to the same instructions in both trees, and the time of
+``nvcc`` on each tree's ``kalman_wide.cu`` alone, and with ``--json
+PATH`` writes every number of the runs to PATH.
 ``chip_smoke.py`` takes its shapes, inputs and bounds from here. Needs a
 CUDA card.
 """
@@ -243,6 +245,37 @@ def dual_step_flops(d, k):
     cost = {"add": 1 + k, "scale": 1 + k, "mul": 1 + 3 * k,
             "div": 1 + 3 * k, "log": 1 + k}
     return sum(cost[op] * n for op, n in _jet_step_ops(d).items())
+
+
+# a unit's dependent chain by assumed latencies (cycles) of an H100 SM: a
+# float64 add, multiply or fma; a shared-memory load; a __syncwarp() with the
+# stores before it; the correctly rounded float64 reciprocal (__drcp_rn:
+# MUFU.RCP64H, two Newton steps and their fix-up)
+JET_LATENCY = {"fp64": 8, "lds": 30, "sync": 20, "rcp": 60}
+# the levels that a product of two tangents adds to a chain: a dual
+# number's derivative x.a y.v + x.v y.a (a multiply, then an fma), a
+# hyper-dual's second derivative (four terms)
+TANGENT_LEVELS = {1: 2, 2: 4}
+# an H100 SXM's boost clock
+CLOCK_HZ = 1.98e9
+
+
+def jet_floor_ms(d, k, order, t_len=LLT_T):
+    """The latency floor of J1 (``order`` 1) or J2 (2) at state dimension d
+    along k directions over T steps: a unit's dependent chain a step by
+    JET_LATENCY, times T. The units (k or k (k + 1) / 2 a series) run side
+    by side, so k does not lengthen it. A step's chain runs its sums as two
+    partial sums (ceil(d / 2) + 1 levels each: P z, then z'P z after a
+    barrier and a shared-memory load), the reciprocal (and its derivative
+    part: one tangent product), and P' = T W - (T P z)(T P z)' / f + R Q
+    R', two tangent products, a subtraction and an addition, all behind
+    three barriers and two loads of the step's vectors."""
+    lat, tl = JET_LATENCY, TANGENT_LEVELS[order]
+    dot = -(-d // 2) + 1
+    levels = dot + (dot + 1) + tl + 2 * tl + 2
+    cycles = (lat["fp64"] * levels + lat["rcp"] + 2 * lat["lds"]
+              + 3 * lat["sync"])
+    return 1e3 * t_len * cycles / CLOCK_HZ
 
 
 def tv_step_flops(d):
@@ -619,7 +652,7 @@ def time_tv(rng, plain=True, shapes=None):
     pass_ms: K2w's passes."""
     out = {}
     for name, (dtype, batch, d, t_len, series, t_kind) in (
-            shapes or TV_SHAPES).items():
+            TV_SHAPES if shapes is None else shapes).items():
         kern, ref, wrapper = tv_cases(rng, name, dtype, batch, d, t_len,
                                       series, t_kind=t_kind)
         row = {"shape": [dtype, batch, d, t_len, series, t_kind],
@@ -677,6 +710,9 @@ def time_kalman(rng, plain=True, shapes=None):
                "plain_ms": plain_ms}
         row["bound_ms"], row["bound_by"] = bound_ms(
             _bound_name(name), dtype, batch, d, t_len, series)
+        if _bound_name(name) in ("loglik_grad", "loglik_hess"):
+            order = 2 if name.startswith("loglik_hess") else 1
+            row["floor_ms"] = jet_floor_ms(d, TIM_GROUPS, order, t_len)
         if name in BLOCK_SIZES:
             chosen = kk.LOGLIK_THREADS
             row["block_ms"] = {}
@@ -718,16 +754,50 @@ def _instantiation(mangled):
 
 
 _WIDE_NAME = re.compile(r"(smoother_wide_kernel|smoother_wide_nz_kernel|"
-                        r"dpath_kernel|wide_loglik_kernel)I(?:([fd]))?"
-                        r"(?:[fd]|N\w*?TangentI[fd]Li\dEEE)?"
-                        r"Li(\d+)ELi(\d+)E(?:Lb([01])E)?")
+                        r"dpath_kernel)I(?:([fd]))?Li(\d+)ELi(\d+)E"
+                        r"(?:Lb([01])E)?")
+# K1w's group kernel <T, D, tv>; before it lost the jets' paths <T, S, D,
+# order, tv>, S a Tangent in J1 and J2
+_GROUP_NAME = re.compile(r"wide_loglik_kernelI([fd])(?:[fd]|N\w*?TangentI[fd]"
+                         r"Li\dEEE)?Li(\d+)E(?:Li(\d)E)?(?:Lb([01])E)?")
 _THREAD_NAME = re.compile(r"loglik_thread_kernelILi(\d+)ELb([01])E")
-_JET_NAMES = {"0": "loglik_wide", "1": "loglik_grad", "2": "loglik_hess"}
+_JET_NAME = re.compile(r"jet_warp_kernelILi(\d+)ELi([12])E")
+_JET_NAMES = {"1": "loglik_grad", "2": "loglik_hess"}
+
+
+def _wide_key(name):
+    """The report's key of a mangled kalman_wide.cu kernel name, or None."""
+    t = _THREAD_NAME.search(name)
+    if t:
+        d, shared = t.groups()
+        return (f"loglik_wide f32 d{int(d):02d} thread "
+                f"{'shared-T' if shared == '1' else 'own-T'}")
+    g = _GROUP_NAME.search(name)
+    if g:  # K1w's group kernel (and, in trees before the jets' own, J1, J2)
+        ty, d, order, tv = g.groups()
+        if order not in (None, "0"):
+            return f"{_JET_NAMES[order]} f64 d{int(d):02d}"
+        return (f"loglik_wide {'f32' if ty == 'f' else 'f64'} d{int(d):02d}"
+                + (" tv" if tv == "1" else ""))
+    j = _JET_NAME.search(name)
+    if j:
+        d, order = j.groups()
+        return f"{_JET_NAMES[order]} f64 d{int(d):02d}"
+    m = _WIDE_NAME.search(name)
+    if not m:
+        return None
+    kernel, ty, d, extra, tv = m.groups()
+    if kernel == "smoother_wide_nz_kernel":
+        return f"smoother_wide f64 d{int(d):02d} pass{extra} tv nz"
+    if kernel == "smoother_wide_kernel":
+        return (f"smoother_wide f64 d{int(d):02d} pass{extra}"
+                + (" tv" if tv == "1" else ""))
+    return f"dpath {'f32' if ty == 'f' else 'f64'} d{int(d):02d} chunk{extra}"
 
 
 def wide_nvcc_report(log_text):
     """{"smoother_wide f64 d<D> pass<P>" | "dpath <type> d<D> chunk<B>" |
-    "loglik_wide <type> d<D>" | "loglik_wide <type> d<D> thread
+    "loglik_wide <type> d<D>" | "loglik_wide f32 d<D> thread
     shared-T|own-T" | "loglik_grad f64 d<D>" | "loglik_hess f64 d<D>":
     {"registers", "spill_bytes", "stack_bytes"}} for every instantiation
     of K2w (each of its three passes), K3 (each chunk length, bytes a
@@ -737,29 +807,10 @@ def wide_nvcc_report(log_text):
     (over T's non-zeros) in " tv nz"."""
     report = {}
     for name, (nregs, stack, spill) in ptxas_entries(log_text).items():
-        m = _WIDE_NAME.search(name)
-        t = _THREAD_NAME.search(name)
-        if t:
-            d, shared = t.groups()
-            key = (f"loglik_wide f32 d{int(d):02d} thread "
-                   f"{'shared-T' if shared == '1' else 'own-T'}")
+        key = _wide_key(name)
+        if key is not None:
             report[key] = {"registers": nregs, "spill_bytes": spill,
                            "stack_bytes": stack}
-        if not m:
-            continue
-        kernel, ty, d, extra, tv = m.groups()
-        tag = "f32" if ty == "f" else "f64"
-        if kernel == "smoother_wide_nz_kernel":
-            key = f"smoother_wide f64 d{int(d):02d} pass{extra} tv nz"
-        elif kernel == "smoother_wide_kernel":
-            key = f"smoother_wide f64 d{int(d):02d} pass{extra}"
-        elif kernel == "wide_loglik_kernel":
-            key = f"{_JET_NAMES[extra]} {tag} d{int(d):02d}"
-        else:
-            key = f"dpath {tag} d{int(d):02d} chunk{extra}"
-        key += " tv" if tv == "1" else ""
-        report[key] = {"registers": nregs, "spill_bytes": spill,
-                       "stack_bytes": stack}
     return dict(sorted(report.items()))
 
 
@@ -810,28 +861,115 @@ def sass_step_ops(sass_text):
     return dict(sorted(report.items()))
 
 
-def run():
-    """Build this tree's kernels and time them; returns a JSON-able dict."""
+_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_SASS_PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+
+
+def sass_digests(sass_text, prefix="loglik_wide"):
+    """{key: {"instructions": n, "sha1": digest}} for the kernels of a
+    ``cuobjdump -sass`` listing of kalman_wide.cu whose report key
+    (:func:`wide_nvcc_report`'s) starts with ``prefix``: each instruction
+    as listed (opcode, registers, predicates, branch targets), with every
+    constant-bank offset of bank 0 (where the kernel's parameters sit)
+    read as one, so two builds whose kernels differ only in their list of
+    parameters give the same digest."""
+    import hashlib
+
+    funcs, key = {}, None
+    for line in sass_text.splitlines():
+        if "Function :" in line:
+            key = _wide_key(line.split("Function :", 1)[1].strip())
+            key = key if key and key.startswith(prefix) else None
+            if key is not None:
+                funcs[key] = []
+            continue
+        m = _SASS_INSTRUCTION.search(line)
+        if key is not None and m:
+            funcs[key].append(_SASS_PARAM.sub("c[0x0][P]", m.group(1)))
+    return {k: {"instructions": len(v), "sha1": hashlib.sha1(
+        "\n".join(v).encode()).hexdigest()} for k, v in sorted(funcs.items())}
+
+
+def proposal_walls(reps=3):
+    """{"phase4" | "phase7": {"s": [wall seconds of each build], "launches":
+    {J1, J2: count of one build}}}: the TIM proposal built on the card as
+    chip_smoke.py's phases 4 (bsts_llt on the bench's series) and 7
+    (bsts_reg with the move, on its committed data) build it, ``reps``
+    times each, on the host clock around the model's construction."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace.bsts import Bsts
+    from boom_tpu_torch.statespace.state_models import (
+        LocalLinearTrend,
+        Seasonal,
+    )
+
+    y_llt = torch.tensor(data.bsts_llt_series(), device="cuda")
+    x_all, y_np = data.bsts_reg_xy()
+    x = torch.tensor(x_all[:REG_T], device="cuda")
+    y = torch.tensor(y_np, device="cuda")
+    builds = {
+        "phase4": lambda: Bsts(y=y_llt,
+                               blocks=[LocalLinearTrend.default(y_llt)],
+                               marginal_sigma_slice=True,
+                               marginal_move="tim"),
+        "phase7": lambda: Bsts(
+            y=y, blocks=[LocalLinearTrend.default(y),
+                         Seasonal.default(y, nseasons=7)],
+            predictors=x, reg_prior=SpikeSlabPrior.from_data(
+                x, y, expected_model_size=1.0, prior_information_weight=1.0),
+            chains_hint=REG_CHAINS, marginal_sigma_slice=True,
+            marginal_move="tim")}
+    out = {}
+    for name, build in builds.items():
+        walls = []
+        for _ in range(reps):
+            before = dict(kk.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"s": walls, "launches": {
+            k: kk.LAUNCHES[k] - before[k] for k in kk.JET_KINDS.values()}}
+    return out
+
+
+def run(only=None):
+    """Build this tree's kernels and time them (``only``: the shapes of
+    these names, and "proposal" for :func:`proposal_walls`); returns a
+    JSON-able dict."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kalman_timing: needs a CUDA card")
     from boom_tpu_torch.kernels import _build
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    def pick(shapes):
+        return {k: v for k, v in shapes.items()
+                if only is None or k in only}
 
     t0 = time.perf_counter()
     _build.build()
     rng = np.random.default_rng(20261016)
-    kernels = {**time_kalman(rng),
-               **time_kalman(rng, plain=False, shapes=K1W_SHAPES),
-               **time_wide(rng)}
-    from boom_tpu_torch.statespace import kalman_kernel as kk
-
+    kernels = {**time_kalman(rng, shapes=pick(
+                   {**{k: (*v, 1) for k, v in SHAPES.items()},
+                    **TIM_REG_SHAPES})),
+               **time_kalman(rng, plain=False, shapes=pick(K1W_SHAPES))}
+    if only is None:
+        kernels.update(time_wide(rng))
     if hasattr(kk, "launch_loglik_tv"):  # a tree with the time-varying forms
-        kernels.update(time_tv(rng, plain=False))
+        kernels.update(time_tv(rng, plain=False, shapes=pick(TV_SHAPES)))
         kernels.update(time_kalman(rng, plain=False,
-                                   shapes=K2_TV_YARDSTICK))
+                                   shapes=pick(K2_TV_YARDSTICK)))
     out = {"card": card_line(), "build_s": time.perf_counter() - t0,
            "kernels": kernels}
+    if only is not None and "proposal" in only:
+        out["proposal"] = proposal_walls()
     log = _build.log_path("kalman_seq")
     out["nvcc"] = nvcc_report(log.read_text()) if log.exists() else {}
     log = _build.log_path("kalman_wide")
@@ -844,6 +982,10 @@ def run():
                                str(_build.library_path("kalman_seq"))],
                               capture_output=True, text=True, timeout=300)
         out["sass"] = sass_step_ops(sass.stdout)
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path("kalman_wide"))],
+                              capture_output=True, text=True, timeout=300)
+        out["sass_digest"] = sass_digests(sass.stdout)
     return out
 
 
@@ -863,17 +1005,21 @@ def nvcc_seconds(tree, name="kalman_wide"):
         return time.perf_counter() - t0
 
 
-def compare(parent, here, json_path=None):
-    """Runs parent, here, here, parent: this script in a fresh process on
-    each tree's package (its kernels, built under it, its wrappers and its
-    plain versions; these shapes, inputs and bounds), and prints the
-    kernels' times side by side, then times ``nvcc`` on each tree's
+def compare(parent, here, json_path=None, only=None, rounds=1):
+    """Runs parent, here, here, parent (``rounds`` times): this script in a
+    fresh process on each tree's package (its kernels, built under it, its
+    wrappers and its plain versions; these shapes, inputs and bounds;
+    ``only``: as :func:`run` takes it), and prints the kernels' times side
+    by side (and the proposal builds' walls), whether K1w's group kernels
+    compiled to the same instructions in both trees
+    (:func:`sass_digests`), then times ``nvcc`` on each tree's
     ``kalman_wide.cu`` alone."""
     runs = []
+    extra = [] if only is None else ["--only", ",".join(only)]
     for label, tree in (("parent", parent), ("change", here),
-                        ("change", here), ("parent", parent)):
+                        ("change", here), ("parent", parent)) * rounds:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--tree", str(tree)],
+                               "--tree", str(tree), *extra],
                               capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             raise SystemExit(f"kalman_timing in {tree} failed:\n"
@@ -889,15 +1035,28 @@ def compare(parent, here, json_path=None):
                               if name in r["kernels"] else "-"
                               for _, r in runs)
         cur = runs[1][1]["kernels"].get(name) or runs[0][1]["kernels"][name]
-        print(f"{name} {cur['shape']}: kernel (P C C P) {seq('ms')} ms, "
+        floor = (f", floor {cur['floor_ms']:.4f} ms"
+                 if "floor_ms" in cur else "")
+        print(f"{name} {cur['shape']}: kernel (P C C P x {rounds}) "
+              f"{seq('ms')} ms, "
               f"host-clock call {seq('call_ms')} ms, bound "
-              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']})")
+              f"{cur['bound_ms']:.5f} ms ({cur['bound_by']}){floor}")
         for lab, r in (runs[0], runs[1]):
             row = r["kernels"].get(name, {})
             extra = {k: row[k] for k in ("block_ms", "scaling_ms",
                                          "pass_ms", "plain_ms", "wrapper_ms")
                      if row.get(k) is not None}
             print(f"  {lab}: {json.dumps(extra)}")
+    for build in runs[0][1].get("proposal", {}):
+        print(f"proposal {build}: " + " / ".join(
+            f"{lab} {', '.join(f'{w:.3f}' for w in r['proposal'][build]['s'])}"
+            f" s ({r['proposal'][build]['launches']})" for lab, r in runs))
+    digests = [r.get("sass_digest", {}) for _, r in runs[:2]]
+    for inst in sorted(set(digests[0]) | set(digests[1])):
+        p, c = (dg.get(inst) for dg in digests)
+        same = "the same" if p == c else "differ"
+        print(f"sass {inst}: parent {p and p['instructions']}, change "
+              f"{c and c['instructions']} instructions, {same}")
     print("build_s: " + ", ".join(f"{lab} {r['build_s']:.1f}"
                                   for lab, r in runs))
     alone = {lab: nvcc_seconds(tree) for lab, tree in (("parent", parent),
@@ -927,12 +1086,19 @@ def main():
                     help="with --compare: file for every number of the runs")
     ap.add_argument("--tree", type=Path,
                     help="time the package of this checkout instead")
+    ap.add_argument("--only",
+                    help="comma-separated shape names to time (and "
+                         "'proposal': the TIM proposal builds' walls)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --compare: parent, this, this, parent so "
+                         "many times")
     args = ap.parse_args()
+    only = None if args.only is None else args.only.split(",")
     if args.compare:
         here = Path(__file__).resolve().parents[2]
-        compare(args.compare.resolve(), here, args.json)
+        compare(args.compare.resolve(), here, args.json, only, args.rounds)
     else:
-        print(json.dumps(run()))
+        print(json.dumps(run(only)))
 
 
 if __name__ == "__main__":

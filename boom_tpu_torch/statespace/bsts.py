@@ -742,16 +742,13 @@ class Bsts:
 
         return lp_batch
 
-    def _build_tim_proposal(self):
-        """(mode [G], chol [G, G]) of the multivariate-T proposal tailored
-        to p(log variances | y): BFGS then Newton to the mode, the Laplace
-        Hessian eigen-clamped and inflated (reference
-        ``_build_tim_proposal``, bsts.py:616-672). Built in float64 on the
-        series' device whatever the run's dtype: the proposal only shapes
-        the move's efficiency, the acceptance is exact (ROADMAP.md, sec. 3).
-        With a regression it is tailored at y - X beta_OLS, as the
-        reference's (:635-641). On the card its gradients and Hessians come
-        through J1 and J2 (``kalman_kernel.loglik_along``)."""
+    def _tim_objective(self):
+        """(neg, u0): the TIM proposal's objective, minus the marginal log
+        posterior of the log variances u [G] (the prior's hard upper limit
+        smoothed out of the search, as the reference does), and its
+        starting point, the priors' guesses. In float64 on the series'
+        device; with a regression at y - X beta_OLS (reference
+        bsts.py:635-641)."""
         groups = self._sigma_groups()
         x = (None if self.predictors is None
              else self.predictors.to(torch.float64))
@@ -780,16 +777,33 @@ class Bsts:
         u0 = torch.log(torch.tensor([prior.sigma_guess ** 2
                                      for _path, prior in groups],
                                     dtype=dt, device=dev))
+        return neg, u0
+
+    def _build_tim_proposal(self):
+        """(mode [G], chol [G, G]) of the multivariate-T proposal tailored
+        to p(log variances | y): BFGS then Newton to the mode of
+        :meth:`_tim_objective`, the Laplace Hessian eigen-clamped and
+        inflated (reference ``_build_tim_proposal``, bsts.py:616-672).
+        Built in float64 whatever the run's dtype: the proposal only shapes
+        the move's efficiency, the acceptance is exact (ROADMAP.md, sec. 3).
+        On the card its gradients and Hessians come through J1 and J2
+        (``kalman_kernel.loglik_along``)."""
+        neg, u0 = self._tim_objective()
         res = numopt.bfgs(neg, u0, max_iters=120)
         res = numopt.newton_raphson(neg, res.x, max_iters=10)
-        mode = res.x
+        return res.x.detach(), self._tim_factor(neg, res.x)
+
+    def _tim_factor(self, neg, mode):
+        """The proposal's Cholesky factor [G, G] at ``mode``: the Laplace
+        Hessian of ``neg`` there (J1 then J2 on the card), eigen-clamped
+        and inflated."""
         h = torch.autograd.functional.hessian(neg, mode)
         h = 0.5 * (h + h.T)
         w, v = torch.linalg.eigh(h)
         w = torch.clamp_min(w, 1e-3 * max(float(w.max()), 1.0))
         cov = (v / w[None, :]) @ v.T
         cov = (0.5 * (cov + cov.T)) * self.marginal_tim_inflate ** 2
-        return mode.detach(), torch.linalg.cholesky(cov).detach()
+        return torch.linalg.cholesky(cov).detach()
 
     def _marginal_sigma_tim(self, noise, state, y_adj):
         """Multiple-try independence MH from the tailored-T proposal

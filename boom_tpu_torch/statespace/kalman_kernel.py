@@ -1,9 +1,10 @@
 """Sequential Kalman recurrences through the hand-written CUDA kernels of
 ``csrc/kalman_seq.cu`` (K1 and K2: one thread a series walking the T steps)
 and ``csrc/kalman_wide.cu`` (K1w in float32 to d = 13: a thread a system,
-P in its registers; K1w past it and in float64, J1, J2, K2w and K3: a group
-of lanes a chain, series or (series, entry), 32 / W groups a warp, a lane a
-row of the state; d fixed at compile time).
+P in its registers; K1w past it and in float64, K2w and K3: a group of
+lanes a chain or series, 32 / W groups a warp, a lane a row of the state;
+J1 and J2: a warp a (series, direction or pair); d fixed at compile
+time).
 
 The reference runs these as XLA ``lax.scan``s (boom_tpu/statespace/
 kalman.py); in eager PyTorch each step would be a dozen small launches.
@@ -20,11 +21,11 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
   [B, K], the system moved along K directions (h = h0 + sum_k c_k dh_k,
   R Q R' = Q0 + sum_k c_k dm_k; the TIM mode search's log variances), twice
   differentiable through a ``torch.autograd.Function``: a gradient launches
-  J1 (value and gradient, a dual number a unit), a second derivative J2
-  (value, gradient and Hessian, a hyper-dual number a unit of (series,
-  direction pair)), so ``torch.autograd.grad`` and
-  ``torch.autograd.functional.hessian`` work on the card without autograd
-  of a 500-step loop. ``kalman.loglik_jets`` is J1's and J2's plain
+  J1 (value and gradient, a dual number a unit of (series, direction)),
+  a second derivative J2 (value, gradient and Hessian, a hyper-dual
+  number a unit of (series, direction pair)), so ``torch.autograd.grad``
+  and ``torch.autograd.functional.hessian`` work on the card without
+  autograd of a 500-step loop. ``kalman.loglik_jets`` is J1's and J2's plain
   version.
 - :func:`simulation_smoother` (K2 for d <= 6, K2w for 7 <= d <= 16): the
   fused Durbin-Koopman simulation smoother, float64, as
@@ -38,7 +39,7 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
 A time-varying system (``SsmParams.time_varying``: z_t, h_t = h h_scale_t,
 Q_t = (q_t q_t') o Q) takes the same four kernels in their time-varying
 forms (K1 and K2 ``loglik_tv_kernel`` and ``smoother_kernel<D, true>``, K1w
-the group kernel ``wide_loglik_kernel<T, T, D, 0, true>``), which read
+the group kernel ``wide_loglik_kernel<T, D, true>``), which read
 three streams a step (:func:`time_varying_operands`): z_t [T, d], one for
 every system; h_scale [T]; and u_t = R q_t [., T, d], where R is a 0/1
 selection (at most one 1 a row: every ported block's), so that R Q_t R' =
@@ -90,7 +91,8 @@ LOGLIK_THREADS = 0
 SMOOTHER_THREADS = 32
 # steps K2 stages into shared memory at a time (kalman_seq.cu, kChunk)
 SMOOTHER_CHUNK = 32
-# K2w's, K3's, K1w's and the jets' blocks: four warps, 32 / W units a warp
+# K2w's, K3's and K1w's blocks: four warps, 32 / W units a warp (the jets
+# take blocks of one warp whatever it is)
 # (kalman_wide.cu)
 WIDE_THREADS = 128
 DPATH_THREADS = 128

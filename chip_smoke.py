@@ -46,7 +46,9 @@ Phases:
      (<= 1e-9), and at phase 7's and phase 4's shapes (T = 500);
      ten launches of each at the bsts_llt and phase 7 shapes,
      bit-identical; then their times beside bounds and plain times
-     (``boom_tpu_torch/kernels/kalman_timing.py``), registers and spills;
+     (``boom_tpu_torch/kernels/kalman_timing.py``; J1's and J2's with
+     their latency floor, ``kalman_timing.jet_floor_ms``),
+     registers and spills;
   4. the reference's bsts_llt workload at full width (bench.py:170-200) on
      the bench's own series (``boom_tpu_torch/data``, drawn by the
      reference from ``jax.random.key(4207)``):
@@ -1271,10 +1273,12 @@ def phase2b_kalman_vs_plain():
                           for b, ms in r.get("scaling_ms", {}).items())
         wrap = (f"whole wrapper {r['wrapper_ms']:.4f} ms, "
                 if r["wrapper_ms"] is not None else "")
+        floor = (f"latency floor {r['floor_ms']:.4f} ms, "
+                 if "floor_ms" in r else "")
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"{wrap}plain {plain}, {bound}one call on the host clock "
-              f"{r['call_ms']:.4f} ms" + (f"; blocks: {blocks}"
-                                          if blocks else ""))
+              f"{wrap}plain {plain}, {bound}{floor}one call on the host "
+              f"clock {r['call_ms']:.4f} ms" + (f"; blocks: {blocks}"
+                                                if blocks else ""))
         # the rows: K1, K2 at the bsts_llt shapes; K1w, J1, J2 at phase 7's
         row = {"loglik_grad_wide": "loglik_grad",
                "loglik_hess_wide": "loglik_hess"}.get(name, name)

@@ -275,6 +275,55 @@ def test_loglik_derivatives_match_plain(card, d):
     assert _rel(out[0][1], out[1][1]) <= 1e-9
 
 
+def _jets_hold(card, d, k, c, series, t_len, masked, seed, reps=2,
+               orders=(1, 2)):
+    """J1 and J2 (``orders``) on c systems (``series`` of them: one, or one
+    a system) against autograd of the plain loop at 1e-9; ``reps`` launches
+    of each bit-identical."""
+    from boom_tpu_torch.kernels.host_rehearsal import directions
+
+    rng = np.random.default_rng(seed)
+    params, y, obs, _ = _kalman_inputs(card, torch.float64, d, t_len,
+                                       seed=seed, c=c, masked=masked)
+    if series > 1:
+        y = torch.stack([y * (1.0 + 0.1 * i) for i in range(series)])
+    dh, dm = (x.to(card) for x in directions(rng, k, d))
+    fields = (params.h, params.rqr.contiguous(), params.z, params.t_mat,
+              params.a0, params.p0, y, obs, dh, dm)
+    for order in orders:
+        first = kk.launch_jets(*fields, order=order)
+        want = kalman.loglik_jets(*fields, order)
+        for got, ref in zip(first, want):
+            assert _rel(got, ref) <= 1e-9, (d, order)
+        for _ in range(reps - 1):
+            again = kk.launch_jets(*fields, order=order)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_loglik_derivatives_at_small_d_match_plain(card, d):
+    """J1 and J2 at d 1-4 (one or two rounds of a step's jobs over the
+    lanes), K 3 and 16, three systems on three series, masked, T about the
+    kernel's chunks of 32 steps of y."""
+    for k, t_len in ((3, 33), (kk.JET_MAX_DIRECTIONS, 65)):
+        _jets_hold(card, d, k, 3, 3, t_len, True, seed=d + t_len)
+
+
+@pytest.mark.parametrize("d, t_len", [(2, 500), (8, 500), (3, 31), (3, 32),
+                                      (13, 33), (16, 65)])
+def test_loglik_derivatives_at_the_paths_shapes_and_chunk_edges(card, d,
+                                                                t_len):
+    """J1 and J2 as the proposal builds launch them (one series, K = 3, T =
+    500 at d 2 and 8: ten launches bit-identical), and about the kernel's
+    chunks of y with K 1 and 16 over systems on one series and on a series
+    a system, masked."""
+    if t_len == 500:
+        _jets_hold(card, d, 3, 1, 1, t_len, False, seed=d, reps=10)
+        return
+    for k, c, series in ((1, 4, 1), (kk.JET_MAX_DIRECTIONS, 3, 3)):
+        _jets_hold(card, d, k, c, series, t_len, True, seed=d * t_len + k)
+
+
 def test_loglik_derivative_kernels_refuse_what_they_do_not_take(card):
     """J1 and J2 run float64 at d 1..16 along 1..JET_MAX_DIRECTIONS
     directions: d = 17, K past the most and float32 raise, and so does a

@@ -93,19 +93,25 @@ def test_host_compiled_loglik_shared_system_matches_plain(case):
         assert err <= HOST_TOL[name.split()[2]], (name, err)
 
 
-@pytest.mark.parametrize("case", host_rehearsal.JET_CASES,
-                         ids=lambda c: "d{}-K{}-B{}-S{}-{}".format(*c))
+def _jet_id(case):
+    return "d{}-K{}-B{}-S{}-{}".format(*case) + "".join(
+        f"-T{t}" for t in case[5:])
+
+
+@pytest.mark.parametrize("case", host_rehearsal.JET_CASES, ids=_jet_id)
 @pytest.mark.usefixtures("host_kernels")
 def test_host_compiled_jets_match_plain(case):
     """J1 and J2 along K directions, d 1-16, K 1-16, one shared series and
-    a series a system, masked and dense, against autograd of the plain
-    loop."""
+    a series a system, masked and dense, T across the kernel's chunks of y
+    and at the paths' 500, against autograd of the plain loop; a second
+    launch bit-identical."""
     before = dict(kk.LAUNCHES)
     errs = host_rehearsal.check_jets(seed=sum(case), cases=[case])
-    assert kk.LAUNCHES["loglik_grad"] == before["loglik_grad"] + 1
-    assert kk.LAUNCHES["loglik_hess"] == before["loglik_hess"] + 1
-    for name, err in errs.items():
+    assert kk.LAUNCHES["loglik_grad"] == before["loglik_grad"] + 2
+    assert kk.LAUNCHES["loglik_hess"] == before["loglik_hess"] + 2
+    for name, (err, same) in errs.items():
         assert err <= HOST_TOL["float64"], (name, err)
+        assert same, f"{name}: a second launch differs"
 
 
 @pytest.mark.usefixtures("host_kernels")
@@ -113,7 +119,15 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
     """The TIM proposal build (J1, J2 at d = 8 along the three variances)
     and one sweep with the move (K1w over 8 chains x 17 points, each
     chain's points on its own y - X beta) through the host-compiled
-    kernels, against the same through the plain versions."""
+    kernels, against the same through the plain versions. Each part is
+    held to what sets it: the proposal's objective, its gradient (J1) and
+    its Hessian (J2) at one point, and its Cholesky factor (the Hessian
+    eigen-clamped and inflated) at the kernels' own mode, to the kernels'
+    1e-12; the two modes to the resolution of numopt's stopping rule
+    (:func:`_mode_resolution`), since y - X beta_OLS moves in its last
+    bits from run to run (MKL's least squares rounds by its operands'
+    alignment) and either search may stop anywhere a comparison of values
+    cannot order; the sweep, with the proposal shared, to 1e-10."""
     from test_torch_bsts_reg import _reg_data
 
     from boom_tpu_torch.models.glm.regression import SpikeSlabPrior
@@ -134,6 +148,14 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
     model = build()
     built = {k: kk.LAUNCHES[k] - before[k] for k in kk.LAUNCHES}
     assert built["loglik_grad"] >= 1 and built["loglik_hess"] >= 1
+    neg, u0 = model._tim_objective()
+    mode = model._tim_prop[0]
+    before = dict(kk.LAUNCHES)
+    got_at = _value_grad_hess(neg, u0)
+    assert (kk.LAUNCHES["loglik_grad"] - before["loglik_grad"],
+            kk.LAUNCHES["loglik_hess"] - before["loglik_hess"]) == (2, 1)
+    got_factor = model._tim_factor(neg, mode)
+    assert kk.LAUNCHES["loglik_hess"] == before["loglik_hess"] + 2
     gen = prng.generator(4, "cpu")
     state = model.init_state(model.draw_init_noise(gen, CHAINS))
     noise = model.draw_noise(gen, CHAINS)
@@ -141,9 +163,17 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
     got = model.kernel()(noise, state)
     assert kk.LAUNCHES["loglik_wide"] == before["loglik_wide"] + 1
     kk._on_card = lambda x: False  # the plain versions (undone after)
+    for name, a, b in zip(("value", "gradient", "Hessian"), got_at,
+                          _value_grad_hess(neg, u0)):
+        err = float((a - b).norm() / b.norm())
+        assert err <= HOST_TOL["float64"], (name, err)
+    want_factor = model._tim_factor(neg, mode)
+    err = float((got_factor - want_factor).norm() / want_factor.norm())
+    assert err <= HOST_TOL["float64"], ("factor", err)
     plain = build()
-    for a, b in zip(model._tim_prop, plain._tim_prop):
-        assert float((a - b).norm() / b.norm()) <= 1e-8
+    plain_mode = plain._tim_prop[0]
+    err = float((mode - plain_mode).norm() / plain_mode.norm())
+    assert err <= _mode_resolution(neg, plain_mode, y.shape[0]), err
     object.__setattr__(plain, "_tim_prop", model._tim_prop)
     want = plain.kernel()(noise, state)
     for k in ("sigsq_obs", "beta", "alpha"):
@@ -153,6 +183,79 @@ def test_host_compiled_tim_proposal_and_sweep_match_plain():
         for pname, v in params.items():
             err = float((got["blocks"][name][pname] - v).norm() / v.norm())
             assert err <= 1e-10, (pname, err)
+
+
+def _value_grad_hess(fn, u):
+    """fn(u), its gradient and its Hessian by autograd (a gradient
+    launches J1, a Hessian J1 and J2 where fn runs the kernels)."""
+    with torch.no_grad():
+        value = fn(u)
+    x = u.detach().requires_grad_(True)
+    (grad,) = torch.autograd.grad(fn(x), x)
+    return value, grad, torch.autograd.functional.hessian(fn, u)
+
+
+def _mode_resolution(neg, mode, t_len):
+    """The relative distance within which two runs of numopt's search on
+    objectives that differ by rounding may stop: newton_raphson ends where
+    no step of 1 down to 2^-9 lowers the objective's value. Where its
+    rounding is delta, the full step's decrease lambda^2 / 2 (lambda^2 =
+    g'H^-1 g, the Newton decrement, and lambda the distance to the minimum
+    in the Hessian's norm) is then at most 2 delta, so each mode lies
+    within 2 sqrt(delta) of the minimum in that norm, the two within
+    4 sqrt(delta / h_min) of each other in the Euclidean one, h_min the
+    Hessian's smallest eigenvalue. delta: T eps |f|, a sum of T log
+    densities each rounded to a few units of eps |f| / T."""
+    value = float(neg(mode))
+    hess = torch.autograd.functional.hessian(neg, mode)
+    h_min = float(torch.linalg.eigvalsh(0.5 * (hess + hess.T))[0])
+    delta = t_len * torch.finfo(mode.dtype).eps * abs(value)
+    return 4.0 * (delta / h_min) ** 0.5 / float(mode.norm())
+
+
+def test_timing_reports_the_jets_and_their_floor():
+    """kalman_timing's ``nvcc -Xptxas -v`` reader keys J1's and J2's
+    kernels and K1w's group kernel (as it is and as it was, with the jets'
+    order among its parameters) by what they compute; its SASS digest reads
+    two builds that differ only in their kernels' parameter offsets as one;
+    and the jets' latency floor grows with d and with the order at the main
+    paths' T (its latencies are assumed ones, stated in JET_LATENCY)."""
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    names = [("_ZN12_GLOBAL__N_115jet_warp_kernelILi2ELi1EEEvPKdS2_", 134),
+             ("_ZN12_GLOBAL__N_115jet_warp_kernelILi8ELi2EEEvPKdS2_", 156),
+             ("_ZN12_GLOBAL__N_118wide_loglik_kernelIdLi8ELb0EEEvPKT_", 90),
+             ("_ZN12_GLOBAL__N_118wide_loglik_kernelIfLi13ELb1EEEvPKT_", 96),
+             ("_ZN12_GLOBAL__N_118wide_loglik_kernelIddLi9ELi0ELb0EEEvPKT_",
+              99)]
+    log = "".join(f"""ptxas info    : Compiling entry function '{n}' for 'sm_90a'
+ptxas info    : Function properties for {n}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {r} registers, used 1 barriers
+""" for n, r in names)
+    keys = ["loglik_grad f64 d02", "loglik_hess f64 d08",
+            "loglik_wide f64 d08", "loglik_wide f32 d13 tv",
+            "loglik_wide f64 d09"]
+    assert kt.wide_nvcc_report(log) == {
+        k: {"registers": r, "spill_bytes": 0, "stack_bytes": 0}
+        for k, (_, r) in zip(keys, names)}
+
+    def listing(name, offset):
+        return f"""\t\tFunction : {name}
+        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x0a00ff */
+        /*0010*/                   LDC.64 R2, c[0x0][{offset}] ;  /* 0x0 */
+        /*0020*/                   DFMA R4, R2, R2, R4 ;  /* 0x0 */
+"""
+    now = kt.sass_digests(listing(names[2][0], "0x210"))
+    was = kt.sass_digests(listing(names[4][0].replace("Li9E", "Li8E"),
+                                  "0x248"))
+    assert now == was and now["loglik_wide f64 d08"]["instructions"] == 3
+    assert kt.sass_digests(listing(names[0][0], "0x210")) == {}
+    for order in (1, 2):
+        floors = [kt.jet_floor_ms(d, 3, order) for d in range(1, 17)]
+        assert floors == sorted(floors) and floors[0] > 0
+    assert kt.jet_floor_ms(8, 3, 1) < kt.jet_floor_ms(8, 3, 2)
+    assert kt.jet_floor_ms(2, 3, 1, 1000) == 2 * kt.jet_floor_ms(2, 3, 1)
 
 
 def test_ssm_params_keep_the_blocks_t_one_matrix():
