@@ -54,7 +54,12 @@
 // same way: u_t's rows beside w in passes 1 and 3 (u_{t-1} in pass 3), z_t
 // and h_scale a lane a step beside y and the mask, read by every lane at
 // one address; its pass 3 holds 3 D + 1 doubles a step, so past d = 4 it
-// stages 16 steps a chunk (SmootherSmem).
+// stages 16 steps a chunk (SmootherSmem). K1's time-varying form
+// (`loglik_tv_kernel`, phase 8's 200 draws at d = 4: seven warps on the
+// card, each thread a chain of 500 dependent steps) stages z_t, h_scale,
+// each system's u_t and y and the mask the same way, a chunk of 32 steps
+// ahead, runs the symmetric Riccati step on P's upper triangle in
+// registers (as K1w's thread kernel) and writes v and f a chunk at a time.
 //
 // Design. The state (a, P, the loglik) lives in registers; d is a template
 // parameter (1..6), unrolled at compile time. The operation order is the
@@ -331,74 +336,6 @@ __global__ void loglik_kernel(const T* __restrict__ z,
           fout[static_cast<long long>(b) * t_len + t0 + s] = f;
         }
       }
-    }
-  }
-  if (idx < batch) ll[b] = acc;
-}
-
-// K1 of a time-varying system (the dynamic regression's z_t, the observation
-// weights' h_t, the Student trend's and the holiday's Q_t): one thread per
-// series, as loglik_kernel, reading its step's inputs from the cache: z_t
-// of zt [T, D] (one for every system), h_t = h * hs[t] (hs [T]) and
-// R Q_t R' = (u_t u_t') o R Q R', u_t of u [., T, D] at u + b u_stride
-// (u_stride 0: one for every system; R is a 0/1 selection, so that this is
-// the reference's R ((q_t q_t') o Q) R' entry by entry). y [S, T] of
-// series b / per_series (one series: per_series = batch); the mask as K1's
-// (nullptr: every step observed); vout and fout as K1's.
-template <typename T, int D>
-__global__ void loglik_tv_kernel(const T* __restrict__ tm,
-                                 const T* __restrict__ rqr,
-                                 const T* __restrict__ h,
-                                 const T* __restrict__ a0,
-                                 const T* __restrict__ p0,
-                                 const T* __restrict__ y,
-                                 const unsigned char* __restrict__ obs,
-                                 const T* __restrict__ zt,
-                                 const T* __restrict__ hs,
-                                 const T* __restrict__ u,
-                                 T* __restrict__ ll, T* __restrict__ vout,
-                                 T* __restrict__ fout, int batch, int t_len,
-                                 int per_series, long long u_stride) {
-  constexpr bool kFast = std::is_same<T, float>::value;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = idx < batch ? idx : batch - 1;
-  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
-  const T* u_b = u + static_cast<long long>(b) * u_stride;
-  T tt[D][D], a[D], p[D][D], q[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    a[i] = a0[b * D + i];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const int ij = (b * D + i) * D + j;
-      tt[i][j] = tm[ij];
-      p[i][j] = p0[ij];
-      q[i][j] = rqr[ij];
-    }
-  }
-  const T hh = h[b];
-  const bool innov = vout != nullptr && idx < batch;
-  T acc(0);
-  for (int t = 0; t < t_len; ++t) {
-    const bool o = obs == nullptr || obs[t] != 0;
-    T zz[D], ut[D], qt[D][D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      zz[i] = zt[t * D + i];
-      ut[i] = u_b[t * D + i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) qt[i][j] = (ut[i] * ut[j]) * q[i][j];
-    }
-    T v, f, k[D], rf;
-    filter_step<T, D, kFast>(a, p, y_b[t], o, zz, hh * hs[t], qt, tt, v, f,
-                             k, rf);
-    if (o) acc = acc + log_density<T, kFast>(v, f, rf);
-    if (innov) {
-      vout[static_cast<long long>(b) * t_len + t] = v;
-      fout[static_cast<long long>(b) * t_len + t] = f;
     }
   }
   if (idx < batch) ll[b] = acc;
@@ -840,6 +777,260 @@ bool bad_launch(int batch, int threads) {
   return threads < 0 || threads > 1024 || threads % 32 != 0 || batch < 0;
 }
 
+// ---- K1's time-varying form ----------------------------------------------
+
+// A 4- or 8-byte element global -> shared, asynchronously.
+template <typename T>
+__device__ __forceinline__ void copy_elem_async(T* smem, const T* gmem) {
+  if constexpr (sizeof(T) == 8)
+    copy8_async(smem, gmem);
+  else
+    copy4_async(smem, gmem, 4);
+}
+
+// Entry (i, j) of a symmetric D x D matrix's upper triangle, row by row.
+template <int D>
+__host__ __device__ __forceinline__ constexpr int upper(int i, int j) {
+  return i <= j ? i * D - i * (i - 1) / 2 + (j - i)
+                : j * D - j * (j - 1) / 2 + (i - j);
+}
+
+// K1's time-varying form's shared memory (bytes): two stage buffers of
+// kSteps steps, each holding u_t [kSteps][D] and y [kSteps] of each of the
+// warp's 32 systems (element e of system c at [e * kPitch + c]: a step's
+// reads across the systems are consecutive), then z_t [kSteps][D],
+// h_scale [kSteps] and the mask's kSteps bytes; then v and f of a chunk
+// (step s of system c at [s * kPitch + c]).
+template <typename T, int D>
+struct LoglikTvSmem {
+  static constexpr int kSteps = 32;
+  static constexpr int kItem = static_cast<int>(sizeof(T));
+  static constexpr int kY = kSteps * D * kPitch;  // elements of a buffer
+  static constexpr int kZ = kY + kSteps * kPitch;
+  static constexpr int kHs = kZ + kSteps * D;
+  static constexpr int kMask = (kHs + kSteps) * kItem;  // bytes
+  static constexpr int kBuf = (kMask + kSteps + 15) / 16 * 16;
+  static constexpr int kVf = 2 * kBuf;
+  static constexpr int kBytes = kVf + 2 * kSteps * kPitch * kItem;
+  static_assert(kBytes <= 232448, "K1's time-varying layout");
+};
+
+// Stages steps [t0, t0 + n) of the streams into buffer buf,
+// asynchronously: a thread its own system's u_t rows (u_c: its u at step
+// 0) and y (y_c: its series) into column c, the warp z_t, h_scale and the
+// mask, a step a lane.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tv(unsigned char* buf, const T* y_c,
+                                         const T* u_c,
+                                         const unsigned char* obs,
+                                         const T* zt, const T* hs, int c,
+                                         int t0, int n) {
+  using Sm = LoglikTvSmem<T, D>;
+  const int lane = threadIdx.x;
+  T* bt = reinterpret_cast<T*>(buf);
+  const long long at = static_cast<long long>(t0) * D;
+  for (int g = 0; g < n * D; ++g)
+    copy_elem_async(bt + g * kPitch + c, u_c + at + g);
+  for (int g = 0; g < n; ++g)
+    copy_elem_async(bt + Sm::kY + g * kPitch + c, y_c + t0 + g);
+  if (lane < n) {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      copy_elem_async(bt + Sm::kZ + lane * D + i, zt + at + lane * D + i);
+    copy_elem_async(bt + Sm::kHs + lane, hs + t0 + lane);
+  }
+  if (obs != nullptr && 4 * lane < n)
+    copy4_async(buf + Sm::kMask + 4 * lane, obs + t0 + 4 * lane,
+                n - 4 * lane < 4 ? n - 4 * lane : 4);
+}
+
+// The warp writes v and f of a chunk (n steps from t0) of its systems sys0
+// .. last, a row of steps a system (consecutive lanes, consecutive steps).
+template <typename T>
+__device__ __forceinline__ void store_vf(const T* vs, const T* fs, T* vout,
+                                         T* fout, int sys0, int last,
+                                         int t_len, int t0, int n) {
+  const int lane = threadIdx.x;
+  if (lane >= n) return;
+  for (int c = 0; sys0 + c <= last; ++c) {
+    const long long at = static_cast<long long>(sys0 + c) * t_len + t0 + lane;
+    vout[at] = vs[lane * kPitch + c];
+    fout[at] = fs[lane * kPitch + c];
+  }
+}
+
+// K1 of a time-varying system (the dynamic regression's z_t, the
+// observation weights' h_t, the Student trend's and the holiday's Q_t), a
+// thread a system: z_t of zt [T, D] (one for every system), h_t = h hs[t]
+// and R Q_t R' = (u_t u_t') o R Q R', u_t of u [., T, D] at u + b u_stride
+// (u_stride 0: one for every system; R is a 0/1 selection, so that this is
+// the reference's R ((q_t q_t') o Q) R' entry by entry); T of tm at tm + b
+// tm_stride (0: one for every system). y [S, T] of series b / per_series
+// (one series: per_series = batch); the mask (nullptr: every step
+// observed); with vout the innovations v and f [B, T]. The streams come a
+// chunk of 32 steps ahead (stage_tv, cp.async, double-buffered) and v, f
+// leave a chunk at a time as rows. A step is the symmetric Riccati step on
+// P's upper triangle in registers, ordered so that T P T' runs beside the
+// chain P z -> f -> 1 / f (one thread alone on its scheduler waits out
+// every latency of a chain):
+//   P' = T P T' - (T P z)(T P z)' / f + R Q_t R', a' = T a + T P z v / f
+// (unobserved: T P T' + R Q_t R', T a), the plain version's (T P) L' + R
+// Q_t R' (L = T - K z', K = T P z / f) symmetrised, to rounding. A thread
+// past the batch shadows the last system and writes nothing.
+template <typename T, int D>
+__global__ void __launch_bounds__(kLanes)
+    loglik_tv_kernel(const T* __restrict__ tm, const T* __restrict__ rqr,
+                     const T* __restrict__ h, const T* __restrict__ a0,
+                     const T* __restrict__ p0, const T* __restrict__ y,
+                     const unsigned char* __restrict__ obs,
+                     const T* __restrict__ zt, const T* __restrict__ hs,
+                     const T* __restrict__ u, T* __restrict__ ll,
+                     T* __restrict__ vout, T* __restrict__ fout, int batch,
+                     int t_len, int per_series, int tm_stride,
+                     long long u_stride) {
+  using Sm = LoglikTvSmem<T, D>;
+  constexpr bool kFast = std::is_same<T, float>::value;
+  constexpr int kUpper = D * (D + 1) / 2, kCh = Sm::kSteps;
+  BOOM_SHARED_BYTES(smem_raw);
+  const int lane = threadIdx.x;
+  const int b0 = blockIdx.x * kLanes;
+  const int last = (batch - b0 < kLanes ? batch : b0 + kLanes) - 1;
+  const int b = b0 + lane <= last ? b0 + lane : last;
+  const long long bd = static_cast<long long>(b) * D;
+  const T* tm_b = tm + static_cast<long long>(b) * tm_stride;
+  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
+  const T* u_b = u + static_cast<long long>(b) * u_stride;
+  T tt[D][D], a[D], p[kUpper], q[kUpper];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    a[i] = a0[bd + i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) tt[i][j] = tm_b[i * D + j];
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      p[upper<D>(i, j)] =
+          T(0.5) * (p0[(bd + i) * D + j] + p0[(bd + j) * D + i]);
+      q[upper<D>(i, j)] =
+          T(0.5) * (rqr[(bd + i) * D + j] + rqr[(bd + j) * D + i]);
+    }
+  }
+  const T hh = h[b];
+  T* vs = reinterpret_cast<T*>(smem_raw + Sm::kVf);
+  T* fs = vs + kCh * kPitch;
+  auto buffer = [&](int j) { return smem_raw + (j & 1) * Sm::kBuf; };
+  auto chunk_len = [&](int j) {
+    return t_len - j * kCh < kCh ? t_len - j * kCh : kCh;
+  };
+  const int n_chunks = (t_len + kCh - 1) / kCh;
+  stage_tv<T, D>(buffer(0), y_b, u_b, obs, zt, hs, lane, 0, chunk_len(0));
+  async_commit();
+  T acc(0);
+  for (int j = 0; j < n_chunks; ++j) {
+    const int t0 = j * kCh, n = chunk_len(j);
+    if (j + 1 < n_chunks)
+      stage_tv<T, D>(buffer(j + 1), y_b, u_b, obs, zt, hs, lane, t0 + kCh,
+                     chunk_len(j + 1));
+    async_commit();
+    async_wait<1>();
+    __syncwarp();  // chunk j is staged
+    const T* bt = reinterpret_cast<const T*>(buffer(j));
+    const unsigned char* bm = buffer(j) + Sm::kMask;
+    // step s's inputs, loaded a step ahead (during the step before)
+    T zn[D], un[D], yn, hn;
+    bool on;
+    auto load = [&](int s) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        zn[i] = bt[Sm::kZ + s * D + i];
+        un[i] = bt[(s * D + i) * kPitch + lane];
+      }
+      yn = bt[Sm::kY + s * kPitch + lane];
+      hn = bt[Sm::kHs + s];
+      on = obs == nullptr || bm[s] != 0;
+    };
+    load(0);
+    for (int s = 0; s < n; ++s) {
+      const bool ob = on;
+      T zz[D], ut[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        zz[i] = zn[i];
+        ut[i] = un[i];
+      }
+      const T yt = yn;
+      const T ht = hh * hn;
+      if (s + 1 < n) load(s + 1);
+      T za = zz[0] * a[0];
+#pragma unroll
+      for (int i = 1; i < D; ++i) za = za + zz[i] * a[i];
+      const T v = ob ? yt - za : T(0);
+      T pz[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T acc_i = p[upper<D>(i, 0)] * zz[0];
+#pragma unroll
+        for (int k = 1; k < D; ++k) acc_i = acc_i + p[upper<D>(i, k)] * zz[k];
+        pz[i] = acc_i;
+      }
+      T f = zz[0] * pz[0];
+#pragma unroll
+      for (int i = 1; i < D; ++i) f = f + zz[i] * pz[i];
+      f = f + ht;
+      const T rf = reciprocal(f);
+      const T rk = ob ? rf : T(0);  // no gain where y_t is missing
+      const T vf = v * rf;
+      if (ob) acc = acc + log_density<T, kFast>(v, f, rf);
+      if (vout != nullptr) {
+        vs[s * kPitch + lane] = v;
+        fs[s * kPitch + lane] = f;
+      }
+      // T P z, T a; P' = T P T' - (T P z)(T P z)' / f + R Q_t R' (upper)
+      T tpz[D], ta[D], pn[kUpper];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T acc_p = tt[i][0] * pz[0], acc_a = tt[i][0] * a[0];
+#pragma unroll
+        for (int k = 1; k < D; ++k) {
+          acc_p = acc_p + tt[i][k] * pz[k];
+          acc_a = acc_a + tt[i][k] * a[k];
+        }
+        tpz[i] = acc_p;
+        ta[i] = acc_a;
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T m[D];  // row i of T P
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          T acc_k = tt[i][0] * p[upper<D>(0, k)];
+#pragma unroll
+          for (int l = 1; l < D; ++l)
+            acc_k = acc_k + tt[i][l] * p[upper<D>(l, k)];
+          m[k] = acc_k;
+        }
+#pragma unroll
+        for (int k = i; k < D; ++k) {
+          T acc_k = m[0] * tt[k][0];
+#pragma unroll
+          for (int l = 1; l < D; ++l) acc_k = acc_k + m[l] * tt[k][l];
+          pn[upper<D>(i, k)] = (acc_k - (tpz[i] * tpz[k]) * rk) +
+                               (ut[i] * ut[k]) * q[upper<D>(i, k)];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) a[i] = ta[i] + tpz[i] * vf;
+#pragma unroll
+      for (int k = 0; k < kUpper; ++k) p[k] = pn[k];
+    }
+    if (vout != nullptr) {
+      __syncwarp();  // v and f of the chunk are whole
+      store_vf(vs, fs, vout, fout, b0, last, t_len, t0, n);
+    }
+    __syncwarp();  // buffer j, v and f are read before they are refilled
+  }
+  if (b0 + lane <= last) ll[b] = acc;
+}
+
 // K1's block size: the one given, or (threads == 0) one block of
 // ceil(batch / SMs) threads, rounded up to a warp, on each SM, within what
 // the kernel's registers allow.
@@ -899,29 +1090,29 @@ int launch_loglik_tv(const void* tm, const void* rqr, const void* h,
                      const void* a0, const void* p0, const void* y,
                      const void* obs, const void* zt, const void* hs,
                      const void* u, void* ll, void* vout, void* fout,
-                     int batch, int t_len, int n_series, long long u_stride,
-                     int threads, void* stream) {
-  if (bad_launch(batch, threads) || t_len < 1 || n_series < 1 ||
+                     int batch, int t_len, int n_series, int shared,
+                     long long u_stride, void* stream) {
+  if (batch < 0 || t_len < 1 || n_series < 1 ||
       (batch > 0 && batch % n_series != 0) ||
-      (vout == nullptr) != (fout == nullptr) || u_stride < 0)
+      (vout == nullptr) != (fout == nullptr) || u_stride < 0 ||
+      (shared != 0 && shared != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  using Sm = LoglikTvSmem<T, D>;
   auto kernel = loglik_tv_kernel<T, D>;
-  threads = loglik_block(kernel, batch, threads);
-  if (threads <= 0) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidValue);
-  }
-  const int blocks = (batch + threads - 1) / threads;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int blocks = (batch + kLanes - 1) / kLanes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, threads, 0, st>>>(
+  kernel<<<blocks, kLanes, Sm::kBytes, st>>>(
       static_cast<const T*>(tm), static_cast<const T*>(rqr),
       static_cast<const T*>(h), static_cast<const T*>(a0),
       static_cast<const T*>(p0), static_cast<const T*>(y),
       static_cast<const unsigned char*>(obs), static_cast<const T*>(zt),
       static_cast<const T*>(hs), static_cast<const T*>(u),
       static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
-      batch, t_len, batch / n_series, u_stride);
+      batch, t_len, batch / n_series, shared ? 0 : D * D, u_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -999,17 +1190,18 @@ int launch_smoother(const void* z, const void* tm, const void* rqr,
 // true>): K1's and K2's arrays without z, then zt [T, D] (one z_t for every
 // system), hs [T] (h_t = h hs[t]) and u [U, T, D] with u_stride = T D
 // (U = B, a u a system) or 0 (U = 1, one for every system), R a 0/1
-// selection with at most one 1 a row.
+// selection with at most one 1 a row. K1's `shared` 1: tm is one [D, D] of
+// every system.
 #define BOOM_LOGLIK_TV_ENTRY(TY, TYNAME, D)                                  \
   extern "C" int boom_kalman_loglik_tv_##TYNAME##_d##D(                      \
       const void* tm, const void* rqr, const void* h, const void* a0,        \
       const void* p0, const void* y, const void* obs, const void* zt,        \
       const void* hs, const void* u, void* ll, void* vout, void* fout,       \
-      int batch, int t_len, int n_series, long long u_stride, int threads,   \
+      int batch, int t_len, int n_series, int shared, long long u_stride,    \
       void* stream) {                                                        \
     return launch_loglik_tv<TY, D>(tm, rqr, h, a0, p0, y, obs, zt, hs, u,    \
                                    ll, vout, fout, batch, t_len, n_series,   \
-                                   u_stride, threads, stream);               \
+                                   shared, u_stride, stream);                \
   }
 
 #define BOOM_SMOOTHER_TV_ENTRY(D)                                            \

@@ -29,6 +29,10 @@
 //      series a group of systems (bsts with a regression: each chain's
 //      y - X beta), and optionally the innovations v and f
 //      (`kalman_filter` :218, the one-step errors).
+//   K1w's time-varying form `loglik_tv_warp_kernel<T, D>` (float32 and
+//      float64, 7 <= d <= 16): the loglik (and v, f) of a time-varying
+//      system (z_t, h_t, R Q_t R'), kalman.py `kalman_loglik`'s scan of
+//      one (:240-282), a warp a system.
 //   J1 and J2 `jet_warp_kernel<D, order>`: the same loglik with its first
 //      (J1) or first and second (J2) derivatives along K <= 16 directions
 //      of (h, R Q R'), forward mode (a dual / hyper-dual Tangent a unit of
@@ -141,6 +145,16 @@
 //     __syncwarp()s a step. y comes 32 steps ahead into registers, the
 //     log of f leaves the step (a log a lane a chunk), and 1 / f comes
 //     from the SFU and two Newton steps.
+//   - K1w's time-varying form (`loglik_tv_warp_kernel`): phase 8 scores
+//     200 draws, so a system takes a warp (a block each) in J1's layout
+//     without the tangents: P in shared memory, the symmetric step, a
+//     step's products as jobs over the 32 lanes in three phases, each
+//     loading and computing before it stores; z_t and u_t staged a chunk
+//     of 32 steps ahead by cp.async, y, the mask and h_scale a step a lane,
+//     the log of f and v, f out of the step. T is read dense (a row of T's
+//     non-zeros a lane, phase 8's 19 of 169, measured slower on one warp:
+//     its run-time addresses and branches cost more than the terms they
+//     save; PERF.md). It replaced the group kernel's time-varying path.
 //   - K2w's structured time-varying form (`smoother_wide_nz_kernel`): T's
 //     non-zeros are kernel parameters (NzT: a row's first one, then the
 //     rest in a list), so bsts' T (phase 8's: 19 non-zeros of 169 at
@@ -1501,17 +1515,15 @@ __global__ void __launch_bounds__(kBlock)
 // kUnits a block. A series' shared memory, 16-byte aligned: P in two
 // buffers X and Y (D x kLd), the exchange vectors P z and a (D each) and z
 // (D).
-template <typename T, int D, bool kTv = false>
+template <typename T, int D>
 struct WideLoglik {
   static constexpr int kW = group_lanes(D);
   static constexpr int kPerWarp = kWarp / kW;
   static constexpr int kUnits = kBlock / kWarp * kPerWarp;
   static constexpr int kLd = D + 1;
-  // a time-varying system's u_t (D of T) follows z
   static constexpr int kUnitBytes =
       (2 * D * kLd * static_cast<int>(sizeof(T)) +
-       2 * D * static_cast<int>(sizeof(T)) +
-       (kTv ? 2 : 1) * D * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+       3 * D * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
   // the column of R Q R' stays in registers while it costs at most 16 of
   // them (float32 at every d, float64 to d = 8) and is read from the cache
   // past that
@@ -1530,12 +1542,9 @@ struct WideLoglik {
 // __syncwarp()s a step. z'a and z'P z are group butterflies (the same bits
 // on every lane of the group, so the groups never diverge and repeated
 // launches are bit-identical). A group past the last shadows it and writes
-// nothing; lanes i >= D shadow row 0. kTv (of a time-varying system): z_t
-// of zt [T, D] (one for every system) in place of z, h_t = h hs[t], and
-// R Q_t R' = (u_t u_t') o R Q R' with u_t of ut_s [., T, D] at ut_s + b
-// u_stride (R a 0/1 selection); lane i publishes u_t[i] with P z and a,
-// and z_{t+1}[i] once P' is whole, each read from the cache a step ahead.
-template <typename T, int D, bool kTv = false>
+// nothing; lanes i >= D shadow row 0. (A time-varying system takes
+// loglik_tv_warp_kernel.)
+template <typename T, int D>
 __global__ void __launch_bounds__(kBlock)
     wide_loglik_kernel(const T* __restrict__ z, const T* __restrict__ tm,
                        const T* __restrict__ rqr, const T* __restrict__ h,
@@ -1544,10 +1553,8 @@ __global__ void __launch_bounds__(kBlock)
                        const unsigned char* __restrict__ obs,
                        T* __restrict__ ll, T* __restrict__ vout,
                        T* __restrict__ fout, int batch, int t_len,
-                       int per_series, int tm_stride, int z_stride,
-                       const T* __restrict__ zt, const T* __restrict__ hs,
-                       const T* __restrict__ ut_s, long long u_stride) {
-  using L = WideLoglik<T, D, kTv>;
+                       int per_series, int tm_stride, int z_stride) {
+  using L = WideLoglik<T, D>;
   constexpr int W = L::kW, kLd = L::kLd;
   BOOM_SHARED_BYTES(smem_raw);
   const int lane = threadIdx.x % kWarp;
@@ -1566,7 +1573,6 @@ __global__ void __launch_bounds__(kBlock)
   T* xpz = py + D * kLd;               // P z
   T* xa = xpz + D;                     // a
   T* zv = xa + D;
-  T* xu = zv + D;                      // u_t (kTv)
 
   const long long bd = static_cast<long long>(b) * D;
   const T* tm_b = tm + static_cast<long long>(b) * tm_stride;
@@ -1583,9 +1589,7 @@ __global__ void __launch_bounds__(kBlock)
     const int r = k / D;
     px[r * kLd + (k - r * D)] = p0[bd * D + k];
   }
-  const T* u_b = ut_s + static_cast<long long>(b) * u_stride;
-  T zi = act ? (kTv ? zt[i] : z[static_cast<long long>(b) * z_stride + i])
-             : T(0);
+  const T zi = act ? z[static_cast<long long>(b) * z_stride + i] : T(0);
   if (act) zv[i] = zi;
   T a_i = a0[bd + i];
   // the column of R Q R'
@@ -1600,31 +1604,19 @@ __global__ void __launch_bounds__(kBlock)
   T acc = zero;
   T y_n = y_b[0];
   bool o_n = obs == nullptr || obs[0] != 0;
-  T u_n = kTv ? u_b[i] : T(0), s_n = kTv ? hs[0] : T(1);
   __syncwarp();
   for (int t = 0; t < t_len; ++t) {
     const T yt = y_n;
     const bool ob = o_n;
-    const T ut = u_n, st = s_n;
-    T z_n = zi;
     if (t + 1 < t_len) {
       y_n = y_b[t + 1];
       o_n = obs == nullptr || obs[t + 1] != 0;
-      if constexpr (kTv) {
-        u_n = u_b[(t + 1) * D + i];
-        s_n = hs[t + 1];
-        if (act) z_n = zt[(t + 1) * D + i];
-      }
     }
     T pz = px[i * kLd] * zv[0];  // P z, row i
 #pragma unroll
     for (int j = 1; j < D; ++j) pz = pz + px[i * kLd + j] * zv[j];
     const T za = group_sum<W>(zi * a_i, lane);
-    T f;
-    if constexpr (kTv)
-      f = group_sum<W>(zi * pz, lane) + hh * st;
-    else
-      f = group_sum<W>(zi * pz, lane) + hh;
+    const T f = group_sum<W>(zi * pz, lane) + hh;
     const T v = ob ? yt - za : zero;
     const T rf = reciprocal(f);
     // (T P) row i into Y
@@ -1638,7 +1630,6 @@ __global__ void __launch_bounds__(kBlock)
     if (act) {
       xpz[i] = pz;
       xa[i] = a_i;
-      if constexpr (kTv) xu[i] = ut;
     }
     __syncwarp();  // P z, a and T P are whole; P is read
     T tpz = trow[0] * xpz[0], ta = trow[0] * xa[0];
@@ -1655,10 +1646,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int m = 1; m < D; ++m)
         pn = pn + (trow[m] - k * zv[m]) * py[jj * kLd + m];
-      if constexpr (kTv)
-        pn = pn + (xu[jj] * ut) * q_of(jj);
-      else
-        pn = pn + q_of(jj);
+      pn = pn + q_of(jj);
       if (act) px[jj * kLd + i] = pn;
     }
     a_i = ta + k * v;
@@ -1668,10 +1656,6 @@ __global__ void __launch_bounds__(kBlock)
     }
     if (ob) acc = acc + log_density(v, f, rf);
     __syncwarp();  // P' is whole in X
-    if constexpr (kTv) {  // every read of z_t and u_t is done
-      zi = z_n;
-      if (act) zv[i] = zi;
-    }
     // 0.5 (P' + P'^T), the diagonal P'_ii exactly, row i into Y
     if (act) {
       for (int jj = 0; jj < D; ++jj)
@@ -2253,6 +2237,253 @@ __global__ void __launch_bounds__(kWarp)
   if (lane == 0) write_jet<kOrder>(acc, b, e, di, dj, n_dirs, ll, grad, hess);
 }
 
+// ---- K1w's time-varying form: a warp a system ----------------------------
+
+// 1 / f as reciprocal() gives it, log f as the kernels' log densities take
+// it (float32: logf).
+__device__ __forceinline__ float log_of(float x) { return logf(x); }
+__device__ __forceinline__ double log_of(double x) { return log(x); }
+
+// The time-varying form's layout, J1's (JetWarp) without the tangents: a
+// block of one warp a system. Shared memory of the kernel's type T, D + 1
+// rows of kLd = D + 1 entries each: X holds P in its first D rows and
+// columns, a as row D, T P z in column D (rows < D) and z'P z at (D, D); Y
+// receives phase 1's [P; a] [T' z] (W = P T' in its first D rows and
+// columns, P z in column D, T a in row D, z'a at (D, D)); B holds T (rows
+// < D; z_t, row D of the products, is read from the stage); then two
+// stage buffers of kChunk steps, each z_t [kChunk][D], then the system's
+// u_t [kChunk][D]. A step's products are jobs spread over the lanes in
+// rounds (job lane + 32 r): phase 1 every (i, j) <= (D, D) of Y, X row i
+// by [T; z_t] row j (kJobs1); phase 2 T W on P's upper triangle, T row i
+// by W column j (the lane keeps its own for phase 3, where it forms the
+// same entries of P'), then T P z, T row i by Y column D, and z'P z, z_t
+// by Y column D (kJobs2).
+template <typename T, int D>
+struct TvWarp {
+  static constexpr int kLd = D + 1;
+  static constexpr int kU = D * (D + 1) / 2;  // P's upper triangle
+  static constexpr int kJobs1 = (D + 1) * (D + 1);
+  static constexpr int kJobs2 = kU + D + 1;
+  static constexpr int kRounds1 = (kJobs1 + kWarp - 1) / kWarp;
+  static constexpr int kRounds2 = (kJobs2 + kWarp - 1) / kWarp;
+  static constexpr int kOwnP = (kU + kWarp - 1) / kWarp;
+  static constexpr int kChunk = kWarp;
+  static constexpr int kX = (D + 1) * kLd;
+  static constexpr int kStage = 2 * kChunk * D;  // z_t, u_t of a chunk
+  static constexpr int kBytes =
+      (3 * kX + 2 * kStage) * static_cast<int>(sizeof(T));
+  static_assert(kBytes <= 48 * 1024, "K1w's time-varying layout");
+};
+
+// K1w of a time-varying system (z_t of zt [T, D], one for every system; h_t
+// = h hs[t]; R Q_t R' = (u_t u_t') o R Q R', u_t of u [., T, D] at u + b
+// u_stride, R a 0/1 selection): the loglik of system b (block b) over
+// series b / per_series of y [n_series, T], and with vout the innovations
+// v and f [B, T]; T of tm at tm + b tm_stride (0: one for every system).
+// A warp a system, so that phase 8's 200 draws take 200 warps, a block
+// each, and a step's work spreads over 32 lanes. A step is the symmetric
+// Riccati step,
+//   P' = T P T' - (T P z)(T P z)' / f + R Q_t R', a' = T a + T P z v / f,
+// the plain version's (T P) L' + R Q_t R' (L = T - K z', K = T P z / f)
+// symmetrised, to rounding (unobserved: T P T' + R Q_t R', T a), in three
+// phases, a __syncwarp() each:
+//   1. the jobs of W = P T', P z, T a and z'a;
+//   2. the jobs of T W (P's upper triangle), T P z and z'P z;
+//   3. every lane forms f = z'P z + h_t and 1 / f (the same bits on every
+//      lane) and v; P'_ij into both halves of X, a'_i into row D.
+// Each phase loads and computes before it stores: a warp alone on its
+// scheduler would otherwise wait out a shared-memory load behind every
+// store. z_t and the system's u_t come a chunk of 32 steps ahead by
+// cp.async, double-buffered; y, the mask and h_scale a step a lane, the
+// next chunk's loads in flight, taken by a shuffle. Lane s keeps step s's
+// f and v: the chunk's logs of f run one a lane at its end, summed by a
+// fixed butterfly (the same bits on every lane), and v and f leave as one
+// row of the chunk's steps.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarp)
+    loglik_tv_warp_kernel(const T* __restrict__ tm,
+                          const T* __restrict__ rqr,
+                          const T* __restrict__ h,
+                          const T* __restrict__ a0,
+                          const T* __restrict__ p0,
+                          const T* __restrict__ y,
+                          const unsigned char* __restrict__ obs,
+                          const T* __restrict__ zt,
+                          const T* __restrict__ hs,
+                          const T* __restrict__ u, long long u_stride,
+                          T* __restrict__ ll, T* __restrict__ vout,
+                          T* __restrict__ fout, int t_len, int per_series,
+                          int tm_stride) {
+  using L = TvWarp<T, D>;
+  constexpr int kLd = L::kLd, kChunk = L::kChunk;
+  auto sum = [](auto x, auto c) { return dot_parts<D, 2, T>(x, c); };
+  BOOM_SHARED_BYTES(smem_raw);
+  T* xs = reinterpret_cast<T*>(smem_raw);  // P, a, T P z, z'P z
+  T* ys = xs + L::kX;                      // W, P z, T a, z'a
+  T* bs = ys + L::kX;                      // T
+  T* stage0 = bs + L::kX;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const long long bd = static_cast<long long>(b) * D;
+  const T* tm_b = tm + static_cast<long long>(b) * tm_stride;
+  const T* p0_b = p0 + bd * D;
+  const T* q_b = rqr + bd * D;
+  for (int k = lane; k < D * D; k += kWarp) {
+    const int i = k / D, j = k - i * D;
+    xs[i * kLd + j] = T(0.5) * (p0_b[i * D + j] + p0_b[j * D + i]);
+    bs[i * kLd + j] = tm_b[k];
+  }
+  if (lane < D) xs[D * kLd + lane] = a0[bd + lane];
+  // the lane's jobs: phase 1 (X row, [T; z] row), phase 2 (Y column, T
+  // row); a lane past the last job of a round does job 0 and writes nothing
+  int x1[L::kRounds1], b1[L::kRounds1], y2[L::kRounds2], b2[L::kRounds2];
+#pragma unroll
+  for (int r = 0; r < L::kRounds1; ++r) {
+    const int k = lane + r * kWarp < L::kJobs1 ? lane + r * kWarp : 0;
+    x1[r] = k / kLd;
+    b1[r] = k - x1[r] * kLd;
+  }
+  int pi[L::kOwnP], pj[L::kOwnP];
+#pragma unroll
+  for (int r = 0; r < L::kRounds2; ++r) {
+    const int k = lane + r * kWarp < L::kJobs2 ? lane + r * kWarp : 0;
+    int i, j;
+    if (k < L::kU) {  // (T W)_ij = W column j . T row i
+      upper_entry<D>(k, i, j);
+    } else {  // (T P z)_i = (P z) . T row i; i = D: z'P z
+      i = k - L::kU;
+      j = D;
+    }
+    y2[r] = j;
+    b2[r] = i;
+    if (r < L::kOwnP) {
+      pi[r] = i;
+      pj[r] = j;
+    }
+  }
+  // R Q R' (symmetrised) at the lane's entries of P
+  T qv[L::kOwnP];
+#pragma unroll
+  for (int r = 0; r < L::kOwnP; ++r) {
+    const int i = pi[r] < D ? pi[r] : 0, j = pj[r] < D ? pj[r] : 0;
+    qv[r] = T(0.5) * (q_b[i * D + j] + q_b[j * D + i]);
+  }
+  const T hh = h[b];
+  const T* y_b = y + static_cast<long long>(b / per_series) * t_len;
+  const T* u_b = u + static_cast<long long>(b) * u_stride;
+  // z_t and u_t of the chunk from step t0 into stage buffer buf
+  auto stage = [&](int t0, int buf) {
+    const int n = t_len - t0 < kChunk ? t_len - t0 : kChunk;
+    T* zb = stage0 + buf * L::kStage;
+    T* ub = zb + kChunk * D;
+    const long long at = static_cast<long long>(t0) * D;
+    for (int g = lane; g < n * D; g += kWarp) {
+      copy_async<sizeof(T)>(zb + g, zt + at + g);
+      copy_async<sizeof(T)>(ub + g, u_b + at + g);
+    }
+  };
+  T y_next = lane < t_len ? y_b[lane] : T(0);
+  T s_next = lane < t_len ? hs[lane] : T(1);
+  int o_next = lane < t_len && (obs == nullptr || obs[lane] != 0);
+  T acc(0), log_f(0);  // log f summed over the observed steps
+  stage(0, 0);
+  async_commit();
+  __syncwarp();  // P, a and T are whole
+  for (int t0 = 0, buf = 0; t0 < t_len; t0 += kChunk, buf ^= 1) {
+    const T y_mine = y_next, s_mine = s_next;
+    const int o_mine = o_next;
+    const int tn = t0 + kChunk + lane;
+    if (tn < t_len) {
+      y_next = y_b[tn];
+      s_next = hs[tn];
+      o_next = obs == nullptr || obs[tn] != 0;
+    }
+    if (t0 + kChunk < t_len) stage(t0 + kChunk, buf ^ 1);
+    async_commit();
+    async_wait<1>();
+    __syncwarp();  // this chunk's z_t and u_t are whole
+    const T* zb = stage0 + buf * L::kStage;
+    const T* ub = zb + kChunk * D;
+    const int n = t_len - t0 < kChunk ? t_len - t0 : kChunk;
+    T f_log(1), v_out(0), f_out(0);  // step lane's (f_log 1: no step or
+                                     // unobserved)
+    for (int s = 0; s < n; ++s) {
+      const T yt = shfl(y_mine, s), st = shfl(s_mine, s);
+      const bool ob = __shfl_sync(kFull, o_mine, s) != 0;
+      const T* zr = zb + s * D;
+      const T* ur = ub + s * D;
+      // 1. Y = [P; a] [T' z]
+      T y1[L::kRounds1];
+#pragma unroll
+      for (int r = 0; r < L::kRounds1; ++r) {
+        const T* xr = xs + x1[r] * kLd;
+        const T* br = b1[r] < D ? bs + b1[r] * kLd : zr;
+        y1[r] = sum([&](int m) { return xr[m]; },
+                    [&](int m) { return br[m]; });
+      }
+#pragma unroll
+      for (int r = 0; r < L::kRounds1; ++r)
+        if (lane + r * kWarp < L::kJobs1) ys[x1[r] * kLd + b1[r]] = y1[r];
+      __syncwarp();  // Y is whole; P and a are read
+      // 2. T W (kept), T P z and z'P z (into X's column D)
+      T tw[L::kRounds2];
+#pragma unroll
+      for (int r = 0; r < L::kRounds2; ++r) {
+        const T* yc = ys + y2[r];
+        const T* br = b2[r] < D ? bs + b2[r] * kLd : zr;
+        tw[r] = sum([&](int m) { return yc[m * kLd]; },
+                    [&](int m) { return br[m]; });
+      }
+#pragma unroll
+      for (int r = 0; r < L::kRounds2; ++r)
+        if (y2[r] == D && lane + r * kWarp < L::kJobs2)
+          xs[b2[r] * kLd + D] = tw[r];
+      __syncwarp();  // T P z and z'P z are whole; W and P z are read
+      // 3. f, 1 / f, v; P' and a': every load, then every store
+      const T f = xs[D * kLd + D] + hh * st;
+      const T v = ob ? yt - ys[D * kLd + D] : T(0);
+      const T rf = reciprocal(f);
+      const T rk = ob ? rf : T(0);  // no gain where y_t is missing
+      T pn[L::kOwnP];
+#pragma unroll
+      for (int r = 0; r < L::kOwnP; ++r) {
+        const int i = pi[r] < D ? pi[r] : 0, j = pj[r] < D ? pj[r] : 0;
+        pn[r] = (tw[r] - (xs[i * kLd + D] * xs[j * kLd + D]) * rk) +
+                (ur[i] * ur[j]) * qv[r];
+      }
+      const int ia = lane < D ? lane : 0;
+      const T an = ys[D * kLd + ia] + xs[ia * kLd + D] * (v * rf);
+#pragma unroll
+      for (int r = 0; r < L::kOwnP; ++r) {
+        if (lane + r * kWarp < L::kU) {
+          xs[pi[r] * kLd + pj[r]] = pn[r];
+          xs[pj[r] * kLd + pi[r]] = pn[r];
+        }
+      }
+      if (lane < D) xs[D * kLd + lane] = an;
+      if (ob) acc = acc + T(-0.5) * (T(kLog2Pi) + v * v * rf);
+      if (lane == s) {
+        f_log = ob ? f : T(1);
+        v_out = v;
+        f_out = f;
+      }
+      __syncwarp();  // P' and a' are whole; T a and T P z are read
+    }
+    // the chunk's logs, a step a lane, summed by a fixed butterfly
+    T lg = log_of(f_log);
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      lg = lg + shfl(lg, lane ^ off);
+    log_f = log_f + lg;
+    if (vout != nullptr && lane < n) {
+      const long long at = static_cast<long long>(b) * t_len + t0 + lane;
+      vout[at] = v_out;
+      fout[at] = f_out;
+    }
+  }
+  if (lane == 0) ll[b] = acc - T(0.5) * log_f;
+}
+
 // ---- launches ------------------------------------------------------------
 
 // Lets `kernel` take `bytes` of dynamic shared memory and the SM give its
@@ -2493,18 +2724,16 @@ int dispatch_dpath(const void* tm, const void* w, void* out, int batch,
   }
 }
 
-// K1w's group kernel (kTv: of a time-varying system) over `batch` systems:
-// one launch.
-template <typename T, int D, bool kTv = false>
+// K1w's group kernel over `batch` systems: one launch.
+template <typename T, int D>
 int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
                        const void* h, const void* a0, const void* p0,
                        const void* y, const void* obs, void* ll, void* vout,
                        void* fout, int batch, int t_len, int n_series,
-                       int tm_stride, int z_stride, int threads, void* stream,
-                       const void* zt = nullptr, const void* hs = nullptr,
-                       const void* u = nullptr, long long u_stride = 0) {
-  using L = WideLoglik<T, D, kTv>;
-  auto kernel = wide_loglik_kernel<T, D, kTv>;
+                       int tm_stride, int z_stride, int threads,
+                       void* stream) {
+  using L = WideLoglik<T, D>;
+  auto kernel = wide_loglik_kernel<T, D>;
   static const cudaError_t attr = allow_shared(kernel, L::kMaxBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int per_block = threads / kWarp * L::kPerWarp;
@@ -2520,9 +2749,7 @@ int launch_wide_loglik(const void* z, const void* tm, const void* rqr,
       static_cast<const T*>(a0), static_cast<const T*>(p0),
       static_cast<const T*>(y), static_cast<const unsigned char*>(obs),
       static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
-      batch, t_len, batch / n_series, tm_stride, z_stride,
-      static_cast<const T*>(zt), static_cast<const T*>(hs),
-      static_cast<const T*>(u), u_stride);
+      batch, t_len, batch / n_series, tm_stride, z_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2617,29 +2844,49 @@ int dispatch_loglik_wide(const void* z, const void* tm, const void* rqr,
   }
 }
 
-// K1w of a time-varying system: every one goes to the group kernel
-// (wide_loglik_kernel<T, D, true>), the thread kernel keeps static
-// systems.
+// K1w of a time-varying system over `batch` systems: one launch, a block
+// (one warp) a system.
+template <typename T, int D>
+int launch_tv_warp(const void* tm, const void* rqr, const void* h,
+                   const void* a0, const void* p0, const void* y,
+                   const void* obs, const void* zt, const void* hs,
+                   const void* u, long long u_stride, void* ll, void* vout,
+                   void* fout, int batch, int t_len, int n_series,
+                   int tm_stride, void* stream) {
+  auto kernel = loglik_tv_warp_kernel<T, D>;
+  const int bytes = TvWarp<T, D>::kBytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<batch, kWarp, bytes, st>>>(
+      static_cast<const T*>(tm), static_cast<const T*>(rqr),
+      static_cast<const T*>(h), static_cast<const T*>(a0),
+      static_cast<const T*>(p0), static_cast<const T*>(y),
+      static_cast<const unsigned char*>(obs), static_cast<const T*>(zt),
+      static_cast<const T*>(hs), static_cast<const T*>(u), u_stride,
+      static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
+      t_len, batch / n_series, tm_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
                             const void* a0, const void* p0, const void* y,
                             const void* obs, const void* zt, const void* hs,
                             const void* u, void* ll, void* vout, void* fout,
                             int batch, int t_len, int n_series, int d,
-                            int shared, long long u_stride, int threads,
-                            void* stream) {
-  if (bad_series(batch, t_len, n_series, threads) ||
+                            int shared, long long u_stride, void* stream) {
+  if (batch < 0 || t_len < 1 || n_series < 1 ||
+      (batch > 0 && batch % n_series != 0) ||
       (vout == nullptr) != (fout == nullptr) || u_stride < 0 ||
       (shared & ~kSharedTm) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  const int tm_stride = shared & kSharedTm ? 0 : d * d;
   switch (d) {
 #define BOOM_LOGLIK_WIDE_TV_CASE(D)                                         \
   case D:                                                                   \
-    return launch_wide_loglik<T, D, true>(                                  \
-        nullptr, tm, rqr, h, a0, p0, y, obs, ll, vout, fout, batch, t_len,  \
-        n_series, shared & kSharedTm ? 0 : D * D, 0, threads, stream, zt,   \
-        hs, u, u_stride);
+    return launch_tv_warp<T, D>(tm, rqr, h, a0, p0, y, obs, zt, hs, u,      \
+                                u_stride, ll, vout, fout, batch, t_len,     \
+                                n_series, tm_stride, stream);
     BOOM_LOGLIK_WIDE_TV_CASE(7) BOOM_LOGLIK_WIDE_TV_CASE(8)
     BOOM_LOGLIK_WIDE_TV_CASE(9) BOOM_LOGLIK_WIDE_TV_CASE(10)
     BOOM_LOGLIK_WIDE_TV_CASE(11) BOOM_LOGLIK_WIDE_TV_CASE(12)
@@ -2843,19 +3090,20 @@ extern "C" int boom_kalman_loglik_wide_f64(
                                       shared, threads, stream);
 }
 
-// K1w of a time-varying system: K1w's arrays without z, then zt [T, d],
-// hs [T] and u [U, T, d] as boom_kalman_smoother_wide_tv_f64 takes them;
-// `shared` may hold kSharedTm alone.
+// K1w of a time-varying system (loglik_tv_warp_kernel): K1w's arrays
+// without z, then zt [T, d], hs [T] and u [U, T, d] as
+// boom_kalman_smoother_wide_tv_f64 takes them; `shared` may hold
+// kSharedTm alone.
 extern "C" int boom_kalman_loglik_wide_tv_f32(
     const void* tm, const void* rqr, const void* h, const void* a0,
     const void* p0, const void* y, const void* obs, const void* zt,
     const void* hs, const void* u, void* ll, void* vout, void* fout,
     int batch, int t_len, int n_series, int d, int shared,
-    long long u_stride, int threads, void* stream) {
+    long long u_stride, void* stream) {
   return dispatch_loglik_wide_tv<float>(tm, rqr, h, a0, p0, y, obs, zt, hs,
                                         u, ll, vout, fout, batch, t_len,
                                         n_series, d, shared, u_stride,
-                                        threads, stream);
+                                        stream);
 }
 
 extern "C" int boom_kalman_loglik_wide_tv_f64(
@@ -2863,11 +3111,11 @@ extern "C" int boom_kalman_loglik_wide_tv_f64(
     const void* p0, const void* y, const void* obs, const void* zt,
     const void* hs, const void* u, void* ll, void* vout, void* fout,
     int batch, int t_len, int n_series, int d, int shared,
-    long long u_stride, int threads, void* stream) {
+    long long u_stride, void* stream) {
   return dispatch_loglik_wide_tv<double>(tm, rqr, h, a0, p0, y, obs, zt, hs,
                                          u, ll, vout, fout, batch, t_len,
                                          n_series, d, shared, u_stride,
-                                         threads, stream);
+                                         stream);
 }
 
 extern "C" int boom_kalman_jet_f64(

@@ -87,13 +87,13 @@ _ARGTYPES = {
     "smoother_wide": [_P] * 12 + [_I] * 4 + [_P],
     # a time-varying system's (no z; zt, hs, u and u_stride added):
     # tm, rqr, h, a0, p0, y, obs, zt, hs, u, ll, vout, fout, batch, t_len,
-    # n_series, u_stride, threads, stream
-    "loglik_tv": [_P] * 13 + [_I] * 3 + [_L, _I, _P],
+    # n_series, shared, u_stride, stream
+    "loglik_tv": [_P] * 13 + [_I] * 4 + [_L, _P],
     # tm, rqr, h, p0, alpha1, w, eps, y, obs, zt, hs, u, scratch, out,
     # batch, t_len, u_stride, threads, stream
     "smoother_tv": [_P] * 14 + [_I, _I, _L, _I, _P],
-    # K1w's: as "loglik_tv" with d and the shared bits after n_series
-    "loglik_wide_tv": [_P] * 13 + [_I] * 5 + [_L, _I, _P],
+    # K1w's: as "loglik_tv" with d after n_series
+    "loglik_wide_tv": [_P] * 13 + [_I] * 5 + [_L, _P],
     # K2w's: as "smoother_tv" with d after u_stride
     "smoother_wide_tv": [_P] * 14 + [_I, _I, _L, _I, _I, _P],
     # K2w's structured form: as K2w's without tm, then T's non-zeros

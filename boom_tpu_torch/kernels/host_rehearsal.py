@@ -705,13 +705,15 @@ TV_CASES += [(8, 17, 17, 34, True, "chain"), (2, 33, 33, 40, True, "chain")]
 
 
 def check_time_varying(seed=0, cases=TV_CASES,
-                       dtypes=("float64", "float32"), t_kind="chain"):
+                       dtypes=("float64", "float32"), t_kind="chain",
+                       smoother=True):
     """K1, K1w (with their innovations), K2 and K2w of a time-varying
     system (``kalman_timing.time_varying_system``, its T of ``t_kind``:
-    a T a system, K2w's dense form, or one for all, its structured form)
-    against the plain versions: {case: worst normwise relative error}; the
-    smoothers in float64 only, on a series a chain where there are as many
-    series as systems."""
+    a T a system, the dense forms of K1w and K2w, or one for all, their
+    structured forms) against the plain versions: {case: worst normwise
+    relative error}; the smoothers (unless not ``smoother``) in float64
+    only, on a series a chain where there are as many series as
+    systems."""
     import torch
 
     from boom_tpu_torch.kernels.kalman_timing import time_varying_system
@@ -733,11 +735,11 @@ def check_time_varying(seed=0, cases=TV_CASES,
             want = kalman.kalman_loglik(params, y, obs, innovations=True)
             out[f"loglik_tv {dtype} {name}"] = max(
                 _rel(a, w) for a, w in zip(got, want))
-            if dtype != "float64" or (s != 1 and s != b):
+            if not smoother or dtype != "float64" or (s != 1 and s != b):
                 continue
+            q = params.q_mat.shape[-1]
             nz = [torch.tensor(rng.normal(size=shape))
-                  for shape in ((b, d), (b, t_len - 1, d - 1 if d > 1 else 1),
-                                (b, t_len))]
+                  for shape in ((b, d), (b, t_len - 1, q), (b, t_len))]
             out[f"smoother_tv {name}"] = _rel(
                 kk.simulation_smoother(params, y, *nz, observed=obs),
                 kalman.simulation_smoother(params, y, *nz, observed=obs))

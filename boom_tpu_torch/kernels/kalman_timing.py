@@ -120,18 +120,24 @@ K1W_SHAPES = {
 # d, T, series, T's kind: T_KINDS); K2w imputes every chain of bsts_tv (d
 # = 13, a series a chain: y - X beta) over phase 8's T ("bsts", its
 # structured form) and, at the same shape, with a T a chain (its dense
-# form); K1w scores log_lik's 200 draws (each on its own series); K2 and
-# K1 at the same widths at d = 4 (a Student trend and a 2-column dynamic
-# regression)
+# form); K1w scores log_lik's 200 draws (each on its own series) over
+# phase 8's T, as Bsts passes it, and with a T a draw, and over 4,096
+# systems (the width a TIM move on a time-varying system would launch);
+# K2 and K1 at the same widths at d = 4 (a Student trend and a 2-column
+# dynamic regression: one T for all, as Bsts passes it)
 TV_CHAINS, TV_T, TV_D, TV_DRAWS = 4096, 500, 13, 200
 TV_SHAPES = {
     "smoother_wide_tv": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS,
                          "bsts"),
     "smoother_wide_tv_dense": ("float64", TV_CHAINS, TV_D, TV_T, TV_CHAINS,
                                "chain"),
-    "loglik_wide_tv": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS, "chain"),
+    "loglik_wide_tv": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS, "bsts"),
+    "loglik_wide_tv_own_t": ("float32", TV_DRAWS, TV_D, TV_T, TV_DRAWS,
+                             "chain"),
+    "loglik_wide_tv_wide": ("float32", TV_CHAINS, TV_D, TV_T, TV_CHAINS,
+                            "bsts"),
     "smoother_tv": ("float64", TV_CHAINS, 4, TV_T, TV_CHAINS, "chain"),
-    "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS, "chain")}
+    "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS, "bsts")}
 # the static K2 at K2's time-varying shape (d = 4, a series a chain; no
 # mask), timed by this script alone (the plain version not timed) as
 # that form's yardstick: (dtype, batch, d, T, series)
@@ -192,8 +198,9 @@ def filter_step_flops(d, rows=None):
             + tp["vector"])  # T a
 
 
-def loglik_flops(batch, d, t_len):
-    return batch * t_len * (filter_step_flops(d) + 7)  # + the log density
+def loglik_flops(batch, d, t_len, rows=None):
+    """+ the log density a step; ``rows`` as :func:`filter_step_flops`."""
+    return batch * t_len * (filter_step_flops(d, rows) + 7)
 
 
 def smoother_flops(batch, d, t_len, rows=None):
@@ -258,6 +265,9 @@ JET_LATENCY = {"fp64": 8, "lds": 30, "sync": 20, "rcp": 60}
 TANGENT_LEVELS = {1: 2, 2: 4}
 # an H100 SXM's boost clock
 CLOCK_HZ = 1.98e9
+# the same for the loglik's forms in float32 (an add, multiply or fma; the
+# correctly rounded reciprocal, __frcp_rn)
+LOGLIK_LATENCY = {"fp32": 4, "rcp32": 24}
 
 
 def jet_floor_ms(d, k, order, t_len=LLT_T):
@@ -275,6 +285,31 @@ def jet_floor_ms(d, k, order, t_len=LLT_T):
     levels = dot + (dot + 1) + tl + 2 * tl + 2
     cycles = (lat["fp64"] * levels + lat["rcp"] + 2 * lat["lds"]
               + 3 * lat["sync"])
+    return 1e3 * t_len * cycles / CLOCK_HZ
+
+
+def loglik_floor_ms(d, t_len, dtype, layout):
+    """The latency floor of the loglik's time-varying forms at state
+    dimension d over T steps: a system's dependent chain a step by
+    JET_LATENCY and LOGLIK_LATENCY, times T (the systems run side by side).
+    ``layout`` "warp" (K1w's form, a warp a system): a job of phase 1 (two
+    partial sums, ceil(d / 2) + 1 levels) behind a load, a barrier; T P z
+    and z'P z the same, a barrier; f = z'P z + h_t, 1 / f, then P' = (T W -
+    (T P z)(T P z)' / f) + R Q_t R' (three levels) behind a load, a
+    barrier. "thread" (K1's, a thread a system, T P T' beside the chain):
+    P z (d levels), f (d + 1), 1 / f, and P' = (T P T' - (T P z)(T P z)' /
+    f) + R Q_t R' (three)."""
+    f64 = dtype == "float64"
+    fp = JET_LATENCY["fp64"] if f64 else LOGLIK_LATENCY["fp32"]
+    rcp = JET_LATENCY["rcp"] if f64 else LOGLIK_LATENCY["rcp32"]
+    lds, sync = JET_LATENCY["lds"], JET_LATENCY["sync"]
+    if layout == "warp":
+        dot = -(-d // 2) + 1
+        cycles = (fp * (dot + (dot + 1) + 3) + rcp + 3 * lds + 3 * sync)
+    elif layout == "thread":
+        cycles = fp * (2 * d + 4) + rcp
+    else:
+        raise ValueError(f"no floor for layout {layout!r}")
     return 1e3 * t_len * cycles / CLOCK_HZ
 
 
@@ -304,17 +339,20 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
     d], h_scale [T] and ``tv_rows`` rows of q_t [T, q] (the batch's, or
     one for all), and forms R Q_t R' and h_t a step (:func:`tv_step_flops`;
     twice in the smoother: its forward and its state pass). ``rows``: T's
-    non-zeros a row where every system shares T (the smoother's
-    structured form), the operations over them (:func:`smoother_flops`);
-    T itself is then read once, not a system."""
+    non-zeros a row where every system shares T (the structured forms of
+    the smoother and of the time-varying loglik), the operations over them
+    (:func:`smoother_flops`, :func:`loglik_flops`); T itself is then read
+    once, not a system."""
     item = 8 if dtype == "float64" else 4
     q = d if q is None else q
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     tv_bytes = (t_len * d + t_len + tv_rows * t_len * q) * item \
         if tv_rows else 0
+    shared_t = 0 if rows is None else (batch - 1) * d * d
     if name == "loglik":
-        n_bytes = (batch * (system + 1) + series * t_len) * item + tv_bytes
-        flops = loglik_flops(batch, d, t_len)
+        n_bytes = (batch * (system + 1) - shared_t
+                   + series * t_len) * item + tv_bytes
+        flops = loglik_flops(batch, d, t_len, rows)
         if tv_rows:
             flops += batch * t_len * tv_step_flops(d)
     elif name in ("loglik_grad", "loglik_hess"):
@@ -324,7 +362,6 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
         flops = batch * t_len * (jet_step_flops(d, k) if hess
                                  else dual_step_flops(d, k))
     elif name == "smoother":
-        shared_t = 0 if rows is None else (batch - 1) * d * d
         n_bytes = (batch * (system + (t_len - 1) * q + t_len + t_len * d)
                    - shared_t + series * t_len) * item + tv_bytes
         flops = smoother_flops(batch, d, t_len, rows)
@@ -386,15 +423,16 @@ def bsts_transition(d):
 def shared_transition(rng, d, kind):
     """A T [d, d] for every system: "bsts" (:func:`bsts_transition`),
     "sparse" (a random pattern of about a quarter of the entries, row 1
-    empty and row d - 2 full) or "dense", the random ones scaled to a
-    spectral radius of 0.97 at most."""
+    empty and row d - 2 full, from d = 2) or "dense", the random ones
+    scaled to a spectral radius of 0.97 at most."""
     if kind == "bsts":
         return bsts_transition(d)[0]
     t_mat = rng.normal(size=(d, d))
     if kind == "sparse":
         t_mat *= rng.uniform(size=(d, d)) < 0.25
-        t_mat[1] = 0.0
-        t_mat[d - 2] = rng.normal(size=d)
+        if d >= 2:
+            t_mat[1] = 0.0
+            t_mat[d - 2] = rng.normal(size=d)
     radius = max(abs(np.linalg.eigvals(t_mat)).max(), 1e-3)
     return t_mat * min(1.0, 0.97 / radius)
 
@@ -607,6 +645,21 @@ def transition_rows(d, t_kind):
     return tuple(int(n) for n in (bsts_transition(d)[0] != 0).sum(1))
 
 
+def _no_host_read(kk, fn):
+    """``fn`` with R taken as the 0/1 selection it is (kalman_kernel
+    ._is_selection, a read of the host a call, answered without one, as
+    where a model's pattern vouches for its R): a timed call that never
+    waits on the host, in either tree of a comparison."""
+    def call():
+        saved = kk._is_selection
+        kk._is_selection = lambda r: True
+        try:
+            return fn()
+        finally:
+            kk._is_selection = saved
+    return call
+
+
 def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
              t_kind="chain"):
     """(kernel call, plain call, wrapper call) of a time-varying form (K1 or
@@ -614,7 +667,11 @@ def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
     "smoother_tv", "smoother_wide_tv") on a :func:`time_varying_system` of
     its shape and ``t_kind``, a mask of ~5 % gaps and ``series`` series
     (the smoothers' a chain's through eps, as bsts with a regression gives
-    them)."""
+    them). The loglik's kernel call takes a shared T's pattern, found once
+    here, as Bsts passes its own (where the tree's wrapper takes one), and
+    reads nothing of the host (:func:`_no_host_read`)."""
+    import inspect
+
     import torch
 
     from boom_tpu_torch.statespace import kalman
@@ -628,7 +685,13 @@ def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
                      device="cuda")
     obs = torch.tensor(rng.uniform(size=t_len) > 0.05, device="cuda")
     if name.startswith("loglik"):
-        return (lambda: kk.launch_loglik_tv(params, y, obs, innovations=True),
+        kw = {}
+        if (t_kind != "chain" and "pattern" in
+                inspect.signature(kk.launch_loglik_tv).parameters):
+            kw["pattern"] = kk.TransitionPattern(params.t_mat[0],
+                                                 params.r_mat[0])
+        return (_no_host_read(kk, lambda: kk.launch_loglik_tv(
+                    params, y, obs, innovations=True, **kw)),
                 lambda: kalman.kalman_loglik(params, y, obs,
                                              innovations=True),
                 lambda: kk.innovations(params, y, obs))
@@ -646,10 +709,12 @@ def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
 
 def time_tv(rng, plain=True, shapes=None):
     """{kernel: {ms, wrapper_ms, plain_ms, call_ms, bound_ms, bound_by,
-    bound_dense_ms, shape, pass_ms}} of the time-varying forms at TV_SHAPES
-    (or ``shapes``); bound_dense_ms: the bound with every entry of T
-    counted (the dense-symmetric step), beside the one over T's non-zeros;
-    pass_ms: K2w's passes."""
+    bound_dense_ms, floor_ms, shape, pass_ms}} of the time-varying forms at
+    TV_SHAPES (or ``shapes``); bound_dense_ms: the bound with every entry
+    of T counted (the dense-symmetric step), beside the one over T's
+    non-zeros; floor_ms: the loglik's latency floor
+    (:func:`loglik_floor_ms`: K1w's warp, K1's thread); pass_ms: K2w's
+    passes."""
     out = {}
     for name, (dtype, batch, d, t_len, series, t_kind) in (
             TV_SHAPES if shapes is None else shapes).items():
@@ -659,6 +724,9 @@ def time_tv(rng, plain=True, shapes=None):
                "ms": median_ms(kern), "call_ms": call_ms(kern),
                "wrapper_ms": median_ms(wrapper),
                "plain_ms": median_ms(ref, reps=3, per=1) if plain else None}
+        if name.startswith("loglik"):
+            row["floor_ms"] = loglik_floor_ms(
+                d, t_len, dtype, "warp" if d >= 7 else "thread")
         kind = "loglik" if name.startswith("loglik") else "smoother"
         q = state_errors(d, t_kind)
         row["bound_ms"], row["bound_by"] = bound_ms(
@@ -761,12 +829,18 @@ _WIDE_NAME = re.compile(r"(smoother_wide_kernel|smoother_wide_nz_kernel|"
 _GROUP_NAME = re.compile(r"wide_loglik_kernelI([fd])(?:[fd]|N\w*?TangentI[fd]"
                          r"Li\dEEE)?Li(\d+)E(?:Li(\d)E)?(?:Lb([01])E)?")
 _THREAD_NAME = re.compile(r"loglik_thread_kernelILi(\d+)ELb([01])E")
+# K1w's time-varying form, a warp a system <T, D>
+_TV_WARP_NAME = re.compile(r"loglik_tv_warp_kernelI([fd])Li(\d+)E")
 _JET_NAME = re.compile(r"jet_warp_kernelILi(\d+)ELi([12])E")
 _JET_NAMES = {"1": "loglik_grad", "2": "loglik_hess"}
 
 
 def _wide_key(name):
     """The report's key of a mangled kalman_wide.cu kernel name, or None."""
+    w = _TV_WARP_NAME.search(name)
+    if w:
+        ty, d = w.groups()
+        return f"loglik_wide {'f32' if ty == 'f' else 'f64'} d{int(d):02d} tv"
     t = _THREAD_NAME.search(name)
     if t:
         d, shared = t.groups()

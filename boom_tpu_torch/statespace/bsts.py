@@ -390,6 +390,24 @@ class Bsts:
         return kalman_kernel.TransitionPattern(t_mat.to(SMOOTHER_DTYPE),
                                                r_mat.to(SMOOTHER_DTYPE))
 
+    @functools.cached_property
+    def _run_pattern(self):
+        """:attr:`_transition_pattern` bound to T and R in the run's dtype
+        (the loglik kernels'), with no further read."""
+        return self._transition_pattern.bound(*self._transition)
+
+    def _loglik_pattern(self, params):
+        """The pattern the loglik kernels take for ``params`` (it vouches
+        that R is a selection: ``kalman_kernel.time_varying_operands``): the
+        model's (:attr:`_run_pattern`) where the system is time-varying and
+        its T and R are the model's expanded, as ``ssm_params`` gives them;
+        else None."""
+        if params.time_varying and all(
+                kalman_kernel.expands(x, own) for x, own in zip(
+                    (params.t_mat, params.r_mat), self._transition)):
+            return self._run_pattern
+        return None
+
     def _smoother(self):
         """Simulation-smoother dispatch (the reference's
         ``parallel_smoother`` values, :324-341): a gapped series or a
@@ -588,10 +606,13 @@ class Bsts:
         """[C] marginal log likelihoods of the chains' parameters, the state
         integrated out (reference :899), through K1 (d <= 6) or K1w
         (``kalman_kernel.kalman_loglik``) on y, or with a regression on each
-        chain's own series y - X beta."""
-        return kalman_kernel.kalman_loglik(self.ssm_params(state),
-                                           self.adjusted_series(state),
-                                           self.observed)
+        chain's own series y - X beta. A time-varying system comes with the
+        model's pattern (:meth:`_loglik_pattern`), so that no call reads
+        its R on the host."""
+        params = self.ssm_params(state)
+        return kalman_kernel.kalman_loglik(
+            params, self.adjusted_series(state), self.observed,
+            pattern=self._loglik_pattern(params))
 
     def state_contributions(self, state):
         """Each block's contribution path {name: [C, T]}, and the
@@ -994,11 +1015,12 @@ def one_step_prediction_errors(model: Bsts, states, standardize=True):
     posterior draws (reference bsts.py:1132-1159; ``standardize=False``:
     the raw v_t): the Kalman filter of each draw's system over its series,
     y or y - X beta, and the model's ``observed`` mask, in one launch of K1
-    or K1w on the card (``kalman_kernel.innovations``), the plain filter on
-    the CPU."""
-    v, f = kalman_kernel.innovations(model.ssm_params(states),
-                                     model.adjusted_series(states),
-                                     model.observed)
+    or K1w on the card (``kalman_kernel.innovations``; a time-varying
+    system with the model's pattern), the plain filter on the CPU."""
+    params = model.ssm_params(states)
+    v, f = kalman_kernel.innovations(params, model.adjusted_series(states),
+                                     model.observed,
+                                     pattern=model._loglik_pattern(params))
     return v / torch.sqrt(f) if standardize else v
 
 

@@ -39,7 +39,7 @@ kalman.py); in eager PyTorch each step would be a dozen small launches.
 A time-varying system (``SsmParams.time_varying``: z_t, h_t = h h_scale_t,
 Q_t = (q_t q_t') o Q) takes the same four kernels in their time-varying
 forms (K1 and K2 ``loglik_tv_kernel`` and ``smoother_kernel<D, true>``, K1w
-the group kernel ``wide_loglik_kernel<T, D, true>``), which read
+``loglik_tv_warp_kernel<T, D>``, a warp a system), which read
 three streams a step (:func:`time_varying_operands`): z_t [T, d], one for
 every system; h_scale [T]; and u_t = R q_t [., T, d], where R is a 0/1
 selection (at most one 1 a row: every ported block's), so that R Q_t R' =
@@ -48,6 +48,9 @@ selection (at most one 1 a row: every ported block's), so that R Q_t R' =
 (a :class:`TransitionPattern`, given or found from T), and where each
 chain has its own, ``smoother_wide_kernel<D, pass, true>`` (the dense
 form): a choice by the operands' layout, each with its ``LAUNCHES`` key.
+The loglik's forms take a T shared by every system as its one row, and a
+pattern (Bsts hands its own to log_lik and the errors) only to know R a
+selection with no read of the host.
 A z a system and an R that is no selection raise, naming their ROADMAP
 item.
 
@@ -59,6 +62,7 @@ launches, so a run can show its main path went through the kernels.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 
 import torch
@@ -278,6 +282,17 @@ class TransitionPattern:
         columns (ints) and the values (doubles)."""
         return [ctypes.addressof(a) for a in self._csr]
 
+    def bound(self, t_mat, r_mat=None):
+        """This pattern for another copy of its T and R (the model's T and
+        R in its run's dtype, which this one's were cast from: the caller
+        vouches for their values), so that a system expanding those is
+        known to be the pattern's with no read."""
+        other = copy.copy(self)
+        other.t_mat, other.r_mat = t_mat, r_mat
+        other._versions = (t_mat._version,
+                           None if r_mat is None else r_mat._version)
+        return other
+
     def owns_r(self, r_mat):
         """R [B, d, q] is this pattern's R, expanded (no read)."""
         return _expands(r_mat, self.r_mat, self._versions[1])
@@ -386,12 +401,18 @@ def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
     return tuple(out) if innovations else out[0]
 
 
-def launch_loglik_tv(params: SsmParams, y, observed, innovations=False):
+def launch_loglik_tv(params: SsmParams, y, observed, innovations=False,
+                     pattern=None):
     """The loglik of a time-varying system on the card, K1's (d <= 6) or
-    K1w's (7 <= d <= 16, the group kernel) time-varying form, float32 or
-    float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]). y as
+    K1w's (7 <= d <= 16) time-varying form, float32 or float64 -> ll [B];
+    with ``innovations`` (ll, v [B, T], f [B, T]). y as
     :func:`launch_loglik` takes it; the streams of
-    :func:`time_varying_operands`."""
+    :func:`time_varying_operands`. A T shared by every system (one matrix
+    expanded over them, as ``Bsts.ssm_params`` builds it) goes to the
+    kernels as its one row. ``pattern``: a :class:`TransitionPattern` of T
+    and R (Bsts gives its own), checked against T (no read where T is its
+    own), whose R is then known a selection with no read of the host; one
+    that disagrees with T raises ValueError."""
     h = params.h
     dtype, device = h.dtype, h.device
     tags, dims = _build.KALMAN_ENTRIES["loglik_tv"]
@@ -407,14 +428,17 @@ def launch_loglik_tv(params: SsmParams, y, observed, innovations=False):
     fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": h,
               "a0": params.a0, "p0": params.p0}
     shared = 0
-    if wide and b > 1 and params.t_mat.stride(0) == 0:
+    if b > 1 and params.t_mat.stride(0) == 0:
         fields["t_mat"] = params.t_mat[:1]
         shared = SHARED_T
     p = _checked(fields, dtype, device)
     _shape_check(p, b, d, shared)
+    if pattern is not None:
+        pattern.check(params.t_mat)
     y, n_series = _series_rows(y, b, dtype, device)
     t_len = y.shape[1]
-    zt, hs, u, u_stride = time_varying_operands(params, t_len, dtype, device)
+    zt, hs, u, u_stride = time_varying_operands(params, t_len, dtype, device,
+                                                pattern)
     obs = _observed_bytes(observed, t_len, device)
     out = [torch.empty(b, dtype=dtype, device=device)]
     if innovations:
@@ -429,14 +453,12 @@ def launch_loglik_tv(params: SsmParams, y, observed, innovations=False):
         kind = "loglik_wide_tv"
         rc = getattr(_build.library("kalman_wide"),
                      f"boom_kalman_loglik_wide_tv_{tag}")(
-            *ptrs, b, t_len, n_series, d, shared, u_stride, WIDE_THREADS,
-            _stream(device))
+            *ptrs, b, t_len, n_series, d, shared, u_stride, _stream(device))
     else:
         kind = "loglik_tv"
         rc = getattr(_build.library("kalman_seq"),
                      f"boom_kalman_loglik_tv_{tag}_d{d}")(
-            *ptrs, b, t_len, n_series, u_stride, LOGLIK_THREADS,
-            _stream(device))
+            *ptrs, b, t_len, n_series, shared, u_stride, _stream(device))
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
     LAUNCHES[kind] += 1
@@ -546,13 +568,17 @@ def loglik_along(c, h0, q0, dh, dm, z, t_mat, a0, p0, y, observed=None):
                               observed)
 
 
-def kalman_loglik(params: SsmParams, y, observed=None):
+def kalman_loglik(params: SsmParams, y, observed=None, pattern=None):
     """[B] marginal log likelihoods of the systems ``params`` (leading
     series axis B) on y [T] or [S, T], S dividing B (K1 or K1w on a CUDA
     tensor, the plain ``kalman.kalman_loglik`` on a CPU tensor). On the card
     it is a value only: derivatives are taken along directions of the
-    system with :func:`loglik_along`."""
+    system with :func:`loglik_along`. ``pattern``: a
+    :class:`TransitionPattern` of a time-varying system's T and R (Bsts
+    gives its own), checked against T on either device."""
     if not _on_card(params.h):
+        if pattern is not None:
+            pattern.check(params.t_mat)
         return kalman.kalman_loglik(params, y, observed)
     kalman.check_system(params)
     if torch.is_grad_enabled() and any(
@@ -561,20 +587,24 @@ def kalman_loglik(params: SsmParams, y, observed=None):
             "kalman_kernel.kalman_loglik gives no derivatives on the card: "
             "move the system along directions with loglik_along (J1, J2)")
     if params.time_varying:
-        return launch_loglik_tv(params, y, observed)
+        return launch_loglik_tv(params, y, observed, pattern=pattern)
     return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                          params.a0, params.p0, y, observed)
 
 
-def innovations(params: SsmParams, y, observed=None):
+def innovations(params: SsmParams, y, observed=None, pattern=None):
     """(v, f) [B, T]: the one-step prediction errors and their variances of
     every system on y [T] or [S, T] (K1 or K1w on a CUDA tensor, the plain
-    ``kalman.kalman_loglik(..., innovations=True)`` on a CPU tensor)."""
+    ``kalman.kalman_loglik(..., innovations=True)`` on a CPU tensor);
+    ``pattern`` as :func:`kalman_loglik` takes it."""
     if not _on_card(params.h):
+        if pattern is not None:
+            pattern.check(params.t_mat)
         return kalman.kalman_loglik(params, y, observed, innovations=True)[1:]
     kalman.check_system(params)
     if params.time_varying:
-        return launch_loglik_tv(params, y, observed, innovations=True)[1:]
+        return launch_loglik_tv(params, y, observed, innovations=True,
+                                pattern=pattern)[1:]
     return launch_loglik(params.h, params.rqr, params.z, params.t_mat,
                          params.a0, params.p0, y, observed,
                          innovations=True)[1:]

@@ -520,11 +520,13 @@ TV_KERNELS = {
                   "boom_tpu/statespace/kalman.py:282")}
 # d of the checks (K1 and K2 at 1, 2, 6; K1w and K2w at 7, 13, 16), T, a
 # q_t a system, one for all or none; 33 systems on 11 series and 257 on
-# one (a ragged last block); each with a T a system, and at K2w's d in
-# float64 also with one T for all of bsts' pattern, a random pattern
-# (an empty row and a full one) and a dense one (K2w's structured form:
-# ``kalman_timing.T_KINDS``), and 4097 chains at d = 13 (a ragged last
-# block of K2w's) with bsts' T and with a T a chain
+# one (a ragged last block); each with a T a system, and at K1w's and
+# K2w's d in both dtypes (the smoother in float64) also with one T for
+# all of bsts' pattern, a random pattern (an empty row and a full one)
+# and a dense one (the structured forms over T's non-zeros:
+# ``kalman_timing.T_KINDS``), at K1's with bsts' T for all (its one row),
+# and 4097 chains at d = 13 (a ragged last block of K2w's) with bsts' T
+# and with a T a chain
 TV_D_CHECK = (1, 2, 6, 7, 13, 16)
 TV_T_CHECK = (33, 67)
 TV_Q_CHECK = ("chain", "shared", None)
@@ -2366,11 +2368,14 @@ def _tv_vs_plain(rng, dtype, d, t_len, q_mode, b, series, t_kind="chain"):
     obs = torch.tensor(rng.uniform(size=t_len) > 0.2, device="cuda")
     wide = d in (7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
     out = {}
+    key = "loglik_wide_tv" if wide else "loglik_tv"
+    before = kk.LAUNCHES[key]
     got = kk.launch_loglik_tv(params, y, obs, innovations=True)
     want = kalman.kalman_loglik(params, y, obs, innovations=True)
-    out["loglik_wide_tv" if wide else "loglik_tv"] = (
-        max(_rel(g, w) for g, w in zip(got, want)),
-        max(float((g - w).abs().max()) for g, w in zip(got, want)))
+    check(kk.LAUNCHES[key] == before + 1,
+          f"d={d} T={t_kind}: the loglik did not take {key}")
+    out[key] = (max(_rel(g, w) for g, w in zip(got, want)),
+                max(float((g - w).abs().max()) for g, w in zip(got, want)))
     if dtype == torch.float64:
         q = params.q_mat.shape[-1]
         normals = [torch.tensor(rng.normal(size=sh), dtype=dtype,
@@ -2407,8 +2412,10 @@ def phase2e_tv_vs_plain():
              for dtype in (torch.float64, torch.float32)
              for d in TV_D_CHECK for t_len in TV_T_CHECK
              for q_mode in TV_Q_CHECK for b, series in ((33, 11), (257, 1))]
-    cases += [(torch.float64, d, t_len, q_mode, b, series, t_kind)
-              for d in TV_D_CHECK if d >= 7 for t_kind in TV_SHARED_T
+    cases += [(dtype, d, t_len, q_mode, b, series, t_kind)
+              for dtype in (torch.float64, torch.float32)
+              for d in TV_D_CHECK
+              for t_kind in (TV_SHARED_T if d >= 7 else ("bsts",))
               for t_len in TV_T_CHECK for q_mode in TV_Q_CHECK
               for b, series in ((33, 11), (257, 1))]
     chains, d_r, t_r = TV_RAGGED
@@ -2424,9 +2431,9 @@ def phase2e_tv_vs_plain():
                            f"T's kind {t_kind}: {rel:.3e}")
     for (k, tag), v in sorted(worst.items()):
         print(f"worst {k} {tag} over d {TV_D_CHECK}, T {TV_T_CHECK}, q_t "
-              f"{TV_Q_CHECK}, T's kinds (chain,) + {TV_SHARED_T} at d >= 7, "
-              f"{TV_RAGGED[0]} chains at d = {TV_RAGGED[1]}: {v:.3e} "
-              f"(tolerance {SCAN_TOL[tag]:g})")
+              f"{TV_Q_CHECK}, T's kinds (chain,) + {TV_SHARED_T} at d >= 7 "
+              f"and (chain, bsts) below, {TV_RAGGED[0]} chains at d = "
+              f"{TV_RAGGED[1]}: {v:.3e} (tolerance {SCAN_TOL[tag]:g})")
     check(not bad, "a time-varying kernel disagrees with its plain version: "
           + "; ".join(bad[:20]))
 
@@ -2457,17 +2464,22 @@ def phase2e_tv_vs_plain():
     check(all(same.values()), f"repeated launches differ: {same}")
 
     for name, r in kt.time_tv(rng).items():
+        plain = ("not timed" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f} ms")
+        floor = (f", latency floor {r['floor_ms']:.4f} ms"
+                 if "floor_ms" in r else "")
         print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
-              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; every "
-              f"entry of T counted {r['bound_dense_ms']:.6f} ms); one call "
-              f"on the host clock {r['call_ms']:.4f} ms")
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {plain}, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}; every entry of T "
+              f"counted {r['bound_dense_ms']:.6f} ms){floor}; one call on "
+              f"the host clock {r['call_ms']:.4f} ms")
         if r.get("pass_ms"):
             print(f"time {name} by pass (profiler, device ms a call): "
                   + ", ".join(f"{k} {v:.4f}"
                               for k, v in sorted(r["pass_ms"].items())))
-        at_tv[name].update({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by")})
+        if name in at_tv:
+            at_tv[name].update({k: r[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")})
     for source, read in (("kalman_seq", kt.nvcc_report),
                          ("kalman_wide", kt.wide_nvcc_report)):
         log = _build.log_path(source)

@@ -559,18 +559,19 @@ def test_log_lik_and_errors_with_a_regression_run_on_the_card(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("d", [1, 2, 6, 7, 13, 16])
+@pytest.mark.parametrize("d", [1, 2, 4, 6, 7, 13, 16])
 @pytest.mark.parametrize("q_mode", ["chain", "shared", None])
 @pytest.mark.parametrize("t_len", [1, 33, 500])
-@pytest.mark.parametrize("t_kind", ["chain", "bsts"])
+@pytest.mark.parametrize("t_kind", ["chain", "bsts", "sparse"])
 def test_time_varying_kernels_match_plain(card, dtype, d, q_mode, t_len,
                                           t_kind):
     """K1 / K1w with their innovations (both dtypes) and K2 / K2w (float64)
     of a time-varying system (z_t shared, h_t, Q_t with q_t a system, one
-    for all or none), masked, a series a group, T a system or bsts' T for
-    all: each against its plain version, one launch of its time-varying
-    form (K2w's dense form with a T a system, its structured form with one
-    T for all)."""
+    for all or none), masked, a series a group, T a system, or one T for
+    all of bsts' pattern or a random one (an empty row and a full one:
+    both loglik forms read its one row): each against its plain version,
+    one launch of its time-varying form (K2w's dense form with a T a
+    system, its structured form with one T for all)."""
     from boom_tpu_torch.kernels.kalman_timing import time_varying_system
 
     rng = np.random.default_rng(d * 1000 + t_len)

@@ -7,11 +7,13 @@ normwise in float64, 1e-5 in float32 (``host_rehearsal.check_time_varying``).
 Then a sweep, log_lik and the one-step errors of two small time-varying
 bsts models with gaps through them, against the plain path: d = 13 (K2w,
 K1w) and d = 4 (K2, K1). Then K2w's structured form (T's products over
-its non-zeros, z_t and h_scale staged once a block) and K2's form with its
-streams staged a chunk ahead, at 1e-12: T shared with bsts' pattern, a
-random pattern (an empty row and a full one) or dense, and T a chain (K2w's
-dense form), across the chunks' edges; the pattern a model's run finds
-once, and the refusal of a pattern that disagrees with T.
+its non-zeros, z_t and h_scale staged once a block), K2's form with its
+streams staged a chunk ahead, K1's (a thread a system) and K1w's (a warp
+a system), at 1e-12 (float64; K1 and K1w also float32 at 1e-5): T shared
+with bsts' pattern, a random pattern (an empty row and a full one) or
+dense, and T a chain (K2w's dense form), across the chunks' edges; the
+pattern a model's run finds once and its log_lik and errors reuse, and
+the refusal of a pattern that disagrees with T.
 """
 
 import shutil
@@ -42,6 +44,15 @@ WIDE_CASES = [(d, kind, T_EDGES[(i + j) % 4])
               for j, kind in enumerate(kt.T_KINDS)]
 # K2 at d 1, 2, 4 (32 steps a chunk) and 6 (16) at every edge
 SEQ_CASES = [(d, t_len) for d in (1, 2, 4, 6) for t_len in T_EDGES]
+# the time-varying loglik's forms (K1 to d = 6, K1w past it): d, T's kind
+# (a T a system, or one T for all: bsts' pattern or a random one with an
+# empty row and a full one), T across the 32-step chunks' edges (33, 67),
+# q_t a system, one for all or none, masked or not, and a ragged B (33
+# systems: one over K1's warp of systems)
+LOGLIK_TV_CASES = [(d, kind, (33, 67)[(i + j) % 2], Q_MODES[(i + j) % 3],
+                    (i + j) % 2 == 0)
+                   for i, d in enumerate((1, 2, 4, 6, 7, 13, 16))
+                   for j, kind in enumerate(("chain", "bsts", "sparse"))]
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +96,30 @@ def test_host_compiled_time_varying_kernels_match_plain(case):
     assert kk.LAUNCHES[smoother] == before[smoother] + smoothed
     for kind in ("loglik", "loglik_wide", "smoother", "smoother_wide"):
         assert kk.LAUNCHES[kind] == before[kind]
+    for name, err in errs.items():
+        tol = HOST_TOL["float32" if "float32" in name else "float64"]
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("case", LOGLIK_TV_CASES,
+                         ids=lambda c: "d{}-{}-T{}-q{}-masked{}".format(*c))
+@pytest.mark.usefixtures("host_kernels")
+def test_host_compiled_loglik_tv_forms_match_plain(case):
+    """K1's time-varying form (a thread a system, its streams staged a
+    chunk ahead, the symmetric step) and K1w's (a warp a system, a step's
+    products over its lanes) with their innovations, float64 and float32,
+    on 33 systems over 11 series and on 33 systems a series each, against
+    ``kalman.kalman_loglik(..., innovations=True)``; each launch takes its
+    form's key."""
+    d, t_kind, t_len, q_mode, masked = case
+    cases = [(d, 33, s, t_len, masked, q_mode) for s in (11, 33)]
+    before = dict(kk.LAUNCHES)
+    errs = host_rehearsal.check_time_varying(
+        seed=d * 100 + t_len, cases=cases, t_kind=t_kind, smoother=False)
+    key = "loglik_wide_tv" if d >= 7 else "loglik_tv"
+    ran = {k: kk.LAUNCHES[k] - before[k] for k in kk.LAUNCHES
+           if kk.LAUNCHES[k] != before[k]}
+    assert ran == {key: 4}
     for name, err in errs.items():
         tol = HOST_TOL["float32" if "float32" in name else "float64"]
         assert err <= tol, (name, err)
@@ -203,15 +238,18 @@ ptxas info    : Used {r} registers, used 1 barriers
          128, 0),
         ("_ZN12_GLOBAL__N_120smoother_wide_kernelILi13ELi1ELb1EEEvPKdS2_",
          128, 24),
-        ("_ZN12_GLOBAL__N_118wide_loglik_kernelIffLi13ELi0ELb1EEEvPKT_", 90,
-         0),
+        ("_ZN12_GLOBAL__N_121loglik_tv_warp_kernelIfLi13EEEvPKT_S3_S3_S3_",
+         56, 0),
+        ("_ZN12_GLOBAL__N_121loglik_tv_warp_kernelIdLi16EEEvPKT_S3_S3_S3_",
+         90, 0),
         ("_ZN12_GLOBAL__N_123smoother_wide_nz_kernelILi13ELi1EEEvNS_3NzTEPKd",
          110, 0),
         ("_ZN12_GLOBAL__N_123smoother_wide_nz_kernelILi7ELi3EEEvNS_3NzTEPKd",
          80, 0)])
     assert set(kt.wide_nvcc_report(wide)) == {
         "smoother_wide f64 d13 pass1", "smoother_wide f64 d13 pass1 tv",
-        "loglik_wide f32 d13 tv", "smoother_wide f64 d13 pass1 tv nz",
+        "loglik_wide f32 d13 tv", "loglik_wide f64 d16 tv",
+        "smoother_wide f64 d13 pass1 tv nz",
         "smoother_wide f64 d07 pass3 tv nz"}
     assert kt._WIDE_PASS.search(
         "void (anonymous namespace)::smoother_wide_nz_kernel<13, 2>(NzT, "
@@ -324,6 +362,63 @@ def test_host_compiled_run_finds_its_pattern_once(host_kernels,
     pattern = fit._model._transition_pattern
     assert pattern.row_counts() == kt.transition_rows(13, "bsts")
     assert pattern.nnz == 19 and pattern.selection
+
+
+def test_loglik_and_errors_take_the_models_pattern(host_kernels,
+                                                   monkeypatch):
+    """log_lik, the in-sample errors and the holdout errors of phase 8's
+    blocks hand K1w's form the model's own pattern (its T and R in the
+    run's dtype): once the fit found it, no call finds another or reads R
+    on the host; the holdout's one pattern and one read are its refit
+    model's, for its own smoother."""
+    raw = data.bsts_tv()
+    keep = raw["timestamps"] < 24
+    fit = (BstsModel().add_student_local_linear_trend().add_seasonal(7)
+           .add_dynamic_regression(raw["x_dyn"][:24])
+           .add_random_walk_holiday(raw["active"][:24], 3)
+           .fit(raw["y"][keep], timestamps=raw["timestamps"][keep], niter=2,
+                burn=1, num_chains=2, seed=3, device="cpu",
+                dtype=torch.float32))
+    model, states = fit._model, fit._flat()
+    assert model._transition_pattern.nnz == 19
+    made, reads, given = [], [], []
+    pattern_init = kk.TransitionPattern.__init__
+    is_selection = kk._is_selection
+    launch = kk.launch_loglik_tv
+
+    def counted_init(self, *args, **kw):
+        made.append(1)
+        pattern_init(self, *args, **kw)
+
+    def counted_read(r):
+        reads.append(1)
+        return is_selection(r)
+
+    def spied(params, y, observed, innovations=False, pattern=None):
+        given.append(pattern)
+        return launch(params, y, observed, innovations, pattern)
+
+    monkeypatch.setattr(kk.TransitionPattern, "__init__", counted_init)
+    monkeypatch.setattr(kk, "_is_selection", counted_read)
+    monkeypatch.setattr(kk, "launch_loglik_tv", spied)
+    before = kk.LAUNCHES["loglik_wide_tv"]
+    ll = model.log_lik(states)
+    errs = pbsts.one_step_prediction_errors(model, states)
+    assert (made, reads) == ([], [])
+    held = pbsts.holdout_prediction_errors(
+        model, torch.Generator().manual_seed(4), 16, num_draws=2,
+        num_chains=1, burn=1, max_draws=2)
+    assert (len(made), len(reads)) == (1, 1)
+    assert len(given) == 3 and all(p is model._run_pattern for p in given)
+    assert given[0].t_mat is model._transition[0]
+    assert kk.LAUNCHES["loglik_wide_tv"] == before + 3
+    want = kalman.kalman_loglik(model.ssm_params(states),
+                                model.adjusted_series(states),
+                                model.observed, innovations=True)
+    assert _rel(ll.double(), want[0].double()) <= 1e-5
+    assert _rel(errs.double(),
+                (want[1] / torch.sqrt(want[2])).double()) <= 1e-5
+    assert held.shape == (2, model.t_len) and bool(torch.isfinite(held).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
