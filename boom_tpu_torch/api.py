@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from boom_tpu_torch import rng
-from boom_tpu_torch.inference.driver import McmcResult, run_mcmc
+from boom_tpu_torch.inference.driver import McmcResult, first_leaf, run_mcmc
 
 # dtype policy: float64 for CPU runs (parity with the reference), float32
 # on the card
@@ -170,12 +170,41 @@ class BstsModel:
         self._specs.append(("local_linear_trend", kw))
         return self
 
+    def add_semilocal_linear_trend(self, **kw):
+        """A level whose slope reverts to a long-run mean (R bsts'
+        AddSemilocalLinearTrend)."""
+        self._specs.append(("semilocal_linear_trend", kw))
+        return self
+
     def add_student_local_linear_trend(self, **kw):
         self._specs.append(("student_local_linear_trend", kw))
         return self
 
     def add_seasonal(self, nseasons, **kw):
         self._specs.append(("seasonal", dict(kw, nseasons=nseasons)))
+        return self
+
+    def add_trig(self, period, nfreq, **kw):
+        """Trigonometric seasonality of ``period`` with ``nfreq`` harmonics
+        (AddTrig)."""
+        self._specs.append(("trig", dict(kw, period=period, nfreq=nfreq)))
+        return self
+
+    def add_ar(self, lags=1, **kw):
+        """An AR(``lags``) state (AddAr)."""
+        self._specs.append(("ar", dict(kw, lags=lags)))
+        return self
+
+    def add_static_intercept(self, **kw):
+        """A constant level (AddStaticIntercept)."""
+        self._specs.append(("static_intercept", kw))
+        return self
+
+    def add_monthly_annual_cycle(self, first_date, **kw):
+        """A 12-season cycle of a daily series, moving on the first of each
+        month (AddMonthlyAnnualCycle); ``first_date``: the date of y[0]."""
+        self._specs.append(
+            ("monthly_annual_cycle", dict(kw, first_date=first_date)))
         return self
 
     def add_dynamic_regression(self, predictors, **kw):
@@ -199,9 +228,17 @@ class BstsModel:
             "local_level": lambda kw: sm.LocalLevel.default(y, **kw),
             "local_linear_trend":
                 lambda kw: sm.LocalLinearTrend.default(y, **kw),
+            "semilocal_linear_trend":
+                lambda kw: sm.SemilocalLinearTrend.default(y, **kw),
             "student_local_linear_trend":
                 lambda kw: sm.StudentLocalLinearTrend.default(y, **kw),
             "seasonal": lambda kw: sm.Seasonal.default(y, **kw),
+            "trig": lambda kw: sm.Trig.default(y, **kw),
+            "ar": lambda kw: sm.ArState.default(y, **kw),
+            "static_intercept":
+                lambda kw: sm.StaticIntercept.default(y, **kw),
+            "monthly_annual_cycle":
+                lambda kw: sm.MonthlyAnnualCycle.default(y, **kw),
             "dynamic_regression":
                 lambda kw: sm.DynamicRegression.default(y, **kw),
             "holiday": lambda kw: sm.RandomWalkHoliday.default(y, **kw),
@@ -357,7 +394,7 @@ class BstsModel:
         added."""
         model = self._model
         sub = self._subsampled_states(0, max_draws)
-        take = _leading(sub)
+        take = first_leaf(sub).shape[0]
         noise = rng.draw(rng.generator(seed, model.y.device),
                          model.predict_noise_spec(horizon), take,
                          model.y.dtype)
@@ -369,8 +406,3 @@ class BstsModel:
             ys = ys + sub["beta"] @ x_new.T
         return ys
 
-
-def _leading(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.shape[0]

@@ -36,16 +36,20 @@ def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64,
     A time-varying z [C, T, d] must be one [T, d] for every chain (it is
     passed expanded); q_scale [C, T, q] is carried as it is. h must be [C]:
     a reference h [C, T] of observation weights is h [C] with ``h_scale``
-    [T] (1 / max(w, 1)). ``t_seq`` is not ported and raises."""
+    [T] (1 / max(w, 1)). A time-varying T, ``t_seq`` [C, T, d, d], becomes
+    its distinct matrices and each step's choice (:func:`transition_steps`).
+    """
     if hasattr(fields, "_asdict"):
         fields = fields._asdict()
-    if fields.get("t_seq") is not None:
-        raise NotImplementedError(
-            "time-varying transitions (t_seq) are not ported yet "
-            "(ROADMAP.md, queue 1 item 7: MonthlyAnnualCycle)")
     out = {k: _tensor(fields[k], device, dtype)
-           for k in SsmParams._fields
-           if k not in ("q_scale", "h_scale") and k != "z"}
+           for k in ("t_mat", "r_mat", "q_mat", "h", "a0", "p0")}
+    if fields.get("t_seq") is not None:
+        mats, choice = transition_steps(fields["t_seq"])
+        out["t_mats"] = _tensor(mats, device, dtype)
+        if (mats == mats[:1]).all():
+            out["t_mats"] = out["t_mats"][:1].expand(mats.shape[0], -1, -1,
+                                                     -1)
+        out["t_choice"] = _tensor(choice, device, dtype)
     z = np.asarray(fields["z"])
     if z.ndim == 3:
         if not (z == z[:1]).all():
@@ -62,6 +66,30 @@ def ssm_params_from_numpy(fields, device="cuda", dtype=torch.float64,
     if h_scale is not None:
         out["h_scale"] = _tensor(h_scale, device, dtype)
     return SsmParams(**out)
+
+
+# distinct transitions a calendar gives the kernels (K1w's and K2w's
+# calendar forms take two)
+MAX_TRANSITIONS = 2
+
+
+def transition_steps(t_seq):
+    """The reference's time-varying T, ``t_seq`` [C, T, d, d] (chains' rows
+    t map alpha_t to alpha_{t+1}), as its distinct matrices [C, K, d, d]
+    (a step's matrices over all chains counted as one) and the one each
+    step takes [T] (int64), found once on the host. Raises where there are
+    more than MAX_TRANSITIONS, which the kernels take."""
+    t_seq = np.asarray(t_seq)
+    c, t_len, d, _ = t_seq.shape
+    rows = np.ascontiguousarray(t_seq.transpose(1, 0, 2, 3)).reshape(t_len, -1)
+    uniq, choice = np.unique(rows, axis=0, return_inverse=True)
+    if uniq.shape[0] > MAX_TRANSITIONS:
+        raise NotImplementedError(
+            f"a time-varying T of {uniq.shape[0]} distinct matrices; the "
+            f"kernels take {MAX_TRANSITIONS} (the monthly cycle's calendar) "
+            "(ROADMAP.md, queue 1 item 7: T_t of more than two matrices)")
+    mats = uniq.reshape(-1, c, d, d).transpose(1, 0, 2, 3)
+    return np.ascontiguousarray(mats), choice.reshape(-1).astype(np.int64)
 
 
 def state_from_numpy(tree, device="cuda", dtype=torch.float64):
@@ -105,7 +133,7 @@ def _prior(p):
                       upper_limit=float(p.upper_limit))
 
 
-def _block(b, device, dtype):
+def _block(b, device, dtype, t_len):
     kind = type(b).__name__
     if kind == "LocalLevel":
         return sm.LocalLevel(
@@ -143,9 +171,36 @@ def _block(b, device, dtype):
             initial_level_sd=float(b.initial_level_sd),
             initial_slope_sd=float(b.initial_slope_sd),
             nu_prior_rate=float(b.nu_prior_rate), name=b.name)
+    if kind == "MonthlyAnnualCycle":
+        return sm.MonthlyAnnualCycle(
+            first_date=b.first_date, t_len=t_len,
+            sigma_prior=_prior(b.sigma_prior),
+            initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "Trig":
+        return sm.Trig(period=float(b.period),
+                       frequencies=tuple(b.frequencies),
+                       sigma_prior=_prior(b.sigma_prior),
+                       initial_sd=float(b.initial_sd), name=b.name)
+    if kind == "ArState":
+        return sm.ArState(lags=int(b.lags), sigma_prior=_prior(b.sigma_prior),
+                          initial_sd=float(b.initial_sd),
+                          phi_prior_sd=float(b.phi_prior_sd), name=b.name)
+    if kind == "StaticIntercept":
+        return sm.StaticIntercept(initial_mean=float(b.initial_mean),
+                                  initial_sd=float(b.initial_sd),
+                                  name=b.name)
+    if kind == "SemilocalLinearTrend":
+        return sm.SemilocalLinearTrend(
+            level_prior=_prior(b.level_prior),
+            slope_prior=_prior(b.slope_prior),
+            **{f: float(getattr(b, f)) for f in (
+                "initial_level_mean", "initial_level_sd",
+                "initial_slope_mean", "initial_slope_sd", "slope_mean_mean",
+                "slope_mean_sd", "phi_prior_mean", "phi_prior_sd")},
+            name=b.name)
     raise NotImplementedError(
-        f"state block {kind} is not ported yet (ROADMAP.md, queue 1: the "
-        "other block classes)")
+        f"state block {kind} is not ported yet (ROADMAP.md, queue 1 item 7: "
+        "the other block classes)")
 
 
 def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
@@ -172,7 +227,8 @@ def model_from_jax(bsts, device="cuda", dtype=torch.float64, **overrides):
                  if f.name.startswith("marginal_")})
     opts.update(overrides)
     return Bsts(y=_tensor(bsts.y, device, dtype),
-                blocks=[_block(b, device, dtype) for b in bsts.blocks],
+                blocks=[_block(b, device, dtype, int(bsts.y.shape[0]))
+                        for b in bsts.blocks],
                 obs_prior=(None if bsts.obs_prior is None
                            else _prior(bsts.obs_prior)), **opts)
 

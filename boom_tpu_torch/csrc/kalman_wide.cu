@@ -557,7 +557,13 @@ struct Wide {
 // h hs[t], and R Q_t R' = (u_t u_t') o R Q R' with u_t of u [., T, D] at
 // u + c u_stride (R a 0/1 selection); pass 1 stages z_t, u_t and hs[t]
 // into the step's slot with w_t and eps_t, pass 2 reads its lane's z_t[i]
-// one step ahead, pass 3 stages u_{t-1} beside w.
+// one step ahead, pass 3 stages u_{t-1} beside w. The time-varying form's
+// T is the chain's at tm + c tm_stride (tm_stride 0: one for every chain);
+// with the calendar's T_t (`sel` [T] bytes, not nullptr) two matrices lie
+// there, and step t takes matrix sel[t] (the monthly cycle's rotation or
+// not, the same for every chain and lane): the lane's row (pass 2: column)
+// of T is reloaded from the cache where a step's choice differs from the
+// one it holds, a branch the whole warp takes together, twice a month.
 template <int D, int kPass, bool kTv>
 __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     smoother_wide_kernel(const double* __restrict__ z,
@@ -574,7 +580,9 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
                          double* __restrict__ out, int batch, int t_len,
                          const double* __restrict__ zt,
                          const double* __restrict__ hs,
-                         const double* __restrict__ u, long long u_stride) {
+                         const double* __restrict__ u, long long u_stride,
+                         const unsigned char* __restrict__ sel,
+                         long long tm_stride) {
   using S = Wide<D, kPass, kTv>;
   constexpr int W = S::kW, kLd = S::kLd, kVec = S::kVec, kRec = S::kRec;
   constexpr int kChunk = S::kChunk;
@@ -594,7 +602,11 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
 
   // the chain's operands
   const long long cd = static_cast<long long>(c) * D;
-  const double* tm_c = tm + cd * D;
+  const double* tm_c = kTv ? tm + c * tm_stride : tm + cd * D;
+  // the calendar's choice of step t (0 without one)
+  auto choice = [&](int t) {
+    return kTv && sel != nullptr ? static_cast<int>(sel[t]) : 0;
+  };
   const double* q_c = rqr + cd * D;
   const double* w_c = w + static_cast<long long>(c) * (t_len - 1) * D;
   double* scr_c = scratch + static_cast<long long>(c) * t_len * kRec;
@@ -640,8 +652,9 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     double* zv = ex + 3 * kVec;       // z (ex: P z, a, alpha+)
     const double* eps_c = eps + static_cast<long long>(c) * t_len;
     double trow[D], qv[S::kQInRegisters ? D : 1];
+    int t_held = choice(0);  // the matrix whose row trow holds
 #pragma unroll
-    for (int j = 0; j < D; ++j) trow[j] = tm_c[i * D + j];
+    for (int j = 0; j < D; ++j) trow[j] = tm_c[t_held * D * D + i * D + j];
     if constexpr (S::kQInRegisters) {
 #pragma unroll
       for (int j = 0; j < D; ++j) qv[j] = q_c[j * D + i];  // column i
@@ -668,6 +681,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     double sim_i = alpha1[cd + i];
     double y_n = y[0];
     bool o_n = obs == nullptr || obs[0] != 0;
+    int s_n = t_held;
     __syncwarp();
     stage1(0, 0);
     async_commit();
@@ -682,9 +696,18 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         double* slot = stage(b) + s * S::kStep;
         const double yt = y_n;
         const bool ob = o_n;
+        if constexpr (kTv) {
+          if (s_n != t_held) {  // T_t is the calendar's other matrix
+            t_held = s_n;
+#pragma unroll
+            for (int j = 0; j < D; ++j)
+              trow[j] = tm_c[t_held * D * D + i * D + j];
+          }
+        }
         if (t + 1 < t_len) {
           y_n = y[t + 1];
           o_n = obs == nullptr || obs[t + 1] != 0;
+          s_n = choice(t + 1);
         }
         const double wt = slot[i];  // w_t[i] (none at t = T - 1)
         const double et = slot[D];
@@ -775,8 +798,9 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     // (kalman.py:315-323), chunks in reverse; r_{t-1} replaces the first D
     // of slot t. Lane i holds column i of T.
     double tcol[D];
+    int t_held = choice(t_len - 1);
 #pragma unroll
-    for (int m = 0; m < D; ++m) tcol[m] = tm_c[m * D + i];
+    for (int m = 0; m < D; ++m) tcol[m] = tm_c[t_held * D * D + m * D + i];
     auto stage2 = [&](int j, int b) {
       stage_run(stage(b), scr_c + j * kChunk * kRec, chunk_len(j) * kRec, 1,
                 1);
@@ -801,6 +825,12 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
         if constexpr (kTv) {
           zi = z_n;
           if (t > 0 && act) z_n = zt[(t - 1) * D + i];
+          if (choice(t) != t_held) {  // L_t = T_t - K_t z_t'
+            t_held = choice(t);
+#pragma unroll
+            for (int m = 0; m < D; ++m)
+              tcol[m] = tm_c[t_held * D * D + m * D + i];
+          }
         }
         const double vf = slot[0];
         double* xk = ex + (t & 1) * 2 * kVec;  // K, then r
@@ -836,11 +866,20 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
     // first D), then w [D] a step at kChunk * kRec, which the draw replaces
     double* out_c = out + static_cast<long long>(c) * t_len * D;
     double trow[D], qrow[D];
+    int t_held = choice(0);
 #pragma unroll
     for (int m = 0; m < D; ++m) {
-      trow[m] = tm_c[i * D + m];
+      trow[m] = tm_c[t_held * D * D + i * D + m];
       qrow[m] = q_c[i * D + m];  // row i of R Q R'
     }
+    // the lane's row of T_k (alpha-hat_t takes T_{t-1}, alpha+_{t+1} T_t)
+    auto hold = [&](int k) {
+      if (kTv && k != t_held) {
+        t_held = k;
+#pragma unroll
+        for (int m = 0; m < D; ++m) trow[m] = tm_c[k * D * D + i * D + m];
+      }
+    };
     // u_{t-1} of step t of chunk j (none at t = 0) at kChunk (kRec + D)
     constexpr int kUOff = kChunk * (kRec + D);
     auto stage3 = [&](int j, int b) {
@@ -879,6 +918,7 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
 #pragma unroll
           for (int m = 1; m < D; ++m) ah = ah + p0_c[i * D + m] * rs[m];
         } else {
+          hold(choice(t - 1));
           const double ta = dot_pairs<D>(trow, xa);
           double qr;
           if constexpr (kTv) {
@@ -894,7 +934,10 @@ __global__ void __launch_bounds__(kBlock, kWideMinBlocks)
           ah = ta + qr;
         }
         const double draw = sim_i + ah;
-        if (t < t_len - 1) sim_i = dot_pairs<D>(trow, xa + kVec) + ws[i];
+        if (t < t_len - 1) {
+          hold(choice(t));
+          sim_i = dot_pairs<D>(trow, xa + kVec) + ws[i];
+        }
         if (act) ws[i] = draw;
       }
       __syncwarp();
@@ -2252,7 +2295,8 @@ __device__ __forceinline__ double log_of(double x) { return log(x); }
 // columns, P z in column D, T a in row D, z'a at (D, D)); B holds T (rows
 // < D; z_t, row D of the products, is read from the stage); then two
 // stage buffers of kChunk steps, each z_t [kChunk][D], then the system's
-// u_t [kChunk][D]. A step's products are jobs spread over the lanes in
+// u_t [kChunk][D]; with the calendar's T_t, B2 (kX more) holds its second
+// matrix after them. A step's products are jobs spread over the lanes in
 // rounds (job lane + 32 r): phase 1 every (i, j) <= (D, D) of Y, X row i
 // by [T; z_t] row j (kJobs1); phase 2 T W on P's upper triangle, T row i
 // by W column j (the lane keeps its own for phase 3, where it forms the
@@ -2272,7 +2316,8 @@ struct TvWarp {
   static constexpr int kStage = 2 * kChunk * D;  // z_t, u_t of a chunk
   static constexpr int kBytes =
       (3 * kX + 2 * kStage) * static_cast<int>(sizeof(T));
-  static_assert(kBytes <= 48 * 1024, "K1w's time-varying layout");
+  static_assert(kBytes + kX * static_cast<int>(sizeof(T)) <= 48 * 1024,
+                "K1w's time-varying layout, the calendar's second T too");
 };
 
 // K1w of a time-varying system (z_t of zt [T, D], one for every system; h_t
@@ -2280,6 +2325,9 @@ struct TvWarp {
 // u_stride, R a 0/1 selection): the loglik of system b (block b) over
 // series b / per_series of y [n_series, T], and with vout the innovations
 // v and f [B, T]; T of tm at tm + b tm_stride (0: one for every system).
+// With the calendar's T_t (`sel` [T] bytes, not nullptr) two matrices lie
+// there, B and B2 hold them, and step t reads the one sel[t] names (the
+// same for every system), staged with y a step a lane.
 // A warp a system, so that phase 8's 200 draws take 200 warps, a block
 // each, and a step's work spreads over 32 lanes. A step is the symmetric
 // Riccati step,
@@ -2313,7 +2361,8 @@ __global__ void __launch_bounds__(kWarp)
                           const T* __restrict__ u, long long u_stride,
                           T* __restrict__ ll, T* __restrict__ vout,
                           T* __restrict__ fout, int t_len, int per_series,
-                          int tm_stride) {
+                          int tm_stride,
+                          const unsigned char* __restrict__ sel) {
   using L = TvWarp<T, D>;
   constexpr int kLd = L::kLd, kChunk = L::kChunk;
   auto sum = [](auto x, auto c) { return dot_parts<D, 2, T>(x, c); };
@@ -2322,6 +2371,7 @@ __global__ void __launch_bounds__(kWarp)
   T* ys = xs + L::kX;                      // W, P z, T a, z'a
   T* bs = ys + L::kX;                      // T
   T* stage0 = bs + L::kX;
+  T* bs2 = stage0 + 2 * L::kStage;  // the calendar's second T
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const long long bd = static_cast<long long>(b) * D;
@@ -2332,6 +2382,7 @@ __global__ void __launch_bounds__(kWarp)
     const int i = k / D, j = k - i * D;
     xs[i * kLd + j] = T(0.5) * (p0_b[i * D + j] + p0_b[j * D + i]);
     bs[i * kLd + j] = tm_b[k];
+    if (sel != nullptr) bs2[i * kLd + j] = tm_b[D * D + k];
   }
   if (lane < D) xs[D * kLd + lane] = a0[bd + lane];
   // the lane's jobs: phase 1 (X row, [T; z] row), phase 2 (Y column, T
@@ -2385,18 +2436,20 @@ __global__ void __launch_bounds__(kWarp)
   T y_next = lane < t_len ? y_b[lane] : T(0);
   T s_next = lane < t_len ? hs[lane] : T(1);
   int o_next = lane < t_len && (obs == nullptr || obs[lane] != 0);
+  int c_next = lane < t_len && sel != nullptr ? sel[lane] : 0;
   T acc(0), log_f(0);  // log f summed over the observed steps
   stage(0, 0);
   async_commit();
   __syncwarp();  // P, a and T are whole
   for (int t0 = 0, buf = 0; t0 < t_len; t0 += kChunk, buf ^= 1) {
     const T y_mine = y_next, s_mine = s_next;
-    const int o_mine = o_next;
+    const int o_mine = o_next, c_mine = c_next;
     const int tn = t0 + kChunk + lane;
     if (tn < t_len) {
       y_next = y_b[tn];
       s_next = hs[tn];
       o_next = obs == nullptr || obs[tn] != 0;
+      c_next = sel != nullptr ? sel[tn] : 0;
     }
     if (t0 + kChunk < t_len) stage(t0 + kChunk, buf ^ 1);
     async_commit();
@@ -2410,6 +2463,7 @@ __global__ void __launch_bounds__(kWarp)
     for (int s = 0; s < n; ++s) {
       const T yt = shfl(y_mine, s), st = shfl(s_mine, s);
       const bool ob = __shfl_sync(kFull, o_mine, s) != 0;
+      const T* bt = __shfl_sync(kFull, c_mine, s) != 0 ? bs2 : bs;  // T_t
       const T* zr = zb + s * D;
       const T* ur = ub + s * D;
       // 1. Y = [P; a] [T' z]
@@ -2417,7 +2471,7 @@ __global__ void __launch_bounds__(kWarp)
 #pragma unroll
       for (int r = 0; r < L::kRounds1; ++r) {
         const T* xr = xs + x1[r] * kLd;
-        const T* br = b1[r] < D ? bs + b1[r] * kLd : zr;
+        const T* br = b1[r] < D ? bt + b1[r] * kLd : zr;
         y1[r] = sum([&](int m) { return xr[m]; },
                     [&](int m) { return br[m]; });
       }
@@ -2430,7 +2484,7 @@ __global__ void __launch_bounds__(kWarp)
 #pragma unroll
       for (int r = 0; r < L::kRounds2; ++r) {
         const T* yc = ys + y2[r];
-        const T* br = b2[r] < D ? bs + b2[r] * kLd : zr;
+        const T* br = b2[r] < D ? bt + b2[r] * kLd : zr;
         tw[r] = sum([&](int m) { return yc[m * kLd]; },
                     [&](int m) { return br[m]; });
       }
@@ -2509,7 +2563,8 @@ cudaError_t launch_wide_pass(const void* z, const void* tm, const void* rqr,
                              const void* eps, const void* y, const void* obs,
                              void* scratch, void* out, int batch, int t_len,
                              const void* zt, const void* hs, const void* u,
-                             long long u_stride, int threads,
+                             long long u_stride, const void* sel,
+                             long long tm_stride, int threads,
                              cudaStream_t st) {
   using S = Wide<D, kPass, kTv>;
   auto kernel = smoother_wide_kernel<D, kPass, kTv>;
@@ -2525,7 +2580,8 @@ cudaError_t launch_wide_pass(const void* z, const void* tm, const void* rqr,
       static_cast<const double*>(y), static_cast<const unsigned char*>(obs),
       static_cast<double*>(scratch), static_cast<double*>(out), batch,
       t_len, static_cast<const double*>(zt), static_cast<const double*>(hs),
-      static_cast<const double*>(u), u_stride);
+      static_cast<const double*>(u), u_stride,
+      static_cast<const unsigned char*>(sel), tm_stride);
   return cudaGetLastError();
 }
 
@@ -2537,20 +2593,22 @@ int launch_smoother_wide(const void* z, const void* tm, const void* rqr,
                          const void* w, const void* eps, const void* y,
                          const void* obs, void* scratch, void* out,
                          int batch, int t_len, const void* zt, const void* hs,
-                         const void* u, long long u_stride, int threads,
-                         void* stream) {
+                         const void* u, long long u_stride, const void* sel,
+                         long long tm_stride, int threads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_wide_pass<D, 1, kTv>(
       z, tm, rqr, h, p0, alpha1, w, eps, y, obs, scratch, out, batch, t_len,
-      zt, hs, u, u_stride, threads, st);
+      zt, hs, u, u_stride, sel, tm_stride, threads, st);
   if (err == cudaSuccess)
     err = launch_wide_pass<D, 2, kTv>(z, tm, rqr, h, p0, alpha1, w, eps, y,
                                       obs, scratch, out, batch, t_len, zt, hs,
-                                      u, u_stride, threads, st);
+                                      u, u_stride, sel, tm_stride, threads,
+                                      st);
   if (err == cudaSuccess)
     err = launch_wide_pass<D, 3, kTv>(z, tm, rqr, h, p0, alpha1, w, eps, y,
                                       obs, scratch, out, batch, t_len, zt, hs,
-                                      u, u_stride, threads, st);
+                                      u, u_stride, sel, tm_stride, threads,
+                                      st);
   return static_cast<int>(err);
 }
 
@@ -2852,9 +2910,11 @@ int launch_tv_warp(const void* tm, const void* rqr, const void* h,
                    const void* obs, const void* zt, const void* hs,
                    const void* u, long long u_stride, void* ll, void* vout,
                    void* fout, int batch, int t_len, int n_series,
-                   int tm_stride, void* stream) {
+                   int tm_stride, const void* sel, void* stream) {
   auto kernel = loglik_tv_warp_kernel<T, D>;
-  const int bytes = TvWarp<T, D>::kBytes;
+  const int bytes =
+      TvWarp<T, D>::kBytes +
+      (sel != nullptr ? TvWarp<T, D>::kX * static_cast<int>(sizeof(T)) : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   kernel<<<batch, kWarp, bytes, st>>>(
       static_cast<const T*>(tm), static_cast<const T*>(rqr),
@@ -2863,7 +2923,8 @@ int launch_tv_warp(const void* tm, const void* rqr, const void* h,
       static_cast<const unsigned char*>(obs), static_cast<const T*>(zt),
       static_cast<const T*>(hs), static_cast<const T*>(u), u_stride,
       static_cast<T*>(ll), static_cast<T*>(vout), static_cast<T*>(fout),
-      t_len, batch / n_series, tm_stride);
+      t_len, batch / n_series, tm_stride,
+      static_cast<const unsigned char*>(sel));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2871,22 +2932,24 @@ template <typename T>
 int dispatch_loglik_wide_tv(const void* tm, const void* rqr, const void* h,
                             const void* a0, const void* p0, const void* y,
                             const void* obs, const void* zt, const void* hs,
-                            const void* u, void* ll, void* vout, void* fout,
-                            int batch, int t_len, int n_series, int d,
-                            int shared, long long u_stride, void* stream) {
+                            const void* u, const void* sel, void* ll,
+                            void* vout, void* fout, int batch, int t_len,
+                            int n_series, int d, int shared,
+                            long long u_stride, void* stream) {
   if (batch < 0 || t_len < 1 || n_series < 1 ||
       (batch > 0 && batch % n_series != 0) ||
       (vout == nullptr) != (fout == nullptr) || u_stride < 0 ||
       (shared & ~kSharedTm) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const int tm_stride = shared & kSharedTm ? 0 : d * d;
+  const int tm_stride =
+      shared & kSharedTm ? 0 : (sel != nullptr ? 2 : 1) * d * d;
   switch (d) {
 #define BOOM_LOGLIK_WIDE_TV_CASE(D)                                         \
   case D:                                                                   \
     return launch_tv_warp<T, D>(tm, rqr, h, a0, p0, y, obs, zt, hs, u,      \
                                 u_stride, ll, vout, fout, batch, t_len,     \
-                                n_series, tm_stride, stream);
+                                n_series, tm_stride, sel, stream);
     BOOM_LOGLIK_WIDE_TV_CASE(7) BOOM_LOGLIK_WIDE_TV_CASE(8)
     BOOM_LOGLIK_WIDE_TV_CASE(9) BOOM_LOGLIK_WIDE_TV_CASE(10)
     BOOM_LOGLIK_WIDE_TV_CASE(11) BOOM_LOGLIK_WIDE_TV_CASE(12)
@@ -2977,7 +3040,7 @@ extern "C" int boom_kalman_smoother_wide_f64(
     return launch_smoother_wide<D, false>(z, tm, rqr, h, p0, alpha1, w, eps, \
                                           y, obs, scratch, out, batch, t_len,\
                                           nullptr, nullptr, nullptr, 0,     \
-                                          threads, stream);
+                                          nullptr, D * D, threads, stream);
     BOOM_WIDE_CASE(7) BOOM_WIDE_CASE(8) BOOM_WIDE_CASE(9) BOOM_WIDE_CASE(10)
     BOOM_WIDE_CASE(11) BOOM_WIDE_CASE(12) BOOM_WIDE_CASE(13)
     BOOM_WIDE_CASE(14) BOOM_WIDE_CASE(15) BOOM_WIDE_CASE(16)
@@ -2990,23 +3053,29 @@ extern "C" int boom_kalman_smoother_wide_f64(
 // K2w of a time-varying system (smoother_wide_kernel<D, pass, true>): the
 // static entry's arrays without z, then zt [T, d] (one z_t for every
 // chain), hs [T] (h_t = h hs[t]) and u [U, T, d] with u_stride = T d (U =
-// B) or 0 (U = 1), R a 0/1 selection with at most one 1 a row.
+// B) or 0 (U = 1), R a 0/1 selection with at most one 1 a row. sel
+// nullptr: tm [B, d, d], a chain's T, or one [d, d] of every chain with
+// `shared` 1; the calendar's T_t: sel [T] bytes (0 or 1), step t takes
+// matrix sel[t] of tm [B, 2, d, d], or of [2, d, d] with `shared` 1.
 extern "C" int boom_kalman_smoother_wide_tv_f64(
     const void* tm, const void* rqr, const void* h, const void* p0,
     const void* alpha1, const void* w, const void* eps, const void* y,
     const void* obs, const void* zt, const void* hs, const void* u,
-    void* scratch, void* out, int batch, int t_len, long long u_stride,
-    int d, int threads, void* stream) {
-  if (batch < 0 || t_len < 1 || bad_block(threads) || u_stride < 0)
+    const void* sel, void* scratch, void* out, int batch, int t_len,
+    long long u_stride, int shared, int d, int threads, void* stream) {
+  if (batch < 0 || t_len < 1 || bad_block(threads) || u_stride < 0 ||
+      (shared & ~1) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  const long long tm_stride =
+      shared ? 0 : static_cast<long long>(sel != nullptr ? 2 : 1) * d * d;
   switch (d) {
 #define BOOM_WIDE_TV_CASE(D)                                                \
   case D:                                                                   \
     return launch_smoother_wide<D, true>(nullptr, tm, rqr, h, p0, alpha1, w,\
                                          eps, y, obs, scratch, out, batch,  \
-                                         t_len, zt, hs, u, u_stride,        \
-                                         threads, stream);
+                                         t_len, zt, hs, u, u_stride, sel,   \
+                                         tm_stride, threads, stream);
     BOOM_WIDE_TV_CASE(7) BOOM_WIDE_TV_CASE(8) BOOM_WIDE_TV_CASE(9)
     BOOM_WIDE_TV_CASE(10) BOOM_WIDE_TV_CASE(11) BOOM_WIDE_TV_CASE(12)
     BOOM_WIDE_TV_CASE(13) BOOM_WIDE_TV_CASE(14) BOOM_WIDE_TV_CASE(15)
@@ -3091,17 +3160,18 @@ extern "C" int boom_kalman_loglik_wide_f64(
 }
 
 // K1w of a time-varying system (loglik_tv_warp_kernel): K1w's arrays
-// without z, then zt [T, d], hs [T] and u [U, T, d] as
-// boom_kalman_smoother_wide_tv_f64 takes them; `shared` may hold
+// without z, then zt [T, d], hs [T], u [U, T, d] and sel as
+// boom_kalman_smoother_wide_tv_f64 takes them (the calendar's two
+// matrices a system, or two for all with kSharedTm); `shared` may hold
 // kSharedTm alone.
 extern "C" int boom_kalman_loglik_wide_tv_f32(
     const void* tm, const void* rqr, const void* h, const void* a0,
     const void* p0, const void* y, const void* obs, const void* zt,
-    const void* hs, const void* u, void* ll, void* vout, void* fout,
-    int batch, int t_len, int n_series, int d, int shared,
+    const void* hs, const void* u, const void* sel, void* ll, void* vout,
+    void* fout, int batch, int t_len, int n_series, int d, int shared,
     long long u_stride, void* stream) {
   return dispatch_loglik_wide_tv<float>(tm, rqr, h, a0, p0, y, obs, zt, hs,
-                                        u, ll, vout, fout, batch, t_len,
+                                        u, sel, ll, vout, fout, batch, t_len,
                                         n_series, d, shared, u_stride,
                                         stream);
 }
@@ -3109,11 +3179,11 @@ extern "C" int boom_kalman_loglik_wide_tv_f32(
 extern "C" int boom_kalman_loglik_wide_tv_f64(
     const void* tm, const void* rqr, const void* h, const void* a0,
     const void* p0, const void* y, const void* obs, const void* zt,
-    const void* hs, const void* u, void* ll, void* vout, void* fout,
-    int batch, int t_len, int n_series, int d, int shared,
+    const void* hs, const void* u, const void* sel, void* ll, void* vout,
+    void* fout, int batch, int t_len, int n_series, int d, int shared,
     long long u_stride, void* stream) {
   return dispatch_loglik_wide_tv<double>(tm, rqr, h, a0, p0, y, obs, zt, hs,
-                                         u, ll, vout, fout, batch, t_len,
+                                         u, sel, ll, vout, fout, batch, t_len,
                                          n_series, d, shared, u_stride,
                                          stream);
 }

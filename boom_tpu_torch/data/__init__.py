@@ -35,6 +35,19 @@ needs JAX to make them (numpy only).
   static predictors ``x`` [n, 20] (a duplicated day repeats its row) with
   beta = (3, -2, 1.5, 1, 0 x 16), plus N(0, 0.5^2) noise. Rows 500-529 of
   ``x_dyn`` and ``active``, and ``x_future`` [30, 20], are the forecast's.
+- ``bsts_monthly.npz``: the bsts_monthly configuration's daily series y
+  [730] (float32) from ``BSTS_MONTHLY_FIRST`` (2022-01-01), made with
+  numpy alone by :func:`make_bsts_monthly` as the reference's own recipe
+  (``tests/test_monthly_annual_cycle.py:75-90``): its twelve month effects
+  (centred), a slow level (innovation sd 0.02) and N(0, 0.3^2) noise, with
+  a slope that reverts to 0.002 (phi 0.9, innovation sd 0.001) added to
+  the level, so that a semilocal trend has something to find.
+- ``bsts_ar_trig.npz``: the bsts_ar_trig configuration's weekly series y
+  [520] (float32), made with numpy alone by :func:`make_bsts_ar_trig`: a
+  constant mean 10, an AR(2) with phi = (0.6, 0.2) (innovation sd 0.5),
+  an annual cycle of period 52.18 weeks with two harmonics and N(0,
+  0.3^2) noise. ``tests/test_torch_bsts_monthly_data.py`` remakes both and
+  compares, and writes them when run as a script.
 - ``hmm.npz``, ``mixture.npz``, ``beta_binomial.npz``: the data of
   BASELINE configs #4, #3 and #1, drawn with JAX (x64 on, float64) by the
   reference's own simulators from the keys and truths of its tests, and
@@ -54,6 +67,7 @@ needs JAX to make them (numpy only).
 
 from __future__ import annotations
 
+import datetime
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +80,15 @@ BSTS_TV = Path(__file__).resolve().parent / "bsts_tv.npz"
 # holiday window's days and the seed of make_bsts_tv
 BSTS_TV_GRID, BSTS_TV_HORIZON, BSTS_TV_P, BSTS_TV_WINDOW = 500, 30, 20, 3
 BSTS_TV_SEED = 2027
+BSTS_MONTHLY = Path(__file__).resolve().parent / "bsts_monthly.npz"
+BSTS_MONTHLY_FIRST = datetime.date(2022, 1, 1)
+BSTS_MONTHLY_DAYS, BSTS_MONTHLY_SEED = 730, 2028
+# the reference's month effects (tests/test_monthly_annual_cycle.py:81-82)
+MONTH_EFFECTS = (3.0, -2.0, 1.5, 0.5, -1.0, 2.0, -0.5, 0.0, 1.0, -2.5, 0.8,
+                 -2.8)
+BSTS_AR_TRIG = Path(__file__).resolve().parent / "bsts_ar_trig.npz"
+BSTS_AR_TRIG_WEEKS, BSTS_AR_TRIG_PERIOD, BSTS_AR_TRIG_SEED = 520, 52.18, 2029
+BSTS_AR_TRIG_PHI = (0.6, 0.2)
 HMM = Path(__file__).resolve().parent / "hmm.npz"
 MIXTURE = Path(__file__).resolve().parent / "mixture.npz"
 BETA_BINOMIAL = Path(__file__).resolve().parent / "beta_binomial.npz"
@@ -137,6 +160,48 @@ def bsts_tv() -> dict:
     """The committed bsts_tv data (:func:`make_bsts_tv`'s keys)."""
     with np.load(BSTS_TV, allow_pickle=False) as f:
         return {k: f[k] for k in f.files}
+
+
+def make_bsts_monthly(seed=BSTS_MONTHLY_SEED) -> dict:
+    """The bsts_monthly data from a numpy seed (the module's docstring)."""
+    rng = np.random.default_rng(seed)
+    t_len = BSTS_MONTHLY_DAYS
+    effect = np.asarray(MONTH_EFFECTS)
+    effect = effect - effect.mean()
+    months = np.asarray([(BSTS_MONTHLY_FIRST + datetime.timedelta(days=t))
+                         .month - 1 for t in range(t_len)])
+    slope = np.zeros(t_len)
+    for t in range(1, t_len):
+        slope[t] = (0.002 + 0.9 * (slope[t - 1] - 0.002)
+                    + 0.001 * rng.normal())
+    level = np.cumsum(slope + 0.02 * rng.normal(size=t_len))
+    y = level + effect[months] + 0.3 * rng.normal(size=t_len)
+    return {"y": y.astype(np.float32), "months": months.astype(np.int64)}
+
+
+def bsts_monthly() -> dict:
+    """The committed bsts_monthly data (:func:`make_bsts_monthly`'s keys)."""
+    return _npz(BSTS_MONTHLY)
+
+
+def make_bsts_ar_trig(seed=BSTS_AR_TRIG_SEED) -> dict:
+    """The bsts_ar_trig data from a numpy seed (the module's docstring)."""
+    rng = np.random.default_rng(seed)
+    t_len = BSTS_AR_TRIG_WEEKS
+    phi1, phi2 = BSTS_AR_TRIG_PHI
+    ar = np.zeros(t_len + 2)
+    for t in range(2, t_len + 2):
+        ar[t] = phi1 * ar[t - 1] + phi2 * ar[t - 2] + 0.5 * rng.normal()
+    lam = 2.0 * np.pi * np.arange(t_len) / BSTS_AR_TRIG_PERIOD
+    cycle = (2.0 * np.cos(lam) + 1.0 * np.sin(lam) + 0.6 * np.cos(2 * lam)
+             - 0.4 * np.sin(2 * lam))
+    y = 10.0 + ar[2:] + cycle + 0.3 * rng.normal(size=t_len)
+    return {"y": y.astype(np.float32)}
+
+
+def bsts_ar_trig() -> dict:
+    """The committed bsts_ar_trig data (:func:`make_bsts_ar_trig`'s keys)."""
+    return _npz(BSTS_AR_TRIG)
 
 
 def _npz(path) -> dict:

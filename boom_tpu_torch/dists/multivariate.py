@@ -1,6 +1,7 @@
 """Multivariate T (port of ``mvt`` in boom_tpu/dists/multivariate.py:121-147,
-with the triangular solve and log-determinant it uses, :21-45) and the
-Dirichlet (:153).
+with the triangular solves and log-determinant it uses, :21-45), the
+multivariate normal's draw from its natural parameters (``mvn.sample_suf``
+:100) and the Dirichlet (:153).
 
 Batched over leading dimensions; the samplers take their normals and
 uniforms as tensors (see ``boom_tpu_torch.rng``).
@@ -24,8 +25,33 @@ def _solve_tri_lower(chol, b):
         b.expand(*batch, *b.shape[-2:]), upper=False)
 
 
+def _solve_tri_upper_t(chol, b):
+    """L'^{-1} b for a lower-triangular L (the reference's ``_solve_tri(...,
+    trans=True)``), broadcasting batch dims."""
+    batch = torch.broadcast_shapes(chol.shape[:-2], b.shape[:-2])
+    return torch.linalg.solve_triangular(
+        chol.expand(*batch, *chol.shape[-2:]).transpose(-1, -2),
+        b.expand(*batch, *b.shape[-2:]), upper=True)
+
+
 def log_det_from_chol(chol):
     return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+
+
+class mvn:
+    """The multivariate normal's draws (reference ``mvn``)."""
+
+    @staticmethod
+    def sample_suf(normals, prec_mean, prec=None, prec_chol=None):
+        """x ~ N(prec^{-1} b, prec^{-1}) given the natural parameters b =
+        ``prec_mean`` [..., d] and ``prec`` [..., d, d] (or its lower
+        Cholesky factor L), at the standard normals ``normals`` [..., d]:
+        x = L'^{-1} (L^{-1} b + z), one factor for the mean and the noise
+        (reference ``sample_suf``, rmvn_suf_mt)."""
+        if prec_chol is None:
+            prec_chol = torch.linalg.cholesky(prec)
+        w = _solve_tri_lower(prec_chol, prec_mean[..., None])[..., 0]
+        return _solve_tri_upper_t(prec_chol, (w + normals)[..., None])[..., 0]
 
 
 class mvt:

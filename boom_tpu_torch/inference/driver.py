@@ -90,7 +90,17 @@ def run_mcmc(kernel: Callable, draw_noise: Callable, init_states,
     return McmcResult(draws=draws, final_state=final_state)
 
 
+def first_leaf(tree):
+    """The first tensor of nested dicts, depth first (an empty dict, a
+    block without parameters, holds none)."""
+    if not isinstance(tree, dict):
+        return tree
+    for sub in tree.values():
+        leaf = first_leaf(sub)
+        if leaf is not None:
+            return leaf
+    return None
+
+
 def _num_chains(state):
-    while isinstance(state, dict):
-        state = next(iter(state.values()))
-    return state.shape[0]
+    return first_leaf(state).shape[0]

@@ -48,7 +48,8 @@ KALMAN_ENTRIES = {"loglik": (("f32", "f64"), tuple(range(1, 7))),
 # the C entries of ssvs_sweep.cu (kernel (a)): one a dtype
 SSVS_DTYPES = ("f32", "f64")
 # kalman_wide.cu: K2w (float64, one entry for every d in WIDE_DIMS, and one
-# each for its time-varying forms: dense T, and T's non-zeros), K3
+# each for its time-varying forms: dense T, a T a chain or the calendar's
+# T_t, and T's non-zeros), K3
 # (one entry a dtype, every d in DPATH_DIMS), K1w (one entry a dtype, every
 # d in WIDE_DIMS) and the loglik's jets J1 and J2 (one float64 entry, every
 # d in JET_DIMS, at most JET_MAX_DIRECTIONS directions: kMaxDirections)
@@ -92,10 +93,12 @@ _ARGTYPES = {
     # tm, rqr, h, p0, alpha1, w, eps, y, obs, zt, hs, u, scratch, out,
     # batch, t_len, u_stride, threads, stream
     "smoother_tv": [_P] * 14 + [_I, _I, _L, _I, _P],
-    # K1w's: as "loglik_tv" with d after n_series
-    "loglik_wide_tv": [_P] * 13 + [_I] * 5 + [_L, _P],
-    # K2w's: as "smoother_tv" with d after u_stride
-    "smoother_wide_tv": [_P] * 14 + [_I, _I, _L, _I, _I, _P],
+    # K1w's: as "loglik_tv" with the calendar's step choices (sel) after
+    # u and d after n_series
+    "loglik_wide_tv": [_P] * 14 + [_I] * 5 + [_L, _P],
+    # K2w's dense form: as "smoother_tv" with sel after u, then the shared
+    # bit and d after u_stride
+    "smoother_wide_tv": [_P] * 15 + [_I, _I, _L, _I, _I, _I, _P],
     # K2w's structured form: as K2w's without tm, then T's non-zeros
     # (rowptr, cols, vals: host arrays) after out
     "smoother_wide_nz": [_P] * 16 + [_I, _I, _L, _I, _I, _P],

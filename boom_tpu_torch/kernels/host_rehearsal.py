@@ -746,6 +746,60 @@ def check_time_varying(seed=0, cases=TV_CASES,
     return out
 
 
+# the calendar's T_t in K1w's and K2w's time-varying forms: (d, systems,
+# T, T_t's kind: kalman_timing.CALENDAR_KINDS, masked); T across K2w's
+# chunks and K1w's 32 steps, a month boundary at step 0 and at T - 2
+CALENDAR_CASES = [(d, b, t_len, kind, (i + j) % 2 == 0)
+                  for i, d in enumerate((11, 13, 14, 16))
+                  for j, (b, t_len) in enumerate(((3, 31), (5, 33),
+                                                  (3, 67), (9, 32)))
+                  for kind in ("calendar", "calendar_shared")]
+
+
+def check_calendar(seed=0, cases=CALENDAR_CASES,
+                   dtypes=("float64", "float32")):
+    """K1w's (with and without the innovations) and K2w's time-varying
+    forms with the calendar's T_t (``kalman_timing.calendar_system``)
+    against the plain versions: {case: worst normwise relative error};
+    K2w in float64 only; each launch taking its calendar key."""
+    import torch
+
+    from boom_tpu_torch.kernels.kalman_timing import calendar_system
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dtype in dtypes:
+        for d, b, t_len, kind, masked in cases:
+            params = calendar_system(rng, b, d, t_len, dtype, kind,
+                                     device="cpu")
+            y = _series_of(rng, (t_len,), dtype)
+            obs = (torch.tensor(rng.uniform(size=t_len) > 0.3) if masked
+                   else None)
+            name = f"d={d} B={b} T={t_len} {kind} masked={masked}"
+            before = kk.LAUNCHES["loglik_wide_tv_calendar"]
+            got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+            ll = kk.launch_loglik_tv(params, y, obs)
+            want = kalman.kalman_loglik(params, y, obs, innovations=True)
+            assert kk.LAUNCHES["loglik_wide_tv_calendar"] == before + 2
+            out[f"loglik calendar {dtype} {name}"] = max(
+                [_rel(a, w) for a, w in zip(got, want)]
+                + [_rel(ll, want[0])])
+            if dtype != "float64":
+                continue
+            q = params.q_mat.shape[-1]
+            nz = [torch.tensor(rng.normal(size=shape))
+                  for shape in ((b, d), (b, t_len - 1, q), (b, t_len))]
+            before = kk.LAUNCHES["smoother_wide_tv_calendar"]
+            draw = kk.simulation_smoother(params, y, *nz, observed=obs)
+            assert kk.LAUNCHES["smoother_wide_tv_calendar"] == before + 1
+            out[f"smoother calendar {name}"] = _rel(
+                draw, kalman.simulation_smoother(params, y, *nz,
+                                                 observed=obs))
+    return out
+
+
 def set_occupancy(lib, blocks):
     """The resident blocks an SM the host library's occupancy query
     reports: 0 makes K3's launcher take its short chunks, as on a card

@@ -138,6 +138,24 @@ TV_SHAPES = {
                             "bsts"),
     "smoother_tv": ("float64", TV_CHAINS, 4, TV_T, TV_CHAINS, "chain"),
     "loglik_tv": ("float32", TV_DRAWS, 4, TV_T, TV_DRAWS, "bsts")}
+# the calendar's T_t (two matrices a chain, a step's choice: the monthly
+# cycle's) at chip_smoke.py phase 10a's shapes: K2w's dense form imputes
+# every chain of bsts_monthly (a semilocal trend's T a chain and the
+# monthly cycle, d = 14, two years of days), K1w's form scores log_lik's
+# 200 draws
+MONTHLY_CHAINS, MONTHLY_T, MONTHLY_D = 4096, 730, 14
+CALENDAR_SHAPES = {
+    "smoother_wide_tv_calendar": ("float64", MONTHLY_CHAINS, MONTHLY_D,
+                                  MONTHLY_T, 1, "calendar"),
+    "loglik_wide_tv_calendar": ("float32", TV_DRAWS, MONTHLY_D, MONTHLY_T,
+                                1, "calendar")}
+# K1w with a T a system and one z for all at chip_smoke.py phase 10b's
+# TIM batch (an intercept, an AR(2) whose T is each chain's and a
+# two-harmonic cycle: d = 7, 520 weeks, 4096 chains x 17 points)
+AR_TRIG_CHAINS, AR_TRIG_T, AR_TRIG_D = 4096, 520, 7
+AR_TRIG_SHAPES = {
+    "loglik_wide_chain_t": ("float32", AR_TRIG_CHAINS * TIM_POINTS,
+                            AR_TRIG_D, AR_TRIG_T, 1)}
 # the static K2 at K2's time-varying shape (d = 4, a series a chain; no
 # mask), timed by this script alone (the plain version not timed) as
 # that form's yardstick: (dtype, batch, d, T, series)
@@ -148,6 +166,8 @@ K2_TV_YARDSTICK = {"smoother_d4": ("float64", TV_CHAINS, 4, TV_T,
 # broadcasts)
 SHARED_SYSTEM = ("loglik_wide", "loglik_wide_d13", "loglik_wide_f64",
                  "loglik_wide_d16")
+# the shapes whose systems share z alone (each has its own T)
+SHARED_Z = ("loglik_wide_chain_t",)
 
 # K1's block sizes (0: the grid laid out from the card's SM count); K2's
 # block is one warp by design
@@ -321,7 +341,7 @@ def tv_step_flops(d):
 
 
 def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
-             tv_rows=0, rows=None, q=None):
+             tv_rows=0, rows=None, q=None, calendar=False):
     """The least time the card could take: each input read once and each
     output written once over the memory rate, or the operations over the
     float rate, whichever is larger. Returns (ms, "bytes" | "operations").
@@ -342,13 +362,16 @@ def bound_ms(name, dtype, batch, d, t_len, series=1, k=TIM_GROUPS,
     non-zeros a row where every system shares T (the structured forms of
     the smoother and of the time-varying loglik), the operations over them
     (:func:`smoother_flops`, :func:`loglik_flops`); T itself is then read
-    once, not a system."""
+    once, not a system. ``calendar``: the calendar's T_t, a second T a
+    system and a step's choice (a byte a step) read too."""
     item = 8 if dtype == "float64" else 4
     q = d if q is None else q
     system = 3 * d * d + 2 * d + 1  # z, T, RQR, h, a0 or alpha1, P0
     tv_bytes = (t_len * d + t_len + tv_rows * t_len * q) * item \
         if tv_rows else 0
     shared_t = 0 if rows is None else (batch - 1) * d * d
+    if calendar:
+        tv_bytes += batch * d * d * item + t_len
     if name == "loglik":
         n_bytes = (batch * (system + 1) - shared_t
                    + series * t_len) * item + tv_bytes
@@ -440,6 +463,51 @@ def shared_transition(rng, d, kind):
 # K2w's time-varying systems: T a chain (its dense form), or one T for all
 # (its structured form) with bsts' pattern, a random one or a dense one
 T_KINDS = ("chain", "bsts", "sparse", "dense")
+# the calendar's T_t (:func:`calendar_system`): two matrices a chain, or two
+# for every chain
+CALENDAR_KINDS = ("calendar", "calendar_shared")
+
+
+def calendar_choice(t_len):
+    """[T] int64: 1 on the steps t -> t + 1 that enter a new month of a
+    daily series from 2022-01-01 (the monthly cycle's rotation), and on
+    steps 0 and T - 2 (the edges of the recursions), else 0."""
+    import datetime
+
+    first = datetime.date(2022, 1, 1)
+    choice = np.asarray([(first + datetime.timedelta(days=t + 1)).day == 1
+                         for t in range(t_len)], dtype=np.int64)
+    choice[0] = 1
+    choice[max(t_len - 2, 0)] = 1
+    return choice
+
+
+def calendar_system(rng, batch, d, t_len, dtype, t_kind="calendar",
+                    q_mode="chain", device="cuda"):
+    """A :func:`time_varying_system` (its T a system) with the calendar's
+    T_t: t_mats [B, 2, d, d], the system's T and a random stable matrix,
+    the second one a system ("calendar") or one for all, expanded
+    ("calendar_shared", where T is one for all too), and t_choice
+    (:func:`calendar_choice`)."""
+    import torch
+
+    tdt = getattr(torch, dtype)
+    params = time_varying_system(rng, batch, d, t_len, dtype, q_mode,
+                                 device=device)
+    if t_kind == "calendar_shared":
+        one = torch.tensor(np.stack([shared_transition(rng, d, "dense")
+                                     for _ in range(2)]), dtype=tdt,
+                           device=device)
+        params = params._replace(t_mat=one[0][None].expand(batch, d, d))
+        mats = one[None].expand(batch, 2, d, d)
+    else:
+        other = torch.tensor(np.stack([shared_transition(rng, d, "dense")
+                                       for _ in range(min(batch, 64))]),
+                             dtype=tdt, device=device)
+        other = other.repeat(-(-batch // other.shape[0]), 1, 1)[:batch]
+        mats = torch.stack([params.t_mat, other], dim=1)
+    return params._replace(t_mats=mats, t_choice=torch.as_tensor(
+        calendar_choice(t_len), device=device))
 
 
 def state_errors(d, t_kind):
@@ -512,6 +580,8 @@ def kalman_cases(rng, name, dtype, batch, d, t_len, series=1):
     if name in SHARED_SYSTEM:
         params = params._replace(t_mat=params.t_mat[:1].expand(batch, d, d),
                                  z=params.z[:1].expand(batch, d))
+    if name in SHARED_Z:
+        params = params._replace(z=params.z[:1].expand(batch, d))
     shape = (series, t_len) if series > 1 else (t_len,)
     y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
                      device="cuda")
@@ -678,15 +748,18 @@ def tv_cases(rng, name, dtype, batch, d, t_len, series, q_mode="chain",
     from boom_tpu_torch.statespace import kalman_kernel as kk
 
     tdt = getattr(torch, dtype)
-    params = time_varying_system(rng, batch, d, t_len, dtype, q_mode,
-                                 t_kind=t_kind)
+    if t_kind in CALENDAR_KINDS:
+        params = calendar_system(rng, batch, d, t_len, dtype, t_kind, q_mode)
+    else:
+        params = time_varying_system(rng, batch, d, t_len, dtype, q_mode,
+                                     t_kind=t_kind)
     shape = (series, t_len) if series > 1 else (t_len,)
     y = torch.tensor(rng.normal(size=shape).cumsum(-1), dtype=tdt,
                      device="cuda")
     obs = torch.tensor(rng.uniform(size=t_len) > 0.05, device="cuda")
     if name.startswith("loglik"):
         kw = {}
-        if (t_kind != "chain" and "pattern" in
+        if (t_kind not in ("chain",) + CALENDAR_KINDS and "pattern" in
                 inspect.signature(kk.launch_loglik_tv).parameters):
             kw["pattern"] = kk.TransitionPattern(params.t_mat[0],
                                                  params.r_mat[0])
@@ -729,11 +802,13 @@ def time_tv(rng, plain=True, shapes=None):
                 d, t_len, dtype, "warp" if d >= 7 else "thread")
         kind = "loglik" if name.startswith("loglik") else "smoother"
         q = state_errors(d, t_kind)
+        cal = t_kind in CALENDAR_KINDS
         row["bound_ms"], row["bound_by"] = bound_ms(
             kind, dtype, batch, d, t_len, series, tv_rows=batch,
-            rows=transition_rows(d, t_kind), q=q)
+            rows=transition_rows(d, t_kind), q=q, calendar=cal)
         row["bound_dense_ms"] = bound_ms(kind, dtype, batch, d, t_len,
-                                         series, tv_rows=batch, q=q)[0]
+                                         series, tv_rows=batch, q=q,
+                                         calendar=cal)[0]
         if name.startswith("smoother_wide"):
             row["pass_ms"] = wide_pass_ms(kern)
         out[name] = row

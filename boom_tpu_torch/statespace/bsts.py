@@ -7,8 +7,11 @@ spike-and-slab regression (port of boom_tpu/statespace/bsts.py:
 :1132, ``_training_slice`` :1162, ``holdout_prediction_errors`` :1172 and
 ``compare_bsts_models`` :1220).
 
-Time-varying blocks (the dynamic regression, the random-walk holiday, the
-Student trend) give the system z_t and Q_t (``SsmParams.q_scale``), and a
+A block whose T moves with its parameters (the AR state's and the
+semilocal trend's phi) gives each chain its own T. Time-varying blocks (the
+dynamic regression, the random-walk holiday, the Student trend, the
+monthly cycle) give the system z_t and Q_t (``SsmParams.q_scale``), the
+monthly cycle also T_t (``SsmParams.t_mats``, ``t_choice``), and a
 series on a regular grid with gaps and multiplexed time points
 (``utils.timestamps``) gives the ``observed`` mask, the observation
 weights (h_t = sigma^2 / max(w_t, 1), ``SsmParams.h_scale``) and the
@@ -69,8 +72,9 @@ SWEEP_PHASES = ("regression", "variance_draws", "impute", "asis", "tim")
 
 
 def _block_diag(mats):
-    """Block-diagonal of batched [C, r_i, s_i] matrices -> [C, R, S]."""
-    c = mats[0].shape[0]
+    """Block-diagonal of batched [C, r_i, s_i] matrices (or [1, r_i, s_i],
+    the same for every chain) -> [C, R, S]."""
+    c = max(m.shape[0] for m in mats)
     rows = sum(m.shape[-2] for m in mats)
     cols = sum(m.shape[-1] for m in mats)
     out = mats[0].new_zeros(c, rows, cols)
@@ -161,7 +165,7 @@ class Bsts:
                 "moves)")
         for b in self.blocks:
             if (not hasattr(b, "asis_groups") or not hasattr(b, "noise_spec")
-                    or hasattr(b, "t_seq") or hasattr(b, "z_seq_params")):
+                    or hasattr(b, "z_seq_params")):
                 raise NotImplementedError(
                     f"state block {type(b).__name__} is not ported yet "
                     "(ROADMAP.md, queue 1 item 7: the other block classes)")
@@ -201,25 +205,45 @@ class Bsts:
         return any(hasattr(b, "q_scale_seq") for b in self.blocks)
 
     @property
+    def _time_varying_t(self):
+        return any(hasattr(b, "t_seq") for b in self.blocks)
+
+    @property
+    def _chain_t(self):
+        """Whether a block's T moves with its parameters (a T a chain)."""
+        return any(hasattr(b, "chain_transition") for b in self.blocks)
+
+    @property
     def time_varying(self):
         """Whether the chains' systems vary in time (reference
         ``SsmParams.time_varying`` of ``ssm_params``)."""
         return (self._time_varying_z or self._time_varying_q
-                or self.obs_weights is not None)
+                or self._time_varying_t or self.obs_weights is not None)
 
     def ssm_params(self, state):
         """The chains' systems from their parameters (reference :238-296):
         z [C, d], or [C, T, d] (one [T, d] expanded) with a time-varying
         block; q_scale [C, T, q] with one (expanded where no block's
         differs by chain); h_scale = 1 / max(w, 1) [T] with observation
-        weights. T and R are the model's (:attr:`_transition`), one matrix
-        expanded over the chains, which K1w reads as one matrix
-        (``kalman_kernel.launch_loglik``) and K2w by its pattern."""
+        weights. R is the model's (:attr:`_transition`), one matrix expanded
+        over the chains; so is T, which K1w reads as one matrix
+        (``kalman_kernel.launch_loglik``) and K2w by its pattern, unless a
+        block's T moves with its parameters: then T [C, d, d] is a chain's.
+        A calendar block adds T_t (reference :270-282): the distinct
+        block-diagonals of its steps, t_mats [C, K, d, d] (expanded where
+        no block's T is a chain's), and t_choice [T] (:attr:`_calendar`).
+        t_mat stays the static T (the calendar block's rotation), which
+        ASIS reads, as the reference's."""
         dev, dt = self.y.device, self.y.dtype
         c = state["sigsq_obs"].shape[0]
         t_len = self.t_len
         t_mat, r_mat = self._transition
-        qs = [b.variance(state["blocks"][b.name]) for b in self.blocks]
+        t_blocks = None
+        if self._chain_t:
+            t_blocks = self._block_transitions(state["blocks"])
+            t_mat = _block_diag(t_blocks)
+        qs = [b.variance(state["blocks"][b.name]) if b.err_dim
+              else self.y.new_zeros(c, 0, 0) for b in self.blocks]
         a0s, p0s = zip(*(b.init_dist(dev, dt) for b in self.blocks))
         if self._time_varying_z:
             z = torch.cat([b.z_seq(dev, dt) if hasattr(b, "z_seq")
@@ -240,6 +264,12 @@ class Bsts:
                                     dim=-1)
         h_scale = (None if self.obs_weights is None
                    else 1.0 / torch.clamp_min(self.obs_weights, 1.0))
+        t_mats = t_choice = None
+        if self._time_varying_t:
+            mats, combos, t_choice = self._calendar
+            t_mats = (self._calendar_mats(t_blocks, mats, combos)
+                      if t_blocks is not None else self._calendar_t)
+            t_mats = t_mats.expand(c, -1, -1, -1)
         return SsmParams(
             z=z,
             t_mat=t_mat.expand(c, -1, -1), r_mat=r_mat.expand(c, -1, -1),
@@ -247,7 +277,60 @@ class Bsts:
             h=state["sigsq_obs"],
             a0=torch.cat(a0s).expand(c, -1),
             p0=_block_diag([p[None] for p in p0s]).expand(c, -1, -1),
-            q_scale=q_scale, h_scale=h_scale)
+            q_scale=q_scale, h_scale=h_scale, t_mats=t_mats,
+            t_choice=t_choice)
+
+    def _block_transitions(self, block_params):
+        """Each block's T: a chain's [C, dim, dim] where it moves with the
+        block's parameters, else its constant one, [1, dim, dim]."""
+        dev, dt = self.y.device, self.y.dtype
+        return [b.chain_transition(block_params[b.name])
+                if hasattr(b, "chain_transition")
+                else b.transition(dev, dt)[0][None] for b in self.blocks]
+
+    @functools.cached_property
+    def _calendar(self):
+        """The calendar blocks' T_t, found once a model: ({block index: its
+        distinct matrices [K_b, dim, dim]}, the distinct combinations of
+        their choices [K, blocks] (numpy), each step's combination [T],
+        int64 on the run's device)."""
+        dev, dt = self.y.device, self.y.dtype
+        mats, combos, steps = self._calendar_steps(
+            lambda b: b.t_seq(dev, dt))
+        return mats, combos, torch.as_tensor(steps, device=dev)
+
+    def _calendar_steps(self, rows):
+        """({block index: its distinct matrices}, the distinct combinations
+        of the calendar blocks' choices [K, blocks], each step's combination
+        [n] (numpy)) of ``rows(block)`` -> (its matrices, its choice [n])."""
+        mats, cols = {}, []
+        for i, b in enumerate(self.blocks):
+            if hasattr(b, "t_seq"):
+                mats[i], choice = rows(b)
+                cols.append(choice.cpu().numpy())
+        combos, inverse = np.unique(np.stack(cols, -1), axis=0,
+                                    return_inverse=True)
+        return mats, combos, inverse.reshape(-1)
+
+    def _calendar_mats(self, t_blocks, mats, combos):
+        """[C or 1, K, d, d]: for each combination k of ``combos`` the
+        block-diagonal of ``t_blocks``, the calendar blocks' their matrix
+        of k."""
+        out = []
+        for combo in combos:
+            parts = list(t_blocks)
+            for j, i in enumerate(mats):
+                parts[i] = mats[i][combo[j]][None]
+            out.append(_block_diag(parts))
+        return torch.stack(out, dim=1)
+
+    @functools.cached_property
+    def _calendar_t(self):
+        """t_mats [1, K, d, d] of a model whose T moves with no chain's
+        parameters, built once."""
+        mats, combos, _choice = self._calendar
+        return self._calendar_mats(self._block_transitions({}), mats,
+                                   combos)
 
     # -- noise --------------------------------------------------------------
     def _smoother_noise_spec(self):
@@ -357,9 +440,7 @@ class Bsts:
         wide = SMOOTHER_DTYPE
         # a mask sends the draw to the sequential smoother, which takes it
         kw = {} if self.observed is None else {"observed": self.observed}
-        if self.time_varying and all(
-                kalman_kernel.expands(x, own) for x, own in zip(
-                    (params.t_mat, params.r_mat), self._transition)):
+        if self.time_varying and self._owns_transition(params):
             pattern = self._transition_pattern
             c = params.h.shape[0]
             params = params._replace(t_mat=pattern.t_mat.expand(c, -1, -1),
@@ -375,11 +456,25 @@ class Bsts:
     def _transition(self):
         """The model's T [d, d] and R [d, q] on the run's device and in its
         dtype: the block-diagonal of its blocks' ``transition``, constants
-        of their specs, built once a model."""
+        of their specs, built once a model; T is None where a block's T
+        moves with its parameters (``chain_transition``), R is the
+        block-diagonal of their ``selection`` too."""
         dev, dt = self.y.device, self.y.dtype
-        ts, rs = zip(*(b.transition(dev, dt) for b in self.blocks))
-        return (_block_diag([t[None] for t in ts])[0],
-                _block_diag([r[None] for r in rs])[0])
+        rs = [b.selection(dev, dt) if hasattr(b, "chain_transition")
+              else b.transition(dev, dt)[1] for b in self.blocks]
+        r_mat = _block_diag([r[None] for r in rs])[0]
+        if self._chain_t:
+            return None, r_mat
+        ts = [b.transition(dev, dt)[0] for b in self.blocks]
+        return _block_diag([t[None] for t in ts])[0], r_mat
+
+    def _owns_transition(self, params):
+        """The system's T and R are the model's (:attr:`_transition`),
+        expanded over its chains as ``ssm_params`` gives them (no T a
+        chain)."""
+        return not self._chain_t and all(
+            kalman_kernel.expands(x, own) for x, own in zip(
+                (params.t_mat, params.r_mat), self._transition))
 
     @functools.cached_property
     def _transition_pattern(self):
@@ -402,9 +497,7 @@ class Bsts:
         model's (:attr:`_run_pattern`) where the system is time-varying and
         its T and R are the model's expanded, as ``ssm_params`` gives them;
         else None."""
-        if params.time_varying and all(
-                kalman_kernel.expands(x, own) for x, own in zip(
-                    (params.t_mat, params.r_mat), self._transition)):
+        if params.time_varying and self._owns_transition(params):
             return self._run_pattern
         return None
 
@@ -644,9 +737,12 @@ class Bsts:
         ``eps`` [N, h]. A block with a time-varying z needs its rows
         ``future_z[name]`` [h, dim] (the dynamic regression's future
         predictors, the holiday's one-hot days); ``future_q_scale[name]``
-        [h, err] scales a block's errors (default 1, as the reference's).
-        The regression's future X beta is the caller's
-        (``BstsModel.predict``), as in the reference."""
+        [h, err] scales a block's errors (default 1, as the reference's;
+        a calendar block's own gates continued, ``future_q_scale``). A
+        calendar block continues its T_t from the last day
+        (``future_t_rows``, reference :965-1008). The regression's future
+        X beta is the caller's (``BstsModel.predict``), as in the
+        reference."""
         future_z = future_z or {}
         future_q_scale = future_q_scale or {}
         dev, dt = self.y.device, self.y.dtype
@@ -661,11 +757,14 @@ class Bsts:
                     f"future_z[{b.name!r}] with shape [{horizon}, {b.dim}]")
             else:
                 z_rows.append(b.z(dev, dt).expand(horizon, b.dim))
-            s_rows.append(torch.as_tensor(future_q_scale[b.name], dtype=dt,
-                                          device=dev)
-                          if b.name in future_q_scale
-                          else torch.ones(horizon, b.err_dim, dtype=dt,
-                                          device=dev))
+            if b.name in future_q_scale:
+                s_rows.append(torch.as_tensor(future_q_scale[b.name],
+                                              dtype=dt, device=dev))
+            elif hasattr(b, "future_q_scale"):
+                s_rows.append(b.future_q_scale(horizon, dev, dt))
+            else:
+                s_rows.append(torch.ones(horizon, b.err_dim, dtype=dt,
+                                         device=dev))
         z_fut = torch.cat(z_rows, dim=-1)
         s_fut = torch.cat(s_rows, dim=-1)
         if z_fut.shape != (horizon, self.state_dim):
@@ -673,13 +772,20 @@ class Bsts:
                              f"{self.state_dim}] rows; got "
                              f"{tuple(z_fut.shape)}")
         params = self.ssm_params(final_state)
+        t_rows = [params.t_mat] * horizon
+        if self._time_varying_t:
+            mats, combos, choice = self._calendar_steps(
+                lambda b: b.future_t_rows(horizon, dev, dt))
+            steps = self._calendar_mats(self._block_transitions(
+                final_state["blocks"]), mats, combos)
+            t_rows = [steps[:, k] for k in choice.tolist()]
         q_chol = kalman._chol_jitter(params.q_mat)
         alpha = final_state["alpha"][:, -1]
         sd = torch.sqrt(final_state["sigsq_obs"])
         ys = []
         for t in range(horizon):
             eta = s_fut[t] * kalman._mv(q_chol, noise["eta"][:, t])
-            alpha = (kalman._mv(params.t_mat, alpha)
+            alpha = (kalman._mv(t_rows[t], alpha)
                      + kalman._mv(params.r_mat, eta))
             ys.append((z_fut[t] * alpha).sum(-1) + sd * noise["eps"][:, t])
         return torch.stack(ys, dim=1)
@@ -1044,12 +1150,9 @@ def _training_slice(model: Bsts, cutpoint: int):
 def thinned(flat, max_draws):
     """At most ``max_draws`` of the flat draws, spread evenly over them (the
     reference's ``jnp.linspace(0, total - 1, take).astype(int32)``)."""
-    from boom_tpu_torch.inference.driver import tree_map
+    from boom_tpu_torch.inference.driver import first_leaf, tree_map
 
-    leaf = flat
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    total = leaf.shape[0]
+    total = first_leaf(flat).shape[0]
     idx = torch.as_tensor(np.linspace(0, total - 1, min(max_draws, total))
                           .astype(np.int64))
     return tree_map(lambda a: a[idx.to(a.device)], flat)

@@ -25,10 +25,13 @@ A system may vary in time as the reference's does (kalman.py:67-120): z
 regression's x_t, the holiday's one-hot day); h_t = h * h_scale_t with
 h_scale [T] (1 / max(w_t, 1) of the observation weights); and Q_t =
 (q_t q_t') o Q with q_scale [B, T, q] (the Student trend's latent weights
-a chain, the holiday's refresh days, expanded). Row t of z and h serves
-observation t, row t of q_scale the transition t -> t+1. A z that differs
-from system to system (the regression holiday's) and a time-varying T
-(``t_seq``) are not ported and raise. The functions here are the plain
+a chain, the holiday's refresh days, expanded); and a time-varying T
+(the reference's ``t_seq`` [T, d, d]) as its distinct matrices t_mats [B,
+K, d, d] (expanded where every system shares them) and the one each step
+takes, t_choice [T] (the monthly cycle's calendar: K = 2). Row t of z and
+h serves observation t, row t of q_scale and of t_choice the transition
+t -> t+1. A z that differs from system to system (the regression
+holiday's) is not ported and raises. The functions here are the plain
 PyTorch versions, one Python step per time step; ``kalman_kernel.py`` runs
 ``kalman_loglik`` and ``simulation_smoother`` as hand-written CUDA kernels
 on the card. The arithmetic follows the reference's order step for step
@@ -66,6 +69,8 @@ class SsmParams(NamedTuple):
     p0: torch.Tensor  # [B, d, d] initial state covariance
     q_scale: torch.Tensor | None = None  # [B, T, q] sd scale of Q
     h_scale: torch.Tensor | None = None  # [T] scale of h
+    t_mats: torch.Tensor | None = None  # [B, K, d, d] the distinct T_t
+    t_choice: torch.Tensor | None = None  # [T] int: step t's of t_mats
 
     @property
     def rqr(self):
@@ -74,10 +79,16 @@ class SsmParams(NamedTuple):
 
     @property
     def time_varying(self):
-        """z [B, T, d], a q_scale or an h_scale (reference
+        """z [B, T, d], a q_scale, an h_scale or a T_t (reference
         ``SsmParams.time_varying``)."""
         return (self.z.dim() == 3 or self.q_scale is not None
-                or self.h_scale is not None)
+                or self.h_scale is not None or self.t_choice is not None)
+
+    def ts(self, t_len):
+        """[B, T, d, d] transition matrices (reference ``ts``)."""
+        if self.t_choice is None:
+            return self.t_mat[:, None].expand(-1, t_len, -1, -1)
+        return self.t_mats[:, self.t_choice]
 
     def zs(self, t_len):
         """[B, T, d] observation vectors."""
@@ -102,10 +113,11 @@ class SsmParams(NamedTuple):
                             self.r_mat)
 
     def cast(self, dtype):
-        """The system with every field in ``dtype``; a field expanded over
-        the systems (stride 0: one z_t, T or q_scale for all) stays so."""
-        return SsmParams(*(None if f is None else _cast(f, dtype)
-                           for f in self))
+        """The system with every float field in ``dtype``; a field expanded
+        over the systems (stride 0: one z_t, T or q_scale for all) stays
+        so."""
+        return SsmParams(*(f if f is None or not f.is_floating_point()
+                           else _cast(f, dtype) for f in self))
 
 
 def _cast(x, dtype):
@@ -174,6 +186,20 @@ def _steps(params: SsmParams, t_len) -> _Steps:
                   else params.rqrs(t_len))
 
 
+def transitions(params: SsmParams, t_len):
+    """T_t of step t as a function of t, [B, d, d]: the static T, or the
+    matrix of t_mats that t_choice gives step t (read once from the
+    host)."""
+    if params.t_choice is None:
+        return lambda t: params.t_mat
+    choice = params.t_choice.tolist()
+    if len(choice) != t_len:
+        raise ValueError(f"t_choice must give [T] = [{t_len}] steps; got "
+                         f"{len(choice)}")
+    mats = [params.t_mats[:, k] for k in range(params.t_mats.shape[1])]
+    return lambda t: mats[choice[t]]
+
+
 def _mask(observed, t_len, device):
     """[T] bool mask (all True when ``observed`` is None)."""
     if observed is None:
@@ -234,12 +260,12 @@ def _filter_core(params: SsmParams, y, observed, want_ap: bool):
     y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
-    steps = _steps(params, t_len)
+    steps, t_at = _steps(params, t_len), transitions(params, t_len)
     a, p = params.a0, params.p0
     out = {"v": [], "f": [], "k": [], "ll": [], "a": [], "p": []}
     for t in range(t_len):
         v, f, k_gain, a_next, p_next = _filter_step(
-            a, p, _at(y, t), obs[t], *steps.at(t), params.t_mat)
+            a, p, _at(y, t), obs[t], *steps.at(t), t_at(t))
         for name, val in (("v", v), ("f", f), ("k", k_gain),
                           ("ll", _step_loglik(obs[t], v, f))):
             out[name].append(val)
@@ -267,13 +293,13 @@ def kalman_loglik(params: SsmParams, y, observed=None, innovations=False):
     y = per_system(_series(y, params), params.h.shape[0])
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
-    steps = _steps(params, t_len)
+    steps, t_at = _steps(params, t_len), transitions(params, t_len)
     a, p = params.a0, params.p0
     ll = torch.zeros_like(params.h)
     vs, fs = [], []
     for t in range(t_len):
         v, f, _k, a, p = _filter_step(a, p, _at(y, t), obs[t],
-                                      *steps.at(t), params.t_mat)
+                                      *steps.at(t), t_at(t))
         ll = ll + _step_loglik(obs[t], v, f)
         if innovations:
             vs.append(v)
@@ -322,20 +348,20 @@ def _smoother_passes(params: SsmParams, v, f, k, observed):
     filter's (v [B, T], f [B, T], k [B, T, d]) streams -> [B, T, d]."""
     t_len = v.shape[1]
     obs = _mask(observed, t_len, v.device)
-    steps, t_mat = _steps(params, t_len), params.t_mat
+    steps, t_at = _steps(params, t_len), transitions(params, t_len)
     r = torch.zeros_like(params.a0)
     rs = [None] * t_len
     for t in range(t_len - 1, -1, -1):
         z = steps.at(t)[0]
-        l_mat = t_mat - k[:, t, :, None] * z[..., None, :]
+        l_mat = t_at(t) - k[:, t, :, None] * z[..., None, :]
         r = (torch.where(obs[t], z * (v[:, t] / f[:, t])[:, None], 0.0)
              + _mv(l_mat.transpose(-1, -2), r))
         rs[t] = r  # r_{t-1} in the reference's indexing
     alpha = params.a0 + _mv(params.p0, rs[0])
     alphas = [alpha]
     for t in range(1, t_len):
-        # alpha_{t+1} = T alpha_t + R Q_t R' r_t (reference :340-343)
-        alpha = _mv(t_mat, alpha) + _mv(steps.at(t - 1)[2], rs[t])
+        # alpha_{t+1} = T_t alpha_t + R Q_t R' r_t (reference :340-343)
+        alpha = _mv(t_at(t - 1), alpha) + _mv(steps.at(t - 1)[2], rs[t])
         alphas.append(alpha)
     return torch.stack(alphas, dim=1)
 
@@ -380,6 +406,7 @@ def simulate(params: SsmParams, t_len: int, alpha1_z, eta_z, eps_z):
     """Unconditional (alpha [B, T, d], y [B, T]) draw from the standard
     normals alpha1_z [B, d], eta_z [B, T-1, q], eps_z [B, T]."""
     check_system(params)
+    t_at = transitions(params, t_len)
     alpha = params.a0 + (_chol_jitter(params.p0) @ alpha1_z[..., None])[
         ..., 0]
     etas = torch.einsum("bij,btj->bti", _chol_jitter(params.q_mat), eta_z)
@@ -387,7 +414,7 @@ def simulate(params: SsmParams, t_len: int, alpha1_z, eta_z, eps_z):
         etas = params.q_scale[:, :-1] * etas
     alphas = [alpha]
     for t in range(t_len - 1):
-        alpha = _mv(params.t_mat, alpha) + _mv(params.r_mat, etas[:, t])
+        alpha = _mv(t_at(t), alpha) + _mv(params.r_mat, etas[:, t])
         alphas.append(alpha)
     alphas = torch.stack(alphas, dim=1)
     eps = torch.sqrt(params.hs(t_len)) * eps_z
@@ -409,13 +436,13 @@ def simulation_smoother(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     y = _series(y, params)
     t_len = y.shape[-1]
     obs = _mask(observed, t_len, y.device)
-    steps = _steps(params, t_len)
+    steps, t_at = _steps(params, t_len), transitions(params, t_len)
     alpha_sim, w, eps = simulation_inputs(params, alpha1_z, eta_z, eps_z)
-    t_mat = params.t_mat
     a, p = torch.zeros_like(params.a0), params.p0
     plus, vs, fs, ks = [], [], [], []
     for t in range(t_len):
         z, h, rqr = steps.at(t)
+        t_mat = t_at(t)
         yd = _at(y, t) - (_vdot(z, alpha_sim) + eps[:, t])
         v, f, k_gain, a, p = _filter_step(a, p, yd, obs[t], z, h, rqr,
                                           t_mat)

@@ -50,7 +50,12 @@ chain has its own, ``smoother_wide_kernel<D, pass, true>`` (the dense
 form): a choice by the operands' layout, each with its ``LAUNCHES`` key.
 The loglik's forms take a T shared by every system as its one row, and a
 pattern (Bsts hands its own to log_lik and the errors) only to know R a
-selection with no read of the host.
+selection with no read of the host. A calendar's T_t (``SsmParams.t_mats``
+of two matrices, ``t_choice``: the monthly cycle's) goes to K1w's form and
+to K2w's dense one (:func:`calendar_operands`), each with the two matrices
+where it keeps T and a step's choice staged beside its other streams, with
+keys of their own ("loglik_wide_tv_calendar", "smoother_wide_tv_calendar");
+K1 and K2 (d <= 6, which no calendar block meets) refuse it.
 A z a system and an R that is no selection raise, naming their ROADMAP
 item.
 
@@ -75,11 +80,13 @@ from boom_tpu_torch.statespace.scan_kernel import _on_card
 # kernel launches since the process started (or a caller's reset);
 # incremented only where a kernel is launched
 # (K2w's time-varying forms: "smoother_wide_tv" over T's non-zeros,
-# "smoother_wide_tv_dense" with a T a chain)
+# "smoother_wide_tv_dense" with a T a chain, "smoother_wide_tv_calendar"
+# with the calendar's T_t; K1w's "loglik_wide_tv_calendar" with it)
 LAUNCHES = {"loglik": 0, "loglik_wide": 0, "loglik_grad": 0,
             "loglik_hess": 0, "smoother": 0, "smoother_wide": 0, "dpath": 0,
             "loglik_tv": 0, "loglik_wide_tv": 0, "smoother_tv": 0,
-            "smoother_wide_tv": 0, "smoother_wide_tv_dense": 0}
+            "smoother_wide_tv": 0, "smoother_wide_tv_dense": 0,
+            "loglik_wide_tv_calendar": 0, "smoother_wide_tv_calendar": 0}
 # the loglik's jets by the order of derivatives they give: J1, J2
 JET_KINDS = {1: "loglik_grad", 2: "loglik_hess"}
 JET_MAX_DIRECTIONS = _build.JET_MAX_DIRECTIONS
@@ -367,6 +374,46 @@ def time_varying_operands(params: SsmParams, t_len, dtype, device,
     return ops["zt"], ops["hs"], ops["u"], u_stride
 
 
+# distinct T_t the calendar forms of K1w and K2w take (kalman_wide.cu)
+CALENDAR_MATRICES = 2
+_NO_CALENDAR = ("K1 and K2 (d <= 6) take no time-varying T; the calendar's "
+                "T_t runs in K1w and K2w, d 7..16 (ROADMAP.md, queue 1 "
+                "item 7: T_t in the narrow kernels)")
+
+
+def calendar_operands(params: SsmParams, t_len, dtype, device):
+    """A calendar's T_t as K1w's and K2w's calendar forms take it: (its
+    matrices [U, 2, d, d] contiguous, U = 1 where every system shares them
+    (stride 0) else B; the step's choice [T] bytes; the shared bit), or
+    (None, None, 0) where the system has no T_t. One distinct matrix is
+    the calendar's two alike; more than CALENDAR_MATRICES raise."""
+    if params.t_choice is None:
+        return None, None, 0
+    mats = params.t_mats
+    b, k, d = params.h.shape[0], mats.shape[1], mats.shape[-1]
+    if d not in _build.WIDE_DIMS:
+        raise NotImplementedError(_NO_CALENDAR)
+    if k > CALENDAR_MATRICES or tuple(mats.shape) != (b, k, d, d):
+        raise NotImplementedError(
+            f"the kernels take a T_t of at most {CALENDAR_MATRICES} distinct "
+            f"matrices [B, K, d, d]; got {tuple(mats.shape)} (ROADMAP.md, "
+            "queue 1 item 7: T_t of more than two matrices)")
+    shared = 1 if b > 1 and mats.stride(0) == 0 else 0
+    if shared:
+        mats = mats[:1]
+    if k == 1:
+        mats = mats.expand(-1, CALENDAR_MATRICES, -1, -1)
+    sel = torch.as_tensor(params.t_choice, device=device)
+    if tuple(sel.shape) != (t_len,):
+        raise ValueError(f"t_choice must be [T] = [{t_len}]; got "
+                         f"{tuple(sel.shape)}")
+    if k == 1:
+        sel = torch.zeros_like(sel)
+    mats = _checked({"t_mats": mats}, dtype, device)["t_mats"]
+    return (mats, torch.empty(t_len, dtype=torch.uint8,
+                              device=device).copy_(sel), shared)
+
+
 def launch_loglik(h, rqr, z, t_mat, a0, p0, y, observed, innovations=False):
     """The loglik on the card, K1 (d <= 6) or K1w (7 <= d <= 16), float32
     or float64 -> ll [B]; with ``innovations`` (ll, v [B, T], f [B, T]).
@@ -425,6 +472,8 @@ def launch_loglik_tv(params: SsmParams, y, observed, innovations=False,
         raise NotImplementedError(
             f"the loglik kernels (K1, K1w) take state dims {dims[0]}.."
             f"{_build.WIDE_DIMS[-1]}, not {d} " + _NO_KERNEL)
+    if params.t_choice is not None and not wide:
+        raise NotImplementedError(_NO_CALENDAR)
     fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": h,
               "a0": params.a0, "p0": params.p0}
     shared = 0
@@ -439,6 +488,9 @@ def launch_loglik_tv(params: SsmParams, y, observed, innovations=False,
     t_len = y.shape[1]
     zt, hs, u, u_stride = time_varying_operands(params, t_len, dtype, device,
                                                 pattern)
+    mats, sel, cal_shared = calendar_operands(params, t_len, dtype, device)
+    if mats is not None:
+        p["t_mat"], shared = mats, SHARED_T if cal_shared else 0
     obs = _observed_bytes(observed, t_len, device)
     out = [torch.empty(b, dtype=dtype, device=device)]
     if innovations:
@@ -446,19 +498,22 @@ def launch_loglik_tv(params: SsmParams, y, observed, innovations=False,
                 for _ in range(2)]
     ptrs = [p[k].data_ptr() for k in ("t_mat", "rqr", "h", "a0", "p0")]
     ptrs += [y.data_ptr(), _ptr(obs), zt.data_ptr(), hs.data_ptr(),
-             u.data_ptr(), out[0].data_ptr(),
-             *(_ptr(o) for o in (out[1:] or (None,) * 2))]
+             u.data_ptr()]
+    outs = [out[0].data_ptr(), *(_ptr(o) for o in (out[1:] or (None,) * 2))]
     tag = _DTYPE_TAG[dtype]
     if wide:
-        kind = "loglik_wide_tv"
+        kind = ("loglik_wide_tv" if sel is None
+                else "loglik_wide_tv_calendar")
         rc = getattr(_build.library("kalman_wide"),
                      f"boom_kalman_loglik_wide_tv_{tag}")(
-            *ptrs, b, t_len, n_series, d, shared, u_stride, _stream(device))
+            *ptrs, _ptr(sel), *outs, b, t_len, n_series, d, shared, u_stride,
+            _stream(device))
     else:
         kind = "loglik_tv"
         rc = getattr(_build.library("kalman_seq"),
                      f"boom_kalman_loglik_tv_{tag}_d{d}")(
-            *ptrs, b, t_len, n_series, shared, u_stride, _stream(device))
+            *ptrs, *outs, b, t_len, n_series, shared, u_stride,
+            _stream(device))
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} launch failed: cudaError {rc}")
     LAUNCHES[kind] += 1
@@ -642,7 +697,9 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     chain shares T, also "nz", the :class:`TransitionPattern` of its T
     (``pattern`` once checked against T, or one found from T), which
     K2w's structured form takes in T's place (T is then not copied). A
-    given ``pattern`` that disagrees with T raises ValueError."""
+    calendar's T_t takes K2w's dense form: "t_mat" its two matrices, "sel"
+    the step's choice and "t_shared" (:func:`calendar_operands`). A given
+    ``pattern`` that disagrees with T raises ValueError."""
     kalman.check_system(params)
     dtype, device = params.h.dtype, params.h.device
     tags, dims = _build.KALMAN_ENTRIES["smoother"]
@@ -667,8 +724,12 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
         eps = eps - y
         y = y.new_zeros(t_len)
     y = _series(y, dtype, device)
+    if params.t_choice is not None and d not in _build.WIDE_DIMS:
+        raise NotImplementedError(_NO_CALENDAR)
     # K2w's structured form: a pattern given, or one T for every chain
+    # (and no calendar)
     structured = (params.time_varying and d in _build.WIDE_DIMS
+                  and params.t_choice is None
                   and (pattern is not None or _one_of_all(params.t_mat)))
     fields = {"t_mat": params.t_mat, "rqr": params.rqr, "h": params.h,
               "p0": params.p0, "alpha1": alpha1, "w": w, "eps": eps}
@@ -690,6 +751,10 @@ def smoother_operands(params: SsmParams, y, alpha1_z, eta_z, eps_z,
     if params.time_varying:
         p["zt"], p["hs"], p["u"], p["u_stride"] = time_varying_operands(
             params, t_len, dtype, device, pattern)
+        mats, p["sel"], p["t_shared"] = calendar_operands(params, t_len,
+                                                          dtype, device)
+        if mats is not None:
+            p["t_mat"] = mats
     if structured:
         p["nz"] = pattern
     return p, y, _observed_bytes(observed, t_len, device)
@@ -715,11 +780,13 @@ def launch_smoother(p, y, obs):
                 *ptrs, *p["nz"].csr_pointers(), c, t_len, p["u_stride"],
                 d, WIDE_THREADS, _stream(y.device))
         elif d in _build.WIDE_DIMS:
-            kind = "smoother_wide_tv_dense"
+            kind = ("smoother_wide_tv_dense" if p["sel"] is None
+                    else "smoother_wide_tv_calendar")
             rc = _build.library(
                 "kalman_wide").boom_kalman_smoother_wide_tv_f64(
-                p["t_mat"].data_ptr(), *ptrs, c, t_len, p["u_stride"], d,
-                WIDE_THREADS, _stream(y.device))
+                p["t_mat"].data_ptr(), *ptrs[:-2], _ptr(p["sel"]), *ptrs[-2:],
+                c, t_len, p["u_stride"], p["t_shared"], d, WIDE_THREADS,
+                _stream(y.device))
         else:
             kind = "smoother_tv"
             fn = getattr(_build.library("kalman_seq"),

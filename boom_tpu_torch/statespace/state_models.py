@@ -1,7 +1,8 @@
-"""State-model blocks on the bsts slice (port of
-boom_tpu/statespace/state_models.py:35-246, :677-925): ``SdPrior``,
-``LocalLevel``, ``LocalLinearTrend``, ``Seasonal``, and the time-varying
-``DynamicRegression``, ``RandomWalkHoliday`` and
+"""State-model blocks of bsts (port of
+boom_tpu/statespace/state_models.py:35-676, :677-925): ``SdPrior``,
+``LocalLevel``, ``LocalLinearTrend``, ``Seasonal``, ``MonthlyAnnualCycle``,
+``Trig``, ``ArState``, ``StaticIntercept``, ``SemilocalLinearTrend``, and
+the time-varying ``DynamicRegression``, ``RandomWalkHoliday`` and
 ``StudentLocalLinearTrend``.
 
 A block is a frozen dataclass of floats (the model spec) whose methods work
@@ -19,10 +20,18 @@ on a batch of chains:
     draw_params(noise, params, path [C,T,dim]) -> dict of [C] parameters
     asis_groups()               -> [(param name, SdPrior, error dims)]
 
+A block whose T moves with its parameters (``ArState``'s and
+``SemilocalLinearTrend``'s phi) has ``selection(device, dtype)`` -> R and
+``chain_transition(params)`` -> T [C, dim, dim], a chain each, in place of
+``transition``.
+
 A time-varying block adds ``z_seq(device, dtype)`` -> [T, dim] observation
 rows (one for every chain) and/or ``q_scale_seq(params)`` -> sd scales of
 its errors, [T, err] for every chain or [C, T, err] a chain; row t of
-q_scale_seq scales the transition t -> t+1 (reference ``SsmParams``).
+q_scale_seq scales the transition t -> t+1 (reference ``SsmParams``). A
+calendar block (``MonthlyAnnualCycle``) adds ``t_seq(device, dtype)`` ->
+(its distinct transitions [K, dim, dim], the one step t takes [T]): row t
+maps alpha_t to alpha_{t+1}.
 
 Random numbers come in through ``noise`` mappings (see
 ``boom_tpu_torch.rng``); the blocks never draw.
@@ -31,12 +40,14 @@ Random numbers come in through ``noise`` mappings (see
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 
+import numpy as np
 import torch
 
 from boom_tpu_torch import dists
-from boom_tpu_torch.dists.truncated import trun_gamma_lower_fast
+from boom_tpu_torch.dists.truncated import TAIL_TRIPS, trun_gamma_lower_fast
 from boom_tpu_torch.inference.kernels.slice import slice_step
 
 
@@ -294,6 +305,507 @@ class Seasonal:
 
     def asis_groups(self):
         return [("sigma_seasonal_sq", self.sigma_prior, (0,))]
+
+
+def _top_shift(top):
+    """[C, d, d] of a top row ``top`` [C, d] over the shift eye(d - 1, d)
+    (the AR(p) companion; the seasonal's with a row of -1s)."""
+    c, d = top.shape
+    shift = torch.eye(d - 1, d, device=top.device, dtype=top.dtype)
+    return torch.cat([top[:, None], shift.expand(c, d - 1, d)], dim=1)
+
+
+def _first_selection(dim, device, dtype):
+    """R [dim, 1]: the error enters the first state."""
+    r_mat = torch.zeros(dim, 1, device=device, dtype=dtype)
+    r_mat[0, 0] = 1.0
+    return r_mat
+
+
+def _first_z(dim, device, dtype):
+    z = torch.zeros(dim, device=device, dtype=dtype)
+    z[0] = 1.0
+    return z
+
+
+@dataclasses.dataclass(frozen=True)
+class MonthlyAnnualCycle:
+    """A 12-season cycle of a daily series that moves on the first of each
+    month (reference MonthlyAnnualCycle, state_models.py:249-355; bsts
+    add.monthly.annual.cycle): T_t is the seasonal rotation where day t + 1
+    is the 1st and the identity elsewhere, and the innovation fires on those
+    transitions alone. ``first_date`` is the date of y[0] and ``t_len`` the
+    series' length."""
+
+    first_date: datetime.date
+    t_len: int
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    name: str = "monthly"
+    nseasons = 12
+    err_dim: int = 1
+
+    @property
+    def dim(self):
+        return self.nseasons - 1
+
+    @staticmethod
+    def default(y, first_date, name="monthly"):
+        sd = _sd(y)
+        return MonthlyAnnualCycle(
+            first_date=first_date, t_len=int(y.shape[0]),
+            sigma_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            initial_sd=sd, name=name)
+
+    def sliced(self, t_len):
+        """The block on the first ``t_len`` days (a holdout's refit)."""
+        return dataclasses.replace(self, t_len=t_len)
+
+    def _boundary_np(self, start, length):
+        """[length] floats: entry k is 1 iff the transition start + k ->
+        start + k + 1 enters a new month (the date at start + k + 1 is the
+        1st)."""
+        return np.asarray(
+            [1.0 if (self.first_date
+                     + datetime.timedelta(days=start + k + 1)).day == 1
+             else 0.0 for k in range(length)], dtype=np.float64)
+
+    def _rotation(self, device, dtype):
+        d = self.dim
+        top = -torch.ones(1, d, device=device, dtype=dtype)
+        return _top_shift(top)[0]
+
+    def _steps(self, start, length, device, dtype):
+        mats = torch.stack([torch.eye(self.dim, device=device, dtype=dtype),
+                            self._rotation(device, dtype)])
+        choice = torch.as_tensor(self._boundary_np(start, length),
+                                 device=device).to(torch.int64)
+        return mats, choice
+
+    def z(self, device, dtype):
+        return _first_z(self.dim, device, dtype)
+
+    def transition(self, device, dtype):
+        """The static T (the rotation: the reference's ``build``, which ASIS
+        reads) and R."""
+        return (self._rotation(device, dtype),
+                _first_selection(self.dim, device, dtype))
+
+    def t_seq(self, device, dtype):
+        """(the identity and the rotation [2, dim, dim], [T] which of them
+        the transition t -> t + 1 takes)."""
+        return self._steps(0, self.t_len, device, dtype)
+
+    def future_t_rows(self, horizon, device, dtype):
+        """t_seq's form over the forecast's ``horizon`` steps (the calendar
+        continued from the last day)."""
+        return self._steps(self.t_len - 1, horizon, device, dtype)
+
+    def q_scale_seq(self, params):
+        """[T, 1], one for every chain: the innovation's gate."""
+        var = params["sigma_monthly_sq"]
+        return torch.as_tensor(self._boundary_np(0, self.t_len),
+                               device=var.device).to(var.dtype)[:, None]
+
+    def future_q_scale(self, horizon, device, dtype):
+        return torch.as_tensor(self._boundary_np(self.t_len - 1, horizon),
+                               device=device).to(dtype)[:, None]
+
+    def variance(self, params):
+        return params["sigma_monthly_sq"][:, None, None]
+
+    def build(self, params):
+        return _built(self, self.variance(params))
+
+    def init_dist(self, device, dtype):
+        d = self.dim
+        return (torch.zeros(d, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(d, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"monthly_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u = noise["monthly_u"] * (0.3 - 0.02) + 0.02
+        return {"sigma_monthly_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"monthly_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        """The variance from the innovations of the month boundaries:
+        alpha_{t+1,0} = -sum(alpha_t) + eta there."""
+        bnd_np = self._boundary_np(0, path.shape[1] - 1)
+        bnd = torch.as_tensor(bnd_np, device=path.device).to(path.dtype)
+        eta = path[:, 1:, 0] + path[:, :-1].sum(-1)
+        return {"sigma_monthly_sq": self.sigma_prior.draw_variance(
+            noise["monthly_u"], float(bnd_np.sum()),
+            (bnd * eta * eta).sum(-1))}
+
+    def asis_groups(self):
+        # the reference's ASIS assumes a static T: this block's variance
+        # takes the centered draw alone, as the reference's
+        return []
+
+
+@dataclasses.dataclass(frozen=True)
+class Trig:
+    """Trigonometric seasonality of period ``period`` at the harmonics
+    ``frequencies`` (reference Trig, state_models.py:362-425; bsts
+    add.trig): a rotation by 2 pi f / period a harmonic, one variance for
+    every error."""
+
+    period: float
+    frequencies: tuple
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    name: str = "trig"
+
+    @property
+    def dim(self):
+        return 2 * len(self.frequencies)
+
+    @property
+    def err_dim(self):
+        return 2 * len(self.frequencies)
+
+    @staticmethod
+    def default(y, period, nfreq, name="trig"):
+        sd = _sd(y)
+        return Trig(period=float(period),
+                    frequencies=tuple(range(1, nfreq + 1)),
+                    sigma_prior=SdPrior(sigma_guess=0.01 * sd,
+                                        upper_limit=sd),
+                    initial_sd=sd, name=name)
+
+    def z(self, device, dtype):
+        z = torch.zeros(self.dim, device=device, dtype=dtype)
+        z[0::2] = 1.0
+        return z
+
+    def _t(self, device, dtype):
+        t_mat = torch.zeros(self.dim, self.dim, device=device, dtype=dtype)
+        for i, f in enumerate(self.frequencies):
+            lam = 2.0 * math.pi * f / self.period
+            c, s = math.cos(lam), math.sin(lam)
+            t_mat[2 * i:2 * i + 2, 2 * i:2 * i + 2] = torch.tensor(
+                [[c, s], [-s, c]], device=device, dtype=dtype)
+        return t_mat
+
+    def transition(self, device, dtype):
+        return (self._t(device, dtype),
+                torch.eye(self.dim, device=device, dtype=dtype))
+
+    def variance(self, params):
+        var = params["sigma_trig_sq"]
+        return var[:, None, None] * torch.eye(self.err_dim, device=var.device,
+                                              dtype=var.dtype)
+
+    def build(self, params):
+        return _built(self, self.variance(params))
+
+    def init_dist(self, device, dtype):
+        return (torch.zeros(self.dim, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(self.dim, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"trig_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u = noise["trig_u"] * (0.3 - 0.02) + 0.02
+        return {"sigma_trig_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"trig_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        eta = _innovations(path, _chain_mats(
+            self._t(path.device, path.dtype), path.shape[0]))
+        return {"sigma_trig_sq": self.sigma_prior.draw_variance(
+            noise["trig_u"], eta.shape[1] * eta.shape[2],
+            (eta * eta).sum((1, 2)))}
+
+    def asis_groups(self):
+        return [("sigma_trig_sq", self.sigma_prior,
+                 tuple(range(self.err_dim)))]
+
+
+# candidates of ArState's conjugate coefficient draw (reference :487)
+AR_CANDIDATES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ArState:
+    """An AR(p) state (reference ArState, state_models.py:428-508; bsts
+    add.ar): T is the companion of phi, a chain each. phi's conjugate draw
+    under a N(0, phi_prior_sd^2 I) prior takes the first stationary of
+    AR_CANDIDATES candidates, else halves phi (the reference's fixed-trip
+    form of ArPosteriorSampler's retries)."""
+
+    lags: int
+    sigma_prior: SdPrior
+    initial_sd: float = 1.0
+    phi_prior_sd: float = 1.0
+    name: str = "ar"
+    err_dim: int = 1
+
+    @property
+    def dim(self):
+        return self.lags
+
+    @staticmethod
+    def default(y, lags, name=None):
+        sd = _sd(y)
+        return ArState(lags=lags,
+                       sigma_prior=SdPrior(sigma_guess=0.01 * sd,
+                                           upper_limit=sd),
+                       initial_sd=sd, name=name or f"ar{lags}")
+
+    def z(self, device, dtype):
+        return _first_z(self.dim, device, dtype)
+
+    def selection(self, device, dtype):
+        return _first_selection(self.dim, device, dtype)
+
+    def chain_transition(self, params):
+        return _top_shift(params["phi"])
+
+    def variance(self, params):
+        return params["sigma_ar_sq"][:, None, None]
+
+    def build(self, params):
+        q_mat = self.variance(params)
+        c = q_mat.shape[0]
+        return (self.chain_transition(params),
+                _chain_mats(self.selection(q_mat.device, q_mat.dtype), c),
+                q_mat)
+
+    def init_dist(self, device, dtype):
+        return (torch.zeros(self.dim, device=device, dtype=dtype),
+                self.initial_sd ** 2 * torch.eye(self.dim, device=device,
+                                                 dtype=dtype))
+
+    def init_noise_spec(self):
+        return {"phi_u": ((), "uniform"), "ar_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        phi0 = noise["phi_u"] * 0.8
+        u = noise["ar_u"] * (0.7 - 0.1) + 0.1
+        rest = phi0.new_zeros(phi0.shape[0], self.lags - 1)
+        return {"phi": torch.cat([phi0[:, None], rest], dim=1),
+                "sigma_ar_sq": (self.initial_sd * u) ** 2}
+
+    def noise_spec(self):
+        return {"phi_z": ((AR_CANDIDATES, self.lags), "normal"),
+                "ar_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        """phi by regression of path[t + 1, 0] on the lag vector path[t]:
+        AR_CANDIDATES draws of its conjugate posterior at the normals
+        ``phi_z`` [C, k, p], the first stationary one kept; then the
+        variance from the residuals."""
+        resp, preds = path[:, 1:, 0], path[:, :-1, :]
+        sigsq = params["sigma_ar_sq"]
+        eye = torch.eye(self.lags, device=path.device, dtype=path.dtype)
+        prec = ((preds.transpose(1, 2) @ preds) / sigsq[:, None, None]
+                + eye / self.phi_prior_sd ** 2)
+        b = (preds * resp[..., None]).sum(1) / sigsq[:, None]
+        chol = torch.linalg.cholesky(prec)
+        cands = dists.mvn.sample_suf(noise["phi_z"], b[:, None],
+                                     prec_chol=chol[:, None])
+        ok = _jury_stationary(cands)
+        first = torch.argmax(ok.to(torch.int8), dim=-1)
+        pick = cands[torch.arange(cands.shape[0], device=path.device), first]
+        phi = torch.where(ok.any(-1)[:, None], pick, params["phi"] * 0.5)
+        eps = resp - (preds * phi[:, None, :]).sum(-1)
+        return {"phi": phi, "sigma_ar_sq": self.sigma_prior.draw_variance(
+            noise["ar_u"], eps.shape[1], (eps * eps).sum(-1))}
+
+    def asis_groups(self):
+        return [("sigma_ar_sq", self.sigma_prior, (0,))]
+
+
+def _jury_stationary(phi):
+    """[...] whether the AR(p) polynomials of phi [..., p] are stationary:
+    every reflection coefficient of the Levinson-Durbin step-down |k| < 1
+    (reference :511-535)."""
+    p = phi.shape[-1]
+    idx = torch.arange(p, device=phi.device)
+    a = phi
+    ok = torch.ones(phi.shape[:-1], dtype=torch.bool, device=phi.device)
+    for m in range(p, 0, -1):
+        k = a[..., m - 1]
+        ok = ok & (k.abs() < 1.0)
+        denom = torch.clamp_min(1.0 - k * k, 1e-12)
+        rev = a[..., (m - 2 - idx).clamp(0, p - 1)]
+        a = torch.where(idx < m - 1,
+                        (a + k[..., None] * rev) / denom[..., None], 0.0)
+    return ok
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticIntercept:
+    """A constant level (reference StaticIntercept, state_models.py:539-572):
+    one state and no error (R [1, 0]), so no parameter and no ``variance``:
+    the model's Q holds an empty block for it."""
+
+    initial_mean: float = 0.0
+    initial_sd: float = 1.0
+    name: str = "static_intercept"
+    dim: int = 1
+    err_dim: int = 0
+
+    @staticmethod
+    def default(y, name="static_intercept"):
+        return StaticIntercept(initial_mean=float(torch.mean(y)),
+                               initial_sd=_sd(y), name=name)
+
+    def z(self, device, dtype):
+        return torch.ones(1, device=device, dtype=dtype)
+
+    def transition(self, device, dtype):
+        return (torch.ones(1, 1, device=device, dtype=dtype),
+                torch.zeros(1, 0, device=device, dtype=dtype))
+
+    def init_dist(self, device, dtype):
+        return (torch.tensor([self.initial_mean], device=device, dtype=dtype),
+                torch.tensor([[self.initial_sd ** 2]], device=device,
+                             dtype=dtype))
+
+    def init_noise_spec(self):
+        return {}
+
+    def init_params(self, noise):
+        return {}
+
+    def noise_spec(self):
+        return {}
+
+    def draw_params(self, noise, params, path):
+        return {}
+
+    def asis_groups(self):
+        return []
+
+
+@dataclasses.dataclass(frozen=True)
+class SemilocalLinearTrend:
+    """A level whose slope reverts to a long-run mean D (reference
+    SemilocalLinearTrend, state_models.py:576-673; bsts
+    add.semilocal.linear.trend):
+
+        mu_{t+1}    = mu_t + delta_t + eta_0
+        delta_{t+1} = D + phi (delta_t - D) + eta_1
+
+    D rides as a static third state, drawn with the path; phi, a chain each
+    (so T is a chain's), from its truncated-normal conditional on
+    (-0.999, 0.999) given the slope path."""
+
+    level_prior: SdPrior
+    slope_prior: SdPrior
+    initial_level_mean: float = 0.0
+    initial_level_sd: float = 1.0
+    initial_slope_mean: float = 0.0
+    initial_slope_sd: float = 1.0
+    slope_mean_mean: float = 0.0
+    slope_mean_sd: float = 1.0
+    phi_prior_mean: float = 0.0
+    phi_prior_sd: float = 0.5
+    name: str = "semilocal_trend"
+    dim: int = 3
+    err_dim: int = 2
+
+    @staticmethod
+    def default(y, name="semilocal_trend"):
+        sd = _sd(y)
+        return SemilocalLinearTrend(
+            level_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            slope_prior=SdPrior(sigma_guess=0.01 * sd, upper_limit=sd),
+            initial_level_mean=float(y[0]), initial_level_sd=sd,
+            initial_slope_sd=sd, slope_mean_sd=sd, name=name)
+
+    def z(self, device, dtype):
+        return _first_z(3, device, dtype)
+
+    def selection(self, device, dtype):
+        return torch.eye(3, 2, device=device, dtype=dtype)
+
+    def chain_transition(self, params):
+        phi = params["phi"]
+        c = phi.shape[0]
+        t_mat = torch.tensor([[1.0, 1.0, 0.0], [0.0, 0.0, 0.0],
+                              [0.0, 0.0, 1.0]], device=phi.device,
+                             dtype=phi.dtype).repeat(c, 1, 1)
+        t_mat[:, 1, 1] = phi
+        t_mat[:, 1, 2] = 1.0 - phi
+        return t_mat
+
+    def variance(self, params):
+        return torch.diag_embed(torch.stack(
+            [params["sigma_level_sq"], params["sigma_slope_sq"]], dim=-1))
+
+    def build(self, params):
+        q_mat = self.variance(params)
+        return (self.chain_transition(params),
+                _chain_mats(self.selection(q_mat.device, q_mat.dtype),
+                            q_mat.shape[0]), q_mat)
+
+    def init_dist(self, device, dtype):
+        return (torch.tensor([self.initial_level_mean,
+                              self.initial_slope_mean, self.slope_mean_mean],
+                             device=device, dtype=dtype),
+                torch.diag(torch.tensor(
+                    [self.initial_level_sd ** 2, self.initial_slope_sd ** 2,
+                     self.slope_mean_sd ** 2], device=device, dtype=dtype)))
+
+    def init_noise_spec(self):
+        return {"level_u": ((), "uniform"), "slope_u": ((), "uniform"),
+                "phi_u": ((), "uniform")}
+
+    def init_params(self, noise):
+        u1 = noise["level_u"] * (0.5 - 0.05) + 0.05
+        u2 = noise["slope_u"] * (0.2 - 0.01) + 0.01
+        # the slope's initial sd is the level's, as the reference's
+        return {"sigma_level_sq": (self.initial_level_sd * u1) ** 2,
+                "sigma_slope_sq": (self.initial_level_sd * u2) ** 2,
+                "phi": noise["phi_u"] * (0.8 - 0.2) + 0.2}
+
+    def noise_spec(self):
+        return {"level_u": ((), "uniform_pos"),
+                "phi_u": ((), "uniform_pos"),
+                "phi_tail_u1": ((TAIL_TRIPS,), "uniform_pos"),
+                "phi_tail_u2": ((TAIL_TRIPS,), "uniform_pos"),
+                "slope_u": ((), "uniform_pos")}
+
+    def draw_params(self, noise, params, path):
+        level, slope, d_mean = path[..., 0], path[..., 1], path[:, 0, 2]
+        e_lvl = level[:, 1:] - level[:, :-1] - slope[:, :-1]
+        n = e_lvl.shape[1]
+        lvl = self.level_prior.draw_variance(noise["level_u"], n,
+                                             (e_lvl * e_lvl).sum(-1))
+        # phi | slope path: the regression of delta_{t+1} - D on
+        # delta_t - D, truncated to (-0.999, 0.999)
+        dc = slope - d_mean[:, None]
+        sxx = (dc[:, :-1] * dc[:, :-1]).sum(-1)
+        sxy = (dc[:, :-1] * dc[:, 1:]).sum(-1)
+        sig = params["sigma_slope_sq"]
+        post_prec = sxx / sig + 1.0 / self.phi_prior_sd ** 2
+        post_mean = (sxy / sig + self.phi_prior_mean
+                     / self.phi_prior_sd ** 2) / post_prec
+        phi = dists.trun_normal.sample(
+            noise["phi_u"], noise["phi_tail_u1"], noise["phi_tail_u2"],
+            post_mean, torch.sqrt(1.0 / post_prec), -0.999, 0.999)
+        e_slope = dc[:, 1:] - phi[:, None] * dc[:, :-1]
+        slope_var = self.slope_prior.draw_variance(
+            noise["slope_u"], n, (e_slope * e_slope).sum(-1))
+        return {"sigma_level_sq": lvl, "sigma_slope_sq": slope_var,
+                "phi": phi}
+
+    def asis_groups(self):
+        return [("sigma_level_sq", self.level_prior, (0,)),
+                ("sigma_slope_sq", self.slope_prior, (1,))]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -91,8 +91,8 @@ def regularize_timestamps(timestamps) -> TimestampInfo:
                 "datetime timestamps a month or more apart need a calendar "
                 "grid (months, quarters and years differ in length); the "
                 "reference snaps them to a uniform grid, which the port "
-                "does not copy (ROADMAP.md, sec. 3; queue 1 item 7: "
-                "utils/dates.py)")
+                "does not copy (ROADMAP.md, sec. 3: a difference from the "
+                "reference, not work for the port)")
         n = int(round((uniq[-1] - uniq[0]) / step)) + 1
         grid = uniq[0] + step * np.arange(n)
     # each raw timestamp to its nearest grid point

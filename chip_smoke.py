@@ -101,7 +101,8 @@ Phases:
      float64 sweep of 33 chains on the card against the CPU's on the same
      noise; then ``Bsts`` with a local linear trend, a 7-season cycle
      (d = 8) and a spike-and-slab regression of p = 20, T = 500, 4096
-     chains, 200 burn-in + 200 draws (300 + 250 until phase 8 came),
+     chains, 100 burn-in + 100 draws (300 + 250 until phase 8 came, 200
+     + 200 until phases 10a and 10b),
      float32 (smoother in float64), through ``run_mcmc`` and
      ``BstsModel.predict(horizon=30,
      future_predictors=x[500:])`` from 200 draws. It must run through K2w,
@@ -117,7 +118,7 @@ Phases:
      busy share;
   7. config #5 with the TIM marginal move (``marginal_sigma_slice=True,
      marginal_move="tim"``, 16 trials) on phase 6's data at its width and
-     length (4096 chains, 200 + 200 sweeps, float32, smoother in float64):
+     length (4096 chains, 100 + 100 sweeps, float32, smoother in float64):
      the proposal's mode search through J1 and J2 at d = 8, then the run
      through K1w (the move's 17 points a chain on the chain's y - X beta),
      K2w, K3 and kernel (a)'s per-chain entry; gated by finite draws, R-hat
@@ -187,7 +188,7 @@ Phases:
      chains x (200 + 200) through H1 and H2 (one of each a sweep, or the
      phase fails); ``FiniteMixture(3).fit`` (n = 1,500) on the card, 4096
      chains x (200 + 200); ``BetaBinomialModel`` (200 groups), 1024 chains
-     x (500 + 500). Medians within 10 % of the reference's, R-hat - 1 at
+     x (250 + 250). Medians within 10 % of the reference's, R-hat - 1 at
      most 1.10 times its + 0.01 and half its min-ESS per draw (for the HMM
      and the mixture over the chains that stayed in the main mode, and
      the share of those within 4 binomial sds of the reference's), the
@@ -199,6 +200,39 @@ Phases:
      through H1 within 1e-4 of the plain filter; ``components()`` near the
      truth and ``cluster_probs()``' rows summing to 1. It prints sweeps/s,
      min-ESS/s and the device's busy share.
+  2g. the calendar's T_t (two matrices, a step's choice: the monthly
+     cycle's) in K2w's dense time-varying form and K1w's
+     (``csrc/kalman_wide.cu``) against their plain versions on the card:
+     K2w at d in {11, 13, 14, 16}, 33, 4095 and 4097 chains, two matrices
+     a chain and two for all, T about its chunks (31, 32, 33, 67) and the
+     phase's 730, a month boundary at step 0 and at T - 2, masked and
+     dense, float64 (<= 1e-9); K1w at d in {11, 14, 16}, float64 and
+     float32 (<= 1e-4), with and without the innovations, T 33, 67 and
+     730, a mask; each launch taking its calendar key; at phase 10a's
+     shapes ten launches bit-identical and times beside bounds and plain;
+     K1w with a T a system at phase 10b's TIM batch, against its plain
+     version and timed;
+ 10a. bsts_monthly (``boom_tpu_torch/data/bsts_monthly.npz``: two years of
+     days): ``BstsModel().add_semilocal_linear_trend()
+     .add_monthly_annual_cycle(first_date)`` (d = 14) through the front
+     end on the card; one float64 sweep of 33 chains against the CPU's
+     (<= 1e-8); 4096 chains x (200 + 200) sweeps, every smoother launch
+     in K2w's dense form with the calendar, K3 every sweep, gated against
+     the reference's run (``tests/test_torch_monthly.py bench``: medians
+     within 10 %, R-hat - 1 at most 1.10 times its + 0.01, half its min-ESS
+     a draw); ``predict(horizon=30)`` against the reference's forecast;
+     ``log_lik`` and the one-step errors of 200 draws through K1w's
+     calendar form within 1e-4 of the plain filter;
+ 10b. bsts_ar_trig (``data/bsts_ar_trig.npz``: ten years of weeks):
+     ``BstsModel().add_static_intercept().add_ar(lags=2)
+     .add_trig(period=52.18, nfreq=2)`` with ``marginal_sigma_slice=True,
+     marginal_move="tim"`` (d = 7, the AR state's T a chain's): the
+     proposal through J1 and J2, one float64 sweep of 33 chains against
+     the CPU's (<= 1e-8, the card's proposal on both), 4096 chains x
+     (200 + 200) sweeps through the static K2w with a T a chain, K3 and
+     K1w with a T a system (each chain's 17 TIM points), gated against
+     the reference's run (``tests/test_torch_state_blocks.py bench``) as
+     10a; ``log_lik`` and the one-step errors of 200 draws.
 
 Every phase prints its time (``phase N took X s``), and the whole run its
 own.
@@ -255,6 +289,10 @@ T_LONG = 65537
 # one float64 sweep, kernels on the card vs plain scans on the CPU: both
 # sides differ by rounding only (the scans' association order)
 SWEEP_TOL = 1e-8
+# sweeps under torch.profiler for a phase's breakdown (5 before phases 10a
+# and 10b came: the trace of a bsts sweep, ~9,000 launches, takes ~5 s of
+# the host a sweep to gather, 160 s of a run in all)
+PROFILE_SWEEPS = 2
 KERNEL_SOURCE = "boom_tpu_torch/csrc/parallel_scan.cu"
 # each combine's call of the one Pallas scan kernel (pallas_call at :241)
 REPLACES = {"filter": "boom_tpu/statespace/pallas_scan.py:273",
@@ -391,61 +429,63 @@ BORDER_CHAIN_CHECK = (33, 4096)
 
 # phase 6: bsts_reg, BASELINE config #5 (BASELINE.md:32; README.md:40-44)
 REG_T, REG_P, REG_HORIZON = 500, 20, 30
-# 200 + 200 sweeps (300 + 250 before phase 8 came: cut to pay for its
-# time, the references remade at this length)
-REG_CHAINS, REG_BURN, REG_DRAWS, REG_SEED = 4096, 200, 200, 0
+# 100 + 100 sweeps (200 + 200 before phases 10a and 10b came, 300 + 250
+# before phase 8: each cut to pay for the new phases' time, the
+# references remade at the new length)
+REG_CHAINS, REG_BURN, REG_DRAWS, REG_SEED = 4096, 100, 100, 0
 REG_FORECAST_DRAWS = 200
 REG_SWEEP_CHAINS = 33
 REG_MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq",
                "sigma_seasonal_sq", "beta[0]", "beta[1]", "beta[2]",
                "beta[3]")
 # The JAX reference's run on the committed data (x64 off, as the bench
-# runs) at phase 6's length: 1024 chains, 200 burn-in + 200 draws, from
+# runs) at phase 6's length: 1024 chains, 100 burn-in + 100 draws, from
 #     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
-#         bench 1024 200 200 7
-# (before phase 8 came, the medians, min-ESS and forecast came from a
-# 64-chain, 500 + 2000 run of the same script, and phase 6 ran 300 + 250
-# sweeps)
+#         bench 1024 100 100 7
+# (148 s on 8 CPU cores; remade at each cut of phase 6's length: before
+# phase 8 came, the medians, min-ESS and forecast came from a 64-chain,
+# 500 + 2000 run of the same script, and phase 6 ran 300 + 250 sweeps)
 REFERENCE_MEDIANS_REG = {
-    "sigsq_obs": 0.3558697998523712, "sigma_level_sq": 0.005264243111014366,
-    "sigma_slope_sq": 0.00013638802920468152,
-    "sigma_seasonal_sq": 0.001924860174767673,
-    "beta[0]": 3.0179710388183594, "beta[1]": -2.0129971504211426,
-    "beta[2]": 1.440704345703125, "beta[3]": 0.9968365430831909}
-REFERENCE_MIN_ESS_PER_DRAW_REG = 0.008446132327265007
+    "sigsq_obs": 0.3531602919101715,
+    "sigma_level_sq": 0.005960899405181408,
+    "sigma_slope_sq": 0.00019297635299153626,
+    "sigma_seasonal_sq": 0.0019394648261368275,
+    "beta[0]": 3.0176608562469482,
+    "beta[1]": -2.01236629486084,
+    "beta[2]": 1.4408519268035889,
+    "beta[3]": 0.9972443580627441}
+REFERENCE_MIN_ESS_PER_DRAW_REG = 0.01420139254668054
 REFERENCE_FORECAST_MEDIAN_REG = (
-    -62.49315643310547, -58.691287994384766, -60.241668701171875,
-    -60.087890625, -67.88286590576172, -58.73298645019531, -66.79112243652344,
-    -64.96575927734375, -63.53178405761719, -61.65713119506836,
-    -68.98260498046875, -64.76028442382812, -64.16488647460938,
-    -63.76995849609375, -73.85674285888672, -67.45150756835938,
-    -66.78168487548828, -61.4560546875, -73.0467529296875, -65.44558715820312,
-    -68.26403045654297, -69.30841064453125, -58.779991149902344,
-    -71.25563049316406, -69.95750427246094, -73.60853576660156,
-    -74.59906768798828, -73.40187072753906, -76.34567260742188,
-    -67.35681915283203)
+    -62.50745391845703, -58.808265686035156, -60.28821563720703,
+    -60.121490478515625, -67.96714782714844, -58.901649475097656,
+    -66.80693817138672, -65.08326721191406, -63.735164642333984,
+    -61.737464904785156, -69.082763671875, -64.8313217163086,
+    -64.38792419433594, -63.83995056152344, -73.95658874511719,
+    -67.64079284667969, -67.03776550292969, -61.601905822753906,
+    -73.24053955078125, -65.67137145996094, -68.57899475097656,
+    -69.34652709960938, -59.08729553222656, -71.63925170898438,
+    -70.27378845214844, -74.01016235351562, -75.03581237792969,
+    -73.78312683105469, -76.77568817138672, -67.80296325683594)
 REFERENCE_FORECAST_SD_REG = (
-    0.6355166435241699, 0.7717800736427307, 0.7398772835731506,
-    0.7878442406654358, 0.8726757764816284, 0.8229374885559082,
-    0.8069803714752197, 0.8939924240112305, 0.9933972358703613,
-    0.9663235545158386, 1.0376207828521729, 1.041511058807373,
-    1.083634853363037, 1.1028894186019897, 1.120147705078125,
-    1.2477887868881226, 1.3617892265319824, 1.3529096841812134,
-    1.47734534740448, 1.401212215423584, 1.4028939008712769,
-    1.565682053565979, 1.666903018951416, 1.776099443435669,
-    1.7498217821121216, 1.8296884298324585, 1.8828915357589722,
-    1.9566642045974731, 2.0707485675811768, 2.0374257564544678)
-# Split R-hat of the reference at this run length (200 burn-in + 200
-# draws, 1024 chains, x64 off), REG_MONITOR's order, from
-#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_bsts_reg.py \
-#         bench 1024 200 200 7
+    0.7195358276367188, 0.741791307926178, 0.7688488960266113,
+    0.7479841113090515, 0.8164856433868408, 0.8042434453964233,
+    0.8394821882247925, 0.9401535987854004, 0.9868109226226807,
+    0.9845094084739685, 1.0560020208358765, 1.0166609287261963,
+    1.0865552425384521, 1.1959089040756226, 1.1953082084655762,
+    1.2601832151412964, 1.409246802330017, 1.3953691720962524,
+    1.5134830474853516, 1.5042085647583008, 1.431753396987915,
+    1.7365992069244385, 1.601025938987732, 1.7681423425674438,
+    1.7785327434539795, 1.8384673595428467, 1.9685429334640503,
+    2.034256935119629, 2.2478833198547363, 2.163076400756836)
+# Split R-hat of the reference at this run length (100 burn-in + 100
+# draws, 1024 chains, x64 off), REG_MONITOR's order, from the same run.
 # The level and slope variances mix slowly in the reference's own sampler
-# (ESS per draw ~0.008): their R-hat at 200 draws is far above 1.02, so
+# (ESS per draw ~0.014): their R-hat at 100 draws is far above 1.02, so
 # the port's gate on the variances is the reference's own R-hat here
-REFERENCE_RHAT_REG = (1.0394572742850805, 1.6024094262627024,
-                      1.5203009650118393, 1.088908786556291,
-                      1.0019999063664073, 1.0024865331415278,
-                      1.002393135816731, 1.00219769679277)
+REFERENCE_RHAT_REG = (
+    1.0494069876934873, 1.895183931123383, 1.760766274867759,
+    1.1787057443868298, 1.0044087242913886, 1.0037816341405836,
+    1.0042901796421535, 1.0043923477282015)
 # the port's R-hat - 1 at most REG_RHAT_FACTOR times the reference's, plus
 # REG_RHAT_SLACK (both estimates carry the noise of a finite run). At
 # 300 + 250 sweeps sound runs from seeds 0, 1 and 2 read at most
@@ -478,27 +518,30 @@ TIM_REG_CUTPOINT = 400
 TIM_REG_REFIT_DRAWS = 100
 TIM_REG_TOL = 1e-4  # log_lik and the errors against their plain versions
 # The JAX reference's run with the move on the committed data (x64 off, as
-# the bench runs), 1024 chains, 200 burn-in + 200 draws (phase 7's
+# the bench runs), 1024 chains, 100 burn-in + 100 draws (phase 7's
 # length), REG_MONITOR's order, from
 #     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_tim_reg.py \
-#         bench 1024 200 200 7
-# (550 s on 8 CPU cores). The move lifts the recorded level and slope
-# variances' R-hat from the reference's 1.6024 / 1.5203 without it
-# (REFERENCE_RHAT_REG) to 1.1071 / 1.0744; the observation variance's and
+#         bench 1024 100 100 7
+# (377 s on 8 CPU cores). The move lifts the recorded level and slope
+# variances' R-hat from the reference's 1.8952 / 1.7608 without it
+# (REFERENCE_RHAT_REG) to 1.0886 / 1.0704; the observation variance's and
 # beta's trajectories are those of the run without it (the move's draws
 # are redrawn by the next sweep's variance step, and it takes noise of its
 # own), so their R-hat is the same
 REFERENCE_MEDIANS_TIM_REG = {
-    "sigsq_obs": 0.3558697998523712, "sigma_level_sq": 0.005329350242391229,
-    "sigma_slope_sq": 0.00013400850730249658,
-    "sigma_seasonal_sq": 0.0019298071274533868,
-    "beta[0]": 3.01797091960907, "beta[1]": -2.0129971504211426,
-    "beta[2]": 1.440704345703125, "beta[3]": 0.9968365430831909}
-REFERENCE_RHAT_TIM_REG = (1.0394572742850805, 1.1070918721201572,
-                          1.0744286989176746, 1.0143159800834192,
-                          1.0019999063664073, 1.0024865331415278,
-                          1.002393135816731, 1.00219769679277)
-REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.028240124111220188
+    "sigsq_obs": 0.3531602919101715,
+    "sigma_level_sq": 0.005171357421204448,
+    "sigma_slope_sq": 0.00015460689610335976,
+    "sigma_seasonal_sq": 0.001939769135788083,
+    "beta[0]": 3.0176608562469482,
+    "beta[1]": -2.01236629486084,
+    "beta[2]": 1.4408519864082336,
+    "beta[3]": 0.9972443878650665}
+REFERENCE_RHAT_TIM_REG = (
+    1.0494069876934873, 1.0886365356700771, 1.0704201343531516,
+    1.0193171542798647, 1.0044087242913886, 1.0037816341405836,
+    1.0042901796421535, 1.0043923477282015)
+REFERENCE_MIN_ESS_PER_DRAW_TIM_REG = 0.06681189934631662
 
 # phase 2e: the time-varying forms of K1, K1w, K2 and K2w (z_t, h_t =
 # h h_scale_t, Q_t = (q_t q_t') o Q), the reference's XLA scans they
@@ -631,7 +674,8 @@ HMM_STATS_TOL = {"float64": 1e-12, "float32": 1e-5}
 # phase 9: BASELINE configs #4 (GaussianHmm), #3 (FiniteMixture) and #1
 # (BetaBinomialModel) on their committed data, float32 on the card
 BASE_CHAINS, BASE_BURN, BASE_DRAWS, BASE_SEED = 4096, 200, 200, 7
-BB_CHAINS, BB_BURN, BB_DRAWS = 1024, 500, 500
+# 250 + 250 sweeps (500 + 500 before phases 10a and 10b came)
+BB_CHAINS, BB_BURN, BB_DRAWS = 1024, 250, 250
 BASE_SWEEP_CHAINS = 33
 HMM_LOGLIK_DRAWS = 200
 BASE_MEDIAN_TOL = 0.10
@@ -643,7 +687,7 @@ BASE_CONFIDENCE = 0.98
 # jax.random.key(7), x64 off, as their bench entries print them:
 # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_hmm.py bench 1024
 # 200 200 7 (and test_torch_mixtures.py the same; test_torch_beta_binomial.py
-# bench 1024 500 500 7). The monitors' order is the tests' MONITOR (states
+# bench 1024 250 250 7). The monitors' order is the tests' MONITOR (states
 # and components sorted by mu in every draw). A few chains of the HMM's and
 # the mixture's runs enter a degenerate mode (two components on one
 # cluster) and keep it or leave it late, which alone puts R-hat over all
@@ -690,18 +734,121 @@ REFERENCE_MIX = {
 BB_MONITOR = ("prob", "size")
 REFERENCE_BB = {
     'chains': 1024,
-    'burn': 500,
-    'draws': 500,
+    'burn': 250,
+    'draws': 250,
     'seed': 7,
-    'medians': [0.2942471504211426, 14.959651947021484],
-    'rhat': [1.0000513792037964, 1.000104308128357],
-    'min_ess_per_draw': 0.9537791609764099,
+    'medians': [0.2942754328250885, 14.963851928710938],
+    'rhat': [1.0000883340835571, 1.0001869201660156],
+    'min_ess_per_draw': 0.9640631079673767,
 }
 BASE_SHARE_SIGMAS = 4.0
 # components(): each mean and sd within this of the truth, each weight
 # within MIX_WEIGHT_TOL
 # (components() averages every chain's draws, the degenerate mode's too)
 MIX_COMPONENT_TOL, MIX_WEIGHT_TOL = 0.3, 0.05
+
+# phase 2g: the calendar's T_t in K2w's dense time-varying form and in
+# K1w's (kalman_wide.cu); their rows read phase 10a's launches, and K1w's
+# with a T a system phase 10b's
+CALENDAR_KERNELS = {
+    "smoother_wide_tv_calendar": ("kalman_simulation_smoother_wide_tv_"
+                                  "calendar",
+                                  "boom_tpu/statespace/kalman.py:432"),
+    "loglik_wide_tv_calendar": ("kalman_loglik_wide_tv_calendar",
+                                "boom_tpu/statespace/kalman.py:282")}
+CHAIN_T_KERNEL = ("kalman_loglik_wide_chain_t",
+                  "boom_tpu/statespace/kalman.py:282")
+CAL_D_CHECK = (11, 13, 14, 16)
+CAL_CHAIN_CHECK = (33, 4095, 4097)
+CAL_T_CHECK = (31, 32, 33, 67)
+CAL_LOGLIK_D = (11, 14, 16)
+CAL_LOGLIK_T = (33, 67)
+# the phase's own T (730 days) at d = 14: K2w at 33 and 4097 chains, K1w
+# at phase 10a's 200 draws
+CAL_LONG = (14, 730, (33, 4097), 200)
+
+# phase 10a: bsts_monthly, a daily series of two years from 2022-01-01
+# (``boom_tpu_torch/data/bsts_monthly.npz``): a semilocal trend (T a
+# chain's: phi) and the monthly cycle (T_t at the month boundaries), d = 14
+MONTHLY_CHAINS, MONTHLY_BURN, MONTHLY_DRAWS, MONTHLY_SEED = 4096, 200, 200, 0
+MONTHLY_SWEEP_CHAINS = 33
+MONTHLY_HORIZON, MONTHLY_FORECAST_DRAWS = 30, 200
+MONTHLY_MONITOR = ("sigsq_obs", "sigma_level_sq", "sigma_slope_sq", "phi",
+                   "sigma_monthly_sq")
+# The JAX reference's run on the committed data (x64 off, as the bench
+# runs), 1024 chains, 200 burn-in + 200 draws, MONTHLY_MONITOR's order,
+# and its 30-day forecast (200 thinned draws), from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_monthly.py \
+#         bench 1024 200 200 7
+# (21.6 minutes on 8 CPU cores). The semilocal trend's variances and phi
+# mix slowly at this length (R-hat 1.54-2.76, ESS per draw 0.006-0.009),
+# so phase 10a holds each R-hat - 1 to REG_RHAT_FACTOR times the
+# reference's + REG_RHAT_SLACK, as phases 6 and 8
+REFERENCE_MEDIANS_MONTHLY = {
+    "sigsq_obs": 0.08254590630531311,
+    "sigma_level_sq": 0.00016404691996285692,
+    "sigma_slope_sq": 0.00020187622430967167,
+    "phi": -0.46924279630184174,
+    "sigma_monthly_sq": 0.0002539601409807801}
+REFERENCE_RHAT_MONTHLY = (
+    1.0093688345702496, 1.5447145058211385, 1.6335915954196842,
+    2.7603490579612413, 1.1695296823383143)
+REFERENCE_MIN_ESS_PER_DRAW_MONTHLY = 0.005819261663167369
+REFERENCE_FORECAST_MEDIAN_MONTHLY = (
+    3.7103981971740723, 3.5804238319396973, 3.5989089012145996,
+    3.690261125564575, 3.652127504348755, 3.6727945804595947,
+    3.66520619392395, 3.5913124084472656, 3.5909600257873535,
+    3.630378484725952, 3.6410093307495117, 3.686866283416748,
+    3.672891616821289, 3.657731056213379, 3.629455804824829,
+    3.643362522125244, 3.686868667602539, 3.678114652633667,
+    3.6548542976379395, 3.698366165161133, 3.6553852558135986,
+    3.655183792114258, 3.625905990600586, 3.6755833625793457,
+    3.668858528137207, 3.683976888656616, 3.629359722137451,
+    3.6804542541503906, 3.6819987297058105, 3.682187557220459)
+REFERENCE_FORECAST_SD_MONTHLY = (
+    0.30177831649780273, 0.3452497720718384, 0.3010002374649048,
+    0.31531521677970886, 0.3373246192932129, 0.3223913908004761,
+    0.3303515315055847, 0.3549390733242035, 0.3340877890586853,
+    0.3469032347202301, 0.3552541732788086, 0.34870216250419617,
+    0.34028077125549316, 0.34739628434181213, 0.30692481994628906,
+    0.3138098120689392, 0.33268895745277405, 0.3495287001132965,
+    0.35693562030792236, 0.34858444333076477, 0.31571608781814575,
+    0.37133461236953735, 0.3344414532184601, 0.35421913862228394,
+    0.34700271487236023, 0.3492008447647095, 0.34851494431495667,
+    0.3570426404476166, 0.35921499133110046, 0.3428371250629425)
+# log_lik and the errors of the forecast's draws against their plain
+# versions on the card (float32: the kernels' gate)
+MONTHLY_TOL = 1e-4
+
+# phase 10b: bsts_ar_trig, a weekly series of ten years
+# (``data/bsts_ar_trig.npz``): a static intercept, an AR(2) (T a chain's:
+# phi) and a trigonometric cycle of period 52.18 with two harmonics, d =
+# 7, with the TIM move
+AR_TRIG_CHAINS, AR_TRIG_BURN, AR_TRIG_DRAWS, AR_TRIG_SEED = 4096, 200, 200, 0
+AR_TRIG_SWEEP_CHAINS = 33
+AR_TRIG_LL_DRAWS = 200
+AR_TRIG_MONITOR = ("sigsq_obs", "phi[0]", "phi[1]", "sigma_ar_sq",
+                   "sigma_trig_sq")
+# The JAX reference's run (x64 off), 1024 chains, 200 + 200, AR_TRIG_MONITOR's
+# order, from
+#     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_state_blocks.py \
+#         bench 1024 200 200 7
+# (21 minutes on 8 CPU cores), with the TIM proposal the port builds: its
+# mode search at the port's template phi, in float64. The reference's own
+# template phi is a random draw the port cannot make, and at this length
+# the chains mix too slowly (R-hat 2.1-3.7) for the medians to forget the
+# proposal; so phase 10b holds each R-hat - 1 to REG_RHAT_FACTOR times the
+# reference's + REG_RHAT_SLACK, as phases 6, 8 and 10a
+REFERENCE_MEDIANS_AR_TRIG = {
+    "sigsq_obs": 0.1405971571803093,
+    "phi[0]": 0.6947050094604492,
+    "phi[1]": 0.03421629220247269,
+    "sigma_ar_sq": 0.17555248737335205,
+    "sigma_trig_sq": 7.452513818861917e-05}
+REFERENCE_RHAT_AR_TRIG = (
+    2.2454157878222105, 3.0988750275272636,
+    2.087694334229707, 2.4382910037305114, 3.6788259802691767)
+REFERENCE_MIN_ESS_PER_DRAW_AR_TRIG = 0.0054379255948780155
 
 # the keys of every row of the kernels line
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -1314,7 +1461,7 @@ def _llt_extract(state):
 
 
 def _phase_profile(model, state, gen, chains, prefix, phase_names,
-                   sweeps=5, top=0):
+                   sweeps=None, top=0):
     """Host time of each sweep phase (its profiler range
     "<prefix>.<phase>") and the device's kernel time over a few sweeps
     under ``torch.profiler``: ({phase: ms a sweep}, wall ms a sweep, device
@@ -1323,6 +1470,7 @@ def _phase_profile(model, state, gen, chains, prefix, phase_names,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    sweeps = PROFILE_SWEEPS if sweeps is None else sweeps
     kern = model.kernel()
     noises = [model.draw_noise(gen, chains) for _ in range(sweeps)]
     torch.cuda.synchronize()
@@ -1357,7 +1505,8 @@ def _phase_profile(model, state, gen, chains, prefix, phase_names,
 
 def _print_profile(label, phases, wall, device):
     total = sum(phases.values()) or 1.0
-    print(f"{label} sweep profile (5 sweeps under torch.profiler): wall "
+    print(f"{label} sweep profile ({PROFILE_SWEEPS} sweeps under "
+          f"torch.profiler): wall "
           f"{wall:.2f} ms a sweep, device kernels {device:.2f} ms "
           f"(busy {100 * device / wall:.1f} %); host time of each phase: "
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
@@ -3374,6 +3523,515 @@ def phase9_baseline(card):
     return launches
 
 
+def _calendar_vs_plain(rng, dtype, d, b, t_len, kind, masked, smoother):
+    """K1w's calendar form (with and without the innovations) and, with
+    ``smoother``, K2w's dense form with the calendar against their plain
+    versions on one :func:`kalman_timing.calendar_system`: ({kernel: rel}),
+    each launch checked to take its calendar key."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    tag = str(dtype).split(".")[-1]
+    params = kt.calendar_system(rng, b, d, t_len, tag, kind)
+    y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=dtype,
+                     device="cuda")
+    obs = (torch.tensor(rng.uniform(size=t_len) > 0.1, device="cuda")
+           if masked else None)
+    out = {}
+    before = dict(kk.LAUNCHES)
+    if not smoother:
+        got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+        ll = kk.launch_loglik_tv(params, y, obs)
+        want = kalman.kalman_loglik(params, y, obs, innovations=True)
+        out["loglik_wide_tv_calendar"] = max(
+            [_rel(g.double(), w.double()) for g, w in zip(got, want)]
+            + [_rel(ll.double(), want[0].double())])
+        ran = {"loglik_wide_tv_calendar": 2}
+    else:
+        q = params.q_mat.shape[-1]
+        normals = [torch.tensor(rng.normal(size=sh), dtype=dtype,
+                                device="cuda")
+                   for sh in ((b, d), (b, t_len - 1, q), (b, t_len))]
+        got = kk.simulation_smoother(params, y, *normals, observed=obs)
+        want = kalman.simulation_smoother(params, y, *normals, observed=obs)
+        out["smoother_wide_tv_calendar"] = _rel(got, want)
+        ran = {"smoother_wide_tv_calendar": 1}
+    moved = {k: kk.LAUNCHES[k] - before[k] for k in kk.LAUNCHES
+             if kk.LAUNCHES[k] != before[k]}
+    check(moved == ran, f"d={d} B={b} T={t_len} {kind}: launches {moved}, "
+          f"not {ran}")
+    return out
+
+
+def phase2g_calendar_vs_plain():
+    """The calendar's T_t in K2w's dense time-varying form and K1w's
+    against their plain versions (CAL_* cases), at phase 10a's shapes ten
+    launches bit-identical, and their times beside bounds and plain
+    times; K1w with a T a system at phase 10b's TIM batch. Returns the
+    rows' numbers."""
+    import torch
+
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20261019)
+    kinds = kt.CALENDAR_KINDS
+    cases = [(torch.float64, d, b, CAL_T_CHECK[(i + j + k) % 4], kind,
+              (i + j + k) % 2 == 0, True)
+             for i, d in enumerate(CAL_D_CHECK)
+             for j, b in enumerate(CAL_CHAIN_CHECK)
+             for k, kind in enumerate(kinds)]
+    d_long, t_long, long_chains, long_draws = CAL_LONG
+    cases += [(torch.float64, d_long, b, t_long, kind, True, True)
+              for b in long_chains for kind in kinds]
+    cases += [(dtype, d, 33, t_len, kind, (i + k) % 2 == 1, False)
+              for dtype in (torch.float64, torch.float32)
+              for i, d in enumerate(CAL_LOGLIK_D)
+              for t_len in CAL_LOGLIK_T for k, kind in enumerate(kinds)]
+    cases += [(dtype, d_long, long_draws, t_long, kind, True, False)
+              for dtype in (torch.float64, torch.float32) for kind in kinds]
+    bad, worst = [], {}
+    for dtype, d, b, t_len, kind, masked, smoother in cases:
+        tag = str(dtype).split(".")[-1]
+        for k, rel in _calendar_vs_plain(rng, dtype, d, b, t_len, kind,
+                                         masked, smoother).items():
+            worst[(k, tag)] = max(worst.get((k, tag), 0.0), rel)
+            if not (np.isfinite(rel) and rel <= SCAN_TOL[tag]):
+                bad.append(f"{k} {tag} d={d} B={b} T={t_len} {kind}: "
+                           f"{rel:.3e}")
+    for (k, tag), v in sorted(worst.items()):
+        print(f"worst {k} {tag} over {len(cases)} cases (d {CAL_D_CHECK}, "
+              f"chains {CAL_CHAIN_CHECK}, T {CAL_T_CHECK} and {t_long}, "
+              f"two matrices a chain and for all): {v:.3e} (tolerance "
+              f"{SCAN_TOL[tag]:g})")
+    check(not bad, "a calendar kernel disagrees with its plain version: "
+          + "; ".join(bad[:20]))
+
+    at_cal, same = {}, {}
+    for name, (tag, batch, d, t_len, series, t_kind) in \
+            kt.CALENDAR_SHAPES.items():
+        kern, ref, _wrapper = kt.tv_cases(rng, name, tag, batch, d, t_len,
+                                          series, t_kind=t_kind)
+        first, want = kern(), ref()
+        first = first if isinstance(first, tuple) else (first,)
+        want = want if isinstance(want, tuple) else (want,)
+        rel = max(_rel(g.double(), w.double()) for g, w in zip(first, want))
+        at_cal[name] = {"max_abs_err": max(float((g - w).abs().max())
+                                           for g, w in zip(first, want))}
+        print(f"{name} {tag} B={batch} d={d} T={t_len} (phase 10a's shape):"
+              f" rel {rel:.2e} abs {at_cal[name]['max_abs_err']:.2e}")
+        check(np.isfinite(rel) and rel <= SCAN_TOL[tag],
+              f"{name} at phase 10a's shape: {rel:.3e}")
+        same[name] = True
+        for _ in range(9):
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            same[name] &= all(torch.equal(a, b) for a, b in zip(first,
+                                                                  again))
+    torch.cuda.synchronize()
+    print("ten repeated launches at phase 10a's shapes bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    check(all(same.values()), f"repeated launches differ: {same}")
+    for name, r in kt.time_tv(rng, shapes=kt.CALENDAR_SHAPES).items():
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
+              f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+              f" ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); one "
+              f"call on the host clock {r['call_ms']:.4f} ms")
+        if r.get("pass_ms"):
+            print(f"time {name} by pass (profiler, device ms a call): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in sorted(r["pass_ms"].items())))
+        at_cal[name].update({k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")})
+
+    # K1w with a T a system at phase 10b's TIM batch
+    (name, (tag, batch, d, t_len, series)), = kt.AR_TRIG_SHAPES.items()
+    kern, ref, _wrapper = kt.kalman_cases(rng, name, tag, batch, d, t_len,
+                                          series)
+    got, want = kern(), ref()
+    rel = _rel(got.double(), want.double())
+    print(f"{name} {tag} B={batch} d={d} T={t_len} (phase 10b's TIM batch, "
+          f"a T a system): rel {rel:.2e}")
+    check(np.isfinite(rel) and rel <= SCAN_TOL[tag],
+          f"K1w with a T a system at phase 10b's shape: {rel:.3e}")
+    r = kt.time_kalman(rng, shapes=kt.AR_TRIG_SHAPES)[name]
+    print(f"time {name} {r['shape']}: kernel {r['ms']:.4f} ms, whole "
+          f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    at_cal["loglik_wide_chain_t"] = {
+        "max_abs_err": float((got - want).abs().max()),
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    print(f"phase 2g took {time.perf_counter() - t_phase:.1f} s")
+    return at_cal
+
+
+def _monthly_builder():
+    from boom_tpu_torch import data
+    from boom_tpu_torch.api import BstsModel
+
+    return (BstsModel().add_semilocal_linear_trend()
+            .add_monthly_annual_cycle(first_date=data.BSTS_MONTHLY_FIRST))
+
+
+def _ar_trig_builder():
+    from boom_tpu_torch import data
+    from boom_tpu_torch.api import BstsModel
+
+    return (BstsModel().add_static_intercept().add_ar(lags=2)
+            .add_trig(period=data.BSTS_AR_TRIG_PERIOD, nfreq=2))
+
+
+def _sweep_vs_cpu_of(make, chains):
+    """One float64 sweep (init included) of ``chains`` chains of the model
+    ``make(device)`` builds, on the card against the CPU's on the same
+    noise: the worst relative difference over the state's leaves."""
+    import torch
+
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.inference.driver import tree_map
+
+    out = {}
+    gen = prng.generator(3, "cpu")
+    for device in ("cpu", "cuda"):
+        model = make(device)
+        if device == "cpu":
+            init_noise = model.draw_init_noise(gen, chains)
+            noise = model.draw_noise(gen, chains)
+        moved = [tree_map(lambda t, dev=device: t.to(dev), n)
+                 for n in (init_noise, noise)]
+        state = model.kernel()(moved[1], model.init_state(moved[0]))
+        out[device] = tree_map(lambda t: t.cpu(), state)
+    errs = []
+    tree_map(lambda a, b: errs.append(_rel(a.double(), b.double())),
+             out["cuda"], out["cpu"])
+    return max(errs)
+
+
+def _gates_against(label, mon, names, medians, rhats, min_per_draw, draws,
+                   chains):
+    """R-hat - 1 at most REG_RHAT_FACTOR times the reference's +
+    REG_RHAT_SLACK, medians within REG_VARIANCE_TOL, half the reference's
+    min-ESS a draw; prints each parameter's readings. Returns (gates, ess,
+    rhat, the port's min-ESS a draw)."""
+    from boom_tpu_torch.inference import diagnostics
+
+    ess = diagnostics.effective_sample_size(mon).cpu().numpy()
+    rhat = diagnostics.potential_scale_reduction(mon).cpu().numpy()
+    per_draw = ess / (chains * draws)
+    med = mon.reshape(-1, len(names)).median(0).values.cpu().numpy()
+    gates = []
+    for i, name in enumerate(names):
+        ref = medians[name]
+        limit = 1.0 + REG_RHAT_FACTOR * (rhats[i] - 1.0) + REG_RHAT_SLACK
+        print(f"{label} {name}: median {med[i]:.6g} (reference {ref:.6g}, "
+              f"ratio {med[i] / ref:.4f}) rhat {rhat[i]:.4f} (reference's "
+              f"{rhats[i]:.4f}, limit {limit:.4f}) ess per draw "
+              f"{per_draw[i]:.5f}")
+        gates.append((rhat[i] <= limit,
+                      f"{label} R-hat of {name} {rhat[i]:.4f} > {limit:.4f} "
+                      f"(the reference's {rhats[i]:.4f})"))
+        gates.append((abs(med[i] / ref - 1.0) <= REG_VARIANCE_TOL,
+                      f"{label} median of {name} {med[i]:.5g} is not within "
+                      f"{REG_VARIANCE_TOL:.0%} of the reference's {ref:.5g}"))
+    port = float(per_draw.min())
+    gates.append((port >= 0.5 * min_per_draw,
+                  f"{label} min-ESS per draw {port:.5f} is below half the "
+                  f"reference's {min_per_draw:.5f}"))
+    return gates, ess, rhat, port
+
+
+def _ll_and_errors(model, sub, ll_key, tol, label):
+    """log_lik and the in-sample one-step errors of the draws ``sub``
+    through the card's kernels against the plain filter on the card:
+    (gates, launches of ``ll_key``)."""
+    import torch
+
+    from boom_tpu_torch.statespace import bsts as pbsts
+    from boom_tpu_torch.statespace import kalman
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+
+    before = kk.LAUNCHES[ll_key]
+    ll = model.log_lik(sub)
+    errs = pbsts.one_step_prediction_errors(model, sub)
+    torch.cuda.synchronize()
+    ran = kk.LAUNCHES[ll_key] - before
+    want = kalman.kalman_loglik(model.ssm_params(sub),
+                                model.adjusted_series(sub), model.observed,
+                                innovations=True)
+    ll_err = _rel(ll.double(), want[0].double())
+    pe_err = _rel(errs.double(), (want[1] / torch.sqrt(want[2])).double())
+    print(f"{label} log_lik and one-step errors of {ll.shape[0]} draws "
+          f"({ran} launches of {ll_key}): log_lik rel {ll_err:.2e}, errors "
+          f"rel {pe_err:.2e} (tolerance {tol:g})")
+    return [(np.isfinite(ll_err) and ll_err <= tol,
+             f"{label} log_lik is {ll_err:.3e} off its plain version"),
+            (np.isfinite(pe_err) and pe_err <= tol,
+             f"{label}'s errors are {pe_err:.3e} off their plain version"),
+            (ran >= 2, f"{label}'s log_lik and errors did not run through "
+             f"{ll_key}: {ran}")], ran
+
+
+def _monthly_extract(state):
+    return {"sigsq_obs": state["sigsq_obs"],
+            "blocks": {name: dict(v) for name, v in state["blocks"].items()},
+            "alpha": state["alpha"][:, -1:]}
+
+
+def phase10a_bsts_monthly(card):
+    """bsts_monthly at full width through the front end: the semilocal
+    trend and the monthly cycle (d = 14, T = 730); one float64 sweep of 33
+    chains against the CPU's; MONTHLY_CHAINS chains x (MONTHLY_BURN +
+    MONTHLY_DRAWS) sweeps through K2w's dense form with the calendar and K3,
+    gated against the reference's run; the forecast; log_lik and the
+    errors of 200 draws through K1w's calendar form. Returns the kernels'
+    launch counts of the main path."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES, Bsts
+
+    t_phase = time.perf_counter()
+    y_np = data.bsts_monthly()["y"]
+    t0 = time.perf_counter()
+    fit = _monthly_builder().fit(y_np, niter=10, burn=5, num_chains=64,
+                                 seed=1)
+    model = fit._model
+    fcast = fit.predict(horizon=MONTHLY_HORIZON, max_draws=50)
+    torch.cuda.synchronize()
+    print(f"bsts_monthly front end on the card: fit (64 chains, 5 + 10 "
+          f"sweeps) and predict in {time.perf_counter() - t0:.2f} s; "
+          f"T={model.t_len} d={model.state_dim}, month boundaries "
+          f"{int(model._calendar[2].sum())}")
+    check(model.y.device.type == "cuda" and model.state_dim == 14
+          and model.time_varying and model._chain_t
+          and model.t_len == data.BSTS_MONTHLY_DAYS,
+          "the bsts_monthly front end did not build its model on the card")
+    check(tuple(fcast.shape) == (50, MONTHLY_HORIZON)
+          and bool(torch.isfinite(fcast).all()), "front-end forecast")
+
+    def make(device):
+        y = torch.tensor(y_np, dtype=torch.float64, device=device)
+        return Bsts(y=y, blocks=_monthly_builder()._build_blocks(y),
+                    chains_hint=MONTHLY_SWEEP_CHAINS)
+
+    worst = _sweep_vs_cpu_of(make, MONTHLY_SWEEP_CHAINS)
+    print(f"bsts_monthly float64 sweep C={MONTHLY_SWEEP_CHAINS}: card vs "
+          f"CPU worst relative difference {worst:.3e} (tolerance "
+          f"{SWEEP_TOL:g})")
+    check(np.isfinite(worst) and worst <= SWEEP_TOL,
+          f"the bsts_monthly sweep on the card disagrees: {worst:.3e}")
+
+    for counts in (kk.LAUNCHES, sk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    gen = prng.generator(MONTHLY_SEED, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda gn, c: model.init_state(model.draw_init_noise(gn,
+                                                                        c)),
+                   MONTHLY_DRAWS, generator=gen, num_chains=MONTHLY_CHAINS,
+                   burn=MONTHLY_BURN, extract=_monthly_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    launches = {"smoother_wide_tv_calendar":
+                kk.LAUNCHES["smoother_wide_tv_calendar"],
+                "dpath": kk.LAUNCHES["dpath"]}
+    others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES}.items()
+              if k not in launches and v}
+    sweeps = MONTHLY_BURN + MONTHLY_DRAWS
+    print(f"bsts_monthly: T={model.t_len} d=14 chains={MONTHLY_CHAINS} "
+          f"burn={MONTHLY_BURN} draws={MONTHLY_DRAWS} in {elapsed:.2f} s; "
+          f"launches {launches}, other kernels {others}")
+    check(launches["smoother_wide_tv_calendar"] == sweeps + 1
+          and launches["dpath"] >= sweeps and not others,
+          f"the bsts_monthly run did not go through its kernels (each of "
+          f"its {sweeps + 1} smoother launches in K2w's dense form with the "
+          f"calendar): {launches}, {others}")
+
+    d = res.draws
+    tr = d["blocks"]["semilocal_trend"]
+    mon = torch.stack([d["sigsq_obs"], tr["sigma_level_sq"],
+                       tr["sigma_slope_sq"], tr["phi"],
+                       d["blocks"]["monthly"]["sigma_monthly_sq"]],
+                      dim=-1).double()
+    check(bool(torch.isfinite(mon).all())
+          and bool(torch.isfinite(d["alpha"]).all()),
+          "non-finite bsts_monthly draws")
+    gates, ess, rhat, per_draw = _gates_against(
+        "bsts_monthly", mon, MONTHLY_MONITOR, REFERENCE_MEDIANS_MONTHLY,
+        REFERENCE_RHAT_MONTHLY, REFERENCE_MIN_ESS_PER_DRAW_MONTHLY,
+        MONTHLY_DRAWS, MONTHLY_CHAINS)
+    print(f"bsts_monthly rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {float(ess.min()):.1f} ({per_draw:.5f} a draw, the "
+          f"reference's {REFERENCE_MIN_ESS_PER_DRAW_MONTHLY:.5f}), "
+          f"min-ESS/s {float(ess.min()) / elapsed:.2f}, max R-hat "
+          f"{float(rhat.max()):.4f}")
+    _print_profile(f"bsts_monthly [{card}]", *_phase_profile(
+        model, res.final_state, gen, MONTHLY_CHAINS, "bsts", SWEEP_PHASES))
+
+    fit = BstsModel(_model=model, _result=res)
+    fcast = fit.predict(horizon=MONTHLY_HORIZON,
+                        max_draws=MONTHLY_FORECAST_DRAWS)
+    f_med = fcast.double().median(0).values.cpu().numpy()
+    gap = (np.abs(f_med - np.asarray(REFERENCE_FORECAST_MEDIAN_MONTHLY))
+           / np.asarray(REFERENCE_FORECAST_SD_MONTHLY))
+    print(f"bsts_monthly forecast {list(fcast.shape)}: |median - "
+          f"reference's| / reference's sd at days 1, 10, 30: {gap[0]:.3f}, "
+          f"{gap[9]:.3f}, {gap[-1]:.3f}; worst {float(gap.max()):.3f} (gate "
+          f"{REG_FORECAST_SDS})")
+    gates += [(tuple(fcast.shape) == (MONTHLY_FORECAST_DRAWS,
+                                      MONTHLY_HORIZON)
+               and bool(torch.isfinite(fcast).all()),
+               f"the bsts_monthly forecast is {tuple(fcast.shape)} or not "
+               "finite"),
+              (float(gap.max()) <= REG_FORECAST_SDS,
+               f"the bsts_monthly forecast's median is "
+               f"{float(gap.max()):.3f} reference sds from the reference's")]
+    sub = fit._subsampled_states(0, MONTHLY_FORECAST_DRAWS)
+    g, ran = _ll_and_errors(model, sub, "loglik_wide_tv_calendar",
+                            MONTHLY_TOL, "bsts_monthly")
+    gates += g
+    launches["loglik_wide_tv_calendar"] = ran
+    print(f"phase 10a took {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in gates:
+        check(ok, msg)
+    return launches
+
+
+def _ar_trig_extract(state):
+    return {"sigsq_obs": state["sigsq_obs"],
+            "blocks": {name: dict(v) for name, v in state["blocks"].items()},
+            "alpha": state["alpha"][:, -1:]}
+
+
+def phase10b_bsts_ar_trig(card):
+    """bsts_ar_trig at full width with the TIM move: the intercept, the
+    AR(2) (T a chain's) and the two-harmonic cycle (d = 7, T = 520); the
+    proposal through J1 and J2; one float64 sweep of 33 chains against the
+    CPU's (the card's proposal on both); AR_TRIG_CHAINS chains x
+    (AR_TRIG_BURN + AR_TRIG_DRAWS) sweeps through the static K2w with a T a
+    chain, K3 and K1w with a T a system, gated against the reference's run;
+    log_lik and the errors of 200 draws. Returns the kernels' launch
+    counts of the main path (the proposal's build and the run)."""
+    import torch
+
+    from boom_tpu_torch import data
+    from boom_tpu_torch import rng as prng
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.inference.driver import run_mcmc
+    from boom_tpu_torch.statespace import kalman_kernel as kk
+    from boom_tpu_torch.statespace import scan_kernel as sk
+    from boom_tpu_torch.statespace.bsts import SWEEP_PHASES, Bsts
+
+    t_phase = time.perf_counter()
+    y_np = data.bsts_ar_trig()["y"]
+    for counts in (kk.LAUNCHES, sk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = _ar_trig_builder().fit(y_np, niter=10, burn=5, num_chains=64,
+                                 seed=1, marginal_sigma_slice=True,
+                                 marginal_move="tim")
+    torch.cuda.synchronize()
+    model = fit._model
+    mode, chol = model._tim_prop
+    jets = {k: kk.LAUNCHES[k] for k in ("loglik_grad", "loglik_hess")}
+    print(f"bsts_ar_trig front end on the card: the TIM proposal and a fit "
+          f"(64 chains, 5 + 10 sweeps) in {time.perf_counter() - t0:.2f} s "
+          f"({jets['loglik_grad']} J1, {jets['loglik_hess']} J2 launches); "
+          f"mode {mode.tolist()}, chol diagonal {chol.diag().tolist()}")
+    check(model.y.device.type == "cuda" and model.state_dim == 7
+          and model._chain_t and not model.time_varying
+          and len(model._sigma_groups()) == 3
+          and jets["loglik_grad"] >= 1 and jets["loglik_hess"] >= 1,
+          f"the bsts_ar_trig front end did not build its model and proposal "
+          f"on the card: {jets}")
+
+    def make(device):
+        y = torch.tensor(y_np, dtype=torch.float64, device=device)
+        m = Bsts(y=y, blocks=_ar_trig_builder()._build_blocks(y),
+                 chains_hint=AR_TRIG_SWEEP_CHAINS)
+        # the move with the card's proposal on both devices (a CPU build
+        # would stop at another point of the mode search)
+        object.__setattr__(m, "marginal_sigma_slice", True)
+        object.__setattr__(m, "_tim_prop", tuple(
+            t.to(device=device, dtype=torch.float64) for t in (mode, chol)))
+        return m
+
+    worst = _sweep_vs_cpu_of(make, AR_TRIG_SWEEP_CHAINS)
+    print(f"bsts_ar_trig float64 sweep with the TIM move "
+          f"C={AR_TRIG_SWEEP_CHAINS}: card vs CPU worst relative difference "
+          f"{worst:.3e} (tolerance {SWEEP_TOL:g})")
+    check(np.isfinite(worst) and worst <= SWEEP_TOL,
+          f"the bsts_ar_trig sweep on the card disagrees: {worst:.3e}")
+
+    for counts in (kk.LAUNCHES, sk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    gen = prng.generator(AR_TRIG_SEED, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = run_mcmc(model.kernel(), model.draw_noise,
+                   lambda gn, c: model.init_state(model.draw_init_noise(gn,
+                                                                        c)),
+                   AR_TRIG_DRAWS, generator=gen, num_chains=AR_TRIG_CHAINS,
+                   burn=AR_TRIG_BURN, extract=_ar_trig_extract)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    launches = {k: kk.LAUNCHES[k] for k in ("smoother_wide", "dpath",
+                                            "loglik_wide")}
+    others = {k: v for k, v in {**kk.LAUNCHES, **sk.LAUNCHES}.items()
+              if k not in launches and v}
+    sweeps = AR_TRIG_BURN + AR_TRIG_DRAWS
+    print(f"bsts_ar_trig: T={model.t_len} d=7 chains={AR_TRIG_CHAINS} "
+          f"burn={AR_TRIG_BURN} draws={AR_TRIG_DRAWS} in {elapsed:.2f} s; "
+          f"launches {launches}, other kernels {others}")
+    check(launches["smoother_wide"] == sweeps + 1
+          and launches["dpath"] >= sweeps
+          and launches["loglik_wide"] >= sweeps and not others,
+          f"the bsts_ar_trig run did not go through its kernels: "
+          f"{launches}, {others}")
+    launches.update(jets)
+
+    d = res.draws
+    ar, trig = d["blocks"]["ar2"], d["blocks"]["trig"]
+    mon = torch.stack([d["sigsq_obs"], ar["phi"][..., 0], ar["phi"][..., 1],
+                       ar["sigma_ar_sq"], trig["sigma_trig_sq"]],
+                      dim=-1).double()
+    check(bool(torch.isfinite(mon).all())
+          and bool(torch.isfinite(d["alpha"]).all()),
+          "non-finite bsts_ar_trig draws")
+    gates, ess, rhat, per_draw = _gates_against(
+        "bsts_ar_trig", mon, AR_TRIG_MONITOR, REFERENCE_MEDIANS_AR_TRIG,
+        REFERENCE_RHAT_AR_TRIG, REFERENCE_MIN_ESS_PER_DRAW_AR_TRIG,
+        AR_TRIG_DRAWS, AR_TRIG_CHAINS)
+    print(f"bsts_ar_trig rate [{card}]: {sweeps / elapsed:.3f} sweeps/s, "
+          f"min-ESS {float(ess.min()):.1f} ({per_draw:.5f} a draw, the "
+          f"reference's {REFERENCE_MIN_ESS_PER_DRAW_AR_TRIG:.5f}), "
+          f"min-ESS/s {float(ess.min()) / elapsed:.2f}, max R-hat "
+          f"{float(rhat.max()):.4f}")
+    _print_profile(f"bsts_ar_trig [{card}]", *_phase_profile(
+        model, res.final_state, gen, AR_TRIG_CHAINS, "bsts", SWEEP_PHASES))
+    fit = BstsModel(_model=model, _result=res)
+    g, _ran = _ll_and_errors(model, fit._subsampled_states(
+        0, AR_TRIG_LL_DRAWS), "loglik_wide", MONTHLY_TOL, "bsts_ar_trig")
+    gates += g
+    print(f"phase 10b took {time.perf_counter() - t_phase:.1f} s")
+    for ok, msg in gates:
+        check(ok, msg)
+    return launches
+
+
 @contextlib.contextmanager
 def _planted(fault):
     """Plant one of REG_FAULTS in the port for the duration of a run, by
@@ -3494,6 +4152,10 @@ def main():
         tv_launches = phase8_bsts_tv(card)
         at_hmm = phase2f_hmm_vs_plain()
         hmm_launches = phase9_baseline(card)
+        # phases 2g, 10a and 10b print their own times, before their gates
+        at_cal = phase2g_calendar_vs_plain()
+        monthly_launches = phase10a_bsts_monthly(card)
+        ar_trig_launches = phase10b_bsts_ar_trig(card)
         print(f"chip_smoke took {time.perf_counter() - T_START:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -3537,6 +4199,15 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": HMM_SOURCE,
                         "replaces": replaces, "launches": hmm_launches[k],
                         **at_hmm[k], "library_ms": None})
+    for k, (name, replaces) in CALENDAR_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": WIDE_SOURCE,
+                        "replaces": replaces,
+                        "launches": monthly_launches[k], **at_cal[k],
+                        "library_ms": None})
+    kernels.append({"name": CHAIN_T_KERNEL[0], "route": "cuda",
+                    "source": WIDE_SOURCE, "replaces": CHAIN_T_KERNEL[1],
+                    "launches": ar_trig_launches["loglik_wide"],
+                    **at_cal["loglik_wide_chain_t"], "library_ms": None})
     lacking = {k["name"]: sorted(KERNEL_KEYS - set(k)) for k in kernels
                if KERNEL_KEYS - set(k)}
     if lacking:

@@ -314,7 +314,8 @@ def test_fit_on_cpu_gives_finite_draws_of_the_right_shape():
 def test_fit_takes_the_reference_parameters_in_order():
     """BstsModel.fit's parameters are the reference's, in its order and
     with its defaults, then ``device`` and ``dtype``; ``timestamps`` of
-    monthly dates (a calendar grid) raise naming their ROADMAP item."""
+    monthly dates (a calendar grid) raise naming their ROADMAP section: a
+    difference from the reference."""
     from boom_tpu.api import BstsModel as JaxBstsModel
 
     ref = list(inspect.signature(JaxBstsModel.fit).parameters.values())
@@ -325,7 +326,7 @@ def test_fit_takes_the_reference_parameters_in_order():
             == [(q.name, q.kind, q.default) for q in named])
     assert [q.name for q in port[len(named):-1]] == ["device", "dtype"]
     assert port[-1].kind is port[-1].VAR_KEYWORD
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*sec. 3"):
         BstsModel().add_local_linear_trend().fit(
             _llt_series(), niter=2, burn=1, num_chains=2, device="cpu",
             timestamps=np.arange(T_LEN).astype("datetime64[M]"))

@@ -174,6 +174,8 @@ def test_host_compiled_bsts_reg_sweep_matches_plain():
                         "dpath": 1, "loglik_tv": 0, "loglik_wide_tv": 0,
                         "smoother_tv": 0, "smoother_wide_tv": 0,
                         "smoother_wide_tv_dense": 0,
+                        "loglik_wide_tv_calendar": 0,
+                        "smoother_wide_tv_calendar": 0,
                         "ssvs_sweep": 0, "ssvs_sweep_border": 1}
     for mod in (kk, ssvs_kernel):
         mod._on_card = lambda x: False  # the plain versions (undone after)

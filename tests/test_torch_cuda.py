@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the parallel scans, the sequential
 Kalman loglik K1 and K1w, its derivative kernels J1 and J2, the simulation
-smoothers K2 and K2w, the ASIS D-path K3, kernel (a), the SSVS
+smoothers K2 and K2w, their time-varying forms and the calendar's T_t in
+K1w's and K2w's, the ASIS D-path K3, kernel (a), the SSVS
 indicator sweep, with one S0 and with a border of S0 a chain, and the
 HMM's H1 and H2) against their plain PyTorch versions, on the card. These need
 a CUDA device and ``nvcc``: here they skip. Run them on a machine with the
@@ -655,6 +656,92 @@ def test_tv_bsts_runs_on_the_card(card):
         assert _within(ll.double(), want[0].double(), 1e-4)
         assert _within(errs.double(),
                        (want[1] / torch.sqrt(want[2])).double(), 1e-4)
+
+
+# -- the calendar's T_t in K1w and K2w (chip_smoke.py phase 2g's checks) --
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [11, 14, 16])
+@pytest.mark.parametrize("kind", ["calendar", "calendar_shared"])
+@pytest.mark.parametrize("t_len", [2, 33, 730])
+def test_calendar_kernels_match_plain(card, dtype, d, kind, t_len):
+    """The calendar's T_t (two matrices, a step's choice) in K1w's
+    time-varying form (with the innovations) and, in float64, K2w's dense
+    form, on 33 systems against their plain versions; each launch takes
+    its calendar key; a second launch is bit-identical."""
+    from boom_tpu_torch.kernels import kalman_timing as kt
+
+    rng = np.random.default_rng(d * 1000 + t_len)
+    tag = str(dtype).split(".")[-1]
+    params = kt.calendar_system(rng, 33, d, t_len, tag, kind)
+    y = torch.tensor(rng.normal(size=t_len).cumsum(), dtype=dtype,
+                     device=card)
+    obs = torch.tensor(rng.uniform(size=t_len) > 0.1, device=card)
+    before = dict(kk.LAUNCHES)
+    got = kk.launch_loglik_tv(params, y, obs, innovations=True)
+    again = kk.launch_loglik_tv(params, y, obs, innovations=True)
+    want = kalman.kalman_loglik(params, y, obs, innovations=True)
+    assert kk.LAUNCHES["loglik_wide_tv_calendar"] == (
+        before["loglik_wide_tv_calendar"] + 2)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _within(g, w, TOL[dtype])
+    if dtype == torch.float64:
+        q = params.q_mat.shape[-1]
+        nz = [torch.tensor(rng.normal(size=sh), dtype=dtype, device=card)
+              for sh in ((33, d), (33, t_len - 1, q), (33, t_len))]
+        draw = kk.simulation_smoother(params, y, *nz, observed=obs)
+        assert torch.equal(draw, kk.simulation_smoother(params, y, *nz,
+                                                        observed=obs))
+        assert kk.LAUNCHES["smoother_wide_tv_calendar"] == (
+            before["smoother_wide_tv_calendar"] + 2)
+        assert _within(draw, kalman.simulation_smoother(
+            params, y, *nz, observed=obs), TOL[dtype])
+
+
+def test_monthly_and_ar_trig_models_run_on_the_card(card):
+    """Phase 10a's model (a semilocal trend and the monthly cycle, d = 14)
+    and phase 10b's (an intercept, an AR(2) and a two-harmonic cycle, d =
+    7, the TIM move) fit on the card go through their kernels: K2w's dense
+    form with the calendar and K1w's (log_lik, errors); the static K2w with
+    a T a chain, K1w with a T a system, J1 and J2; K3 in both; log_lik and
+    the errors agree with the plain filter."""
+    from boom_tpu_torch import data
+    from boom_tpu_torch.api import BstsModel
+    from boom_tpu_torch.statespace import bsts as pbsts
+
+    y_m = data.bsts_monthly()["y"][:200]
+    y_a = data.bsts_ar_trig()["y"][:200]
+    runs = {
+        "monthly": (BstsModel().add_semilocal_linear_trend()
+                    .add_monthly_annual_cycle(data.BSTS_MONTHLY_FIRST),
+                    y_m, {}, ("smoother_wide_tv_calendar", "dpath"),
+                    "loglik_wide_tv_calendar"),
+        "ar_trig": (BstsModel().add_static_intercept().add_ar(lags=2)
+                    .add_trig(period=data.BSTS_AR_TRIG_PERIOD, nfreq=2),
+                    y_a, {"marginal_sigma_slice": True,
+                          "marginal_move": "tim"},
+                    ("smoother_wide", "dpath", "loglik_wide", "loglik_grad",
+                     "loglik_hess"), "loglik_wide")}
+    for name, (builder, y, kw, kinds, ll_kind) in runs.items():
+        before = dict(kk.LAUNCHES)
+        fit = builder.fit(y, niter=4, burn=2, num_chains=64, seed=1, **kw)
+        m = fit._model
+        states = fit._flat()
+        ll = m.log_lik(states)
+        errs = pbsts.one_step_prediction_errors(m, states)
+        for kind in kinds:
+            assert kk.LAUNCHES[kind] > before[kind], (name, kind)
+        assert kk.LAUNCHES[ll_kind] >= before[ll_kind] + 2, name
+        want = kalman.kalman_loglik(m.ssm_params(states),
+                                    m.adjusted_series(states), m.observed,
+                                    innovations=True)
+        assert _within(ll.double(), want[0].double(), 1e-4), name
+        assert _within(errs.double(),
+                       (want[1] / torch.sqrt(want[2])).double(), 1e-4), name
+        fc = fit.predict(30, max_draws=16)
+        assert fc.shape == (16, 30) and bool(torch.isfinite(fc).all())
 
 
 # -- H1 and H2, csrc/hmm.cu (chip_smoke.py phase 2f's checks) ---------------
